@@ -11,11 +11,13 @@ them or outside a checkout. Phases, each of which raises on a fault:
 1. device: the card's name, and its name and power limit from nvidia-smi;
 2. build: compiles the kernels of ``craniofacialsd_vae_tpu_torch/csrc``
    with nvcc for sm_90a;
-3. kernel parity at the serving path's shapes (B = 16): every spiral
-   conv of the model (K1), every up-pool (K4) and a 256² z-buffer sweep of
-   the lr0 mesh and of a sphere (K7), each held against its plain PyTorch
-   twin on the same inputs and timed with CUDA events against its twin
-   and a library call;
+3. kernel parity at the serving path's shapes: every spiral conv of the
+   model at B = 16 and B = 1 (K1: its tensor-core and narrow-output
+   kernels, with each conv's path, both bounds and ptxas's registers and
+   spills per kernel), every up-pool at B = 16 (K4) and a 256² z-buffer
+   sweep of the lr0 mesh and of a sphere (K7), each held against its
+   plain PyTorch twin on the same inputs and timed with CUDA events
+   against its twin and a library call;
 4. serving at full width (17,039 vertices, channels 32/32/32/64, latent
    75, seeded weights): a ``DiagnosisService(max_batch=16)`` answers
    ``reconstruct`` requests of 1, 3, 16 and 20 scans, checked against the
@@ -32,8 +34,10 @@ profiles) to PATH. Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -45,6 +49,7 @@ PKG = "craniofacialsd_vae_tpu_torch"
 DEVICE = "cuda"
 SEED = 0
 BATCH = 16
+K1_BATCHES = (BATCH, 1)
 IMAGE = 256
 # configurations/smoke.yaml: the model section, kl_weight and to_mm
 MODEL_CONFIG = {
@@ -59,10 +64,11 @@ KL_WEIGHT = 1e-4
 TO_MM = 89.11
 REQUEST_SIZES = (1, 3, 16, 20)
 ERROR_MAX_MM = 5.0
-# H100 SXM peaks (data sheet): HBM bytes/s and fp32 flop/s off the
-# tensor cores
+# H100 SXM peaks (data sheet): HBM bytes/s, fp32 flop/s off the tensor
+# cores and dense TF32 flop/s on them (3xTF32 runs three TF32 products)
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
+PEAK_TF32 = 495e12
 # tolerances
 K1_RTOL = 1e-5          # against max |out|: fp32 dot products summed in
 #                         another order than the library matmul's
@@ -167,19 +173,48 @@ def phase_device(torch) -> tuple:
     return name, smi_line
 
 
-def phase_build(kernels) -> float:
+def phase_build(kernels) -> tuple:
+    """Builds the kernels (printing nvcc's output); returns the seconds it
+    took and the build log."""
     t0 = time.perf_counter()
     path = kernels.build(verbose=True)
     kernels.library()
     dt = time.perf_counter() - t0
     log(f"[2 build] {os.path.relpath(path, ROOT)} in {dt:.1f} s")
-    return dt
+    with open(os.path.join(os.path.dirname(path), "build.log")) as f:
+        return dt, f.read()
 
 
-def k1_parity(torch, mods, model, geom) -> dict:
-    """Every spiral conv of a forward pass, at B = 16, with the model's
-    own (seeded) weights and random inputs."""
+def k1_ptxas(build_log: str) -> list:
+    """Registers, shared memory and spills of each K1 kernel, from the
+    build's ``-Xptxas -v`` output."""
+    out, name = [], None
+    for line in build_log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            k = re.search(r"spiral_conv_(tc|narrow)_kernelILi(\d+)ELi(\d+)E",
+                          m.group(1))
+            name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            if name:
+                out.append({"kernel": name})
+        elif name and "Used" in line:
+            out[-1]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                 line).group(1))
+        elif name and "spill" in line:
+            out[-1]["spill_bytes"] = sum(
+                int(n) for n in re.findall(r"(\d+) bytes spill", line))
+    return out
+
+
+def k1_parity(torch, mods, model, geom, build_log: str) -> list:
+    """Every spiral conv of a forward pass, at B = 16 and B = 1, with the
+    model's own (seeded) weights and random inputs: parity with the plain
+    twin, two launches bit-equal, times against the twin and the library
+    form. One record per K1 kernel from the B = 16 pass."""
     kernels, ops = mods["kernels"], mods["ops"]
+    for k in k1_ptxas(build_log):
+        log(f"[3 K1 ptxas] {k['kernel']}: {k.get('registers')} registers, "
+            f"{k.get('spill_bytes', 0)} bytes spilled")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
     n = len(model.en_convs)
     convs = [(f"enc{i}", model.en_convs[i], geom.enc_spirals[i])
@@ -187,59 +222,97 @@ def k1_parity(torch, mods, model, geom) -> dict:
     convs += [(f"dec{n - 1 - j}", model.de_convs[j],
                geom.spirals[n - 1 - j]) for j in range(n)]
     convs.append(("final", model.final_conv, geom.spirals[0]))
-    shapes = []
-    for name, conv, op in convs:
-        seq = op.seq_length
-        c_in = conv.w.shape[0] // seq
-        c_out = conv.w.shape[1]
-        m = op.num_vertices
-        x = torch.randn((op.n_src, BATCH, c_in), generator=gen,
-                        device=DEVICE)
-        w_l = conv.w.detach().reshape(seq, c_in, c_out).contiguous()
-        b = (0.1 * torch.randn(c_out, generator=gen, device=DEVICE))
-        table = op.table
-        with torch.inference_mode():
-            out = kernels.spiral_conv_fwd(x, table, w_l, b)
-            ref = ops.spiral_conv_plain(w_l, b, x, op)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            scale = float(ref.abs().max())
-            check(err <= K1_RTOL * scale,
-                  f"K1 {name}: max |kernel - plain| {err:.3e} > "
-                  f"{K1_RTOL} x {scale:.3e}")
-            # library yardstick: batch-major index_select + linear, the
-            # benchmarks/baseline_torch.py form
-            x_bm = x.transpose(0, 1).contiguous()
-            flat = table.reshape(-1).long()
-            w_t = w_l.reshape(seq * c_in, c_out).t().contiguous()
-            lib = lambda: torch.nn.functional.linear(      # noqa: E731
-                x_bm.index_select(1, flat).view(BATCH, m, seq * c_in),
-                w_t, b)
-            lib_err = max_err(lib().transpose(0, 1), ref)
-            check(lib_err <= 1e-4 * scale,
-                  f"K1 {name}: library form disagrees ({lib_err:.3e})")
-            reps = 20
-            ms = cuda_ms(torch, lambda: kernels.spiral_conv_fwd(
-                x, table, w_l, b), reps)
-            plain_ms = cuda_ms(
-                torch, lambda: ops.spiral_conv_plain(w_l, b, x, op), 5)
-            lib_ms = cuda_ms(torch, lib, 5)
-        nbytes = 4 * (x.numel() + table.numel() + w_l.numel() + c_out
-                      + m * BATCH * c_out)
-        flops = 2.0 * m * BATCH * seq * c_in * c_out
-        b_ms, b_by, _, _ = bound(nbytes, flops)
-        shapes.append(dict(conv=name, n_src=op.n_src, m=m, c_in=c_in,
-                           c_out=c_out, max_abs_err=err, ms=ms,
-                           plain_ms=plain_ms, library_ms=lib_ms,
-                           bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                           flops=flops))
-        log(f"[3 K1 {name}] {op.n_src}->{m} {c_in}->{c_out}: err {err:.2e} "
-            f"(max|out| {scale:.2e}); kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, library {lib_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-    return summarize("spiral_conv_fwd", "csrc/spiral_conv.cu",
-                     "craniofacialsd_vae_tpu/ops/spiral_conv.py:159",
-                     shapes)
+    by_batch = {}
+    for batch in K1_BATCHES:
+        shapes = []
+        for name, conv, op in convs:
+            shapes.append(k1_shape(torch, kernels, ops, gen, name, conv, op,
+                                   batch))
+        tot = {k: sum(s[k] for s in shapes)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                         "bound_fp32_ms")}
+        log(f"[3 K1 B={batch}] per pass: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms (fp32 bound "
+            f"{tot['bound_fp32_ms']:.4f}); kernel/library "
+            f"{tot['ms'] / tot['library_ms']:.2f}")
+        by_batch[batch] = shapes
+    records = []
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow"):
+        rec = summarize(kernel, "csrc/spiral_conv.cu",
+                        "craniofacialsd_vae_tpu/ops/spiral_conv.py:159",
+                        [s for s in by_batch[BATCH] if s["kernel"] == kernel])
+        rec["shapes_b1"] = [s for s in by_batch[1] if s["kernel"] == kernel]
+        records.append(rec)
+    return records
+
+
+def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
+    """One spiral conv at one batch size: parity, bit-equality, times and
+    bounds (fp32 on the CUDA cores, and 3xTF32 on the tensor cores for
+    the tensor-core kernel)."""
+    seq = op.seq_length
+    c_in = conv.w.shape[0] // seq
+    c_out = conv.w.shape[1]
+    m = op.num_vertices
+    x = torch.randn((op.n_src, batch, c_in), generator=gen, device=DEVICE)
+    w_l = conv.w.detach().reshape(seq, c_in, c_out).contiguous()
+    b = (0.1 * torch.randn(c_out, generator=gen, device=DEVICE))
+    table = op.table
+    plan = kernels.plan_spiral_conv(m, batch, seq, c_in, c_out,
+                                    x.data_ptr() % 16 == 0,
+                                    w_l.data_ptr() % 16 == 0)
+    with torch.inference_mode():
+        out = kernels.spiral_conv_fwd(x, table, w_l, b)
+        again = kernels.spiral_conv_fwd(x, table, w_l, b)
+        ref = ops.spiral_conv_plain(w_l, b, x, op)
+        torch.cuda.synchronize()
+        err = max_err(out, ref)
+        scale = float(ref.abs().max())
+        check(err <= K1_RTOL * scale,
+              f"K1 {name} B={batch}: max |kernel - plain| {err:.3e} > "
+              f"{K1_RTOL} x {scale:.3e}")
+        check(torch.equal(out, again),
+              f"K1 {name} B={batch}: two launches differ")
+        # library yardstick: batch-major index_select + linear, the
+        # benchmarks/baseline_torch.py form
+        x_bm = x.transpose(0, 1).contiguous()
+        flat = table.reshape(-1).long()
+        w_t = w_l.reshape(seq * c_in, c_out).t().contiguous()
+        lib = lambda: torch.nn.functional.linear(      # noqa: E731
+            x_bm.index_select(1, flat).view(batch, m, seq * c_in), w_t, b)
+        lib_err = max_err(lib().transpose(0, 1), ref)
+        check(lib_err <= 1e-4 * scale,
+              f"K1 {name} B={batch}: library form disagrees ({lib_err:.3e})")
+        ms = cuda_ms(torch, lambda: kernels.spiral_conv_fwd(
+            x, table, w_l, b), 20)
+        plain_ms = cuda_ms(
+            torch, lambda: ops.spiral_conv_plain(w_l, b, x, op), 5)
+        lib_ms = cuda_ms(torch, lib, 5)
+    nbytes = 4 * (x.numel() + table.numel() + w_l.numel() + c_out
+                  + m * batch * c_out)
+    flops = 2.0 * m * batch * seq * c_in * c_out
+    fp32_ms, fp32_by, t_bytes, _ = bound(nbytes, flops)
+    if plan.kernel == "spiral_conv_tc":
+        t_ops = 3 * flops / PEAK_TF32 * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), (
+            "bytes" if t_bytes >= t_ops else "tf32x3")
+    else:
+        b_ms, b_by = fp32_ms, ("bytes" if fp32_by == "bytes" else "fp32")
+    log(f"[3 K1 {name} B={batch}] {op.n_src}->{m} {c_in}->{c_out} "
+        f"{plan.path} (P {plan.positions}, {plan.threads} threads x "
+        f"{plan.blocks} blocks, {plan.smem} B smem): err {err:.2e} "
+        f"(max|out| {scale:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
+        f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}), fp32 bound "
+        f"{fp32_ms:.4f}; kernel/library {ms / lib_ms:.2f}")
+    return dict(conv=name, batch=batch, kernel=plan.kernel, path=plan.path,
+                plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
+                c_in=c_in, c_out=c_out, max_abs_err=err, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, bound_fp32_ms=fp32_ms, bytes=nbytes,
+                flops=flops, ops_ms=(3 * flops / PEAK_TF32 * 1e3
+                                     if plan.kernel == "spiral_conv_tc"
+                                     else flops / PEAK_FP32 * 1e3))
 
 
 def k4_parity(torch, mods, model, geom, bundle) -> dict:
@@ -368,13 +441,16 @@ def k7_parity(torch, mods, bundle) -> dict:
 
 def summarize(name, source, replaces, shapes) -> dict:
     """One record per kernel: times and bounds summed over the shapes of
-    one pass of the serving path (each shape runs once per pass)."""
+    one pass of the serving path (each shape runs once per pass). A shape
+    may give its operations' bound in ``ops_ms`` (3xTF32 on the tensor
+    cores); otherwise it is its flops at the fp32 rate."""
     def total(key):
         vals = [s[key] for s in shapes]
         return None if any(v is None for v in vals) else sum(vals)
 
     t_bytes = sum(s["bytes"] for s in shapes) / PEAK_BYTES * 1e3
-    t_ops = sum(s["flops"] for s in shapes) / PEAK_FP32 * 1e3
+    t_ops = sum(s.get("ops_ms", s["flops"] / PEAK_FP32 * 1e3)
+                for s in shapes)
     return {"name": name, "route": "cuda",
             "source": f"{PKG}/{source}", "replaces": replaces,
             "launches": None,
@@ -570,14 +646,14 @@ def main(argv=None) -> int:
 
     mods = {"kernels": kernels, "ops": ops, "raster": raster}
     name, smi_line = phase_device(torch)
-    build_s = phase_build(kernels)
+    build_s, build_log = phase_build(kernels)
 
     bundle = load_bundle(os.path.join(ROOT, "tests", "fixtures",
                                       "geometry.npz"))
     config = SDVAEConfig.from_dict(MODEL_CONFIG, KL_WEIGHT)
     geom = SpiralGeometry.from_bundle(bundle, device=DEVICE)
     model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
-    records = [k1_parity(torch, mods, model, geom),
+    records = [*k1_parity(torch, mods, model, geom, build_log),
                k4_parity(torch, mods, model, geom, bundle),
                k7_parity(torch, mods, bundle)]
     del model, geom

@@ -16,17 +16,21 @@ plain version: the callers choose the plain twin only for CPU tensors.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
+import itertools
 import os
 import shutil
 import subprocess
 import tempfile
 import threading
+from dataclasses import dataclass
 
 import torch
 
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
-           "ell_matmul_fwd", "spiral_conv_fwd", "raster_sweep"]
+           "ell_matmul_fwd", "SpiralPlan", "plan_spiral_conv",
+           "spiral_conv_fwd", "raster_sweep"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -37,16 +41,16 @@ _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _CFLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v")
 
-KERNEL_NAMES = ("spiral_conv_fwd", "ell_matmul_fwd", "raster_sweep")
+KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                "raster_sweep")
 
-# spiral conv tiling (must match csrc/spiral_conv.cu): 256 threads, each
-# owning one output channel and at most 16 output rows in registers; the
-# gathered rows (odd stride), one W_l and the block's table rows within
-# the default 48 KB of shared memory
-_SC_THREADS = 256
-_SC_ROWS = 16
-_SC_MAX_TM = 64
-_SMEM_FLOATS = 48 * 1024 // 4
+# K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
+_SMS = 132                    # H100 SXM
+_SMEM_BLOCK = 232448          # per block, above 48 KB only by opt-in
+_SMEM_SM = 233472             # per SM, shared by its blocks (228 KB)
+_SMEM_RESERVED = 1024         # per block, kept by the runtime
+_TC_MAX_THREADS = 256
+_PATH_IDS = {"tc": 1, "tc_pad_k": 1, "narrow_out": 2}
 
 
 class LaunchCounts:
@@ -153,7 +157,7 @@ def library() -> ctypes.CDLL:
             p, i = ctypes.c_void_p, ctypes.c_int
             lib.cfs_ell_matmul_fwd.argtypes = [p, p, p, p, i, i, i, p]
             lib.cfs_spiral_conv_fwd.argtypes = [p, p, p, p, p, i, i, i, i,
-                                                i, i, i, p]
+                                                i, ctypes.POINTER(i), p]
             lib.cfs_raster_sweep.argtypes = [p, p, p, p, p, i, i, i, i, p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep):
@@ -217,25 +221,214 @@ def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-def spiral_conv_tiles(b: int, c_in: int, c_out: int, seq: int) -> tuple:
-    """(TM vertices, TB batch rows) per block of the K1 kernel."""
-    if not 1 <= c_out <= _SC_THREADS:
-        raise ValueError(f"C_out {c_out} must be in [1, {_SC_THREADS}]")
-    rows = (_SC_THREADS // c_out) * _SC_ROWS     # output rows per block
-    tb = min(b, rows)
-    tm = min(_SC_MAX_TM, rows // tb,
-             (_SMEM_FLOATS - c_in * c_out) // (tb * (c_in | 1) + seq))
-    if tm < 1:
-        raise ValueError(f"no spiral conv tiling fits B={b}, "
-                         f"C_in={c_in}, C_out={c_out} in shared memory")
-    return tm, tb
+@dataclass(frozen=True)
+class SpiralPlan:
+    """One K1 launch: its path, grid and tile. The fields from ``tm`` on
+    belong to the tensor-core kernel and are 0 on ``narrow_out``."""
+    path: str             # "tc", "tc_pad_k" (C_in < 8) or "narrow_out"
+    threads: int
+    grid: tuple           # (row tiles walked, C_out column blocks)
+    smem: int             # dynamic shared memory, bytes
+    tb: int               # batch rows per tile (per warp on narrow_out)
+    n_btiles: int
+    tm: int = 0           # vertices per tile
+    n_rtiles: int = 0     # row tiles: vertex tiles x batch tiles
+    positions: int = 0    # spiral positions per stage, a divisor of L
+    kp: int = 0           # depth per stage, positions·C_in padded to 8
+    lda: int = 0          # row strides in shared memory, floats
+    ldw: int = 0
+    nt: int = 0           # C_out columns per block
+    stages: int = 0       # ring stages
+    vec_x: bool = False   # 16-byte gathers (else 4-byte)
+    vec_w: bool = False
+    vec_out: bool = False
+    mi: int = 0           # warp tile: 16·mi rows x 8·ni columns
+    ni: int = 0
+    warps_m: int = 0
+
+    @property
+    def kernel(self) -> str:
+        """The launch-count name of the kernel this plan runs."""
+        return ("spiral_conv_narrow" if self.path == "narrow_out"
+                else "spiral_conv_tc")
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1]
+
+    def as_ints(self) -> tuple:
+        """The plan as csrc/spiral_conv.cu's PlanField array."""
+        return (_PATH_IDS[self.path], self.threads, self.grid[0],
+                self.grid[1], self.smem, self.tm, self.tb, self.n_btiles,
+                self.n_rtiles, self.kp, self.lda, self.ldw, self.nt,
+                self.stages, int(self.vec_x),
+                int(self.vec_w), int(self.vec_out), self.mi, self.ni,
+                self.warps_m, self.positions)
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _round16(n: int) -> int:
+    return _cdiv(n, 16) * 16
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
+                     x_aligned: bool = True,
+                     w_aligned: bool = True) -> SpiralPlan:
+    """The K1 launch for ``out [m, b, c_out]`` from ``seq`` positions of
+    ``c_in`` channels; ``x_aligned``/``w_aligned``: whether x and W start
+    on 16 bytes. C_out < 8 takes the narrow-output kernel, the rest the
+    tensor-core kernel (C_in < 8: the positions that fill a depth of 32
+    share a stage). Wherever
+    ``m·b ≥ 132·16`` the grid has at least 132 blocks. Raises for a shape
+    that no path takes."""
+    if min(m, b, seq, c_in) < 1:
+        raise ValueError(f"spiral conv needs M, B, L, C_in ≥ 1; got "
+                         f"{m}, {b}, {seq}, {c_in}")
+    if not 1 <= c_out <= 256:
+        raise ValueError(f"C_out {c_out} must be in [1, 256]")
+    if c_out < 8:
+        return _plan_narrow(m, b, seq, c_in, c_out)
+    return _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned)
+
+
+def _plan_narrow(m, b, seq, c_in, c_out) -> SpiralPlan:
+    smem = _round16(4 * seq * c_in * c_out)
+    if smem > _SMEM_BLOCK:
+        raise ValueError(f"W [{seq}, {c_in}, {c_out}] does not fit in "
+                         "shared memory")
+    # at most 8 batch rows per warp (measured best at B = 16), in even
+    # batch tiles
+    tb = min(b, 8)
+    tb, warps = _cdiv(b, _cdiv(b, tb)), 8
+    busy = m * b >= _SMS * 16
+
+    def blocks():
+        return _cdiv(m * _cdiv(b, tb), warps)
+
+    while busy and blocks() < _SMS and warps > 1:
+        warps //= 2
+    while busy and blocks() < _SMS and tb > 1:
+        tb = _cdiv(tb, 2)
+    return SpiralPlan("narrow_out", threads=32 * warps, grid=(blocks(), 1),
+                      smem=smem, tb=tb, n_btiles=_cdiv(b, tb))
+
+
+def _tc_tiles(m, b, c_out):
+    """Tensor-core tiles: all of C_out or (C_out a multiple of 16, ≥ 32)
+    half of it per block; 256 to 16 rows; warp tiles 8 to 32 columns
+    wide."""
+    widths = [_cdiv(c_out, 8) * 8]
+    if c_out % 16 == 0 and c_out >= 32:
+        widths.append(c_out // 2)
+    for width, rows, ni in itertools.product(
+            widths, (256, 128, 64, 32, 16), (4, 2, 1)):
+        if ni > 1 and width < 8 * ni:
+            continue
+        nt = _cdiv(width, 8 * ni) * 8 * ni
+        warps_n = nt // (8 * ni)
+        mi = 2 if rows >= 32 else 1
+        warps_m = rows // (16 * mi)
+        threads = 32 * warps_m * warps_n
+        if threads > _TC_MAX_THREADS:
+            continue
+        tb = min(b, rows)
+        tm = rows // tb
+        n_bt = _cdiv(b, tb)
+        n_rt = _cdiv(m, tm) * n_bt
+        yield dict(rows=rows, mi=mi, ni=ni, warps_m=warps_m, nt=nt,
+                   ldw=nt + 8 if nt % 16 == 0 else nt,
+                   n_split=_cdiv(c_out, nt), threads=threads, tb=tb,
+                   tm=tm, n_btiles=n_bt, n_rtiles=n_rt,
+                   tiles=n_rt * _cdiv(c_out, nt))
+
+
+def _fit_tc(t, seq, c_in, positions, stages, per_sm, path,
+            vec) -> SpiralPlan | None:
+    """The tile ``t`` with ``positions`` spiral positions per stage and
+    at most ``stages`` ring stages (and at most stages per tile + 1), as
+    many as fit in the shared memory that lets ``per_sm`` blocks share an
+    SM (one block: all of it); None if not even 2 fit."""
+    kp = _cdiv(positions * c_in, 8) * 8
+    lda, spt = kp + 4, seq // positions
+    a_b, w_b, ts_b = 4 * t["rows"] * lda, 4 * kp * t["ldw"], 8 * t["tm"] * seq
+    cap = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
+    ns = min(stages, spt + 1, (cap - ts_b) // (a_b + w_b))
+    if ns < 2:
+        return None
+    smem = _round16(ns * (a_b + w_b) + ts_b)
+    threads = t["threads"]
+    regs = 128                    # the kernel's launch bounds allow 128
+    per_sm = max(1, min(_SMEM_SM // (smem + _SMEM_RESERVED), 2048 // threads,
+                        65536 // (threads * regs), 32))
+    grid_x = min(t["n_rtiles"], max(1, _SMS * per_sm // t["n_split"]))
+    return SpiralPlan(path, threads=threads, grid=(grid_x, t["n_split"]),
+                      smem=smem, tb=t["tb"], n_btiles=t["n_btiles"],
+                      tm=t["tm"], n_rtiles=t["n_rtiles"],
+                      positions=positions, kp=kp, lda=lda, ldw=t["ldw"],
+                      nt=t["nt"], stages=ns, vec_x=vec[0], vec_w=vec[1],
+                      vec_out=vec[2], mi=t["mi"], ni=t["ni"],
+                      warps_m=t["warps_m"])
+
+
+def _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned) -> SpiralPlan:
+    """Tile rules by GEMM rows M·B, from a sweep of every tile on this
+    model's convs at B = 1 and 16 on an H100 (PERF.md): small levels
+    gather 3 positions per stage into 16-row tiles with one warp per 8
+    columns; larger levels take larger tiles with fewer stages in flight
+    and more warps per SM. A tile that does not fit falls back to the
+    next."""
+    rows_total = m * b
+    busy = rows_total >= _SMS * 16
+    path = "tc" if c_in >= 8 else "tc_pad_k"
+    vec = (c_in % 4 == 0 and x_aligned, c_out % 4 == 0 and w_aligned,
+           c_out % 4 == 0)
+    if c_in < 8:      # the positions whose channels fill a depth of 32
+        positions = max(p for p in range(1, seq + 1)
+                        if seq % p == 0 and (p == 1 or p * c_in <= 32))
+    elif rows_total <= 8192:
+        positions = max(p for p in (1, 2, 3) if seq % p == 0)
+    else:
+        positions = 1
+    # (rows, warp width / 8, stages, blocks per SM)
+    if rows_total <= 8192:
+        kp = _cdiv(positions * c_in, 8) * 8
+        width = c_out // 2 if not busy and c_out % 16 == 0 else c_out
+        # 16 rows, unless a stage of W outweighs 3 such stages of x
+        prefs = ([(16, 1, 3, 1)] if kp * width <= 3 * 16 * (kp + 4)
+                 else [])
+        prefs.append((64, 2, 3, 1))
+    elif rows_total <= 32768:
+        prefs = [(64, 2, 5, 3)]
+    else:
+        prefs = [(128, 4, 2, 4)]
+    prefs += [(r, n, 3, 1) for r in (128, 64, 32, 16) for n in (4, 2, 1)]
+    tiles = list(_tc_tiles(m, b, c_out))
+    # busy: the full width per block; small: as many blocks as possible
+    tiles.sort(key=lambda t: t["n_split"] if busy else -t["n_split"])
+    for rows, ni, stages, per_sm in prefs:
+        for t in tiles:
+            if (t["rows"] != rows or t["ni"] != ni
+                    or (busy and t["tiles"] < _SMS)):
+                continue
+            plan = _fit_tc(t, seq, c_in, positions, stages, per_sm, path,
+                           vec)
+            if plan is not None:
+                return plan
+    raise ValueError(f"no K1 tile fits C_in={c_in}, C_out={c_out}, L={seq} "
+                     "in shared memory")
 
 
 def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
-                    w_l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+                    w_l: torch.Tensor, b: torch.Tensor,
+                    plan: SpiralPlan | None = None) -> torch.Tensor:
     """K1: ``out[m] = b + Σ_l x[table[m, l]] @ w_l[l]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``w_l [L, C_in, C_out]``;
-    returns ``[M, B, C_out]``."""
+    returns ``[M, B, C_out]``. ``plan`` defaults to
+    ``plan_spiral_conv``'s; the kernel rejects one it cannot run."""
     dev = x.device
     _require(x, "x", torch.float32, 3, dev)
     _require(table, "table", torch.int32, 2, dev)
@@ -254,10 +447,14 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     if n_src == 0 or seq == 0 or c_in == 0:
         raise ValueError("spiral conv needs source rows, positions and "
                          "input channels")
-    tm, tb = spiral_conv_tiles(bsz, c_in, c_out, seq)
-    _launch("spiral_conv_fwd", library().cfs_spiral_conv_fwd, dev,
+    if plan is None:
+        plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
+                                x.data_ptr() % 16 == 0,
+                                w_l.data_ptr() % 16 == 0)
+    fields = plan.as_ints()
+    _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),
-            m, seq, bsz, c_in, c_out, tm, tb)
+            m, seq, bsz, c_in, c_out, (ctypes.c_int * len(fields))(*fields))
     return out
 
 

@@ -6,8 +6,9 @@ indices) go through one dense projection:
 ``[L·C_in, C_out]`` as in the JAX package and read as ``[L, C_in, C_out]``.
 
 ``spiral_conv`` is kernel K1 (fp32 forward): for a CUDA tensor it
-launches ``csrc/spiral_conv.cu``, which gathers each position's rows into
-shared memory and never writes the ``[M, B, L·C]`` concatenation; for a
+launches ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a narrow
+kernel for C_out < 8), which gathers the spiral rows into shared memory
+or registers and never writes the ``[M, B, L·C]`` concatenation; for a
 CPU tensor it runs the plain twin, the fp32 branch of the JAX
 ``_spiral_conv_core``.
 """

@@ -16,7 +16,7 @@ import torch
 
 from craniofacialsd_vae_tpu_torch import kernels, ops
 from craniofacialsd_vae_tpu_torch.geometry import load_bundle
-from craniofacialsd_vae_tpu_torch.models import SDVAEConfig
+from craniofacialsd_vae_tpu_torch.models import SDVAEConfig, SpiralGeometry
 from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
 from craniofacialsd_vae_tpu_torch.viz import raster
 from craniofacialsd_vae_tpu_torch.viz.renderer import look_at_camera
@@ -60,32 +60,86 @@ def test_ell_matmul_kernel_equals_plain(m, n, k, d, offset):
     assert torch.equal(out, ref)
 
 
+def _conv_matches_plain(dev, op, b, c_in, c_out, scale=1.0, seed=1):
+    """K1 against its plain twin on one table: rtol 1e-5 against max |out|
+    (3xTF32 products and another summation order than the library
+    matmul's), and two launches bit-equal. Returns the plan."""
+    g = _gen(dev, seed)
+    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev) * scale
+    seq = op.seq_length
+    w_l = torch.randn((seq, c_in, c_out), generator=g, device=dev) * 0.2
+    bias = torch.randn(c_out, generator=g, device=dev) * scale
+    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
+    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
+    ref = ops.spiral_conv_plain(w_l, bias, x, op)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    err = float((out - ref).abs().max())
+    assert err <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out, again)
+    return kernels.plan_spiral_conv(op.num_vertices, b, seq, c_in, c_out)
+
+
 @pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
     (4260, 17039, 9, 16, 3, 32),      # composed first encoder conv
-    (1065, 1065, 9, 16, 64, 32),
+    (1065, 1065, 9, 16, 64, 32),      # above 48 KB of shared memory
     (3000, 3000, 9, 16, 32, 3),       # final conv
     (700, 700, 5, 20, 16, 256),       # batch split across blocks
     (50, 80, 3, 1, 1, 1),
+    (267, 267, 9, 16, 64, 64),        # C_out = 64 split across blocks
+    (1001, 1500, 9, 16, 32, 32),      # M not a multiple of the tile
+    (333, 333, 7, 3, 10, 18),         # 4-byte copies and stores
 ])
 def test_spiral_conv_kernel_matches_plain(m, n_src, seq, b, c_in, c_out):
-    """rtol 1e-5 against max |out|: the C_in dot products are summed in
-    another order than the library matmul's."""
     dev = _card()
     rng = np.random.default_rng(m)
     table = rng.integers(0, n_src, size=(m, seq))
     if m == n_src:
         table[:, 0] = np.arange(m)
     op = ops.build_spiral_op(table, n_src=n_src).to(dev)
-    g = _gen(dev, 1)
-    x = torch.randn((n_src, b, c_in), generator=g, device=dev)
-    w_l = torch.randn((seq, c_in, c_out), generator=g, device=dev) * 0.2
-    bias = torch.randn(c_out, generator=g, device=dev)
-    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
-    ref = ops.spiral_conv_plain(w_l, bias, x, op)
-    torch.cuda.synchronize()
-    assert out.shape == ref.shape
-    err = float((out - ref).abs().max())
-    assert err <= 1e-5 * float(ref.abs().max())
+    plan = _conv_matches_plain(dev, op, b, c_in, c_out)
+    if (m, c_in, c_out) == (1065, 64, 32):
+        assert plan.smem > 48 * 1024     # launched after the opt-in
+    if (m, c_out) == (267, 64):
+        assert plan.grid[1] == 2
+    if m == 1001:
+        assert m % plan.tm != 0
+
+
+# the smoke model's convs on the fixture's tables: (name, C_in, C_out)
+_SMOKE = [("enc0", 3, 32), ("enc1", 32, 32), ("enc2", 32, 32),
+          ("enc3", 32, 64), ("dec3", 64, 64), ("dec2", 64, 32),
+          ("dec1", 32, 32), ("dec0", 32, 32), ("final", 32, 3)]
+
+
+@pytest.fixture(scope="module")
+def card_geometry():
+    dev = _card()
+    return SpiralGeometry.from_bundle(load_bundle(FIXTURE), device=dev)
+
+
+def _smoke_op(geom, name):
+    level = int(name[-1]) if name != "final" else 0
+    return geom.enc_spirals[level] if name.startswith("enc") else \
+        geom.spirals[level]
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
+def test_spiral_conv_kernel_on_the_model_tables(card_geometry, name, c_in,
+                                                c_out, b):
+    dev = _card()
+    _conv_matches_plain(dev, _smoke_op(card_geometry, name), b, c_in, c_out)
+
+
+@pytest.mark.parametrize("scale", [1e3, 1e-3])
+@pytest.mark.parametrize("name,c_in,c_out", [("dec1", 32, 32),
+                                             ("final", 32, 3)])
+def test_spiral_conv_kernel_at_other_scales(card_geometry, name, c_in, c_out,
+                                            scale):
+    dev = _card()
+    _conv_matches_plain(dev, _smoke_op(card_geometry, name), 16, c_in, c_out,
+                        scale=scale)
 
 
 def _sphere():
@@ -176,7 +230,8 @@ def test_launch_counts_move_only_on_launch():
     kernels.ell_matmul_fwd(cols, torch.ones(4, 3, device=dev), x)
     ops.ell_matmul_plain(cols, torch.ones(4, 3, device=dev), x)
     assert kernels.launches.snapshot() == {
-        "spiral_conv_fwd": 0, "ell_matmul_fwd": 1, "raster_sweep": 0}
+        "spiral_conv_tc": 0, "spiral_conv_narrow": 0, "ell_matmul_fwd": 1,
+        "raster_sweep": 0}
 
 
 def test_service_on_card_matches_host():
@@ -196,7 +251,8 @@ def test_service_on_card_matches_host():
     counts = kernels.launches.snapshot()
     host = DiagnosisService(bundle, cfg, norm, 10.0, max_batch=2,
                             device="cpu").reconstruct(x)
-    assert counts["spiral_conv_fwd"] == 2 * 9 and counts["ell_matmul_fwd"] == 8
+    assert counts["spiral_conv_tc"] == 2 * 8
+    assert counts["spiral_conv_narrow"] == 2 and counts["ell_matmul_fwd"] == 8
     for key in ("vertices", "latent"):
         lim = 1e-4 * float(np.abs(host[key]).max())
         assert float(np.abs(card[key] - host[key]).max()) <= lim
