@@ -12,17 +12,23 @@ them or outside a checkout. Phases, each of which raises on a fault:
 2. build: compiles the kernels of ``craniofacialsd_vae_tpu_torch/csrc``
    with nvcc for sm_90a;
 3. kernel parity at the serving path's shapes: every spiral conv of the
-   model at B = 16 and B = 1 (K1: its tensor-core and narrow-output
-   kernels, with each conv's path, both bounds and ptxas's registers and
-   spills per kernel), every up-pool at B = 16 (K4) and a 256² z-buffer
-   sweep of the lr0 mesh and of a sphere (K7), each held against its
+   model (K1: its tensor-core and narrow-output kernels, with each conv's
+   path, both bounds and ptxas's registers and spills per kernel) and
+   every up-pool (K4, also timed on sequential indices), each at the
+   service's batch buckets B = 16, 4 and 1, and 256² z-buffer sweeps of the lr0 mesh, a
+   sphere and an adversarial mesh (K7, against the bound from what the
+   inputs need and the old strip-cull bound), each held against its
    plain PyTorch twin on the same inputs and timed with CUDA events
    against its twin and a library call;
 4. serving at full width (17,039 vertices, channels 32/32/32/64, latent
    75, seeded weights): a ``DiagnosisService(max_batch=16)`` answers
    ``reconstruct`` requests of 1, 3, 16 and 20 scans, checked against the
    same service on the host, then the lr0 selection of the
-   reconstructions is rendered shaded and as a plasma error map;
+   reconstructions is rendered shaded and as a plasma error map (one K7
+   launch per call); after the counted run, one K7 launch over those 20
+   reconstructions, the shape of each counted launch, is held against the twin mesh by mesh, the
+   renders against the host's (unquantized) and the uint8 transfer
+   against the card's floats, and render and request times are taken;
 5. launch counts: each kernel must have run during phase 4.
 
 The last three lines of standard output are the kernels' JSON record,
@@ -49,7 +55,9 @@ PKG = "craniofacialsd_vae_tpu_torch"
 DEVICE = "cuda"
 SEED = 0
 BATCH = 16
-K1_BATCHES = (BATCH, 1)
+# the service's batch buckets on the main path: requests of 1, 3, 16 and
+# 20 scans run at B = 1, 4, 16 and 16 + 4
+BATCHES = (BATCH, 4, 1)
 IMAGE = 256
 # configurations/smoke.yaml: the model section, kl_weight and to_mm
 MODEL_CONFIG = {
@@ -72,7 +80,6 @@ PEAK_TF32 = 495e12
 # tolerances
 K1_RTOL = 1e-5          # against max |out|: fp32 dot products summed in
 #                         another order than the library matmul's
-K4_RTOL = 1e-6          # against max |out|: the same rounded order (0 seen)
 SERVE_RTOL = 1e-4       # card vs host service, against each array's max
 SERVE_ERR_ATOL_MM = 1e-3
 
@@ -123,30 +130,6 @@ def bound(nbytes: float, flops: float) -> tuple:
 
 def max_err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
-
-
-def uv_sphere(n_lat: int = 48, n_lon: int = 96):
-    """Unit sphere: vertices [V, 3] float32, faces [F, 3] int64."""
-    th = np.linspace(0, np.pi, n_lat + 1)[1:-1]
-    ph = np.linspace(0, 2 * np.pi, n_lon, endpoint=False)
-    t, p = np.meshgrid(th, ph, indexing="ij")
-    ring = np.stack([np.sin(t) * np.cos(p), np.cos(t),
-                     np.sin(t) * np.sin(p)], -1).reshape(-1, 3)
-    verts = np.concatenate([[[0, 1, 0]], ring, [[0, -1, 0]]])
-    faces = []
-
-    def idx(i, j):
-        return 1 + i * n_lon + j % n_lon
-
-    for j in range(n_lon):
-        faces.append([0, idx(0, j + 1), idx(0, j)])
-        faces.append([len(verts) - 1, idx(n_lat - 2, j),
-                      idx(n_lat - 2, j + 1)])
-    for i in range(n_lat - 2):
-        for j in range(n_lon):
-            faces.append([idx(i, j), idx(i, j + 1), idx(i + 1, j)])
-            faces.append([idx(i + 1, j), idx(i, j + 1), idx(i + 1, j + 1)])
-    return verts.astype(np.float32), np.asarray(faces, np.int64)
 
 
 def scatter_coo(coo, dense: np.ndarray) -> np.ndarray:
@@ -207,7 +190,7 @@ def k1_ptxas(build_log: str) -> list:
 
 
 def k1_parity(torch, mods, model, geom, build_log: str) -> list:
-    """Every spiral conv of a forward pass, at B = 16 and B = 1, with the
+    """Every spiral conv of a forward pass, at each batch bucket, with the
     model's own (seeded) weights and random inputs: parity with the plain
     twin, two launches bit-equal, times against the twin and the library
     form. One record per K1 kernel from the B = 16 pass."""
@@ -223,7 +206,7 @@ def k1_parity(torch, mods, model, geom, build_log: str) -> list:
                geom.spirals[n - 1 - j]) for j in range(n)]
     convs.append(("final", model.final_conv, geom.spirals[0]))
     by_batch = {}
-    for batch in K1_BATCHES:
+    for batch in BATCHES:
         shapes = []
         for name, conv, op in convs:
             shapes.append(k1_shape(torch, kernels, ops, gen, name, conv, op,
@@ -242,7 +225,9 @@ def k1_parity(torch, mods, model, geom, build_log: str) -> list:
         rec = summarize(kernel, "csrc/spiral_conv.cu",
                         "craniofacialsd_vae_tpu/ops/spiral_conv.py:159",
                         [s for s in by_batch[BATCH] if s["kernel"] == kernel])
-        rec["shapes_b1"] = [s for s in by_batch[1] if s["kernel"] == kernel]
+        rec["other_batches"] = {
+            b: [s for s in by_batch[b] if s["kernel"] == kernel]
+            for b in BATCHES[1:]}
         records.append(rec)
     return records
 
@@ -316,127 +301,209 @@ def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
 
 
 def k4_parity(torch, mods, model, geom, bundle) -> dict:
-    """Every up-pool of the decoder at B = 16, at its channel width."""
+    """Every up-pool of the decoder at each batch bucket, at its channel
+    width: bit-equal to the plain twin, timed against the twin, the
+    library call and, at B = 16, the same launch on sequential indices
+    (``cols[m, k] = m·K + k`` over an ``[M·K, D]`` source: the same
+    gathered bytes, each read once). One record from the B = 16 pass."""
     kernels, ops = mods["kernels"], mods["ops"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 2)
     n = len(model.de_convs)
-    shapes = []
-    for j in range(n):
-        level = n - 1 - j
-        mat = geom.up[level]
-        c = model.de_convs[j].w.shape[0] // geom.spirals[level].seq_length
-        n_src = mat.n_cols
-        m, k = mat.cols.shape
-        x2 = torch.randn((n_src, BATCH * c), generator=gen, device=DEVICE)
-        coo = bundle.up[level]
-        sp = torch.sparse_coo_tensor(
-            torch.as_tensor(np.stack([coo.rows, coo.cols]).astype(np.int64)),
-            torch.as_tensor(coo.vals), coo.shape,
-            check_invariants=True).coalesce().to(DEVICE)
-        with torch.inference_mode():
-            out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
-            ref = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
-            torch.cuda.synchronize()
-            err = max_err(out, ref)
-            scale = float(ref.abs().max())
-            check(err <= K4_RTOL * scale,
-                  f"K4 up{level}: max |kernel - plain| {err:.3e} > "
-                  f"{K4_RTOL} x {scale:.3e}")
-            lib = lambda: torch.sparse.mm(sp, x2)           # noqa: E731
-            lib_err = max_err(lib(), ref)
-            check(lib_err <= 1e-5 * scale,
-                  f"K4 up{level}: library form disagrees ({lib_err:.3e})")
-            ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
-                mat.cols, mat.vals, x2), 50)
-            plain_ms = cuda_ms(torch, lambda: ops.ell_matmul_plain(
-                mat.cols, mat.vals, x2), 10)
-            lib_ms = cuda_ms(torch, lib, 10)
-        d = BATCH * c
-        nbytes = 4 * (n_src * d + 2 * m * k + m * d)
-        flops = 2.0 * m * k * d
-        b_ms, b_by, _, _ = bound(nbytes, flops)
-        shapes.append(dict(pool=f"up{level}", n_src=n_src, m=m, k=k, d=d,
-                           max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                           bytes=nbytes, flops=flops))
-        log(f"[3 K4 up{level}] {n_src}->{m} K={k} D={d}: err {err:.2e}; "
-            f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, library "
-            f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-    return summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
-                     "craniofacialsd_vae_tpu/ops/sparse.py:191", shapes)
+    by_batch = {}
+    for batch in BATCHES:
+        shapes = []
+        for j in range(n):
+            level = n - 1 - j
+            c = model.de_convs[j].w.shape[0] // geom.spirals[level].seq_length
+            shapes.append(k4_shape(torch, kernels, ops, gen, geom.up[level],
+                                   bundle.up[level], level, batch * c,
+                                   batch))
+        tot = {k: sum(s[k] for s in shapes)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        log(f"[3 K4 B={batch}] per pass: kernel {tot['ms']:.4f} ms, plain "
+            f"{tot['plain_ms']:.4f} ms, library {tot['library_ms']:.4f} ms, "
+            f"bound {tot['bound_ms']:.4f} ms")
+        by_batch[batch] = shapes
+    rec = summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
+                    "craniofacialsd_vae_tpu/ops/sparse.py:191",
+                    by_batch[BATCH])
+    rec["other_batches"] = {b: by_batch[b] for b in BATCHES[1:]}
+    return rec
 
 
-def sweep_inputs(torch, raster, verts: np.ndarray, faces: np.ndarray):
+def k4_shape(torch, kernels, ops, gen, mat, coo, level, d, batch) -> dict:
+    n_src = mat.n_cols
+    m, k = mat.cols.shape
+    x2 = torch.randn((n_src, d), generator=gen, device=DEVICE)
+    sp = torch.sparse_coo_tensor(
+        torch.as_tensor(np.stack([coo.rows, coo.cols]).astype(np.int64)),
+        torch.as_tensor(coo.vals), coo.shape,
+        check_invariants=True).coalesce().to(DEVICE)
+    with torch.inference_mode():
+        out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
+        ref = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref),
+              f"K4 up{level} B={batch}: kernel and plain twin differ at "
+              f"{int((out != ref).sum())} values")
+        scale = float(ref.abs().max())
+        lib = lambda: torch.sparse.mm(sp, x2)               # noqa: E731
+        lib_err = max_err(lib(), ref)
+        check(lib_err <= 1e-5 * scale,
+              f"K4 up{level}: library form disagrees ({lib_err:.3e})")
+        ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
+            mat.cols, mat.vals, x2), 50)
+        plain_ms = cuda_ms(torch, lambda: ops.ell_matmul_plain(
+            mat.cols, mat.vals, x2), 10)
+        lib_ms = cuda_ms(torch, lib, 10)
+        seq_ms = None
+        if batch == BATCH:
+            xs = torch.randn((m * k, d), generator=gen, device=DEVICE)
+            seq = torch.arange(m * k, dtype=torch.int32,
+                               device=DEVICE).view(m, k)
+            seq_ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
+                seq, mat.vals, xs), 50)
+            del xs
+    nbytes = 4 * (n_src * d + 2 * m * k + m * d)
+    flops = 2.0 * m * k * d
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    seq_txt = f", sequential indices {seq_ms:.4f} ms" if seq_ms else ""
+    log(f"[3 K4 up{level} B={batch}] {n_src}->{m} K={k} D={d}: "
+        f"bit-equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms, "
+        f"bound {b_ms:.4f} ms ({b_by}){seq_txt}")
+    return dict(pool=f"up{level}", batch=batch, n_src=n_src, m=m, k=k, d=d,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, sequential_ms=seq_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+
+
+def camera_frame(verts: np.ndarray) -> np.ndarray:
     from craniofacialsd_vae_tpu_torch.viz.renderer import look_at_camera
 
     eye, rot = look_at_camera()
-    v_cam = torch.as_tensor((verts - eye) @ rot.T, device=DEVICE)
+    return ((verts - eye) @ rot.T).astype(np.float32)
+
+
+def k7_work(torch, raster, inp, pts, faces) -> dict:
+    """What a sweep of one mesh (inputs without a batch dim) must do and
+    what the kernel and the twin do: pixel centres inside the triangles'
+    boxes (each an inside test of 16 flops: 4 affine forms of 2 products
+    and 2 sums), the pairs the kernel evaluates (``raster.sweep_pairs``),
+    the pairs the twin's strip cull keeps, and the bytes (the 12
+    coefficients of each real face read once, z and winner written
+    once)."""
+    n_pix = IMAGE * IMAGE
+    coef = inp.coef
+    live = ~((coef[:len(faces), 0] == 0) & (coef[:len(faces), 1] == 0)
+             & (coef[:len(faces), 2] < 0))
+    x, y = pts[faces, 0][live], pts[faces, 1][live]
+
+    def centres(lo, hi):          # pixel centres c + 0.5 in [lo, hi]
+        first = torch.ceil(lo.clamp(-1, IMAGE) - 0.5).clamp(min=0)
+        last = torch.floor(hi.clamp(-1, IMAGE) - 0.5).clamp(max=IMAGE - 1)
+        return (last - first + 1).clamp(min=0)
+
+    needed = float((centres(x.amin(1), x.amax(1))
+                    * centres(y.amin(1), y.amax(1))).sum())
+    pix, _ = raster.sweep_pairs(inp, IMAGE)
+    cull = raster._cull_tile(n_pix)
+    t = torch.arange(-(-n_pix // cull), device=coef.device)
+    lo, hi = raster._strip_rows(t, cull, IMAGE)
+    keep = ((inp.ymin[None, :] <= hi[:, None])
+            & (inp.ymax[None, :] >= lo[:, None]))
+    tile_pix = torch.clamp(n_pix - t * cull, max=cull)
+    strip_pairs = float((keep.sum(1) * tile_pix).sum()) * raster.TRI_BLOCK
+    return dict(needed_pairs=needed, kernel_pairs=int(pix.numel()),
+                strip_pairs=strip_pairs,
+                bytes=48 * len(faces) + 8 * n_pix,
+                strip_bytes=4 * (coef.numel() + 2 * inp.ymin.numel())
+                + 8 * n_pix)
+
+
+def k7_bounds(works: list) -> dict:
+    """The bound from what the inputs need, and the strip-cull bound
+    (every pixel against every 256-triangle block the twin's strip cull
+    keeps)."""
+    b_ms, b_by, _, _ = bound(sum(w["bytes"] for w in works),
+                             16.0 * sum(w["needed_pairs"] for w in works))
+    s_ms, s_by, _, _ = bound(sum(w["strip_bytes"] for w in works),
+                             16.0 * sum(w["strip_pairs"] for w in works))
+    return dict(bound_ms=b_ms, bound_by=b_by, bound_strip_ms=s_ms,
+                bound_strip_by=s_by,
+                bytes=sum(w["bytes"] for w in works),
+                flops=16.0 * sum(w["needed_pairs"] for w in works),
+                needed_pairs=sum(w["needed_pairs"] for w in works),
+                kernel_pairs=sum(w["kernel_pairs"] for w in works),
+                strip_pairs=sum(w["strip_pairs"] for w in works))
+
+
+def k7_case(torch, mods, name: str, verts_cam: np.ndarray, faces, reps: int,
+            plain_reps: int, check_cover: bool = True) -> dict:
+    """One K7 launch over ``verts_cam [B, V, 3]`` at IMAGE²: z and winner
+    of every mesh bit-identical to the plain twin, timed against the twin
+    (mesh by mesh) and both bounds."""
+    kernels, raster = mods["kernels"], mods["raster"]
+    n_pix = IMAGE * IMAGE
     f = torch.as_tensor(faces, device=DEVICE).long()
-    pts = raster.project(v_cam, IMAGE)
-    n_blocks = -(-len(faces) // raster.TRI_BLOCK)
-    coef = raster._triangle_coefficients(pts, f, n_blocks)
-    ymin, ymax = raster._block_y_ranges(pts[f, 1], n_blocks)
-    return coef, ymin.contiguous(), ymax.contiguous()
+    pts = raster.project(torch.as_tensor(verts_cam, device=DEVICE), IMAGE)
+    inp = raster.sweep_inputs(pts, f, IMAGE)
+    cull = raster._cull_tile(n_pix)
+
+    def launch():
+        return kernels.raster_sweep(inp.coef, inp.box, inp.block_box,
+                                    inp.ymin, inp.ymax, IMAGE, cull)
+
+    def plain():
+        return [raster._zbuffer_sweep_plain(c, lo, hi, IMAGE)
+                for c, lo, hi in zip(inp.coef, inp.ymin, inp.ymax)]
+
+    with torch.inference_mode():
+        z, win = launch()
+        ref = plain()
+        torch.cuda.synchronize()
+        for b, (z_ref, w_ref) in enumerate(ref):
+            check(torch.equal(z[b], z_ref) and torch.equal(win[b], w_ref),
+                  f"K7 {name} mesh {b}: z/winner differ from the plain twin "
+                  f"at {int((z[b] != z_ref).sum())}/"
+                  f"{int((win[b] != w_ref).sum())} pixels")
+            hits = int((win[b] < len(faces)).sum())
+            check(not check_cover or 0.05 * n_pix < hits < 0.95 * n_pix,
+                  f"K7 {name} mesh {b}: {hits} of {n_pix} pixels hit")
+        ms = cuda_ms(torch, launch, reps)
+        plain_ms = cuda_ms(torch, plain, plain_reps)
+        works = [k7_work(torch, raster,
+                         raster.SweepInputs(*(t[b] for t in inp)), pts[b], f)
+                 for b in range(len(verts_cam))]
+    entry = dict(mesh=name, meshes=len(verts_cam), faces=len(faces),
+                 pixels=n_pix, max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=None, **k7_bounds(works))
+    log(f"[3 K7 {name} x{len(verts_cam)}] {len(faces)} faces at {IMAGE}²: "
+        f"bit-identical; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+        f"{entry['bound_ms']:.5f} ms ({entry['bound_by']}: "
+        f"{entry['needed_pairs']:.0f} pixel centres in boxes), strip-cull "
+        f"bound {entry['bound_strip_ms']:.4f} ms ({entry['bound_strip_by']}:"
+        f" {entry['strip_pairs']:.0f} pairs); the kernel evaluates "
+        f"{entry['kernel_pairs']} pairs")
+    return entry
 
 
 def k7_parity(torch, mods, bundle) -> dict:
-    """256² sweeps of the lr0 mesh (timed: the render path's input) and
-    of a sphere: z and winner bit-identical to the plain twin."""
-    kernels, raster = mods["kernels"], mods["raster"]
-    n_pix = IMAGE * IMAGE
-    cull = raster._cull_tile(n_pix)
-    shapes = []
-    for name, (verts, faces) in (
-            ("lr0", (bundle.lr_pos[0], bundle.lr_face[0])),
-            ("sphere", uv_sphere())):
-        coef, ymin, ymax = sweep_inputs(torch, raster, verts, faces)
-        with torch.inference_mode():
-            z, win = kernels.raster_sweep(coef, ymin, ymax, IMAGE, cull)
-            z_ref, win_ref = raster._zbuffer_sweep_plain(coef, ymin, ymax,
-                                                         IMAGE)
-            torch.cuda.synchronize()
-            check(torch.equal(z, z_ref) and torch.equal(win, win_ref),
-                  f"K7 {name}: z/winner differ from the plain twin at "
-                  f"{int((z != z_ref).sum())}/{int((win != win_ref).sum())}"
-                  " pixels")
-            hits = int((win < len(faces)).sum())
-            check(0.05 * n_pix < hits < 0.95 * n_pix,
-                  f"K7 {name}: {hits} of {n_pix} pixels hit")
-            ms = cuda_ms(torch, lambda: kernels.raster_sweep(
-                coef, ymin, ymax, IMAGE, cull), 50)
-            plain_ms = cuda_ms(torch, lambda: raster._zbuffer_sweep_plain(
-                coef, ymin, ymax, IMAGE), 3)
-        # work that this data needs: every pixel of every cull tile
-        # against every 256-triangle block the cull keeps; 4 affine forms
-        # of 2 products and 2 sums each
-        t = torch.arange(-(-n_pix // cull), device=DEVICE)
-        lo = ((t * cull) // IMAGE).float()
-        hi = (((t + 1) * cull - 1) // IMAGE + 1).float()
-        keep = (ymin[None, :] <= hi[:, None]) & (ymax[None, :] >= lo[:, None])
-        tile_pix = torch.clamp(n_pix - t * cull, max=cull)
-        pairs = float((keep.sum(1) * tile_pix).sum()) * raster.TRI_BLOCK
-        flops = 16.0 * pairs
-        nbytes = 4 * (coef.numel() + 2 * ymin.numel()) + 8 * n_pix
-        b_ms, b_by, _, _ = bound(nbytes, flops)
-        entry = dict(mesh=name, faces=len(faces), pixels=n_pix,
-                     blocks_kept=int(keep.sum()),
-                     blocks_total=int(keep.numel()), max_abs_err=0.0,
-                     ms=ms, plain_ms=plain_ms, library_ms=None,
-                     bound_ms=b_ms, bound_by=b_by, bytes=nbytes,
-                     flops=flops)
-        log(f"[3 K7 {name}] {len(faces)} faces at {IMAGE}²: bit-identical, "
-            f"{hits} px hit, {int(keep.sum())}/{keep.numel()} tile-blocks "
-            f"kept; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-            f"{b_ms:.4f} ms ({b_by})")
-        if name == "lr0":
-            shapes.append(entry)
-        else:
-            sphere = entry
-    rec = summarize("raster_sweep", "csrc/raster_sweep.cu",
-                    "craniofacialsd_vae_tpu/viz/raster_pallas.py:111",
-                    shapes)
-    rec["parity_only"] = [sphere]
-    return rec
+    """256² sweeps of the lr0 mesh (timed), a sphere and the adversarial
+    mesh: z and winner bit-identical to the plain twin. The batched
+    launch of the service's reconstructions is added in phase 4."""
+    from craniofacialsd_vae_tpu_torch.geometry import (adversarial_mesh,
+                                                       uv_sphere)
+
+    sphere_v, sphere_f = uv_sphere()
+    adv_v, adv_f = adversarial_mesh(IMAGE, SEED)
+    solo = k7_case(torch, mods, "lr0", camera_frame(bundle.lr_pos[0])[None],
+                   bundle.lr_face[0], 50, 3)
+    others = [k7_case(torch, mods, "sphere", camera_frame(sphere_v)[None],
+                      sphere_f, 20, 1),
+              k7_case(torch, mods, "adversarial", adv_v[None], adv_f, 20, 1,
+                      check_cover=False)]
+    return {"name": "raster_sweep", "solo": solo, "parity_only": others}
 
 
 def summarize(name, source, replaces, shapes) -> dict:
@@ -499,10 +566,15 @@ def device_profile(torch, fn) -> dict:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
+    host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count)
+                   for e in prof.key_averages()
+                   if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": busy if rows else None,
             "idle_share": 1 - busy / wall_ms if rows else None,
             "by_kernel": [{"name": n[:80], "ms": t, "count": c}
-                          for n, t, c in rows[:15]]}
+                          for n, t, c in rows[:15]],
+            "host_by_op": [{"name": n[:80], "ms": t, "count": c}
+                           for n, t, c in host[:10]]}
 
 
 def phase_serving(torch, mods, bundle, config) -> dict:
@@ -543,6 +615,7 @@ def phase_serving(torch, mods, bundle, config) -> dict:
                               ERROR_MAX_MM, "plasma") / 255.0
     t1 = time.perf_counter()
     shaded = render_batch(recon_lr0, faces, image_size=IMAGE, device=DEVICE)
+    first_render_ms = (time.perf_counter() - t1) * 1e3
     errmap = render_batch(recon_lr0, faces, colors, image_size=IMAGE,
                           shadeless=True, device=DEVICE)
     render_ms = (time.perf_counter() - t1) * 1e3
@@ -550,7 +623,8 @@ def phase_serving(torch, mods, bundle, config) -> dict:
     counts = kernels.launches.snapshot()
     log(f"[4 serve] service built in {setup_s:.2f} s; reconstruct ms by "
         f"batch {{{', '.join(f'{b}: {req_ms[b]:.1f}' for b in req_ms)}}}; "
-        f"{2 * len(recon_lr0)} renders in {render_ms:.1f} ms; launches "
+        f"{2 * len(recon_lr0)} renders in {render_ms:.1f} ms (the first "
+        f"call {first_render_ms:.1f} ms); launches "
         f"{counts}")
 
     for b, ans in answers.items():
@@ -560,6 +634,10 @@ def phase_serving(torch, mods, bundle, config) -> dict:
               f"reconstruct B={b}: shapes")
         for key, v in ans.items():
             check(np.isfinite(v).all(), f"reconstruct B={b}: {key} finite")
+    # after the counted run, one launch at the shape of each counted one:
+    # all of the service's lr0 reconstructions
+    k7_batch = k7_case(torch, mods, "recon lr0", camera_frame(recon_lr0),
+                       faces, 20, 1)
     for imgs in (shaded, errmap):
         check(imgs.shape == (len(recon_lr0), IMAGE, IMAGE, 3)
               and np.isfinite(imgs).all()
@@ -588,11 +666,34 @@ def phase_serving(torch, mods, bundle, config) -> dict:
         if b == REQUEST_SIZES[-1]:
             ref_imgs = render_batch(ref["vertices"][:2, sel], faces,
                                     image_size=IMAGE, device="cpu")
-    px = np.abs(shaded[:2] - ref_imgs).max(-1)
+    # renders: card (unquantized) vs host; the default uint8 transfer vs
+    # the card's floats
+    shaded_f = render_batch(recon_lr0, faces, image_size=IMAGE,
+                            quantize_transfer=False, device=DEVICE)
+    px = np.abs(shaded_f[:2] - ref_imgs).max(-1)
     frac = float((px > 1e-3).mean())
     check(frac < 0.01, f"card vs host render: {frac:.4f} of pixels differ")
+    q_err = float(np.abs(shaded - shaded_f).max())
+    check(q_err <= 1 / 255 + 1e-6,
+          f"uint8 render vs float render: {q_err:.3e} > 1/255")
     log(f"[4 serve] card vs host: max |diff| {worst}; renders differ at "
-        f"{frac:.5f} of pixels (mean {float(px.mean()):.2e})")
+        f"{frac:.5f} of pixels (mean {float(px.mean()):.2e}); uint8 vs "
+        f"float render max |diff| {q_err:.2e}")
+    render_wall = {}
+    for what, kw in (("shaded", {}),
+                     ("error map", {"vertex_colors": colors,
+                                    "shadeless": True})):
+        render_batch(recon_lr0, faces, image_size=IMAGE, device=DEVICE, **kw)
+        ts = []
+        for _ in range(5):
+            t1 = time.perf_counter()
+            render_batch(recon_lr0, faces, image_size=IMAGE, device=DEVICE,
+                         **kw)
+            ts.append((time.perf_counter() - t1) * 1e3)
+        render_wall[what] = sorted(ts)[len(ts) // 2]
+    log(f"[4 render] warm render_batch of {len(recon_lr0)} at {IMAGE}², "
+        "host-clock p50 of 5: " + ", ".join(
+            f"{k} {v:.2f} ms" for k, v in render_wall.items()))
 
     # after the counted run: warm latency and where the device time goes
     latency = serve_latency(svc, scans)
@@ -602,13 +703,19 @@ def phase_serving(torch, mods, bundle, config) -> dict:
     prof_req = device_profile(torch, lambda: svc.reconstruct(scans[BATCH]))
     prof_render = device_profile(torch, lambda: render_batch(
         recon_lr0[:BATCH], faces, image_size=IMAGE, device=DEVICE))
-    for what, p in (("reconstruct B=16", prof_req),
+    for what, p in ((f"reconstruct B={BATCH}", prof_req),
                     (f"render_batch {BATCH} x {IMAGE}²", prof_render)):
         top = ", ".join(f"{k['name'][:40]} {k['ms']:.3f}"
                         for k in p["by_kernel"][:6])
+        host = ", ".join(f"{k['name'][:30]} {k['ms']:.3f}"
+                         for k in p["host_by_op"][:6])
         log(f"[4 profile] {what}: wall {p['wall_ms']:.2f} ms, device "
-            f"{p['device_ms']} ms, idle share {p['idle_share']}; {top}")
+            f"{p['device_ms']} ms, idle share {p['idle_share']}; {top}; "
+            f"host self time by op: {host}")
     return dict(counts=counts, request_ms=req_ms, render_ms=render_ms,
+                first_render_ms=first_render_ms,
+                render_wall_ms=render_wall, render_uint8_err=q_err,
+                k7_batch=k7_batch,
                 latency=latency, profile_reconstruct=prof_req,
                 profile_render=prof_render,
                 renders=2 * len(recon_lr0), main_s=main_s, setup_s=setup_s,
@@ -654,12 +761,19 @@ def main(argv=None) -> int:
     geom = SpiralGeometry.from_bundle(bundle, device=DEVICE)
     model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
     records = [*k1_parity(torch, mods, model, geom, build_log),
-               k4_parity(torch, mods, model, geom, bundle),
-               k7_parity(torch, mods, bundle)]
+               k4_parity(torch, mods, model, geom, bundle)]
+    k7 = k7_parity(torch, mods, bundle)
     del model, geom
     torch.cuda.empty_cache()
 
     serve = phase_serving(torch, mods, bundle, config)
+    batch = serve["k7_batch"]
+    rec = summarize("raster_sweep", "csrc/raster_sweep.cu",
+                    "craniofacialsd_vae_tpu/viz/raster_pallas.py:111",
+                    [batch])
+    rec.update(bound_strip_ms=batch["bound_strip_ms"], solo=k7["solo"],
+               parity_only=k7["parity_only"])
+    records.append(rec)
     for rec in records:
         rec["launches"] = serve["counts"][rec["name"]]
         check(rec["launches"] > 0,

@@ -6,18 +6,29 @@
 //
 //   out[m, :] = sum_k vals[m, k] * x[cols[m, k], :],  k ascending
 //
-// What bounds it on an H100: bytes. It does 2·K flops per output float
-// and moves each output once and each gathered source row K times (the
-// rows are shared between neighbours, so mostly from L2). The design
-// keeps every load and store wide and coalesced: a block row of threads
-// walks one output row in 16-byte float4 pieces when D % 4 == 0 and the
-// pointers are 16-byte aligned, in plain floats otherwise; one block
-// covers 256 / TX rows so that narrow rows still fill the block.
+// What bounds it on an H100: bytes, and before them the latency of two
+// dependent loads (the index, then the gathered row) per output. It does
+// 2·K flops per output float; the least it can move is each source row
+// once and each output once. Two paths, chosen by cfs_ell_matmul_fwd:
 //
-// Padded entries point at row 0 with weight 0. The kernel does not
-// branch on them: it computes every entry, as the plain twin does.
-// Products and sums are rounded one by one (__fmul_rn, __fadd_rn) in the
-// plain twin's order, so the two agree bit for bit.
+// - direct (D % 4 == 0, operands on 16 bytes): a warp, or D/4 threads
+//   when the row is narrower, walks a row segment in 16-byte pieces, and
+//   each thread carries R output rows with all R·K gathers in flight
+//   before the first sum (K = 3, the up-pools', is compiled apart and
+//   fully unrolled). R = 2 where that grid still gives 16 blocks per SM,
+//   else 1. The gathers come from L2: neighbouring rows share sources, so
+//   device memory moves each source row about once. Staging a row tile's
+//   distinct source rows in shared memory first (read from L2 once, then
+//   from shared memory) measured slower on an H100 at the up-pools at
+//   B = 16 and 1 (PERF.md): it adds a barrier and a copy per tile, and
+//   L2 was not what bound this kernel.
+// - scalar (D % 4 != 0 or an operand off 16 bytes): a block row of
+//   threads walks one output row in plain floats.
+//
+// Padded entries point at row 0 with weight 0. No path branches on them:
+// every entry is computed, as the plain twin does. Products and sums are
+// rounded one by one (__fmul_rn, __fadd_rn) in the plain twin's order, so
+// both paths agree with it bit for bit.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -34,24 +45,44 @@ __device__ __forceinline__ float4 madd4(float4 acc, float w, float4 g) {
   return acc;
 }
 
-// dw is the row width in float4 units here and in floats below.
+__device__ __forceinline__ float4 mul4(float w, float4 g) {
+  return make_float4(__fmul_rn(w, g.x), __fmul_rn(w, g.y), __fmul_rn(w, g.z),
+                     __fmul_rn(w, g.w));
+}
+
+// Block (tx, 256 / tx), grid (row groups, column segments); each thread
+// computes R rows of one 16-byte column; KK = K when it is a compile-time
+// constant (the up-pools' 3), else 0.
+template <int R, int KK>
 __global__ void __launch_bounds__(kThreads)
-ell_matmul_vec4(const int* __restrict__ cols, const float* __restrict__ vals,
-                const float4* __restrict__ x, float4* __restrict__ out,
-                int M, int K, int dw) {
-  const int m = blockIdx.x * blockDim.y + threadIdx.y;
-  if (m >= M) return;
-  const int* c = cols + (size_t)m * K;
-  const float* v = vals + (size_t)m * K;
-  for (int j = threadIdx.x; j < dw; j += blockDim.x) {
-    const float w0 = v[0];
-    const float4 g0 = __ldg(x + (size_t)c[0] * dw + j);
-    float4 acc = make_float4(__fmul_rn(w0, g0.x), __fmul_rn(w0, g0.y),
-                             __fmul_rn(w0, g0.z), __fmul_rn(w0, g0.w));
-    for (int k = 1; k < K; ++k)
-      acc = madd4(acc, v[k], __ldg(x + (size_t)c[k] * dw + j));
-    out[(size_t)m * dw + j] = acc;
+ell_matmul_direct(const int* __restrict__ cols, const float* __restrict__ vals,
+                  const float4* __restrict__ x, float4* __restrict__ out,
+                  int M, int k_rt, int dw) {
+  const int K = KK ? KK : k_rt;
+  const int j = blockIdx.y * blockDim.x + threadIdx.x;
+  const int m0 = (blockIdx.x * blockDim.y + threadIdx.y) * R;
+  if (j >= dw || m0 >= M) return;
+  int mr[R];
+  float4 acc[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) mr[r] = min(m0 + r, M - 1);
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    float w[R];
+    float4 g[R];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const size_t e = (size_t)mr[r] * K + k;
+      w[r] = __ldg(vals + e);
+      g[r] = __ldg(x + (size_t)__ldg(cols + e) * dw + j);
+    }
+#pragma unroll
+    for (int r = 0; r < R; ++r)
+      acc[r] = k == 0 ? mul4(w[r], g[r]) : madd4(acc[r], w[r], g[r]);
   }
+#pragma unroll
+  for (int r = 0; r < R; ++r)
+    if (m0 + r < M) out[(size_t)(m0 + r) * dw + j] = acc[r];
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -71,27 +102,58 @@ ell_matmul_scalar(const int* __restrict__ cols,
   }
 }
 
+int blocks_along(int n, int per_block) {
+  return (n + per_block - 1) / per_block;
+}
+
 bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+template <int R>
+int launch_direct(const int* cols, const float* vals, const float* x,
+                  float* out, int M, int K, int dw, int tx, cudaStream_t s) {
+  const dim3 block(tx, kThreads / tx);
+  const dim3 grid(blocks_along(M, block.y * R), blocks_along(dw, tx));
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  float4* o4 = reinterpret_cast<float4*>(out);
+  if (K == 3)
+    ell_matmul_direct<R, 3><<<grid, block, 0, s>>>(cols, vals, x4, o4, M, K,
+                                                   dw);
+  else
+    ell_matmul_direct<R, 0><<<grid, block, 0, s>>>(cols, vals, x4, o4, M, K,
+                                                   dw);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
+// Returns a cudaError_t.
 extern "C" int cfs_ell_matmul_fwd(const int* cols, const float* vals,
                                   const float* x, float* out, int M, int K,
                                   int D, void* stream) {
-  const bool vec = D % 4 == 0 && aligned16(x) && aligned16(out);
-  const int dw = vec ? D / 4 : D;
-  int tx = 32;                       // threads along the row: a warp or more
-  while (tx < dw && tx < kThreads) tx *= 2;
-  const dim3 block(tx, kThreads / tx);
-  const dim3 grid((M + block.y - 1) / block.y);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (vec)
-    ell_matmul_vec4<<<grid, block, 0, s>>>(
-        cols, vals, reinterpret_cast<const float4*>(x),
-        reinterpret_cast<float4*>(out), M, K, dw);
-  else
-    ell_matmul_scalar<<<grid, block, 0, s>>>(cols, vals, x, out, M, K, dw);
-  return static_cast<int>(cudaGetLastError());
+  if (M < 1 || K < 1 || D < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (D % 4 || !aligned16(x) || !aligned16(out)) {
+    int tx = 32;                     // threads along the row: a warp or more
+    while (tx < D && tx < kThreads) tx *= 2;
+    const dim3 block(tx, kThreads / tx);
+    ell_matmul_scalar<<<blocks_along(M, block.y), block, 0, s>>>(
+        cols, vals, x, out, M, K, D);
+    return static_cast<int>(cudaGetLastError());
+  }
+  const int dw = D / 4;
+  int tx = 32;                       // a warp, or the row where narrower
+  while (tx / 2 >= dw) tx /= 2;
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess)
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const long long two = static_cast<long long>(
+      blocks_along(M, 2 * (kThreads / tx))) * blocks_along(dw, tx);
+  return two >= 16LL * sms
+             ? launch_direct<2>(cols, vals, x, out, M, K, dw, tx, s)
+             : launch_direct<1>(cols, vals, x, out, M, K, dw, tx, s);
 }

@@ -158,7 +158,8 @@ def library() -> ctypes.CDLL:
             lib.cfs_ell_matmul_fwd.argtypes = [p, p, p, p, i, i, i, p]
             lib.cfs_spiral_conv_fwd.argtypes = [p, p, p, p, p, i, i, i, i,
                                                 i, ctypes.POINTER(i), p]
-            lib.cfs_raster_sweep.argtypes = [p, p, p, p, p, i, i, i, i, p]
+            lib.cfs_raster_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i,
+                                             i, p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep):
                 fn.restype = ctypes.c_int
@@ -200,7 +201,9 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
                    x2: torch.Tensor) -> torch.Tensor:
     """K4: ``out[m, :] = Σ_k vals[m,k] · x2[cols[m,k], :]`` over the
-    packed ``[N, D]`` view; returns ``[M, D]``."""
+    packed ``[N, D]`` view; returns ``[M, D]``. The kernel picks its
+    launch from M, D and the operands' alignment
+    (``csrc/ell_matmul.cu``)."""
     dev = x2.device
     _require(x2, "x", torch.float32, 2, dev)
     _require(cols, "cols", torch.int32, 2, dev)
@@ -458,29 +461,45 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def raster_sweep(coef: torch.Tensor, b_ymin: torch.Tensor,
+def raster_sweep(coef: torch.Tensor, box: torch.Tensor,
+                 block_box: torch.Tensor, b_ymin: torch.Tensor,
                  b_ymax: torch.Tensor, image_size: int,
                  cull_tile: int) -> tuple:
-    """K7: the z-buffer sweep of ``coef [Fp, 16]`` (Fp a multiple of 256)
-    over an ``image_size²`` image, culling 256-triangle blocks per
-    ``cull_tile`` pixels; returns ``(z [P] f32, winner [P] i32)``."""
+    """K7: the z-buffer sweep of a batch of meshes over an
+    ``image_size²`` image: ``coef [B, Fp, 16]`` (Fp a multiple of 256),
+    each triangle's widened ``box [B, Fp, 4]``, each block's
+    ``block_box [B, nb, 4]`` and row range ``ymin``/``ymax [B, nb]``,
+    culled per ``cull_tile`` pixels as the plain twin culls
+    (``viz/raster.py``); returns ``(z [B, P] f32, winner [B, P] i32)``."""
     dev = coef.device
-    _require(coef, "coef", torch.float32, 2, dev)
-    _require(b_ymin, "ymin", torch.float32, 1, dev)
-    _require(b_ymax, "ymax", torch.float32, 1, dev)
-    n_tblocks = b_ymin.shape[0]
-    if coef.shape != (n_tblocks * 256, 16) or b_ymax.shape[0] != n_tblocks:
-        raise ValueError(f"coef {tuple(coef.shape)} does not hold "
-                         f"{n_tblocks} blocks of [256, 16]")
-    if coef.data_ptr() % 16:
-        raise ValueError("coef must be 16-byte aligned")
+    _require(coef, "coef", torch.float32, 3, dev)
+    _require(box, "box", torch.float32, 3, dev)
+    _require(block_box, "block_box", torch.float32, 3, dev)
+    _require(b_ymin, "ymin", torch.float32, 2, dev)
+    _require(b_ymax, "ymax", torch.float32, 2, dev)
+    bsz, n_tblocks = b_ymin.shape
+    fp = n_tblocks * 256
+    if (coef.shape != (bsz, fp, 16) or box.shape != (bsz, fp, 4)
+            or block_box.shape != (bsz, n_tblocks, 4)
+            or b_ymax.shape != (bsz, n_tblocks)):
+        raise ValueError(
+            f"coef {tuple(coef.shape)}, box {tuple(box.shape)}, block_box "
+            f"{tuple(block_box.shape)}, ymax {tuple(b_ymax.shape)} do not "
+            f"hold {bsz} meshes of {n_tblocks} blocks of 256 triangles")
+    if not 1 <= bsz <= 65535 or n_tblocks < 1:
+        raise ValueError(f"{bsz} meshes of {n_tblocks} blocks: need 1 to "
+                         "65535 meshes and at least one block")
+    if any(t.data_ptr() % 16 for t in (coef, box, block_box)):
+        raise ValueError("coef, box and block_box must be 16-byte aligned")
     n_pix = image_size * image_size
-    if image_size < 1 or cull_tile < 1:
-        raise ValueError("image_size and cull_tile must be positive")
-    _fits_int32(n_pix + 1024, n_tblocks * 256)
-    z = torch.empty(n_pix, dtype=torch.float32, device=dev)
-    winner = torch.empty(n_pix, dtype=torch.int32, device=dev)
+    if image_size < 1 or not 1 <= cull_tile <= n_pix:
+        raise ValueError("image_size must be positive and cull_tile in "
+                         "[1, image_size²]")
+    _fits_int32((image_size + 16) ** 2 + 1024, bsz * fp * 4)
+    z = torch.empty((bsz, n_pix), dtype=torch.float32, device=dev)
+    winner = torch.empty((bsz, n_pix), dtype=torch.int32, device=dev)
     _launch("raster_sweep", library().cfs_raster_sweep, dev,
-            _ptr(coef), _ptr(b_ymin), _ptr(b_ymax), _ptr(z), _ptr(winner),
-            n_tblocks, image_size, n_pix, cull_tile)
+            _ptr(coef), _ptr(box), _ptr(block_box), _ptr(b_ymin),
+            _ptr(b_ymax), _ptr(z), _ptr(winner), bsz, n_tblocks, image_size,
+            cull_tile)
     return z, winner

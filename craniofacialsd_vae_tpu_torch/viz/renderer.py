@@ -2,9 +2,11 @@
 
 A perspective camera on the reference's viewpoint convention (dist 2.5,
 elev 0, azim 15°, point light at (0, 0, 3)), per-vertex Gouraud diffuse
-shading, and the z-buffer rasterizer of ``raster.py``. On the card the
-rasterizer's sweep is kernel K7; on the host it is that kernel's plain
-twin. There is no other rasterizer.
+shading, and the z-buffer rasterizer of ``raster.py``. On the card a
+batch of meshes is shaded, projected, swept (one launch of kernel K7)
+and resolved as batched tensor ops; on the host the same ops run in
+sub-batches of ``max_vmap`` with the sweep's plain twin. There is no
+other rasterizer.
 """
 
 from __future__ import annotations
@@ -13,7 +15,7 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from .raster import rasterize
+from .raster import meshes_per_launch, rasterize_batch
 
 __all__ = ["look_at_camera", "vertex_normals", "render_mesh",
            "render_batch", "make_image_grid"]
@@ -38,12 +40,12 @@ def look_at_camera(dist: float = 2.5, elev_deg: float = 0.0,
 
 
 def vertex_normals(verts: torch.Tensor, faces: torch.Tensor) -> torch.Tensor:
-    """Area-weighted per-vertex normals ``[V, 3]``."""
-    v0, v1, v2 = (verts[faces[:, i]] for i in range(3))
-    fn = torch.linalg.cross(v1 - v0, v2 - v0)        # [F, 3]
+    """Area-weighted per-vertex normals ``[..., V, 3]``."""
+    v0, v1, v2 = (verts[..., faces[:, i], :] for i in range(3))
+    fn = torch.linalg.cross(v1 - v0, v2 - v0, dim=-1)       # [..., F, 3]
     n = torch.zeros_like(verts)
     for i in range(3):
-        n.index_add_(0, faces[:, i], fn)
+        n.index_add_(-2, faces[:, i], fn)
     return n / (torch.linalg.vector_norm(n, dim=-1, keepdim=True) + 1e-12)
 
 
@@ -53,7 +55,15 @@ def _shade(verts, faces, colors, light_pos):
     light = light / (torch.linalg.vector_norm(light, dim=-1, keepdim=True)
                      + 1e-12)
     diffuse = torch.clamp(torch.sum(normals * light, dim=-1), 0.0, 1.0)
-    return colors * (0.25 + 0.75 * diffuse)[:, None]
+    return colors * (0.25 + 0.75 * diffuse)[..., None]
+
+
+def _to_camera(verts, eye, rot):
+    """``(verts − eye) · rotᵀ`` written out elementwise, so that a mesh
+    gets the same bits in any batch."""
+    d = verts - eye
+    return (d[..., 0:1] * rot[:, 0] + d[..., 1:2] * rot[:, 1]
+            + d[..., 2:3] * rot[:, 2])
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -62,16 +72,32 @@ def _tensor(a, dtype, device) -> torch.Tensor:
     return torch.as_tensor(np.asarray(a), dtype=dtype, device=device)
 
 
+def _render(verts, faces, colors, eye, rot, light, image_size, shadeless,
+            background):
+    if not shadeless:
+        colors = _shade(verts, faces, colors, light)
+    return rasterize_batch(_to_camera(verts, eye, rot), faces, colors,
+                           image_size=image_size, background=background)
+
+
 def render_batch(batched_verts, faces, vertex_colors=None,
                  image_size: int = 256, dist: float = 2.5,
                  elev: float = 0.0, azim: float = 15.0,
                  shadeless: bool = False, light_pos=(0.0, 0.0, 3.0),
-                 background: float = 0.0, device=None) -> np.ndarray:
+                 max_vmap: int = 4, background: float = 0.0,
+                 quantize_transfer: bool = True, device=None) -> np.ndarray:
     """``[B, N, 3] → [B, H, W, 3]`` float images in [0, 1].
 
     ``vertex_colors`` is ``[N, 3]`` (shared) or ``[B, N, 3]``, default
     grey. ``shadeless=True`` samples the colours directly, as the
-    reference's error colormaps do. ``device=None`` renders on the card."""
+    reference's error colormaps do. ``device=None`` renders on the card.
+
+    On the card the whole batch is rendered at once (one K7 launch per
+    ``meshes_per_launch`` meshes) and the frames are stacked there; with
+    ``quantize_transfer`` they cross to the host as uint8 (round(255·v))
+    and come back as ``uint8 / 255``, as the JAX package's accelerator
+    path does. ``max_vmap`` is ignored there. On the host the meshes are
+    rendered in sub-batches of ``max_vmap`` and returned unquantized."""
     dev = resolve_device(device)
     verts = _tensor(batched_verts, torch.float32, dev)
     faces_t = _tensor(faces, torch.int64, dev)
@@ -85,31 +111,37 @@ def render_batch(batched_verts, faces, vertex_colors=None,
     eye_t = torch.as_tensor(eye, device=dev)
     rot_t = torch.as_tensor(rot, device=dev)
     light = torch.as_tensor(np.asarray(light_pos, np.float32), device=dev)
+    step = meshes_per_launch(image_size) if dev.type == "cuda" \
+        else max(1, max_vmap)
 
-    imgs = []
     with torch.no_grad():
-        for v, c in zip(verts, colors):
-            if not shadeless:
-                c = _shade(v, faces_t, c, light)
-            v_cam = (v - eye_t) @ rot_t.T
-            imgs.append(rasterize(v_cam, faces_t, c, image_size=image_size,
-                                  background=background))
-        out = torch.clamp(torch.stack(imgs), 0.0, 1.0)
+        frames = [_render(verts[s:s + step], faces_t, colors[s:s + step],
+                          eye_t, rot_t, light, image_size, shadeless,
+                          background)
+                  for s in range(0, len(verts), step)]
+        out = torch.clamp(torch.cat(frames), 0.0, 1.0)
+        if dev.type == "cuda" and quantize_transfer:
+            packed = torch.round(out * 255.0).to(torch.uint8)
+            return packed.cpu().numpy().astype(np.float32) / 255.0
     return out.cpu().numpy()
 
 
 def render_mesh(verts, faces, vertex_colors=None, image_size: int = 256,
                 dist: float = 2.5, elev: float = 0.0, azim: float = 15.0,
                 shadeless: bool = False, light_pos=(0.0, 0.0, 3.0),
-                background: float = 0.0, device=None) -> np.ndarray:
-    """One mesh ``[N, 3]`` → ``[H, W, 3]`` float image in [0, 1]."""
+                max_vmap: int = 4, background: float = 0.0,
+                quantize_transfer: bool = False, device=None) -> np.ndarray:
+    """One mesh ``[N, 3]`` → ``[H, W, 3]`` float image in [0, 1]; the
+    other arguments go to ``render_batch`` (unquantized by default, as
+    the JAX package's ``render_mesh`` returns floats)."""
     dev = resolve_device(device)
     colors = None if vertex_colors is None else \
         _tensor(vertex_colors, torch.float32, dev)
     return render_batch(_tensor(verts, torch.float32, dev)[None], faces,
                         colors, image_size=image_size, dist=dist, elev=elev,
                         azim=azim, shadeless=shadeless, light_pos=light_pos,
-                        background=background, device=dev)[0]
+                        max_vmap=max_vmap, background=background,
+                        quantize_transfer=quantize_transfer, device=dev)[0]
 
 
 def make_image_grid(images: np.ndarray, nrow: int = 4, padding: int = 10,

@@ -15,7 +15,8 @@ import pytest
 import torch
 
 from craniofacialsd_vae_tpu_torch import kernels, ops
-from craniofacialsd_vae_tpu_torch.geometry import load_bundle
+from craniofacialsd_vae_tpu_torch.geometry import (adversarial_mesh,
+                                                   load_bundle, uv_sphere)
 from craniofacialsd_vae_tpu_torch.models import SDVAEConfig, SpiralGeometry
 from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
 from craniofacialsd_vae_tpu_torch.viz import raster
@@ -143,59 +144,151 @@ def test_spiral_conv_kernel_at_other_scales(card_geometry, name, c_in, c_out,
 
 
 def _sphere():
-    from chip_smoke import uv_sphere
     return uv_sphere(24, 48)
 
 
-def _sweep_both(dev, verts, faces, size):
+def _camera(verts):
     eye, rot = look_at_camera()
-    v_cam = torch.as_tensor((verts - eye) @ rot.T, device=dev)
+    return ((verts - eye) @ rot.T).astype(np.float32)
+
+
+def _sweep_both(dev, verts_cam, faces, size):
+    """One K7 launch over ``verts_cam [B, V, 3]``, and the plain twin mesh
+    by mesh."""
     f = torch.as_tensor(faces, device=dev).long()
-    pts = raster.project(v_cam, size)
-    nb = -(-len(faces) // raster.TRI_BLOCK)
-    coef = raster._triangle_coefficients(pts, f, nb)
-    lo, hi = raster._block_y_ranges(pts[f, 1], nb)
-    lo, hi = lo.contiguous(), hi.contiguous()
-    got = kernels.raster_sweep(coef, lo, hi, size,
-                               raster._cull_tile(size * size))
-    want = raster._zbuffer_sweep_plain(coef, lo, hi, size)
+    pts = raster.project(torch.as_tensor(verts_cam, device=dev), size)
+    inp = raster.sweep_inputs(pts, f, size)
+    got = kernels.raster_sweep(inp.coef, inp.box, inp.block_box, inp.ymin,
+                               inp.ymax, size, raster._cull_tile(size * size))
+    want = [raster._zbuffer_sweep_plain(c, lo, hi, size)
+            for c, lo, hi in zip(inp.coef, inp.ymin, inp.ymax)]
     torch.cuda.synchronize()
     return got, want
+
+
+def _assert_identical(got, want):
+    z, w = got
+    assert z.shape == w.shape == (len(want), want[0][0].numel())
+    for b, (z_ref, w_ref) in enumerate(want):
+        assert torch.equal(z[b], z_ref) and torch.equal(w[b], w_ref), b
 
 
 @pytest.mark.parametrize("size", [16, 20, 48, 64, 256])
 def test_raster_sweep_kernel_equals_plain(size):
     """z and winner bit-identical (no FMA contraction on either side);
-    20² and 48² have ragged tiles."""
+    20² and 48² have ragged strips and tiles."""
     dev = _card()
     verts, faces = _sphere()
-    (z, w), (z_ref, w_ref) = _sweep_both(dev, verts, faces, size)
-    assert torch.equal(z, z_ref) and torch.equal(w, w_ref)
-    assert int((w < len(faces)).sum()) > 0
+    got, want = _sweep_both(dev, _camera(verts)[None], faces, size)
+    _assert_identical(got, want)
+    assert int((got[1] < len(faces)).sum()) > 0
+
+
+@pytest.mark.parametrize("batch", [1, 3, 16])
+@pytest.mark.parametrize("size", [16, 48, 256])
+def test_raster_sweep_batch_equals_plain_per_mesh(size, batch):
+    """A batch of distinct lr0 meshes (seeded per-vertex offsets) in one
+    launch: every mesh bit-identical to its own plain sweep."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    rng = np.random.default_rng(batch)
+    verts = bundle.lr_pos[0][None] + 0.01 * rng.normal(
+        size=(batch,) + bundle.lr_pos[0].shape)
+    got, want = _sweep_both(dev, _camera(verts), bundle.lr_face[0], size)
+    _assert_identical(got, want)
+
+
+@pytest.mark.parametrize("size", [16, 48, 256])
+def test_raster_sweep_adversarial_mesh(size):
+    """Slivers, corners at and behind the camera plane, off-screen and
+    degenerate faces and coplanar duplicates two blocks apart."""
+    dev = _card()
+    verts, faces = adversarial_mesh(size)
+    got, want = _sweep_both(dev, np.stack([verts, 0.97 * verts]), faces,
+                            size)
+    _assert_identical(got, want)
 
 
 def test_raster_sweep_tie_goes_to_lower_index():
+    """Coplanar copies two blocks apart, in both orders, in one batch: the
+    lower index wins in each mesh."""
     dev = _card()
     tri = np.array([[-.4, -.4, 0.5], [.4, -.4, 0.5], [0., .4, 0.5]],
                    np.float32)
     verts = np.concatenate([tri, tri])
     filler = np.zeros((300, 3), np.int64)
     faces = np.concatenate([[[3, 4, 5]], filler, [[0, 1, 2]]])
-    (z, w), (z_ref, w_ref) = _sweep_both(dev, verts, faces, 64)
-    assert torch.equal(z, z_ref) and torch.equal(w, w_ref)
+    batch = np.stack([_camera(verts), _camera(verts[::-1].copy())])
+    got, want = _sweep_both(dev, batch, faces, 64)
+    _assert_identical(got, want)
+    w = got[1]
     hit = w < len(faces)
-    assert int(hit.sum()) > 50 and bool((w[hit] == 0).all())
+    assert int(hit[0].sum()) > 50 and bool((w[hit] == 0).all())
 
 
 def test_render_on_card_matches_host():
+    """Unquantized: under 1 % of pixels off by more than 1e-3 (edge
+    pixels where the card's and the host's shading round apart); the
+    default uint8 transfer within 1/255 of the card's floats."""
     dev = _card()
     verts, faces = _sphere()
     from craniofacialsd_vae_tpu_torch.viz import render_batch
 
-    batch = np.stack([verts, 0.8 * verts])
-    card = render_batch(batch, faces, image_size=64, device=dev)
+    batch = np.stack([verts, 0.8 * verts, 0.9 * verts])
+    card = render_batch(batch, faces, image_size=64, quantize_transfer=False,
+                        device=dev)
     host = render_batch(batch, faces, image_size=64, device="cpu")
     assert float((np.abs(card - host).max(-1) > 1e-3).mean()) < 0.01
+    quantized = render_batch(batch, faces, image_size=64, device=dev)
+    assert np.abs(quantized - card).max() <= 1 / 255 + 1e-6
+    assert np.array_equal(np.round(quantized * 255), quantized * 255)
+
+
+def test_render_batch_launches_k7_once_per_call():
+    dev = _card()
+    verts, faces = _sphere()
+    from craniofacialsd_vae_tpu_torch.viz import render_batch
+
+    kernels.launches.reset()
+    render_batch(np.stack([verts] * 5), faces, image_size=32, max_vmap=2,
+                 device=dev)
+    assert kernels.launches.snapshot()["raster_sweep"] == 1
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("level", [3, 2, 1, 0])
+def test_ell_matmul_kernel_on_the_up_pools(card_geometry, level, b):
+    """Every up-pool of the smoke model at its channel width, at the
+    service's batch buckets: bit-equal."""
+    dev = _card()
+    mat = card_geometry.up[level]
+    d = b * {3: 64, 2: 64, 1: 32, 0: 32}[level]
+    x2 = torch.randn((mat.n_cols, d), generator=_gen(dev, level), device=dev)
+    out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
+    ref = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("m,n,k,d", [
+    (500, 300, 3, 64), (333, 90, 5, 48), (1001, 900, 9, 96), (77, 20, 1, 4),
+    (40000, 5000, 3, 128),      # two rows per thread
+    (40000, 5000, 5, 128),      # two rows per thread, runtime K
+    (33800, 900, 3, 1028),      # ragged column segments
+])
+def test_ell_matmul_direct_plans_equal_plain(m, n, k, d):
+    """The direct kernel with one and two rows per thread, on other K (its
+    runtime-K build), ragged row groups and column segments, and repeated
+    indices."""
+    dev = _card()
+    g = _gen(dev, m)
+    cols = torch.randint(0, n, (m, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((m, k), generator=g, device=dev)
+    x2 = torch.randn((n, d), generator=g, device=dev)
+    out = kernels.ell_matmul_fwd(cols, vals, x2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.ell_matmul_plain(cols, vals, x2))
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take():
@@ -216,10 +309,25 @@ def test_wrappers_reject_what_the_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.spiral_conv_fwd(x3.transpose(0, 1), cols, w,
                                 torch.zeros(5, device=dev))
-    with pytest.raises(ValueError):
-        kernels.raster_sweep(torch.zeros(100, 16, device=dev),
-                             torch.zeros(1, device=dev),
-                             torch.zeros(1, device=dev), 8, 64)
+    coef = torch.zeros(2, 256, 16, device=dev)
+    box = torch.zeros(2, 256, 4, device=dev)
+    bbox = torch.zeros(2, 1, 4, device=dev)
+    ys = torch.zeros(2, 1, device=dev)
+    z, w = kernels.raster_sweep(coef, box, bbox, ys, ys, 8, 64)
+    assert z.shape == w.shape == (2, 64)
+    for bad in ((coef[:, :100], box, bbox, ys, ys, 8, 64),    # not 256·nb
+                (coef[0], box, bbox, ys, ys, 8, 64),          # no batch dim
+                (coef, box[:1], bbox, ys, ys, 8, 64),         # batch differs
+                (coef, box, bbox[..., :3], ys, ys, 8, 64),    # box width
+                (coef, box, bbox, ys.long(), ys, 8, 64),      # dtype
+                (coef.cpu(), box, bbox, ys, ys, 8, 64),       # device
+                (coef, box, bbox, ys, ys, 8, 65),             # cull > P
+                (coef, box, bbox, ys, ys, 0, 1)):             # no pixels
+        with pytest.raises(ValueError):
+            kernels.raster_sweep(*bad)
+    with pytest.raises(ValueError):          # no entries per row
+        kernels.ell_matmul_fwd(cols[:, :0].contiguous(),
+                               vals[:, :0].contiguous(), x)
 
 
 def test_launch_counts_move_only_on_launch():

@@ -307,3 +307,32 @@ def test_rna_tf32_rounds_ties_away_from_zero():
     t = torch.tensor([one, -one, 1.0 + 2.0 ** -12, 3.0], dtype=torch.float32)
     got = _rna_tf32(t).tolist()
     assert got == [1.0 + 2.0 ** -10, -(1.0 + 2.0 ** -10), 1.0, 3.0]
+
+
+# the smoke model's up-pools on the fixture: (rows out, rows in, channels)
+_UP_POOLS = {"up3": (267, 67, 64), "up2": (1065, 267, 64),
+             "up1": (4260, 1065, 32), "up0": (17039, 4260, 32)}
+
+
+def test_up_pool_shapes_match_the_fixture(bundle):
+    for level in range(4):
+        m, n, _ = _UP_POOLS[f"up{level}"]
+        assert bundle.up[level].shape == (m, n)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("pool", sorted(_UP_POOLS))
+def test_ell_matmul_on_the_up_pools_matches_jax(bundle, pool, b):
+    """K4's plain twin on the serving path's up-pools at the service's
+    batch buckets (D = B·C, as the kernel sees them) against the JAX
+    package's ``ell_matmul_raw``."""
+    level = int(pool[-1])
+    m, n, c = _UP_POOLS[pool]
+    coo = bundle.up[level]
+    mat_t = tsparse.from_coo(coo.rows, coo.cols, coo.vals, coo.shape)
+    mat_j = jsparse.from_coo(coo.rows, coo.cols, coo.vals, coo.shape)
+    x = _rand(np.random.default_rng(10 + level), n, b * c)
+    out = tsparse.ell_matmul_raw(mat_t.cols, mat_t.vals, torch.from_numpy(x))
+    ref = jsparse.ell_matmul_raw(mat_j.cols, mat_j.vals, jnp.asarray(x))
+    assert out.shape == (m, b * c)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

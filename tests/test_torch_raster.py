@@ -1,6 +1,9 @@
 """The port's rasterizer and colours (plain versions, CPU) against the
 JAX rasterizer run as its own tests run it (``interpret=True``), plus the
-tie-break, background and device rules."""
+tie-break, background and device rules, the batched render against the
+JAX package's, and the invariant of the kernel's cull."""
+
+import os
 
 import numpy as np
 import pytest
@@ -96,12 +99,10 @@ def test_sweep_matches_pallas_interpret_on_same_coefficients(size):
     tile."""
     vc, faces, _ = _sphere_cam(3)
     pts = tr.project(torch.from_numpy(vc), size)
-    n_blocks = -(-len(faces) // 256)
-    coef = tr._triangle_coefficients(pts, torch.from_numpy(faces).long(),
-                                     n_blocks)
+    inp = tr.sweep_inputs(pts[None], torch.from_numpy(faces), size)
     tri_y = pts[torch.from_numpy(faces).long(), 1]
-    z_t, w_t = tr._zbuffer_sweep(coef, tri_y, size)
-    z_j, w_j = jr._zbuffer_sweep(jnp.asarray(coef.numpy()),
+    z_t, w_t = (a[0] for a in tr._zbuffer_sweep(inp, size))
+    z_j, w_j = jr._zbuffer_sweep(jnp.asarray(inp.coef[0].numpy()),
                                  jnp.asarray(tri_y.numpy()), size,
                                  interpret=True)
     np.testing.assert_array_equal(w_t.numpy(), np.asarray(w_j))
@@ -182,3 +183,128 @@ def test_errors_to_colors_equals_matplotlib():
         np.testing.assert_array_equal(out, ref)
     with pytest.raises(ValueError):
         errors_to_colors(np.zeros(3), cmap="viridis")
+
+
+def _octasphere_batch(n, seed=0):
+    """``n`` distinct meshes on the octasphere's faces (seeded scales and
+    offsets) and seeded per-vertex colours."""
+    verts, faces = octasphere(2)
+    rng = np.random.default_rng(seed)
+    batch = np.stack([verts * rng.uniform(0.7, 1.1)
+                      + rng.normal(0, 0.05, verts.shape) for _ in range(n)])
+    cols = rng.random((n,) + verts.shape)
+    return batch.astype(np.float32), faces, cols.astype(np.float32)
+
+
+@pytest.mark.parametrize("shadeless", [False, True])
+def test_render_batch_matches_jax_render_batch(monkeypatch, shadeless):
+    """Three distinct meshes, against the JAX package's portable vmapped
+    path (native rasterizer off, max_vmap 2, floats): atol 1e-4, the bound
+    the JAX tests hold its rasterizers to."""
+    from craniofacialsd_vae_tpu.viz.renderer import \
+        render_batch as jax_render_batch
+
+    monkeypatch.setenv("CFSDVAE_NATIVE_RASTER", "0")
+    batch, faces, cols = _octasphere_batch(3)
+    kw = dict(image_size=32, shadeless=shadeless, background=0.25,
+              max_vmap=2)
+    ref = jax_render_batch(batch, faces, cols, quantize_transfer=False, **kw)
+    out = render_batch(batch, faces, cols, quantize_transfer=False,
+                       device="cpu", **kw)
+    assert out.shape == ref.shape == (3, 32, 32, 3)
+    assert (out == 0.25).any() and (out != 0.25).mean() > 0.1
+    np.testing.assert_allclose(out, ref, atol=1e-4)
+
+
+def test_rasterize_batch_equals_rasterize_per_mesh():
+    """The batched coefficient build, sweep and resolve give each mesh the
+    bits of its own ``rasterize``."""
+    batch, faces, cols = _octasphere_batch(3, seed=1)
+    eye, rot = look_at_camera()
+    vc = torch.from_numpy(((batch - eye) @ rot.T).astype(np.float32))
+    f = torch.from_numpy(faces)
+    c = torch.from_numpy(cols)
+    out = tr.rasterize_batch(vc, f, c, image_size=24, background=0.5)
+    for b in range(3):
+        one = tr.rasterize(vc[b], f, c[b], image_size=24, background=0.5)
+        assert torch.equal(out[b], one)
+
+
+def test_render_batch_sub_batches_give_the_same_images():
+    """A max_vmap that does not divide the batch (and one that exceeds
+    it) gives the images of one mesh at a time, bit for bit."""
+    batch, faces, cols = _octasphere_batch(5, seed=2)
+    imgs = [render_batch(batch, faces, cols, image_size=24, max_vmap=mv,
+                         device="cpu") for mv in (1, 2, 8)]
+    assert np.array_equal(imgs[0], imgs[1])
+    assert np.array_equal(imgs[0], imgs[2])
+
+
+def test_meshes_per_launch_keeps_the_resolve_near_1_gb():
+    assert tr.meshes_per_launch(256) == 64
+    assert tr.meshes_per_launch(512) == 16
+    assert tr.meshes_per_launch(4096) == 1
+
+
+def _inside_pairs(inp, size):
+    """The (pixel, triangle) pairs the plain twin finds inside (strip cull
+    included), as codes pixel·Fp + triangle."""
+    coef, fp = inp.coef, inp.coef.shape[0]
+    n_pix = size * size
+    tile = tr._cull_tile(n_pix)
+    gid = torch.arange(n_pix)
+    px = (gid % size).to(torch.float32) + 0.5
+    py = (gid // size).to(torch.float32) + 0.5
+    lo, hi = tr._strip_rows(gid // tile, tile, size)
+    codes = []
+    for j in range(inp.ymin.shape[0]):
+        c = coef[j * 256:(j + 1) * 256]
+
+        def affine(k):
+            return c[:, k:k + 1] * px + c[:, k + 1:k + 2] * py \
+                + c[:, k + 2:k + 3]
+
+        hit = (inp.ymin[j] <= hi) & (inp.ymax[j] >= lo)
+        inside = (affine(0) >= 0) & (affine(3) >= 0) & (affine(6) >= 0) \
+            & (affine(9) > 1e-6) & hit
+        t, p = torch.nonzero(inside, as_tuple=True)
+        codes.append(p * fp + t + j * 256)
+    return torch.cat(codes)
+
+
+def _invariant_cases():
+    from craniofacialsd_vae_tpu_torch.geometry import (adversarial_mesh,
+                                                       load_bundle)
+
+    bundle = load_bundle(os.path.join(os.path.dirname(__file__), "fixtures",
+                                      "geometry.npz"))
+    eye, rot = look_at_camera()
+    verts, faces = octasphere(3)
+    return {"octasphere": ((verts - eye) @ rot.T, faces, 64),
+            "lr0": ((bundle.lr_pos[0] - eye) @ rot.T, bundle.lr_face[0],
+                    256),
+            "adversarial": (*adversarial_mesh(64), 64)}
+
+
+@pytest.mark.parametrize("mesh", ["octasphere", "lr0", "adversarial"])
+def test_kernel_cull_keeps_every_inside_pair_and_no_skipped_one(mesh):
+    """K7's invariant, through ``sweep_pairs`` (the plain mirror of the
+    kernel's tile and triangle cull): the pairs it evaluates (i) hold every
+    pair the twin finds inside and (ii) lie within the twin's strip-cull
+    pairs."""
+    vc, faces, size = _invariant_cases()[mesh]
+    pts = tr.project(torch.as_tensor(np.asarray(vc, np.float32)), size)
+    inp = tr.sweep_inputs(pts, torch.as_tensor(faces), size)
+    pix, tri = tr.sweep_pairs(inp, size)
+    fp = inp.coef.shape[0]
+    kept = pix * fp + tri
+    assert kept.unique().numel() == kept.numel()
+    inside = _inside_pairs(inp, size)
+    assert inside.numel() > 0
+    assert bool(torch.isin(inside, kept).all())                      # (i)
+    cull = tr._cull_tile(size * size)
+    lo, hi = tr._strip_rows(pix // cull, cull, size)
+    blk = tri // 256
+    assert bool(((inp.ymin[blk] <= hi) & (inp.ymax[blk] >= lo)).all())  # (ii)
+    # the boxes do cull: far fewer pairs than the strip cull keeps
+    assert kept.numel() < 0.5 * size * size * fp
