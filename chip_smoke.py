@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving path on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving and training paths on one
+NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -29,7 +30,21 @@ them or outside a checkout. Phases, each of which raises on a fault:
    reconstructions, the shape of each counted launch, is held against the twin mesh by mesh, the
    renders against the host's (unquantized) and the uint8 transfer
    against the card's floats, and render and request times are taken;
-5. launch counts: each kernel must have run during phase 4.
+5. training at full width (``configurations/smoke.yaml``'s model and
+   optimisation sections: 4 scans, a 16-mesh swap grid, the stand-in
+   Laplacian and 15 stand-in regions of ``geometry/synthetic.py``):
+   (a) K2-dW at the nine convs' shapes and K4 with K4-tier on every
+   backward table (the up-pools' and the convs' transposes, the
+   Laplacian and its transpose), held against their twins and timed;
+   (b) one counted ``make_train_step`` step on the card against the same
+   step on the host (same weights, scans, region and noise): losses and
+   every gradient leaf; (c) 10 warm steps (host-clock step time,
+   throughput, finite losses) and a profiled step;
+6. launch counts, read per path: K1, K4 and K7 must each have run during
+   phase 4, and K1, K4, K2-dW and K4-tier during phase 5's counted step
+   (which must match ``expected_step_launches`` exactly); every kernel
+   must have run on one of them. The kernels' record holds one entry per
+   kernel and path, each timed over the shapes of that path's launches.
 
 The last three lines of standard output are the kernels' JSON record,
 the nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--json``
@@ -70,6 +85,19 @@ MODEL_CONFIG = {
 }
 KL_WEIGHT = 1e-4
 TO_MM = 89.11
+# configurations/smoke.yaml: the optimization section of the training phase
+TRAIN_CONFIG = {
+    "batch_size": 4,
+    "lr": 1e-4,
+    "weight_decay": 0,
+    "laplacian_weight": 0.1,
+    "kl_weight": 1e-4,
+    "latent_consistency_weight": 0.5,
+    "latent_consistency_eta1": 0.5,
+    "latent_consistency_eta2": 0.5,
+}
+N_REGIONS = 15          # the stand-in regions (the template has 15)
+WARM_STEPS = 10
 REQUEST_SIZES = (1, 3, 16, 20)
 ERROR_MAX_MM = 5.0
 # H100 SXM peaks (data sheet): HBM bytes/s, fp32 flop/s off the tensor
@@ -82,6 +110,11 @@ K1_RTOL = 1e-5          # against max |out|: fp32 dot products summed in
 #                         another order than the library matmul's
 SERVE_RTOL = 1e-4       # card vs host service, against each array's max
 SERVE_ERR_ATOL_MM = 1e-3
+K2_RTOL = 1e-5          # K2-dW vs its twin, against max |dW|: fp32 sums of
+#                         M·B products in another order than the library
+#                         matmul's
+TRAIN_RTOL = 1e-4       # card step vs host step: losses, and each gradient
+#                         leaf against its max
 
 
 class SmokeFailure(RuntimeError):
@@ -132,12 +165,6 @@ def max_err(a, b) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
-def scatter_coo(coo, dense: np.ndarray) -> np.ndarray:
-    out = np.zeros((coo.shape[0],) + dense.shape[1:], np.float32)
-    np.add.at(out, coo.rows, coo.vals[:, None] * dense[coo.cols])
-    return out
-
-
 # ----------------------------------------------------------------------
 def phase_device(torch) -> tuple:
     name = torch.cuda.get_device_name(0)
@@ -169,7 +196,7 @@ def phase_build(kernels) -> tuple:
 
 
 def k1_ptxas(build_log: str) -> list:
-    """Registers, shared memory and spills of each K1 kernel, from the
+    """Registers and spills of each K1 and K2-dW kernel, from the
     build's ``-Xptxas -v`` output."""
     out, name = [], None
     for line in build_log.splitlines():
@@ -177,7 +204,9 @@ def k1_ptxas(build_log: str) -> list:
         if m:
             k = re.search(r"spiral_conv_(tc|narrow)_kernelILi(\d+)ELi(\d+)E",
                           m.group(1))
-            name = f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k else None
+            dw = re.search(r"spiral_conv_dw_(partial|sum)", m.group(1))
+            name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
+                    else f"dw_{dw.group(1)}" if dw else None)
             if name:
                 out.append({"kernel": name})
         elif name and "Used" in line:
@@ -189,6 +218,22 @@ def k1_ptxas(build_log: str) -> list:
     return out
 
 
+def model_convs(model, geom) -> list:
+    """``(name, conv, spiral op)`` of every spiral conv of a forward pass,
+    in its order."""
+    n = len(model.en_convs)
+    convs = [(f"enc{i}", model.en_convs[i], geom.enc_spirals[i])
+             for i in range(n)]
+    convs += [(f"dec{n - 1 - j}", model.de_convs[j],
+               geom.spirals[n - 1 - j]) for j in range(n)]
+    convs.append(("final", model.final_conv, geom.spirals[0]))
+    return convs
+
+
+def conv_widths(conv, op) -> tuple:
+    return conv.w.shape[0] // op.seq_length, conv.w.shape[1]
+
+
 def k1_parity(torch, mods, model, geom, build_log: str) -> list:
     """Every spiral conv of a forward pass, at each batch bucket, with the
     model's own (seeded) weights and random inputs: parity with the plain
@@ -196,19 +241,13 @@ def k1_parity(torch, mods, model, geom, build_log: str) -> list:
     form. One record per K1 kernel from the B = 16 pass."""
     kernels, ops = mods["kernels"], mods["ops"]
     for k in k1_ptxas(build_log):
-        log(f"[3 K1 ptxas] {k['kernel']}: {k.get('registers')} registers, "
+        log(f"[3 ptxas] {k['kernel']}: {k.get('registers')} registers, "
             f"{k.get('spill_bytes', 0)} bytes spilled")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
-    n = len(model.en_convs)
-    convs = [(f"enc{i}", model.en_convs[i], geom.enc_spirals[i])
-             for i in range(n)]
-    convs += [(f"dec{n - 1 - j}", model.de_convs[j],
-               geom.spirals[n - 1 - j]) for j in range(n)]
-    convs.append(("final", model.final_conv, geom.spirals[0]))
     by_batch = {}
     for batch in BATCHES:
         shapes = []
-        for name, conv, op in convs:
+        for name, conv, op in model_convs(model, geom):
             shapes.append(k1_shape(torch, kernels, ops, gen, name, conv, op,
                                    batch))
         tot = {k: sum(s[k] for s in shapes)
@@ -560,9 +599,12 @@ def device_profile(torch, fn) -> dict:
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+    # device work only: a user annotation (Optimizer.step's range) spans
+    # kernels that are counted on their own
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in prof.key_averages()
             if e.device_type == DeviceType.CUDA
+            and not getattr(e, "is_user_annotation", False)
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
@@ -579,6 +621,7 @@ def device_profile(torch, fn) -> dict:
 
 def phase_serving(torch, mods, bundle, config) -> dict:
     """The port's main path on the card, then the same on the host."""
+    from craniofacialsd_vae_tpu_torch.geometry import level0_positions
     from craniofacialsd_vae_tpu_torch.ops import selection_indices
     from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
     from craniofacialsd_vae_tpu_torch.viz import (errors_to_colors,
@@ -588,7 +631,7 @@ def phase_serving(torch, mods, bundle, config) -> dict:
     rng = np.random.default_rng(SEED)
     n = bundle.vertex_counts[0]
     # a head in the template's own frame, spread by a seeded per-vertex std
-    mean = scatter_coo(bundle.up[0], bundle.lr_pos[0])
+    mean = level0_positions(bundle)
     std = (0.01 + 0.02 * rng.random((n, 3))).astype(np.float32)
     norm = {"mean": mean, "std": std}
     scans = {b: (mean + std * rng.normal(size=(b, n, 3))).astype(np.float32)
@@ -725,6 +768,381 @@ def phase_serving(torch, mods, bundle, config) -> dict:
 
 
 # ----------------------------------------------------------------------
+def training_geometry(bundle):
+    """The hierarchy on the host with the stand-in Laplacian and regions
+    (``template.ply``, their source, is not in the repo)."""
+    from craniofacialsd_vae_tpu_torch.geometry import (level0_positions,
+                                                       standin_laplacian_coo,
+                                                       standin_region_masks)
+    from craniofacialsd_vae_tpu_torch.models import SpiralGeometry
+
+    return SpiralGeometry.from_bundle(
+        bundle, device="cpu",
+        laplacian=standin_laplacian_coo(bundle.spirals[0]),
+        region_masks=standin_region_masks(level0_positions(bundle),
+                                          N_REGIONS))
+
+
+def k2_parity(torch, mods, model, geom, batch: int) -> dict:
+    """K2-dW at each conv's shape over a ``batch``-mesh grid, random x
+    and dy: within K2_RTOL of the twin, two launches bit-equal, timed
+    against the twin and the library form (``index_select`` of the L
+    gathers, one ``einsum``)."""
+    kernels, ops = mods["kernels"], mods["ops"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
+    shapes = []
+    for name, conv, op in model_convs(model, geom):
+        seq, m = op.seq_length, op.num_vertices
+        c_in, c_out = conv_widths(conv, op)
+        x = torch.randn((op.n_src, batch, c_in), generator=gen, device=DEVICE)
+        dy = torch.randn((m, batch, c_out), generator=gen, device=DEVICE)
+        table = op.table
+        flat = table.t().reshape(-1)
+        x2, d2 = x.view(op.n_src, -1), dy.view(-1, c_out)
+        lib = lambda: torch.einsum(                      # noqa: E731
+            "lnc,no->lco",
+            x2.index_select(0, flat).view(seq, m * batch, c_in), d2)
+        with torch.inference_mode():
+            out = kernels.spiral_conv_dw(x, table, dy)
+            again = kernels.spiral_conv_dw(x, table, dy)
+            ref = ops.spiral_conv_dw_plain(x, table, dy)
+            torch.cuda.synchronize()
+            err = max_err(out, ref)
+            scale = float(ref.abs().max())
+            check(err <= K2_RTOL * scale,
+                  f"K2-dW {name}: max |kernel - plain| {err:.3e} > "
+                  f"{K2_RTOL} x {scale:.3e}")
+            check(torch.equal(out, again), f"K2-dW {name}: launches differ")
+            lib_err = max_err(lib(), ref)
+            check(lib_err <= 1e-4 * scale,
+                  f"K2-dW {name}: library form disagrees ({lib_err:.3e})")
+            ms = cuda_ms(torch, lambda: kernels.spiral_conv_dw(x, table, dy),
+                         20)
+            plain_ms = cuda_ms(
+                torch, lambda: ops.spiral_conv_dw_plain(x, table, dy), 5)
+            lib_ms = cuda_ms(torch, lib, 5)
+        nbytes = 4 * (x.numel() + dy.numel() + table.numel()
+                      + seq * c_in * c_out)
+        flops = 2.0 * seq * m * batch * c_in * c_out
+        b_ms, b_by, _, _ = bound(nbytes, flops)
+        chunks, chunk_rows = kernels.plan_spiral_conv_dw(m, batch, seq)
+        log(f"[5 K2-dW {name}] {op.n_src}->{m} x{batch} {c_in}->{c_out} "
+            f"({chunks} chunks of {chunk_rows} rows): err {err:.2e} (max|dW| "
+            f"{scale:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
+            f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+        shapes.append(dict(conv=name, batch=batch, n_src=op.n_src, m=m,
+                           c_in=c_in, c_out=c_out, chunks=chunks,
+                           chunk_rows=chunk_rows, max_abs_err=err,
+                           rel_err=err / scale, ms=ms, plain_ms=plain_ms,
+                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                           bytes=nbytes, flops=flops))
+        del x, dy, out, again, ref
+    rec = summarize("spiral_conv_dw", "csrc/spiral_conv_dw.cu",
+                    "craniofacialsd_vae_tpu/ops/spiral_conv.py:208", shapes)
+    log(f"[5 K2-dW] per step: kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+    return rec
+
+
+def backward_tables(model, geom, batch: int) -> list:
+    """``(name, matrix, source rows, D)`` of each K4 product a step makes
+    besides the up-pools' forward: the Laplacian, then the backward's
+    transposes in the order autograd reaches them (the first encoder
+    conv reads the data and computes no dx)."""
+    n = len(model.de_convs)
+    nv = geom.num_vertices
+    tables = [("lap", geom.laplacian, nv, 3 * batch),
+              ("lap T", geom.laplacian.transpose, nv, 3 * batch)]
+    convs = model_convs(model, geom)
+    for name, conv, op in reversed(convs):
+        c_in, _ = conv_widths(conv, op)
+        if name != "enc0":
+            for table, cols in zip(op.inv_tables, op.group_cols):
+                tables.append((f"{name} T", table,
+                               len(cols) * op.num_vertices, batch * c_in))
+        if name.startswith("dec"):
+            level = int(name[3:])
+            up = geom.up[level]
+            tables.append((f"up{level} T", up.transpose, up.shape[0],
+                           batch * c_in))
+    return tables
+
+
+def coo_of(torch, rows, cols, vals, shape):
+    k = cols.shape[1]
+    idx = torch.stack([rows.long().repeat_interleave(k),
+                       cols.reshape(-1).long()])
+    return torch.sparse_coo_tensor(idx, vals.reshape(-1), shape,
+                                   check_invariants=True).coalesce()
+
+
+def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
+    """Every table of ``backward_tables``: the main table's K4 launch and
+    each overflow tier's K4-tier launch bit-equal to their twins (the
+    tier on a copy of one random output), each timed against its twin and
+    a library call (``torch.sparse.mm`` of the table; ``sparse.addmm`` of
+    the tier), and the whole ``CappedEll.apply`` equal to its twin."""
+    kernels, sparse = mods["kernels"], mods["sparse"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
+    mains, tiers = [], []
+    for name, mat, n_src, d in backward_tables(model, geom, batch):
+        m, k = mat.cols.shape
+        x2 = torch.randn((n_src, d), generator=gen, device=DEVICE)
+        sp = coo_of(torch, torch.arange(m, device=DEVICE), mat.cols,
+                    mat.vals, (m, n_src))
+        with torch.inference_mode():
+            out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
+            ref = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
+            torch.cuda.synchronize()
+            check(torch.equal(out, ref), f"K4 {name}: kernel and twin "
+                  f"differ at {int((out != ref).sum())} values")
+            scale = float(ref.abs().max())
+            lib = lambda: torch.sparse.mm(sp, x2)            # noqa: E731
+            check(max_err(lib(), ref) <= 1e-5 * scale,
+                  f"K4 {name}: library form disagrees")
+            ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
+                mat.cols, mat.vals, x2), 20)
+            plain_ms = cuda_ms(torch, lambda: sparse.ell_matmul_plain(
+                mat.cols, mat.vals, x2), 5)
+            lib_ms = cuda_ms(torch, lib, 5)
+        src = int(torch.unique(mat.cols).numel())
+        nbytes = 4 * (src * d + 2 * m * k + m * d)
+        flops = 2.0 * m * k * d
+        b_ms, b_by, _, _ = bound(nbytes, flops)
+        ties = getattr(mat, "tiers", ())
+        log(f"[5 K4 {name}] {n_src}->{m} K={k} D={d} ({len(ties)} tiers): "
+            f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+            f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+        mains.append(dict(table=name, n_src=n_src, m=m, k=k, d=d,
+                          tiers=len(ties), max_abs_err=0.0, ms=ms,
+                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                          bound_by=b_by, bytes=nbytes, flops=flops))
+        for t, (rows, cols, vals) in enumerate(ties):
+            tiers.append(k4_tier(torch, kernels, sparse, gen, f"{name} {t}",
+                                 rows, cols, vals, x2, m))
+        if ties:
+            with torch.inference_mode():
+                whole = mat.apply(x2)
+                want = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
+                for rows, cols, vals in ties:
+                    sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+                torch.cuda.synchronize()
+                check(torch.equal(whole, want),
+                      f"CappedEll.apply {name}: card and twin differ")
+        del x2, sp
+    rec = summarize("ell_matmul_tier", "csrc/ell_matmul.cu",
+                    "craniofacialsd_vae_tpu/ops/sparse.py:103", tiers)
+    main_rec = summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
+                         "craniofacialsd_vae_tpu/ops/sparse.py:191", mains)
+    log(f"[5 K4 backward] per step: {len(mains)} tables, kernel "
+        f"{main_rec['ms']:.4f} ms, plain {main_rec['plain_ms']:.4f}, library "
+        f"{main_rec['library_ms']:.4f}, bound {main_rec['bound_ms']:.4f}; "
+        f"K4-tier {len(tiers)} launches, kernel {rec['ms']:.4f} ms, plain "
+        f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, bound "
+        f"{rec['bound_ms']:.4f}")
+    return main_rec, rec
+
+
+def k4_tier(torch, kernels, sparse, gen, name, rows, cols, vals, x2,
+            m) -> dict:
+    r, k = cols.shape
+    d = x2.shape[1]
+    base = torch.randn((m, d), generator=gen, device=DEVICE)
+    sp = coo_of(torch, rows, cols, vals, (m, x2.shape[0]))
+    with torch.inference_mode():
+        got, want = base.clone(), base.clone()
+        kernels.ell_matmul_tier(rows, cols, vals, x2, got)
+        sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+        torch.cuda.synchronize()
+        check(torch.equal(got, want), f"K4-tier {name}: kernel and twin "
+              f"differ at {int((got != want).sum())} values")
+        lib = lambda: torch.sparse.addmm(base, sp, x2)       # noqa: E731
+        check(max_err(lib(), want) <= 1e-5 * float(want.abs().max()),
+              f"K4-tier {name}: library form disagrees")
+        scratch = base.clone()
+        ms = cuda_ms(torch, lambda: kernels.ell_matmul_tier(
+            rows, cols, vals, x2, scratch), 20)
+        plain_ms = cuda_ms(torch, lambda: sparse.ell_tier_add_plain(
+            rows, cols, vals, x2, scratch), 5)
+        lib_ms = cuda_ms(torch, lib, 5)
+    src = int(torch.unique(cols).numel())
+    nbytes = 4 * (src * d + 2 * r * k + r + 2 * r * d)
+    flops = 2.0 * r * k * d + r * d
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    log(f"[5 K4-tier {name}] {r} rows K={k} D={d}: bit-equal; kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
+        f"{b_ms:.5f} ({b_by})")
+    return dict(tier=name, rows=r, k=k, d=d, max_abs_err=0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops)
+
+
+def expected_step_launches(model, geom, batch: int) -> dict:
+    """Launches of one training step: K1 per conv, K4 per up-pool and per
+    table of ``backward_tables``, K4-tier per tier, K2-dW per conv."""
+    convs = model_convs(model, geom)
+    tables = backward_tables(model, geom, batch)
+    counts = dict.fromkeys(("spiral_conv_tc", "spiral_conv_narrow"), 0)
+    for _, conv, op in convs:
+        c_in, c_out = conv_widths(conv, op)
+        counts[("spiral_conv_narrow" if c_out < 8
+                else "spiral_conv_tc")] += 1
+    counts.update(ell_matmul_fwd=len(geom.up) + len(tables),
+                  ell_matmul_tier=sum(len(getattr(t[1], "tiers", ()))
+                                      for t in tables),
+                  spiral_conv_dw=len(convs), raster_sweep=0)
+    return counts
+
+
+def phase_training(torch, mods, bundle, config) -> dict:
+    """The training step on the card at full width, then on the host."""
+    from craniofacialsd_vae_tpu_torch.geometry import level0_positions
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.training import (LOSS_KEYS,
+                                                       LossWeights,
+                                                       coupled_adam,
+                                                       make_train_step)
+
+    kernels = mods["kernels"]
+    b = TRAIN_CONFIG["batch_size"]
+    grid = b * b
+    weights = LossWeights.from_config(TRAIN_CONFIG)
+    t0 = time.perf_counter()
+    geom_h = training_geometry(bundle)
+    geom = geom_h.to(DEVICE)
+    model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
+    setup_s = time.perf_counter() - t0
+    n_tiers = {name: len(getattr(mat, "tiers", ()))
+               for name, mat, _, _ in backward_tables(model, geom, grid)}
+    log(f"[5 train] geometry and model in {setup_s:.2f} s; stand-in "
+        f"Laplacian {int(geom.laplacian.cols.numel())} entries (K "
+        f"{geom.laplacian.cols.shape[1]}), {N_REGIONS} stand-in regions; "
+        f"tiers per backward table {n_tiers}")
+    k2 = k2_parity(torch, mods, model, geom, grid)
+    k4_main, tier = k4_backward_parity(torch, mods, model, geom, grid)
+    torch.cuda.empty_cache()
+
+    # scans drawn as the serving phase draws them, normalised by the same
+    # per-vertex statistics as a dataset would be
+    rng = np.random.default_rng(SEED + 5)
+    n = bundle.vertex_counts[0]
+    mean = level0_positions(bundle)
+    std = (0.01 + 0.02 * rng.random((n, 3))).astype(np.float32)
+    n_scans = 4 * b
+    scans = mean + std * rng.normal(size=(n_scans, n, 3))
+    data = ((scans - mean) / std).astype(np.float32)
+    gen_h = torch.Generator().manual_seed(SEED + 6)
+    region = int(torch.randint(0, N_REGIONS, (), generator=gen_h))
+    eps = torch.randn((grid, config.latent_size), generator=gen_h)
+    lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
+    step = make_train_step(model, weights,
+                           coupled_adam(model.parameters(), lr, wd), b)
+
+    # the main path: counts from 0, one step, counts read
+    x = torch.as_tensor(data[:b], device=DEVICE)
+    kernels.launches.reset()
+    t1 = time.perf_counter()
+    m_card = step(x, region_idx=region, eps=eps.to(DEVICE))
+    torch.cuda.synchronize()
+    first_ms = (time.perf_counter() - t1) * 1e3
+    counts = kernels.launches.snapshot()
+    want = expected_step_launches(model, geom, grid)
+    check(counts == want, f"step launches {counts}, expected {want}")
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    for k, g in grads.items():
+        check(g is not None and bool(torch.isfinite(g).all()),
+              f"card step: no finite gradient for {k}")
+
+    # the same step on the host: same weights, scans, region and noise
+    model_h = init_sdvae(config, geom_h, torch.Generator().manual_seed(SEED))
+    step_h = make_train_step(model_h, weights,
+                             coupled_adam(model_h.parameters(), lr, wd), b)
+    t1 = time.perf_counter()
+    m_host = step_h(torch.from_numpy(data[:b]), region_idx=region, eps=eps)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    loss_err = {}
+    for k in LOSS_KEYS:
+        got, ref = float(m_card[k]), float(m_host[k])
+        check(np.isfinite(got), f"card step: {k} is not finite")
+        check(abs(got - ref) <= TRAIN_RTOL * abs(ref),
+              f"step {k}: card {got!r} vs host {ref!r}")
+        loss_err[k] = abs(got - ref) / abs(ref) if ref else abs(got)
+    grad_err = {}
+    for k, p in model_h.named_parameters():
+        ref = p.grad
+        err = float((grads[k].cpu() - ref).abs().max())
+        scale = float(ref.abs().max())
+        check(err <= TRAIN_RTOL * scale,
+              f"gradient {k}: card vs host {err:.3e} > {TRAIN_RTOL} x "
+              f"{scale:.3e}")
+        grad_err[k] = err / scale
+    losses = ", ".join(f"{k}: {float(m_card[k]):.6g}" for k in LOSS_KEYS)
+    log(f"[5 train] counted step {first_ms:.1f} ms (cold), launches "
+        f"{counts}; losses {{{losses}}}; "
+        f"card vs host: worst loss rel {max(loss_err.values()):.2e}, worst "
+        f"gradient rel {max(grad_err.values()):.2e} "
+        f"({max(grad_err, key=grad_err.get)}); host step {host_ms:.0f} ms")
+    del model_h, step_h, geom_h
+
+    # warm steps with the region and noise from a generator on the card
+    data_dev = torch.as_tensor(data, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    idx = torch.randint(0, n_scans, (WARM_STEPS + 2, b), generator=gen,
+                        device=DEVICE)
+    step(data_dev.index_select(0, idx[0]), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, tots = [], []
+    for t in range(WARM_STEPS):
+        t1 = time.perf_counter()
+        m = step(data_dev.index_select(0, idx[t + 1]), generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        tots.append(m)
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    traj = {k: [float(m[k]) for m in tots] for k in LOSS_KEYS}
+    for k, v in traj.items():
+        check(all(np.isfinite(v)), f"warm steps: {k} not finite: {v}")
+    p50 = sorted(times)[len(times) // 2]
+    prof = device_profile(torch, lambda: step(
+        data_dev.index_select(0, idx[-1]), generator=gen))
+    top = ", ".join(f"{k['name'][:40]} {k['ms']:.3f} ({k['count']})"
+                    for k in prof["by_kernel"][:8])
+    log(f"[5 train] {WARM_STEPS} warm steps: p50 {p50:.2f} ms (min "
+        f"{min(times):.2f}, max {max(times):.2f}): {b / p50 * 1e3:.1f} "
+        f"scans/s, {grid / p50 * 1e3:.1f} swap-grid meshes/s; peak "
+        f"{peak_mb:.0f} MiB; tot {['%.5g' % v for v in traj['tot']]}")
+    log(f"[5 profile] train step: wall {prof['wall_ms']:.2f} ms, device "
+        f"{prof['device_ms']} ms, idle share {prof['idle_share']}; {top}")
+    return dict(counts=counts, k2=k2, k4_backward=k4_main, tier=tier,
+                first_step_ms=first_ms, host_step_ms=host_ms,
+                loss_rel_err=loss_err, grad_rel_err=grad_err,
+                step_ms=times, step_p50_ms=p50, scans_per_s=b / p50 * 1e3,
+                meshes_per_s=grid / p50 * 1e3, peak_mib=peak_mb,
+                trajectory=traj, profile=prof, setup_s=setup_s,
+                tiers=n_tiers)
+
+
+def training_records(serving: list, train: dict) -> list:
+    """One record per kernel of the training step, each timed over the
+    shapes of that step's own launches: K1 and the up-pools' forward at
+    the serving path's B = 16 pass (the swap grid has 16 meshes, so the
+    shapes are the same), K4 at the up-pools and every backward table,
+    K2-dW, K4-tier."""
+    grid = TRAIN_CONFIG["batch_size"] ** 2
+    check(grid == BATCH, f"the swap grid ({grid}) is not the B = {BATCH} "
+          "pass whose K1 and K4 times the training records reuse")
+    by_name = {r["name"]: r for r in serving}
+    k1 = [dict(by_name[n]) for n in ("spiral_conv_tc", "spiral_conv_narrow")]
+    k4 = summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
+                   "craniofacialsd_vae_tpu/ops/sparse.py:222",
+                   by_name["ell_matmul_fwd"]["shapes"]
+                   + train["k4_backward"]["shapes"])
+    return [*k1, k4, train["k2"], train["tier"]]
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -746,12 +1164,14 @@ def main(argv=None) -> int:
 
     from craniofacialsd_vae_tpu_torch import kernels, ops
     from craniofacialsd_vae_tpu_torch.geometry import load_bundle
+    from craniofacialsd_vae_tpu_torch.ops import sparse
     from craniofacialsd_vae_tpu_torch.models import (SDVAEConfig,
                                                      SpiralGeometry,
                                                      init_sdvae)
     from craniofacialsd_vae_tpu_torch.viz import raster
 
-    mods = {"kernels": kernels, "ops": ops, "raster": raster}
+    mods = {"kernels": kernels, "ops": ops, "raster": raster,
+            "sparse": sparse}
     name, smi_line = phase_device(torch)
     build_s, build_log = phase_build(kernels)
 
@@ -775,10 +1195,27 @@ def main(argv=None) -> int:
                parity_only=k7["parity_only"])
     records.append(rec)
     for rec in records:
+        rec["path"] = "serving"
         rec["launches"] = serve["counts"][rec["name"]]
         check(rec["launches"] > 0,
               f"{rec['name']} was not launched on the serving path")
-    log(f"[5 counts] {serve['counts']}; total {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    train = phase_training(torch, mods, bundle, config)
+    train_records = training_records(records, train)
+    for rec in train_records:
+        rec["path"] = "training"
+        rec["launches"] = train["counts"][rec["name"]]
+        check(rec["launches"] > 0,
+              f"{rec['name']} was not launched on the training path")
+    records += train_records
+    for kernel in kernels.KERNEL_NAMES:
+        check(serve["counts"][kernel] + train["counts"][kernel] > 0,
+              f"{kernel} was not launched on the serving or training path")
+    check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
+          "the kernels' record does not list every kernel")
+    log(f"[6 counts] serving {serve['counts']}; training step "
+        f"{train['counts']}; total {time.perf_counter() - t_start:.1f} s")
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -786,12 +1223,14 @@ def main(argv=None) -> int:
         with open(args.json, "w") as f:
             json.dump({"device": name, "nvidia_smi": smi_line,
                        "torch": torch.__version__, "build_s": build_s,
-                       "kernels": records, "serving": serve}, f, indent=1)
+                       "kernels": records, "serving": serve,
+                       "training": train}, f, indent=1)
 
     print(json.dumps({"kernels": [
-        {k: r[k] for k in ("name", "route", "source", "replaces", "launches",
-                           "max_abs_err", "ms", "plain_ms", "bound_ms",
-                           "bound_by", "library_ms")} for r in records]}))
+        {k: r[k] for k in ("name", "path", "route", "source", "replaces",
+                           "launches", "max_abs_err", "ms", "plain_ms",
+                           "bound_ms", "bound_by", "library_ms")}
+        for r in records]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,

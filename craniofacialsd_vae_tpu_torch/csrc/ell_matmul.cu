@@ -29,6 +29,22 @@
 // every entry is computed, as the plain twin does. Products and sums are
 // rounded one by one (__fmul_rn, __fadd_rn) in the plain twin's order, so
 // both paths agree with it bit for bit.
+//
+// K4-tier (cfs_ell_matmul_tier) replaces the overflow landing of
+// craniofacialsd_vae_tpu/ops/sparse.py::CappedEll.apply (lines 103-104,
+// `out.at[o_rows].add(ell_matmul_raw(o_cols, o_vals, x))`):
+//
+//   out[rows[r], :] += sum_k vals[r, k] * x[cols[r, k], :]
+//
+// in place, on the output of the main table. The rows of a tier are
+// unique (capped_ell builds them so), so each output row belongs to one
+// thread and is read and written once: no atomics, and the sum is
+// deterministic. The same kernels run it (the TIER template flag): the
+// tier's sum is formed exactly as K4 forms a row, then added to the row
+// with one rounding, as the plain twin's index_add does. Bound, as K4, by
+// bytes: the tier's gathered rows plus one read and one write of each
+// landed row; a tier is a few hundred rows, so one launch is mostly
+// launch latency.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -50,12 +66,19 @@ __device__ __forceinline__ float4 mul4(float w, float4 g) {
                      __fmul_rn(w, g.w));
 }
 
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y),
+                     __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
+}
+
 // Block (tx, 256 / tx), grid (row groups, column segments); each thread
 // computes R rows of one 16-byte column; KK = K when it is a compile-time
-// constant (the up-pools' 3), else 0.
-template <int R, int KK>
+// constant (the up-pools' 3), else 0. TIER: add row m's sum to out row
+// rows[m] (K4-tier) instead of writing out row m.
+template <int R, int KK, bool TIER>
 __global__ void __launch_bounds__(kThreads)
-ell_matmul_direct(const int* __restrict__ cols, const float* __restrict__ vals,
+ell_matmul_direct(const int* __restrict__ rows, const int* __restrict__ cols,
+                  const float* __restrict__ vals,
                   const float4* __restrict__ x, float4* __restrict__ out,
                   int M, int k_rt, int dw) {
   const int K = KK ? KK : k_rt;
@@ -81,12 +104,20 @@ ell_matmul_direct(const int* __restrict__ cols, const float* __restrict__ vals,
       acc[r] = k == 0 ? mul4(w[r], g[r]) : madd4(acc[r], w[r], g[r]);
   }
 #pragma unroll
-  for (int r = 0; r < R; ++r)
-    if (m0 + r < M) out[(size_t)(m0 + r) * dw + j] = acc[r];
+  for (int r = 0; r < R; ++r) {
+    if (m0 + r >= M) continue;
+    if (TIER) {
+      const size_t o = (size_t)__ldg(rows + m0 + r) * dw + j;
+      out[o] = add4(out[o], acc[r]);
+    } else {
+      out[(size_t)(m0 + r) * dw + j] = acc[r];
+    }
+  }
 }
 
+template <bool TIER>
 __global__ void __launch_bounds__(kThreads)
-ell_matmul_scalar(const int* __restrict__ cols,
+ell_matmul_scalar(const int* __restrict__ rows, const int* __restrict__ cols,
                   const float* __restrict__ vals,
                   const float* __restrict__ x, float* __restrict__ out,
                   int M, int K, int dw) {
@@ -94,11 +125,12 @@ ell_matmul_scalar(const int* __restrict__ cols,
   if (m >= M) return;
   const int* c = cols + (size_t)m * K;
   const float* v = vals + (size_t)m * K;
+  const size_t o = (size_t)(TIER ? __ldg(rows + m) : m) * dw;
   for (int j = threadIdx.x; j < dw; j += blockDim.x) {
     float acc = __fmul_rn(v[0], __ldg(x + (size_t)c[0] * dw + j));
     for (int k = 1; k < K; ++k)
       acc = __fadd_rn(acc, __fmul_rn(v[k], __ldg(x + (size_t)c[k] * dw + j)));
-    out[(size_t)m * dw + j] = acc;
+    out[o + j] = TIER ? __fadd_rn(out[o + j], acc) : acc;
   }
 }
 
@@ -110,37 +142,36 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
-template <int R>
-int launch_direct(const int* cols, const float* vals, const float* x,
-                  float* out, int M, int K, int dw, int tx, cudaStream_t s) {
+template <int R, bool TIER>
+int launch_direct(const int* rows, const int* cols, const float* vals,
+                  const float* x, float* out, int M, int K, int dw, int tx,
+                  cudaStream_t s) {
   const dim3 block(tx, kThreads / tx);
   const dim3 grid(blocks_along(M, block.y * R), blocks_along(dw, tx));
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* o4 = reinterpret_cast<float4*>(out);
   if (K == 3)
-    ell_matmul_direct<R, 3><<<grid, block, 0, s>>>(cols, vals, x4, o4, M, K,
-                                                   dw);
+    ell_matmul_direct<R, 3, TIER><<<grid, block, 0, s>>>(rows, cols, vals, x4,
+                                                         o4, M, K, dw);
   else
-    ell_matmul_direct<R, 0><<<grid, block, 0, s>>>(cols, vals, x4, o4, M, K,
-                                                   dw);
+    ell_matmul_direct<R, 0, TIER><<<grid, block, 0, s>>>(rows, cols, vals, x4,
+                                                         o4, M, K, dw);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// Returns a cudaError_t.
-extern "C" int cfs_ell_matmul_fwd(const int* cols, const float* vals,
-                                  const float* x, float* out, int M, int K,
-                                  int D, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
+// The launch rule shared by K4 and K4-tier (rows == nullptr: K4).
+template <bool TIER>
+int launch_ell(const int* rows, const int* cols, const float* vals,
+               const float* x, float* out, int M, int K, int D,
+               cudaStream_t s) {
   if (M < 1 || K < 1 || D < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   if (D % 4 || !aligned16(x) || !aligned16(out)) {
     int tx = 32;                     // threads along the row: a warp or more
     while (tx < D && tx < kThreads) tx *= 2;
     const dim3 block(tx, kThreads / tx);
-    ell_matmul_scalar<<<blocks_along(M, block.y), block, 0, s>>>(
-        cols, vals, x, out, M, K, D);
+    ell_matmul_scalar<TIER><<<blocks_along(M, block.y), block, 0, s>>>(
+        rows, cols, vals, x, out, M, K, D);
     return static_cast<int>(cudaGetLastError());
   }
   const int dw = D / 4;
@@ -154,6 +185,27 @@ extern "C" int cfs_ell_matmul_fwd(const int* cols, const float* vals,
   const long long two = static_cast<long long>(
       blocks_along(M, 2 * (kThreads / tx))) * blocks_along(dw, tx);
   return two >= 16LL * sms
-             ? launch_direct<2>(cols, vals, x, out, M, K, dw, tx, s)
-             : launch_direct<1>(cols, vals, x, out, M, K, dw, tx, s);
+             ? launch_direct<2, TIER>(rows, cols, vals, x, out, M, K, dw, tx, s)
+             : launch_direct<1, TIER>(rows, cols, vals, x, out, M, K, dw, tx,
+                                      s);
+}
+
+}  // namespace
+
+// K4: out [M, D] = the ELL product. Returns a cudaError_t.
+extern "C" int cfs_ell_matmul_fwd(const int* cols, const float* vals,
+                                  const float* x, float* out, int M, int K,
+                                  int D, void* stream) {
+  return launch_ell<false>(nullptr, cols, vals, x, out, M, K, D,
+                           static_cast<cudaStream_t>(stream));
+}
+
+// K4-tier: out[rows[r]] += the ELL product's row r, for R unique rows of
+// out [*, D], in place. Returns a cudaError_t.
+extern "C" int cfs_ell_matmul_tier(const int* rows, const int* cols,
+                                   const float* vals, const float* x,
+                                   float* out, int R, int K, int D,
+                                   void* stream) {
+  return launch_ell<true>(rows, cols, vals, x, out, R, K, D,
+                          static_cast<cudaStream_t>(stream));
 }

@@ -2,9 +2,10 @@
 
 Counterpart of ``geometry/simplify.py::SparseCOO`` and the array half of
 ``geometry/precompute.py::_load_bundle`` in the JAX package. The bundle
-holds only what serving and rendering need: per-level positions, faces
-and colours of the decimated templates, the down/up transforms as COO and
-the spiral tables. No Laplacian and no region extraction.
+holds per-level positions, faces and colours of the decimated templates,
+the down/up transforms as COO and the spiral tables. It holds no
+template: the training step's Laplacian and region masks are handed to
+``SpiralGeometry.from_bundle`` (``geometry/synthetic.py`` has stand-ins).
 """
 
 from __future__ import annotations

@@ -1,11 +1,16 @@
-"""Synthetic meshes for the rasterizer's tests and the card smoke run: a
-UV sphere and a mesh made to trip the z-buffer sweep's culls."""
+"""Synthetic meshes for the rasterizer's tests and the card smoke run (a
+UV sphere and a mesh made to trip the z-buffer sweep's culls), and the
+stand-ins for the full-resolution template's Laplacian and region masks
+that a training run on a bundle without its template takes."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["uv_sphere", "adversarial_mesh"]
+from .template import rw_laplacian_coo
+
+__all__ = ["uv_sphere", "adversarial_mesh", "level0_positions",
+           "standin_laplacian_coo", "standin_region_masks"]
 
 
 def uv_sphere(n_lat: int = 48, n_lon: int = 96):
@@ -96,3 +101,44 @@ def adversarial_mesh(image_size: int = 256, seed: int = 0):
     filler = np.zeros((2 * 256, 3), np.int64)     # degenerate: [0, 0, 0]
     return verts, np.concatenate([faces, filler, faces[:400]]).astype(
         np.int64)
+
+
+def level0_positions(bundle) -> np.ndarray:
+    """[N_0, 3] float32 full-resolution positions interpolated from the
+    first decimated level, ``up0 · lr0_pos`` (the bundle holds no level-0
+    mesh)."""
+    up = bundle.up[0]
+    pos = bundle.lr_pos[0]
+    out = np.zeros((up.shape[0], pos.shape[1]), np.float64)
+    np.add.at(out, up.rows, up.vals[:, None] * pos[up.cols])
+    return out.astype(np.float32)
+
+
+def standin_laplacian_coo(spiral0: np.ndarray, ring: int = 6):
+    """STAND-IN for the template's rw-Laplacian, which needs the level-0
+    faces of ``template.ply``: ``rw_laplacian_coo`` over the unique
+    undirected edges ``(v, spiral0[v, j])``, j = 1…``ring``. Positions
+    1–6 of a level-0 spiral are its centre's first ring (on the 17,039-
+    vertex fixture the relation is 97.6 % symmetric), so the graph is
+    close to the mesh's one-ring graph. Returns (rows, cols, vals)."""
+    spiral0 = np.asarray(spiral0)
+    n = spiral0.shape[0]
+    src = np.repeat(np.arange(n), ring)
+    dst = spiral0[:, 1:ring + 1].reshape(-1)
+    keep = src != dst
+    edges = np.unique(np.sort(np.stack([src[keep], dst[keep]], 1), axis=1),
+                      axis=0)
+    return rw_laplacian_coo(n, edges)
+
+
+def standin_region_masks(positions: np.ndarray,
+                         n_regions: int = 15) -> np.ndarray:
+    """STAND-IN for the template's region masks, which need the vertex
+    colours of ``template.ply``: ``n_regions`` slabs of equal vertex count
+    along z, cut at the quantiles of the positions' z as the JAX
+    ``geometry/synthetic.py::synthetic_template`` cuts the octasphere.
+    Returns [R, N] bool."""
+    z = np.asarray(positions)[:, 2]
+    qs = np.quantile(z, np.linspace(0, 1, n_regions + 1)[1:-1])
+    region = np.searchsorted(qs, z)
+    return region[None, :] == np.arange(n_regions)[:, None]

@@ -7,7 +7,8 @@ them at once) and the objects are linked into one shared library under
 it. The hash covers the sources and the flags, so an edit rebuilds.
 
 Each launch function checks device, dtype, shape, alignment and
-contiguity, allocates its output with ``torch.empty``, launches on
+contiguity, allocates its output (and K2-dW its scratch) with
+``torch.empty`` (K4-tier adds into the output it is given), launches on
 PyTorch's current stream, adds one to its entry in ``launches`` and raises
 if the C function reports a CUDA error. None of them falls back to a
 plain version: the callers choose the plain twin only for CPU tensors.
@@ -29,20 +30,22 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
-           "ell_matmul_fwd", "SpiralPlan", "plan_spiral_conv",
-           "spiral_conv_fwd", "raster_sweep"]
+           "ell_matmul_fwd", "ell_matmul_tier", "SpiralPlan",
+           "plan_spiral_conv", "spiral_conv_fwd", "plan_spiral_conv_dw",
+           "spiral_conv_dw", "raster_sweep"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
-SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu")
+SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
+           "spiral_conv_dw.cu")
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _CFLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v")
 
 KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
-                "raster_sweep")
+                "raster_sweep", "spiral_conv_dw", "ell_matmul_tier")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -160,8 +163,12 @@ def library() -> ctypes.CDLL:
                                                 i, ctypes.POINTER(i), p]
             lib.cfs_raster_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                              i, p]
+            lib.cfs_ell_matmul_tier.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.cfs_spiral_conv_dw.argtypes = [p, p, p, p, p, i, i, i, i, i,
+                                               i, ctypes.c_longlong, p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
-                       lib.cfs_raster_sweep):
+                       lib.cfs_raster_sweep, lib.cfs_ell_matmul_tier,
+                       lib.cfs_spiral_conv_dw):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -222,6 +229,39 @@ def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
     _launch("ell_matmul_fwd", library().cfs_ell_matmul_fwd, dev,
             _ptr(cols), _ptr(vals), _ptr(x2), _ptr(out), m, k, d)
     return out
+
+
+def ell_matmul_tier(rows: torch.Tensor, cols: torch.Tensor,
+                    vals: torch.Tensor, x2: torch.Tensor,
+                    out2: torch.Tensor) -> None:
+    """K4-tier, in place: ``out2[rows[r], :] += Σ_k vals[r,k] ·
+    x2[cols[r,k], :]`` for the ``R`` rows of one overflow tier over
+    packed ``[N, D]`` / ``[M, D]`` views. ``rows`` must be unique (the
+    kernel writes each once, without atomics) and in ``[0, M)``; the
+    table builder guarantees both."""
+    dev = x2.device
+    _require(x2, "x", torch.float32, 2, dev)
+    _require(out2, "out", torch.float32, 2, dev)
+    _require(rows, "rows", torch.int32, 1, dev)
+    _require(cols, "cols", torch.int32, 2, dev)
+    _require(vals, "vals", torch.float32, 2, dev)
+    if cols.shape != vals.shape or rows.shape[0] != cols.shape[0]:
+        raise ValueError(f"rows {tuple(rows.shape)}, cols "
+                         f"{tuple(cols.shape)} and vals {tuple(vals.shape)} "
+                         "do not describe one tier")
+    if out2.shape[1] != x2.shape[1]:
+        raise ValueError(f"out {tuple(out2.shape)} and x {tuple(x2.shape)} "
+                         "differ in width")
+    (r, k), (n, d) = cols.shape, x2.shape
+    _fits_int32(r, k, d, n, out2.shape[0])
+    if r == 0 or d == 0:
+        return
+    if n == 0 or k == 0:
+        raise ValueError("a tier needs at least one source row and one "
+                         "entry per row")
+    _launch("ell_matmul_tier", library().cfs_ell_matmul_tier, dev,
+            _ptr(rows), _ptr(cols), _ptr(vals), _ptr(x2), _ptr(out2), r, k,
+            d)
 
 
 @dataclass(frozen=True)
@@ -458,6 +498,54 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),
             m, seq, bsz, c_in, c_out, (ctypes.c_int * len(fields))(*fields))
+    return out
+
+
+_DW_STAGE_ROWS = 64             # csrc/spiral_conv_dw.cu's kStageRows
+
+
+def plan_spiral_conv_dw(m: int, b: int, seq: int) -> tuple:
+    """K2-dW's chunks of the ``m·b`` reduction rows: ``(n_chunks,
+    chunk_rows)``, about four blocks per SM over the ``seq`` positions
+    and no chunk under one stage of 64 rows."""
+    rows = m * b
+    n = max(1, min(_cdiv(4 * _SMS, seq), _cdiv(rows, _DW_STAGE_ROWS)))
+    chunk = _cdiv(_cdiv(rows, n), _DW_STAGE_ROWS) * _DW_STAGE_ROWS
+    return _cdiv(rows, chunk), chunk
+
+
+def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
+                   dy: torch.Tensor) -> torch.Tensor:
+    """K2-dW: ``dW[l] = Σ_{m,b} x[table[m, l], b]ᵀ dy[m, b]`` for
+    ``x [N_src, B, C_in]``, ``table [M, L]``, ``dy [M, B, C_out]``;
+    returns ``[L, C_in, C_out]``. Deterministic: fixed chunks summed in a
+    fixed order through a scratch buffer allocated here."""
+    dev = x.device
+    _require(x, "x", torch.float32, 3, dev)
+    _require(table, "table", torch.int32, 2, dev)
+    _require(dy, "dy", torch.float32, 3, dev)
+    n_src, bsz, c_in = x.shape
+    m, seq = table.shape
+    if dy.shape[:2] != (m, bsz):
+        raise ValueError(f"dy {tuple(dy.shape)} does not fit table "
+                         f"{tuple(table.shape)} and batch {bsz}")
+    c_out = dy.shape[2]
+    _fits_int32(n_src * bsz * c_in, m * bsz * c_out, m * seq,
+                seq * c_in * c_out)
+    out = torch.empty((seq, c_in, c_out), dtype=torch.float32, device=dev)
+    if seq == 0 or c_in == 0 or c_out == 0:
+        return out
+    if m == 0 or bsz == 0:
+        return out.zero_()
+    if n_src == 0:
+        raise ValueError("spiral conv dW needs source rows")
+    n_chunks, chunk_rows = plan_spiral_conv_dw(m, bsz, seq)
+    _fits_int32(n_chunks * seq * c_in * c_out)
+    part = torch.empty(n_chunks * seq * c_in * c_out, dtype=torch.float32,
+                       device=dev)
+    _launch("spiral_conv_dw", library().cfs_spiral_conv_dw, dev,
+            _ptr(x), _ptr(table), _ptr(dy), _ptr(part), _ptr(out), m, seq,
+            bsz, c_in, c_out, n_chunks, chunk_rows)
     return out
 
 

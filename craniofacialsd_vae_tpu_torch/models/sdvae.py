@@ -23,8 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..device import resolve_device
-from ..ops import (build_pool_operator, build_spiral_op, init_spiral_conv,
-                   pool, selection_indices, spiral_conv)
+from ..ops import (PaddedRowSparse, build_pool_operator, build_spiral_op,
+                   from_coo, init_spiral_conv, pool, selection_indices,
+                   spiral_conv)
 
 __all__ = ["SDVAEConfig", "SpiralGeometry", "SDVAE", "init_sdvae",
            "reparameterize", "params_from_jax"]
@@ -55,17 +56,25 @@ class SDVAEConfig:
 @dataclass
 class SpiralGeometry:
     """Per-template constants on one device: spiral ops per level, the
-    encoder's spiral ops composed with the down-selection, and the
-    pooling operators."""
+    encoder's spiral ops composed with the down-selection, the pooling
+    operators, and for training the template Laplacian (with its capped
+    transpose) and the region masks."""
     spirals: list                 # SpiralOp per level
     down: list                    # GatherRows / PaddedRowSparse per level
     up: list
     enc_spirals: list             # SpiralOp per level, or None
+    laplacian: PaddedRowSparse | None = None
+    region_masks: torch.Tensor | None = None     # [R, N] bool
 
     @classmethod
-    def from_bundle(cls, bundle, device=None) -> "SpiralGeometry":
+    def from_bundle(cls, bundle, device=None, laplacian=None,
+                    region_masks=None) -> "SpiralGeometry":
         """Build the tables on the host from a ``GeometryBundle`` and move
-        them to ``device`` (None: the card)."""
+        them to ``device`` (None: the card). ``laplacian``: the template
+        Laplacian as a COO triple ``(rows, cols, vals)`` over level 0;
+        ``region_masks``: ``[R, N]`` bool. The bundle holds no template,
+        so a training run hands both in (``geometry/synthetic.py`` has
+        stand-ins)."""
         dev = resolve_device(device)
         enc_spirals = []
         for s, d in zip(bundle.spirals, bundle.down):
@@ -73,10 +82,22 @@ class SpiralGeometry:
             enc_spirals.append(
                 build_spiral_op(np.asarray(s)[sel], n_src=s.shape[0])
                 if sel is not None else None)
+        n = int(np.asarray(bundle.spirals[0]).shape[0])
+        lap = None
+        if laplacian is not None:
+            rows, cols, vals = laplacian
+            lap = from_coo(rows, cols, vals, (n, n))
+        masks = None
+        if region_masks is not None:
+            masks = torch.from_numpy(np.array(region_masks, dtype=bool))
+            if masks.ndim != 2 or masks.shape[1] != n:
+                raise ValueError(f"region masks {tuple(masks.shape)} are not "
+                                 f"[R, {n}]")
         return cls(spirals=[build_spiral_op(s) for s in bundle.spirals],
                    down=[build_pool_operator(d) for d in bundle.down],
                    up=[build_pool_operator(u) for u in bundle.up],
-                   enc_spirals=enc_spirals).to(dev)
+                   enc_spirals=enc_spirals, laplacian=lap,
+                   region_masks=masks).to(dev)
 
     def to(self, device) -> "SpiralGeometry":
         return SpiralGeometry(
@@ -84,7 +105,11 @@ class SpiralGeometry:
             down=[d.to(device) for d in self.down],
             up=[u.to(device) for u in self.up],
             enc_spirals=[None if e is None else e.to(device)
-                         for e in self.enc_spirals])
+                         for e in self.enc_spirals],
+            laplacian=(None if self.laplacian is None
+                       else self.laplacian.to(device)),
+            region_masks=(None if self.region_masks is None
+                          else self.region_masks.to(device)))
 
     @property
     def device(self) -> torch.device:
@@ -191,11 +216,13 @@ class SDVAE(nn.Module):
         return self.final_conv(h, geom.spirals[0])
 
     def forward(self, x: torch.Tensor, generator=None,
-                training: bool = False):
-        """Vertex-major in/out. Returns (reconstruction, z, mu, logvar)."""
+                training: bool = False, eps: torch.Tensor | None = None):
+        """Vertex-major in/out. Returns (reconstruction, z, mu, logvar).
+        Training a VAE samples ``z = mu + eps·exp(logvar/2)``, with
+        ``eps [B, Z]`` as given or drawn from ``generator``."""
         mu, logvar = self.encode(x)
         if self.config.is_vae and training:
-            z = reparameterize(mu, logvar, generator)
+            z = reparameterize(mu, logvar, generator, eps)
         else:
             z = mu
         return self.decode(z), z, mu, logvar
@@ -210,11 +237,16 @@ def init_sdvae(config: SDVAEConfig, geom: SpiralGeometry,
 
 
 def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
-                   generator: torch.Generator) -> torch.Tensor:
+                   generator: torch.Generator | None,
+                   eps: torch.Tensor | None = None) -> torch.Tensor:
+    """``mu + eps·exp(logvar/2)``, with ``eps`` as given or drawn from
+    ``generator`` (None: PyTorch's default generator of mu's device)."""
     std = torch.exp(0.5 * logvar)
-    eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
-                      device=generator.device).to(mu.device)
-    return mu + eps * std
+    if eps is None:
+        dev = mu.device if generator is None else generator.device
+        eps = torch.randn(mu.shape, generator=generator, dtype=mu.dtype,
+                          device=dev)
+    return mu + eps.to(mu.device, mu.dtype) * std
 
 
 def params_from_jax(tree: dict) -> dict:

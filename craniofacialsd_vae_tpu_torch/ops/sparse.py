@@ -8,11 +8,15 @@ weight 0. Operands are vertex-major ``[N, ...]``; the trailing dims are
 packed into one ``[N, B·C]`` row so that each gathered row is contiguous.
 
 The host builders give tables equal element by element to the JAX
-builders'. Each operator keeps its (capped) transpose, which only the
-backward pass of a later training slice reads.
+builders'. Each operator keeps its (capped) transpose, and the backward
+pass is a gather through it, never a scatter: ``ell_matmul`` and
+``gather_rows`` are ``torch.autograd.Function``s whose backward is
+``transpose.apply(dy)``, as the JAX custom VJPs ``_ell_bwd`` and
+``_gather_rows_bwd`` are.
 
-``ell_matmul_raw`` is kernel K4: for a CUDA tensor it launches
-``csrc/ell_matmul.cu``, for a CPU tensor it runs its plain twin.
+``ell_matmul_raw`` is kernel K4 and ``ell_tier_add`` kernel K4-tier (the
+overflow landing of ``CappedEll.apply``): for a CUDA tensor each
+launches ``csrc/ell_matmul.cu``, for a CPU tensor it runs its plain twin.
 """
 
 from __future__ import annotations
@@ -26,7 +30,8 @@ from .. import kernels
 
 __all__ = ["PaddedRowSparse", "CappedEll", "GatherRows", "capped_ell",
            "from_coo", "gather_op_from_idx", "ell_matmul", "ell_matmul_raw",
-           "ell_matmul_plain", "gather_rows"]
+           "ell_matmul_plain", "ell_tier_add", "ell_tier_add_plain",
+           "gather_rows"]
 
 
 def _check_index_range(idx: np.ndarray, n: int, what: str) -> None:
@@ -65,10 +70,11 @@ class CappedEll:
                                for tier in self.tiers))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
+        """The main table (K4), then each overflow tier added in place at
+        its unique rows (K4-tier)."""
         out = ell_matmul_raw(self.cols, self.vals, x)
         for o_rows, o_cols, o_vals in self.tiers:
-            out = out.index_add(0, o_rows,
-                                ell_matmul_raw(o_cols, o_vals, x))
+            ell_tier_add(o_rows, o_cols, o_vals, x, out)
         return out
 
 
@@ -189,12 +195,51 @@ def ell_matmul_raw(cols: torch.Tensor, vals: torch.Tensor,
     return out.view(cols.shape[0], *x.shape[1:])
 
 
+def ell_tier_add_plain(rows: torch.Tensor, cols: torch.Tensor,
+                       vals: torch.Tensor, x: torch.Tensor,
+                       out: torch.Tensor) -> None:
+    """Plain twin of K4-tier, in place: the tier's ELL product (in K4's
+    order) added to ``out`` at ``rows`` with one rounding per value."""
+    out.view(out.shape[0], -1).index_add_(
+        0, rows, ell_matmul_plain(cols, vals, x).reshape(rows.shape[0], -1))
+
+
+def ell_tier_add(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
+                 x: torch.Tensor, out: torch.Tensor) -> None:
+    """``out[rows[r]] += Σ_k vals[r,k] · x[cols[r,k]]`` in place, for the
+    unique ``rows`` of one overflow tier: kernel K4-tier on the card, its
+    plain twin on the host. ``out`` must be contiguous."""
+    if not x.is_cuda:
+        ell_tier_add_plain(rows, cols, vals, x, out)
+        return
+    kernels.ell_matmul_tier(rows, cols, vals, x.reshape(x.shape[0], -1),
+                            out.view(out.shape[0], -1))
+
+
+class _EllMatmul(torch.autograd.Function):
+    """Forward K4; backward ``mat.transpose.apply(dy)`` (JAX ``_ell_bwd``),
+    which raises where the matrix was built without its transpose."""
+
+    @staticmethod
+    def forward(ctx, x, mat):
+        ctx.mat = mat
+        return ell_matmul_raw(mat.cols, mat.vals, x)
+
+    @staticmethod
+    def backward(ctx, dy):
+        if ctx.mat.transpose is None:
+            raise ValueError("ell_matmul backward requires transpose "
+                             "structure (from_coo(with_transpose=True))")
+        return ctx.mat.transpose.apply(dy.contiguous()), None
+
+
 def ell_matmul(mat: PaddedRowSparse, x: torch.Tensor) -> torch.Tensor:
-    """Sparse @ dense over axis 0: ``x [N, ...] → [M, ...]`` (forward)."""
+    """Sparse @ dense over axis 0: ``x [N, ...] → [M, ...]``, with the
+    gather-only backward through the capped transpose."""
     if x.shape[0] != mat.n_cols:
         raise ValueError(f"x has {x.shape[0]} rows; the matrix has "
                          f"{mat.n_cols} columns")
-    return ell_matmul_raw(mat.cols, mat.vals, x)
+    return _EllMatmul.apply(x, mat)
 
 
 @dataclass
@@ -223,7 +268,26 @@ def gather_op_from_idx(idx: np.ndarray, n_rows: int) -> GatherRows:
                       transpose=transpose, n_rows=n_rows)
 
 
+def _take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    g = x.reshape(x.shape[0], -1).index_select(0, idx)
+    return g.view(idx.shape[0], *x.shape[1:])
+
+
+class _GatherRows(torch.autograd.Function):
+    """Forward a row gather; backward ``op.transpose.apply(dy)`` (JAX
+    ``_gather_rows_bwd``): a gather-sum, not a scatter."""
+
+    @staticmethod
+    def forward(ctx, x, op):
+        ctx.op = op
+        return _take_rows(x, op.idx)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return ctx.op.transpose.apply(dy.contiguous()), None
+
+
 def gather_rows(op: GatherRows, x: torch.Tensor) -> torch.Tensor:
-    """``x [N, ...] → x[idx] [M, ...]`` on the packed 2-D view."""
-    g = x.reshape(x.shape[0], -1).index_select(0, op.idx)
-    return g.view(op.idx.shape[0], *x.shape[1:])
+    """``x [N, ...] → x[idx] [M, ...]`` on the packed 2-D view, with the
+    gather-only backward."""
+    return _GatherRows.apply(x, op)

@@ -5,12 +5,19 @@ indices) go through one dense projection:
 ``out[m] = b + Σ_l x[S[m, l]] @ W_l``, with the weight stored
 ``[L·C_in, C_out]`` as in the JAX package and read as ``[L, C_in, C_out]``.
 
-``spiral_conv`` is kernel K1 (fp32 forward): for a CUDA tensor it
-launches ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a narrow
-kernel for C_out < 8), which gathers the spiral rows into shared memory
-or registers and never writes the ``[M, B, L·C]`` concatenation; for a
-CPU tensor it runs the plain twin, the fp32 branch of the JAX
-``_spiral_conv_core``.
+``spiral_conv`` is a ``torch.autograd.Function`` in the form of the JAX
+custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
+
+- forward: kernel K1 (fp32): for a CUDA tensor it launches
+  ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a narrow kernel for
+  C_out < 8), which gathers the spiral rows into shared memory or
+  registers and never writes the ``[M, B, L·C]`` concatenation; for a CPU
+  tensor it runs the plain twin, the fp32 branch of ``_spiral_conv_core``;
+- backward: ``dx`` through the combined capped transposes (one
+  ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4 and
+  K4-tier), plus ``dy @ W_iᵀ`` for identity columns; ``dW`` by kernel
+  K2-dW (``csrc/spiral_conv_dw.cu``), which recomputes the gathers;
+  ``db = Σ dy``. On the host the same steps run with the plain twins.
 """
 
 from __future__ import annotations
@@ -25,7 +32,7 @@ from .sparse import (CappedEll, GatherRows, capped_ell, gather_op_from_idx,
                      gather_rows)
 
 __all__ = ["SpiralOp", "build_spiral_op", "init_spiral_conv", "spiral_conv",
-           "spiral_conv_plain"]
+           "spiral_conv_plain", "spiral_conv_dw", "spiral_conv_dw_plain"]
 
 
 @dataclass
@@ -122,14 +129,73 @@ def spiral_conv_plain(w_l: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
     return out
 
 
+def spiral_conv_dw_plain(x: torch.Tensor, table: torch.Tensor,
+                         dy: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K2-dW: ``dW[l] = x[table[:, l]]ᵀ dy`` over the
+    ``M·B`` rows, one gather and one matmul per position (the fp32 branch
+    of the JAX ``_score_bwd``'s dW)."""
+    c_in, c_out = x.shape[-1], dy.shape[-1]
+    d2 = dy.reshape(-1, c_out)
+    return torch.stack([
+        x.index_select(0, table[:, i]).reshape(-1, c_in).T @ d2
+        for i in range(table.shape[1])])
+
+
+def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
+                   dy: torch.Tensor) -> torch.Tensor:
+    """``dW [L, C_in, C_out]`` of the spiral conv: kernel K2-dW on the
+    card, its plain twin on the host."""
+    if not x.is_cuda:
+        return spiral_conv_dw_plain(x, table, dy)
+    return kernels.spiral_conv_dw(x, table, dy)
+
+
+class _SpiralConv(torch.autograd.Function):
+    """``out = b + Σ_l x[S[:, l]] @ W_l`` with the JAX ``_score_bwd``
+    backward (see the module docstring)."""
+
+    @staticmethod
+    def forward(ctx, w_l, b, x, op):
+        ctx.op = op
+        ctx.save_for_backward(w_l, x)
+        if not x.is_cuda:
+            return spiral_conv_plain(w_l, b, x, op)
+        return kernels.spiral_conv_fwd(x, op.table, w_l, b)
+
+    @staticmethod
+    def backward(ctx, dy):
+        w_l, x = ctx.saved_tensors
+        op = ctx.op
+        dy = dy.contiguous()
+        dw_l = db = dx = None
+        if ctx.needs_input_grad[2]:
+            # dg [g, M, B, C_in] = dy @ W_gᵀ, l-major as the tables' flat
+            # positions; the combined transpose gathers it onto x's rows
+            m, bsz, c_out = dy.shape
+            d2 = dy.reshape(m * bsz, c_out)
+            for table, cols in zip(op.inv_tables, op.group_cols):
+                dg = d2.new_empty((len(cols), m * bsz, w_l.shape[1]))
+                for j, i in enumerate(cols):
+                    torch.mm(d2, w_l[i].T, out=dg[j])
+                part = table.apply(dg.view(len(cols) * m, bsz, -1))
+                dx = part if dx is None else dx + part
+            for i in op.identity_cols:
+                part = dy @ w_l[i].T
+                dx = part if dx is None else dx + part
+        if ctx.needs_input_grad[0]:
+            dw_l = spiral_conv_dw(x, op.table, dy)
+        if ctx.needs_input_grad[1]:
+            db = dy.sum(dim=(0, 1))
+        return dw_l, db, dx, None
+
+
 def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp) -> torch.Tensor:
     """Vertex-major spiral conv ``[N_src, B, C_in] → [M, B, C_out]`` in
-    fp32: kernel K1 on the card, its plain twin on the host."""
+    fp32, differentiable: K1 forward, the transposes (K4, K4-tier) and
+    K2-dW backward on the card; the plain twins on the host."""
     if x.shape[0] != op.n_src:
         raise ValueError(f"x has {x.shape[0]} rows; the spiral table "
                          f"reads {op.n_src}")
     w = params["w"]
     w_l = w.reshape(op.seq_length, x.shape[-1], w.shape[-1])
-    if not x.is_cuda:
-        return spiral_conv_plain(w_l, params["b"], x, op)
-    return kernels.spiral_conv_fwd(x, op.table, w_l, params["b"])
+    return _SpiralConv.apply(w_l, params["b"], x, op)

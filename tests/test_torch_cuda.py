@@ -1,7 +1,7 @@
 """Card tests of the port's CUDA kernels: each kernel against its plain
 PyTorch twin on the same CUDA tensors, the wrappers' input checks and
-launch counts, and the service on the card against the service on the
-host. Every test skips itself without a card.
+launch counts, the service and the training step on the card against the
+same on the host. Every test skips itself without a card.
 
 This file imports no JAX, so it also runs where JAX is not installed::
 
@@ -16,9 +16,18 @@ import torch
 
 from craniofacialsd_vae_tpu_torch import kernels, ops
 from craniofacialsd_vae_tpu_torch.geometry import (adversarial_mesh,
-                                                   load_bundle, uv_sphere)
-from craniofacialsd_vae_tpu_torch.models import SDVAEConfig, SpiralGeometry
+                                                   level0_positions,
+                                                   load_bundle,
+                                                   standin_laplacian_coo,
+                                                   standin_region_masks,
+                                                   uv_sphere)
+from craniofacialsd_vae_tpu_torch.models import (SDVAEConfig, SpiralGeometry,
+                                                 init_sdvae)
+from craniofacialsd_vae_tpu_torch.ops import sparse
 from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+from craniofacialsd_vae_tpu_torch.training import (LOSS_KEYS, LossWeights,
+                                                   coupled_adam,
+                                                   make_train_step)
 from craniofacialsd_vae_tpu_torch.viz import raster
 from craniofacialsd_vae_tpu_torch.viz.renderer import look_at_camera
 
@@ -339,7 +348,7 @@ def test_launch_counts_move_only_on_launch():
     ops.ell_matmul_plain(cols, torch.ones(4, 3, device=dev), x)
     assert kernels.launches.snapshot() == {
         "spiral_conv_tc": 0, "spiral_conv_narrow": 0, "ell_matmul_fwd": 1,
-        "raster_sweep": 0}
+        "raster_sweep": 0, "spiral_conv_dw": 0, "ell_matmul_tier": 0}
 
 
 def test_service_on_card_matches_host():
@@ -366,3 +375,206 @@ def test_service_on_card_matches_host():
         assert float(np.abs(card[key] - host[key]).max()) <= lim
     assert float(np.abs(card["vertex_errors_mm"]
                         - host["vertex_errors_mm"]).max()) <= 1e-3
+
+
+# ------------------------------------------------------------ training
+def _dw_matches_plain(dev, x, table, dy):
+    """K2-dW against its twin: rtol 1e-5 against max |dW| (fp32 sums of
+    M·B products in another order than the library matmul's), and two
+    launches bit-equal (fixed chunks, no atomics)."""
+    out = kernels.spiral_conv_dw(x, table, dy)
+    again = kernels.spiral_conv_dw(x, table, dy)
+    ref = ops.spiral_conv_dw_plain(x, table, dy)
+    torch.cuda.synchronize()
+    assert out.shape == ref.shape
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
+    (50, 80, 3, 1, 1, 1),
+    (333, 333, 7, 3, 10, 18),         # channels not a multiple of 4
+    (100, 100, 9, 2, 128, 96),        # more than 256 tiles: grid.z
+    (700, 900, 5, 20, 3, 64),
+    (20, 20, 9, 1, 64, 3),            # fewer rows than one stage
+])
+def test_spiral_conv_dw_kernel_matches_plain(m, n_src, seq, b, c_in, c_out):
+    dev = _card()
+    g = _gen(dev, m)
+    table = torch.randint(0, n_src, (m, seq), generator=g, device=dev,
+                          dtype=torch.int32)
+    x = torch.randn((n_src, b, c_in), generator=g, device=dev)
+    dy = torch.randn((m, b, c_out), generator=g, device=dev)
+    _dw_matches_plain(dev, x, table, dy)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
+def test_spiral_conv_dw_kernel_on_the_model_tables(card_geometry, name, c_in,
+                                                   c_out, b):
+    dev = _card()
+    op = _smoke_op(card_geometry, name)
+    g = _gen(dev, b)
+    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev)
+    dy = torch.randn((op.num_vertices, b, c_out), generator=g, device=dev)
+    _dw_matches_plain(dev, x, op.table, dy)
+
+
+@pytest.mark.parametrize("r,m,n,k,d,offset", [
+    (300, 1000, 500, 3, 64, 0),       # float4 path, K = 3
+    (300, 1000, 500, 7, 48, 0),       # runtime K
+    (40000, 50000, 5000, 5, 128, 0),  # two rows per thread
+    (200, 400, 90, 4, 7, 0),          # D % 4 != 0: scalar path
+    (100, 300, 40, 3, 16, 1),         # unaligned x: scalar path
+    (1, 10, 10, 1, 4, 0),
+])
+def test_ell_tier_kernel_equals_plain(r, m, n, k, d, offset):
+    """Same sum, added with one rounding at the same unique rows:
+    bit-equal to the index_add twin; rows outside the tier untouched."""
+    dev = _card()
+    g = _gen(dev, r)
+    rows = torch.randperm(m, generator=g, device=dev)[:r].int()
+    cols = torch.randint(0, n, (r, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((r, k), generator=g, device=dev)
+    base = torch.randn(n * d + offset, generator=g, device=dev)
+    x2 = base[offset:].view(n, d)
+    out = torch.randn((m, d), generator=g, device=dev)
+    got, want = out.clone(), out.clone()
+    kernels.ell_matmul_tier(rows, cols, vals, x2, got)
+    sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    keep = torch.ones(m, dtype=torch.bool, device=dev)
+    keep[rows.long()] = False
+    assert torch.equal(got[keep], out[keep])
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_capped_ell_apply_on_the_backward_tables(card_geometry, b):
+    """Every transpose a training step applies (up-pools', convs'
+    combined ones): K4 then K4-tier, bit-equal to the twins."""
+    dev = _card()
+    geom = card_geometry
+    tables = [(u.transpose, u.shape[0], b * c) for u, c in
+              zip(geom.up, (32, 32, 64, 64))]
+    for name, c_in, _ in _SMOKE[1:]:
+        op = _smoke_op(geom, name)
+        tables += [(t, len(cols) * op.num_vertices, b * c_in)
+                   for t, cols in zip(op.inv_tables, op.group_cols)]
+    assert sum(len(t.tiers) for t, _, _ in tables) > 0
+    for mat, n_src, d in tables:
+        x2 = torch.randn((n_src, d), generator=_gen(dev, d), device=dev)
+        got = mat.apply(x2)
+        want = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
+        for rows, cols, vals in mat.tiers:
+            sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+
+
+def test_differentiable_ops_launch_the_kernels():
+    """On CUDA tensors the forward and the backward go through the
+    kernels: K1, K4, K4-tier and K2-dW each counted."""
+    dev = _card()
+    rng = np.random.default_rng(0)
+    m = 300
+    table = rng.integers(0, m, size=(m, 9))
+    table[:, 0] = np.arange(m)
+    table[:150, 1] = 0                     # a skewed in-degree: tiers
+    op = ops.build_spiral_op(table).to(dev)
+    assert op.inv_tables[0].tiers
+    w = torch.randn(9 * 8, 16, device=dev, requires_grad=True)
+    b = torch.zeros(16, device=dev, requires_grad=True)
+    x = torch.randn(m, 2, 8, device=dev, requires_grad=True)
+    kernels.launches.reset()
+    ops.spiral_conv({"w": w, "b": b}, x, op).square().sum().backward()
+    counts = kernels.launches.snapshot()
+    assert counts["spiral_conv_tc"] == 1 and counts["spiral_conv_dw"] == 1
+    assert counts["ell_matmul_fwd"] == 1
+    assert counts["ell_matmul_tier"] == len(op.inv_tables[0].tiers)
+    gop = sparse.gather_op_from_idx(np.zeros(50, int), 10).to(dev)
+    y = torch.randn(10, 4, device=dev, requires_grad=True)
+    kernels.launches.reset()
+    sparse.gather_rows(gop, y).sum().backward()
+    assert kernels.launches.snapshot()["ell_matmul_fwd"] == 1
+    assert torch.equal(y.grad[0], torch.full((4,), 50.0, device=dev))
+
+
+def test_wrappers_reject_what_the_training_kernels_do_not_take():
+    dev = _card()
+    x = torch.randn(10, 2, 4, device=dev)
+    table = torch.zeros(6, 3, dtype=torch.int32, device=dev)
+    dy = torch.randn(6, 2, 5, device=dev)
+    assert kernels.spiral_conv_dw(x, table, dy).shape == (3, 4, 5)
+    for bad in ((x, table, dy[:5]), (x.transpose(0, 1), table, dy),
+                (x, table.long(), dy), (x.cpu(), table, dy)):
+        with pytest.raises(ValueError):
+            kernels.spiral_conv_dw(*bad)
+    rows = torch.tensor([1, 3], dtype=torch.int32, device=dev)
+    cols = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    vals = torch.ones(2, 2, device=dev)
+    x2, out = torch.randn(10, 8, device=dev), torch.zeros(5, 8, device=dev)
+    for bad in ((rows[:1], cols, vals, x2, out),
+                (rows, cols, vals, x2, out[:, :4]),
+                (rows, cols, vals, x2, out.t()),
+                (rows.long(), cols, vals, x2, out)):
+        with pytest.raises(ValueError):
+            kernels.ell_matmul_tier(*bad)
+
+
+def _train_setup(bundle, dev, cfg, batch):
+    geom = SpiralGeometry.from_bundle(
+        bundle, device=dev, laplacian=standin_laplacian_coo(bundle.spirals[0]),
+        region_masks=standin_region_masks(level0_positions(bundle)))
+    model = init_sdvae(cfg, geom, torch.Generator().manual_seed(0))
+    step = make_train_step(model, LossWeights(), coupled_adam(
+        model.parameters(), 1e-4, 0.0), batch)
+    return model, step
+
+
+def test_train_step_on_card_matches_host():
+    """A narrow model on the real hierarchy with the stand-in Laplacian
+    and regions: one step on the card against the host with the same
+    weights, scans, region and noise. Losses within rtol 1e-4, every
+    gradient leaf within 1e-4 of its max; every kernel of the step
+    launched."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15)
+    batch = 3
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(batch, bundle.vertex_counts[0], 3)).astype(
+        np.float32)
+    eps = torch.from_numpy(rng.normal(size=(batch * batch, 15)).astype(
+        np.float32))
+    card, step = _train_setup(bundle, dev, cfg, batch)
+    kernels.launches.reset()
+    m_card = step(torch.as_tensor(x, device=dev), region_idx=4,
+                  eps=eps.to(dev))
+    counts = kernels.launches.snapshot()
+    host, step_h = _train_setup(bundle, "cpu", cfg, batch)
+    m_host = step_h(torch.from_numpy(x), region_idx=4, eps=eps)
+    for k in LOSS_KEYS:
+        assert abs(float(m_card[k]) - float(m_host[k])) <= \
+            1e-4 * abs(float(m_host[k])), k
+    for (name, p), q in zip(card.named_parameters(), host.parameters()):
+        assert p.grad is not None, name
+        err = float((p.grad.cpu() - q.grad).abs().max())
+        assert err <= 1e-4 * float(q.grad.abs().max()), name
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                   "ell_matmul_tier", "spiral_conv_dw"):
+        assert counts[kernel] > 0, kernel
+
+
+def test_train_steps_on_card_stay_finite():
+    """Five steps with the region and noise from a generator on the card."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15)
+    _, step = _train_setup(bundle, dev, cfg, 2)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((2, bundle.vertex_counts[0], 3), generator=gen,
+                    device=dev)
+    tots = [step(x, generator=gen)["tot"] for _ in range(5)]
+    assert bool(torch.isfinite(torch.stack(tots)).all())

@@ -57,6 +57,14 @@ def test_smoke_model_literals_equal_the_smoke_config():
     assert chip_smoke.MODEL_CONFIG == cfg["model"]
     assert chip_smoke.KL_WEIGHT == float(cfg["optimization"]["kl_weight"])
     assert chip_smoke.TO_MM == cfg["data"]["to_mm_constant"]
+    # the training phase's literals (a YAML loader reads 1e-4 as a str)
+    opt = cfg["optimization"]
+    train = chip_smoke.TRAIN_CONFIG
+    assert set(train) <= set(opt)
+    assert {k: float(v) for k, v in train.items()} == \
+        {k: float(opt[k]) for k in train}
+    assert train["batch_size"] == opt["batch_size"]
+    assert cfg["data"]["swap_features"] is True
 
 
 def _run_smoke(cwd, script):
@@ -81,7 +89,7 @@ def test_smoke_fails_outside_a_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["ell_matmul.cu", "raster_sweep.cu",
-                                  "spiral_conv.cu"])
+                                  "spiral_conv.cu", "spiral_conv_dw.cu"])
 def test_kernel_sources_export_their_c_entry_points(name):
     """Each kernel source exports the C function its ctypes binding
     declares, and names the JAX function it replaces."""
@@ -90,8 +98,25 @@ def test_kernel_sources_export_their_c_entry_points(name):
     assert name in kernels.SOURCES
     with open(os.path.join(PKG, "csrc", name)) as f:
         src = f.read()
-    entry = {"ell_matmul.cu": "cfs_ell_matmul_fwd",
-             "raster_sweep.cu": "cfs_raster_sweep",
-             "spiral_conv.cu": "cfs_spiral_conv_fwd"}[name]
-    assert f'extern "C" int {entry}(' in src
+    entries = {"ell_matmul.cu": ("cfs_ell_matmul_fwd", "cfs_ell_matmul_tier"),
+               "raster_sweep.cu": ("cfs_raster_sweep",),
+               "spiral_conv.cu": ("cfs_spiral_conv_fwd",),
+               "spiral_conv_dw.cu": ("cfs_spiral_conv_dw",)}[name]
+    for entry in entries:
+        assert f'extern "C" int {entry}(' in src
     assert "craniofacialsd_vae_tpu/" in src and "Replaces" in src
+
+
+@pytest.mark.parametrize("module", ["training", "data", "geometry", "models",
+                                    "ops", "serving"])
+def test_port_modules_import_with_jax_blocked(module):
+    """Each subpackage imports in a fresh process in which JAX, optax and
+    the JAX package cannot be imported at all."""
+    blocked = ("jax", "jaxlib", "optax", "craniofacialsd_vae_tpu")
+    code = (f"import sys; sys.modules.update(dict.fromkeys({blocked!r})); "
+            f"import craniofacialsd_vae_tpu_torch.{module}")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert any(os.path.relpath(p, PKG).startswith(module)
+               for p in _port_files() if p != SMOKE)
