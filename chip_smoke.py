@@ -33,16 +33,20 @@ them or outside a checkout. Phases, each of which raises on a fault:
 5. training at full width (``configurations/smoke.yaml``'s model and
    optimisation sections: 4 scans, a 16-mesh swap grid, the stand-in
    Laplacian and 15 stand-in regions of ``geometry/synthetic.py``):
-   (a) K2-dW at the nine convs' shapes and K4 with K4-tier on every
+   (a) K2-dW at the nine convs' shapes (with each conv's plan, both
+   bounds and ptxas's registers and spills per instance) and, on every
    backward table (the up-pools' and the convs' transposes, the
-   Laplacian and its transpose), held against their twins and timed;
+   Laplacian and its transpose), the fused K4 where the table has
+   overflow tiers and K4 where it has none, held against their twins
+   and timed (the fused launch also against K4 alone and K4 followed by
+   the tiers' twin);
    (b) one counted ``make_train_step`` step on the card against the same
    step on the host (same weights, scans, region and noise): losses and
    every gradient leaf; (c) 10 warm steps (host-clock step time,
    throughput, finite losses) and a profiled step;
 6. launch counts, read per path: K1, K4 and K7 must each have run during
-   phase 4, and K1, K4, K2-dW and K4-tier during phase 5's counted step
-   (which must match ``expected_step_launches`` exactly); every kernel
+   phase 4, and K1, K4, K2-dW and the fused K4 during phase 5's counted
+   step (which must match ``expected_step_launches`` exactly); every kernel
    must have run on one of them. The kernels' record holds one entry per
    kernel and path, each timed over the shapes of that path's launches.
 
@@ -197,16 +201,21 @@ def phase_build(kernels) -> tuple:
 
 def k1_ptxas(build_log: str) -> list:
     """Registers and spills of each K1 and K2-dW kernel, from the
-    build's ``-Xptxas -v`` output."""
+    build's ``-Xptxas -v`` output: ``tc<MI,NI>``, ``narrow<..>``,
+    ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments per warp) and
+    ``dw_sum`` (its chunk sum)."""
     out, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"spiral_conv_(tc|narrow)_kernelILi(\d+)ELi(\d+)E",
                           m.group(1))
-            dw = re.search(r"spiral_conv_dw_(partial|sum)", m.group(1))
+            dw = re.search(r"spiral_conv_dw_kernelILi(\d+)ELi(\d+)E",
+                           m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
-                    else f"dw_{dw.group(1)}" if dw else None)
+                    else f"dw<{dw.group(1)},{dw.group(2)}>" if dw
+                    else "dw_sum" if "spiral_conv_dw_sum" in m.group(1)
+                    else None)
             if name:
                 out.append({"kernel": name})
         elif name and "Used" in line:
@@ -783,12 +792,15 @@ def training_geometry(bundle):
                                           N_REGIONS))
 
 
-def k2_parity(torch, mods, model, geom, batch: int) -> dict:
+def k2_parity(torch, mods, model, geom, batch: int, ptxas: list) -> dict:
     """K2-dW at each conv's shape over a ``batch``-mesh grid, random x
     and dy: within K2_RTOL of the twin, two launches bit-equal, timed
     against the twin and the library form (``index_select`` of the L
-    gathers, one ``einsum``)."""
+    gathers, one ``einsum``), with its plan, both bounds (fp32 on the
+    CUDA cores; 3xTF32 on the tensor cores, K1's form) and ptxas's
+    registers and spills for the plan's instance."""
     kernels, ops = mods["kernels"], mods["ops"]
+    regs = {k["kernel"]: k for k in ptxas}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     shapes = []
     for name, conv, op in model_convs(model, geom):
@@ -797,6 +809,9 @@ def k2_parity(torch, mods, model, geom, batch: int) -> dict:
         x = torch.randn((op.n_src, batch, c_in), generator=gen, device=DEVICE)
         dy = torch.randn((m, batch, c_out), generator=gen, device=DEVICE)
         table = op.table
+        plan = kernels.plan_spiral_conv_dw(m, batch, seq, c_in, c_out,
+                                           x.data_ptr() % 16 == 0,
+                                           dy.data_ptr() % 16 == 0)
         flat = table.t().reshape(-1)
         x2, d2 = x.view(op.n_src, -1), dy.view(-1, c_out)
         lib = lambda: torch.einsum(                      # noqa: E731
@@ -824,24 +839,41 @@ def k2_parity(torch, mods, model, geom, batch: int) -> dict:
         nbytes = 4 * (x.numel() + dy.numel() + table.numel()
                       + seq * c_in * c_out)
         flops = 2.0 * seq * m * batch * c_in * c_out
-        b_ms, b_by, _, _ = bound(nbytes, flops)
-        chunks, chunk_rows = kernels.plan_spiral_conv_dw(m, batch, seq)
+        fp32_ms, fp32_by, t_bytes, _ = bound(nbytes, flops)
+        t_ops = 3 * flops / PEAK_TF32 * 1e3
+        b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                           else "tf32x3")
+        inst = regs.get(f"dw<{plan.mi},{plan.ni}>", {})
         log(f"[5 K2-dW {name}] {op.n_src}->{m} x{batch} {c_in}->{c_out} "
-            f"({chunks} chunks of {chunk_rows} rows): err {err:.2e} (max|dW| "
+            f"(P {plan.positions}, {'x' if plan.x_on_m else 'dy'} on M, "
+            f"{plan.fgm}x{plan.fgn} warps of {plan.mi}x{plan.ni} fragments "
+            f"per position, {plan.tmv} vertices per tile, {plan.stages} "
+            f"stages, {plan.n_chunks} chunks of {plan.tiles_per_chunk} "
+            f"tiles, {plan.blocks} blocks, {plan.smem} B smem; "
+            f"{inst.get('registers')} registers, "
+            f"{inst.get('spill_bytes', 0)} B spilled): err {err:.2e} (max|dW| "
             f"{scale:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
-            f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
+            f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}), fp32 bound "
+            f"{fp32_ms:.4f} ({fp32_by}); kernel/library {ms / lib_ms:.2f}")
         shapes.append(dict(conv=name, batch=batch, n_src=op.n_src, m=m,
-                           c_in=c_in, c_out=c_out, chunks=chunks,
-                           chunk_rows=chunk_rows, max_abs_err=err,
-                           rel_err=err / scale, ms=ms, plain_ms=plain_ms,
-                           library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                           bytes=nbytes, flops=flops))
+                           c_in=c_in, c_out=c_out,
+                           plan=dataclasses.asdict(plan),
+                           registers=inst.get("registers"),
+                           spill_bytes=inst.get("spill_bytes", 0),
+                           max_abs_err=err, rel_err=err / scale, ms=ms,
+                           plain_ms=plain_ms, library_ms=lib_ms,
+                           bound_ms=b_ms, bound_by=b_by,
+                           bound_fp32_ms=fp32_ms, bytes=nbytes, flops=flops,
+                           ops_ms=t_ops))
         del x, dy, out, again, ref
     rec = summarize("spiral_conv_dw", "csrc/spiral_conv_dw.cu",
                     "craniofacialsd_vae_tpu/ops/spiral_conv.py:208", shapes)
+    rec["bound_fp32_ms"] = sum(s["bound_fp32_ms"] for s in shapes)
     log(f"[5 K2-dW] per step: kernel {rec['ms']:.4f} ms, plain "
         f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, bound "
-        f"{rec['bound_ms']:.4f} ({rec['bound_by']})")
+        f"{rec['bound_ms']:.4f} ({rec['bound_by']}), fp32 bound "
+        f"{rec['bound_fp32_ms']:.4f}; slower than the library at "
+        f"{[s['conv'] for s in shapes if s['ms'] > s['library_ms']]}")
     return rec
 
 
@@ -869,118 +901,127 @@ def backward_tables(model, geom, batch: int) -> list:
     return tables
 
 
-def coo_of(torch, rows, cols, vals, shape):
-    k = cols.shape[1]
-    idx = torch.stack([rows.long().repeat_interleave(k),
-                       cols.reshape(-1).long()])
-    return torch.sparse_coo_tensor(idx, vals.reshape(-1), shape,
+def tiers_of(mat) -> tuple:
+    """A table's overflow tiers (a forward table has none)."""
+    return getattr(mat, "tiers", ())
+
+
+def coo_of(torch, mat, n_src: int):
+    """The whole table, main part and tiers, as one coalesced COO matrix:
+    the library call's operand."""
+    m, k = mat.cols.shape
+    rows = [torch.arange(m, device=DEVICE).repeat_interleave(k)]
+    cols, vals = [mat.cols.reshape(-1)], [mat.vals.reshape(-1)]
+    for t_rows, t_cols, t_vals in tiers_of(mat):
+        rows.append(t_rows.long().repeat_interleave(t_cols.shape[1]))
+        cols.append(t_cols.reshape(-1))
+        vals.append(t_vals.reshape(-1))
+    idx = torch.stack([torch.cat(rows), torch.cat(cols).long()])
+    return torch.sparse_coo_tensor(idx, torch.cat(vals), (m, n_src),
                                    check_invariants=True).coalesce()
 
 
 def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
-    """Every table of ``backward_tables``: the main table's K4 launch and
-    each overflow tier's K4-tier launch bit-equal to their twins (the
-    tier on a copy of one random output), each timed against its twin and
-    a library call (``torch.sparse.mm`` of the table; ``sparse.addmm`` of
-    the tier), and the whole ``CappedEll.apply`` equal to its twin."""
+    """Every table of ``backward_tables``: a table with tiers through the
+    fused launch (``ell_matmul_capped``), one without through K4, each
+    bit-equal to the sequential twin (K4's twin, then one ``index_add``
+    per tier) and timed against the twin, the library call
+    (``torch.sparse.mm`` of the whole table) and, for the fused launch,
+    K4 alone on the main table and K4 followed by the tiers' twin."""
     kernels, sparse = mods["kernels"], mods["sparse"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
-    mains, tiers = [], []
+    mains, fused = [], []
     for name, mat, n_src, d in backward_tables(model, geom, batch):
         m, k = mat.cols.shape
+        ties = tiers_of(mat)
         x2 = torch.randn((n_src, d), generator=gen, device=DEVICE)
-        sp = coo_of(torch, torch.arange(m, device=DEVICE), mat.cols,
-                    mat.vals, (m, n_src))
-        with torch.inference_mode():
+        sp = coo_of(torch, mat, n_src)
+
+        def plain():
+            out = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
+            for rows, cols, vals in ties:
+                sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
+            return out
+
+        def k4_then_twin():
             out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
-            ref = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
+            for rows, cols, vals in ties:
+                sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
+            return out
+
+        if ties:
+            launch = lambda: kernels.ell_matmul_capped(     # noqa: E731
+                mat.cols, mat.vals, ties, mat.links, x2)
+        else:
+            launch = lambda: kernels.ell_matmul_fwd(        # noqa: E731
+                mat.cols, mat.vals, x2)
+        with torch.inference_mode():
+            out = launch()
+            ref = plain()
             torch.cuda.synchronize()
             check(torch.equal(out, ref), f"K4 {name}: kernel and twin "
                   f"differ at {int((out != ref).sum())} values")
+            if ties:
+                check(torch.equal(mat.apply(x2), ref),
+                      f"CappedEll.apply {name}: card and twin differ")
             scale = float(ref.abs().max())
             lib = lambda: torch.sparse.mm(sp, x2)            # noqa: E731
             check(max_err(lib(), ref) <= 1e-5 * scale,
                   f"K4 {name}: library form disagrees")
-            ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
-                mat.cols, mat.vals, x2), 20)
-            plain_ms = cuda_ms(torch, lambda: sparse.ell_matmul_plain(
-                mat.cols, mat.vals, x2), 5)
+            ms = cuda_ms(torch, launch, 20)
+            plain_ms = cuda_ms(torch, plain, 5)
             lib_ms = cuda_ms(torch, lib, 5)
-        src = int(torch.unique(mat.cols).numel())
-        nbytes = 4 * (src * d + 2 * m * k + m * d)
-        flops = 2.0 * m * k * d
+            if ties:
+                main_ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
+                    mat.cols, mat.vals, x2), 20)
+                seq_ms = cuda_ms(torch, k4_then_twin, 5)
+        src = torch.cat([mat.cols.reshape(-1)]
+                        + [c.reshape(-1) for _, c, _ in ties])
+        t_entries = sum(c.numel() for _, c, _ in ties)
+        t_rows = sum(r.numel() for r, _, _ in ties)
+        nbytes = 4 * (int(torch.unique(src).numel()) * d + 2 * m * k
+                      + 2 * t_entries + (m + t_rows if ties else 0) + m * d)
+        flops = 2.0 * (m * k + t_entries) * d + t_rows * d
         b_ms, b_by, _, _ = bound(nbytes, flops)
-        ties = getattr(mat, "tiers", ())
-        log(f"[5 K4 {name}] {n_src}->{m} K={k} D={d} ({len(ties)} tiers): "
-            f"bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
-            f"{lib_ms:.4f}, bound {b_ms:.4f} ({b_by})")
-        mains.append(dict(table=name, n_src=n_src, m=m, k=k, d=d,
-                          tiers=len(ties), max_abs_err=0.0, ms=ms,
-                          plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                          bound_by=b_by, bytes=nbytes, flops=flops))
-        for t, (rows, cols, vals) in enumerate(ties):
-            tiers.append(k4_tier(torch, kernels, sparse, gen, f"{name} {t}",
-                                 rows, cols, vals, x2, m))
+        entry = dict(table=name, n_src=n_src, m=m, k=k, d=d,
+                     tiers=len(ties), tier_rows=[int(r.numel())
+                                                 for r, _, _ in ties],
+                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                     bytes=nbytes, flops=flops)
         if ties:
-            with torch.inference_mode():
-                whole = mat.apply(x2)
-                want = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
-                for rows, cols, vals in ties:
-                    sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
-                torch.cuda.synchronize()
-                check(torch.equal(whole, want),
-                      f"CappedEll.apply {name}: card and twin differ")
+            entry.update(main_ms=main_ms, k4_then_twin_ms=seq_ms)
+            fused.append(entry)
+            log(f"[5 K4 capped {name}] {n_src}->{m} K={k} D={d}, tiers "
+                f"{entry['tier_rows']} rows K "
+                f"{[int(c.shape[1]) for _, c, _ in ties]}: bit-equal; fused "
+                f"{ms:.4f} ms (K4 alone {main_ms:.4f}, K4 + tiers' twin "
+                f"{seq_ms:.4f}), plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+                f"bound {b_ms:.5f} ({b_by})")
+        else:
+            mains.append(entry)
+            log(f"[5 K4 {name}] {n_src}->{m} K={k} D={d}: bit-equal; kernel "
+                f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+                f"bound {b_ms:.4f} ({b_by})")
         del x2, sp
-    rec = summarize("ell_matmul_tier", "csrc/ell_matmul.cu",
-                    "craniofacialsd_vae_tpu/ops/sparse.py:103", tiers)
-    main_rec = summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
-                         "craniofacialsd_vae_tpu/ops/sparse.py:191", mains)
-    log(f"[5 K4 backward] per step: {len(mains)} tables, kernel "
-        f"{main_rec['ms']:.4f} ms, plain {main_rec['plain_ms']:.4f}, library "
-        f"{main_rec['library_ms']:.4f}, bound {main_rec['bound_ms']:.4f}; "
-        f"K4-tier {len(tiers)} launches, kernel {rec['ms']:.4f} ms, plain "
-        f"{rec['plain_ms']:.4f}, library {rec['library_ms']:.4f}, bound "
-        f"{rec['bound_ms']:.4f}")
-    return main_rec, rec
-
-
-def k4_tier(torch, kernels, sparse, gen, name, rows, cols, vals, x2,
-            m) -> dict:
-    r, k = cols.shape
-    d = x2.shape[1]
-    base = torch.randn((m, d), generator=gen, device=DEVICE)
-    sp = coo_of(torch, rows, cols, vals, (m, x2.shape[0]))
-    with torch.inference_mode():
-        got, want = base.clone(), base.clone()
-        kernels.ell_matmul_tier(rows, cols, vals, x2, got)
-        sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
-        torch.cuda.synchronize()
-        check(torch.equal(got, want), f"K4-tier {name}: kernel and twin "
-              f"differ at {int((got != want).sum())} values")
-        lib = lambda: torch.sparse.addmm(base, sp, x2)       # noqa: E731
-        check(max_err(lib(), want) <= 1e-5 * float(want.abs().max()),
-              f"K4-tier {name}: library form disagrees")
-        scratch = base.clone()
-        ms = cuda_ms(torch, lambda: kernels.ell_matmul_tier(
-            rows, cols, vals, x2, scratch), 20)
-        plain_ms = cuda_ms(torch, lambda: sparse.ell_tier_add_plain(
-            rows, cols, vals, x2, scratch), 5)
-        lib_ms = cuda_ms(torch, lib, 5)
-    src = int(torch.unique(cols).numel())
-    nbytes = 4 * (src * d + 2 * r * k + r + 2 * r * d)
-    flops = 2.0 * r * k * d + r * d
-    b_ms, b_by, _, _ = bound(nbytes, flops)
-    log(f"[5 K4-tier {name}] {r} rows K={k} D={d}: bit-equal; kernel "
-        f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
-        f"{b_ms:.5f} ({b_by})")
-    return dict(tier=name, rows=r, k=k, d=d, max_abs_err=0.0, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops)
+    rec = summarize("ell_matmul_capped", "csrc/ell_matmul.cu",
+                    "craniofacialsd_vae_tpu/ops/sparse.py:101", fused)
+    rec["main_ms"] = sum(e["main_ms"] for e in fused)
+    rec["k4_then_twin_ms"] = sum(e["k4_then_twin_ms"] for e in fused)
+    log(f"[5 K4 capped] per step: {len(fused)} tables, "
+        f"{sum(e['tiers'] for e in fused)} tiers, fused {rec['ms']:.4f} ms "
+        f"(K4 alone on the main tables {rec['main_ms']:.4f}: the tiers add "
+        f"{rec['ms'] - rec['main_ms']:.4f}), K4 + tiers' twin "
+        f"{rec['k4_then_twin_ms']:.4f}, plain {rec['plain_ms']:.4f}, library "
+        f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}; K4 on "
+        f"{[e['table'] for e in mains]}")
+    return mains, rec
 
 
 def expected_step_launches(model, geom, batch: int) -> dict:
     """Launches of one training step: K1 per conv, K4 per up-pool and per
-    table of ``backward_tables``, K4-tier per tier, K2-dW per conv."""
+    table of ``backward_tables`` without tiers, the fused K4 per table
+    with tiers, K2-dW per conv."""
     convs = model_convs(model, geom)
     tables = backward_tables(model, geom, batch)
     counts = dict.fromkeys(("spiral_conv_tc", "spiral_conv_narrow"), 0)
@@ -988,14 +1029,14 @@ def expected_step_launches(model, geom, batch: int) -> dict:
         c_in, c_out = conv_widths(conv, op)
         counts[("spiral_conv_narrow" if c_out < 8
                 else "spiral_conv_tc")] += 1
-    counts.update(ell_matmul_fwd=len(geom.up) + len(tables),
-                  ell_matmul_tier=sum(len(getattr(t[1], "tiers", ()))
-                                      for t in tables),
-                  spiral_conv_dw=len(convs), raster_sweep=0)
+    capped = sum(1 for t in tables if tiers_of(t[1]))
+    counts.update(ell_matmul_fwd=len(geom.up) + len(tables) - capped,
+                  ell_matmul_capped=capped, spiral_conv_dw=len(convs),
+                  raster_sweep=0)
     return counts
 
 
-def phase_training(torch, mods, bundle, config) -> dict:
+def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
     """The training step on the card at full width, then on the host."""
     from craniofacialsd_vae_tpu_torch.geometry import level0_positions
     from craniofacialsd_vae_tpu_torch.models import init_sdvae
@@ -1013,14 +1054,14 @@ def phase_training(torch, mods, bundle, config) -> dict:
     geom = geom_h.to(DEVICE)
     model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
     setup_s = time.perf_counter() - t0
-    n_tiers = {name: len(getattr(mat, "tiers", ()))
+    n_tiers = {name: len(tiers_of(mat))
                for name, mat, _, _ in backward_tables(model, geom, grid)}
     log(f"[5 train] geometry and model in {setup_s:.2f} s; stand-in "
         f"Laplacian {int(geom.laplacian.cols.numel())} entries (K "
         f"{geom.laplacian.cols.shape[1]}), {N_REGIONS} stand-in regions; "
         f"tiers per backward table {n_tiers}")
-    k2 = k2_parity(torch, mods, model, geom, grid)
-    k4_main, tier = k4_backward_parity(torch, mods, model, geom, grid)
+    k2 = k2_parity(torch, mods, model, geom, grid, ptxas)
+    k4_main, capped = k4_backward_parity(torch, mods, model, geom, grid)
     torch.cuda.empty_cache()
 
     # scans drawn as the serving phase draws them, normalised by the same
@@ -1115,7 +1156,7 @@ def phase_training(torch, mods, bundle, config) -> dict:
         f"{peak_mb:.0f} MiB; tot {['%.5g' % v for v in traj['tot']]}")
     log(f"[5 profile] train step: wall {prof['wall_ms']:.2f} ms, device "
         f"{prof['device_ms']} ms, idle share {prof['idle_share']}; {top}")
-    return dict(counts=counts, k2=k2, k4_backward=k4_main, tier=tier,
+    return dict(counts=counts, k2=k2, k4_backward=k4_main, capped=capped,
                 first_step_ms=first_ms, host_step_ms=host_ms,
                 loss_rel_err=loss_err, grad_rel_err=grad_err,
                 step_ms=times, step_p50_ms=p50, scans_per_s=b / p50 * 1e3,
@@ -1128,8 +1169,8 @@ def training_records(serving: list, train: dict) -> list:
     """One record per kernel of the training step, each timed over the
     shapes of that step's own launches: K1 and the up-pools' forward at
     the serving path's B = 16 pass (the swap grid has 16 meshes, so the
-    shapes are the same), K4 at the up-pools and every backward table,
-    K2-dW, K4-tier."""
+    shapes are the same), K4 at the up-pools and the backward tables
+    without tiers, K2-dW, the fused K4 at the tables with tiers."""
     grid = TRAIN_CONFIG["batch_size"] ** 2
     check(grid == BATCH, f"the swap grid ({grid}) is not the B = {BATCH} "
           "pass whose K1 and K4 times the training records reuse")
@@ -1138,8 +1179,8 @@ def training_records(serving: list, train: dict) -> list:
     k4 = summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
                    "craniofacialsd_vae_tpu/ops/sparse.py:222",
                    by_name["ell_matmul_fwd"]["shapes"]
-                   + train["k4_backward"]["shapes"])
-    return [*k1, k4, train["k2"], train["tier"]]
+                   + train["k4_backward"])
+    return [*k1, k4, train["k2"], train["capped"]]
 
 
 # ----------------------------------------------------------------------
@@ -1201,7 +1242,7 @@ def main(argv=None) -> int:
               f"{rec['name']} was not launched on the serving path")
     torch.cuda.empty_cache()
 
-    train = phase_training(torch, mods, bundle, config)
+    train = phase_training(torch, mods, bundle, config, k1_ptxas(build_log))
     train_records = training_records(records, train)
     for rec in train_records:
         rec["path"] = "training"

@@ -10,7 +10,8 @@ across with ``models.params_from_jax``.
 Hand-written CUDA kernels for ``sm_90a`` carry the path (``csrc/``, built
 and bound by ``kernels.py``): the spiral conv forward (K1) and its weight
 gradient (K2-dW), the ELL product of the up-pools, the Laplacian and every
-transpose of the backward (K4) with its overflow tiers (K4-tier), and the
+transpose of the backward (K4, with its overflow tiers in the same launch
+for a capped table: ``ell_matmul_capped``), and the
 rasterizer's z-buffer sweep (K7). Each wrapper runs its plain PyTorch twin
 for a CPU tensor and launches the kernel (or raises) for a CUDA tensor.
 Entry points take ``device=None``, which means ``"cuda"``.

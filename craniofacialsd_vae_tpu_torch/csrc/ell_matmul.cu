@@ -30,21 +30,23 @@
 // rounded one by one (__fmul_rn, __fadd_rn) in the plain twin's order, so
 // both paths agree with it bit for bit.
 //
-// K4-tier (cfs_ell_matmul_tier) replaces the overflow landing of
-// craniofacialsd_vae_tpu/ops/sparse.py::CappedEll.apply (lines 103-104,
-// `out.at[o_rows].add(ell_matmul_raw(o_cols, o_vals, x))`):
-//
-//   out[rows[r], :] += sum_k vals[r, k] * x[cols[r, k], :]
-//
-// in place, on the output of the main table. The rows of a tier are
-// unique (capped_ell builds them so), so each output row belongs to one
-// thread and is read and written once: no atomics, and the sum is
-// deterministic. The same kernels run it (the TIER template flag): the
-// tier's sum is formed exactly as K4 forms a row, then added to the row
-// with one rounding, as the plain twin's index_add does. Bound, as K4, by
-// bytes: the tier's gathered rows plus one read and one write of each
-// landed row; a tier is a few hundred rows, so one launch is mostly
-// launch latency.
+// ell_matmul_capped (cfs_ell_matmul_capped) is K4 with the overflow tiers
+// of a capped table landed inside the same launch. It replaces
+// craniofacialsd_vae_tpu/ops/sparse.py::CappedEll.apply (lines 101-104:
+// the main ELL product, then `out.at[o_rows].add(ell_matmul_raw(o_cols,
+// o_vals, x))` per tier). The tiers' rows are unique, and tier t's rows
+// are a subset of tier t-1's (capped_ell builds them so), so the host
+// stores a walk (kernels.py, sparse.py::tier_links): link0[m] is main row
+// m's slot in tier 1 (-1 if none), next_t[r] tier t's row r's slot in
+// tier t+1. The thread that forms main row m in K4's order goes on along
+// the walk, forms each tier's sum in K4's order and adds it to its
+// accumulator with one rounding, then writes the row once: the rounding
+// sequence of K4 followed by one index_add per tier, so the result is
+// bit-equal to that plain twin, with no atomics and no second read and
+// write of a landed row. Bound, as K4, by bytes: the main table's and the
+// tiers' gathered rows and one write of each output row. Tables without
+// tiers take K4 itself: the CAPPED template flag compiles the tier walk
+// out, so the serving path runs the same code as before.
 
 #include <cuda_runtime.h>
 #include <cstdint>
@@ -52,6 +54,16 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kMaxTiers = 3;
+
+// The overflow tiers' walk, by value in the kernel's parameters.
+struct Tiers {
+  const int* link0;                  // [M]: slot in tier 1, or -1
+  const int* cols[kMaxTiers];        // [R_t, K_t]
+  const float* vals[kMaxTiers];
+  const int* next[kMaxTiers];        // [R_t]: slot in tier t + 1, or -1
+  int k[kMaxTiers];
+};
 
 __device__ __forceinline__ float4 madd4(float4 acc, float w, float4 g) {
   acc.x = __fadd_rn(acc.x, __fmul_rn(w, g.x));
@@ -71,13 +83,52 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
                      __fadd_rn(a.z, b.z), __fadd_rn(a.w, b.w));
 }
 
+// acc + each tier's sum of row m, in tier order (CAPPED launches only)
+__device__ __forceinline__ float4 add_tiers4(const Tiers& t, int m,
+                                             const float4* __restrict__ x,
+                                             int dw, int j, float4 acc) {
+  int s = __ldg(t.link0 + m);
+#pragma unroll
+  for (int q = 0; q < kMaxTiers; ++q) {
+    if (s < 0) break;
+    const int K = t.k[q];
+    const int* c = t.cols[q] + (size_t)s * K;
+    const float* v = t.vals[q] + (size_t)s * K;
+    float4 sum = mul4(__ldg(v), __ldg(x + (size_t)__ldg(c) * dw + j));
+    for (int k = 1; k < K; ++k)
+      sum = madd4(sum, __ldg(v + k), __ldg(x + (size_t)__ldg(c + k) * dw + j));
+    acc = add4(acc, sum);
+    s = __ldg(t.next[q] + s);
+  }
+  return acc;
+}
+
+__device__ __forceinline__ float add_tiers(const Tiers& t, int s,
+                                           const float* __restrict__ x,
+                                           int dw, int j, float acc) {
+#pragma unroll
+  for (int q = 0; q < kMaxTiers; ++q) {
+    if (s < 0) break;
+    const int K = t.k[q];
+    const int* c = t.cols[q] + (size_t)s * K;
+    const float* v = t.vals[q] + (size_t)s * K;
+    float sum = __fmul_rn(__ldg(v), __ldg(x + (size_t)__ldg(c) * dw + j));
+    for (int k = 1; k < K; ++k)
+      sum = __fadd_rn(sum, __fmul_rn(__ldg(v + k),
+                                     __ldg(x + (size_t)__ldg(c + k) * dw + j)));
+    acc = __fadd_rn(acc, sum);
+    s = __ldg(t.next[q] + s);
+  }
+  return acc;
+}
+
 // Block (tx, 256 / tx), grid (row groups, column segments); each thread
 // computes R rows of one 16-byte column; KK = K when it is a compile-time
-// constant (the up-pools' 3), else 0. TIER: add row m's sum to out row
-// rows[m] (K4-tier) instead of writing out row m.
-template <int R, int KK, bool TIER>
+// constant (the up-pools' 3), else 0. CAPPED: each row's overflow tiers
+// are added before it is written.
+template <int R, int KK, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
-ell_matmul_direct(const int* __restrict__ rows, const int* __restrict__ cols,
+ell_matmul_direct(const Tiers tiers, const int* __restrict__ cols,
                   const float* __restrict__ vals,
                   const float4* __restrict__ x, float4* __restrict__ out,
                   int M, int k_rt, int dw) {
@@ -106,18 +157,14 @@ ell_matmul_direct(const int* __restrict__ rows, const int* __restrict__ cols,
 #pragma unroll
   for (int r = 0; r < R; ++r) {
     if (m0 + r >= M) continue;
-    if (TIER) {
-      const size_t o = (size_t)__ldg(rows + m0 + r) * dw + j;
-      out[o] = add4(out[o], acc[r]);
-    } else {
-      out[(size_t)(m0 + r) * dw + j] = acc[r];
-    }
+    if (CAPPED) acc[r] = add_tiers4(tiers, m0 + r, x, dw, j, acc[r]);
+    out[(size_t)(m0 + r) * dw + j] = acc[r];
   }
 }
 
-template <bool TIER>
+template <bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
-ell_matmul_scalar(const int* __restrict__ rows, const int* __restrict__ cols,
+ell_matmul_scalar(const Tiers tiers, const int* __restrict__ cols,
                   const float* __restrict__ vals,
                   const float* __restrict__ x, float* __restrict__ out,
                   int M, int K, int dw) {
@@ -125,12 +172,13 @@ ell_matmul_scalar(const int* __restrict__ rows, const int* __restrict__ cols,
   if (m >= M) return;
   const int* c = cols + (size_t)m * K;
   const float* v = vals + (size_t)m * K;
-  const size_t o = (size_t)(TIER ? __ldg(rows + m) : m) * dw;
+  const int s = CAPPED ? __ldg(tiers.link0 + m) : -1;
   for (int j = threadIdx.x; j < dw; j += blockDim.x) {
     float acc = __fmul_rn(v[0], __ldg(x + (size_t)c[0] * dw + j));
     for (int k = 1; k < K; ++k)
       acc = __fadd_rn(acc, __fmul_rn(v[k], __ldg(x + (size_t)c[k] * dw + j)));
-    out[o + j] = TIER ? __fadd_rn(out[o + j], acc) : acc;
+    if (CAPPED) acc = add_tiers(tiers, s, x, dw, j, acc);
+    out[(size_t)m * dw + j] = acc;
   }
 }
 
@@ -142,8 +190,8 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
-template <int R, bool TIER>
-int launch_direct(const int* rows, const int* cols, const float* vals,
+template <int R, bool CAPPED>
+int launch_direct(const Tiers& tiers, const int* cols, const float* vals,
                   const float* x, float* out, int M, int K, int dw, int tx,
                   cudaStream_t s) {
   const dim3 block(tx, kThreads / tx);
@@ -151,17 +199,17 @@ int launch_direct(const int* rows, const int* cols, const float* vals,
   const float4* x4 = reinterpret_cast<const float4*>(x);
   float4* o4 = reinterpret_cast<float4*>(out);
   if (K == 3)
-    ell_matmul_direct<R, 3, TIER><<<grid, block, 0, s>>>(rows, cols, vals, x4,
-                                                         o4, M, K, dw);
+    ell_matmul_direct<R, 3, CAPPED><<<grid, block, 0, s>>>(
+        tiers, cols, vals, x4, o4, M, K, dw);
   else
-    ell_matmul_direct<R, 0, TIER><<<grid, block, 0, s>>>(rows, cols, vals, x4,
-                                                         o4, M, K, dw);
+    ell_matmul_direct<R, 0, CAPPED><<<grid, block, 0, s>>>(
+        tiers, cols, vals, x4, o4, M, K, dw);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The launch rule shared by K4 and K4-tier (rows == nullptr: K4).
-template <bool TIER>
-int launch_ell(const int* rows, const int* cols, const float* vals,
+// The launch rule shared by K4 and its capped form.
+template <bool CAPPED>
+int launch_ell(const Tiers& tiers, const int* cols, const float* vals,
                const float* x, float* out, int M, int K, int D,
                cudaStream_t s) {
   if (M < 1 || K < 1 || D < 1)
@@ -170,8 +218,8 @@ int launch_ell(const int* rows, const int* cols, const float* vals,
     int tx = 32;                     // threads along the row: a warp or more
     while (tx < D && tx < kThreads) tx *= 2;
     const dim3 block(tx, kThreads / tx);
-    ell_matmul_scalar<TIER><<<blocks_along(M, block.y), block, 0, s>>>(
-        rows, cols, vals, x, out, M, K, D);
+    ell_matmul_scalar<CAPPED><<<blocks_along(M, block.y), block, 0, s>>>(
+        tiers, cols, vals, x, out, M, K, D);
     return static_cast<int>(cudaGetLastError());
   }
   const int dw = D / 4;
@@ -185,9 +233,10 @@ int launch_ell(const int* rows, const int* cols, const float* vals,
   const long long two = static_cast<long long>(
       blocks_along(M, 2 * (kThreads / tx))) * blocks_along(dw, tx);
   return two >= 16LL * sms
-             ? launch_direct<2, TIER>(rows, cols, vals, x, out, M, K, dw, tx, s)
-             : launch_direct<1, TIER>(rows, cols, vals, x, out, M, K, dw, tx,
-                                      s);
+             ? launch_direct<2, CAPPED>(tiers, cols, vals, x, out, M, K, dw, tx,
+                                        s)
+             : launch_direct<1, CAPPED>(tiers, cols, vals, x, out, M, K, dw, tx,
+                                        s);
 }
 
 }  // namespace
@@ -196,16 +245,32 @@ int launch_ell(const int* rows, const int* cols, const float* vals,
 extern "C" int cfs_ell_matmul_fwd(const int* cols, const float* vals,
                                   const float* x, float* out, int M, int K,
                                   int D, void* stream) {
-  return launch_ell<false>(nullptr, cols, vals, x, out, M, K, D,
+  return launch_ell<false>(Tiers{}, cols, vals, x, out, M, K, D,
                            static_cast<cudaStream_t>(stream));
 }
 
-// K4-tier: out[rows[r]] += the ELL product's row r, for R unique rows of
-// out [*, D], in place. Returns a cudaError_t.
-extern "C" int cfs_ell_matmul_tier(const int* rows, const int* cols,
-                                   const float* vals, const float* x,
-                                   float* out, int R, int K, int D,
-                                   void* stream) {
-  return launch_ell<true>(rows, cols, vals, x, out, R, K, D,
+// ell_matmul_capped: out [M, D] = the main ELL product plus its n_tiers
+// (1 to 3) overflow tiers. link0 [M] is the walk's first link; tier_ptrs
+// holds 3 device pointers per tier (cols [R_t, K_t], vals [R_t, K_t],
+// next [R_t]) and tier_k each tier's K_t, both in host memory. Returns a
+// cudaError_t.
+extern "C" int cfs_ell_matmul_capped(const int* cols, const float* vals,
+                                     const int* link0, const float* x,
+                                     float* out, int M, int K, int D,
+                                     int n_tiers, void* const* tier_ptrs,
+                                     const int* tier_k, void* stream) {
+  if (n_tiers < 1 || n_tiers > kMaxTiers || link0 == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Tiers t{};
+  t.link0 = link0;
+  for (int q = 0; q < n_tiers; ++q) {
+    t.cols[q] = static_cast<const int*>(tier_ptrs[3 * q]);
+    t.vals[q] = static_cast<const float*>(tier_ptrs[3 * q + 1]);
+    t.next[q] = static_cast<const int*>(tier_ptrs[3 * q + 2]);
+    t.k[q] = tier_k[q];
+    if (!t.cols[q] || !t.vals[q] || !t.next[q] || t.k[q] < 1)
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_ell<true>(t, cols, vals, x, out, M, K, D,
                           static_cast<cudaStream_t>(stream));
 }

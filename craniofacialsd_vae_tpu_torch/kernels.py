@@ -8,10 +8,10 @@ it. The hash covers the sources and the flags, so an edit rebuilds.
 
 Each launch function checks device, dtype, shape, alignment and
 contiguity, allocates its output (and K2-dW its scratch) with
-``torch.empty`` (K4-tier adds into the output it is given), launches on
-PyTorch's current stream, adds one to its entry in ``launches`` and raises
-if the C function reports a CUDA error. None of them falls back to a
-plain version: the callers choose the plain twin only for CPU tensors.
+``torch.empty``, launches on PyTorch's current stream, adds one to its
+entry in ``launches`` and raises if the C function reports a CUDA
+error. None of them falls back to a plain version: the callers choose
+the plain twin only for CPU tensors.
 """
 
 from __future__ import annotations
@@ -30,22 +30,23 @@ from dataclasses import dataclass
 import torch
 
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
-           "ell_matmul_fwd", "ell_matmul_tier", "SpiralPlan",
-           "plan_spiral_conv", "spiral_conv_fwd", "plan_spiral_conv_dw",
-           "spiral_conv_dw", "raster_sweep"]
+           "ell_matmul_fwd", "ell_matmul_capped", "SpiralPlan",
+           "plan_spiral_conv", "spiral_conv_fwd", "DwPlan",
+           "plan_spiral_conv_dw", "spiral_conv_dw", "raster_sweep"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
            "spiral_conv_dw.cu")
+HEADERS = ("common.cuh",)
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _CFLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v")
 
 KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
-                "raster_sweep", "spiral_conv_dw", "ell_matmul_tier")
+                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -93,7 +94,7 @@ def _nvcc() -> str:
 
 def _build_dir() -> str:
     h = hashlib.sha256(" ".join(_CFLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         with open(os.path.join(_CSRC, name), "rb") as f:
             h.update(name.encode() + b"\0" + f.read())
     return os.path.join(_BUILD_ROOT, h.hexdigest()[:16])
@@ -163,11 +164,13 @@ def library() -> ctypes.CDLL:
                                                 i, ctypes.POINTER(i), p]
             lib.cfs_raster_sweep.argtypes = [p, p, p, p, p, p, p, i, i, i,
                                              i, p]
-            lib.cfs_ell_matmul_tier.argtypes = [p, p, p, p, p, i, i, i, p]
+            lib.cfs_ell_matmul_capped.argtypes = [
+                p, p, p, p, p, i, i, i, i, ctypes.POINTER(p),
+                ctypes.POINTER(i), p]
             lib.cfs_spiral_conv_dw.argtypes = [p, p, p, p, p, i, i, i, i, i,
-                                               i, ctypes.c_longlong, p]
+                                               ctypes.POINTER(i), p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
-                       lib.cfs_raster_sweep, lib.cfs_ell_matmul_tier,
+                       lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw):
                 fn.restype = ctypes.c_int
             _lib = lib
@@ -231,37 +234,58 @@ def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-def ell_matmul_tier(rows: torch.Tensor, cols: torch.Tensor,
-                    vals: torch.Tensor, x2: torch.Tensor,
-                    out2: torch.Tensor) -> None:
-    """K4-tier, in place: ``out2[rows[r], :] += Σ_k vals[r,k] ·
-    x2[cols[r,k], :]`` for the ``R`` rows of one overflow tier over
-    packed ``[N, D]`` / ``[M, D]`` views. ``rows`` must be unique (the
-    kernel writes each once, without atomics) and in ``[0, M)``; the
-    table builder guarantees both."""
+_MAX_TIERS = 3                  # csrc/ell_matmul.cu's kMaxTiers
+
+
+def ell_matmul_capped(cols: torch.Tensor, vals: torch.Tensor, tiers,
+                      links, x2: torch.Tensor) -> torch.Tensor:
+    """K4 with a capped table's overflow tiers landed in the same launch:
+    ``out[m] = Σ_k vals[m,k] · x2[cols[m,k]]``, plus for each tier ``t``
+    holding row ``m`` that tier's sum, added in tier order with one
+    rounding each, over the packed ``[N, D]`` view; returns ``[M, D]``.
+    ``tiers``: 1 to 3 ``(rows [R], cols [R, K_t], vals [R, K_t])``;
+    ``links``: their walk (``sparse.tier_links``), ``link0 [M]`` then one
+    ``[R]`` per tier. The kernel reads the walk, not ``rows``."""
     dev = x2.device
     _require(x2, "x", torch.float32, 2, dev)
-    _require(out2, "out", torch.float32, 2, dev)
-    _require(rows, "rows", torch.int32, 1, dev)
     _require(cols, "cols", torch.int32, 2, dev)
     _require(vals, "vals", torch.float32, 2, dev)
-    if cols.shape != vals.shape or rows.shape[0] != cols.shape[0]:
-        raise ValueError(f"rows {tuple(rows.shape)}, cols "
-                         f"{tuple(cols.shape)} and vals {tuple(vals.shape)} "
-                         "do not describe one tier")
-    if out2.shape[1] != x2.shape[1]:
-        raise ValueError(f"out {tuple(out2.shape)} and x {tuple(x2.shape)} "
-                         "differ in width")
-    (r, k), (n, d) = cols.shape, x2.shape
-    _fits_int32(r, k, d, n, out2.shape[0])
-    if r == 0 or d == 0:
-        return
+    (m, k), (n, d) = cols.shape, x2.shape
+    if vals.shape != cols.shape:
+        raise ValueError(f"cols {tuple(cols.shape)} and vals "
+                         f"{tuple(vals.shape)} differ")
+    if not 1 <= len(tiers) <= _MAX_TIERS or len(links) != len(tiers) + 1:
+        raise ValueError(f"{len(tiers)} tiers with {len(links)} links: need "
+                         f"1 to {_MAX_TIERS} tiers and one link more")
+    _require(links[0], "link0", torch.int32, 1, dev)
+    if links[0].shape[0] != m:
+        raise ValueError(f"link0 {tuple(links[0].shape)} does not fit {m} "
+                         "rows")
+    ptrs, ks = [], []
+    for t, ((_, t_cols, t_vals), nxt) in enumerate(zip(tiers, links[1:])):
+        _require(t_cols, f"tier {t} cols", torch.int32, 2, dev)
+        _require(t_vals, f"tier {t} vals", torch.float32, 2, dev)
+        _require(nxt, f"tier {t} next", torch.int32, 1, dev)
+        if (t_vals.shape != t_cols.shape or nxt.shape[0] != t_cols.shape[0]
+                or t_cols.shape[1] < 1):
+            raise ValueError(f"tier {t}: cols {tuple(t_cols.shape)}, vals "
+                             f"{tuple(t_vals.shape)} and next "
+                             f"{tuple(nxt.shape)} do not describe one tier")
+        _fits_int32(*t_cols.shape)
+        ptrs += [t_cols.data_ptr(), t_vals.data_ptr(), nxt.data_ptr()]
+        ks.append(t_cols.shape[1])
+    _fits_int32(m, k, d, n)
+    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    if m == 0 or d == 0:
+        return out
     if n == 0 or k == 0:
-        raise ValueError("a tier needs at least one source row and one "
-                         "entry per row")
-    _launch("ell_matmul_tier", library().cfs_ell_matmul_tier, dev,
-            _ptr(rows), _ptr(cols), _ptr(vals), _ptr(x2), _ptr(out2), r, k,
-            d)
+        raise ValueError("ell_matmul needs at least one source row and "
+                         "one entry per row")
+    _launch("ell_matmul_capped", library().cfs_ell_matmul_capped, dev,
+            _ptr(cols), _ptr(vals), _ptr(links[0]), _ptr(x2), _ptr(out), m,
+            k, d, len(ks), (ctypes.c_void_p * len(ptrs))(*ptrs),
+            (ctypes.c_int * len(ks))(*ks))
+    return out
 
 
 @dataclass(frozen=True)
@@ -501,25 +525,154 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     return out
 
 
-_DW_STAGE_ROWS = 64             # csrc/spiral_conv_dw.cu's kStageRows
+# K2-dW planner constants (csrc/spiral_conv_dw.cu checks every plan)
+_DW_MAX_WARPS = 9             # its launch bounds: 288 threads, 2 blocks an SM
+_DW_BLOCKS_PER_SM = 2
+_DW_ROWS = (64, 32)           # reduction rows per vertex tile, at most
+_DW_MIN_ROWS = 16             # ... and at least, where B allows
+_DW_STAGES = (3, 2)           # ring stages, the most that fit first
+_DW_BAR_FLOATS = 16           # shared memory of the stages' mbarriers
 
 
-def plan_spiral_conv_dw(m: int, b: int, seq: int) -> tuple:
-    """K2-dW's chunks of the ``m·b`` reduction rows: ``(n_chunks,
-    chunk_rows)``, about four blocks per SM over the ``seq`` positions
-    and no chunk under one stage of 64 rows."""
-    rows = m * b
-    n = max(1, min(_cdiv(4 * _SMS, seq), _cdiv(rows, _DW_STAGE_ROWS)))
-    chunk = _cdiv(_cdiv(rows, n), _DW_STAGE_ROWS) * _DW_STAGE_ROWS
-    return _cdiv(rows, chunk), chunk
+@dataclass(frozen=True)
+class DwPlan:
+    """One K2-dW launch. The wider of C_in and C_out is the MMA's M side
+    (``x_on_m``: C_in), the other its N side. A warp owns ``mi`` x ``ni``
+    fragments (16 x 8 each) of one position; ``fgm`` x ``fgn`` such warp
+    blocks make a block's output block for each of its ``positions``.
+    Grid: (chunks, position groups, output blocks ``zm`` x ``zn``)."""
+    x_on_m: bool
+    mi: int
+    ni: int
+    fgm: int
+    fgn: int
+    positions: int        # spiral positions per block, a divisor of L
+    stages: int           # ring stages, one vertex tile (all positions) each
+    tmv: int              # vertices per tile (all B batch rows of each)
+    rows_p: int           # a tile's reduction rows, padded to 8
+    ldx: int              # row strides in shared memory, floats
+    ldd: int
+    n_vtiles: int
+    tiles_per_chunk: int
+    n_chunks: int
+    groups: int
+    zm: int
+    zn: int
+    threads: int
+    smem: int             # dynamic shared memory, bytes
+    vec_x: bool           # 16-byte copies (else 4-byte)
+    vec_d: bool
+
+    @property
+    def grid(self) -> tuple:
+        return (self.n_chunks, self.groups, self.zm * self.zn)
+
+    @property
+    def blocks(self) -> int:
+        return self.n_chunks * self.groups * self.zm * self.zn
+
+    def as_ints(self) -> tuple:
+        """The plan as csrc/spiral_conv_dw.cu's DwField array."""
+        return (int(self.x_on_m), self.mi, self.ni, self.fgm, self.fgn,
+                self.positions, self.stages, self.tmv, self.rows_p,
+                self.ldx, self.ldd, self.n_vtiles, self.tiles_per_chunk,
+                self.n_chunks, self.groups, self.zm, self.zn, self.threads,
+                self.smem, int(self.vec_x), int(self.vec_d))
+
+
+def _dw_stride(width: int) -> int:
+    """The least row stride ≥ ``width`` that is 8 or 24 mod 32 floats:
+    the lanes' fragment loads (k = tig, column gid) then hit 32 banks."""
+    ld = _cdiv(width, 8) * 8
+    while ld % 32 not in (8, 24):
+        ld += 8
+    return ld
+
+
+def _dw_warp_blocks(seq, wide, narrow):
+    """``(P, MI, NI, fgm, fgn, zm, zn)``: warp tiles of up to 32 x 32,
+    the position's output in at most nine of them per block (grid.z over
+    the rest), and the most positions whose warps make at most nine."""
+    mi = 2 if wide > 16 else 1
+    ni = 4 if narrow > 16 else 2 if narrow > 8 else 1
+    fm, fn = _cdiv(wide, 16 * mi), _cdiv(narrow, 8 * ni)
+    fgm = min(fm, 3)
+    fgn = min(fn, _DW_MAX_WARPS // fgm)
+    p = max(d for d in range(1, seq + 1)
+            if seq % d == 0 and d * fgm * fgn <= _DW_MAX_WARPS)
+    return p, mi, ni, fgm, fgn, _cdiv(fm, fgm), _cdiv(fn, fgn)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_spiral_conv_dw(m: int, b: int, seq: int, c_in: int, c_out: int,
+                        x_aligned: bool = True,
+                        dy_aligned: bool = True) -> DwPlan:
+    """The K2-dW launch for ``dW [seq, c_in, c_out]`` over ``m`` vertices
+    of ``b`` batch rows; ``x_aligned``/``dy_aligned``: whether x and dy
+    start on 16 bytes. The largest tile (64 or 32 reduction rows) and
+    then the deepest ring (three stages or two) with which two blocks
+    still fit on an SM (``k2_sweep``); one block an SM where not even
+    that fits. Raises for a shape that does not fit."""
+    for rows in _DW_ROWS:
+        for stages in _DW_STAGES:
+            plan = _dw_plan(m, b, seq, c_in, c_out, x_aligned, dy_aligned,
+                            rows, stages, _DW_BLOCKS_PER_SM)
+            if plan.smem <= _SMEM_SM // _DW_BLOCKS_PER_SM - _SMEM_RESERVED:
+                return plan
+    plan = _dw_plan(m, b, seq, c_in, c_out, x_aligned, dy_aligned,
+                    _DW_ROWS[-1], _DW_STAGES[-1], 1)
+    if plan.smem > _SMEM_BLOCK:
+        raise ValueError(f"no K2-dW tile of C_in={c_in}, C_out={c_out}, "
+                         f"B={b}, L={seq} fits in shared memory")
+    return plan
+
+
+def _dw_plan(m, b, seq, c_in, c_out, x_aligned, dy_aligned, rows, stages,
+            per_sm) -> DwPlan:
+    """A K2-dW launch with vertex tiles of at most ``rows`` reduction rows
+    (halved, down to 16 rows, while the grid has fewer than ``per_sm``
+    blocks per SM), ``stages`` ring stages and chunks of whole tiles, as
+    many as ``per_sm`` blocks per SM hold in one wave. Its shared memory
+    may exceed what the card offers: the caller checks."""
+    if min(m, b, seq, c_in, c_out) < 1:
+        raise ValueError(f"spiral conv dW needs M, B, L, C_in, C_out ≥ 1; "
+                         f"got {m}, {b}, {seq}, {c_in}, {c_out}")
+    x_on_m = c_in >= c_out
+    wide, narrow = (c_in, c_out) if x_on_m else (c_out, c_in)
+    p, mi, ni, fgm, fgn, zm, zn = _dw_warp_blocks(seq, wide, narrow)
+    bm, bn = 16 * mi * fgm, 8 * ni * fgn
+    cover_x, cover_d = ((zm * bm, zn * bn) if x_on_m else (zn * bn, zm * bm))
+    ldx, ldd = _dw_stride(cover_x), _dw_stride(cover_d)
+    groups = seq // p
+    target = _SMS * per_sm
+    tmv = max(1, rows // b)
+    tmv_min = min(tmv, _cdiv(_DW_MIN_ROWS, b))
+    while tmv > tmv_min and _cdiv(m, tmv) * groups * zm * zn < target:
+        tmv = max(tmv // 2, tmv_min)
+    rows_p = _cdiv(tmv * b, 8) * 8
+    n_vtiles = _cdiv(m, tmv)
+    # at most one wave: no more chunks than the SMs hold at once, each
+    # with its table slice (tiles·tmv vertices x p positions)
+    tpc = _cdiv(n_vtiles, max(1, target // (groups * zm * zn)))
+    smem = _round16(4 * (_DW_BAR_FLOATS + stages * rows_p * (p * ldx + ldd)
+                         + tpc * tmv * p))
+    return DwPlan(x_on_m=x_on_m, mi=mi, ni=ni, fgm=fgm, fgn=fgn,
+                  positions=p, stages=stages, tmv=tmv, rows_p=rows_p,
+                  ldx=ldx, ldd=ldd, n_vtiles=n_vtiles, tiles_per_chunk=tpc,
+                  n_chunks=_cdiv(n_vtiles, tpc), groups=groups, zm=zm, zn=zn,
+                  threads=32 * p * fgm * fgn, smem=smem,
+                  vec_x=c_in % 4 == 0 and x_aligned,
+                  vec_d=c_out % 4 == 0 and dy_aligned)
 
 
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
-                   dy: torch.Tensor) -> torch.Tensor:
+                   dy: torch.Tensor, plan: DwPlan | None = None
+                   ) -> torch.Tensor:
     """K2-dW: ``dW[l] = Σ_{m,b} x[table[m, l], b]ᵀ dy[m, b]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``dy [M, B, C_out]``;
     returns ``[L, C_in, C_out]``. Deterministic: fixed chunks summed in a
-    fixed order through a scratch buffer allocated here."""
+    fixed order through a scratch buffer allocated here. ``plan`` defaults
+    to ``plan_spiral_conv_dw``'s; the kernel rejects one it cannot run."""
     dev = x.device
     _require(x, "x", torch.float32, 3, dev)
     _require(table, "table", torch.int32, 2, dev)
@@ -539,13 +692,17 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
         return out.zero_()
     if n_src == 0:
         raise ValueError("spiral conv dW needs source rows")
-    n_chunks, chunk_rows = plan_spiral_conv_dw(m, bsz, seq)
-    _fits_int32(n_chunks * seq * c_in * c_out)
-    part = torch.empty(n_chunks * seq * c_in * c_out, dtype=torch.float32,
-                       device=dev)
+    if plan is None:
+        plan = plan_spiral_conv_dw(m, bsz, seq, c_in, c_out,
+                                   x.data_ptr() % 16 == 0,
+                                   dy.data_ptr() % 16 == 0)
+    _fits_int32(plan.n_chunks * seq * c_in * c_out)
+    part = torch.empty(plan.n_chunks * seq * c_in * c_out,
+                       dtype=torch.float32, device=dev)
+    fields = plan.as_ints()
     _launch("spiral_conv_dw", library().cfs_spiral_conv_dw, dev,
             _ptr(x), _ptr(table), _ptr(dy), _ptr(part), _ptr(out), m, seq,
-            bsz, c_in, c_out, n_chunks, chunk_rows)
+            bsz, c_in, c_out, (ctypes.c_int * len(fields))(*fields))
     return out
 
 

@@ -1,16 +1,18 @@
 from .pool import build_pool_operator, pool, selection_indices
 from .sparse import (CappedEll, GatherRows, PaddedRowSparse, capped_ell,
-                     ell_matmul, ell_matmul_plain, ell_matmul_raw,
-                     ell_tier_add, ell_tier_add_plain, from_coo,
-                     gather_op_from_idx, gather_rows)
+                     ell_matmul, ell_matmul_capped_plain, ell_matmul_plain,
+                     ell_matmul_raw, ell_tier_add_plain, from_coo,
+                     gather_op_from_idx, gather_rows, tier_links)
 from .spiral_conv import (SpiralOp, build_spiral_op, init_spiral_conv,
-                          spiral_conv, spiral_conv_dw, spiral_conv_dw_plain,
+                          spiral_conv, spiral_conv_dw,
+                          spiral_conv_dw_chunked_plain, spiral_conv_dw_plain,
                           spiral_conv_plain)
 
 __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "GatherRows", "PaddedRowSparse", "capped_ell", "ell_matmul",
-           "ell_matmul_plain", "ell_matmul_raw", "ell_tier_add",
+           "ell_matmul_capped_plain", "ell_matmul_plain", "ell_matmul_raw",
            "ell_tier_add_plain", "from_coo", "gather_op_from_idx",
-           "gather_rows", "SpiralOp", "build_spiral_op", "init_spiral_conv",
-           "spiral_conv", "spiral_conv_dw", "spiral_conv_dw_plain",
+           "gather_rows", "tier_links", "SpiralOp", "build_spiral_op",
+           "init_spiral_conv", "spiral_conv", "spiral_conv_dw",
+           "spiral_conv_dw_chunked_plain", "spiral_conv_dw_plain",
            "spiral_conv_plain"]

@@ -14,9 +14,10 @@ pass is a gather through it, never a scatter: ``ell_matmul`` and
 ``transpose.apply(dy)``, as the JAX custom VJPs ``_ell_bwd`` and
 ``_gather_rows_bwd`` are.
 
-``ell_matmul_raw`` is kernel K4 and ``ell_tier_add`` kernel K4-tier (the
-overflow landing of ``CappedEll.apply``): for a CUDA tensor each
-launches ``csrc/ell_matmul.cu``, for a CPU tensor it runs its plain twin.
+``ell_matmul_raw`` is kernel K4 and ``CappedEll.apply`` of a table with
+overflow tiers the fused kernel ``ell_matmul_capped`` (K4 with the tiers
+landed in the same launch): for a CUDA tensor each launches
+``csrc/ell_matmul.cu``, for a CPU tensor it runs its plain twin.
 """
 
 from __future__ import annotations
@@ -30,8 +31,8 @@ from .. import kernels
 
 __all__ = ["PaddedRowSparse", "CappedEll", "GatherRows", "capped_ell",
            "from_coo", "gather_op_from_idx", "ell_matmul", "ell_matmul_raw",
-           "ell_matmul_plain", "ell_tier_add", "ell_tier_add_plain",
-           "gather_rows"]
+           "ell_matmul_plain", "ell_tier_add_plain", "ell_matmul_capped_plain",
+           "tier_links", "gather_rows"]
 
 
 def _check_index_range(idx: np.ndarray, n: int, what: str) -> None:
@@ -55,27 +56,74 @@ def _pad_rows(rows, cols, vals, m):
     return pad_cols, pad_vals
 
 
+def tier_links(m: int, tiers) -> tuple:
+    """The walk the fused kernel takes over a table's overflow tiers:
+    ``link0 [M]``, each main row's slot in tier 1 (−1 if none), then for
+    each tier ``t`` its rows' slots in tier ``t + 1`` (all −1 for the
+    last), int32 on the tiers' device. Raises unless each tier's rows are
+    sorted, unique and among the previous tier's (``capped_ell`` builds
+    them so)."""
+    prev = torch.arange(m, device=tiers[0][0].device)
+    links = []
+    for t, (rows, _, _) in enumerate(tiers):
+        rows = rows.long()
+        if rows.numel() and (bool((rows[1:] <= rows[:-1]).any())
+                             or int(rows.min()) < 0):
+            raise ValueError(f"tier {t}: rows must be sorted and unique")
+        pos = torch.searchsorted(prev, rows)
+        if bool((pos >= len(prev)).any()) or not torch.equal(
+                prev[pos.clamp(max=max(len(prev) - 1, 0))], rows):
+            raise ValueError(f"tier {t}: rows must be among the previous "
+                             "tier's")
+        link = torch.full((len(prev),), -1, dtype=torch.int32,
+                          device=prev.device)
+        link[pos] = torch.arange(len(rows), dtype=torch.int32,
+                                 device=prev.device)
+        links.append(link)
+        prev = rows
+    links.append(torch.full((len(prev),), -1, dtype=torch.int32,
+                            device=prev.device))
+    return tuple(links)
+
+
 @dataclass
 class CappedEll:
     """ELL matrix with the per-row nnz capped; the tail of high-degree
     rows lives in small overflow tiers ``(rows [R], cols [R, K_t],
-    vals [R, K_t])`` added at their (unique) rows."""
+    vals [R, K_t])`` added at their (unique) rows, and ``links`` is their
+    walk (``tier_links``, built here from the tiers)."""
     cols: torch.Tensor             # [M, K_cap] int32
     vals: torch.Tensor             # [M, K_cap] float32
     tiers: tuple = ()
+    links: tuple = ()
+
+    def __post_init__(self):
+        if self.tiers and not self.links:
+            self.links = tier_links(self.cols.shape[0], self.tiers)
 
     def to(self, device) -> "CappedEll":
         return CappedEll(self.cols.to(device), self.vals.to(device),
                          tuple(tuple(t.to(device) for t in tier)
-                               for tier in self.tiers))
+                               for tier in self.tiers),
+                         tuple(t.to(device) for t in self.links))
 
     def apply(self, x: torch.Tensor) -> torch.Tensor:
-        """The main table (K4), then each overflow tier added in place at
-        its unique rows (K4-tier)."""
-        out = ell_matmul_raw(self.cols, self.vals, x)
-        for o_rows, o_cols, o_vals in self.tiers:
-            ell_tier_add(o_rows, o_cols, o_vals, x, out)
-        return out
+        """The main table plus each overflow tier at its rows: on the card
+        one launch (K4 where there are no tiers, else ``ell_matmul_capped``,
+        which lands them in the same launch); on the host K4's twin, then
+        each tier added in place (``ell_tier_add_plain``), which the fused
+        kernel equals bit for bit."""
+        if not x.is_cuda:
+            out = ell_matmul_plain(self.cols, self.vals, x)
+            for o_rows, o_cols, o_vals in self.tiers:
+                ell_tier_add_plain(o_rows, o_cols, o_vals, x, out)
+            return out
+        if not self.tiers:
+            return ell_matmul_raw(self.cols, self.vals, x)
+        out = kernels.ell_matmul_capped(self.cols, self.vals, self.tiers,
+                                        self.links,
+                                        x.reshape(x.shape[0], -1))
+        return out.view(self.cols.shape[0], *x.shape[1:])
 
 
 _SCATTER_PENALTY_ROWS = 4        # one scattered row ≈ 4 gathered rows
@@ -198,22 +246,31 @@ def ell_matmul_raw(cols: torch.Tensor, vals: torch.Tensor,
 def ell_tier_add_plain(rows: torch.Tensor, cols: torch.Tensor,
                        vals: torch.Tensor, x: torch.Tensor,
                        out: torch.Tensor) -> None:
-    """Plain twin of K4-tier, in place: the tier's ELL product (in K4's
+    """One overflow tier landed in place, the plain form of
+    ``CappedEll.apply``'s tiers: the tier's ELL product (in K4's
     order) added to ``out`` at ``rows`` with one rounding per value."""
     out.view(out.shape[0], -1).index_add_(
         0, rows, ell_matmul_plain(cols, vals, x).reshape(rows.shape[0], -1))
 
 
-def ell_tier_add(rows: torch.Tensor, cols: torch.Tensor, vals: torch.Tensor,
-                 x: torch.Tensor, out: torch.Tensor) -> None:
-    """``out[rows[r]] += Σ_k vals[r,k] · x[cols[r,k]]`` in place, for the
-    unique ``rows`` of one overflow tier: kernel K4-tier on the card, its
-    plain twin on the host. ``out`` must be contiguous."""
-    if not x.is_cuda:
-        ell_tier_add_plain(rows, cols, vals, x, out)
-        return
-    kernels.ell_matmul_tier(rows, cols, vals, x.reshape(x.shape[0], -1),
-                            out.view(out.shape[0], -1))
+def ell_matmul_capped_plain(cols: torch.Tensor, vals: torch.Tensor, tiers,
+                            links, x: torch.Tensor) -> torch.Tensor:
+    """Plain twin of ``ell_matmul_capped`` in the kernel's order, driven by
+    the walk as the kernel is (``rows`` unused): K4's twin on the main
+    table, then for each tier its sums (in K4's order) added to the rows
+    the walk reaches, one rounding each. Bit-equal to K4's twin followed
+    by ``ell_tier_add_plain`` per tier."""
+    out = ell_matmul_plain(cols, vals, x)
+    flat = out.view(out.shape[0], -1)
+    rows = torch.arange(out.shape[0], device=out.device)
+    slots = links[0].long()
+    for (_, t_cols, t_vals), nxt in zip(tiers, links[1:]):
+        keep = slots >= 0
+        rows, slots = rows[keep], slots[keep]
+        sums = ell_matmul_plain(t_cols, t_vals, x).reshape(t_cols.shape[0], -1)
+        flat[rows] = flat[rows] + sums[slots]
+        slots = nxt.long()[slots]
+    return out
 
 
 class _EllMatmul(torch.autograd.Function):

@@ -14,9 +14,10 @@ custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
   registers and never writes the ``[M, B, L·C]`` concatenation; for a CPU
   tensor it runs the plain twin, the fp32 branch of ``_spiral_conv_core``;
 - backward: ``dx`` through the combined capped transposes (one
-  ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4 and
-  K4-tier), plus ``dy @ W_iᵀ`` for identity columns; ``dW`` by kernel
-  K2-dW (``csrc/spiral_conv_dw.cu``), which recomputes the gathers;
+  ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4 with the
+  overflow tiers landed in the same launch), plus ``dy @ W_iᵀ`` for
+  identity columns; ``dW`` by kernel K2-dW (``csrc/spiral_conv_dw.cu``,
+  tensor cores in 3xTF32), which recomputes the gathers;
   ``db = Σ dy``. On the host the same steps run with the plain twins.
 """
 
@@ -32,7 +33,8 @@ from .sparse import (CappedEll, GatherRows, capped_ell, gather_op_from_idx,
                      gather_rows)
 
 __all__ = ["SpiralOp", "build_spiral_op", "init_spiral_conv", "spiral_conv",
-           "spiral_conv_plain", "spiral_conv_dw", "spiral_conv_dw_plain"]
+           "spiral_conv_plain", "spiral_conv_dw", "spiral_conv_dw_plain",
+           "spiral_conv_dw_chunked_plain"]
 
 
 @dataclass
@@ -141,6 +143,28 @@ def spiral_conv_dw_plain(x: torch.Tensor, table: torch.Tensor,
         for i in range(table.shape[1])])
 
 
+_DW_SUM_RUNS = 8        # csrc/spiral_conv_dw.cu's kSumWarps
+
+
+def spiral_conv_dw_chunked_plain(x: torch.Tensor, table: torch.Tensor,
+                                 dy: torch.Tensor,
+                                 plan: kernels.DwPlan) -> torch.Tensor:
+    """K2-dW's sums in the order of ``plan``'s chunks: each chunk's
+    partial dW over its ``tiles_per_chunk · tmv`` vertices, then, as the
+    kernel's second pass adds them, eight runs (chunks w, w + 8, … in
+    order) and the eight run sums in run order."""
+    step = plan.tiles_per_chunk * plan.tmv
+    parts = [spiral_conv_dw_plain(x, table[m0:m0 + step], dy[m0:m0 + step])
+             for m0 in range(0, table.shape[0], step)]
+    runs = [torch.zeros_like(parts[0]) for _ in range(_DW_SUM_RUNS)]
+    for c, part in enumerate(parts):
+        runs[c % _DW_SUM_RUNS] = runs[c % _DW_SUM_RUNS] + part
+    out = runs[0]
+    for run in runs[1:]:
+        out = out + run
+    return out
+
+
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
                    dy: torch.Tensor) -> torch.Tensor:
     """``dW [L, C_in, C_out]`` of the spiral conv: kernel K2-dW on the
@@ -191,7 +215,7 @@ class _SpiralConv(torch.autograd.Function):
 
 def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp) -> torch.Tensor:
     """Vertex-major spiral conv ``[N_src, B, C_in] → [M, B, C_out]`` in
-    fp32, differentiable: K1 forward, the transposes (K4, K4-tier) and
+    fp32, differentiable: K1 forward, the transposes (capped K4) and
     K2-dW backward on the card; the plain twins on the host."""
     if x.shape[0] != op.n_src:
         raise ValueError(f"x has {x.shape[0]} rows; the spiral table "

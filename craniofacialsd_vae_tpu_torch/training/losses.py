@@ -29,7 +29,7 @@ def kl_divergence_loss(mu: torch.Tensor, logvar: torch.Tensor) -> torch.Tensor:
 def laplacian_loss(laplacian: PaddedRowSparse,
                    prediction: torch.Tensor) -> torch.Tensor:
     """mean_b Σ_n ‖(L x̂)_n‖₂ / N for vertex-major ``[N, B, 3]``: the
-    product is K4 (its backward K4 and K4-tier through the transpose),
+    product is K4 (its backward the capped K4 through the transpose),
     then a per-vertex norm and a sum."""
     n_verts, batch = prediction.shape[0], prediction.shape[1]
     lx = ell_matmul(laplacian, prediction)            # [N, B, 3]

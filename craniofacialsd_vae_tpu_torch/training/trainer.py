@@ -1,7 +1,7 @@
 """The training step (counterpart of ``training/trainer.py``).
 
 One step: the on-device B→B² feature swap, forward, the losses, backward
-through the precomputed transposes (K4, K4-tier, K2-dW; see
+through the precomputed transposes (K4 and its capped form, K2-dW; see
 ``ops/spiral_conv.py``) and the Adam update with coupled L2, as the JAX
 ``_build_raw_step`` and ``_compute_losses`` do. PyTorch runs it eagerly,
 one launch after another; ``run_steps`` is the per-step loop that takes

@@ -8,6 +8,7 @@ This file imports no JAX, so it also runs where JAX is not installed::
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
 """
 
+import dataclasses
 import os
 
 import numpy as np
@@ -348,7 +349,7 @@ def test_launch_counts_move_only_on_launch():
     ops.ell_matmul_plain(cols, torch.ones(4, 3, device=dev), x)
     assert kernels.launches.snapshot() == {
         "spiral_conv_tc": 0, "spiral_conv_narrow": 0, "ell_matmul_fwd": 1,
-        "raster_sweep": 0, "spiral_conv_dw": 0, "ell_matmul_tier": 0}
+        "raster_sweep": 0, "spiral_conv_dw": 0, "ell_matmul_capped": 0}
 
 
 def test_service_on_card_matches_host():
@@ -420,62 +421,101 @@ def test_spiral_conv_dw_kernel_on_the_model_tables(card_geometry, name, c_in,
     _dw_matches_plain(dev, x, op.table, dy)
 
 
-@pytest.mark.parametrize("r,m,n,k,d,offset", [
-    (300, 1000, 500, 3, 64, 0),       # float4 path, K = 3
-    (300, 1000, 500, 7, 48, 0),       # runtime K
-    (40000, 50000, 5000, 5, 128, 0),  # two rows per thread
-    (200, 400, 90, 4, 7, 0),          # D % 4 != 0: scalar path
-    (100, 300, 40, 3, 16, 1),         # unaligned x: scalar path
-    (1, 10, 10, 1, 4, 0),
-])
-def test_ell_tier_kernel_equals_plain(r, m, n, k, d, offset):
-    """Same sum, added with one rounding at the same unique rows:
-    bit-equal to the index_add twin; rows outside the tier untouched."""
+@pytest.mark.parametrize("scale", [1e3, 1e-3])
+@pytest.mark.parametrize("name,c_in,c_out", [("dec0", 32, 32),
+                                             ("final", 32, 3),
+                                             ("enc0", 3, 32)])
+def test_spiral_conv_dw_kernel_at_other_scales(card_geometry, name, c_in,
+                                               c_out, scale):
+    """3xTF32 splits each operand into a high and a low TF32 part: the
+    error stays relative at large and small magnitudes."""
     dev = _card()
-    g = _gen(dev, r)
-    rows = torch.randperm(m, generator=g, device=dev)[:r].int()
-    cols = torch.randint(0, n, (r, k), generator=g, device=dev,
-                         dtype=torch.int32)
-    vals = torch.randn((r, k), generator=g, device=dev)
+    op = _smoke_op(card_geometry, name)
+    g = _gen(dev, 7)
+    x = torch.randn((op.n_src, 16, c_in), generator=g, device=dev) * scale
+    dy = torch.randn((op.num_vertices, 16, c_out), generator=g, device=dev)
+    _dw_matches_plain(dev, x, op.table, dy)
+
+
+def _sequential_twin(mat, x2):
+    """K4's twin on the main table, then one index_add per tier."""
+    want = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
+    for rows, cols, vals in mat.tiers:
+        sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+    return want
+
+
+@pytest.mark.parametrize("m,n,d,offset,hubs", [
+    (1000, 500, 64, 0, (300, 90, 40)),       # float4 path, three tiers
+    (1000, 500, 48, 0, (200,)),              # one tier
+    (50000, 5000, 128, 0, (900, 300, 60)),   # two rows per thread
+    (400, 90, 7, 0, (120, 40)),              # D % 4 != 0: scalar path
+    (300, 40, 16, 1, (100, 30, 9)),          # unaligned x: scalar path
+    (10, 10, 4, 0, (30,)),
+])
+def test_ell_capped_kernel_equals_plain(m, n, d, offset, hubs):
+    """The main table and every tier in one launch: the same sums in the
+    same order, each tier added with one rounding, so bit-equal to K4's
+    twin followed by one index_add per tier, and to the walk's twin."""
+    dev = _card()
+    rng = np.random.default_rng(m + d)
+    rows = np.concatenate([np.repeat(np.arange(len(hubs)) * 3 + 1, hubs),
+                           rng.integers(0, m, 3 * m)])
+    cols = rng.integers(0, n, len(rows))
+    mat = sparse.capped_ell(rows, cols, rng.normal(size=len(rows)), m).to(dev)
+    assert mat.tiers
+    g = _gen(dev, m)
     base = torch.randn(n * d + offset, generator=g, device=dev)
     x2 = base[offset:].view(n, d)
-    out = torch.randn((m, d), generator=g, device=dev)
-    got, want = out.clone(), out.clone()
-    kernels.ell_matmul_tier(rows, cols, vals, x2, got)
-    sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+    got = kernels.ell_matmul_capped(mat.cols, mat.vals, mat.tiers, mat.links,
+                                    x2)
+    walk = sparse.ell_matmul_capped_plain(mat.cols, mat.vals, mat.tiers,
+                                          mat.links, x2)
+    want = _sequential_twin(mat, x2)
     torch.cuda.synchronize()
-    assert torch.equal(got, want)
-    keep = torch.ones(m, dtype=torch.bool, device=dev)
-    keep[rows.long()] = False
-    assert torch.equal(got[keep], out[keep])
+    assert torch.equal(got, want) and torch.equal(walk, want)
 
 
-@pytest.mark.parametrize("b", [1, 16])
-def test_capped_ell_apply_on_the_backward_tables(card_geometry, b):
-    """Every transpose a training step applies (up-pools', convs'
-    combined ones): K4 then K4-tier, bit-equal to the twins."""
+@pytest.fixture(scope="module")
+def card_training_geometry():
     dev = _card()
-    geom = card_geometry
-    tables = [(u.transpose, u.shape[0], b * c) for u, c in
-              zip(geom.up, (32, 32, 64, 64))]
+    bundle = load_bundle(FIXTURE)
+    return SpiralGeometry.from_bundle(
+        bundle, device=dev, laplacian=standin_laplacian_coo(bundle.spirals[0]))
+
+
+@pytest.mark.parametrize("b", [1, 16, "odd"])
+def test_capped_ell_apply_on_the_backward_tables(card_training_geometry, b):
+    """Every transpose a training step applies (the Laplacian's, the
+    up-pools', the convs' combined ones; 13 tables, 34 tiers): one fused
+    launch each, bit-equal to the sequential twin, at the step's widths
+    for a grid of b meshes and at an odd width (the scalar path)."""
+    dev = _card()
+    geom = card_training_geometry
+    width = (lambda c: 7) if b == "odd" else (lambda c: b * c)
+    tables = [(geom.laplacian.transpose, geom.num_vertices, width(3))]
+    tables += [(u.transpose, u.shape[0], width(c)) for u, c in
+               zip(geom.up, (32, 32, 64, 64))]
     for name, c_in, _ in _SMOKE[1:]:
         op = _smoke_op(geom, name)
-        tables += [(t, len(cols) * op.num_vertices, b * c_in)
+        tables += [(t, len(cols) * op.num_vertices, width(c_in))
                    for t, cols in zip(op.inv_tables, op.group_cols)]
-    assert sum(len(t.tiers) for t, _, _ in tables) > 0
+    assert len(tables) == 13
+    assert sum(len(t.tiers) for t, _, _ in tables) == 34
     for mat, n_src, d in tables:
         x2 = torch.randn((n_src, d), generator=_gen(dev, d), device=dev)
+        kernels.launches.reset()
         got = mat.apply(x2)
-        want = ops.ell_matmul_plain(mat.cols, mat.vals, x2)
-        for rows, cols, vals in mat.tiers:
-            sparse.ell_tier_add_plain(rows, cols, vals, x2, want)
+        assert kernels.launches.snapshot()["ell_matmul_capped"] == 1
+        want = _sequential_twin(mat, x2)
         torch.cuda.synchronize()
         assert torch.equal(got, want)
 
 
 def test_differentiable_ops_launch_the_kernels():
     """On CUDA tensors the forward and the backward go through the
-    kernels: K1, K4, K4-tier and K2-dW each counted."""
+    kernels: K1, the fused K4 of a tiered transpose and K2-dW each
+    counted."""
     dev = _card()
     rng = np.random.default_rng(0)
     m = 300
@@ -491,13 +531,13 @@ def test_differentiable_ops_launch_the_kernels():
     ops.spiral_conv({"w": w, "b": b}, x, op).square().sum().backward()
     counts = kernels.launches.snapshot()
     assert counts["spiral_conv_tc"] == 1 and counts["spiral_conv_dw"] == 1
-    assert counts["ell_matmul_fwd"] == 1
-    assert counts["ell_matmul_tier"] == len(op.inv_tables[0].tiers)
+    assert counts["ell_matmul_fwd"] == 0 and counts["ell_matmul_capped"] == 1
     gop = sparse.gather_op_from_idx(np.zeros(50, int), 10).to(dev)
+    assert gop.transpose.tiers
     y = torch.randn(10, 4, device=dev, requires_grad=True)
     kernels.launches.reset()
     sparse.gather_rows(gop, y).sum().backward()
-    assert kernels.launches.snapshot()["ell_matmul_fwd"] == 1
+    assert kernels.launches.snapshot()["ell_matmul_capped"] == 1
     assert torch.equal(y.grad[0], torch.full((4,), 50.0, device=dev))
 
 
@@ -511,16 +551,27 @@ def test_wrappers_reject_what_the_training_kernels_do_not_take():
                 (x, table.long(), dy), (x.cpu(), table, dy)):
         with pytest.raises(ValueError):
             kernels.spiral_conv_dw(*bad)
-    rows = torch.tensor([1, 3], dtype=torch.int32, device=dev)
-    cols = torch.zeros(2, 2, dtype=torch.int32, device=dev)
-    vals = torch.ones(2, 2, device=dev)
-    x2, out = torch.randn(10, 8, device=dev), torch.zeros(5, 8, device=dev)
-    for bad in ((rows[:1], cols, vals, x2, out),
-                (rows, cols, vals, x2, out[:, :4]),
-                (rows, cols, vals, x2, out.t()),
-                (rows.long(), cols, vals, x2, out)):
+    plan = kernels.plan_spiral_conv_dw(6, 2, 3, 4, 5)
+    with pytest.raises(RuntimeError):        # the kernel's own plan check
+        kernels.spiral_conv_dw(x, table, dy, dataclasses.replace(
+            plan, threads=plan.threads + 32))
+    mat = sparse.capped_ell(np.r_[np.zeros(40, int), np.arange(5)],
+                            np.arange(45) % 10, np.ones(45), 5).to(dev)
+    assert len(mat.tiers) >= 1
+    x2 = torch.randn(10, 8, device=dev)
+    args = (mat.cols, mat.vals, mat.tiers, mat.links, x2)
+    assert kernels.ell_matmul_capped(*args).shape == (5, 8)
+    t_rows, t_cols, t_vals = mat.tiers[0]
+    for bad in ((mat.cols, mat.vals, (), (mat.links[0],), x2),   # no tier
+                (mat.cols, mat.vals, mat.tiers, mat.links[:-1], x2),
+                (mat.cols[:4], mat.vals[:4], mat.tiers, mat.links, x2),
+                (mat.cols, mat.vals, ((t_rows, t_cols.long(), t_vals),),
+                 mat.links[:2], x2),
+                (mat.cols, mat.vals, mat.tiers, mat.links, x2.t()),
+                (mat.cols, mat.vals, mat.tiers,
+                 (mat.links[0].cpu(),) + mat.links[1:], x2)):
         with pytest.raises(ValueError):
-            kernels.ell_matmul_tier(*bad)
+            kernels.ell_matmul_capped(*bad)
 
 
 def _train_setup(bundle, dev, cfg, batch):
@@ -563,7 +614,7 @@ def test_train_step_on_card_matches_host():
         err = float((p.grad.cpu() - q.grad).abs().max())
         assert err <= 1e-4 * float(q.grad.abs().max()), name
     for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
-                   "ell_matmul_tier", "spiral_conv_dw"):
+                   "ell_matmul_capped", "spiral_conv_dw"):
         assert counts[kernel] > 0, kernel
 
 

@@ -231,7 +231,7 @@ def test_tier_landing_equals_jax_scatter_add():
         jsparse.ell_matmul_raw(jnp.asarray(cols.numpy()),
                                jnp.asarray(vals.numpy()), jnp.asarray(x)))
     got = torch.from_numpy(out.copy())
-    tsparse.ell_tier_add(rows, cols, vals, torch.from_numpy(x), got)
+    tsparse.ell_tier_add_plain(rows, cols, vals, torch.from_numpy(x), got)
     _close(got, want)
 
 

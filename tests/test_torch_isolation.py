@@ -98,7 +98,8 @@ def test_kernel_sources_export_their_c_entry_points(name):
     assert name in kernels.SOURCES
     with open(os.path.join(PKG, "csrc", name)) as f:
         src = f.read()
-    entries = {"ell_matmul.cu": ("cfs_ell_matmul_fwd", "cfs_ell_matmul_tier"),
+    entries = {"ell_matmul.cu": ("cfs_ell_matmul_fwd",
+                                 "cfs_ell_matmul_capped"),
                "raster_sweep.cu": ("cfs_raster_sweep",),
                "spiral_conv.cu": ("cfs_spiral_conv_fwd",),
                "spiral_conv_dw.cu": ("cfs_spiral_conv_dw",)}[name]
