@@ -47,13 +47,27 @@ them or outside a checkout. Phases, each of which raises on a fault:
 6. launch counts, read per path: K1, K4 and K7 must each have run during
    phase 4, and K1, K4, K2-dW and the fused K4 during phase 5's counted
    step (which must match ``expected_step_launches`` exactly); every kernel
-   must have run on one of them. The kernels' record holds one entry per
-   kernel and path, each timed over the shapes of that path's launches.
+   must have run on one of them;
+7. the training entry point end to end (``python -m
+   craniofacialsd_vae_tpu_torch.train``, called in process), in a
+   temporary directory: a coloured octasphere template PLY (16,386
+   vertices, 15 regions), 40 OBJ scans of 5 classes and
+   ``configurations/smoke.yaml`` pointed at them (4 epochs, renders and
+   checkpoints every 2). The entry point builds the geometry, the
+   dataset and its caches, trains on the card, renders (K7 at full
+   resolution) and checkpoints; a fresh manager resumes the last
+   checkpoint bit for bit; ``--resume --epochs 6`` goes on. K1, K2-dW, K4,
+   the fused K4 and K7 must each have launched on that path. Then one
+   epoch on the card is held against the host, K7 on a full-resolution
+   reconstruction against its twin, and each kernel at the path's own
+   shapes against its twin; one ``{"phase": "train_entry", ...}`` line.
 
-The last three lines of standard output are the kernels' JSON record,
-the nvidia-smi line and ``{"ok": true, "device": {...}}``. ``--json``
-also writes every measurement (per shape, per request size, the
-profiles) to PATH. Nothing here imports JAX or the JAX package.
+The kernels' record holds one entry per kernel and path (``serving``,
+``training``, ``train_entry``), each timed over the shapes of that path's
+launches. The last three lines of standard output are the kernels' JSON
+record, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+``--json`` also writes every measurement (per shape, per request size,
+the profiles) to PATH. Nothing here imports JAX or the JAX package.
 """
 
 from __future__ import annotations
@@ -102,6 +116,15 @@ TRAIN_CONFIG = {
 }
 N_REGIONS = 15          # the stand-in regions (the template has 15)
 WARM_STEPS = 10
+# phase 7: the coloured octasphere stands in for the 17,039-vertex
+# template.ply, which is not in the repo (16,386 vertices, 32,768 faces,
+# 15 regions: latent 75 / 15), with 8 scans of each of 5 classes
+ENTRY_SUBDIVISIONS = 6
+ENTRY_REGIONS = 15
+ENTRY_CLASSES = "abcmn"
+ENTRY_PER_CLASS = 8
+ENTRY_EPOCHS = (4, 6)   # the first run, then --resume to the second
+ENTRY_CADENCE = 2       # tb_renderings and save_weights
 REQUEST_SIZES = (1, 3, 16, 20)
 ERROR_MAX_MM = 5.0
 # H100 SXM peaks (data sheet): HBM bytes/s, fp32 flop/s off the tensor
@@ -1184,6 +1207,276 @@ def training_records(serving: list, train: dict) -> list:
 
 
 # ----------------------------------------------------------------------
+def entry_workspace(root: str) -> str:
+    """Phase 7's inputs under ``root``: the coloured octasphere template
+    PLY, ``ENTRY_PER_CLASS`` OBJ scans of each class (a smooth per-class
+    bump along the normal, a per-scan scale and per-vertex noise) and the
+    text of ``configurations/smoke.yaml`` pointed at them. Returns the
+    config's path."""
+    from craniofacialsd_vae_tpu_torch.geometry import (synthetic_template,
+                                                       write_obj, write_ply)
+
+    tpl = synthetic_template(ENTRY_SUBDIVISIONS, ENTRY_REGIONS)
+    tpl_path = os.path.join(root, "template.ply")
+    write_ply(tpl_path, tpl.pos, tpl.face, tpl.colors)
+    meshes = os.path.join(root, "meshes")
+    os.makedirs(meshes)
+    rng = np.random.default_rng(SEED + 8)
+    for c in ENTRY_CLASSES:
+        freq = 2.0 * rng.normal(size=3)
+        bump = 0.05 * np.sin(tpl.pos @ freq + rng.uniform(0, 2 * np.pi))
+        for i in range(ENTRY_PER_CLASS):
+            scale = 1.0 + 0.02 * rng.normal()
+            verts = tpl.pos * (scale + bump[:, None]) \
+                + rng.normal(scale=0.002, size=tpl.pos.shape)
+            write_obj(os.path.join(meshes, f"{c}_{i}.obj"), verts)
+    with open(os.path.join(ROOT, "configurations", "smoke.yaml")) as f:
+        text = f.read()
+    subs = {"template_path": tpl_path, "dataset_path": meshes,
+            "precomputed_path": os.path.join(root, "precomputed"),
+            "epochs": ENTRY_EPOCHS[0], "tb_renderings": ENTRY_CADENCE,
+            "save_weights": ENTRY_CADENCE}
+    for key, value in subs.items():
+        text, n = re.subn(rf"^(\s*{key}:)[^\n#]*",
+                          lambda m, v=value: f"{m.group(1)} {v} ", text,
+                          flags=re.M)
+        check(n == 1, f"smoke.yaml has {n} '{key}:' lines, expected 1")
+    path = os.path.join(root, "entry.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    return path
+
+
+def state_matches_files(manager, model_file: dict, opt_file: dict,
+                        what: str) -> None:
+    """The manager's parameters and Adam states equal a checkpoint's files
+    (read by the port's codec) bit for bit."""
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import \
+        named_from_tree
+
+    trees = manager.state_trees()
+    for key, stored in (("params", model_file), ("clf_params", model_file),
+                        ("opt_state", opt_file), ("clf_opt_state", opt_file)):
+        got = named_from_tree(trees[key])
+        want = named_from_tree(stored[key])
+        check(set(got) == set(want), f"{what} {key}: names differ")
+        for name, v in want.items():
+            check(np.array_equal(np.asarray(got[name]), np.asarray(v)),
+                  f"{what} {key} {name}: differs from the checkpoint")
+
+
+def entry_card_vs_host(torch, config: dict, ckpt: str, train_set) -> dict:
+    """One ``run_epoch`` on the card against the same epoch on the host:
+    both managers resumed from the same checkpoint (same weights and Adam
+    moments), the same batch order, and the same per-step region and
+    noise (drawn from the seed and the step id)."""
+    from craniofacialsd_vae_tpu_torch.data.dataset import (
+        BatchIterator, DeviceBatchIterator)
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.training import LOSS_KEYS
+
+    b = config["optimization"]["batch_size"]
+    out = {}
+    for dev in (DEVICE, "cpu"):
+        mgr = ModelManager(config, config["data"]["precomputed_path"],
+                           device=dev)
+        epoch = mgr.resume(ckpt)
+        it = (DeviceBatchIterator(train_set, b, seed=SEED + 9, device=dev)
+              if dev != "cpu" else BatchIterator(train_set, b, seed=SEED + 9))
+        t0 = time.perf_counter()
+        losses = dict(mgr.run_epoch(it, train=True))
+        out[dev] = (mgr, losses, time.perf_counter() - t0, epoch)
+    card, card_losses, card_s, _ = out[DEVICE]
+    host, host_losses, host_s, epoch = out["cpu"]
+    loss_err = {}
+    for k in LOSS_KEYS:
+        got, ref = card_losses[k], host_losses[k]
+        check(np.isfinite(got), f"entry card epoch: {k} is not finite")
+        loss_err[k] = abs(got - ref) / abs(ref) if ref else abs(got)
+    param_err = {}
+    ref_sd = host.model.state_dict()
+    for name, p in card.model.state_dict().items():
+        ref = ref_sd[name]
+        param_err[name] = float((p.cpu() - ref).abs().max()) \
+            / max(float(ref.abs().max()), 1e-30)
+    log(f"[7 entry] card vs host epoch {epoch + 1} ({len(it)} steps; card "
+        f"{card_s:.2f} s, host {host_s:.2f} s): worst loss rel "
+        f"{max(loss_err.values()):.2e} ({max(loss_err, key=loss_err.get)}), "
+        f"worst parameter rel {max(param_err.values()):.2e} "
+        f"({max(param_err, key=param_err.get)})")
+    for k, e in loss_err.items():
+        check(e <= TRAIN_RTOL, f"entry epoch {k}: card "
+              f"{card_losses[k]!r} vs host {host_losses[k]!r}")
+    for name, e in param_err.items():
+        check(e <= TRAIN_RTOL, f"entry epoch parameter {name}: card vs "
+              f"host {e:.3e} of its max")
+    return dict(card=card, loss_rel_err=loss_err, param_rel_err=param_err,
+                card_epoch_s=card_s, host_epoch_s=host_s)
+
+
+def entry_records(torch, mods, card, k7: dict, grid: int,
+                  ptxas: list) -> list:
+    """The kernels of the entry path at its own shapes (the octasphere
+    hierarchy, the smoke model, the 16-mesh swap grid): K1 at every conv,
+    K4 at the up-pools and the backward tables without tiers, K2-dW, the
+    fused K4 and K7 at full resolution, each against its twin."""
+    kernels, ops = mods["kernels"], mods["ops"]
+    model, geom, bundle = card.model, card.geometry, card.bundle
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
+    k1 = [k1_shape(torch, kernels, ops, gen, name, conv, op, grid)
+          for name, conv, op in model_convs(model, geom)]
+    n = len(model.de_convs)
+    ups = []
+    for j in range(n):
+        level = n - 1 - j
+        c = model.de_convs[j].w.shape[0] // geom.spirals[level].seq_length
+        ups.append(k4_shape(torch, kernels, ops, gen, geom.up[level],
+                            bundle.up[level], level, grid * c, grid))
+    k2 = k2_parity(torch, mods, model, geom, grid, ptxas)
+    k4_main, capped = k4_backward_parity(torch, mods, model, geom, grid)
+    recs = [summarize(kernel, "csrc/spiral_conv.cu",
+                      "craniofacialsd_vae_tpu/ops/spiral_conv.py:159",
+                      [s for s in k1 if s["kernel"] == kernel])
+            for kernel in ("spiral_conv_tc", "spiral_conv_narrow")]
+    recs.append(summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
+                          "craniofacialsd_vae_tpu/ops/sparse.py:222",
+                          ups + k4_main))
+    recs += [k2, capped,
+             summarize("raster_sweep", "csrc/raster_sweep.cu",
+                       "craniofacialsd_vae_tpu/viz/raster_pallas.py:111",
+                       [k7])]
+    return recs
+
+
+def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict) -> dict:
+    """The port's training entry point end to end, on the card, from a
+    template: ``train.main`` trains ``ENTRY_EPOCHS[0]`` epochs (renders
+    and checkpoints on the cadence), a fresh manager resumes the last
+    checkpoint bit for bit, ``main --resume`` goes on to
+    ``ENTRY_EPOCHS[1]``; then (not counted) one epoch on the card against
+    the host, K7 on a full-resolution reconstruction against its twin,
+    and every kernel of the path at its shapes."""
+    import shutil
+    import tempfile
+
+    from craniofacialsd_vae_tpu_torch import train as entry
+    from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import \
+        read_checkpoint
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    kernels = mods["kernels"]
+    root = tempfile.mkdtemp(prefix="cfsdvae_entry_")
+    try:
+        t0 = time.perf_counter()
+        cfg_path = entry_workspace(root)
+        inputs_s = time.perf_counter() - t0
+        config = get_config(cfg_path)
+        grid = config["optimization"]["batch_size"] ** 2
+        argv = ["--config", cfg_path, "--id", "entry", "--output_path", root,
+                "--device", DEVICE]
+
+        # the main path: counts from 0, train, resume, train on; counts read
+        kernels.launches.reset()
+        t1 = time.perf_counter()
+        first = entry.main(argv)
+        first_s = time.perf_counter() - t1
+        run, ckpt = first["output_dir"], first["checkpoint_dir"]
+        saved = [f"model_{e:08d}.ckpt"
+                 for e in range(ENTRY_CADENCE, ENTRY_EPOCHS[0] + 1,
+                                ENTRY_CADENCE)]
+        check(sorted(os.listdir(ckpt)) == saved + ["optimizer.ckpt"],
+              f"run dir checkpoints {sorted(os.listdir(ckpt))}")
+        for rel in ("config.yaml", os.path.join("logs", "metrics.jsonl")):
+            check(os.path.isfile(os.path.join(run, rel)), f"no {rel}")
+        model_file = read_checkpoint(os.path.join(ckpt, saved[-1]))
+        opt_file = read_checkpoint(os.path.join(ckpt, "optimizer.ckpt"))
+        check(int(opt_file["epoch"]) == ENTRY_EPOCHS[0],
+              f"optimizer.ckpt epoch {opt_file['epoch']}")
+        state_matches_files(first["manager"], model_file, opt_file,
+                            "trained manager")
+        t1 = time.perf_counter()
+        resumed = ModelManager(config, config["data"]["precomputed_path"],
+                               device=DEVICE)
+        check(resumed.resume(ckpt) == ENTRY_EPOCHS[0], "resume epoch")
+        resume_s = time.perf_counter() - t1
+        state_matches_files(resumed, model_file, opt_file, "resumed manager")
+        del resumed, first["manager"]
+
+        t1 = time.perf_counter()
+        second = entry.main(argv + ["--resume", "--epochs",
+                                    str(ENTRY_EPOCHS[1])])
+        second_s = time.perf_counter() - t1
+        torch.cuda.synchronize()
+        counts = kernels.launches.snapshot()
+        check(second["start_epoch"] == ENTRY_EPOCHS[0],
+              f"--resume started at epoch {second['start_epoch']}")
+        check(f"model_{ENTRY_EPOCHS[1]:08d}.ckpt" in os.listdir(ckpt),
+              "no checkpoint of the resumed run's last epoch")
+        hist = first["history"] + second["history"]
+        check([h["epoch"] for h in hist]
+              == list(range(1, ENTRY_EPOCHS[1] + 1)), "epochs run")
+        for h in hist:
+            for phase in ("train", "validation"):
+                check(all(np.isfinite(v) for v in h[phase].values()),
+                      f"epoch {h['epoch']} {phase} losses {h[phase]}")
+        tots = [h["train"]["tot"] for h in hist]
+        check(tots[-1] < tots[0], f"train tot did not fall: {tots}")
+        for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
+                       "ell_matmul_fwd", "ell_matmul_capped",
+                       "spiral_conv_dw", "raster_sweep"):
+            check(counts[kernel] > 0,
+                  f"{kernel} was not launched on the train entry path")
+        del second["manager"]
+        torch.cuda.empty_cache()
+
+        # after the counted run: card vs host, K7 at full resolution, the
+        # kernels at this path's shapes
+        train_set, val_set, _, norm, _ = build_datasets(config)
+        cvh = entry_card_vs_host(torch, config, ckpt, train_set)
+        card = cvh.pop("card")
+        x = train_set.x[:1]
+        recon = card.forward(x)[0].cpu().numpy() * norm["std"] + norm["mean"]
+        faces = card.template.face
+        k7 = k7_case(torch, mods, "full-res recon", camera_frame(recon),
+                     faces, 20, 1)
+        records = entry_records(torch, mods, card, k7, grid, ptxas)
+        for rec in records:
+            rec["path"] = "train_entry"
+            rec["launches"] = counts[rec["name"]]
+        epoch_s = sorted(h["train_s"] for h in hist)
+        p50 = epoch_s[len(epoch_s) // 2]
+        steps = hist[0]["steps"]
+        line = {
+            "phase": "train_entry",
+            "template": {"vertices": int(card.template.num_vertices),
+                         "faces": int(len(faces)),
+                         "regions": len(card.template.region_names)},
+            "scans": {"train": len(train_set), "validation": len(val_set)},
+            "epochs": ENTRY_EPOCHS[1], "inputs_s": inputs_s,
+            "geometry_build_s": first["geometry_s"],
+            "dataset_load_s": first["data_s"], "first_run_s": first_s,
+            "resume_s": resume_s, "second_run_s": second_s,
+            "epoch_p50_s": p50, "epoch_train_s": [h["train_s"] for h in hist],
+            "steps_per_epoch": steps, "steps_per_s": steps / p50,
+            "meshes_per_s": steps * grid / p50,
+            "train_tot": tots,
+            "card_vs_host": {"worst_loss_rel": max(
+                cvh["loss_rel_err"].values()),
+                "worst_param_rel": max(cvh["param_rel_err"].values()),
+                "card_epoch_s": cvh["card_epoch_s"],
+                "host_epoch_s": cvh["host_epoch_s"]},
+            "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
+            "launches": counts}
+        log(json.dumps(line))
+        return dict(line=line, records=records, card_vs_host=cvh, k7=k7,
+                    history=hist)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -1257,6 +1550,11 @@ def main(argv=None) -> int:
           "the kernels' record does not list every kernel")
     log(f"[6 counts] serving {serve['counts']}; training step "
         f"{train['counts']}; total {time.perf_counter() - t_start:.1f} s")
+    torch.cuda.empty_cache()
+
+    entry = phase_train_entry(torch, mods, k1_ptxas(build_log), k7["solo"])
+    records += entry["records"]
+    log(f"[7 entry] done; total {time.perf_counter() - t_start:.1f} s")
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -1265,7 +1563,10 @@ def main(argv=None) -> int:
             json.dump({"device": name, "nvidia_smi": smi_line,
                        "torch": torch.__version__, "build_s": build_s,
                        "kernels": records, "serving": serve,
-                       "training": train}, f, indent=1)
+                       "training": train,
+                       "train_entry": {k: entry[k] for k in (
+                           "line", "card_vs_host", "k7", "history")}},
+                      f, indent=1, default=float)
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "path", "route", "source", "replaces",

@@ -1,10 +1,13 @@
 """Template hierarchy bundle: the arrays of a cached ``geometry.npz``.
 
-Counterpart of ``geometry/simplify.py::SparseCOO`` and the array half of
-``geometry/precompute.py::_load_bundle`` in the JAX package. The bundle
-holds per-level positions, faces and colours of the decimated templates,
-the down/up transforms as COO and the spiral tables. It holds no
-template: the training step's Laplacian and region masks are handed to
+Counterpart of ``GeometryBundle`` and ``_load_bundle`` of
+``geometry/precompute.py`` in the JAX package. The bundle holds per-level
+positions, faces and colours of the decimated templates, the down/up
+transforms as COO and the spiral tables, and, when it was built or read
+with one, the full-resolution ``Template`` (``template``) and the
+decimated levels as ``Template``s (``low_res_templates``). A bundle read
+from a ``geometry.npz`` alone has ``template=None``: the training step's
+Laplacian and region masks are then handed to
 ``SpiralGeometry.from_bundle`` (``geometry/synthetic.py`` has stand-ins).
 """
 
@@ -15,16 +18,11 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from .mesh_io import MeshData
+from .simplify import SparseCOO
+from .template import Template, template_from_mesh
+
 __all__ = ["SparseCOO", "GeometryBundle", "load_bundle"]
-
-
-@dataclass
-class SparseCOO:
-    """Host-side COO matrix."""
-    rows: np.ndarray
-    cols: np.ndarray
-    vals: np.ndarray
-    shape: tuple
 
 
 @dataclass
@@ -32,13 +30,25 @@ class GeometryBundle:
     """Level l of ``down``/``up``/``spirals`` maps between level l
     (``N_l`` vertices) and level l+1; ``lr_*[l]`` describe level l+1, the
     l-th decimated template (level 0 is the full-resolution template,
-    whose mesh is not part of the bundle)."""
+    whose mesh only ``template`` holds)."""
     lr_pos: list                  # [N_{l+1}, 3] float32
     lr_face: list                 # [F_{l+1}, 3] int64
     lr_colors: list               # [N_{l+1}, 4] uint8 or None
     down: list                    # SparseCOO [N_{l+1}, N_l]
     up: list                      # SparseCOO [N_l, N_{l+1}]
     spirals: list                 # [N_l, L] int, as stored
+    template: Template | None = None
+    low_res_templates: list | None = None     # Template per level
+
+    @classmethod
+    def from_templates(cls, template, low_res_templates, down, up,
+                       spirals) -> "GeometryBundle":
+        return cls(lr_pos=[t.pos for t in low_res_templates],
+                   lr_face=[t.face for t in low_res_templates],
+                   lr_colors=[t.colors for t in low_res_templates],
+                   down=list(down), up=list(up), spirals=list(spirals),
+                   template=template,
+                   low_res_templates=list(low_res_templates))
 
     @property
     def n_levels(self) -> int:
@@ -50,8 +60,12 @@ class GeometryBundle:
             [int(p.shape[0]) for p in self.lr_pos]
 
 
-def load_bundle(path: str) -> GeometryBundle:
-    """Read a bundle ``.npz`` (the JAX package's cache format) into numpy."""
+def load_bundle(path: str, template: Template | None = None
+                ) -> GeometryBundle:
+    """Read a bundle ``.npz`` (the JAX package's cache format) into numpy.
+    With ``template``, the bundle carries it and each decimated level as a
+    ``Template`` (regions re-extracted where the level has colours), as
+    the JAX ``_load_bundle`` builds them."""
     if not os.path.exists(path):
         raise FileNotFoundError(f"no geometry bundle at {path}")
     with np.load(path) as z:
@@ -69,5 +83,12 @@ def load_bundle(path: str) -> GeometryBundle:
                                      tuple(int(s) for s in
                                            z[f"{name}{l}_shape"])))
             spirals.append(z[f"spiral{l}"])
-    return GeometryBundle(lr_pos=pos, lr_face=face, lr_colors=colors,
-                          down=downs, up=ups, spirals=spirals)
+    if template is None:
+        return GeometryBundle(lr_pos=pos, lr_face=face, lr_colors=colors,
+                              down=downs, up=ups, spirals=spirals)
+    low_res = [template_from_mesh(MeshData(vertices=p, faces=f,
+                                           vertex_colors=c),
+                                  with_regions=c is not None)
+               for p, f, c in zip(pos, face, colors)]
+    return GeometryBundle.from_templates(template, low_res, downs, ups,
+                                         spirals)

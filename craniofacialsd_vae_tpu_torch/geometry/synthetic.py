@@ -1,16 +1,70 @@
-"""Synthetic meshes for the rasterizer's tests and the card smoke run (a
-UV sphere and a mesh made to trip the z-buffer sweep's culls), and the
-stand-ins for the full-resolution template's Laplacian and region masks
-that a training run on a bundle without its template takes."""
+"""Synthetic meshes: the coloured octasphere template (counterpart of
+``geometry/synthetic.py``), on which a whole run can be built where no
+clinical template is at hand; meshes for the rasterizer's tests and the
+card smoke run (a UV sphere and a mesh made to trip the z-buffer sweep's
+culls); and the stand-ins for the full-resolution template's Laplacian
+and region masks that a training run on a bundle without its template
+takes."""
 
 from __future__ import annotations
 
 import numpy as np
 
-from .template import rw_laplacian_coo
+from .mesh_io import MeshData
+from .template import (COLOUR2ATTRIBUTE, Template, rw_laplacian_coo,
+                       template_from_mesh)
 
-__all__ = ["uv_sphere", "adversarial_mesh", "level0_positions",
-           "standin_laplacian_coo", "standin_region_masks"]
+__all__ = ["octasphere", "synthetic_template", "uv_sphere",
+           "adversarial_mesh", "level0_positions", "standin_laplacian_coo",
+           "standin_region_masks"]
+
+
+def octasphere(subdivisions: int = 2):
+    """(vertices [N,3], faces [F,3]) unit sphere from octahedron midpoint
+    subdivision."""
+    verts = [np.array(v, dtype=np.float64) for v in
+             [[1, 0, 0], [-1, 0, 0], [0, 1, 0],
+              [0, -1, 0], [0, 0, 1], [0, 0, -1]]]
+    faces = [[0, 2, 4], [2, 1, 4], [1, 3, 4], [3, 0, 4],
+             [2, 0, 5], [1, 2, 5], [3, 1, 5], [0, 3, 5]]
+
+    for _ in range(subdivisions):
+        edge_mid = {}
+
+        def mid(a, b):
+            key = (min(a, b), max(a, b))
+            if key not in edge_mid:
+                m = (verts[a] + verts[b]) / 2
+                m /= np.linalg.norm(m)
+                edge_mid[key] = len(verts)
+                verts.append(m)
+            return edge_mid[key]
+
+        new_faces = []
+        for a, b, c in faces:
+            ab, bc, ca = mid(a, b), mid(b, c), mid(c, a)
+            new_faces += [[a, ab, ca], [ab, b, bc], [ca, bc, c],
+                          [ab, bc, ca]]
+        faces = new_faces
+    return np.asarray(verts), np.asarray(faces, dtype=np.int64)
+
+
+def synthetic_template(subdivisions: int = 2,
+                       n_regions: int = 5) -> Template:
+    """A coloured octasphere Template with n_regions region colours drawn
+    from the anatomical palette, partitioned by z-slabs cut at the
+    quantiles of z (so regions are balanced bands). Subdivision 6 gives
+    16,386 vertices and 32,768 faces."""
+    verts, faces = octasphere(subdivisions)
+    palette = [np.array([int(t) for t in key.strip("[]").split()],
+                        dtype=np.uint8)
+               for key in list(COLOUR2ATTRIBUTE.keys())[:n_regions]]
+    z = verts[:, 2]
+    qs = np.quantile(z, np.linspace(0, 1, n_regions + 1)[1:-1])
+    region = np.searchsorted(qs, z)
+    colors = np.stack([palette[r] for r in region])
+    return template_from_mesh(
+        MeshData(vertices=verts, faces=faces, vertex_colors=colors))
 
 
 def uv_sphere(n_lat: int = 48, n_lon: int = 96):

@@ -28,7 +28,8 @@ from ..ops import (PaddedRowSparse, build_pool_operator, build_spiral_op,
                    spiral_conv)
 
 __all__ = ["SDVAEConfig", "SpiralGeometry", "SDVAE", "init_sdvae",
-           "reparameterize", "params_from_jax"]
+           "reparameterize", "latent_regions", "params_from_jax",
+           "params_to_jax"]
 
 
 @dataclass(frozen=True)
@@ -72,10 +73,18 @@ class SpiralGeometry:
         """Build the tables on the host from a ``GeometryBundle`` and move
         them to ``device`` (None: the card). ``laplacian``: the template
         Laplacian as a COO triple ``(rows, cols, vals)`` over level 0;
-        ``region_masks``: ``[R, N]`` bool. The bundle holds no template,
-        so a training run hands both in (``geometry/synthetic.py`` has
-        stand-ins)."""
+        ``region_masks``: ``[R, N]`` bool. Where they are not given, both
+        come from ``bundle.template`` when the bundle has one (the masks
+        where it has regions), as the JAX ``from_bundle`` takes them; a
+        bundle without its template needs them handed in
+        (``geometry/synthetic.py`` has stand-ins)."""
         dev = resolve_device(device)
+        tpl = getattr(bundle, "template", None)
+        if tpl is not None:
+            if laplacian is None:
+                laplacian = tpl.laplacian
+            if region_masks is None and tpl.feat_and_cont:
+                region_masks = tpl.region_masks()
         enc_spirals = []
         for s, d in zip(bundle.spirals, bundle.down):
             sel = selection_indices(d)
@@ -249,6 +258,17 @@ def reparameterize(mu: torch.Tensor, logvar: torch.Tensor,
     return mu + eps.to(mu.device, mu.dtype) * std
 
 
+def latent_regions(latent_size: int, region_names: list) -> dict:
+    """{region_key: (start, end)}: contiguous equal slices of the latent
+    in region order."""
+    if latent_size % len(region_names):
+        raise ValueError(f"latent size {latent_size} is not divisible by "
+                         f"the {len(region_names)} regions")
+    size = latent_size // len(region_names)
+    return {k: (i * size, (i + 1) * size)
+            for i, k in enumerate(region_names)}
+
+
 def params_from_jax(tree: dict) -> dict:
     """The JAX package's parameter tree (``en_convs``, ``mu``, ``logvar``,
     ``de_dense``, ``de_convs``, ``final_conv``; arrays as numpy) → a
@@ -267,3 +287,24 @@ def params_from_jax(tree: dict) -> dict:
             sd[f"{name}.w"] = t(tree[name]["w"])
             sd[f"{name}.b"] = t(tree[name]["b"])
     return sd
+
+
+def params_to_jax(state_dict: dict) -> dict:
+    """An ``SDVAE`` ``state_dict`` → the JAX package's parameter tree (lists
+    of ``{"w", "b"}`` for the convs, ``{"w", "b"}`` for the dense layers;
+    float32 numpy arrays), the inverse of ``params_from_jax``."""
+    def a(t):
+        return t.detach().cpu().numpy().astype(np.float32, copy=True)
+
+    tree = {}
+    for name in ("en_convs", "de_convs"):
+        n = len({k.split(".")[1] for k in state_dict
+                 if k.startswith(name + ".")})
+        tree[name] = [{"w": a(state_dict[f"{name}.{i}.w"]),
+                       "b": a(state_dict[f"{name}.{i}.b"])}
+                      for i in range(n)]
+    for name in ("mu", "logvar", "de_dense", "final_conv"):
+        if f"{name}.w" in state_dict:
+            tree[name] = {"w": a(state_dict[f"{name}.w"]),
+                          "b": a(state_dict[f"{name}.b"])}
+    return tree

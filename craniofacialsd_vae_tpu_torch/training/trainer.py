@@ -7,8 +7,11 @@ through the precomputed transposes (K4 and its capped form, K2-dW; see
 one launch after another; ``run_steps`` is the per-step loop that takes
 the place of the JAX package's scanned epoch.
 
-The end-to-end classification head is not ported: a step asked for it
-raises.
+With an MLP head (``models/mlp.py``) and a classification weight, the
+step adds the class-weighted cross entropy of the head's logits on the
+swap grid's diagonal (the unswapped scans, rows ``(B+1)·i``) and updates
+the head with its own coupled Adam, as ``_compute_losses`` and
+``_build_raw_step`` do.
 """
 
 from __future__ import annotations
@@ -20,7 +23,8 @@ import torch
 from ..data.swap import choose_region, swap_features_dynamic
 from ..models.sdvae import SDVAE
 from .losses import (kl_divergence_loss, laplacian_loss,
-                     latent_consistency_loss, mse_loss, region_feature_mask)
+                     latent_consistency_loss, mse_loss, region_feature_mask,
+                     weighted_cross_entropy)
 
 __all__ = ["LOSS_KEYS", "LossWeights", "coupled_adam", "compute_losses",
            "make_train_step", "make_eval_step", "run_steps"]
@@ -68,9 +72,12 @@ def coupled_adam(params, lr: float, weight_decay: float
 
 def compute_losses(model: SDVAE, weights: LossWeights, x_grid: torch.Tensor,
                    region_idx, batch_size: int, eps=None, generator=None,
-                   training: bool = True, swap: bool = True):
+                   training: bool = True, swap: bool = True, head=None,
+                   labels=None, class_weights=None):
     """The losses of one vertex-major grid ``[N, B², 3]`` (or ``[N, B, 3]``
-    without the swap): ``(total, metrics)`` keyed by ``LOSS_KEYS``."""
+    without the swap): ``(total, metrics)`` keyed by ``LOSS_KEYS``. The
+    classification term needs ``head``, a positive weight and ``labels
+    [B]``."""
     geom, config = model.geom, model.config
     out, z, mu, logvar = model(x_grid, generator=generator,
                                training=training, eps=eps)
@@ -87,22 +94,35 @@ def compute_losses(model: SDVAE, weights: LossWeights, x_grid: torch.Tensor,
                                             weights.eta1, weights.eta2)
     else:
         loss_cons = zero
+    loss_class, acc_class = zero, zero
+    if head is not None and weights.classification > 0 \
+            and labels is not None:
+        if swap:
+            diag = (batch_size + 1) * torch.arange(batch_size,
+                                                   device=z.device)
+            z_diag = z.index_select(0, diag)
+        else:
+            z_diag = z
+        logits, _ = head(z_diag)
+        loss_class, acc_class = weighted_cross_entropy(
+            logits, torch.as_tensor(labels, device=z.device),
+            torch.as_tensor(class_weights, dtype=z.dtype, device=z.device))
     loss_tot = (loss_recon
                 + weights.kl * loss_kl
                 + weights.latent_consistency * loss_cons
-                + weights.laplacian * loss_lap)
+                + weights.laplacian * loss_lap
+                + weights.classification * loss_class)
     metrics = {"reconstruction": loss_recon, "kl": loss_kl,
                "latent_consistency": loss_cons, "laplacian": loss_lap,
-               "classification": zero, "classification_acc": zero,
-               "tot": loss_tot}
+               "classification": loss_class,
+               "classification_acc": acc_class, "tot": loss_tot}
     return loss_tot, metrics
 
 
-def _check(model: SDVAE, weights: LossWeights, swap: bool) -> None:
-    if weights.classification > 0:
-        raise NotImplementedError(
-            "the end-to-end classification term is not ported; train the "
-            "head 'after' (mlp_training_type) or set its weight to 0")
+def _check(model: SDVAE, weights: LossWeights, swap: bool, head) -> None:
+    if weights.classification > 0 and head is None:
+        raise ValueError("a classification weight > 0 needs the MLP head "
+                         "(models/mlp.py) passed as head=")
     geom = model.geom
     if weights.laplacian > 0 and geom.laplacian is None:
         raise ValueError("laplacian weight > 0 needs a geometry built with "
@@ -116,12 +136,12 @@ def _grid(model: SDVAE, x, batch_size: int, swap: bool, region_idx,
     """``[B, N, 3]`` scans → the vertex-major grid and the region."""
     geom = model.geom
     x = torch.as_tensor(x, dtype=torch.float32, device=geom.device)
-    if x.shape[0] != batch_size:
-        raise ValueError(f"x holds {x.shape[0]} scans; the step was built "
-                         f"for batch_size {batch_size}")
     x_vm = x.transpose(0, 1)                       # [B, N, 3] → [N, B, 3]
     if not swap:
         return x_vm.contiguous(), 0
+    if x.shape[0] != batch_size:
+        raise ValueError(f"x holds {x.shape[0]} scans; the swap grid was "
+                         f"built for batch_size {batch_size}")
     if region_idx is None:
         region_idx = choose_region(generator, geom.region_masks.shape[0],
                                    device=geom.device)
@@ -131,42 +151,59 @@ def _grid(model: SDVAE, x, batch_size: int, swap: bool, region_idx,
 
 def make_train_step(model: SDVAE, weights: LossWeights,
                     optimizer: torch.optim.Optimizer, batch_size: int,
-                    swap: bool = True):
+                    swap: bool = True, head=None, head_optimizer=None):
     """The train step ``step(x [B, N, 3], region_idx=None, eps=None,
-    generator=None) → metrics`` (0-d tensors on the device, keyed by
-    ``LOSS_KEYS``). The swapped region and the reparameterisation noise
-    ``eps [B², Z]`` come from ``generator`` unless given. The gradients
-    stay on the parameters after the step."""
-    _check(model, weights, swap)
+    generator=None, labels=None, class_weights=None) → metrics`` (0-d
+    tensors on the device, keyed by ``LOSS_KEYS``). The swapped region and
+    the reparameterisation noise ``eps [B², Z]`` come from ``generator``
+    unless given. With ``head``, a classification weight and
+    ``head_optimizer``, the head is updated too, every step (from a zero
+    gradient where a batch has no labels, as the JAX step does). The
+    gradients stay on the parameters after the step."""
+    _check(model, weights, swap, head)
+    train_head = (head is not None and head_optimizer is not None
+                  and weights.classification > 0)
 
-    def step(x, region_idx=None, eps=None, generator=None):
+    def step(x, region_idx=None, eps=None, generator=None, labels=None,
+             class_weights=None):
         x_grid, region = _grid(model, x, batch_size, swap, region_idx,
                                generator)
         optimizer.zero_grad(set_to_none=True)
+        if train_head:
+            head_optimizer.zero_grad(set_to_none=True)
         loss, metrics = compute_losses(model, weights, x_grid, region,
                                        batch_size, eps=eps,
                                        generator=generator, training=True,
-                                       swap=swap)
+                                       swap=swap, head=head, labels=labels,
+                                       class_weights=class_weights)
         loss.backward()
         optimizer.step()
+        if train_head:
+            for p in head.parameters():
+                if p.grad is None:
+                    p.grad = torch.zeros_like(p)
+            head_optimizer.step()
         return {k: v.detach() for k, v in metrics.items()}
 
     return step
 
 
 def make_eval_step(model: SDVAE, weights: LossWeights, batch_size: int,
-                   swap: bool = True):
+                   swap: bool = True, head=None):
     """Validation: the same losses, no update, ``z = mu``:
-    ``step(x [B, N, 3], region_idx=None, generator=None) → metrics``."""
-    _check(model, weights, swap)
+    ``step(x [B, N, 3], region_idx=None, generator=None, labels=None,
+    class_weights=None) → metrics``."""
+    _check(model, weights, swap, head)
 
-    def step(x, region_idx=None, generator=None):
+    def step(x, region_idx=None, generator=None, labels=None,
+             class_weights=None):
         x_grid, region = _grid(model, x, batch_size, swap, region_idx,
                                generator)
         with torch.no_grad():
             _, metrics = compute_losses(model, weights, x_grid, region,
                                         batch_size, training=False,
-                                        swap=swap)
+                                        swap=swap, head=head, labels=labels,
+                                        class_weights=class_weights)
         return metrics
 
     return step

@@ -629,3 +629,122 @@ def test_train_steps_on_card_stay_finite():
                     device=dev)
     tots = [step(x, generator=gen)["tot"] for _ in range(5)]
     assert bool(torch.isfinite(torch.stack(tots)).all())
+
+
+# ------------------------------------------------------- the entry point
+@pytest.mark.parametrize("size", [64, 256])
+def test_raster_sweep_full_resolution_octasphere(size):
+    """K7 on the 32,768 faces of the subdivision-6 octasphere (the
+    template phase 7 of chip_smoke.py trains on), two meshes in one
+    launch: z and winner bit-identical to the twin."""
+    from craniofacialsd_vae_tpu_torch.geometry import octasphere
+
+    dev = _card()
+    verts, faces = octasphere(6)
+    rng = np.random.default_rng(6)
+    batch = np.stack([verts, verts * (1 + 0.02 * rng.normal(
+        size=(len(verts), 1)))])
+    got, want = _sweep_both(dev, _camera(batch), faces, size)
+    _assert_identical(got, want)
+    assert int((got[1] < len(faces)).sum()) > 0
+
+
+def _entry_workspace(root):
+    """A small entry-point workspace: the subdivision-3 octasphere with
+    3 regions, 6 OBJ scans of each of 3 classes, a narrow model."""
+    from craniofacialsd_vae_tpu_torch.geometry import (synthetic_template,
+                                                       write_obj, write_ply)
+
+    tpl = synthetic_template(subdivisions=3, n_regions=3)
+    tpl_path = os.path.join(root, "template.ply")
+    write_ply(tpl_path, tpl.pos, tpl.face, tpl.colors)
+    meshes = os.path.join(root, "meshes")
+    os.makedirs(meshes)
+    rng = np.random.default_rng(0)
+    for k, c in enumerate("acn"):
+        for i in range(6):
+            write_obj(os.path.join(meshes, f"{c}_{i}.obj"),
+                      tpl.pos * (1 + 0.05 * k)
+                      + rng.normal(scale=0.02, size=tpl.pos.shape))
+    return {
+        "data": {"template_path": tpl_path, "dataset_path": meshes,
+                 "precomputed_path": os.path.join(root, "precomp"),
+                 "normalize_data": True, "to_mm_constant": 10.0,
+                 "swap_features": True, "stratified_split": True,
+                 "augmentation_factor": 0},
+        "optimization": {"epochs": 1, "batch_size": 3, "lr": 1e-4,
+                         "weight_decay": 0, "laplacian_weight": 0.1,
+                         "kl_weight": 1e-4, "latent_consistency_weight": 0.5,
+                         "latent_consistency_eta1": 0.5,
+                         "latent_consistency_eta2": 0.5},
+        "model": {"sampling": {"type": "basic",
+                               "sampling_factors": [2, 2, 2]},
+                  "spirals": {"length": [9, 9, 9], "dilation": [1, 1, 1]},
+                  "in_channels": 3, "out_channels": [8, 8, 16],
+                  "latent_size": 6, "pre_z_sigmoid": False},
+        "classifier": {"main_model_type": "qda",
+                       "mlp_training_type": "end2end",
+                       "mlp_hidden_features": [8], "mlp_lr": 1e-3,
+                       "mlp_loss_weight": 1},
+        "logging_frequency": {"tb_renderings": 1, "save_weights": 1},
+    }
+
+
+def test_manager_epoch_on_card_matches_host(tmp_path):
+    """The check of chip_smoke.py's phase 7 at a small size: a host
+    manager trains three epochs and checkpoints (so Adam's moments are
+    warm: a first Adam step is lr·sign(g), which flips where a gradient
+    is near 0), then a card manager and a host manager resume that
+    checkpoint and run one epoch over the same batches with the same
+    per-step draws. Every loss within rtol 1e-4 and every parameter
+    within 1e-4 of its leaf's max; the epoch launched K1, K4, the fused
+    K4 and K2-dW, and ``log_images`` K7."""
+    from craniofacialsd_vae_tpu_torch.data.dataset import (
+        BatchIterator, DeviceBatchIterator, build_datasets)
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.viz.logging import JsonlWriter
+
+    dev = _card()
+    config = _entry_workspace(str(tmp_path))
+    train, _, _, norm, weights = build_datasets(config)
+    ckpt = str(tmp_path / "ckpt")
+
+    def manager(d):
+        mgr = ModelManager(config, config["data"]["precomputed_path"],
+                           device=d)
+        mgr.set_class_conversions_and_weights(weights)
+        return mgr
+
+    warm = manager("cpu")
+    it = BatchIterator(train, 3, seed=1, class2idx=warm._class2idx_dict)
+    for _ in range(3):
+        warm.run_epoch(it, train=True)
+    warm.save_weights(ckpt, 2)
+    out = {}
+    for d in (dev, "cpu"):
+        mgr = manager(d)
+        assert mgr.resume(ckpt) == 3
+        kw = dict(seed=2, class2idx=mgr._class2idx_dict)
+        it = DeviceBatchIterator(train, 3, device=d, **kw) \
+            if d == dev else BatchIterator(train, 3, **kw)
+        kernels.launches.reset()
+        losses = mgr.run_epoch(it, train=True)
+        out[d] = (mgr, dict(losses), kernels.launches.snapshot())
+    (card, lc, counts), (host, lh, _) = out[dev], out["cpu"]
+    assert lh["classification"] > 0
+    for k in LOSS_KEYS:
+        assert abs(lc[k] - lh[k]) <= 1e-4 * abs(lh[k]), k
+    ref = host.model.state_dict()
+    for name, p in card.model.state_dict().items():
+        err = float((p.cpu() - ref[name]).abs().max())
+        assert err <= 1e-4 * float(ref[name].abs().max()), name
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                   "ell_matmul_capped", "spiral_conv_dw"):
+        assert counts[kernel] > 0, kernel
+    kernels.launches.reset()
+    writer = JsonlWriter(str(tmp_path / "logs"))
+    grid = card.log_images(next(iter(BatchIterator(train, 3))), writer, 0,
+                           norm)
+    writer.close()
+    assert np.isfinite(grid).all()
+    assert kernels.launches.snapshot()["raster_sweep"] == 3

@@ -16,7 +16,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "craniofacialsd_vae_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "craniofacialsd_vae_tpu",
-             "yaml", "msgpack", "matplotlib")
+             "yaml", "msgpack", "matplotlib", "sklearn", "pandas",
+             "tensorboardX", "openpyxl")
 
 
 def _port_files():
@@ -109,11 +110,13 @@ def test_kernel_sources_export_their_c_entry_points(name):
 
 
 @pytest.mark.parametrize("module", ["training", "data", "geometry", "models",
-                                    "ops", "serving"])
+                                    "ops", "serving", "utils", "viz",
+                                    "manager", "train"])
 def test_port_modules_import_with_jax_blocked(module):
-    """Each subpackage imports in a fresh process in which JAX, optax and
-    the JAX package cannot be imported at all."""
-    blocked = ("jax", "jaxlib", "optax", "craniofacialsd_vae_tpu")
+    """Each subpackage and entry module imports in a fresh process in
+    which JAX, the JAX package and the libraries the card's machine lacks
+    cannot be imported at all."""
+    blocked = FORBIDDEN
     code = (f"import sys; sys.modules.update(dict.fromkeys({blocked!r})); "
             f"import craniofacialsd_vae_tpu_torch.{module}")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,

@@ -405,7 +405,7 @@ def test_step_without_swap_matches_jax(tiny):
 def test_step_refuses_what_is_not_ported(tiny):
     model = _model(tiny)
     adam = coupled_adam(model.parameters(), 1e-3, 0.0)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError):      # a classification weight, no head
         make_train_step(model, LossWeights(classification=1.0), adam, B)
     bare = SDVAE(SDVAEConfig(out_channels=(8, 16), latent_size=Z),
                  SpiralGeometry(tiny["geom_t"].spirals, tiny["geom_t"].down,
