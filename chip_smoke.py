@@ -46,8 +46,9 @@ them or outside a checkout. Phases, each of which raises on a fault:
    throughput, finite losses) and a profiled step;
 6. launch counts, read per path: K1, K4 and K7 must each have run during
    phase 4, and K1, K4, K2-dW and the fused K4 during phase 5's counted
-   step (which must match ``expected_step_launches`` exactly); every kernel
-   must have run on one of them;
+   step (which must match ``expected_step_launches`` exactly); every
+   float32 kernel must have run on one of them (the bf16 kernels on phase
+   8's paths);
 7. the training entry point end to end (``python -m
    craniofacialsd_vae_tpu_torch.train``, called in process), in a
    temporary directory: a coloured octasphere template PLY (16,386
@@ -60,10 +61,28 @@ them or outside a checkout. Phases, each of which raises on a fault:
    the fused K4 and K7 must each have launched on that path. Then one
    epoch on the card is held against the host, K7 on a full-resolution
    reconstruction against its twin, and each kernel at the path's own
-   shapes against its twin; one ``{"phase": "train_entry", ...}`` line.
+   shapes against its twin; one ``{"phase": "train_entry", ...}`` line;
+8. the ``mixed`` policy of ``configurations/craniofacial.yaml`` (its
+   model and optimisation sections, through the port's config reader):
+   (a) every bf16 kernel at every shape of the mixed paths (K1-bf16, K3b
+   and K4-bf16 at B = 16, 4, 1; K3a; K2-dW-bf16 and K4-bf16 or its
+   capped form on every bf16 backward table at the grid), held against
+   its twin (bit-equal where both round at the same points, else within
+   one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
+   form, with its bound at 3.35 TB/s and 989 TFLOP/s bf16 and ptxas's
+   registers; (b) a mixed ``DiagnosisService(max_batch=16)`` answers
+   phase 4's requests and renders the error maps (counted), held
+   against the same service on the host and phase 4's fp32 answers;
+   (c) one counted mixed step (launches equal to
+   ``expected_step_launches``) against the host's, its gradient against
+   the card's fp32 step's, 10 warm steps and a profiled step beside
+   phase 5's; the path of ``final_out_gather: false`` (K3a), counted;
+   (d) ``train.main`` under ``mixed`` for 2 epochs on phase 7's
+   workspace, resumed bit for bit; one ``{"phase": "mixed", ...}`` line.
 
 The kernels' record holds one entry per kernel and path (``serving``,
-``training``, ``train_entry``), each timed over the shapes of that path's
+``training``, ``train_entry``, ``mixed_serving``, ``mixed_training``,
+``mixed_gather_first``), each timed over the shapes of that path's
 launches. The last three lines of standard output are the kernels' JSON
 record, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
 ``--json`` also writes every measurement (per shape, per request size,
@@ -77,8 +96,10 @@ import dataclasses
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -132,6 +153,7 @@ ERROR_MAX_MM = 5.0
 PEAK_BYTES = 3.35e12
 PEAK_FP32 = 67e12
 PEAK_TF32 = 495e12
+PEAK_BF16 = 989e12      # dense bf16 on the tensor cores
 # tolerances
 K1_RTOL = 1e-5          # against max |out|: fp32 dot products summed in
 #                         another order than the library matmul's
@@ -142,6 +164,23 @@ K2_RTOL = 1e-5          # K2-dW vs its twin, against max |dW|: fp32 sums of
 #                         matmul's
 TRAIN_RTOL = 1e-4       # card step vs host step: losses, and each gradient
 #                         leaf against its max
+K3A_RTOL = 1e-5         # K3a vs its twin against max |out|: fp32 sums of bf16
+#                         products in another order
+BF16_FLOOR_RTOL = 1e-5  # K1-bf16, K2-dW-bf16: one bf16 ulp, or K3A_RTOL of the
+#                         max where a sum cancels to nearly 0 (``ulps``)
+MIXED_RTOL = 1e-2       # mixed card vs mixed host (answers against each
+#                         array's max, step losses): a bf16 rounding may land
+#                         on the other neighbour and compound over layers
+MIXED_VS_FP32_RTOL = 5e-2   # mixed vs fp32 answers: the JAX package's own
+#                             tolerance for the policy
+MIXED_COSINE = 0.999    # the whole gradient's cosine, the JAX package's bar
+# phase 8: the flagship configuration's model and optimisation sections
+FLAGSHIP = "craniofacial.yaml"
+FP32_KERNELS = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
+MIXED_KERNELS = ("spiral_conv_bf16", "spiral_conv_f32out",
+                 "spiral_conv_dw_bf16", "ell_matmul_bf16",
+                 "ell_matmul_capped_bf16", "out_gather_sum")
 
 
 class SmokeFailure(RuntimeError):
@@ -223,10 +262,12 @@ def phase_build(kernels) -> tuple:
 
 
 def k1_ptxas(build_log: str) -> list:
-    """Registers and spills of each K1 and K2-dW kernel, from the
-    build's ``-Xptxas -v`` output: ``tc<MI,NI>``, ``narrow<..>``,
-    ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments per warp) and
-    ``dw_sum`` (its chunk sum)."""
+    """Registers and spills of each K1 and K2-dW kernel and of the bf16
+    kernels, from the build's ``-Xptxas -v`` output: ``tc<MI,NI>``,
+    ``narrow<..>``, ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments
+    per warp), ``dw_sum`` (its chunk sum), ``bf16<NT,ELEM>`` (K1-bf16 and
+    K3a), ``dw_bf16<FPW>``, ``dw_bf16_sum``, ``ell_bf16_vector<CAPPED>``,
+    ``ell_bf16_scalar<CAPPED>`` and ``out_gather_sum`` (K3b)."""
     out, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
@@ -235,9 +276,21 @@ def k1_ptxas(build_log: str) -> list:
                           m.group(1))
             dw = re.search(r"spiral_conv_dw_kernelILi(\d+)ELi(\d+)E",
                            m.group(1))
+            bf = re.search(r"spiral_conv_bf16_kernelILi(\d+)ELb(\d)E",
+                           m.group(1))
+            dwb = re.search(r"spiral_conv_dw_bf16_kernelILi(\d+)E",
+                            m.group(1))
+            ell = re.search(r"ell_bf16_(vector|scalar)ILb(\d)E", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
                     else f"dw<{dw.group(1)},{dw.group(2)}>" if dw
                     else "dw_sum" if "spiral_conv_dw_sum" in m.group(1)
+                    else f"bf16<{bf.group(1)},{bf.group(2)}>" if bf
+                    else f"dw_bf16<{dwb.group(1)}>" if dwb
+                    else "dw_bf16_sum" if "spiral_conv_dw_bf16_sum"
+                    in m.group(1)
+                    else f"ell_bf16_{ell.group(1)}<{ell.group(2)}>" if ell
+                    else "out_gather_sum" if "out_gather_sum_kernel"
+                    in m.group(1)
                     else None)
             if name:
                 out.append({"kernel": name})
@@ -273,6 +326,8 @@ def k1_parity(torch, mods, model, geom, build_log: str) -> list:
     form. One record per K1 kernel from the B = 16 pass."""
     kernels, ops = mods["kernels"], mods["ops"]
     for k in k1_ptxas(build_log):
+        if "bf16" in k["kernel"] or k["kernel"] == "out_gather_sum":
+            continue                     # phase 8's
         log(f"[3 ptxas] {k['kernel']}: {k.get('registers')} registers, "
             f"{k.get('spill_bytes', 0)} bytes spilled")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 1)
@@ -619,7 +674,8 @@ def serve_latency(svc, scans: dict, reps: int = 7) -> dict:
 
 def device_profile(torch, fn) -> dict:
     """One warm call of ``fn`` under torch.profiler: wall time, device
-    time by kernel name and the device's idle share of the wall time."""
+    time by kernel name, the device's idle share of the wall time and the
+    number of kernels the call ran."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -645,6 +701,7 @@ def device_profile(torch, fn) -> dict:
                    if e.device_type == DeviceType.CPU), key=lambda r: -r[1])
     return {"wall_ms": wall_ms, "device_ms": busy if rows else None,
             "idle_share": 1 - busy / wall_ms if rows else None,
+            "kernels_run": sum(r[2] for r in rows),
             "by_kernel": [{"name": n[:80], "ms": t, "count": c}
                           for n, t, c in rows[:15]],
             "host_by_op": [{"name": n[:80], "ms": t, "count": c}
@@ -788,6 +845,7 @@ def phase_serving(torch, mods, bundle, config) -> dict:
             f"{p['device_ms']} ms, idle share {p['idle_share']}; {top}; "
             f"host self time by op: {host}")
     return dict(counts=counts, request_ms=req_ms, render_ms=render_ms,
+                inputs=dict(norm=norm, scans=scans, answers=answers),
                 first_render_ms=first_render_ms,
                 render_wall_ms=render_wall, render_uint8_err=q_err,
                 k7_batch=k7_batch,
@@ -900,28 +958,58 @@ def k2_parity(torch, mods, model, geom, batch: int, ptxas: list) -> dict:
     return rec
 
 
-def backward_tables(model, geom, batch: int) -> list:
-    """``(name, matrix, source rows, D)`` of each K4 product a step makes
-    besides the up-pools' forward: the Laplacian, then the backward's
-    transposes in the order autograd reaches them (the first encoder
-    conv reads the data and computes no dx)."""
-    n = len(model.de_convs)
+def conv_kinds(model, geom) -> list:
+    """``(name, conv, op, dtype, form)`` of every spiral conv of a forward
+    pass: the dtype of its input under the model's policy, and its form,
+    ``"out_gather"`` for a matmul-first final conv (bf16 input and
+    ``final_out_gather``), else ``"gather"``."""
+    import torch
+
+    cfg = model.config
+    out = []
+    for name, conv, op in model_convs(model, geom):
+        dtype = cfg.activation_dtype if name == "enc0" else cfg.deep_dtype
+        form = ("out_gather" if name == "final" and cfg.final_out_gather
+                and dtype == torch.bfloat16 else "gather")
+        out.append((name, conv, op, dtype, form))
+    return out
+
+
+def step_tables(model, geom, batch: int) -> list:
+    """``(name, matrix, source rows, D, dtype)`` of each K4 product a step
+    makes besides the up-pools' forward: the Laplacian (fp32), then the
+    backward's transposes in the order autograd reaches them, in the
+    dtype of the rows they gather (the first encoder conv reads the data
+    and computes no dx; a matmul-first final conv gathers its fp32 dy
+    through each non-identity position's own transpose)."""
+    import torch
+
+    f32 = torch.float32
     nv = geom.num_vertices
-    tables = [("lap", geom.laplacian, nv, 3 * batch),
-              ("lap T", geom.laplacian.transpose, nv, 3 * batch)]
-    convs = model_convs(model, geom)
-    for name, conv, op in reversed(convs):
-        c_in, _ = conv_widths(conv, op)
-        if name != "enc0":
+    tables = [("lap", geom.laplacian, nv, 3 * batch, f32),
+              ("lap T", geom.laplacian.transpose, nv, 3 * batch, f32)]
+    for name, conv, op, dtype, form in reversed(conv_kinds(model, geom)):
+        c_in, c_out = conv_widths(conv, op)
+        if form == "out_gather":
+            tables += [(f"{name} T{i}", g.transpose, op.num_vertices,
+                        batch * c_out, f32)
+                       for i, g in enumerate(op.gathers) if g is not None]
+        elif name != "enc0":
             for table, cols in zip(op.inv_tables, op.group_cols):
                 tables.append((f"{name} T", table,
-                               len(cols) * op.num_vertices, batch * c_in))
+                               len(cols) * op.num_vertices, batch * c_in,
+                               dtype))
         if name.startswith("dec"):
             level = int(name[3:])
             up = geom.up[level]
             tables.append((f"up{level} T", up.transpose, up.shape[0],
-                           batch * c_in))
+                           batch * c_in, model.config.deep_dtype))
     return tables
+
+
+def backward_tables(model, geom, batch: int) -> list:
+    """``(name, matrix, source rows, D)`` of ``step_tables``."""
+    return [t[:4] for t in step_tables(model, geom, batch)]
 
 
 def tiers_of(mat) -> tuple:
@@ -1042,26 +1130,60 @@ def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
 
 
 def expected_step_launches(model, geom, batch: int) -> dict:
-    """Launches of one training step: K1 per conv, K4 per up-pool and per
-    table of ``backward_tables`` without tiers, the fused K4 per table
-    with tiers, K2-dW per conv."""
-    convs = model_convs(model, geom)
-    tables = backward_tables(model, geom, batch)
-    counts = dict.fromkeys(("spiral_conv_tc", "spiral_conv_narrow"), 0)
-    for _, conv, op in convs:
-        c_in, c_out = conv_widths(conv, op)
-        counts[("spiral_conv_narrow" if c_out < 8
-                else "spiral_conv_tc")] += 1
-    capped = sum(1 for t in tables if tiers_of(t[1]))
-    counts.update(ell_matmul_fwd=len(geom.up) + len(tables) - capped,
-                  ell_matmul_capped=capped, spiral_conv_dw=len(convs),
-                  raster_sweep=0)
+    """Launches of one training step under the model's policy: per conv,
+    K1 and K2-dW in its input's dtype (K1-bf16 with K2-dW-bf16, K3a for a
+    gather-first bf16 final conv; a matmul-first final conv launches K3b
+    and gets its dW from a plain product); K4 in the deep dtype per
+    up-pool; per table of ``step_tables`` in its dtype, K4 where it has
+    no tiers and the fused K4 where it has."""
+    import torch
+
+    from craniofacialsd_vae_tpu_torch import kernels
+
+    counts = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for name, conv, op, dtype, form in conv_kinds(model, geom):
+        _, c_out = conv_widths(conv, op)
+        if form == "out_gather":
+            counts["out_gather_sum"] += 1
+        elif dtype == torch.bfloat16:
+            counts["spiral_conv_f32out" if name == "final"
+                   else "spiral_conv_bf16"] += 1
+            counts["spiral_conv_dw_bf16"] += 1
+        else:
+            counts["spiral_conv_narrow" if c_out < 8
+                   else "spiral_conv_tc"] += 1
+            counts["spiral_conv_dw"] += 1
+    bf = "_bf16" if model.config.deep_dtype == torch.bfloat16 else ""
+    counts["ell_matmul" + (bf or "_fwd")] += len(geom.up)
+    for _, mat, _, _, dtype in step_tables(model, geom, batch):
+        kind = "ell_matmul_capped" if tiers_of(mat) else "ell_matmul"
+        counts[kind + ("_bf16" if dtype == torch.bfloat16
+                       else "" if tiers_of(mat) else "_fwd")] += 1
     return counts
+
+
+def training_inputs(torch, bundle, config) -> tuple:
+    """``(data [4·B, N, 3], region, eps [B², Z])`` of the training
+    phases: scans drawn as the serving phase draws them, normalised by
+    the same per-vertex statistics as a dataset would be, and the swapped
+    region and the noise from a seeded host generator."""
+    from craniofacialsd_vae_tpu_torch.geometry import level0_positions
+
+    b = TRAIN_CONFIG["batch_size"]
+    rng = np.random.default_rng(SEED + 5)
+    n = bundle.vertex_counts[0]
+    mean = level0_positions(bundle)
+    std = (0.01 + 0.02 * rng.random((n, 3))).astype(np.float32)
+    scans = mean + std * rng.normal(size=(4 * b, n, 3))
+    data = ((scans - mean) / std).astype(np.float32)
+    gen_h = torch.Generator().manual_seed(SEED + 6)
+    region = int(torch.randint(0, N_REGIONS, (), generator=gen_h))
+    eps = torch.randn((b * b, config.latent_size), generator=gen_h)
+    return data, region, eps
 
 
 def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
     """The training step on the card at full width, then on the host."""
-    from craniofacialsd_vae_tpu_torch.geometry import level0_positions
     from craniofacialsd_vae_tpu_torch.models import init_sdvae
     from craniofacialsd_vae_tpu_torch.training import (LOSS_KEYS,
                                                        LossWeights,
@@ -1087,18 +1209,8 @@ def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
     k4_main, capped = k4_backward_parity(torch, mods, model, geom, grid)
     torch.cuda.empty_cache()
 
-    # scans drawn as the serving phase draws them, normalised by the same
-    # per-vertex statistics as a dataset would be
-    rng = np.random.default_rng(SEED + 5)
-    n = bundle.vertex_counts[0]
-    mean = level0_positions(bundle)
-    std = (0.01 + 0.02 * rng.random((n, 3))).astype(np.float32)
-    n_scans = 4 * b
-    scans = mean + std * rng.normal(size=(n_scans, n, 3))
-    data = ((scans - mean) / std).astype(np.float32)
-    gen_h = torch.Generator().manual_seed(SEED + 6)
-    region = int(torch.randint(0, N_REGIONS, (), generator=gen_h))
-    eps = torch.randn((grid, config.latent_size), generator=gen_h)
+    data, region, eps = training_inputs(torch, bundle, config)
+    n_scans = len(data)
     lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
     step = make_train_step(model, weights,
                            coupled_adam(model.parameters(), lr, wd), b)
@@ -1348,17 +1460,16 @@ def entry_records(torch, mods, card, k7: dict, grid: int,
     return recs
 
 
-def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict) -> dict:
+def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
+                      root: str) -> dict:
     """The port's training entry point end to end, on the card, from a
-    template: ``train.main`` trains ``ENTRY_EPOCHS[0]`` epochs (renders
-    and checkpoints on the cadence), a fresh manager resumes the last
-    checkpoint bit for bit, ``main --resume`` goes on to
-    ``ENTRY_EPOCHS[1]``; then (not counted) one epoch on the card against
-    the host, K7 on a full-resolution reconstruction against its twin,
-    and every kernel of the path at its shapes."""
-    import shutil
-    import tempfile
-
+    template written under ``root``: ``train.main`` trains
+    ``ENTRY_EPOCHS[0]`` epochs (renders and checkpoints on the cadence),
+    a fresh manager resumes the last checkpoint bit for bit, ``main
+    --resume`` goes on to ``ENTRY_EPOCHS[1]``; then (not counted) one
+    epoch on the card against the host, K7 on a full-resolution
+    reconstruction against its twin, and every kernel of the path at its
+    shapes. The workspace and its caches stay for phase 8."""
     from craniofacialsd_vae_tpu_torch import train as entry
     from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
     from craniofacialsd_vae_tpu_torch.manager import ModelManager
@@ -1367,113 +1478,835 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict) -> dict:
     from craniofacialsd_vae_tpu_torch.utils import get_config
 
     kernels = mods["kernels"]
-    root = tempfile.mkdtemp(prefix="cfsdvae_entry_")
-    try:
-        t0 = time.perf_counter()
-        cfg_path = entry_workspace(root)
-        inputs_s = time.perf_counter() - t0
-        config = get_config(cfg_path)
-        grid = config["optimization"]["batch_size"] ** 2
-        argv = ["--config", cfg_path, "--id", "entry", "--output_path", root,
-                "--device", DEVICE]
+    t0 = time.perf_counter()
+    cfg_path = entry_workspace(root)
+    inputs_s = time.perf_counter() - t0
+    config = get_config(cfg_path)
+    grid = config["optimization"]["batch_size"] ** 2
+    argv = ["--config", cfg_path, "--id", "entry", "--output_path", root,
+            "--device", DEVICE]
 
-        # the main path: counts from 0, train, resume, train on; counts read
-        kernels.launches.reset()
-        t1 = time.perf_counter()
-        first = entry.main(argv)
-        first_s = time.perf_counter() - t1
-        run, ckpt = first["output_dir"], first["checkpoint_dir"]
-        saved = [f"model_{e:08d}.ckpt"
-                 for e in range(ENTRY_CADENCE, ENTRY_EPOCHS[0] + 1,
-                                ENTRY_CADENCE)]
-        check(sorted(os.listdir(ckpt)) == saved + ["optimizer.ckpt"],
-              f"run dir checkpoints {sorted(os.listdir(ckpt))}")
-        for rel in ("config.yaml", os.path.join("logs", "metrics.jsonl")):
-            check(os.path.isfile(os.path.join(run, rel)), f"no {rel}")
-        model_file = read_checkpoint(os.path.join(ckpt, saved[-1]))
-        opt_file = read_checkpoint(os.path.join(ckpt, "optimizer.ckpt"))
-        check(int(opt_file["epoch"]) == ENTRY_EPOCHS[0],
-              f"optimizer.ckpt epoch {opt_file['epoch']}")
-        state_matches_files(first["manager"], model_file, opt_file,
-                            "trained manager")
-        t1 = time.perf_counter()
-        resumed = ModelManager(config, config["data"]["precomputed_path"],
-                               device=DEVICE)
-        check(resumed.resume(ckpt) == ENTRY_EPOCHS[0], "resume epoch")
-        resume_s = time.perf_counter() - t1
-        state_matches_files(resumed, model_file, opt_file, "resumed manager")
-        del resumed, first["manager"]
+    # the main path: counts from 0, train, resume, train on; counts read
+    kernels.launches.reset()
+    t1 = time.perf_counter()
+    first = entry.main(argv)
+    first_s = time.perf_counter() - t1
+    run, ckpt = first["output_dir"], first["checkpoint_dir"]
+    saved = [f"model_{e:08d}.ckpt"
+             for e in range(ENTRY_CADENCE, ENTRY_EPOCHS[0] + 1,
+                            ENTRY_CADENCE)]
+    check(sorted(os.listdir(ckpt)) == saved + ["optimizer.ckpt"],
+          f"run dir checkpoints {sorted(os.listdir(ckpt))}")
+    for rel in ("config.yaml", os.path.join("logs", "metrics.jsonl")):
+        check(os.path.isfile(os.path.join(run, rel)), f"no {rel}")
+    model_file = read_checkpoint(os.path.join(ckpt, saved[-1]))
+    opt_file = read_checkpoint(os.path.join(ckpt, "optimizer.ckpt"))
+    check(int(opt_file["epoch"]) == ENTRY_EPOCHS[0],
+          f"optimizer.ckpt epoch {opt_file['epoch']}")
+    state_matches_files(first["manager"], model_file, opt_file,
+                        "trained manager")
+    t1 = time.perf_counter()
+    resumed = ModelManager(config, config["data"]["precomputed_path"],
+                           device=DEVICE)
+    check(resumed.resume(ckpt) == ENTRY_EPOCHS[0], "resume epoch")
+    resume_s = time.perf_counter() - t1
+    state_matches_files(resumed, model_file, opt_file, "resumed manager")
+    del resumed, first["manager"]
 
-        t1 = time.perf_counter()
-        second = entry.main(argv + ["--resume", "--epochs",
-                                    str(ENTRY_EPOCHS[1])])
-        second_s = time.perf_counter() - t1
+    t1 = time.perf_counter()
+    second = entry.main(argv + ["--resume", "--epochs",
+                                str(ENTRY_EPOCHS[1])])
+    second_s = time.perf_counter() - t1
+    torch.cuda.synchronize()
+    counts = kernels.launches.snapshot()
+    check(second["start_epoch"] == ENTRY_EPOCHS[0],
+          f"--resume started at epoch {second['start_epoch']}")
+    check(f"model_{ENTRY_EPOCHS[1]:08d}.ckpt" in os.listdir(ckpt),
+          "no checkpoint of the resumed run's last epoch")
+    hist = first["history"] + second["history"]
+    check([h["epoch"] for h in hist]
+          == list(range(1, ENTRY_EPOCHS[1] + 1)), "epochs run")
+    for h in hist:
+        for phase in ("train", "validation"):
+            check(all(np.isfinite(v) for v in h[phase].values()),
+                  f"epoch {h['epoch']} {phase} losses {h[phase]}")
+    tots = [h["train"]["tot"] for h in hist]
+    check(tots[-1] < tots[0], f"train tot did not fall: {tots}")
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
+                   "ell_matmul_fwd", "ell_matmul_capped",
+                   "spiral_conv_dw", "raster_sweep"):
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched on the train entry path")
+    del second["manager"]
+    torch.cuda.empty_cache()
+
+    # after the counted run: card vs host, K7 at full resolution, the
+    # kernels at this path's shapes
+    train_set, val_set, _, norm, _ = build_datasets(config)
+    cvh = entry_card_vs_host(torch, config, ckpt, train_set)
+    card = cvh.pop("card")
+    x = train_set.x[:1]
+    recon = card.forward(x)[0].cpu().numpy() * norm["std"] + norm["mean"]
+    faces = card.template.face
+    k7 = k7_case(torch, mods, "full-res recon", camera_frame(recon),
+                 faces, 20, 1)
+    records = entry_records(torch, mods, card, k7, grid, ptxas)
+    for rec in records:
+        rec["path"] = "train_entry"
+        rec["launches"] = counts[rec["name"]]
+    epoch_s = sorted(h["train_s"] for h in hist)
+    p50 = epoch_s[len(epoch_s) // 2]
+    steps = hist[0]["steps"]
+    line = {
+        "phase": "train_entry",
+        "template": {"vertices": int(card.template.num_vertices),
+                     "faces": int(len(faces)),
+                     "regions": len(card.template.region_names)},
+        "scans": {"train": len(train_set), "validation": len(val_set)},
+        "epochs": ENTRY_EPOCHS[1], "inputs_s": inputs_s,
+        "geometry_build_s": first["geometry_s"],
+        "dataset_load_s": first["data_s"], "first_run_s": first_s,
+        "resume_s": resume_s, "second_run_s": second_s,
+        "epoch_p50_s": p50, "epoch_train_s": [h["train_s"] for h in hist],
+        "steps_per_epoch": steps, "steps_per_s": steps / p50,
+        "meshes_per_s": steps * grid / p50,
+        "train_tot": tots,
+        "card_vs_host": {"worst_loss_rel": max(
+            cvh["loss_rel_err"].values()),
+            "worst_param_rel": max(cvh["param_rel_err"].values()),
+            "card_epoch_s": cvh["card_epoch_s"],
+            "host_epoch_s": cvh["host_epoch_s"]},
+        "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
+        "launches": counts}
+    log(json.dumps(line))
+    return dict(line=line, records=records, card_vs_host=cvh, k7=k7,
+                history=hist, cfg_path=cfg_path)
+
+
+# ----------------------------------------------------------------------
+# phase 8: the flagship configurations' `mixed` policy
+def ulps(torch, got, want) -> float:
+    """The largest difference of two bf16 arrays in bf16 ulps of the
+    larger magnitude (8 significant bits), the ulp taken at no less than
+    BF16_FLOOR_RTOL of the array's max: where an fp32 sum cancels to
+    nearly 0, its bf16 ulp is finer than the sum's own fp32 rounding,
+    which differs with the order of the sum."""
+    got, want = got.float(), want.float()
+    if not got.numel():
+        return 0.0
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -120)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(
+        min=BF16_FLOOR_RTOL * float(want.abs().max()))
+    return float(((got - want).abs() / ulp).max())
+
+
+def bound_bf16(nbytes: float, flops: float) -> tuple:
+    """The bound of a tensor-core kernel in bf16: bytes at the memory rate
+    or bf16 operations at the dense bf16 rate."""
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = flops / PEAK_BF16 * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations"), t_ops
+
+
+def flagship_config():
+    """``configurations/craniofacial.yaml`` through the port's config
+    reader: its model section (checked equal to ``MODEL_CONFIG`` apart
+    from the policy) and its optimisation section (``TRAIN_CONFIG``'s
+    keys)."""
+    from craniofacialsd_vae_tpu_torch.models import SDVAEConfig
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    cfg = get_config(os.path.join(ROOT, "configurations", FLAGSHIP))
+    model, opt = cfg["model"], cfg["optimization"]
+    check(model["compute_dtype"] == "mixed",
+          f"{FLAGSHIP}: compute_dtype {model['compute_dtype']!r}")
+    for k, v in MODEL_CONFIG.items():
+        check(model[k] == v, f"{FLAGSHIP} model.{k} {model[k]!r} != {v!r}")
+    for k, v in TRAIN_CONFIG.items():
+        check(float(opt[k]) == float(v),
+              f"{FLAGSHIP} optimization.{k} {opt[k]!r} != {v!r}")
+    return SDVAEConfig.from_dict(model, opt["kl_weight"])
+
+
+def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
+                   f32out=False) -> dict:
+    """One bf16 conv at one batch size, on bf16 x and the model's weights
+    rounded to bf16: K1-bf16 within one bf16 ulp of its twin (K3a, the
+    fp32 output, within K3A_RTOL of the max), two launches bit-equal,
+    timed against the twin and the library form (``index_select`` and one
+    bf16 ``linear``)."""
+    bf16 = torch.bfloat16
+    seq, m = op.seq_length, op.num_vertices
+    c_in, c_out = conv_widths(conv, op)
+    x = torch.randn((op.n_src, batch, c_in), generator=gen,
+                    device=DEVICE).to(bf16)
+    w_l = conv.w.detach().reshape(seq, c_in, c_out).to(bf16).contiguous()
+    b = (0.1 * torch.randn(c_out, generator=gen, device=DEVICE)).to(bf16)
+    table = op.table
+    out_dtype = torch.float32 if f32out else None
+    kernel = "spiral_conv_f32out" if f32out else "spiral_conv_bf16"
+    plan = kernels.plan_spiral_conv(m, batch, seq, c_in, c_out,
+                                    x.data_ptr() % 4 == 0, True, bf16)
+    launch = lambda: kernels.spiral_conv_fwd(            # noqa: E731
+        x, table, w_l, b, out_dtype=out_dtype)
+    with torch.inference_mode():
+        out, again = launch(), launch()
+        ref = ops.spiral_conv_plain(w_l, b, x, op, out_dtype)
         torch.cuda.synchronize()
-        counts = kernels.launches.snapshot()
-        check(second["start_epoch"] == ENTRY_EPOCHS[0],
-              f"--resume started at epoch {second['start_epoch']}")
-        check(f"model_{ENTRY_EPOCHS[1]:08d}.ckpt" in os.listdir(ckpt),
-              "no checkpoint of the resumed run's last epoch")
-        hist = first["history"] + second["history"]
-        check([h["epoch"] for h in hist]
-              == list(range(1, ENTRY_EPOCHS[1] + 1)), "epochs run")
-        for h in hist:
-            for phase in ("train", "validation"):
-                check(all(np.isfinite(v) for v in h[phase].values()),
-                      f"epoch {h['epoch']} {phase} losses {h[phase]}")
-        tots = [h["train"]["tot"] for h in hist]
-        check(tots[-1] < tots[0], f"train tot did not fall: {tots}")
-        for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
-                       "ell_matmul_fwd", "ell_matmul_capped",
-                       "spiral_conv_dw", "raster_sweep"):
-            check(counts[kernel] > 0,
-                  f"{kernel} was not launched on the train entry path")
-        del second["manager"]
-        torch.cuda.empty_cache()
+        err = max_err(out.float(), ref.float())
+        scale = float(ref.float().abs().max())
+        if f32out:
+            check(err <= K3A_RTOL * scale, f"K3a {name} B={batch}: max "
+                  f"|kernel - plain| {err:.3e} > {K3A_RTOL} x {scale:.3e}")
+            ulp = None
+        else:
+            ulp = ulps(torch, out, ref)
+            check(ulp <= 1.0, f"K1-bf16 {name} B={batch}: {ulp:.2f} bf16 "
+                  "ulps from the plain twin")
+        check(torch.equal(out, again),
+              f"{kernel} {name} B={batch}: two launches differ")
+        x_bm = x.transpose(0, 1).contiguous()
+        flat = table.reshape(-1).long()
+        w_t = w_l.reshape(seq * c_in, c_out).t().contiguous()
+        lib = lambda: torch.nn.functional.linear(      # noqa: E731
+            x_bm.index_select(1, flat).view(batch, m, seq * c_in), w_t, b)
+        lib_err = max_err(lib().transpose(0, 1).float(), ref.float())
+        check(lib_err <= MIXED_RTOL * scale,
+              f"{kernel} {name} B={batch}: library form disagrees "
+              f"({lib_err:.3e})")
+        ms = cuda_ms(torch, launch, 20)
+        plain_ms = cuda_ms(torch, lambda: ops.spiral_conv_plain(
+            w_l, b, x, op, out_dtype), 5)
+        lib_ms = cuda_ms(torch, lib, 5)
+    nbytes = (2 * (x.numel() + w_l.numel() + c_out) + 4 * table.numel()
+              + (4 if f32out else 2) * m * batch * c_out)
+    flops = 2.0 * m * batch * seq * c_in * c_out
+    b_ms, b_by, t_ops = bound_bf16(nbytes, flops)
+    log(f"[8 {kernel} {name} B={batch}] {op.n_src}->{m} {c_in}->{c_out} "
+        f"{plan.path} ({plan.blocks} blocks, {plan.smem} B smem): err "
+        f"{err:.2e} (max|out| {scale:.2e}"
+        + (f", {ulp:.2f} ulps" if ulp is not None else "")
+        + f"); kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+        f"{lib_ms:.4f}, bound {b_ms:.5f} ({b_by}); kernel/library "
+        f"{ms / lib_ms:.2f}")
+    return dict(conv=name, batch=batch, kernel=kernel, path=plan.path,
+                plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
+                c_in=c_in, c_out=c_out, max_abs_err=err, ulps=ulp, ms=ms,
+                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                bound_by=b_by, bytes=nbytes, flops=flops, ops_ms=t_ops)
 
-        # after the counted run: card vs host, K7 at full resolution, the
-        # kernels at this path's shapes
-        train_set, val_set, _, norm, _ = build_datasets(config)
-        cvh = entry_card_vs_host(torch, config, ckpt, train_set)
-        card = cvh.pop("card")
-        x = train_set.x[:1]
-        recon = card.forward(x)[0].cpu().numpy() * norm["std"] + norm["mean"]
-        faces = card.template.face
-        k7 = k7_case(torch, mods, "full-res recon", camera_frame(recon),
-                     faces, 20, 1)
-        records = entry_records(torch, mods, card, k7, grid, ptxas)
-        for rec in records:
-            rec["path"] = "train_entry"
-            rec["launches"] = counts[rec["name"]]
-        epoch_s = sorted(h["train_s"] for h in hist)
-        p50 = epoch_s[len(epoch_s) // 2]
-        steps = hist[0]["steps"]
-        line = {
-            "phase": "train_entry",
-            "template": {"vertices": int(card.template.num_vertices),
-                         "faces": int(len(faces)),
-                         "regions": len(card.template.region_names)},
-            "scans": {"train": len(train_set), "validation": len(val_set)},
-            "epochs": ENTRY_EPOCHS[1], "inputs_s": inputs_s,
-            "geometry_build_s": first["geometry_s"],
-            "dataset_load_s": first["data_s"], "first_run_s": first_s,
-            "resume_s": resume_s, "second_run_s": second_s,
-            "epoch_p50_s": p50, "epoch_train_s": [h["train_s"] for h in hist],
-            "steps_per_epoch": steps, "steps_per_s": steps / p50,
-            "meshes_per_s": steps * grid / p50,
-            "train_tot": tots,
-            "card_vs_host": {"worst_loss_rel": max(
-                cvh["loss_rel_err"].values()),
-                "worst_param_rel": max(cvh["param_rel_err"].values()),
-                "card_epoch_s": cvh["card_epoch_s"],
-                "host_epoch_s": cvh["host_epoch_s"]},
-            "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
-            "launches": counts}
-        log(json.dumps(line))
-        return dict(line=line, records=records, card_vs_host=cvh, k7=k7,
-                    history=hist)
-    finally:
-        shutil.rmtree(root, ignore_errors=True)
+
+def mixed_k3b_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
+    """K3b at the final conv: the products of bf16 x and the final conv's
+    bf16 weights in fp32 (the matmul-first form's ``u``), bit-equal to
+    the twin, timed against it and the library form (``index_select`` of
+    every position's rows from a position-major copy of ``u``, then one
+    sum)."""
+    seq, m = op.seq_length, op.num_vertices
+    c_in, c_out = conv_widths(conv, op)
+    x = torch.randn((op.n_src, batch, c_in), generator=gen,
+                    device=DEVICE).to(torch.bfloat16)
+    w = conv.w.detach().to(torch.bfloat16).float()
+    w_cat = w.reshape(seq, c_in, c_out).transpose(0, 1).reshape(
+        c_in, seq * c_out)
+    u = (x.reshape(-1, c_in).float() @ w_cat).view(
+        op.n_src, batch, seq, c_out).contiguous()
+    b = 0.1 * torch.randn(c_out, generator=gen, device=DEVICE)
+    table = op.table
+    u_pos = u.permute(2, 0, 1, 3).reshape(seq * op.n_src, -1).contiguous()
+    flat = (table.long().t() + op.n_src * torch.arange(
+        seq, device=DEVICE)[:, None]).reshape(-1)
+    b_row = b.repeat(batch)
+    with torch.inference_mode():
+        out = kernels.out_gather_sum(u, table, b)
+        ref = ops.out_gather_sum_plain(u, table, b)
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K3b B={batch}: kernel and twin "
+              f"differ at {int((out != ref).sum())} values")
+        lib = lambda: u_pos.index_select(0, flat).view(     # noqa: E731
+            seq, m, -1).sum(0) + b_row
+        scale = float(ref.abs().max())
+        check(max_err(lib().view(m, batch, c_out), ref) <= 1e-5 * scale,
+              "K3b: library form disagrees")
+        ms = cuda_ms(torch, lambda: kernels.out_gather_sum(u, table, b), 50)
+        plain_ms = cuda_ms(torch, lambda: ops.out_gather_sum_plain(
+            u, table, b), 10)
+        lib_ms = cuda_ms(torch, lib, 10)
+    nbytes = 4 * (u.numel() + table.numel() + c_out + m * batch * c_out)
+    flops = float(m * batch * c_out * seq)
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    log(f"[8 out_gather_sum B={batch}] {op.n_src}->{m} L={seq} "
+        f"D={batch * c_out}: bit-equal; kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f} ({b_by})")
+    return dict(conv="final", batch=batch, kernel="out_gather_sum",
+                n_src=op.n_src, m=m, c_in=c_in, c_out=c_out,
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+
+
+def mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d) -> dict:
+    """K4-bf16 (or its capped form, where the table has tiers) on bf16
+    rows: bit-equal to the twin (the walk's, for the capped form), timed
+    against it and the library form, ``index_select`` and one bf16
+    ``einsum`` over the main table. That is the whole function only where
+    there are no tiers (``torch.sparse.mm`` has no bf16 CUDA kernel), so a
+    capped table's library time is null and its main table's is kept
+    apart."""
+    m, k = mat.cols.shape
+    ties = tiers_of(mat)
+    x2 = torch.randn((n_src, d), generator=gen,
+                     device=DEVICE).to(torch.bfloat16)
+    vals = mat.vals.to(torch.bfloat16)
+    flat = mat.cols.reshape(-1)
+    if ties:
+        launch = lambda: kernels.ell_matmul_capped(          # noqa: E731
+            mat.cols, mat.vals, ties, mat.links, x2)
+        plain = lambda: ops.ell_matmul_capped_plain(         # noqa: E731
+            mat.cols, mat.vals, ties, mat.links, x2)
+    else:
+        launch = lambda: kernels.ell_matmul_fwd(             # noqa: E731
+            mat.cols, mat.vals, x2)
+        plain = lambda: ops.ell_matmul_plain(mat.cols, mat.vals, x2)  # noqa
+    lib = lambda: torch.einsum(                               # noqa: E731
+        "mkd,mk->md", x2.index_select(0, flat).view(m, k, d), vals)
+    kernel = "ell_matmul_capped_bf16" if ties else "ell_matmul_bf16"
+    with torch.inference_mode():
+        out, ref = launch(), plain()
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"{kernel} {name}: kernel and twin "
+              f"differ at {int((out != ref).sum())} values")
+        if ties:
+            check(torch.equal(mat.apply(x2), ref),
+                  f"CappedEll.apply {name} in bf16: card and twin differ")
+        else:
+            scale = float(ref.float().abs().max())
+            check(max_err(lib().float(), ref.float()) <= MIXED_RTOL * scale,
+                  f"{kernel} {name}: library form disagrees")
+        ms = cuda_ms(torch, launch, 20)
+        plain_ms = cuda_ms(torch, plain, 5)
+        lib_ms = cuda_ms(torch, lib, 5)
+    src = torch.cat([flat] + [c.reshape(-1) for _, c, _ in ties])
+    t_entries = sum(c.numel() for _, c, _ in ties)
+    t_rows = sum(r.numel() for r, _, _ in ties)
+    nbytes = (2 * (int(torch.unique(src).numel()) * d + m * d)
+              + 8 * (m * k + t_entries) + (4 * (m + t_rows) if ties else 0))
+    flops = 2.0 * (m * k + t_entries) * d + t_rows * d
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    log(f"[8 {kernel} {name}] {n_src}->{m} K={k} D={d}"
+        + (f", tiers {[int(r.numel()) for r, _, _ in ties]} rows" if ties
+           else "")
+        + f": bit-equal; kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
+        f"{lib_ms:.4f} (main table only{'' if ties else ': all of it'}), "
+        f"bound {b_ms:.5f} ({b_by})")
+    return dict(table=name, kernel=kernel, n_src=n_src, m=m, k=k, d=d,
+                tiers=len(ties), max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                library_ms=None if ties else lib_ms,
+                main_library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=flops)
+
+
+def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
+                   regs: dict) -> dict:
+    """K2-dW-bf16 at one conv over a ``batch``-mesh grid, bf16 x and dy:
+    within one bf16 ulp of its chunk-order twin, two launches bit-equal,
+    timed against the twin and the library form (``index_select`` of the
+    L gathers, one bf16 ``einsum``)."""
+    bf16 = torch.bfloat16
+    seq, m = op.seq_length, op.num_vertices
+    c_in, c_out = conv_widths(conv, op)
+    x = torch.randn((op.n_src, batch, c_in), generator=gen,
+                    device=DEVICE).to(bf16)
+    dy = torch.randn((m, batch, c_out), generator=gen,
+                     device=DEVICE).to(bf16)
+    table = op.table
+    plan = kernels.plan_spiral_conv_dw_bf16(m, batch, seq, c_in, c_out)
+    flat = table.t().reshape(-1)
+    x2, d2 = x.view(op.n_src, -1), dy.view(-1, c_out)
+    lib = lambda: torch.einsum(                          # noqa: E731
+        "lnc,no->lco", x2.index_select(0, flat).view(seq, m * batch, c_in),
+        d2)
+    launch = lambda: kernels.spiral_conv_dw(x, table, dy)    # noqa: E731
+    with torch.inference_mode():
+        out, again = launch(), launch()
+        ref = ops.spiral_conv_dw_chunked_plain(x, table, dy, plan)
+        torch.cuda.synchronize()
+        ulp = ulps(torch, out, ref)
+        check(ulp <= 1.0, f"K2-dW-bf16 {name}: {ulp:.2f} bf16 ulps from "
+              "the chunk-order twin")
+        check(torch.equal(out, again), f"K2-dW-bf16 {name}: launches differ")
+        err = max_err(out.float(), ref.float())
+        scale = float(ref.float().abs().max())
+        check(max_err(lib().float(), ref.float()) <= MIXED_RTOL * scale,
+              f"K2-dW-bf16 {name}: library form disagrees")
+        ms = cuda_ms(torch, launch, 20)
+        plain_ms = cuda_ms(torch, lambda: ops.spiral_conv_dw_chunked_plain(
+            x, table, dy, plan), 3)
+        lib_ms = cuda_ms(torch, lib, 5)
+    nbytes = 2 * (x.numel() + dy.numel() + seq * c_in * c_out) \
+        + 4 * table.numel()
+    flops = 2.0 * seq * m * batch * c_in * c_out
+    b_ms, b_by, t_ops = bound_bf16(nbytes, flops)
+    inst = regs.get(f"dw_bf16<{plan.fpw}>", {})
+    log(f"[8 K2-dW-bf16 {name}] {op.n_src}->{m} x{batch} {c_in}->{c_out} "
+        f"({plan.n_chunks} chunks of {plan.chunk_v} vertices x {seq} "
+        f"positions, {plan.fpw} fragments a warp, "
+        f"{inst.get('registers')} registers, {inst.get('spill_bytes', 0)} B "
+        f"spilled): {ulp:.2f} ulps (max|dW| {scale:.2e}); kernel {ms:.4f} "
+        f"ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f} "
+        f"({b_by}); kernel/library {ms / lib_ms:.2f}")
+    return dict(conv=name, batch=batch, kernel="spiral_conv_dw_bf16",
+                n_src=op.n_src, m=m, c_in=c_in, c_out=c_out,
+                plan=dataclasses.asdict(plan),
+                registers=inst.get("registers"),
+                spill_bytes=inst.get("spill_bytes", 0), max_abs_err=err,
+                ulps=ulp, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops,
+                ops_ms=t_ops)
+
+
+def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
+    """Phase 8 (a): every new kernel at every shape it has on the mixed
+    paths, with the flagship model's seeded weights: K1-bf16 at the bf16
+    convs and K3b at the final conv at each batch bucket, K3a at the
+    final conv at B = 16, K4-bf16 at the up-pools at each bucket, and at
+    the step's grid K2-dW-bf16 at every bf16 conv (and the final conv's
+    gather-first form) and K4-bf16 or its capped form on every bf16
+    backward table. Returns the shapes by kernel."""
+    kernels, ops = mods["kernels"], mods["ops"]
+    regs = {k["kernel"]: k for k in ptxas}
+    for k in ptxas:
+        if "bf16" in k["kernel"] or k["kernel"] == "out_gather_sum":
+            log(f"[8 ptxas] {k['kernel']}: {k.get('registers')} registers, "
+                f"{k.get('spill_bytes', 0)} bytes spilled")
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
+    kinds = conv_kinds(model, geom)
+    bf_convs = [(n, c, o) for n, c, o, dt, form in kinds
+                if dt == torch.bfloat16 and form == "gather"]
+    final = next((c, o) for n, c, o, _, _ in kinds if n == "final")
+    grid = TRAIN_CONFIG["batch_size"] ** 2
+    shapes = {k: {} for k in MIXED_KERNELS}
+    n = len(model.de_convs)
+    for batch in BATCHES:
+        shapes["spiral_conv_bf16"][batch] = [
+            mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch)
+            for name, conv, op in bf_convs]
+        shapes["out_gather_sum"][batch] = [
+            mixed_k3b_shape(torch, kernels, ops, gen, *final, batch)]
+        ups = []
+        for j in range(n):
+            level = n - 1 - j
+            up = geom.up[level]
+            c = conv_widths(model.de_convs[j], geom.spirals[level])[0]
+            ups.append(mixed_k4_shape(torch, kernels, ops, gen, f"up{level}",
+                                      up, up.n_cols, batch * c))
+        shapes["ell_matmul_bf16"][batch] = ups
+    shapes["spiral_conv_f32out"][BATCH] = [
+        mixed_k1_shape(torch, kernels, ops, gen, "final", *final, BATCH,
+                       f32out=True)]
+    shapes["spiral_conv_dw_bf16"][grid] = [
+        mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, grid, regs)
+        for name, conv, op in bf_convs + [("final",) + final]]
+    tables = [t for t in step_tables(model, geom, grid)
+              if t[4] == torch.bfloat16]
+    back = [mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d)
+            for name, mat, n_src, d, _ in tables]
+    shapes["ell_matmul_capped_bf16"][grid] = [e for e in back if e["tiers"]]
+    shapes["ell_matmul_bf16_backward"] = [e for e in back if not e["tiers"]]
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def mixed_serving(torch, mods, bundle, config, serve: dict) -> dict:
+    """Phase 8 (b): a mixed ``DiagnosisService(max_batch=16)`` answers
+    ``reconstruct`` for 1, 3, 16 and 20 scans (phase 4's scans) and the
+    error maps of the last are rendered (K7), counted; then, not
+    counted: the same mixed service on the host (MIXED_RTOL of each
+    array's max), phase 4's fp32 answers (MIXED_VS_FP32_RTOL, and the
+    change of the per-vertex error in mm), warm p50 beside phase 4's."""
+    from craniofacialsd_vae_tpu_torch.ops import selection_indices
+    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+    from craniofacialsd_vae_tpu_torch.viz import (errors_to_colors,
+                                                  render_batch)
+
+    kernels = mods["kernels"]
+    inp = serve["inputs"]
+    norm, scans, fp32 = inp["norm"], inp["scans"], inp["answers"]
+    sel = selection_indices(bundle.down[0])
+    faces = bundle.lr_face[0]
+    svc = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
+                           max_batch=BATCH, device=DEVICE)
+    kernels.launches.reset()
+    answers = {b: svc.reconstruct(scans[b]) for b in REQUEST_SIZES}
+    last = answers[REQUEST_SIZES[-1]]
+    colors = errors_to_colors(last["vertex_errors_mm"][:, sel], 0,
+                              ERROR_MAX_MM, "plasma") / 255.0
+    errmap = render_batch(last["vertices"][:, sel], faces, colors,
+                          image_size=IMAGE, shadeless=True, device=DEVICE)
+    counts = kernels.launches.snapshot()
+    n = bundle.vertex_counts[0]
+    for b, ans in answers.items():
+        check(ans["vertices"].shape == (b, n, 3)
+              and ans["vertex_errors_mm"].shape == (b, n)
+              and ans["latent"].shape == (b, config.latent_size),
+              f"mixed reconstruct B={b}: shapes")
+        for key, v in ans.items():
+            check(v.dtype == np.float32 and np.isfinite(v).all(),
+                  f"mixed reconstruct B={b}: {key} fp32 and finite")
+    check(errmap.shape == (len(last["vertices"]), IMAGE, IMAGE, 3)
+          and np.isfinite(errmap).all(), "mixed error maps")
+    for kernel in ("spiral_conv_tc", "spiral_conv_bf16", "ell_matmul_bf16",
+                   "out_gather_sum", "raster_sweep"):
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched on the mixed serving path")
+    cpu = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
+                           max_batch=BATCH, device="cpu")
+    host_err, fp32_err, err_mm = {}, {}, {}
+
+    def rel(got, want):
+        return float(np.abs(got - want).max() / np.abs(want).max())
+
+    for b in REQUEST_SIZES:
+        ref = cpu.reconstruct(scans[b])
+        for key in ("vertices", "latent"):
+            r = rel(answers[b][key], ref[key])
+            check(r <= MIXED_RTOL, f"mixed B={b} {key}: card vs host "
+                  f"{r:.3e} of the max")
+            host_err[key] = max(host_err.get(key, 0.0), r)
+            r = rel(answers[b][key], fp32[b][key])
+            check(r <= MIXED_VS_FP32_RTOL, f"mixed B={b} {key}: vs fp32 "
+                  f"{r:.3e} of the max")
+            fp32_err[key] = max(fp32_err.get(key, 0.0), r)
+        change = np.abs(answers[b]["vertex_errors_mm"]
+                        - fp32[b]["vertex_errors_mm"])
+        err_mm[b] = {"mean": float(change.mean()), "max": float(change.max())}
+    del cpu
+    latency = serve_latency(svc, scans)
+    log(f"[8 mixed serve] launches {counts}; card vs host (rel) {host_err}; "
+        f"vs phase 4's fp32 (rel) {fp32_err}; per-vertex error change mm "
+        f"{err_mm}; warm reconstruct p50 ms by batch (fp32 in phase 4): "
+        + ", ".join(f"{b}: {v['p50_ms']:.2f} "
+                    f"({serve['latency'][b]['p50_ms']:.2f})"
+                    for b, v in latency.items()))
+    return dict(counts=counts, card_vs_host_rel=host_err,
+                vs_fp32_rel=fp32_err, error_change_mm=err_mm,
+                latency=latency)
+
+
+def grad_cosine(torch, a: dict, b: dict) -> float:
+    va = torch.cat([a[k].detach().float().cpu().ravel() for k in sorted(a)])
+    vb = torch.cat([b[k].detach().float().cpu().ravel() for k in sorted(b)])
+    return float(va @ vb / (va.norm() * vb.norm()))
+
+
+def mixed_training(torch, mods, bundle, config, fp32_config,
+                   train: dict) -> dict:
+    """Phase 8 (c): one counted mixed step on the card (launches equal to
+    ``expected_step_launches``) against the host's mixed step (same
+    weights, scans, region and noise): losses within MIXED_RTOL, the
+    whole gradient's cosine at least MIXED_COSINE, every gradient fp32;
+    the cosine against the card's fp32 step; 10 warm steps and a
+    profiled step beside phase 5's."""
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.training import (LOSS_KEYS,
+                                                       LossWeights,
+                                                       coupled_adam,
+                                                       make_train_step)
+
+    kernels = mods["kernels"]
+    b = TRAIN_CONFIG["batch_size"]
+    grid = b * b
+    weights = LossWeights.from_config(TRAIN_CONFIG)
+    lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
+    geom_h = training_geometry(bundle)
+    geom = geom_h.to(DEVICE)
+    data, region, eps = training_inputs(torch, bundle, config)
+
+    def stepper(cfg, g):
+        model = init_sdvae(cfg, g, torch.Generator().manual_seed(SEED))
+        return model, make_train_step(
+            model, weights, coupled_adam(model.parameters(), lr, wd), b)
+
+    model, step = stepper(config, geom)
+    x = torch.as_tensor(data[:b], device=DEVICE)
+    kernels.launches.reset()
+    m_card = step(x, region_idx=region, eps=eps.to(DEVICE))
+    torch.cuda.synchronize()
+    counts = kernels.launches.snapshot()
+    want = expected_step_launches(model, geom, grid)
+    check(counts == want, f"mixed step launches {counts}, expected {want}")
+    grads = {k: p.grad for k, p in model.named_parameters()}
+    for k, g in grads.items():
+        check(g is not None and g.dtype == torch.float32
+              and bool(torch.isfinite(g).all()),
+              f"mixed card step: no finite fp32 gradient for {k}")
+    model_h, step_h = stepper(config, geom_h)
+    t1 = time.perf_counter()
+    m_host = step_h(torch.from_numpy(data[:b]), region_idx=region, eps=eps)
+    host_ms = (time.perf_counter() - t1) * 1e3
+    loss_err = {}
+    for k in LOSS_KEYS:
+        got, ref = float(m_card[k]), float(m_host[k])
+        check(np.isfinite(got), f"mixed card step: {k} is not finite")
+        check(abs(got - ref) <= MIXED_RTOL * abs(ref),
+              f"mixed step {k}: card {got!r} vs host {ref!r}")
+        loss_err[k] = abs(got - ref) / abs(ref) if ref else abs(got)
+    cos_host = grad_cosine(torch, grads, {k: p.grad for k, p in
+                                          model_h.named_parameters()})
+    check(cos_host >= MIXED_COSINE,
+          f"mixed step: gradient cosine card vs host {cos_host:.6f}")
+    del model_h, step_h, geom_h
+    model32, step32 = stepper(fp32_config, geom)
+    m32 = step32(x, region_idx=region, eps=eps.to(DEVICE))
+    cos_fp32 = grad_cosine(torch, grads, {k: p.grad for k, p in
+                                          model32.named_parameters()})
+    check(cos_fp32 >= MIXED_COSINE,
+          f"mixed step: gradient cosine against fp32 {cos_fp32:.6f}")
+    loss_vs_fp32 = {k: abs(float(m_card[k]) - float(m32[k]))
+                    / max(abs(float(m32[k])), 1e-30) for k in LOSS_KEYS}
+    del model32, step32
+    log(f"[8 mixed train] counted step launches {counts} (as expected); "
+        f"card vs host: worst loss rel {max(loss_err.values()):.2e}, "
+        f"gradient cosine {cos_host:.6f}; against the card's fp32 step: "
+        f"gradient cosine {cos_fp32:.6f}, loss rel {loss_vs_fp32}; host "
+        f"step {host_ms:.0f} ms")
+
+    data_dev = torch.as_tensor(data, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 7)
+    idx = torch.randint(0, len(data), (WARM_STEPS + 2, b), generator=gen,
+                        device=DEVICE)
+    step(data_dev.index_select(0, idx[0]), generator=gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    times, tots = [], []
+    for t in range(WARM_STEPS):
+        t1 = time.perf_counter()
+        m = step(data_dev.index_select(0, idx[t + 1]), generator=gen)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t1) * 1e3)
+        tots.append(float(m["tot"]))
+    peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(all(np.isfinite(tots)), f"mixed warm steps: tot {tots}")
+    p50 = sorted(times)[len(times) // 2]
+    prof = device_profile(torch, lambda: step(
+        data_dev.index_select(0, idx[-1]), generator=gen))
+    top = ", ".join(f"{k['name'][:40]} {k['ms']:.3f} ({k['count']})"
+                    for k in prof["by_kernel"][:8])
+    fp32_prof = train["profile"]
+    log(f"[8 mixed train] {WARM_STEPS} warm steps: p50 {p50:.2f} ms (fp32 "
+        f"step in phase 5: {train['step_p50_ms']:.2f}), "
+        f"{grid / p50 * 1e3:.1f} swap-grid meshes/s; peak {peak_mb:.0f} MiB "
+        f"(fp32 {train['peak_mib']:.0f}); profiled step: wall "
+        f"{prof['wall_ms']:.2f} ms, device {prof['device_ms']} ms (fp32 "
+        f"{fp32_prof['device_ms']}), idle share {prof['idle_share']}, "
+        f"{prof['kernels_run']} kernels run (fp32 "
+        f"{fp32_prof['kernels_run']}); {top}")
+    return dict(counts=counts, expected=want, loss_rel_err=loss_err,
+                grad_cosine_host=cos_host, grad_cosine_fp32=cos_fp32,
+                loss_rel_vs_fp32=loss_vs_fp32, host_step_ms=host_ms,
+                step_ms=times, step_p50_ms=p50,
+                meshes_per_s=grid / p50 * 1e3, peak_mib=peak_mb,
+                tot=tots, profile=prof)
+
+
+def mixed_gather_first(torch, mods, bundle, config) -> dict:
+    """The path of ``final_out_gather: False`` (the final conv
+    gather-first, K3a): one counted ``reconstruct`` of 16 scans and one
+    counted mixed step; K3a must launch in both."""
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+    from craniofacialsd_vae_tpu_torch.training import (LossWeights,
+                                                       coupled_adam,
+                                                       make_train_step)
+
+    kernels = mods["kernels"]
+    cfg = dataclasses.replace(config, final_out_gather=False)
+    rng = np.random.default_rng(SEED + 12)
+    n = bundle.vertex_counts[0]
+    norm = {"mean": np.zeros((n, 3), np.float32),
+            "std": np.ones((n, 3), np.float32)}
+    svc = DiagnosisService(bundle, cfg, norm, TO_MM, seed=SEED,
+                           max_batch=BATCH, device=DEVICE)
+    geom = training_geometry(bundle).to(DEVICE)
+    model = init_sdvae(cfg, geom, torch.Generator().manual_seed(SEED))
+    b = TRAIN_CONFIG["batch_size"]
+    step = make_train_step(model, LossWeights.from_config(TRAIN_CONFIG),
+                           coupled_adam(model.parameters(), 1e-4, 0.0), b)
+    data, region, eps = training_inputs(torch, bundle, config)
+    kernels.launches.reset()
+    ans = svc.reconstruct(rng.normal(size=(BATCH, n, 3)).astype(np.float32))
+    m = step(torch.as_tensor(data[:b], device=DEVICE), region_idx=region,
+             eps=eps.to(DEVICE))
+    torch.cuda.synchronize()
+    counts = kernels.launches.snapshot()
+    want = expected_step_launches(model, geom, b * b)
+    check(counts["spiral_conv_f32out"] == 1 + want["spiral_conv_f32out"],
+          f"K3a launches {counts['spiral_conv_f32out']} on the gather-first "
+          "path")
+    check(np.isfinite(ans["vertices"]).all()
+          and all(bool(torch.isfinite(v)) for v in m.values()),
+          "gather-first mixed path: finite answers and losses")
+    log(f"[8 mixed gather-first] launches {counts}")
+    return dict(counts=counts)
+
+
+def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
+    """Phase 8 (d): ``train.main`` with ``compute_dtype: mixed`` for 2
+    epochs on phase 7's workspace and caches: finite losses, the run
+    dir's checkpoint equal to the trained manager, and a fresh manager
+    resuming it bit for bit."""
+    from craniofacialsd_vae_tpu_torch import train as entry
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import \
+        read_checkpoint
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    kernels = mods["kernels"]
+    with open(cfg_path) as f:
+        text = f.read()
+    text, n = re.subn(r"^(\s*)pre_z_sigmoid:[^\n]*",
+                      lambda m: f"{m.group(0)}\n{m.group(1)}compute_dtype: "
+                      "mixed", text, flags=re.M)
+    check(n == 1, f"the entry config has {n} 'pre_z_sigmoid:' lines")
+    path = os.path.join(root, "entry_mixed.yaml")
+    with open(path, "w") as f:
+        f.write(text)
+    config = get_config(path)
+    check(config["model"]["compute_dtype"] == "mixed", "mixed entry config")
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    run = entry.main(["--config", path, "--id", "entry_mixed",
+                      "--output_path", root, "--device", DEVICE,
+                      "--epochs", str(ENTRY_CADENCE)])
+    run_s = time.perf_counter() - t0
+    counts = kernels.launches.snapshot()
+    for h in run["history"]:
+        for phase in ("train", "validation"):
+            check(all(np.isfinite(v) for v in h[phase].values()),
+                  f"mixed entry epoch {h['epoch']} {phase} {h[phase]}")
+    for kernel in ("spiral_conv_bf16", "ell_matmul_bf16",
+                   "ell_matmul_capped_bf16", "spiral_conv_dw_bf16",
+                   "out_gather_sum", "raster_sweep"):
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched on the mixed entry path")
+    ckpt = run["checkpoint_dir"]
+    model_file = read_checkpoint(os.path.join(
+        ckpt, f"model_{ENTRY_CADENCE:08d}.ckpt"))
+    opt_file = read_checkpoint(os.path.join(ckpt, "optimizer.ckpt"))
+    state_matches_files(run["manager"], model_file, opt_file,
+                        "mixed trained manager")
+    fresh = ModelManager(config, config["data"]["precomputed_path"],
+                         device=DEVICE)
+    check(fresh.resume(ckpt) == ENTRY_CADENCE, "mixed resume epoch")
+    state_matches_files(fresh, model_file, opt_file, "mixed resumed manager")
+    check(all(p.dtype == torch.float32 for p in fresh.model.parameters()),
+          "mixed checkpoint: fp32 parameters")
+    tots = [h["train"]["tot"] for h in run["history"]]
+    log(f"[8 mixed entry] {ENTRY_CADENCE} epochs in {run_s:.1f} s (geometry "
+        f"{run['geometry_s']:.2f} s, dataset {run['data_s']:.2f} s from "
+        f"phase 7's caches), train tot {tots}, resumed bit for bit; "
+        f"launches {counts}")
+    del run["manager"], fresh
+    return dict(run_s=run_s, train_tot=tots, counts=counts,
+                epoch_train_s=[h["train_s"] for h in run["history"]])
+
+
+def mixed_records(shapes: dict, serving: dict, training: dict,
+                  gather_first: dict) -> list:
+    """One record per new kernel and path: ``mixed_serving`` (K1-bf16,
+    K4-bf16 and K3b over the B = 16 pass), ``mixed_training`` (the same
+    forward shapes, K4-bf16 also on the backward tables without tiers,
+    the capped K4-bf16, K2-dW-bf16 at the step's convs) and
+    ``mixed_gather_first`` (K3a)."""
+    src = {"spiral_conv_bf16": ("csrc/spiral_conv_bf16.cu",
+                                "craniofacialsd_vae_tpu/ops/spiral_conv.py:160"),
+           "spiral_conv_f32out": ("csrc/spiral_conv_bf16.cu",
+                                  "craniofacialsd_vae_tpu/ops/spiral_conv.py:267"),
+           "ell_matmul_bf16": ("csrc/ell_matmul_bf16.cu",
+                               "craniofacialsd_vae_tpu/ops/sparse.py:191"),
+           "ell_matmul_capped_bf16": ("csrc/ell_matmul_bf16.cu",
+                                      "craniofacialsd_vae_tpu/ops/sparse.py:101"),
+           "spiral_conv_dw_bf16": ("csrc/spiral_conv_dw_bf16.cu",
+                                   "craniofacialsd_vae_tpu/ops/spiral_conv.py:208"),
+           "out_gather_sum": ("csrc/out_gather_sum.cu",
+                              "craniofacialsd_vae_tpu/ops/spiral_conv.py:260")}
+    grid = TRAIN_CONFIG["batch_size"] ** 2
+
+    def rec(name, path, shape_list, counts):
+        r = summarize(name, *src[name], shape_list)
+        r.update(path=path, launches=counts[name])
+        check(r["launches"] > 0, f"{name} was not launched on {path}")
+        return r
+
+    sc, tc = serving["counts"], training["counts"]
+    out = []
+    for name in ("spiral_conv_bf16", "ell_matmul_bf16", "out_gather_sum"):
+        r = rec(name, "mixed_serving", shapes[name][BATCH], sc)
+        r["other_batches"] = {b: shapes[name][b] for b in BATCHES[1:]}
+        out.append(r)
+    convs = [s for s in shapes["spiral_conv_dw_bf16"][grid]
+             if s["conv"] != "final"]
+    out += [rec("spiral_conv_bf16", "mixed_training",
+                shapes["spiral_conv_bf16"][grid], tc),
+            rec("ell_matmul_bf16", "mixed_training",
+                shapes["ell_matmul_bf16"][grid]
+                + shapes["ell_matmul_bf16_backward"], tc),
+            rec("out_gather_sum", "mixed_training",
+                shapes["out_gather_sum"][grid], tc),
+            rec("spiral_conv_dw_bf16", "mixed_training", convs, tc),
+            rec("ell_matmul_capped_bf16", "mixed_training",
+                shapes["ell_matmul_capped_bf16"][grid], tc),
+            rec("spiral_conv_f32out", "mixed_gather_first",
+                shapes["spiral_conv_f32out"][BATCH], gather_first["counts"])]
+    return out
+
+
+def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
+                root: str, entry_cfg: str, fp32_config) -> dict:
+    """Phase 8: the flagship configurations' ``mixed`` policy on the card
+    (see the module docstring)."""
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+
+    t0 = time.perf_counter()
+    config = flagship_config()
+    geom = training_geometry(bundle).to(DEVICE)
+    model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
+    shapes = mixed_parity(torch, mods, model, geom, ptxas)
+    del model
+    torch.cuda.empty_cache()
+    serving = mixed_serving(torch, mods, bundle, config, serve)
+    torch.cuda.empty_cache()
+    training = mixed_training(torch, mods, bundle, config, fp32_config,
+                              train)
+    torch.cuda.empty_cache()
+    gather_first = mixed_gather_first(torch, mods, bundle, config)
+    torch.cuda.empty_cache()
+    ent = mixed_entry(torch, mods, root, entry_cfg)
+    records = mixed_records(shapes, serving, training, gather_first)
+    line = {"phase": "mixed", "config": FLAGSHIP,
+            "serving": {"p50_ms": {b: v["p50_ms"] for b, v in
+                                   serving["latency"].items()},
+                        "fp32_p50_ms": {b: v["p50_ms"] for b, v in
+                                        serve["latency"].items()},
+                        "card_vs_host_rel": serving["card_vs_host_rel"],
+                        "vs_fp32_rel": serving["vs_fp32_rel"],
+                        "error_change_mm": serving["error_change_mm"]},
+            "training": {"step_p50_ms": training["step_p50_ms"],
+                         "fp32_step_p50_ms": train["step_p50_ms"],
+                         "device_ms": training["profile"]["device_ms"],
+                         "fp32_device_ms": train["profile"]["device_ms"],
+                         "kernels_run": training["profile"]["kernels_run"],
+                         "fp32_kernels_run": train["profile"]["kernels_run"],
+                         "idle_share": training["profile"]["idle_share"],
+                         "grad_cosine_host": training["grad_cosine_host"],
+                         "grad_cosine_fp32": training["grad_cosine_fp32"],
+                         "worst_loss_rel": max(
+                             training["loss_rel_err"].values())},
+            "entry": {"run_s": ent["run_s"], "train_tot": ent["train_tot"]},
+            "seconds": time.perf_counter() - t0}
+    log(json.dumps(line))
+    return dict(line=line, records=records, shapes=shapes, serving=serving,
+                training=training, gather_first=gather_first, entry=ent)
 
 
 # ----------------------------------------------------------------------
@@ -1543,18 +2376,32 @@ def main(argv=None) -> int:
         check(rec["launches"] > 0,
               f"{rec['name']} was not launched on the training path")
     records += train_records
-    for kernel in kernels.KERNEL_NAMES:
+    for kernel in FP32_KERNELS:
         check(serve["counts"][kernel] + train["counts"][kernel] > 0,
               f"{kernel} was not launched on the serving or training path")
-    check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
-          "the kernels' record does not list every kernel")
+    check({r["name"] for r in records} == set(FP32_KERNELS),
+          "the kernels' record does not list every float32 kernel")
     log(f"[6 counts] serving {serve['counts']}; training step "
         f"{train['counts']}; total {time.perf_counter() - t_start:.1f} s")
     torch.cuda.empty_cache()
 
-    entry = phase_train_entry(torch, mods, k1_ptxas(build_log), k7["solo"])
-    records += entry["records"]
-    log(f"[7 entry] done; total {time.perf_counter() - t_start:.1f} s")
+    root = tempfile.mkdtemp(prefix="cfsdvae_entry_")
+    try:
+        entry = phase_train_entry(torch, mods, k1_ptxas(build_log),
+                                  k7["solo"], root)
+        records += entry["records"]
+        log(f"[7 entry] done; total {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        mixed = phase_mixed(torch, mods, bundle, serve, train,
+                            k1_ptxas(build_log), root, entry["cfg_path"],
+                            config)
+        records += mixed["records"]
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
+          "the kernels' record does not list every kernel")
+    log(f"[8 mixed] done; total {time.perf_counter() - t_start:.1f} s")
+    serve.pop("inputs")
 
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
@@ -1565,7 +2412,10 @@ def main(argv=None) -> int:
                        "kernels": records, "serving": serve,
                        "training": train,
                        "train_entry": {k: entry[k] for k in (
-                           "line", "card_vs_host", "k7", "history")}},
+                           "line", "card_vs_host", "k7", "history")},
+                       "mixed": {k: mixed[k] for k in (
+                           "line", "shapes", "serving", "training",
+                           "gather_first", "entry")}},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

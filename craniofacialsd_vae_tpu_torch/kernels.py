@@ -12,6 +12,12 @@ contiguity, allocates its output (and K2-dW its scratch) with
 entry in ``launches`` and raises if the C function reports a CUDA
 error. None of them falls back to a plain version: the callers choose
 the plain twin only for CPU tensors.
+
+The ``mixed`` and ``bfloat16`` policies' kernels go through the same
+wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows
+(``csrc/*_bf16.cu``, counted under their own names), which none of them
+converts; K3b (``out_gather_sum``) is the matmul-first final conv's
+gather-sum.
 """
 
 from __future__ import annotations
@@ -32,21 +38,26 @@ import torch
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "ell_matmul_fwd", "ell_matmul_capped", "SpiralPlan",
            "plan_spiral_conv", "spiral_conv_fwd", "DwPlan",
-           "plan_spiral_conv_dw", "spiral_conv_dw", "raster_sweep"]
+           "plan_spiral_conv_dw", "DwBf16Plan", "plan_spiral_conv_dw_bf16",
+           "spiral_conv_dw", "out_gather_sum", "raster_sweep"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
-           "spiral_conv_dw.cu")
-HEADERS = ("common.cuh",)
+           "spiral_conv_dw.cu", "ell_matmul_bf16.cu", "spiral_conv_bf16.cu",
+           "spiral_conv_dw_bf16.cu", "out_gather_sum.cu")
+HEADERS = ("common.cuh", "bf16.cuh")
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 _CFLAGS = _ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC",
                    "-Xptxas", "-v")
 
 KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
-                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
+                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped",
+                "spiral_conv_bf16", "spiral_conv_f32out",
+                "spiral_conv_dw_bf16", "ell_matmul_bf16",
+                "ell_matmul_capped_bf16", "out_gather_sum")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -169,9 +180,20 @@ def library() -> ctypes.CDLL:
                 ctypes.POINTER(i), p]
             lib.cfs_spiral_conv_dw.argtypes = [p, p, p, p, p, i, i, i, i, i,
                                                ctypes.POINTER(i), p]
+            lib.cfs_ell_matmul_bf16.argtypes = [p, p, p, p, i, i, i, p]
+            lib.cfs_ell_matmul_capped_bf16.argtypes = \
+                lib.cfs_ell_matmul_capped.argtypes
+            lib.cfs_spiral_conv_bf16.argtypes = [p, p, p, p, p] + [i] * 12 \
+                + [p]
+            lib.cfs_spiral_conv_dw_bf16.argtypes = [p, p, p, p, p] \
+                + [i] * 9 + [p]
+            lib.cfs_out_gather_sum.argtypes = [p, p, p, p, i, i, i, i, p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
-                       lib.cfs_spiral_conv_dw):
+                       lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
+                       lib.cfs_ell_matmul_capped_bf16,
+                       lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_dw_bf16,
+                       lib.cfs_out_gather_sum):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -195,6 +217,15 @@ def _fits_int32(*sizes: int) -> None:
         raise ValueError("sizes must fit in int32")
 
 
+def _rows_dtype(t: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel's activation rows: float32 or bfloat16; any
+    other raises (no wrapper converts)."""
+    if t.dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"x must be torch.float32 or torch.bfloat16; got "
+                         f"{t.dtype}")
+    return t.dtype
+
+
 def _launch(name: str, fn, device: torch.device, *args) -> None:
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
@@ -211,11 +242,14 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
                    x2: torch.Tensor) -> torch.Tensor:
     """K4: ``out[m, :] = Σ_k vals[m,k] · x2[cols[m,k], :]`` over the
-    packed ``[N, D]`` view; returns ``[M, D]``. The kernel picks its
-    launch from M, D and the operands' alignment
-    (``csrc/ell_matmul.cu``)."""
+    packed ``[N, D]`` view; returns ``[M, D]`` in x2's dtype. The kernel
+    picks its launch from M, D and the operands' alignment
+    (``csrc/ell_matmul.cu``). bf16 ``x2``: K4-bf16
+    (``csrc/ell_matmul_bf16.cu``), the values rounded to bf16, fp32 sums
+    rounded once; ``vals`` stay float32 either way."""
     dev = x2.device
-    _require(x2, "x", torch.float32, 2, dev)
+    bf16 = _rows_dtype(x2) == torch.bfloat16
+    _require(x2, "x", x2.dtype, 2, dev)
     _require(cols, "cols", torch.int32, 2, dev)
     _require(vals, "vals", torch.float32, 2, dev)
     if cols.shape != vals.shape:
@@ -223,13 +257,15 @@ def ell_matmul_fwd(cols: torch.Tensor, vals: torch.Tensor,
                          f"{tuple(vals.shape)} differ")
     (m, k), (n, d) = cols.shape, x2.shape
     _fits_int32(m, k, d, n)
-    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    out = torch.empty((m, d), dtype=x2.dtype, device=dev)
     if m == 0 or d == 0:
         return out
     if n == 0 or k == 0:
         raise ValueError("ell_matmul needs at least one source row and "
                          "one entry per row")
-    _launch("ell_matmul_fwd", library().cfs_ell_matmul_fwd, dev,
+    lib = library()
+    _launch(*(("ell_matmul_bf16", lib.cfs_ell_matmul_bf16) if bf16
+              else ("ell_matmul_fwd", lib.cfs_ell_matmul_fwd)), dev,
             _ptr(cols), _ptr(vals), _ptr(x2), _ptr(out), m, k, d)
     return out
 
@@ -245,9 +281,12 @@ def ell_matmul_capped(cols: torch.Tensor, vals: torch.Tensor, tiers,
     rounding each, over the packed ``[N, D]`` view; returns ``[M, D]``.
     ``tiers``: 1 to 3 ``(rows [R], cols [R, K_t], vals [R, K_t])``;
     ``links``: their walk (``sparse.tier_links``), ``link0 [M]`` then one
-    ``[R]`` per tier. The kernel reads the walk, not ``rows``."""
+    ``[R]`` per tier. The kernel reads the walk, not ``rows``. bf16
+    ``x2``: the main sum rounded to bf16, each tier's sum rounded, and
+    each landed with a bf16 add (``csrc/ell_matmul_bf16.cu``)."""
     dev = x2.device
-    _require(x2, "x", torch.float32, 2, dev)
+    bf16 = _rows_dtype(x2) == torch.bfloat16
+    _require(x2, "x", x2.dtype, 2, dev)
     _require(cols, "cols", torch.int32, 2, dev)
     _require(vals, "vals", torch.float32, 2, dev)
     (m, k), (n, d) = cols.shape, x2.shape
@@ -275,13 +314,16 @@ def ell_matmul_capped(cols: torch.Tensor, vals: torch.Tensor, tiers,
         ptrs += [t_cols.data_ptr(), t_vals.data_ptr(), nxt.data_ptr()]
         ks.append(t_cols.shape[1])
     _fits_int32(m, k, d, n)
-    out = torch.empty((m, d), dtype=torch.float32, device=dev)
+    out = torch.empty((m, d), dtype=x2.dtype, device=dev)
     if m == 0 or d == 0:
         return out
     if n == 0 or k == 0:
         raise ValueError("ell_matmul needs at least one source row and "
                          "one entry per row")
-    _launch("ell_matmul_capped", library().cfs_ell_matmul_capped, dev,
+    lib = library()
+    _launch(*(("ell_matmul_capped_bf16", lib.cfs_ell_matmul_capped_bf16)
+              if bf16 else ("ell_matmul_capped", lib.cfs_ell_matmul_capped)),
+            dev,
             _ptr(cols), _ptr(vals), _ptr(links[0]), _ptr(x2), _ptr(out), m,
             k, d, len(ks), (ctypes.c_void_p * len(ptrs))(*ptrs),
             (ctypes.c_int * len(ks))(*ks))
@@ -291,8 +333,12 @@ def ell_matmul_capped(cols: torch.Tensor, vals: torch.Tensor, tiers,
 @dataclass(frozen=True)
 class SpiralPlan:
     """One K1 launch: its path, grid and tile. The fields from ``tm`` on
-    belong to the tensor-core kernel and are 0 on ``narrow_out``."""
-    path: str             # "tc", "tc_pad_k" (C_in < 8) or "narrow_out"
+    belong to the tensor-core kernel and are 0 on ``narrow_out``. The
+    bf16 paths (``csrc/spiral_conv_bf16.cu``) use ``threads``, ``grid``,
+    ``smem``, ``kp`` (16-deep steps), ``ldw`` (W's row stride, bf16
+    values) and ``nt`` (columns, 8 per tile)."""
+    path: str             # "tc", "tc_pad_k" (C_in < 8), "narrow_out",
+    #                       "bf16" or "bf16_elem" (C_in % 16 != 0)
     threads: int
     grid: tuple           # (row tiles walked, C_out column blocks)
     smem: int             # dynamic shared memory, bytes
@@ -315,7 +361,10 @@ class SpiralPlan:
 
     @property
     def kernel(self) -> str:
-        """The launch-count name of the kernel this plan runs."""
+        """The launch-count name of the kernel this plan runs (the bf16
+        kernel with an fp32 output counts as ``spiral_conv_f32out``)."""
+        if self.path.startswith("bf16"):
+            return "spiral_conv_bf16"
         return ("spiral_conv_narrow" if self.path == "narrow_out"
                 else "spiral_conv_tc")
 
@@ -341,20 +390,34 @@ def _round16(n: int) -> int:
     return _cdiv(n, 16) * 16
 
 
+def _odd_stride(width: int) -> int:
+    """A shared row stride of at least ``width`` bf16 values that is an
+    odd number of 16-byte units: the 8 rows an ldmatrix reads then hit 8
+    distinct bank groups (csrc's ``odd_stride``)."""
+    units = _cdiv(width, 8)
+    return 8 * (units if units % 2 else units + 1)
+
+
 @functools.lru_cache(maxsize=1024)
 def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
-                     x_aligned: bool = True,
-                     w_aligned: bool = True) -> SpiralPlan:
+                     x_aligned: bool = True, w_aligned: bool = True,
+                     dtype: torch.dtype = torch.float32) -> SpiralPlan:
     """The K1 launch for ``out [m, b, c_out]`` from ``seq`` positions of
     ``c_in`` channels; ``x_aligned``/``w_aligned``: whether x and W start
-    on 16 bytes. C_out < 8 takes the narrow-output kernel, the rest the
-    tensor-core kernel (C_in < 8: the positions that fill a depth of 32
-    share a stage). Wherever
-    ``m·b ≥ 132·16`` the grid has at least 132 blocks. Raises for a shape
-    that no path takes."""
+    on 16 bytes (bf16: x on 4 bytes). C_out < 8 takes the narrow-output
+    kernel, the rest the tensor-core kernel (C_in < 8: the positions that
+    fill a depth of 32 share a stage). Wherever
+    ``m·b ≥ 132·16`` the grid has at least 132 blocks. ``dtype``
+    bfloat16: the bf16 kernel (``_plan_bf16``). Raises for a shape that
+    no path takes."""
     if min(m, b, seq, c_in) < 1:
         raise ValueError(f"spiral conv needs M, B, L, C_in ≥ 1; got "
                          f"{m}, {b}, {seq}, {c_in}")
+    if dtype == torch.bfloat16:
+        return _plan_bf16(m, b, seq, c_in, c_out, x_aligned)
+    if dtype != torch.float32:
+        raise ValueError(f"spiral conv takes float32 or bfloat16; got "
+                         f"{dtype}")
     if not 1 <= c_out <= 256:
         raise ValueError(f"C_out {c_out} must be in [1, 256]")
     if c_out < 8:
@@ -489,18 +552,58 @@ def _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned) -> SpiralPlan:
                      "in shared memory")
 
 
+_BF16_TILES = (1, 2, 4, 8, 16)      # csrc/spiral_conv_bf16.cu's NT
+_BF16_THREADS = 256
+
+
+def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
+    """The bf16 kernel: 8 warps a block, 16 rows a warp, all of C_out in
+    column tiles of 8 (a power of two of them), W in shared memory as it
+    lies in device memory, its depth padded to 16; the vector path where
+    a 16-deep step lies in one position and x starts on 4 bytes, else the
+    element path. Blocks are persistent: as many as the SMs hold, at most
+    one a row tile per warp."""
+    if not 1 <= c_out <= 8 * _BF16_TILES[-1]:
+        raise ValueError(f"C_out {c_out} must be in [1, "
+                         f"{8 * _BF16_TILES[-1]}] for the bf16 kernel")
+    nt = next(t for t in _BF16_TILES if 8 * t >= c_out)
+    ksteps = _cdiv(seq * c_in, 16)
+    ldw = _odd_stride(8 * nt)
+    smem = _round16(2 * ksteps * 16 * ldw)
+    if smem > _SMEM_BLOCK:
+        raise ValueError(f"W [{seq}, {c_in}, {c_out}] does not fit in "
+                         "shared memory")
+    per_sm = max(1, min(_SMEM_SM // (smem + _SMEM_RESERVED),
+                        2048 // _BF16_THREADS))
+    warps = _BF16_THREADS // 32
+    blocks = max(1, min(_cdiv(_cdiv(m * b, 16), warps), _SMS * per_sm))
+    path = "bf16" if c_in % 16 == 0 and x_aligned else "bf16_elem"
+    return SpiralPlan(path, threads=_BF16_THREADS, grid=(blocks, 1),
+                      smem=smem, tb=0, n_btiles=0, kp=ksteps, ldw=ldw,
+                      nt=8 * nt)
+
+
 def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
                     w_l: torch.Tensor, b: torch.Tensor,
-                    plan: SpiralPlan | None = None) -> torch.Tensor:
+                    plan: SpiralPlan | None = None,
+                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """K1: ``out[m] = b + Σ_l x[table[m, l]] @ w_l[l]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``w_l [L, C_in, C_out]``;
     returns ``[M, B, C_out]``. ``plan`` defaults to
-    ``plan_spiral_conv``'s; the kernel rejects one it cannot run."""
+    ``plan_spiral_conv``'s; the kernel rejects one it cannot run.
+
+    bf16 ``x`` (with ``w_l`` and ``b`` bf16): K1-bf16, an fp32
+    accumulator from ``b`` rounded to bf16 once; with ``out_dtype``
+    float32, K3a: the same accumulator returned unrounded."""
     dev = x.device
-    _require(x, "x", torch.float32, 3, dev)
+    dtype = _rows_dtype(x)
+    _require(x, "x", dtype, 3, dev)
     _require(table, "table", torch.int32, 2, dev)
-    _require(w_l, "w", torch.float32, 3, dev)
-    _require(b, "b", torch.float32, 1, dev)
+    _require(w_l, "w", dtype, 3, dev)
+    _require(b, "b", dtype, 1, dev)
+    if out_dtype not in (None, dtype, torch.float32):
+        raise ValueError(f"out_dtype {out_dtype} for {dtype} x")
+    f32out = dtype == torch.bfloat16 and out_dtype == torch.float32
     n_src, bsz, c_in = x.shape
     m, seq = table.shape
     if w_l.shape[:2] != (seq, c_in) or b.shape[0] != w_l.shape[2]:
@@ -508,16 +611,31 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
                          f"not fit L={seq}, C_in={c_in}")
     c_out = w_l.shape[2]
     _fits_int32(n_src * bsz * c_in, m * bsz * c_out, m * seq)
-    out = torch.empty((m, bsz, c_out), dtype=torch.float32, device=dev)
+    out = torch.empty((m, bsz, c_out),
+                      dtype=torch.float32 if f32out else dtype, device=dev)
     if m == 0 or bsz == 0 or c_out == 0:
         return out
     if n_src == 0 or seq == 0 or c_in == 0:
         raise ValueError("spiral conv needs source rows, positions and "
                          "input channels")
+    if dtype == torch.bfloat16:
+        if plan is None:
+            plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
+                                    x.data_ptr() % 4 == 0, True, dtype)
+        if not plan.path.startswith("bf16"):
+            raise ValueError(f"plan path {plan.path!r} is not a bf16 path")
+        _launch("spiral_conv_f32out" if f32out else plan.kernel,
+                library().cfs_spiral_conv_bf16, dev, _ptr(x), _ptr(table),
+                _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
+                plan.nt // 8, int(plan.path == "bf16_elem"), plan.kp,
+                plan.ldw, plan.blocks, plan.smem, int(f32out))
+        return out
     if plan is None:
         plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
                                 x.data_ptr() % 16 == 0,
                                 w_l.data_ptr() % 16 == 0)
+    if plan.path.startswith("bf16"):
+        raise ValueError(f"plan path {plan.path!r} needs bf16 x")
     fields = plan.as_ints()
     _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),
@@ -665,18 +783,62 @@ def _dw_plan(m, b, seq, c_in, c_out, x_aligned, dy_aligned, rows, stages,
                   vec_d=c_out % 4 == 0 and dy_aligned)
 
 
+_DW_BF16_WARPS = 4            # csrc/spiral_conv_dw_bf16.cu's kWarps
+_DW_BF16_FPW = (1, 2, 4, 8, 16, 32)
+_DW_BF16_TILE = 64            # rows per staged tile, two stages
+_DW_BF16_BLOCKS_PER_SM = 8
+
+
+
+@dataclass(frozen=True)
+class DwBf16Plan:
+    """One K2-dW-bf16 launch: grid (``n_chunks``, L), each block one
+    position over ``chunk_v`` vertices; its 4 warps hold at most ``fpw``
+    16 x 8 fragments of the position's dW each."""
+    fpw: int
+    chunk_v: int
+    n_chunks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_spiral_conv_dw_bf16(m: int, b: int, seq: int, c_in: int,
+                             c_out: int) -> DwBf16Plan:
+    """The K2-dW-bf16 launch for ``dW [seq, c_in, c_out]`` over ``m``
+    vertices of ``b`` batch rows: chunks of whole vertices, at least one
+    staged tile of rows each, as many as 8 blocks an SM hold over the
+    ``seq`` positions; shared memory for two stages of 64 rows of x and
+    dy. Raises for channels beyond 128."""
+    if min(m, b, seq, c_in, c_out) < 1:
+        raise ValueError(f"spiral conv dW needs M, B, L, C_in, C_out ≥ 1; "
+                         f"got {m}, {b}, {seq}, {c_in}, {c_out}")
+    if max(c_in, c_out) > 128:
+        raise ValueError(f"C_in {c_in} and C_out {c_out} must be ≤ 128 for "
+                         "the bf16 kernel")
+    fm, fn = _cdiv(c_in, 16), _cdiv(c_out, 8)
+    fpw = next(f for f in _DW_BF16_FPW if _DW_BF16_WARPS * f >= fm * fn)
+    target = max(1, _SMS * _DW_BF16_BLOCKS_PER_SM // seq)
+    chunk_v = max(_cdiv(m, target), _cdiv(_DW_BF16_TILE, b))
+    return DwBf16Plan(fpw=fpw, chunk_v=chunk_v, n_chunks=_cdiv(m, chunk_v),
+                      smem=2 * _DW_BF16_TILE * 2 * (_odd_stride(16 * fm)
+                                                    + _odd_stride(8 * fn)))
+
+
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
-                   dy: torch.Tensor, plan: DwPlan | None = None
+                   dy: torch.Tensor, plan: DwPlan | DwBf16Plan | None = None
                    ) -> torch.Tensor:
     """K2-dW: ``dW[l] = Σ_{m,b} x[table[m, l], b]ᵀ dy[m, b]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``dy [M, B, C_out]``;
     returns ``[L, C_in, C_out]``. Deterministic: fixed chunks summed in a
     fixed order through a scratch buffer allocated here. ``plan`` defaults
-    to ``plan_spiral_conv_dw``'s; the kernel rejects one it cannot run."""
+    to ``plan_spiral_conv_dw``'s; the kernel rejects one it cannot run.
+    bf16 x and dy: K2-dW-bf16 (``plan_spiral_conv_dw_bf16``), fp32 sums
+    rounded to a bf16 dW once."""
     dev = x.device
-    _require(x, "x", torch.float32, 3, dev)
+    dtype = _rows_dtype(x)
+    _require(x, "x", dtype, 3, dev)
     _require(table, "table", torch.int32, 2, dev)
-    _require(dy, "dy", torch.float32, 3, dev)
+    _require(dy, "dy", dtype, 3, dev)
     n_src, bsz, c_in = x.shape
     m, seq = table.shape
     if dy.shape[:2] != (m, bsz):
@@ -685,17 +847,32 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     c_out = dy.shape[2]
     _fits_int32(n_src * bsz * c_in, m * bsz * c_out, m * seq,
                 seq * c_in * c_out)
-    out = torch.empty((seq, c_in, c_out), dtype=torch.float32, device=dev)
+    out = torch.empty((seq, c_in, c_out), dtype=dtype, device=dev)
     if seq == 0 or c_in == 0 or c_out == 0:
         return out
     if m == 0 or bsz == 0:
         return out.zero_()
     if n_src == 0:
         raise ValueError("spiral conv dW needs source rows")
+    if dtype == torch.bfloat16:
+        if plan is None:
+            plan = plan_spiral_conv_dw_bf16(m, bsz, seq, c_in, c_out)
+        if not isinstance(plan, DwBf16Plan):
+            raise ValueError("bf16 x needs a DwBf16Plan")
+        _fits_int32(plan.n_chunks * seq * c_in * c_out)
+        part = torch.empty(plan.n_chunks * seq * c_in * c_out,
+                           dtype=torch.float32, device=dev)
+        _launch("spiral_conv_dw_bf16", library().cfs_spiral_conv_dw_bf16,
+                dev, _ptr(x), _ptr(table), _ptr(dy), _ptr(part), _ptr(out),
+                m, seq, bsz, c_in, c_out, plan.fpw, plan.chunk_v,
+                plan.n_chunks, plan.smem)
+        return out
     if plan is None:
         plan = plan_spiral_conv_dw(m, bsz, seq, c_in, c_out,
                                    x.data_ptr() % 16 == 0,
                                    dy.data_ptr() % 16 == 0)
+    if not isinstance(plan, DwPlan):
+        raise ValueError("float32 x needs a DwPlan")
     _fits_int32(plan.n_chunks * seq * c_in * c_out)
     part = torch.empty(plan.n_chunks * seq * c_in * c_out,
                        dtype=torch.float32, device=dev)
@@ -703,6 +880,32 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     _launch("spiral_conv_dw", library().cfs_spiral_conv_dw, dev,
             _ptr(x), _ptr(table), _ptr(dy), _ptr(part), _ptr(out), m, seq,
             bsz, c_in, c_out, (ctypes.c_int * len(fields))(*fields))
+    return out
+
+
+def out_gather_sum(u: torch.Tensor, table: torch.Tensor,
+                   b: torch.Tensor) -> torch.Tensor:
+    """K3b: ``out[m, b, o] = bias[o] + Σ_l u[table[m, l], b, l, o]`` in
+    position order, one rounding per add, for ``u [N, B, L, O]`` (the
+    matmul-first conv's products of every position), ``table [M, L]``,
+    ``b [O]``, all float32 but the table; returns ``[M, B, O]``."""
+    dev = u.device
+    _require(u, "u", torch.float32, 4, dev)
+    _require(table, "table", torch.int32, 2, dev)
+    _require(b, "b", torch.float32, 1, dev)
+    n, bsz, seq, o = u.shape
+    m = table.shape[0]
+    if table.shape[1] != seq or b.shape[0] != o:
+        raise ValueError(f"u {tuple(u.shape)}, table {tuple(table.shape)} "
+                         f"and b {tuple(b.shape)} do not fit")
+    _fits_int32(m, seq, bsz, o, m * seq)
+    out = torch.empty((m, bsz, o), dtype=torch.float32, device=dev)
+    if m == 0 or bsz == 0 or o == 0:
+        return out
+    if n == 0 or seq == 0:
+        raise ValueError("out_gather_sum needs source rows and positions")
+    _launch("out_gather_sum", library().cfs_out_gather_sum, dev, _ptr(u),
+            _ptr(table), _ptr(b), _ptr(out), m, seq, bsz, o)
     return out
 
 

@@ -9,8 +9,14 @@ conv's spiral table (``enc_spirals``), so the conv runs only at the
 surviving vertices. Parameters keep the JAX layout: spiral ``w``
 ``[L·C_in, C_out]``, dense ``w`` ``[n_in, n_out]``.
 
-Only the ``float32`` activation policy is ported; ``mixed`` and
-``bfloat16`` raise.
+Activation policies (``compute_dtype``), as in the JAX package:
+``float32``; ``mixed``, where level 0 (the first conv's 3-channel rows,
+the losses, the Laplacian) and the latent heads stay fp32 and every
+deeper activation is bf16; ``bfloat16``, the same with level 0 in bf16
+too. Parameters, gradients and optimizer state stay fp32, and the
+reconstruction is fp32 under every policy: the final conv returns its
+fp32 accumulator unrounded, matmul-first (``final_out_gather``, the
+default) or gather-first.
 """
 
 from __future__ import annotations
@@ -25,11 +31,13 @@ from torch import nn
 from ..device import resolve_device
 from ..ops import (PaddedRowSparse, build_pool_operator, build_spiral_op,
                    from_coo, init_spiral_conv, pool, selection_indices,
-                   spiral_conv)
+                   spiral_conv, spiral_conv_out_gather)
 
-__all__ = ["SDVAEConfig", "SpiralGeometry", "SDVAE", "init_sdvae",
-           "reparameterize", "latent_regions", "params_from_jax",
-           "params_to_jax"]
+__all__ = ["POLICIES", "SDVAEConfig", "SpiralGeometry", "SDVAE",
+           "init_sdvae", "reparameterize", "latent_regions",
+           "params_from_jax", "params_to_jax"]
+
+POLICIES = ("float32", "mixed", "bfloat16")
 
 
 @dataclass(frozen=True)
@@ -40,6 +48,9 @@ class SDVAEConfig:
     is_vae: bool = True
     pre_z_sigmoid: bool = False
     compute_dtype: str = "float32"
+    # under bf16 activations, the final conv runs matmul-first
+    # (ops.spiral_conv_out_gather); no effect under "float32"
+    final_out_gather: bool = True
 
     @classmethod
     def from_dict(cls, model_cfg: dict, kl_weight: float) -> "SDVAEConfig":
@@ -51,7 +62,20 @@ class SDVAEConfig:
             is_vae=float(kl_weight) > 0,
             pre_z_sigmoid=model_cfg.get("pre_z_sigmoid", False),
             compute_dtype=model_cfg.get("compute_dtype", "float32"),
+            final_out_gather=model_cfg.get("final_out_gather", True),
         )
+
+    @property
+    def activation_dtype(self) -> torch.dtype:
+        """Dtype of level-0 activations (the first conv's input)."""
+        return torch.bfloat16 if self.compute_dtype == "bfloat16" \
+            else torch.float32
+
+    @property
+    def deep_dtype(self) -> torch.dtype:
+        """Dtype of the activations below level 0 and of the decoder."""
+        return torch.bfloat16 \
+            if self.compute_dtype in ("bfloat16", "mixed") else torch.float32
 
 
 @dataclass
@@ -140,8 +164,12 @@ class SpiralConv(nn.Module):
         self.w = nn.Parameter(params["w"])          # [L·C_in, C_out]
         self.b = nn.Parameter(params["b"])
 
-    def forward(self, x: torch.Tensor, op) -> torch.Tensor:
-        return spiral_conv({"w": self.w, "b": self.b}, x, op)
+    def forward(self, x: torch.Tensor, op, out_dtype=None) -> torch.Tensor:
+        return spiral_conv({"w": self.w, "b": self.b}, x, op, out_dtype)
+
+    def out_gather(self, x: torch.Tensor, op) -> torch.Tensor:
+        """The same conv matmul-first (``spiral_conv_out_gather``)."""
+        return spiral_conv_out_gather({"w": self.w, "b": self.b}, x, op)
 
 
 class Dense(nn.Module):
@@ -163,9 +191,9 @@ class SDVAE(nn.Module):
     def __init__(self, config: SDVAEConfig, geom: SpiralGeometry,
                  generator: torch.Generator | None = None):
         super().__init__()
-        if config.compute_dtype != "float32":
+        if config.compute_dtype not in POLICIES:
             raise ValueError(f"compute_dtype {config.compute_dtype!r} is not "
-                             "ported; only 'float32' is")
+                             f"one of {POLICIES}")
         if generator is None:
             generator = torch.Generator().manual_seed(0)
         self.config = config
@@ -195,16 +223,20 @@ class SDVAE(nn.Module):
 
     def encode(self, x: torch.Tensor):
         """Vertex-major ``[N, B, 3]`` → (mu [B, Z], logvar [B, Z] | None)."""
-        geom = self.geom
-        h = x.contiguous()
+        geom, config = self.geom, self.config
+        h = x.to(config.activation_dtype).contiguous()
         for i, conv in enumerate(self.en_convs):
             enc = geom.enc_spirals[i]
             if enc is not None:
                 h = F.elu(conv(h, enc))
             else:
                 h = pool(F.elu(conv(h, geom.spirals[i])), geom.down[i])
-        # vertex-major flatten, matching the reference's [B, N, C] flatten
-        h = h.transpose(0, 1).reshape(h.shape[1], -1)
+            if i == 0:
+                # the policy's boundary: below level 0, deep_dtype
+                h = h.to(config.deep_dtype)
+        # vertex-major flatten, matching the reference's [B, N, C] flatten;
+        # the latent heads run in fp32
+        h = h.transpose(0, 1).reshape(h.shape[1], -1).float()
         mu = self.mu(h)
         if self.config.is_vae:
             return mu, self.logvar(h)
@@ -214,15 +246,18 @@ class SDVAE(nn.Module):
 
     def decode(self, z: torch.Tensor) -> torch.Tensor:
         """``[B, Z]`` → vertex-major ``[N, B, 3]``."""
-        geom = self.geom
+        geom, config = self.geom, self.config
         n = len(self.de_convs)
         h = self.de_dense(z).view(z.shape[0], geom.num_latent_vertices, -1)
         h = h.transpose(0, 1).contiguous()             # vertex-major
+        h = h.to(config.deep_dtype)
         for j, conv in enumerate(self.de_convs):
             level = n - 1 - j
             h = pool(h, geom.up[level])
             h = F.elu(conv(h, geom.spirals[level]))
-        return self.final_conv(h, geom.spirals[0])
+        if config.final_out_gather and h.dtype == torch.bfloat16:
+            return self.final_conv.out_gather(h, geom.spirals[0])
+        return self.final_conv(h, geom.spirals[0], torch.float32)
 
     def forward(self, x: torch.Tensor, generator=None,
                 training: bool = False, eps: torch.Tensor | None = None):

@@ -4,9 +4,9 @@ from .sparse import (CappedEll, GatherRows, PaddedRowSparse, capped_ell,
                      ell_matmul_raw, ell_tier_add_plain, from_coo,
                      gather_op_from_idx, gather_rows, tier_links)
 from .spiral_conv import (SpiralOp, build_spiral_op, init_spiral_conv,
-                          spiral_conv, spiral_conv_dw,
+                          out_gather_sum_plain, spiral_conv, spiral_conv_dw,
                           spiral_conv_dw_chunked_plain, spiral_conv_dw_plain,
-                          spiral_conv_plain)
+                          spiral_conv_out_gather, spiral_conv_plain)
 
 __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "GatherRows", "PaddedRowSparse", "capped_ell", "ell_matmul",
@@ -15,4 +15,5 @@ __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "gather_rows", "tier_links", "SpiralOp", "build_spiral_op",
            "init_spiral_conv", "spiral_conv", "spiral_conv_dw",
            "spiral_conv_dw_chunked_plain", "spiral_conv_dw_plain",
-           "spiral_conv_plain"]
+           "spiral_conv_plain", "spiral_conv_out_gather",
+           "out_gather_sum_plain"]

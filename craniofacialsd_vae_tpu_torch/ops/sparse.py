@@ -17,7 +17,14 @@ pass is a gather through it, never a scatter: ``ell_matmul`` and
 ``ell_matmul_raw`` is kernel K4 and ``CappedEll.apply`` of a table with
 overflow tiers the fused kernel ``ell_matmul_capped`` (K4 with the tiers
 landed in the same launch): for a CUDA tensor each launches
-``csrc/ell_matmul.cu``, for a CPU tensor it runs its plain twin.
+``csrc/ell_matmul.cu`` (``csrc/ell_matmul_bf16.cu`` for bf16 rows), for
+a CPU tensor it runs its plain twin.
+
+bf16 rows keep the JAX package's rounding points: the values are rounded
+to bf16, the products and their sum are formed in fp32 and rounded once
+(what XLA's bf16 ``einsum`` gives on the CPU, checked by
+``tests/test_torch_mixed.py``), each overflow tier's sum is rounded, and
+a tier lands with a bf16 add (``out.at[o_rows].add``).
 """
 
 from __future__ import annotations
@@ -222,15 +229,19 @@ def ell_matmul_plain(cols: torch.Tensor, vals: torch.Tensor,
                      x: torch.Tensor) -> torch.Tensor:
     """Plain twin of K4 over the packed view, in the kernel's order:
     ``vals[:, 0]·x[cols[:, 0]]`` first, then the other k in ascending
-    order, each product rounded before it is added."""
+    order, each product rounded before it is added. bf16 rows: the
+    values rounded to bf16, products and sums in fp32 (the products of
+    two bf16 values are exact), the sum rounded to bf16 once."""
     m, k = cols.shape
     x2 = x.reshape(x.shape[0], -1)
     g = x2.index_select(0, cols.reshape(-1)).view(m, k, -1)
     v = vals.to(x.dtype)
+    if x.dtype == torch.bfloat16:
+        g, v = g.float(), v.float()
     out = v[:, 0, None] * g[:, 0]
     for j in range(1, k):
         out = out + v[:, j, None] * g[:, j]
-    return out.view(m, *x.shape[1:])
+    return out.to(x.dtype).view(m, *x.shape[1:])
 
 
 def ell_matmul_raw(cols: torch.Tensor, vals: torch.Tensor,

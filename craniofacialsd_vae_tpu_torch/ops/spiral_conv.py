@@ -13,12 +13,26 @@ custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
   C_out < 8), which gathers the spiral rows into shared memory or
   registers and never writes the ``[M, B, L·C]`` concatenation; for a CPU
   tensor it runs the plain twin, the fp32 branch of ``_spiral_conv_core``;
-- backward: ``dx`` through the combined capped transposes (one
-  ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4 with the
-  overflow tiers landed in the same launch), plus ``dy @ W_iᵀ`` for
-  identity columns; ``dW`` by kernel K2-dW (``csrc/spiral_conv_dw.cu``,
-  tensor cores in 3xTF32), which recomputes the gathers;
-  ``db = Σ dy``. On the host the same steps run with the plain twins.
+- backward: ``dx`` through the combined capped transposes (one batched
+  product ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4
+  with the overflow tiers landed in the same launch), plus ``dy @ W_iᵀ``
+  for identity columns; ``dW`` by kernel K2-dW
+  (``csrc/spiral_conv_dw.cu``, tensor cores in 3xTF32), which recomputes
+  the gathers; ``db = Σ dy``. On the host the same steps run with the
+  plain twins.
+
+bf16 activations (the ``mixed`` and ``bfloat16`` policies) keep the JAX
+package's rounding points: ``w`` and ``b`` are cast to bf16; the forward
+(K1-bf16, ``csrc/spiral_conv_bf16.cu``) accumulates ``b`` and the L
+position products in fp32 and rounds once; the backward forms ``dg`` and
+the identity columns' products in bf16, gathers ``dg`` with the capped
+K4-bf16, sums ``dW`` (K2-dW-bf16) and ``db`` in fp32 and rounds each
+once. Autograd through the casts hands fp32 gradients to the fp32
+parameters. The final decoder conv returns fp32: gather-first through
+``_SpiralConvF32Out`` (K3a: the accumulator unrounded; its backward
+rounds ``dy`` to bf16 once), or matmul-first through
+``spiral_conv_out_gather`` (one fp32 product of the bf16 values, then
+kernel K3b's gather-sum, ``csrc/out_gather_sum.cu``).
 """
 
 from __future__ import annotations
@@ -34,7 +48,8 @@ from .sparse import (CappedEll, GatherRows, capped_ell, gather_op_from_idx,
 
 __all__ = ["SpiralOp", "build_spiral_op", "init_spiral_conv", "spiral_conv",
            "spiral_conv_plain", "spiral_conv_dw", "spiral_conv_dw_plain",
-           "spiral_conv_dw_chunked_plain"]
+           "spiral_conv_dw_chunked_plain", "spiral_conv_out_gather",
+           "out_gather_sum_plain"]
 
 
 @dataclass
@@ -121,9 +136,20 @@ def init_spiral_conv(generator: torch.Generator, in_channels: int,
 
 
 def spiral_conv_plain(w_l: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                      op: SpiralOp) -> torch.Tensor:
+                      op: SpiralOp, out_dtype: torch.dtype | None = None
+                      ) -> torch.Tensor:
     """Plain twin of K1: ``out = b``, then ``out + x_l @ W_l`` for
-    l = 0…L−1 (the fp32 branch of the JAX ``_spiral_conv_core``)."""
+    l = 0…L−1 (the fp32 branch of the JAX ``_spiral_conv_core``). bf16
+    x, W and b (twin of K1-bf16 and K3a, its bf16 branch and
+    ``_spiral_conv_core_f32out``): the same sums in fp32 from ``b``, the
+    products of the bf16 values in fp32, rounded to bf16 once, or with
+    ``out_dtype`` float32 returned unrounded."""
+    if x.dtype == torch.bfloat16:
+        out = b.float()
+        for i, g in enumerate(op.gathers):
+            xi = x if g is None else gather_rows(g, x)
+            out = out + xi.float() @ w_l[i].float()
+        return out if out_dtype == torch.float32 else out.to(x.dtype)
     out = b
     for i, g in enumerate(op.gathers):
         xi = x if g is None else gather_rows(g, x)
@@ -135,7 +161,10 @@ def spiral_conv_dw_plain(x: torch.Tensor, table: torch.Tensor,
                          dy: torch.Tensor) -> torch.Tensor:
     """Plain twin of K2-dW: ``dW[l] = x[table[:, l]]ᵀ dy`` over the
     ``M·B`` rows, one gather and one matmul per position (the fp32 branch
-    of the JAX ``_score_bwd``'s dW)."""
+    of the JAX ``_score_bwd``'s dW). bf16 x and dy: the same in fp32,
+    rounded to bf16 once."""
+    if x.dtype == torch.bfloat16:
+        return spiral_conv_dw_plain(x.float(), table, dy.float()).to(x.dtype)
     c_in, c_out = x.shape[-1], dy.shape[-1]
     d2 = dy.reshape(-1, c_out)
     return torch.stack([
@@ -148,11 +177,22 @@ _DW_SUM_RUNS = 8        # csrc/spiral_conv_dw.cu's kSumWarps
 
 def spiral_conv_dw_chunked_plain(x: torch.Tensor, table: torch.Tensor,
                                  dy: torch.Tensor,
-                                 plan: kernels.DwPlan) -> torch.Tensor:
+                                 plan: kernels.DwPlan | kernels.DwBf16Plan
+                                 ) -> torch.Tensor:
     """K2-dW's sums in the order of ``plan``'s chunks: each chunk's
     partial dW over its ``tiles_per_chunk · tmv`` vertices, then, as the
     kernel's second pass adds them, eight runs (chunks w, w + 8, … in
-    order) and the eight run sums in run order."""
+    order) and the eight run sums in run order. A ``DwBf16Plan`` (bf16 x
+    and dy): each chunk's fp32 partial over its ``chunk_v`` vertices, the
+    partials added in chunk order, rounded to bf16 once."""
+    if isinstance(plan, kernels.DwBf16Plan):
+        x32, d32 = x.float(), dy.float()
+        out = None
+        for m0 in range(0, table.shape[0], plan.chunk_v):
+            part = spiral_conv_dw_plain(x32, table[m0:m0 + plan.chunk_v],
+                                        d32[m0:m0 + plan.chunk_v])
+            out = part if out is None else out + part
+        return out.to(x.dtype)
     step = plan.tiles_per_chunk * plan.tmv
     parts = [spiral_conv_dw_plain(x, table[m0:m0 + step], dy[m0:m0 + step])
              for m0 in range(0, table.shape[0], step)]
@@ -167,8 +207,9 @@ def spiral_conv_dw_chunked_plain(x: torch.Tensor, table: torch.Tensor,
 
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
                    dy: torch.Tensor) -> torch.Tensor:
-    """``dW [L, C_in, C_out]`` of the spiral conv: kernel K2-dW on the
-    card, its plain twin on the host."""
+    """``dW [L, C_in, C_out]`` of the spiral conv, in x's dtype: kernel
+    K2-dW (K2-dW-bf16 for bf16) on the card, its plain twin on the
+    host."""
     if not x.is_cuda:
         return spiral_conv_dw_plain(x, table, dy)
     return kernels.spiral_conv_dw(x, table, dy)
@@ -176,7 +217,7 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
 
 class _SpiralConv(torch.autograd.Function):
     """``out = b + Σ_l x[S[:, l]] @ W_l`` with the JAX ``_score_bwd``
-    backward (see the module docstring)."""
+    backward (see the module docstring), in x's dtype."""
 
     @staticmethod
     def forward(ctx, w_l, b, x, op):
@@ -193,14 +234,14 @@ class _SpiralConv(torch.autograd.Function):
         dy = dy.contiguous()
         dw_l = db = dx = None
         if ctx.needs_input_grad[2]:
-            # dg [g, M, B, C_in] = dy @ W_gᵀ, l-major as the tables' flat
-            # positions; the combined transpose gathers it onto x's rows
+            # dg [g, M, B, C_in] = dy @ W_gᵀ, one batched product per
+            # group, l-major as the tables' flat positions; the combined
+            # transpose gathers it onto x's rows
             m, bsz, c_out = dy.shape
             d2 = dy.reshape(m * bsz, c_out)
             for table, cols in zip(op.inv_tables, op.group_cols):
-                dg = d2.new_empty((len(cols), m * bsz, w_l.shape[1]))
-                for j, i in enumerate(cols):
-                    torch.mm(d2, w_l[i].T, out=dg[j])
+                w_g = w_l[list(cols)].transpose(1, 2)
+                dg = torch.bmm(d2.expand(len(cols), -1, -1), w_g)
                 part = table.apply(dg.view(len(cols) * m, bsz, -1))
                 dx = part if dx is None else dx + part
             for i in op.identity_cols:
@@ -209,17 +250,101 @@ class _SpiralConv(torch.autograd.Function):
         if ctx.needs_input_grad[0]:
             dw_l = spiral_conv_dw(x, op.table, dy)
         if ctx.needs_input_grad[1]:
-            db = dy.sum(dim=(0, 1))
+            # bf16: summed in fp32, rounded once
+            db = dy.sum(dim=(0, 1), dtype=torch.float32).to(dy.dtype)
         return dw_l, db, dx, None
 
 
-def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp) -> torch.Tensor:
-    """Vertex-major spiral conv ``[N_src, B, C_in] → [M, B, C_out]`` in
-    fp32, differentiable: K1 forward, the transposes (capped K4) and
-    K2-dW backward on the card; the plain twins on the host."""
+class _SpiralConvF32Out(torch.autograd.Function):
+    """K3a: the bf16 conv's fp32 accumulator, unrounded (JAX
+    ``_spiral_conv_core_f32out``); the backward rounds the fp32 ``dy`` to
+    bf16 once and runs the bf16 backward."""
+
+    @staticmethod
+    def forward(ctx, w_l, b, x, op):
+        ctx.op = op
+        ctx.save_for_backward(w_l, x)
+        if not x.is_cuda:
+            return spiral_conv_plain(w_l, b, x, op, torch.float32)
+        return kernels.spiral_conv_fwd(x, op.table, w_l, b,
+                                       out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _SpiralConv.backward(ctx, dy.to(ctx.saved_tensors[1].dtype))
+
+
+def _check_rows(x: torch.Tensor, op: SpiralOp) -> None:
     if x.shape[0] != op.n_src:
         raise ValueError(f"x has {x.shape[0]} rows; the spiral table "
                          f"reads {op.n_src}")
-    w = params["w"]
+
+
+def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp,
+                out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """Vertex-major spiral conv ``[N_src, B, C_in] → [M, B, C_out]`` in
+    x's dtype (fp32 or bf16; ``w`` and ``b`` are cast to it),
+    differentiable: K1 forward, the transposes (capped K4) and K2-dW
+    backward on the card; the plain twins on the host. ``out_dtype``
+    float32 with bf16 x: the fp32 accumulator unrounded (K3a)."""
+    _check_rows(x, op)
+    w = params["w"].to(x.dtype)
+    b = params["b"].to(x.dtype)
     w_l = w.reshape(op.seq_length, x.shape[-1], w.shape[-1])
-    return _SpiralConv.apply(w_l, params["b"], x, op)
+    if out_dtype == torch.float32 and x.dtype == torch.bfloat16:
+        return _SpiralConvF32Out.apply(w_l, b, x, op)
+    return _SpiralConv.apply(w_l, b, x, op)
+
+
+def out_gather_sum_plain(u: torch.Tensor, table: torch.Tensor,
+                         b: torch.Tensor) -> torch.Tensor:
+    """Plain twin of K3b: ``out = b``, then ``out + u_l[table[:, l]]`` for
+    l = 0…L−1 in fp32, for ``u [N, B, L, O]``."""
+    out = b
+    for i in range(table.shape[1]):
+        out = out + u[:, :, i].index_select(0, table[:, i])
+    return out
+
+
+class _OutGatherSum(torch.autograd.Function):
+    """``out = b + Σ_l u_l[S[:, l]]`` (K3b on the card), backward as JAX's
+    autodiff of ``spiral_conv_out_gather`` gives it: each position's
+    ``du_l`` through that gather's own capped transpose (fp32 K4), the
+    identity position's ``dout`` itself, ``db = Σ dout``."""
+
+    @staticmethod
+    def forward(ctx, u, b, op):
+        ctx.op = op
+        if not u.is_cuda:
+            return out_gather_sum_plain(u, op.table, b)
+        return kernels.out_gather_sum(u, op.table, b)
+
+    @staticmethod
+    def backward(ctx, dout):
+        dout = dout.contiguous()
+        du = db = None
+        if ctx.needs_input_grad[0]:
+            du = torch.stack([dout if g is None else g.transpose.apply(dout)
+                              for g in ctx.op.gathers], dim=2)
+        if ctx.needs_input_grad[1]:
+            db = dout.sum(dim=(0, 1))
+        return du, db, None
+
+
+def spiral_conv_out_gather(params: dict, x: torch.Tensor,
+                           op: SpiralOp) -> torch.Tensor:
+    """Matmul-first spiral conv (JAX ``spiral_conv_out_gather``): ``u =
+    x @ W_l`` for every position in one plain product (fp32, from bf16 x
+    and W: the fp32 copies of the bf16 values), laid out ``[N, B, L,
+    C_out]``, then ``out = b + Σ_l u_l[S[:, l]]`` in fp32 (K3b on the
+    card). ``b`` stays fp32; the output is fp32 for bf16 x."""
+    _check_rows(x, op)
+    acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
+    n, bsz, c_in = x.shape
+    w = params["w"].to(x.dtype).to(acc)                 # [L·C_in, C_out]
+    c_out = w.shape[-1]
+    w_cat = w.reshape(op.seq_length, c_in, c_out).transpose(0, 1).reshape(
+        c_in, op.seq_length * c_out)
+    u = (x.reshape(n * bsz, c_in).to(acc) @ w_cat).view(
+        n, bsz, op.seq_length, c_out)
+    return _OutGatherSum.apply(u, params["b"].to(acc), op)

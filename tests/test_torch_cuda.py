@@ -348,8 +348,7 @@ def test_launch_counts_move_only_on_launch():
     kernels.ell_matmul_fwd(cols, torch.ones(4, 3, device=dev), x)
     ops.ell_matmul_plain(cols, torch.ones(4, 3, device=dev), x)
     assert kernels.launches.snapshot() == {
-        "spiral_conv_tc": 0, "spiral_conv_narrow": 0, "ell_matmul_fwd": 1,
-        "raster_sweep": 0, "spiral_conv_dw": 0, "ell_matmul_capped": 0}
+        **dict.fromkeys(kernels.KERNEL_NAMES, 0), "ell_matmul_fwd": 1}
 
 
 def test_service_on_card_matches_host():
@@ -748,3 +747,374 @@ def test_manager_epoch_on_card_matches_host(tmp_path):
     writer.close()
     assert np.isfinite(grid).all()
     assert kernels.launches.snapshot()["raster_sweep"] == 3
+
+
+# ------------------------------------------- the mixed and bfloat16 policies
+BF16 = torch.bfloat16
+
+
+def _within_ulp(got, want):
+    """Two bf16 arrays within one bf16 ulp of the larger magnitude: the
+    same fp32 sums in another order can round to the neighbouring bf16
+    value. The ulp is taken at no less than 1e-5 of the array's max:
+    where a sum cancels to nearly 0, its bf16 ulp is finer than the fp32
+    sum's own rounding, which differs with the order of the sum."""
+    got, want = got.float(), want.float()
+    assert got.shape == want.shape
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -120)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(
+        min=1e-5 * float(want.abs().max()))
+    assert bool(((got - want).abs() <= ulp).all())
+
+
+def _bf16_rows(dev, g, n, d, offset=0):
+    base = torch.randn(n * d + offset, generator=g, device=dev).to(BF16)
+    return base[offset:].view(n, d)
+
+
+@pytest.mark.parametrize("m,n,k,d,offset", [
+    (500, 300, 3, 64, 0),       # 16-byte path
+    (300, 267, 3, 1024, 0),     # dec0's up-pool width at B = 16
+    (333, 90, 5, 48, 0),
+    (200, 70, 4, 7, 0),         # D % 8 != 0: scalar path
+    (100, 40, 3, 16, 1),        # unaligned x view: scalar path
+])
+def test_ell_matmul_bf16_kernel_equals_plain(m, n, k, d, offset):
+    """K4-bf16: the same fp32 products and sums in the same order, one
+    rounding: bit-equal to the twin."""
+    dev = _card()
+    g = _gen(dev, m)
+    cols = torch.randint(0, n, (m, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((m, k), generator=g, device=dev)
+    x2 = _bf16_rows(dev, g, n, d, offset)
+    kernels.launches.reset()
+    out = kernels.ell_matmul_fwd(cols, vals, x2)
+    assert kernels.launches.snapshot()["ell_matmul_bf16"] == 1
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    assert torch.equal(out, ops.ell_matmul_plain(cols, vals, x2))
+
+
+@pytest.mark.parametrize("m,n,d,offset,hubs", [
+    (1000, 500, 64, 0, (300, 90, 40)),       # 16-byte path, three tiers
+    (1000, 500, 512, 0, (200,)),             # a conv's dg width at B = 16
+    (400, 90, 7, 0, (120, 40)),              # scalar path
+    (300, 40, 16, 1, (100, 30, 9)),          # unaligned x: scalar path
+])
+def test_ell_capped_bf16_kernel_equals_plain(m, n, d, offset, hubs):
+    """The capped K4-bf16: main sum, each tier's sum and each landing
+    rounded as JAX rounds them; bit-equal to the walk twin and to K4's
+    twin followed by one bf16 index_add per tier."""
+    dev = _card()
+    rng = np.random.default_rng(m + d)
+    rows = np.concatenate([np.repeat(np.arange(len(hubs)) * 3 + 1, hubs),
+                           rng.integers(0, m, 3 * m)])
+    cols = rng.integers(0, n, len(rows))
+    mat = sparse.capped_ell(rows, cols, rng.normal(size=len(rows)), m).to(dev)
+    x2 = _bf16_rows(dev, _gen(dev, m), n, d, offset)
+    got = kernels.ell_matmul_capped(mat.cols, mat.vals, mat.tiers, mat.links,
+                                    x2)
+    walk = sparse.ell_matmul_capped_plain(mat.cols, mat.vals, mat.tiers,
+                                          mat.links, x2)
+    want = _sequential_twin(mat, x2)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16
+    assert torch.equal(got, want) and torch.equal(walk, want)
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("level", [3, 2, 1, 0])
+def test_ell_matmul_bf16_on_the_up_pools(card_geometry, level, b):
+    dev = _card()
+    up = card_geometry.up[level]
+    c = 64 if level >= 2 else 32
+    x2 = _bf16_rows(dev, _gen(dev, level), up.n_cols, b * c)
+    out = kernels.ell_matmul_fwd(up.cols, up.vals, x2)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.ell_matmul_plain(up.cols, up.vals, x2))
+
+
+@pytest.mark.parametrize("b", [1, 16])
+def test_capped_ell_apply_bf16_on_the_backward_tables(card_training_geometry,
+                                                      b):
+    """The bf16 transposes of a mixed step (the up-pools' and the bf16
+    convs'): one launch each, bit-equal to the twin."""
+    dev = _card()
+    geom = card_training_geometry
+    tables = [(u.transpose, u.shape[0], b * c) for u, c in
+              zip(geom.up, (32, 32, 64, 64))]
+    for name, c_in, _ in _SMOKE[1:]:
+        op = _smoke_op(geom, name)
+        tables += [(t, len(cols) * op.num_vertices, b * c_in)
+                   for t, cols in zip(op.inv_tables, op.group_cols)]
+    for mat, n_src, d in tables:
+        x2 = _bf16_rows(dev, _gen(dev, d), n_src, d)
+        kernels.launches.reset()
+        got = mat.apply(x2)
+        counts = kernels.launches.snapshot()
+        assert counts["ell_matmul_capped_bf16" if mat.tiers
+                      else "ell_matmul_bf16"] == 1
+        torch.cuda.synchronize()
+        assert torch.equal(got, _sequential_twin(mat, x2))
+
+
+def _bf16_conv_matches_plain(dev, op, b, c_in, c_out, seed=1):
+    """K1-bf16 within one bf16 ulp of its twin, K3a (fp32 out) within
+    1e-5 of the max (fp32 sums in another order), two launches
+    bit-equal. Returns the plan."""
+    g = _gen(dev, seed)
+    seq = op.seq_length
+    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev).to(BF16)
+    w_l = (0.2 * torch.randn((seq, c_in, c_out), generator=g,
+                             device=dev)).to(BF16)
+    bias = torch.randn(c_out, generator=g, device=dev).to(BF16)
+    kernels.launches.reset()
+    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
+    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
+    f32 = kernels.spiral_conv_fwd(x, op.table, w_l, bias,
+                                  out_dtype=torch.float32)
+    counts = kernels.launches.snapshot()
+    assert counts["spiral_conv_bf16"] == 2
+    assert counts["spiral_conv_f32out"] == 1
+    ref = ops.spiral_conv_plain(w_l, bias, x, op)
+    ref32 = ops.spiral_conv_plain(w_l, bias, x, op, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16 and f32.dtype == torch.float32
+    _within_ulp(out, ref)
+    assert torch.equal(out, again)
+    assert float((f32 - ref32).abs().max()) <= 1e-5 * float(
+        ref32.abs().max())
+    return kernels.plan_spiral_conv(op.num_vertices, b, seq, c_in, c_out,
+                                    True, True, BF16)
+
+
+@pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
+    (4260, 17039, 9, 16, 3, 32),      # the bfloat16 policy's first conv
+    (1065, 4260, 9, 16, 32, 32),
+    (267, 267, 9, 16, 64, 64),        # above 48 KB of shared memory
+    (3000, 3000, 9, 16, 32, 3),       # K3a's shape class
+    (50, 80, 3, 1, 1, 1),
+    (333, 333, 7, 3, 10, 18),         # element path, odd C_out
+    (700, 700, 5, 20, 24, 128),       # 16 column tiles
+])
+def test_spiral_conv_bf16_kernel_matches_plain(m, n_src, seq, b, c_in,
+                                               c_out):
+    dev = _card()
+    rng = np.random.default_rng(m)
+    table = rng.integers(0, n_src, size=(m, seq))
+    if m == n_src:
+        table[:, 0] = np.arange(m)
+    op = ops.build_spiral_op(table, n_src=n_src).to(dev)
+    plan = _bf16_conv_matches_plain(dev, op, b, c_in, c_out)
+    assert plan.path == ("bf16" if c_in % 16 == 0 else "bf16_elem")
+    if (m, c_in) == (267, 64):
+        assert plan.smem > 48 * 1024
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
+def test_spiral_conv_bf16_on_the_model_tables(card_geometry, name, c_in,
+                                              c_out, b):
+    dev = _card()
+    _bf16_conv_matches_plain(dev, _smoke_op(card_geometry, name), b, c_in,
+                             c_out)
+
+
+def _dw_bf16_matches_plain(dev, x, table, dy):
+    """K2-dW-bf16 within one bf16 ulp of its chunk-order twin (inside a
+    chunk the tensor cores sum in another order), two launches
+    bit-equal."""
+    m, bsz, c_out = dy.shape
+    plan = kernels.plan_spiral_conv_dw_bf16(m, bsz, table.shape[1],
+                                            x.shape[2], c_out)
+    kernels.launches.reset()
+    out = kernels.spiral_conv_dw(x, table, dy)
+    again = kernels.spiral_conv_dw(x, table, dy)
+    assert kernels.launches.snapshot()["spiral_conv_dw_bf16"] == 2
+    ref = ops.spiral_conv_dw_chunked_plain(x, table, dy, plan)
+    torch.cuda.synchronize()
+    assert out.dtype == BF16
+    _within_ulp(out, ref)
+    assert torch.equal(out, again)
+
+
+@pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
+    (50, 80, 3, 1, 1, 1),
+    (333, 333, 7, 3, 10, 18),
+    (100, 100, 9, 2, 128, 96),        # 32 fragments a warp
+    (700, 900, 5, 20, 3, 64),
+    (20, 20, 9, 1, 64, 3),            # fewer rows than one tile
+])
+def test_spiral_conv_dw_bf16_kernel_matches_plain(m, n_src, seq, b, c_in,
+                                                  c_out):
+    dev = _card()
+    g = _gen(dev, m)
+    table = torch.randint(0, n_src, (m, seq), generator=g, device=dev,
+                          dtype=torch.int32)
+    x = torch.randn((n_src, b, c_in), generator=g, device=dev).to(BF16)
+    dy = torch.randn((m, b, c_out), generator=g, device=dev).to(BF16)
+    _dw_bf16_matches_plain(dev, x, table, dy)
+
+
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
+def test_spiral_conv_dw_bf16_on_the_model_tables(card_geometry, name, c_in,
+                                                 c_out, b):
+    dev = _card()
+    op = _smoke_op(card_geometry, name)
+    g = _gen(dev, b)
+    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev).to(BF16)
+    dy = torch.randn((op.num_vertices, b, c_out), generator=g,
+                     device=dev).to(BF16)
+    _dw_bf16_matches_plain(dev, x, op.table, dy)
+
+
+@pytest.mark.parametrize("n,b,seq,o", [(17039, 16, 9, 3), (30, 4, 5, 3),
+                                       (100, 1, 7, 5)])
+def test_out_gather_sum_kernel_equals_plain(n, b, seq, o):
+    """K3b: the bias, then each position's gathered value in position
+    order, one rounding each: bit-equal to the twin."""
+    dev = _card()
+    g = _gen(dev, n)
+    table = torch.randint(0, n, (n, seq), generator=g, device=dev,
+                          dtype=torch.int32)
+    table[:, 0] = torch.arange(n, device=dev, dtype=torch.int32)
+    u = torch.randn((n, b, seq, o), generator=g, device=dev)
+    bias = torch.randn(o, generator=g, device=dev)
+    kernels.launches.reset()
+    out = kernels.out_gather_sum(u, table, bias)
+    assert kernels.launches.snapshot()["out_gather_sum"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(out, ops.out_gather_sum_plain(u, table, bias))
+
+
+def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
+    """Each wrapper takes float32 or bfloat16 rows as they are: another
+    dtype, or weights of another dtype than x, raise; none converts."""
+    dev = _card()
+    cols = torch.zeros(4, 3, dtype=torch.int32, device=dev)
+    vals = torch.ones(4, 3, device=dev)
+    x = torch.randn(10, 8, device=dev)
+    for bad in (x.half(), x.double()):
+        with pytest.raises(ValueError):
+            kernels.ell_matmul_fwd(cols, vals, bad)
+    with pytest.raises(ValueError):                      # vals stay fp32
+        kernels.ell_matmul_fwd(cols, vals.to(BF16), x.to(BF16))
+    x3 = torch.randn(10, 2, 4, device=dev)
+    table = torch.zeros(6, 3, dtype=torch.int32, device=dev)
+    w = torch.randn(3, 4, 5, device=dev)
+    b = torch.zeros(5, device=dev)
+    for args in ((x3.to(BF16), table, w, b),             # W not bf16
+                 (x3.to(BF16), table, w.to(BF16), b),    # b not bf16
+                 (x3.half(), table, w.half(), b.half())):
+        with pytest.raises(ValueError):
+            kernels.spiral_conv_fwd(*args)
+    with pytest.raises(ValueError):                      # fp32 plan, bf16 x
+        kernels.spiral_conv_fwd(x3.to(BF16), table, w.to(BF16), b.to(BF16),
+                                kernels.plan_spiral_conv(6, 2, 3, 4, 5))
+    with pytest.raises(ValueError):                      # fp32 x, bf16 out
+        kernels.spiral_conv_fwd(x3, table, w, b, out_dtype=BF16)
+    dy = torch.randn(6, 2, 5, device=dev)
+    with pytest.raises(ValueError):
+        kernels.spiral_conv_dw(x3.to(BF16), table, dy)   # dy not bf16
+    with pytest.raises(ValueError):
+        kernels.spiral_conv_dw(x3.to(BF16), table, dy.to(BF16),
+                               kernels.plan_spiral_conv_dw(6, 2, 3, 4, 5))
+    u = torch.randn(10, 2, 3, 5, device=dev)
+    assert kernels.out_gather_sum(u, table[:, :3].contiguous() % 10,
+                                  b).shape == (6, 2, 5)
+    for args in ((u.to(BF16), table, b), (u, table[:, :2].contiguous(), b),
+                 (u, table, b[:4]), (u.cpu(), table, b)):
+        with pytest.raises(ValueError):
+            kernels.out_gather_sum(*args)
+
+
+_MIXED = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15,
+                     compute_dtype="mixed")
+
+
+def test_mixed_service_on_card_matches_host():
+    """A narrow mixed model on the real hierarchy: card vs host within
+    1e-2 of each array's max (bf16 roundings may land on the other
+    neighbour); the bf16 kernels and K3b launched."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    n = bundle.vertex_counts[0]
+    rng = np.random.default_rng(0)
+    mean = rng.normal(size=(n, 3)).astype(np.float32)
+    norm = {"mean": mean, "std": np.full((n, 3), 0.1, np.float32)}
+    x = (mean + 0.1 * rng.normal(size=(3, n, 3))).astype(np.float32)
+    kernels.launches.reset()
+    card = DiagnosisService(bundle, _MIXED, norm, 10.0, max_batch=2,
+                            device=dev).reconstruct(x)
+    counts = kernels.launches.snapshot()
+    host = DiagnosisService(bundle, _MIXED, norm, 10.0, max_batch=2,
+                            device="cpu").reconstruct(x)
+    assert counts["spiral_conv_tc"] == 2                 # enc0 in fp32
+    assert counts["spiral_conv_bf16"] == 2 * 7
+    assert counts["ell_matmul_bf16"] == 2 * 4
+    assert counts["out_gather_sum"] == 2
+    for key in ("vertices", "latent"):
+        lim = 1e-2 * float(np.abs(host[key]).max())
+        assert float(np.abs(card[key] - host[key]).max()) <= lim
+
+
+@pytest.mark.parametrize("final_out_gather", [True, False])
+def test_mixed_train_step_on_card_matches_host(final_out_gather):
+    """One mixed step on the card against the host (same weights, scans,
+    region and noise): losses within 1e-2, the whole gradient's cosine
+    above 0.999, every gradient fp32; the step launched the bf16
+    kernels (K3b or K3a for the final conv)."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = dataclasses.replace(_MIXED, final_out_gather=final_out_gather)
+    batch = 3
+    rng = np.random.default_rng(1)
+    x = rng.normal(size=(batch, bundle.vertex_counts[0], 3)).astype(
+        np.float32)
+    eps = torch.from_numpy(rng.normal(size=(batch * batch, 15)).astype(
+        np.float32))
+    card, step = _train_setup(bundle, dev, cfg, batch)
+    kernels.launches.reset()
+    m_card = step(torch.as_tensor(x, device=dev), region_idx=4,
+                  eps=eps.to(dev))
+    counts = kernels.launches.snapshot()
+    host, step_h = _train_setup(bundle, "cpu", cfg, batch)
+    m_host = step_h(torch.from_numpy(x), region_idx=4, eps=eps)
+    for k in LOSS_KEYS:
+        assert abs(float(m_card[k]) - float(m_host[k])) <= \
+            1e-2 * abs(float(m_host[k])), k
+    ga = torch.cat([p.grad.cpu().ravel() for p in card.parameters()])
+    gb = torch.cat([p.grad.ravel() for p in host.parameters()])
+    assert ga.dtype == torch.float32
+    assert float(ga @ gb / (ga.norm() * gb.norm())) > 0.999
+    final = "out_gather_sum" if final_out_gather else "spiral_conv_f32out"
+    for kernel in ("spiral_conv_tc", "spiral_conv_bf16", "ell_matmul_bf16",
+                   "ell_matmul_capped_bf16", "spiral_conv_dw_bf16",
+                   "spiral_conv_dw", final):
+        assert counts[kernel] > 0, kernel
+
+
+def test_bfloat16_policy_on_card_matches_host():
+    """The bfloat16 policy: the first conv's 3-channel rows in bf16 (the
+    element path of K1-bf16) on the card against the host."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = dataclasses.replace(_MIXED, compute_dtype="bfloat16")
+    geom = SpiralGeometry.from_bundle(bundle, device=dev)
+    model = init_sdvae(cfg, geom, torch.Generator().manual_seed(0))
+    geom_h = SpiralGeometry.from_bundle(bundle, device="cpu")
+    host = init_sdvae(cfg, geom_h, torch.Generator().manual_seed(0))
+    x = torch.from_numpy(np.random.default_rng(2).normal(
+        size=(bundle.vertex_counts[0], 2, 3)).astype(np.float32))
+    kernels.launches.reset()
+    with torch.no_grad():
+        out, _, mu, _ = model(x.to(dev))
+        counts = kernels.launches.snapshot()
+        out_h, _, mu_h, _ = host(x)
+    assert counts["spiral_conv_tc"] == 0 and counts["spiral_conv_bf16"] == 8
+    assert out.dtype == torch.float32
+    for got, want in ((out, out_h), (mu, mu_h)):
+        assert float((got.cpu() - want).abs().max()) <= \
+            1e-2 * float(want.abs().max())

@@ -110,10 +110,12 @@ def test_reparameterize_uses_generator():
 
 
 def test_only_fp32_policy_is_ported(tiny):
+    """Only the JAX package's policies (float32, mixed, bfloat16) are
+    ported: an unknown one raises."""
     geom = SpiralGeometry.from_bundle(tiny["bundle_t"], device="cpu")
     with pytest.raises(ValueError):
         SDVAE(SDVAEConfig(out_channels=(8, 16), latent_size=6,
-                          compute_dtype="mixed"), geom)
+                          compute_dtype="float16"), geom)
 
 
 def test_geometry_defaults_to_the_card(tiny, monkeypatch):
