@@ -14,7 +14,8 @@ them or outside a checkout. Phases, each of which raises on a fault:
    with nvcc for sm_90a;
 3. kernel parity at the serving path's shapes: every spiral conv of the
    model (K1: its tensor-core and narrow-output kernels, with each conv's
-   path, both bounds and ptxas's registers and spills per kernel) and
+   path, both bounds and ptxas's registers and spills per kernel; the
+   tiled narrow kernel also timed against the untiled one it replaced) and
    every up-pool (K4, also timed on sequential indices), each at the
    service's batch buckets B = 16, 4 and 1, and 256² z-buffer sweeps of the lr0 mesh, a
    sphere and an adversarial mesh (K7, against the bound from what the
@@ -64,9 +65,11 @@ them or outside a checkout. Phases, each of which raises on a fault:
    shapes against its twin; one ``{"phase": "train_entry", ...}`` line;
 8. the ``mixed`` policy of ``configurations/craniofacial.yaml`` (its
    model and optimisation sections, through the port's config reader):
-   (a) every bf16 kernel at every shape of the mixed paths (K1-bf16, K3b
-   and K4-bf16 at B = 16, 4, 1; K3a; K2-dW-bf16 and K4-bf16 or its
-   capped form on every bf16 backward table at the grid), held against
+   (a) every bf16 kernel at every shape of the mixed paths (K1-bf16, K3b,
+   its backward ``out_gather_sum_bwd`` (also against the per-position
+   transposes and stack it replaced) and K4-bf16 at B = 16, 4, 1; K3a;
+   K2-dW-bf16 and K4-bf16 or its capped form on every bf16 backward
+   table at the grid), held against
    its twin (bit-equal where both round at the same points, else within
    one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
    form, with its bound at 3.35 TB/s and 989 TFLOP/s bf16 and ptxas's
@@ -180,7 +183,8 @@ FP32_KERNELS = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
 MIXED_KERNELS = ("spiral_conv_bf16", "spiral_conv_f32out",
                  "spiral_conv_dw_bf16", "ell_matmul_bf16",
-                 "ell_matmul_capped_bf16", "out_gather_sum")
+                 "ell_matmul_capped_bf16", "out_gather_sum",
+                 "out_gather_sum_bwd")
 
 
 class SmokeFailure(RuntimeError):
@@ -267,13 +271,17 @@ def k1_ptxas(build_log: str) -> list:
     ``narrow<..>``, ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments
     per warp), ``dw_sum`` (its chunk sum), ``bf16<NT,ELEM>`` (K1-bf16 and
     K3a), ``dw_bf16<FPW>``, ``dw_bf16_sum``, ``ell_bf16_vector<CAPPED>``,
-    ``ell_bf16_scalar<CAPPED>`` and ``out_gather_sum`` (K3b)."""
+    ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b) and
+    ``out_gather_sum_bwd``; the narrow kernels as ``narrow<CO,TBM>`` and
+    ``narrow_tile<CO,TBM,VEC,FULL>``."""
     out, name = [], None
     for line in build_log.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", line)
         if m:
             k = re.search(r"spiral_conv_(tc|narrow)_kernelILi(\d+)ELi(\d+)E",
                           m.group(1))
+            nt = re.search(r"spiral_conv_narrow_tile_kernelILi(\d+)ELi(\d+)"
+                           r"ELb(\d)ELb(\d)E", m.group(1))
             dw = re.search(r"spiral_conv_dw_kernelILi(\d+)ELi(\d+)E",
                            m.group(1))
             bf = re.search(r"spiral_conv_bf16_kernelILi(\d+)ELb(\d)E",
@@ -282,6 +290,8 @@ def k1_ptxas(build_log: str) -> list:
                             m.group(1))
             ell = re.search(r"ell_bf16_(vector|scalar)ILb(\d)E", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
+                    else f"narrow_tile<{nt.group(1)},{nt.group(2)},"
+                    f"{nt.group(3)},{nt.group(4)}>" if nt
                     else f"dw<{dw.group(1)},{dw.group(2)}>" if dw
                     else "dw_sum" if "spiral_conv_dw_sum" in m.group(1)
                     else f"bf16<{bf.group(1)},{bf.group(2)}>" if bf
@@ -289,6 +299,8 @@ def k1_ptxas(build_log: str) -> list:
                     else "dw_bf16_sum" if "spiral_conv_dw_bf16_sum"
                     in m.group(1)
                     else f"ell_bf16_{ell.group(1)}<{ell.group(2)}>" if ell
+                    else "out_gather_sum_bwd" if "out_gather_sum_bwd_kernel"
+                    in m.group(1)
                     else "out_gather_sum" if "out_gather_sum_kernel"
                     in m.group(1)
                     else None)
@@ -326,7 +338,7 @@ def k1_parity(torch, mods, model, geom, build_log: str) -> list:
     form. One record per K1 kernel from the B = 16 pass."""
     kernels, ops = mods["kernels"], mods["ops"]
     for k in k1_ptxas(build_log):
-        if "bf16" in k["kernel"] or k["kernel"] == "out_gather_sum":
+        if "bf16" in k["kernel"] or k["kernel"].startswith("out_gather"):
             continue                     # phase 8's
         log(f"[3 ptxas] {k['kernel']}: {k.get('registers')} registers, "
             f"{k.get('spill_bytes', 0)} bytes spilled")
@@ -372,10 +384,14 @@ def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
     table = op.table
     plan = kernels.plan_spiral_conv(m, batch, seq, c_in, c_out,
                                     x.data_ptr() % 16 == 0,
-                                    w_l.data_ptr() % 16 == 0)
+                                    w_l.data_ptr() % 16 == 0,
+                                    n_tiles=op.tiles.n_tiles,
+                                    tile_rows=op.tiles.max_rows)
+    launch = lambda: kernels.spiral_conv_fwd(            # noqa: E731
+        x, table, w_l, b, tiles=op.tiles)
     with torch.inference_mode():
-        out = kernels.spiral_conv_fwd(x, table, w_l, b)
-        again = kernels.spiral_conv_fwd(x, table, w_l, b)
+        out = launch()
+        again = launch()
         ref = ops.spiral_conv_plain(w_l, b, x, op)
         torch.cuda.synchronize()
         err = max_err(out, ref)
@@ -395,11 +411,18 @@ def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
         lib_err = max_err(lib().transpose(0, 1), ref)
         check(lib_err <= 1e-4 * scale,
               f"K1 {name} B={batch}: library form disagrees ({lib_err:.3e})")
-        ms = cuda_ms(torch, lambda: kernels.spiral_conv_fwd(
-            x, table, w_l, b), 20)
+        ms = cuda_ms(torch, launch, 20)
         plain_ms = cuda_ms(
             torch, lambda: ops.spiral_conv_plain(w_l, b, x, op), 5)
         lib_ms = cuda_ms(torch, lib, 5)
+        old_ms = None
+        if plan.path == "narrow_tile":
+            # the design it replaced: each row gathered from L2
+            old = lambda: kernels.spiral_conv_fwd(       # noqa: E731
+                x, table, w_l, b)
+            check(max_err(old(), ref) <= K1_RTOL * scale,
+                  f"K1 {name} B={batch}: narrow_out disagrees")
+            old_ms = cuda_ms(torch, old, 20)
     nbytes = 4 * (x.numel() + table.numel() + w_l.numel() + c_out
                   + m * batch * c_out)
     flops = 2.0 * m * batch * seq * c_in * c_out
@@ -415,7 +438,11 @@ def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
         f"{plan.blocks} blocks, {plan.smem} B smem): err {err:.2e} "
         f"(max|out| {scale:.2e}); kernel {ms:.4f} ms, plain {plain_ms:.4f}, "
         f"library {lib_ms:.4f}, bound {b_ms:.4f} ({b_by}), fp32 bound "
-        f"{fp32_ms:.4f}; kernel/library {ms / lib_ms:.2f}")
+        f"{fp32_ms:.4f}; kernel/library {ms / lib_ms:.2f}"
+        + (f"; untiled narrow_out {old_ms:.4f} ms ({op.tiles.n_tiles} tiles "
+           f"of at most {op.tiles.max_rows} rows, "
+           f"{op.tiles.src.numel() / m:.2f} rows a vertex)"
+           if old_ms is not None else ""))
     return dict(conv=name, batch=batch, kernel=plan.kernel, path=plan.path,
                 plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
                 c_in=c_in, c_out=c_out, max_abs_err=err, ms=ms,
@@ -423,7 +450,8 @@ def k1_shape(torch, kernels, ops, gen, name, conv, op, batch) -> dict:
                 bound_by=b_by, bound_fp32_ms=fp32_ms, bytes=nbytes,
                 flops=flops, ops_ms=(3 * flops / PEAK_TF32 * 1e3
                                      if plan.kernel == "spiral_conv_tc"
-                                     else flops / PEAK_FP32 * 1e3))
+                                     else flops / PEAK_FP32 * 1e3),
+                earlier_ms=old_ms)
 
 
 def k4_parity(torch, mods, model, geom, bundle) -> dict:
@@ -636,7 +664,9 @@ def summarize(name, source, replaces, shapes) -> dict:
     """One record per kernel: times and bounds summed over the shapes of
     one pass of the serving path (each shape runs once per pass). A shape
     may give its operations' bound in ``ops_ms`` (3xTF32 on the tensor
-    cores); otherwise it is its flops at the fp32 rate."""
+    cores); otherwise it is its flops at the fp32 rate. ``earlier_ms``:
+    the design the kernel replaced, timed in the same run, where every
+    shape has it."""
     def total(key):
         vals = [s[key] for s in shapes]
         return None if any(v is None for v in vals) else sum(vals)
@@ -651,7 +681,10 @@ def summarize(name, source, replaces, shapes) -> dict:
             "ms": total("ms"), "plain_ms": total("plain_ms"),
             "bound_ms": total("bound_ms"),
             "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-            "library_ms": total("library_ms"), "shapes": shapes}
+            "library_ms": total("library_ms"),
+            "earlier_ms": total("earlier_ms") if all(
+                "earlier_ms" in s for s in shapes) else None,
+            "shapes": shapes}
 
 
 def serve_latency(svc, scans: dict, reps: int = 7) -> dict:
@@ -981,7 +1014,8 @@ def step_tables(model, geom, batch: int) -> list:
     backward's transposes in the order autograd reaches them, in the
     dtype of the rows they gather (the first encoder conv reads the data
     and computes no dx; a matmul-first final conv gathers its fp32 dy
-    through each non-identity position's own transpose)."""
+    through every position's transpose in its own kernel,
+    ``out_gather_sum_bwd``, and adds no table here)."""
     import torch
 
     f32 = torch.float32
@@ -990,11 +1024,7 @@ def step_tables(model, geom, batch: int) -> list:
               ("lap T", geom.laplacian.transpose, nv, 3 * batch, f32)]
     for name, conv, op, dtype, form in reversed(conv_kinds(model, geom)):
         c_in, c_out = conv_widths(conv, op)
-        if form == "out_gather":
-            tables += [(f"{name} T{i}", g.transpose, op.num_vertices,
-                        batch * c_out, f32)
-                       for i, g in enumerate(op.gathers) if g is not None]
-        elif name != "enc0":
+        if form != "out_gather" and name != "enc0":
             for table, cols in zip(op.inv_tables, op.group_cols):
                 tables.append((f"{name} T", table,
                                len(cols) * op.num_vertices, batch * c_in,
@@ -1133,7 +1163,8 @@ def expected_step_launches(model, geom, batch: int) -> dict:
     """Launches of one training step under the model's policy: per conv,
     K1 and K2-dW in its input's dtype (K1-bf16 with K2-dW-bf16, K3a for a
     gather-first bf16 final conv; a matmul-first final conv launches K3b
-    and gets its dW from a plain product); K4 in the deep dtype per
+    and its backward ``out_gather_sum_bwd`` once each and gets its dW
+    from a plain product); K4 in the deep dtype per
     up-pool; per table of ``step_tables`` in its dtype, K4 where it has
     no tiers and the fused K4 where it has."""
     import torch
@@ -1145,6 +1176,7 @@ def expected_step_launches(model, geom, batch: int) -> dict:
         _, c_out = conv_widths(conv, op)
         if form == "out_gather":
             counts["out_gather_sum"] += 1
+            counts["out_gather_sum_bwd"] += 1
         elif dtype == torch.bfloat16:
             counts["spiral_conv_f32out" if name == "final"
                    else "spiral_conv_bf16"] += 1
@@ -1699,22 +1731,22 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
 
 def mixed_k3b_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
     """K3b at the final conv: the products of bf16 x and the final conv's
-    bf16 weights in fp32 (the matmul-first form's ``u``), bit-equal to
-    the twin, timed against it and the library form (``index_select`` of
-    every position's rows from a position-major copy of ``u``, then one
-    sum)."""
+    bf16 weights in fp32, laid out as the matmul-first form lays ``u``,
+    ``[L, O, N, B]``, bit-equal to the twin, timed against it and the
+    library form (``index_select`` of every position's rows from a
+    position-major ``[L·N, B·O]`` copy of ``u``, then one sum)."""
     seq, m = op.seq_length, op.num_vertices
     c_in, c_out = conv_widths(conv, op)
     x = torch.randn((op.n_src, batch, c_in), generator=gen,
                     device=DEVICE).to(torch.bfloat16)
     w = conv.w.detach().to(torch.bfloat16).float()
-    w_cat = w.reshape(seq, c_in, c_out).transpose(0, 1).reshape(
-        c_in, seq * c_out)
-    u = (x.reshape(-1, c_in).float() @ w_cat).view(
-        op.n_src, batch, seq, c_out).contiguous()
+    w_t = w.reshape(seq, c_in, c_out).transpose(1, 2).reshape(
+        seq * c_out, c_in)
+    u = (w_t @ x.reshape(-1, c_in).float().t()).view(
+        seq, c_out, op.n_src, batch)
     b = 0.1 * torch.randn(c_out, generator=gen, device=DEVICE)
     table = op.table
-    u_pos = u.permute(2, 0, 1, 3).reshape(seq * op.n_src, -1).contiguous()
+    u_pos = u.permute(0, 2, 3, 1).reshape(seq * op.n_src, -1).contiguous()
     flat = (table.long().t() + op.n_src * torch.arange(
         seq, device=DEVICE)[:, None]).reshape(-1)
     b_row = b.repeat(batch)
@@ -1742,6 +1774,63 @@ def mixed_k3b_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
     return dict(conv="final", batch=batch, kernel="out_gather_sum",
                 n_src=op.n_src, m=m, c_in=c_in, c_out=c_out,
                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+
+
+def mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
+    """K3b's backward at the final conv: ``du`` in ``u``'s layout from a
+    random fp32 cotangent in one launch, bit-equal to its twin and to the
+    form it replaced (each position's capped transpose, a fused K4 launch
+    each, stacked), timed against both, and against the library form (one
+    ``index_add_`` of the cotangent, repeated per position, into a zeroed
+    ``[L·N, B·O]``; the repeat is made beforehand)."""
+    seq, m, n = op.seq_length, op.num_vertices, op.n_src
+    c_out = conv_widths(conv, op)[1]
+    dout = torch.randn((m, batch, c_out), generator=gen, device=DEVICE)
+    bwd = op.out_bwd
+    launch = lambda: kernels.out_gather_sum_bwd(dout, bwd)     # noqa: E731
+    earlier = lambda: torch.stack(                             # noqa: E731
+        [dout if g is None else g.transpose.apply(dout)
+         for g in op.gathers], dim=2)
+    idx = (op.table.long().t() + n * torch.arange(
+        seq, device=DEVICE)[:, None]).reshape(-1)
+    src = dout.reshape(m, -1).repeat(seq, 1)
+    lib = lambda: torch.zeros(                                  # noqa: E731
+        (seq * n, batch * c_out), device=DEVICE).index_add_(0, idx, src)
+    with torch.inference_mode():
+        du, again = launch(), launch()
+        ref = ops.out_gather_sum_bwd_plain(dout, bwd)
+        old = earlier().permute(2, 3, 0, 1)
+        torch.cuda.synchronize()
+        check(torch.equal(du, ref) and torch.equal(du, again),
+              f"K3b backward B={batch}: kernel and twin differ at "
+              f"{int((du != ref).sum())} values")
+        check(torch.equal(du, old), f"K3b backward B={batch}: kernel and "
+              "the stack of per-position transposes differ")
+        scale = float(ref.abs().max())
+        lib_err = max_err(lib().view(seq, n, batch, c_out).permute(
+            0, 3, 1, 2), ref)
+        check(lib_err <= 1e-5 * scale,
+              f"K3b backward: library form disagrees ({lib_err:.3e})")
+        ms = cuda_ms(torch, launch, 50)
+        earlier_ms = cuda_ms(torch, earlier, 10)
+        plain_ms = cuda_ms(torch, lambda: ops.out_gather_sum_bwd_plain(
+            dout, bwd), 10)
+        lib_ms = cuda_ms(torch, lib, 10)
+    entries = int(bwd.cols.numel())
+    nbytes = 4 * (dout.numel() + du.numel() + 2 * entries
+                  + bwd.links.numel() + bwd.info.numel())
+    flops = 2.0 * entries * batch * c_out
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    log(f"[8 out_gather_sum_bwd B={batch}] {m}->{n} L={seq} "
+        f"D={batch * c_out}, {entries} table entries: bit-equal to the twin "
+        f"and the stack; kernel {ms:.4f} ms (one launch), per-position "
+        f"transposes + stack {earlier_ms:.4f} ({seq - len(op.identity_cols)}"
+        f" launches + stack), plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+        f"bound {b_ms:.5f} ({b_by})")
+    return dict(conv="final", batch=batch, kernel="out_gather_sum_bwd",
+                n_src=n, m=m, c_out=c_out, max_abs_err=0.0, ms=ms,
+                earlier_ms=earlier_ms, plain_ms=plain_ms, library_ms=lib_ms,
                 bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
 
 
@@ -1868,7 +1957,8 @@ def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
 def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     """Phase 8 (a): every new kernel at every shape it has on the mixed
     paths, with the flagship model's seeded weights: K1-bf16 at the bf16
-    convs and K3b at the final conv at each batch bucket, K3a at the
+    convs and K3b and its backward at the final conv at each batch bucket
+    (the step's grid is the bucket B = 16), K3a at the
     final conv at B = 16, K4-bf16 at the up-pools at each bucket, and at
     the step's grid K2-dW-bf16 at every bf16 conv (and the final conv's
     gather-first form) and K4-bf16 or its capped form on every bf16
@@ -1876,7 +1966,7 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     kernels, ops = mods["kernels"], mods["ops"]
     regs = {k["kernel"]: k for k in ptxas}
     for k in ptxas:
-        if "bf16" in k["kernel"] or k["kernel"] == "out_gather_sum":
+        if "bf16" in k["kernel"] or k["kernel"].startswith("out_gather"):
             log(f"[8 ptxas] {k['kernel']}: {k.get('registers')} registers, "
                 f"{k.get('spill_bytes', 0)} bytes spilled")
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 11)
@@ -1893,6 +1983,8 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
             for name, conv, op in bf_convs]
         shapes["out_gather_sum"][batch] = [
             mixed_k3b_shape(torch, kernels, ops, gen, *final, batch)]
+        shapes["out_gather_sum_bwd"][batch] = [
+            mixed_k3b_bwd_shape(torch, kernels, ops, gen, *final, batch)]
         ups = []
         for j in range(n):
             level = n - 1 - j
@@ -2006,7 +2098,8 @@ def mixed_training(torch, mods, bundle, config, fp32_config,
     weights, scans, region and noise): losses within MIXED_RTOL, the
     whole gradient's cosine at least MIXED_COSINE, every gradient fp32;
     the cosine against the card's fp32 step; 10 warm steps and a
-    profiled step beside phase 5's."""
+    profiled step beside phase 5's, whose top device ops hold no stack of
+    the final conv's cotangent."""
     from craniofacialsd_vae_tpu_torch.models import init_sdvae
     from craniofacialsd_vae_tpu_torch.training import (LOSS_KEYS,
                                                        LossWeights,
@@ -2092,6 +2185,11 @@ def mixed_training(torch, mods, bundle, config, fp32_config,
         data_dev.index_select(0, idx[-1]), generator=gen))
     top = ", ".join(f"{k['name'][:40]} {k['ms']:.3f} ({k['count']})"
                     for k in prof["by_kernel"][:8])
+    # K3b's backward writes du in place: no stack (a cat kernel) of the
+    # final conv's cotangents among the step's top device ops
+    cats = [k["name"] for k in prof["by_kernel"] if "Cat" in k["name"]]
+    check(not cats, f"mixed step: cat kernels among the top device ops "
+          f"{cats}")
     fp32_prof = train["profile"]
     log(f"[8 mixed train] {WARM_STEPS} warm steps: p50 {p50:.2f} ms (fp32 "
         f"step in phase 5: {train['step_p50_ms']:.2f}), "
@@ -2186,7 +2284,7 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
                   f"mixed entry epoch {h['epoch']} {phase} {h[phase]}")
     for kernel in ("spiral_conv_bf16", "ell_matmul_bf16",
                    "ell_matmul_capped_bf16", "spiral_conv_dw_bf16",
-                   "out_gather_sum", "raster_sweep"):
+                   "out_gather_sum", "out_gather_sum_bwd", "raster_sweep"):
         check(counts[kernel] > 0,
               f"{kernel} was not launched on the mixed entry path")
     ckpt = run["checkpoint_dir"]
@@ -2216,8 +2314,8 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
     """One record per new kernel and path: ``mixed_serving`` (K1-bf16,
     K4-bf16 and K3b over the B = 16 pass), ``mixed_training`` (the same
     forward shapes, K4-bf16 also on the backward tables without tiers,
-    the capped K4-bf16, K2-dW-bf16 at the step's convs) and
-    ``mixed_gather_first`` (K3a)."""
+    the capped K4-bf16, K2-dW-bf16 at the step's convs, K3b's backward)
+    and ``mixed_gather_first`` (K3a)."""
     src = {"spiral_conv_bf16": ("csrc/spiral_conv_bf16.cu",
                                 "craniofacialsd_vae_tpu/ops/spiral_conv.py:160"),
            "spiral_conv_f32out": ("csrc/spiral_conv_bf16.cu",
@@ -2229,7 +2327,9 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
            "spiral_conv_dw_bf16": ("csrc/spiral_conv_dw_bf16.cu",
                                    "craniofacialsd_vae_tpu/ops/spiral_conv.py:208"),
            "out_gather_sum": ("csrc/out_gather_sum.cu",
-                              "craniofacialsd_vae_tpu/ops/spiral_conv.py:260")}
+                              "craniofacialsd_vae_tpu/ops/spiral_conv.py:260"),
+           "out_gather_sum_bwd": ("csrc/out_gather_sum.cu",
+                                  "craniofacialsd_vae_tpu/ops/sparse.py:280")}
     grid = TRAIN_CONFIG["batch_size"] ** 2
 
     def rec(name, path, shape_list, counts):
@@ -2253,6 +2353,8 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
                 + shapes["ell_matmul_bf16_backward"], tc),
             rec("out_gather_sum", "mixed_training",
                 shapes["out_gather_sum"][grid], tc),
+            rec("out_gather_sum_bwd", "mixed_training",
+                shapes["out_gather_sum_bwd"][grid], tc),
             rec("spiral_conv_dw_bf16", "mixed_training", convs, tc),
             rec("ell_matmul_capped_bf16", "mixed_training",
                 shapes["ell_matmul_capped_bf16"][grid], tc),

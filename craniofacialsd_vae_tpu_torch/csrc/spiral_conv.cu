@@ -56,18 +56,38 @@
 // that the whole grid is in flight at once; the composed 3 -> 32 first
 // conv puts all 9 positions in one stage of depth 27 (padded to 32).
 //
-// Narrow-output path (spiral_conv_narrow_kernel; C_out < 8, the final
-// 32 -> 3 conv). Bound by bytes: the gathered rows, as above. No tensor
+// Narrow-output paths (C_out < 8, the final 32 -> 3 conv). No tensor
 // cores (an n = 8 tile would waste 5/8 of its width). One warp per output
 // vertex and TB batch rows; lane c owns input channel c; per position
 // the warp reads the gathered TB·C_in segment coalesced (TB independent
-// loads per lane, three positions unrolled), keeps TB x C_out partial
-// sums in registers across all positions, and reduces them over the
-// lanes once at the end with a reduce-scatter of warp shuffles (31 or 62
-// shuffles for 32 or 64 sums, one or two left per lane). The kernel is
-// compiled for TB up to 1, 4 and 8, so that small batches hold few
-// registers. W is staged in shared memory.
-//
+// loads per lane), keeps TB x C_out partial sums in registers across all
+// positions, and reduces them over the lanes once at the end with a
+// reduce-scatter of warp shuffles (31 or 62 shuffles for 32 or 64 sums,
+// one or two left per lane). The kernels are compiled for TB up to 1, 4
+// and 8, so that small batches hold few registers.
+// - spiral_conv_narrow_tile_kernel (the default at L = 9, C_in = 32: the
+//   final conv of every configuration). Reading each position's rows from
+//   L2 moves every source
+//   row to the SMs about L times (314 MB at the final conv at B = 16, for
+//   35 MB of x). So the host cuts the output vertices into tiles of
+//   nearby vertices, each with the sorted list of its distinct source
+//   rows (at most 64; ops/spiral_conv.py::build_spiral_tiles grows each
+//   tile breadth-first over the mesh, and a staged row then serves about
+//   4 entries of its tile's spirals on the fixture's and the octasphere's
+//   level 0, against about 2 for tiles of consecutive indices), and a
+//   table of each vertex's entries as indices into that list. One block
+//   per (tile, batch tile) copies its rows' TB batch rows into shared
+//   memory once (cp.async), each lane holds its channel's W for every
+//   position in registers, and the warps take the tile's vertices in
+//   turn, reading the rows from shared memory with the positions
+//   unrolled. The planner (kernels.py::_plan_narrow_tile) takes the most
+//   batch rows per block whose staged rows let three blocks share an
+//   SM. The products, not the copies, take most of its time, and the
+//   two overlap only where the blocks of an SM fall out of step.
+// - spiral_conv_narrow_kernel: the same items with each row read from
+//   L2 and W staged in shared memory (three positions unrolled), for an
+//   op without tiles or of another shape.
+
 // No atomics: every output is summed by one thread (or one warp) in a
 // fixed order, so two launches on the same inputs are bit-equal.
 
@@ -82,12 +102,14 @@ namespace {
 enum PlanField {
   kPath, kThreads, kGridX, kGridY, kSmem, kTM, kTB, kNBTiles, kNRTiles,
   kKP, kLDA, kLDW, kNT, kStages, kVecX, kVecW, kVecOut, kMI,
-  kNI, kWarpsM, kPositions, kPlanFields
+  kNI, kWarpsM, kPositions, kRows, kPlanFields
 };
-enum Path { kPathTC = 1, kPathNarrow = 2 };
+enum Path { kPathTC = 1, kPathNarrow = 2, kPathNarrowTile = 3 };
 
 constexpr int kMaxStages = 10;
 constexpr int kNarrowAcc = 64;   // most TB x C_out sums per lane, narrow path
+constexpr int kTileL = 9;        // narrow_tile's positions and input
+constexpr int kTileCin = 32;     // channels (kernels.py's _TILE_SHAPE)
 constexpr int kMaxSmem = 232448;
 
 struct TcParams {
@@ -470,6 +492,102 @@ spiral_conv_narrow_kernel(const float* __restrict__ x,
                        B, Cin);
 }
 
+// One block per (vertex tile, batch tile): the tile's distinct source
+// rows (batch rows b0 .. b0 + tb - 1 of each) are copied into shared
+// memory once, at a stride of TBM·kTileCin floats (cp.async, 16 bytes
+// where VEC: x on 16 bytes, else 4 bytes), while each lane loads its
+// channel's weights of every position and output into registers. Then
+// the block's warps take the tile's vertices in turn: per position the
+// lane reads its channel of the TB rows from shared memory and adds
+// TB x CO products, and the sums are reduced over the lanes as on the
+// untiled path. Compiled for the shape of every configuration's final
+// conv, L = kTileL positions of C_in = kTileCin channels: with the
+// positions unrolled, W in registers and the loads' offsets fixed at
+// compile time, the loop is loads and FMAs; a first version that kept W
+// in shared memory and walked L and C_in at run time spent most of its
+// instructions on addresses and was barely faster than the untiled
+// kernel (PERF.md). FULL: every batch tile holds TBM rows (B a
+// multiple of TB = TBM), so the loads need no bound.
+template <int CO, int TBM, bool VEC, bool FULL>
+__global__ void __launch_bounds__(256)
+spiral_conv_narrow_tile_kernel(const float* __restrict__ x,
+                               const int* __restrict__ verts,
+                               const int* __restrict__ starts,
+                               const int* __restrict__ src,
+                               const int* __restrict__ src_off,
+                               const int* __restrict__ local,
+                               const float* __restrict__ w,
+                               const float* __restrict__ bias,
+                               float* __restrict__ out, int B, int TB,
+                               int n_btiles) {
+  extern __shared__ __align__(16) float xs[];
+  constexpr int NV = TBM * CO <= 32 ? 32 : 64;
+  constexpr int PER = NV / 32;
+  constexpr int C = kTileCin;
+  static_assert(TBM * CO <= kNarrowAcc, "too many sums per lane");
+  const int t = blockIdx.x / n_btiles;
+  const int b0 = (blockIdx.x - t * n_btiles) * TB;
+  const int tb = min(TB, B - b0);
+  const int s0 = __ldg(src_off + t);
+  const int rows = __ldg(src_off + t + 1) - s0;
+  // the rows' segments: tb·C floats each, contiguous in x and in xs
+  constexpr int V = VEC ? 4 : 1;
+  const int per_row = tb * (C / V);
+  for (int k = threadIdx.x; k < rows * per_row; k += blockDim.x) {
+    const int d = k / per_row;
+    const int j = k - d * per_row;
+    const float* g = x + ((size_t)__ldg(src + s0 + d) * B + b0) * C + j * V;
+    float* sdst = xs + d * (TBM * C) + j * V;
+    if (VEC)
+      cp_async16(sdst, g);
+    else
+      cp_async4(sdst, g);
+  }
+  cp_async_commit();
+  const int lane = threadIdx.x & 31;
+  float wr[kTileL][CO];
+#pragma unroll
+  for (int l = 0; l < kTileL; ++l)
+#pragma unroll
+    for (int o = 0; o < CO; ++o)
+      wr[l][o] = __ldg(w + (l * C + lane) * CO + o);
+  cp_async_wait<0>();
+  __syncthreads();
+  const int v1 = __ldg(starts + t + 1);
+  for (int v = __ldg(starts + t) + (threadIdx.x >> 5); v < v1;
+       v += blockDim.x >> 5) {
+    const int my_src = lane < kTileL ? __ldg(local + v * kTileL + lane) : 0;
+    float* o_rows = out + ((size_t)__ldg(verts + v) * B + b0) * CO;
+    float a[NV];
+#pragma unroll
+    for (int e = 0; e < NV; ++e) a[e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kTileL; ++j) {
+      const int s = __shfl_sync(0xffffffffu, my_src, j);
+      const float* xr = xs + s * (TBM * C) + lane;
+      float xv[TBM];
+#pragma unroll
+      for (int b = 0; b < TBM; ++b)
+        xv[b] = (FULL || b < tb) ? xr[b * C] : 0.f;
+#pragma unroll
+      for (int o = 0; o < CO; ++o)
+#pragma unroll
+        for (int b = 0; b < TBM; ++b)
+          a[b * CO + o] = fmaf(xv[b], wr[j][o], a[b * CO + o]);
+    }
+    reduce_step<16, 16 * PER>(a, lane);
+    reduce_step<8, 8 * PER>(a, lane);
+    reduce_step<4, 4 * PER>(a, lane);
+    reduce_step<2, 2 * PER>(a, lane);
+    reduce_step<1, PER>(a, lane);
+#pragma unroll
+    for (int j = 0; j < PER; ++j) {
+      const int e = PER * lane + j;
+      if (e < tb * CO) o_rows[e] = a[j] + __ldg(bias + e % CO);
+    }
+  }
+}
+
 template <int MI, int NI>
 int launch_tc(const TcParams& p, const int* plan, cudaStream_t st) {
   static int done = 0;
@@ -512,6 +630,62 @@ int launch_narrow(const float* x, const int* table, const float* w,
                                  st);
 }
 
+// The register rows (1, 4 or 8) of the narrow kernels for TB batch rows.
+int tile_tbm(int TB) { return TB <= 1 ? 1 : TB <= 4 ? 4 : 8; }
+
+struct TileArgs {
+  const float* x;
+  const int *verts, *starts, *src, *src_off, *local;
+  const float *w, *bias;
+  float* out;
+  int B;
+};
+
+template <int CO, int TBM, bool VEC, bool FULL>
+int launch_tile_full(const TileArgs& a, const int* plan, cudaStream_t st) {
+  static int done = 0;
+  const int rc = set_smem(spiral_conv_narrow_tile_kernel<CO, TBM, VEC, FULL>,
+                          plan[kSmem], done);
+  if (rc) return rc;
+  spiral_conv_narrow_tile_kernel<CO, TBM, VEC, FULL>
+      <<<plan[kGridX], plan[kThreads], plan[kSmem], st>>>(
+          a.x, a.verts, a.starts, a.src, a.src_off, a.local, a.w, a.bias,
+          a.out, a.B, plan[kTB], plan[kNBTiles]);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int CO, int TBM, bool VEC>
+int launch_tile_tb(const TileArgs& a, const int* plan, cudaStream_t st) {
+  return plan[kTB] == TBM && a.B % TBM == 0
+             ? launch_tile_full<CO, TBM, VEC, true>(a, plan, st)
+             : launch_tile_full<CO, TBM, VEC, false>(a, plan, st);
+}
+
+template <int CO, bool VEC>
+int launch_tile_vec(const TileArgs& a, const int* plan, cudaStream_t st) {
+  switch (tile_tbm(plan[kTB])) {
+    case 1: return launch_tile_tb<CO, 1, VEC>(a, plan, st);
+    case 4: return launch_tile_tb<CO, 4, VEC>(a, plan, st);
+    default: return launch_tile_tb<CO, 8, VEC>(a, plan, st);
+  }
+}
+
+template <int CO>
+int launch_tile(const TileArgs& a, const int* plan, cudaStream_t st) {
+  return plan[kVecX] ? launch_tile_vec<CO, true>(a, plan, st)
+                     : launch_tile_vec<CO, false>(a, plan, st);
+}
+
+// The plan checks shared by both narrow paths.
+bool narrow_plan_ok(const int* plan, int M, int L, int B, int Cin, int Cout) {
+  const int threads = plan[kThreads], smem = plan[kSmem], TB = plan[kTB];
+  return M >= 1 && L >= 1 && B >= 1 && Cin >= 1 && Cout >= 1 && Cout < 8 &&
+         threads >= 32 && threads % 32 == 0 && threads <= 256 && smem >= 0 &&
+         smem <= kMaxSmem && smem % 16 == 0 && plan[kGridX] >= 1 &&
+         plan[kGridY] == 1 && TB >= 1 && TB <= 8 &&
+         plan[kNBTiles] == (B + TB - 1) / TB;
+}
+
 }  // namespace
 
 // plan: kPlanFields ints from kernels.py::SpiralPlan.as_ints. Returns a
@@ -531,7 +705,7 @@ extern "C" int cfs_spiral_conv_fwd(const float* x, const int* table,
   if (TB < 1 || plan[kNBTiles] != (B + TB - 1) / TB) return bad;
 
   if (plan[kPath] == kPathNarrow) {
-    if (Cout >= 8 || TB > 8 || plan[kGridY] != 1 ||
+    if (!narrow_plan_ok(plan, M, L, B, Cin, Cout) ||
         (size_t)smem < sizeof(float) * L * Cin * Cout ||
         (long long)plan[kGridX] * (threads / 32) <
             (long long)M * plan[kNBTiles])
@@ -590,6 +764,39 @@ extern "C" int cfs_spiral_conv_fwd(const float* x, const int* table,
     case 21: return launch_tc<2, 1>(p, plan, st);
     case 22: return launch_tc<2, 2>(p, plan, st);
     case 24: return launch_tc<2, 4>(p, plan, st);
+    default: return bad;
+  }
+}
+
+// K1 narrow_tile: out [M, B, Cout] (Cout < 8) from x [N_src, B, Cin] through
+// the op's vertex tiles (ops.SpiralTiles: verts [M], starts and src_off
+// [n_tiles + 1], src, local [M, L]); plan: kPlanFields ints from
+// kernels.py::SpiralPlan.as_ints with path kPathNarrowTile. Returns a
+// cudaError_t; a plan this file cannot run is cudaErrorInvalidValue.
+extern "C" int cfs_spiral_conv_narrow_tile(
+    const float* x, const int* verts, const int* starts, const int* src,
+    const int* src_off, const int* local, const float* w, const float* bias,
+    float* out, int M, int L, int B, int Cin, int Cout, int n_tiles,
+    const int* plan, void* stream) {
+  const int bad = static_cast<int>(cudaErrorInvalidValue);
+  const int TB = plan[kTB], rows = plan[kRows];
+  if (plan[kPath] != kPathNarrowTile ||
+      !narrow_plan_ok(plan, M, L, B, Cin, Cout) || L != kTileL ||
+      Cin != kTileCin || n_tiles < 1 || rows < 1 ||
+      (long long)plan[kGridX] != (long long)n_tiles * plan[kNBTiles] ||
+      4LL * rows * tile_tbm(TB) * Cin > plan[kSmem] ||
+      (plan[kVecX] && misaligned(x)))
+    return bad;
+  const TileArgs a{x, verts, starts, src, src_off, local, w, bias, out, B};
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (Cout) {
+    case 1: return launch_tile<1>(a, plan, st);
+    case 2: return launch_tile<2>(a, plan, st);
+    case 3: return launch_tile<3>(a, plan, st);
+    case 4: return launch_tile<4>(a, plan, st);
+    case 5: return launch_tile<5>(a, plan, st);
+    case 6: return launch_tile<6>(a, plan, st);
+    case 7: return launch_tile<7>(a, plan, st);
     default: return bad;
   }
 }

@@ -17,7 +17,7 @@ The ``mixed`` and ``bfloat16`` policies' kernels go through the same
 wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows
 (``csrc/*_bf16.cu``, counted under their own names), which none of them
 converts; K3b (``out_gather_sum``) is the matmul-first final conv's
-gather-sum.
+gather-sum and ``out_gather_sum_bwd`` its backward.
 """
 
 from __future__ import annotations
@@ -31,15 +31,18 @@ import shutil
 import subprocess
 import tempfile
 import threading
+import dataclasses
 from dataclasses import dataclass
 
 import torch
 
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "ell_matmul_fwd", "ell_matmul_capped", "SpiralPlan",
-           "plan_spiral_conv", "spiral_conv_fwd", "DwPlan",
-           "plan_spiral_conv_dw", "DwBf16Plan", "plan_spiral_conv_dw_bf16",
-           "spiral_conv_dw", "out_gather_sum", "raster_sweep"]
+           "plan_spiral_conv", "narrow_tile_plan", "spiral_conv_fwd",
+           "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan",
+           "plan_spiral_conv_dw_bf16",
+           "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
+           "raster_sweep"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -57,7 +60,8 @@ KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "raster_sweep", "spiral_conv_dw", "ell_matmul_capped",
                 "spiral_conv_bf16", "spiral_conv_f32out",
                 "spiral_conv_dw_bf16", "ell_matmul_bf16",
-                "ell_matmul_capped_bf16", "out_gather_sum")
+                "ell_matmul_capped_bf16", "out_gather_sum",
+                "out_gather_sum_bwd")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -65,7 +69,7 @@ _SMEM_BLOCK = 232448          # per block, above 48 KB only by opt-in
 _SMEM_SM = 233472             # per SM, shared by its blocks (228 KB)
 _SMEM_RESERVED = 1024         # per block, kept by the runtime
 _TC_MAX_THREADS = 256
-_PATH_IDS = {"tc": 1, "tc_pad_k": 1, "narrow_out": 2}
+_PATH_IDS = {"tc": 1, "tc_pad_k": 1, "narrow_out": 2, "narrow_tile": 3}
 
 
 class LaunchCounts:
@@ -187,13 +191,18 @@ def library() -> ctypes.CDLL:
                 + [p]
             lib.cfs_spiral_conv_dw_bf16.argtypes = [p, p, p, p, p] \
                 + [i] * 9 + [p]
-            lib.cfs_out_gather_sum.argtypes = [p, p, p, p, i, i, i, i, p]
+            lib.cfs_out_gather_sum.argtypes = [p, p, p, p, i, i, i, i, i, p]
+            lib.cfs_out_gather_sum_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
+                                                   i, i, p]
+            lib.cfs_spiral_conv_narrow_tile.argtypes = [
+                p] * 9 + [i] * 6 + [ctypes.POINTER(i), p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
                        lib.cfs_ell_matmul_capped_bf16,
                        lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_dw_bf16,
-                       lib.cfs_out_gather_sum):
+                       lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
+                       lib.cfs_spiral_conv_narrow_tile):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -332,17 +341,20 @@ def ell_matmul_capped(cols: torch.Tensor, vals: torch.Tensor, tiers,
 
 @dataclass(frozen=True)
 class SpiralPlan:
-    """One K1 launch: its path, grid and tile. The fields from ``tm`` on
-    belong to the tensor-core kernel and are 0 on ``narrow_out``. The
-    bf16 paths (``csrc/spiral_conv_bf16.cu``) use ``threads``, ``grid``,
-    ``smem``, ``kp`` (16-deep steps), ``ldw`` (W's row stride, bf16
-    values) and ``nt`` (columns, 8 per tile)."""
-    path: str             # "tc", "tc_pad_k" (C_in < 8), "narrow_out",
-    #                       "bf16" or "bf16_elem" (C_in % 16 != 0)
+    """One K1 launch: its path, grid and tile. The fields from ``tm`` to
+    ``warps_m`` belong to the tensor-core kernel and are 0 on the narrow
+    paths; ``narrow_tile`` uses ``rows`` (the source rows a vertex tile
+    stages) and ``vec_x``. The bf16 paths (``csrc/spiral_conv_bf16.cu``)
+    use ``threads``, ``grid``, ``smem``, ``kp`` (16-deep steps), ``ldw``
+    (W's row stride, bf16 values) and ``nt`` (columns, 8 per tile)."""
+    path: str             # "tc", "tc_pad_k" (C_in < 8), "narrow_tile",
+    #                       "narrow_out" (no tiles, another shape, or rows
+    #                       that do not fit), "bf16" or "bf16_elem"
+    #                       (C_in % 16 != 0)
     threads: int
     grid: tuple           # (row tiles walked, C_out column blocks)
     smem: int             # dynamic shared memory, bytes
-    tb: int               # batch rows per tile (per warp on narrow_out)
+    tb: int               # batch rows per tile (per warp on narrow paths)
     n_btiles: int
     tm: int = 0           # vertices per tile
     n_rtiles: int = 0     # row tiles: vertex tiles x batch tiles
@@ -358,6 +370,7 @@ class SpiralPlan:
     mi: int = 0           # warp tile: 16·mi rows x 8·ni columns
     ni: int = 0
     warps_m: int = 0
+    rows: int = 0         # narrow_tile: staged source rows per vertex tile
 
     @property
     def kernel(self) -> str:
@@ -365,7 +378,7 @@ class SpiralPlan:
         kernel with an fp32 output counts as ``spiral_conv_f32out``)."""
         if self.path.startswith("bf16"):
             return "spiral_conv_bf16"
-        return ("spiral_conv_narrow" if self.path == "narrow_out"
+        return ("spiral_conv_narrow" if self.path.startswith("narrow")
                 else "spiral_conv_tc")
 
     @property
@@ -379,7 +392,7 @@ class SpiralPlan:
                 self.n_rtiles, self.kp, self.lda, self.ldw, self.nt,
                 self.stages, int(self.vec_x),
                 int(self.vec_w), int(self.vec_out), self.mi, self.ni,
-                self.warps_m, self.positions)
+                self.warps_m, self.positions, self.rows)
 
 
 def _cdiv(a: int, b: int) -> int:
@@ -401,15 +414,19 @@ def _odd_stride(width: int) -> int:
 @functools.lru_cache(maxsize=1024)
 def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
                      x_aligned: bool = True, w_aligned: bool = True,
-                     dtype: torch.dtype = torch.float32) -> SpiralPlan:
+                     dtype: torch.dtype = torch.float32, n_tiles: int = 0,
+                     tile_rows: int = 0) -> SpiralPlan:
     """The K1 launch for ``out [m, b, c_out]`` from ``seq`` positions of
     ``c_in`` channels; ``x_aligned``/``w_aligned``: whether x and W start
-    on 16 bytes (bf16: x on 4 bytes). C_out < 8 takes the narrow-output
-    kernel, the rest the tensor-core kernel (C_in < 8: the positions that
-    fill a depth of 32 share a stage). Wherever
-    ``m·b ≥ 132·16`` the grid has at least 132 blocks. ``dtype``
-    bfloat16: the bf16 kernel (``_plan_bf16``). Raises for a shape that
-    no path takes."""
+    on 16 bytes (bf16: x on 4 bytes). C_out < 8 takes a narrow-output
+    kernel: ``narrow_tile`` where the op's vertex tiles are given
+    (``n_tiles`` tiles of at most ``tile_rows`` source rows,
+    ``ops.SpiralTiles``) and their rows fit in shared memory, else
+    ``narrow_out``; the rest the tensor-core kernel (C_in < 8: the
+    positions that fill a depth of 32 share a stage). Wherever
+    ``m·b ≥ 132·16`` the tensor-core grid has at least 132 blocks.
+    ``dtype`` bfloat16: the bf16 kernel (``_plan_bf16``). Raises for a
+    shape that no path takes."""
     if min(m, b, seq, c_in) < 1:
         raise ValueError(f"spiral conv needs M, B, L, C_in ≥ 1; got "
                          f"{m}, {b}, {seq}, {c_in}")
@@ -421,8 +438,53 @@ def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
     if not 1 <= c_out <= 256:
         raise ValueError(f"C_out {c_out} must be in [1, 256]")
     if c_out < 8:
-        return _plan_narrow(m, b, seq, c_in, c_out)
+        plan = None
+        if n_tiles > 0 and tile_rows > 0:
+            plan = _plan_narrow_tile(b, seq, c_in, n_tiles, tile_rows,
+                                     x_aligned)
+        return plan or _plan_narrow(m, b, seq, c_in, c_out)
     return _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned)
+
+
+_NARROW_TILE_PER_SM = 3       # blocks an SM holds, so that copies overlap
+_TILE_SHAPE = (9, 32)         # csrc/spiral_conv.cu's kTileL, kTileCin
+
+
+def narrow_tile_plan(b, c_in, n_tiles, rows, tb, threads,
+                     vec_x) -> SpiralPlan:
+    """The ``narrow_tile`` launch with ``tb`` batch rows per block (at
+    most 8, in even batch tiles) and ``threads`` threads: one block per
+    vertex tile and batch tile, the tile's ``rows`` source rows in shared
+    memory at a stride of the kernel's 1, 4 or 8 register rows."""
+    tb = min(b, tb)
+    tb = _cdiv(b, _cdiv(b, tb))
+    n_bt = _cdiv(b, tb)
+    tbm = 1 if tb <= 1 else 4 if tb <= 4 else 8     # the kernel's row stride
+    return SpiralPlan("narrow_tile", threads=threads, grid=(n_tiles * n_bt, 1),
+                      smem=_round16(4 * rows * tbm * c_in), tb=tb,
+                      n_btiles=n_bt, rows=rows, vec_x=vec_x)
+
+
+def _plan_narrow_tile(b, seq, c_in, n_tiles, rows,
+                      x_aligned) -> SpiralPlan | None:
+    """The most batch rows per block (8, 4, 2 or 1) whose staged rows let
+    three blocks share an SM; else one block an SM. Eight warps a block
+    where the kernel keeps 8 batch rows (more than 4), four below
+    (``k1_sweep``'s fastest on both hierarchies, PERF.md). None (``narrow_out`` then) for another shape
+    than the kernel is compiled for, the final conv of every
+    configuration (L = 9, C_in = 32), or where not even one batch row of
+    the tile fits."""
+    if (seq, c_in) != _TILE_SHAPE:
+        return None
+    for cap in (_SMEM_SM // _NARROW_TILE_PER_SM - _SMEM_RESERVED,
+                _SMEM_BLOCK):
+        for tb in (8, 4, 2, 1):
+            plan = narrow_tile_plan(b, c_in, n_tiles, rows, tb, 256,
+                                    x_aligned)
+            if plan.smem <= cap:
+                return (plan if plan.tb > 4 else dataclasses.replace(
+                    plan, threads=128))
+    return None
 
 
 def _plan_narrow(m, b, seq, c_in, c_out) -> SpiralPlan:
@@ -506,11 +568,17 @@ def _fit_tc(t, seq, c_in, positions, stages, per_sm, path,
 
 def _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned) -> SpiralPlan:
     """Tile rules by GEMM rows M·B, from a sweep of every tile on this
-    model's convs at B = 1 and 16 on an H100 (PERF.md): small levels
-    gather 3 positions per stage into 16-row tiles with one warp per 8
-    columns; larger levels take larger tiles with fewer stages in flight
-    and more warps per SM. A tile that does not fit falls back to the
-    next."""
+    model's convs at B = 16, 4 and 1 on the fixture's and the
+    octasphere's hierarchies on an H100 (``k1_sweep``, PERF.md): small
+    levels gather 3 positions per stage into 16-row tiles with one warp
+    per 8 columns; larger levels take larger tiles with fewer stages in
+    flight and more warps per SM. A tile that does not fit falls back to
+    the next, narrow warps (more of them) first. Wherever the level has
+    132·16 rows, the small class's tiles and the fallbacks are sized for
+    two blocks an SM, so that the grid covers the tiles (one block an SM
+    capped it at 132 blocks walking two tiles each, and a 32-thread tile
+    was the first fallback: 2.1x the library at the octasphere's
+    M = 257)."""
     rows_total = m * b
     busy = rows_total >= _SMS * 16
     path = "tc" if c_in >= 8 else "tc_pad_k"
@@ -524,18 +592,20 @@ def _plan_tc(m, b, seq, c_in, c_out, x_aligned, w_aligned) -> SpiralPlan:
     else:
         positions = 1
     # (rows, warp width / 8, stages, blocks per SM)
+    per_sm = 2 if busy else 1
     if rows_total <= 8192:
         kp = _cdiv(positions * c_in, 8) * 8
         width = c_out // 2 if not busy and c_out % 16 == 0 else c_out
         # 16 rows, unless a stage of W outweighs 3 such stages of x
-        prefs = ([(16, 1, 3, 1)] if kp * width <= 3 * 16 * (kp + 4)
+        prefs = ([(16, 1, 3, per_sm)] if kp * width <= 3 * 16 * (kp + 4)
                  else [])
-        prefs.append((64, 2, 3, 1))
+        prefs.append((64, 2, 3, per_sm))
     elif rows_total <= 32768:
         prefs = [(64, 2, 5, 3)]
     else:
         prefs = [(128, 4, 2, 4)]
-    prefs += [(r, n, 3, 1) for r in (128, 64, 32, 16) for n in (4, 2, 1)]
+    prefs += [(r, n, 3, per_sm) for r in (128, 64, 32, 16)
+              for n in (1, 2, 4)]
     tiles = list(_tc_tiles(m, b, c_out))
     # busy: the full width per block; small: as many blocks as possible
     tiles.sort(key=lambda t: t["n_split"] if busy else -t["n_split"])
@@ -586,11 +656,14 @@ def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
 def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
                     w_l: torch.Tensor, b: torch.Tensor,
                     plan: SpiralPlan | None = None,
-                    out_dtype: torch.dtype | None = None) -> torch.Tensor:
+                    out_dtype: torch.dtype | None = None,
+                    tiles=None) -> torch.Tensor:
     """K1: ``out[m] = b + Σ_l x[table[m, l]] @ w_l[l]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``w_l [L, C_in, C_out]``;
     returns ``[M, B, C_out]``. ``plan`` defaults to
-    ``plan_spiral_conv``'s; the kernel rejects one it cannot run.
+    ``plan_spiral_conv``'s (with ``tiles``, the op's ``ops.SpiralTiles``,
+    for C_out < 8: the ``narrow_tile`` kernel reads the table through
+    them); the kernel rejects a plan it cannot run.
 
     bf16 ``x`` (with ``w_l`` and ``b`` bf16): K1-bf16, an fp32
     accumulator from ``b`` rounded to bf16 once; with ``out_dtype``
@@ -633,10 +706,33 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     if plan is None:
         plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
                                 x.data_ptr() % 16 == 0,
-                                w_l.data_ptr() % 16 == 0)
+                                w_l.data_ptr() % 16 == 0,
+                                n_tiles=tiles.n_tiles if tiles else 0,
+                                tile_rows=tiles.max_rows if tiles else 0)
     if plan.path.startswith("bf16"):
         raise ValueError(f"plan path {plan.path!r} needs bf16 x")
     fields = plan.as_ints()
+    if plan.path == "narrow_tile":
+        if tiles is None:
+            raise ValueError("the narrow_tile plan needs the op's tiles")
+        n_tiles = tiles.n_tiles
+        for t, name, ndim in ((tiles.verts, "verts", 1),
+                              (tiles.starts, "starts", 1),
+                              (tiles.src, "src", 1),
+                              (tiles.src_off, "src_off", 1),
+                              (tiles.local, "local", 2)):
+            _require(t, f"tiles.{name}", torch.int32, ndim, dev)
+        if (tiles.verts.shape[0] != m or tiles.local.shape != (m, seq)
+                or tiles.src_off.shape[0] != n_tiles + 1
+                or tiles.max_rows > plan.rows):
+            raise ValueError(f"tiles do not describe table "
+                             f"{tuple(table.shape)} in {plan.rows}-row tiles")
+        _launch(plan.kernel, library().cfs_spiral_conv_narrow_tile, dev,
+                _ptr(x), _ptr(tiles.verts), _ptr(tiles.starts),
+                _ptr(tiles.src), _ptr(tiles.src_off), _ptr(tiles.local),
+                _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
+                n_tiles, (ctypes.c_int * len(fields))(*fields))
+        return out
     _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),
             m, seq, bsz, c_in, c_out, (ctypes.c_int * len(fields))(*fields))
@@ -883,30 +979,73 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     return out
 
 
+_OUT_GATHER_MAX_O = 8           # csrc/out_gather_sum.cu's kMaxO
+_OUT_GATHER_FIELDS = 16         # ops.OutGatherBwd.info's columns
+
+
 def out_gather_sum(u: torch.Tensor, table: torch.Tensor,
                    b: torch.Tensor) -> torch.Tensor:
-    """K3b: ``out[m, b, o] = bias[o] + Σ_l u[table[m, l], b, l, o]`` in
-    position order, one rounding per add, for ``u [N, B, L, O]`` (the
-    matmul-first conv's products of every position), ``table [M, L]``,
-    ``b [O]``, all float32 but the table; returns ``[M, B, O]``."""
+    """K3b: ``out[m, b, o] = bias[o] + Σ_l u[l, o, table[m, l], b]`` in
+    position order, one rounding per add, for the position-major ``u [L,
+    O, N, B]`` (the matmul-first conv's products of every position),
+    ``table [M, L]``, ``b [O]`` (O ≤ 8), all float32 but the table;
+    returns ``[M, B, O]``."""
     dev = u.device
     _require(u, "u", torch.float32, 4, dev)
     _require(table, "table", torch.int32, 2, dev)
     _require(b, "b", torch.float32, 1, dev)
-    n, bsz, seq, o = u.shape
+    seq, o, n, bsz = u.shape
     m = table.shape[0]
     if table.shape[1] != seq or b.shape[0] != o:
         raise ValueError(f"u {tuple(u.shape)}, table {tuple(table.shape)} "
                          f"and b {tuple(b.shape)} do not fit")
-    _fits_int32(m, seq, bsz, o, m * seq)
+    if o > _OUT_GATHER_MAX_O:
+        raise ValueError(f"out_gather_sum takes at most {_OUT_GATHER_MAX_O} "
+                         f"outputs; got {o}")
+    _fits_int32(u.numel(), m * bsz * o, m * seq)
     out = torch.empty((m, bsz, o), dtype=torch.float32, device=dev)
     if m == 0 or bsz == 0 or o == 0:
         return out
     if n == 0 or seq == 0:
         raise ValueError("out_gather_sum needs source rows and positions")
     _launch("out_gather_sum", library().cfs_out_gather_sum, dev, _ptr(u),
-            _ptr(table), _ptr(b), _ptr(out), m, seq, bsz, o)
+            _ptr(table), _ptr(b), _ptr(out), m, n, seq, bsz, o)
     return out
+
+
+def out_gather_sum_bwd(dout: torch.Tensor, bwd) -> torch.Tensor:
+    """K3b's backward in one launch: for each position ``l`` of ``bwd``
+    (an ``ops.OutGatherBwd``, every position's capped transpose over the
+    N source rows), ``du[l] = transpose_l.apply(dout)`` in
+    ``CappedEll.apply``'s order and roundings (``dout`` itself at the
+    identity position), for ``dout [M, B, O]`` float32 (O ≤ 8); returns
+    ``du`` in ``u``'s layout, ``[L, O, N, B]``."""
+    dev = dout.device
+    _require(dout, "dout", torch.float32, 3, dev)
+    _require(bwd.info, "info", torch.int32, 2, dev)
+    _require(bwd.cols, "cols", torch.int32, 1, dev)
+    _require(bwd.vals, "vals", torch.float32, 1, dev)
+    _require(bwd.links, "links", torch.int32, 1, dev)
+    m, bsz, o = dout.shape
+    seq, n = bwd.info.shape[0], bwd.n_src
+    if (bwd.info.shape[1] != _OUT_GATHER_FIELDS or m != bwd.m
+            or bwd.vals.shape != bwd.cols.shape):
+        raise ValueError(f"dout {tuple(dout.shape)} does not fit the "
+                         f"backward table of {bwd.m} rows, or the table is "
+                         "malformed")
+    if o > _OUT_GATHER_MAX_O:
+        raise ValueError(f"out_gather_sum_bwd takes at most "
+                         f"{_OUT_GATHER_MAX_O} outputs; got {o}")
+    _fits_int32(seq * o * n * bsz, m * bsz * o)
+    du = torch.empty((seq, o, n, bsz), dtype=torch.float32, device=dev)
+    if du.numel() == 0:
+        return du
+    if m == 0:
+        raise ValueError("out_gather_sum_bwd needs cotangent rows")
+    _launch("out_gather_sum_bwd", library().cfs_out_gather_sum_bwd, dev,
+            _ptr(dout), _ptr(bwd.info), _ptr(bwd.cols), _ptr(bwd.vals),
+            _ptr(bwd.links), _ptr(du), m, n, seq, bsz, o)
+    return du
 
 
 def raster_sweep(coef: torch.Tensor, box: torch.Tensor,

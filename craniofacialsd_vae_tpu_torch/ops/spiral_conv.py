@@ -10,9 +10,10 @@ custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
 
 - forward: kernel K1 (fp32): for a CUDA tensor it launches
   ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a narrow kernel for
-  C_out < 8), which gathers the spiral rows into shared memory or
-  registers and never writes the ``[M, B, L·C]`` concatenation; for a CPU
-  tensor it runs the plain twin, the fp32 branch of ``_spiral_conv_core``;
+  C_out < 8 that stages each vertex tile's distinct source rows in shared
+  memory once, ``SpiralOp.tiles``), which never writes the ``[M, B, L·C]``
+  concatenation; for a CPU tensor it runs the plain twin, the fp32 branch
+  of ``_spiral_conv_core``;
 - backward: ``dx`` through the combined capped transposes (one batched
   product ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4
   with the overflow tiers landed in the same launch), plus ``dy @ W_iᵀ``
@@ -31,25 +32,205 @@ once. Autograd through the casts hands fp32 gradients to the fp32
 parameters. The final decoder conv returns fp32: gather-first through
 ``_SpiralConvF32Out`` (K3a: the accumulator unrounded; its backward
 rounds ``dy`` to bf16 once), or matmul-first through
-``spiral_conv_out_gather`` (one fp32 product of the bf16 values, then
-kernel K3b's gather-sum, ``csrc/out_gather_sum.cu``).
+``spiral_conv_out_gather`` (one fp32 product of the bf16 values laid out
+position-major, ``[L, C_out, N, B]``, then kernel K3b's gather-sum,
+``csrc/out_gather_sum.cu``, whose backward is one launch of
+``out_gather_sum_bwd`` over every position's capped transpose,
+``SpiralOp.out_bwd``).
 """
 
 from __future__ import annotations
 
+from collections import deque
 from dataclasses import dataclass
 
 import numpy as np
 import torch
 
 from .. import kernels
-from .sparse import (CappedEll, GatherRows, capped_ell, gather_op_from_idx,
-                     gather_rows)
+from .sparse import (CappedEll, GatherRows, capped_ell,
+                     ell_matmul_capped_plain, ell_matmul_plain,
+                     gather_op_from_idx, gather_rows)
 
-__all__ = ["SpiralOp", "build_spiral_op", "init_spiral_conv", "spiral_conv",
-           "spiral_conv_plain", "spiral_conv_dw", "spiral_conv_dw_plain",
-           "spiral_conv_dw_chunked_plain", "spiral_conv_out_gather",
-           "out_gather_sum_plain"]
+__all__ = ["SpiralOp", "SpiralTiles", "OutGatherBwd", "build_spiral_op",
+           "build_spiral_tiles", "build_out_gather_bwd", "init_spiral_conv",
+           "spiral_conv", "spiral_conv_plain", "spiral_conv_dw",
+           "spiral_conv_dw_plain", "spiral_conv_dw_chunked_plain",
+           "spiral_conv_out_gather",
+           "out_gather_sum_plain", "out_gather_sum_bwd_plain"]
+
+
+_TILE_ROWS = 64        # most distinct source rows a K1 narrow tile stages
+_TILE_VERTICES = 64    # most vertices a K1 narrow tile owns
+
+
+@dataclass
+class SpiralTiles:
+    """K1 narrow's vertex tiles. Tile ``t`` owns the output vertices
+    ``verts[starts[t]:starts[t + 1]]`` and reads the distinct source rows
+    ``src[src_off[t]:src_off[t + 1]]`` (sorted, at most ``max_rows``);
+    ``local [M, L]`` holds, in tile order, each vertex's spiral entries as
+    indices into its tile's list. All int32."""
+    verts: torch.Tensor            # [M]
+    starts: torch.Tensor           # [T + 1]
+    src: torch.Tensor              # [sum of the tiles' rows]
+    src_off: torch.Tensor          # [T + 1]
+    local: torch.Tensor            # [M, L]
+    max_rows: int
+
+    @property
+    def n_tiles(self) -> int:
+        return int(self.starts.shape[0]) - 1
+
+    def to(self, device) -> "SpiralTiles":
+        return SpiralTiles(*(t.to(device) for t in (
+            self.verts, self.starts, self.src, self.src_off, self.local)),
+            max_rows=self.max_rows)
+
+    def table(self) -> torch.Tensor:
+        """The ``[M, L]`` spiral table the lists describe."""
+        sizes = (self.starts[1:] - self.starts[:-1]).long()
+        tile = torch.repeat_interleave(
+            torch.arange(self.n_tiles, device=self.starts.device), sizes)
+        rows = self.src[self.src_off[tile].long()[:, None]
+                        + self.local.long()]
+        table = torch.empty_like(self.local)
+        table[self.verts.long()] = rows
+        return table
+
+
+def build_spiral_tiles(spirals: np.ndarray) -> SpiralTiles:
+    """Host-side: tiles of nearby vertices for K1 narrow. Each tile grows
+    breadth-first over the table's own entries from the lowest vertex not
+    yet taken, adding a vertex while the tile's distinct source rows stay
+    within ``_TILE_ROWS`` (raised to L where a single vertex needs more)
+    and its vertices within ``_TILE_VERTICES``: a compact patch of the
+    mesh, whose rows each serve several of its vertices."""
+    spirals = np.asarray(spirals)
+    m, seq = spirals.shape
+    max_rows = max(_TILE_ROWS, seq)
+    taken = np.zeros(m, dtype=bool)
+    verts, starts, srcs, src_off = [], [0], [np.zeros(0, np.int64)], [0]
+    local = [np.zeros((0, seq), np.int64)]
+    seed = 0
+    while seed < m:
+        rows: set = set()
+        tile, queue, seen = [], deque([seed]), {seed}
+        while queue and len(tile) < _TILE_VERTICES:
+            v = queue.popleft()
+            if taken[v]:
+                continue
+            new = rows.union(spirals[v].tolist())
+            if tile and len(new) > max_rows:
+                continue
+            rows, taken[v] = new, True
+            tile.append(v)
+            for s in spirals[v].tolist():
+                if s < m and not taken[s] and s not in seen:
+                    seen.add(s)
+                    queue.append(s)
+        uniq, inv = np.unique(spirals[tile], return_inverse=True)
+        verts += tile
+        starts.append(len(verts))
+        srcs.append(uniq)
+        src_off.append(src_off[-1] + len(uniq))
+        local.append(inv.reshape(len(tile), seq))
+        while seed < m and taken[seed]:
+            seed += 1
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))  # noqa
+    return SpiralTiles(
+        verts=i32(verts), starts=i32(starts), src=i32(np.concatenate(srcs)),
+        src_off=i32(src_off), local=i32(np.concatenate(local)),
+        max_rows=max(len(u) for u in srcs))
+
+
+_BWD_TIERS = 3                 # capped_ell's max_tiers
+_BWD_FIELDS = 4 + 4 * _BWD_TIERS
+
+
+@dataclass
+class OutGatherBwd:
+    """K3b's backward in one table: every position's gather transpose (a
+    ``CappedEll`` over the N source rows) concatenated. Row ``l`` of
+    ``info [L, 16]``: the main table's offset into ``cols``/``vals`` and
+    its K (0 marks the identity position), the offset of its first link
+    in ``links`` (−1 without tiers) and its tier count, then per tier
+    its offset, K, rows and the offset of its next links; int32 but
+    ``vals``."""
+    info: torch.Tensor             # [L, 16]
+    cols: torch.Tensor             # main tables and tiers, flat
+    vals: torch.Tensor
+    links: torch.Tensor            # link0 and each tier's next, flat
+    n_src: int
+    m: int
+
+    def to(self, device) -> "OutGatherBwd":
+        return OutGatherBwd(self.info.to(device), self.cols.to(device),
+                            self.vals.to(device), self.links.to(device),
+                            self.n_src, self.m)
+
+    def tables(self) -> list:
+        """Per position: None (identity) or ``(cols, vals, tiers, links)``
+        as ``ell_matmul_capped_plain`` takes them, views into the flat
+        arrays."""
+        out = []
+        for row in self.info.tolist():
+            off, k, l0, n_tiers = row[:4]
+            if k == 0:
+                out.append(None)
+                continue
+            n = self.n_src
+            cols = self.cols[off:off + n * k].view(n, k)
+            vals = self.vals[off:off + n * k].view(n, k)
+            tiers, links = [], [] if l0 < 0 else [self.links[l0:l0 + n]]
+            for q in range(n_tiers):
+                t_off, t_k, t_r, t_next = row[4 + 4 * q:8 + 4 * q]
+                tiers.append((None, self.cols[t_off:t_off + t_r * t_k].view(
+                    t_r, t_k), self.vals[t_off:t_off + t_r * t_k].view(
+                    t_r, t_k)))
+                links.append(self.links[t_next:t_next + t_r])
+            out.append((cols, vals, tuple(tiers), tuple(links)))
+        return out
+
+
+def build_out_gather_bwd(gathers: list, n_src: int, m: int) -> OutGatherBwd:
+    """Host-side: the per-position transposes of ``gathers`` (None for an
+    identity position) in one ``OutGatherBwd``."""
+    info = np.zeros((len(gathers), _BWD_FIELDS), dtype=np.int64)
+    cols, vals, links = [], [], []
+    off = loff = 0
+    for l, g in enumerate(gathers):
+        if g is None:
+            info[l, 2] = -1
+            continue
+        t = g.transpose
+        if len(t.tiers) > _BWD_TIERS:
+            raise ValueError(f"position {l}: {len(t.tiers)} tiers")
+        info[l, :4] = off, t.cols.shape[1], loff if t.tiers else -1, \
+            len(t.tiers)
+        cols.append(t.cols.reshape(-1))
+        vals.append(t.vals.reshape(-1))
+        off += t.cols.numel()
+        if t.tiers:
+            links.append(t.links[0])
+            loff += t.links[0].numel()
+        for q, ((_, t_cols, t_vals), nxt) in enumerate(zip(t.tiers,
+                                                           t.links[1:])):
+            info[l, 4 + 4 * q:8 + 4 * q] = (off, t_cols.shape[1],
+                                            t_cols.shape[0], loff)
+            cols.append(t_cols.reshape(-1))
+            vals.append(t_vals.reshape(-1))
+            off += t_cols.numel()
+            links.append(nxt)
+            loff += nxt.numel()
+    if max(off, loff) >= 2 ** 31:
+        raise ValueError("the backward tables must fit int32 offsets")
+    cat = lambda ts, dt: (torch.cat(ts) if ts          # noqa: E731
+                          else torch.zeros(1, dtype=dt))
+    return OutGatherBwd(info=torch.from_numpy(info.astype(np.int32)),
+                        cols=cat(cols, torch.int32),
+                        vals=cat(vals, torch.float32),
+                        links=cat(links, torch.int32), n_src=n_src, m=m)
 
 
 @dataclass
@@ -60,7 +241,8 @@ class SpiralOp:
     ``gathers`` holds one GatherRows per position (None for an identity
     position, whose rows are ``x`` itself), and ``inv_tables`` the combined
     transposes over the flat ``(l, m)`` index space that a backward pass
-    reads, one per column group."""
+    reads, one per column group. ``tiles`` are K1 narrow's vertex tiles
+    and ``out_bwd`` K3b's backward table, both built with the op."""
     table: torch.Tensor            # [M, L] int32
     gathers: list                  # L × (GatherRows | None)
     inv_tables: list               # per column group: CappedEll
@@ -68,6 +250,8 @@ class SpiralOp:
     identity_cols: tuple           # spiral positions that are the identity
     seq_length: int
     n_src: int                     # rows of the input (≠ M when composed)
+    tiles: SpiralTiles
+    out_bwd: OutGatherBwd
 
     @property
     def num_vertices(self) -> int:
@@ -80,7 +264,8 @@ class SpiralOp:
                      for g in self.gathers],
             inv_tables=[t.to(device) for t in self.inv_tables],
             group_cols=self.group_cols, identity_cols=self.identity_cols,
-            seq_length=self.seq_length, n_src=self.n_src)
+            seq_length=self.seq_length, n_src=self.n_src,
+            tiles=self.tiles.to(device), out_bwd=self.out_bwd.to(device))
 
 
 def build_spiral_op(spirals: np.ndarray,
@@ -120,7 +305,9 @@ def build_spiral_op(spirals: np.ndarray,
     return SpiralOp(table=torch.from_numpy(spirals.astype(np.int32)),
                     gathers=gathers, inv_tables=inv_tables,
                     group_cols=tuple(group_cols),
-                    identity_cols=identity_cols, seq_length=l, n_src=n)
+                    identity_cols=identity_cols, seq_length=l, n_src=n,
+                    tiles=build_spiral_tiles(spirals),
+                    out_bwd=build_out_gather_bwd(gathers, n, m))
 
 
 def init_spiral_conv(generator: torch.Generator, in_channels: int,
@@ -225,7 +412,7 @@ class _SpiralConv(torch.autograd.Function):
         ctx.save_for_backward(w_l, x)
         if not x.is_cuda:
             return spiral_conv_plain(w_l, b, x, op)
-        return kernels.spiral_conv_fwd(x, op.table, w_l, b)
+        return kernels.spiral_conv_fwd(x, op.table, w_l, b, tiles=op.tiles)
 
     @staticmethod
     def backward(ctx, dy):
@@ -298,19 +485,42 @@ def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp,
 
 def out_gather_sum_plain(u: torch.Tensor, table: torch.Tensor,
                          b: torch.Tensor) -> torch.Tensor:
-    """Plain twin of K3b: ``out = b``, then ``out + u_l[table[:, l]]`` for
-    l = 0…L−1 in fp32, for ``u [N, B, L, O]``."""
+    """Plain twin of K3b: ``out = b``, then ``out + u_l[:, table[:, l]]``
+    for l = 0…L−1 in fp32, for the position-major ``u [L, O, N, B]``;
+    returns ``[M, B, O]``."""
     out = b
     for i in range(table.shape[1]):
-        out = out + u[:, :, i].index_select(0, table[:, i])
+        out = out + u[i].index_select(1, table[:, i]).permute(1, 2, 0)
     return out
+
+
+def out_gather_sum_bwd_plain(dout: torch.Tensor,
+                             bwd: OutGatherBwd) -> torch.Tensor:
+    """Plain twin of K3b's backward, ``out_gather_sum_bwd``: for each
+    position its capped transpose walked from ``bwd`` in the kernel's
+    order (``ell_matmul_capped_plain``; the identity position's ``dout``
+    itself), laid out as ``u``, ``[L, O, N, B]``. Bit-equal to the stack
+    of the positions' ``CappedEll.apply``."""
+    m, bsz, o = dout.shape
+    d2 = dout.reshape(m, bsz * o)
+    parts = []
+    for table in bwd.tables():
+        if table is None:
+            part = d2
+        elif table[2]:
+            part = ell_matmul_capped_plain(*table, d2)
+        else:
+            part = ell_matmul_plain(table[0], table[1], d2)
+        parts.append(part.view(-1, bsz, o).permute(2, 0, 1))
+    return torch.stack(parts)
 
 
 class _OutGatherSum(torch.autograd.Function):
     """``out = b + Σ_l u_l[S[:, l]]`` (K3b on the card), backward as JAX's
     autodiff of ``spiral_conv_out_gather`` gives it: each position's
-    ``du_l`` through that gather's own capped transpose (fp32 K4), the
-    identity position's ``dout`` itself, ``db = Σ dout``."""
+    ``du_l`` through that gather's own capped transpose, the identity
+    position's ``dout`` itself (one ``out_gather_sum_bwd`` launch on the
+    card, written in ``u``'s layout), ``db = Σ dout``."""
 
     @staticmethod
     def forward(ctx, u, b, op):
@@ -324,8 +534,9 @@ class _OutGatherSum(torch.autograd.Function):
         dout = dout.contiguous()
         du = db = None
         if ctx.needs_input_grad[0]:
-            du = torch.stack([dout if g is None else g.transpose.apply(dout)
-                              for g in ctx.op.gathers], dim=2)
+            du = (kernels.out_gather_sum_bwd(dout, ctx.op.out_bwd)
+                  if dout.is_cuda
+                  else out_gather_sum_bwd_plain(dout, ctx.op.out_bwd))
         if ctx.needs_input_grad[1]:
             db = dout.sum(dim=(0, 1))
         return du, db, None
@@ -335,16 +546,18 @@ def spiral_conv_out_gather(params: dict, x: torch.Tensor,
                            op: SpiralOp) -> torch.Tensor:
     """Matmul-first spiral conv (JAX ``spiral_conv_out_gather``): ``u =
     x @ W_l`` for every position in one plain product (fp32, from bf16 x
-    and W: the fp32 copies of the bf16 values), laid out ``[N, B, L,
-    C_out]``, then ``out = b + Σ_l u_l[S[:, l]]`` in fp32 (K3b on the
-    card). ``b`` stays fp32; the output is fp32 for bf16 x."""
+    and W: the fp32 copies of the bf16 values), laid out position-major
+    as JAX lays it, ``[L, C_out, N, B]`` (``W_catᵀ @ xᵀ``: its backward
+    is one product each for dW and dx, with no copy of ``du``), then
+    ``out = b + Σ_l u_l[S[:, l]]`` in fp32 (K3b on the card). ``b`` stays
+    fp32; the output is fp32 for bf16 x."""
     _check_rows(x, op)
     acc = torch.float32 if x.dtype == torch.bfloat16 else x.dtype
     n, bsz, c_in = x.shape
     w = params["w"].to(x.dtype).to(acc)                 # [L·C_in, C_out]
     c_out = w.shape[-1]
-    w_cat = w.reshape(op.seq_length, c_in, c_out).transpose(0, 1).reshape(
-        c_in, op.seq_length * c_out)
-    u = (x.reshape(n * bsz, c_in).to(acc) @ w_cat).view(
-        n, bsz, op.seq_length, c_out)
+    w_t = w.reshape(op.seq_length, c_in, c_out).transpose(1, 2).reshape(
+        op.seq_length * c_out, c_in)
+    u = (w_t @ x.reshape(n * bsz, c_in).to(acc).t()).view(
+        op.seq_length, c_out, n, bsz)
     return _OutGatherSum.apply(u, params["b"].to(acc), op)

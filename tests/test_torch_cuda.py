@@ -71,8 +71,11 @@ def test_ell_matmul_kernel_equals_plain(m, n, k, d, offset):
     assert torch.equal(out, ref)
 
 
-def _conv_matches_plain(dev, op, b, c_in, c_out, scale=1.0, seed=1):
-    """K1 against its plain twin on one table: rtol 1e-5 against max |out|
+def _conv_matches_plain(dev, op, b, c_in, c_out, scale=1.0, seed=1,
+                        tiles=True):
+    """K1 against its plain twin on one table, through the op's vertex
+    tiles as the model calls it (``tiles=False``: without them, the
+    ``narrow_out`` kernel for C_out < 8): rtol 1e-5 against max |out|
     (3xTF32 products and another summation order than the library
     matmul's), and two launches bit-equal. Returns the plan."""
     g = _gen(dev, seed)
@@ -80,15 +83,19 @@ def _conv_matches_plain(dev, op, b, c_in, c_out, scale=1.0, seed=1):
     seq = op.seq_length
     w_l = torch.randn((seq, c_in, c_out), generator=g, device=dev) * 0.2
     bias = torch.randn(c_out, generator=g, device=dev) * scale
-    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
-    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
+    t = op.tiles if tiles else None
+    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias, tiles=t)
+    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias, tiles=t)
     ref = ops.spiral_conv_plain(w_l, bias, x, op)
     torch.cuda.synchronize()
     assert out.shape == ref.shape
     err = float((out - ref).abs().max())
     assert err <= 1e-5 * float(ref.abs().max())
     assert torch.equal(out, again)
-    return kernels.plan_spiral_conv(op.num_vertices, b, seq, c_in, c_out)
+    return kernels.plan_spiral_conv(
+        op.num_vertices, b, seq, c_in, c_out,
+        n_tiles=op.tiles.n_tiles if tiles else 0,
+        tile_rows=op.tiles.max_rows if tiles else 0)
 
 
 @pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
@@ -115,6 +122,50 @@ def test_spiral_conv_kernel_matches_plain(m, n_src, seq, b, c_in, c_out):
         assert plan.grid[1] == 2
     if m == 1001:
         assert m % plan.tm != 0
+    if c_out < 8:     # the tiled kernel at the final conv's shape
+        assert plan.path == ("narrow_tile" if (seq, c_in) == (9, 32)
+                             else "narrow_out")
+
+
+@pytest.mark.parametrize("path", ["narrow_tile", "narrow_out"])
+@pytest.mark.parametrize("c_out,b,n_src", [
+    (1, 1, 3000), (2, 4, 3000), (3, 16, 3000), (4, 20, 3000), (5, 3, 4000),
+    (6, 8, 3000), (7, 2, 4500), (3, 16, 17039)])
+def test_spiral_conv_narrow_kernels_match_plain(path, c_out, b, n_src):
+    """Both narrow kernels at every C_out below 8, batches of 1 to 20 rows
+    (odd batch tiles) and tables composed with a selection (n_src ≠ M):
+    the tiled kernel through the op's tiles, the other without them."""
+    dev = _card()
+    rng = np.random.default_rng(c_out)
+    m = 3000
+    table = rng.integers(0, n_src, size=(m, 9))
+    if m == n_src:
+        table[:, 0] = np.arange(m)
+    op = ops.build_spiral_op(table, n_src=n_src).to(dev)
+    plan = _conv_matches_plain(dev, op, b, 32, c_out,
+                               tiles=path == "narrow_tile")
+    assert plan.path == path
+
+
+@pytest.fixture(scope="module")
+def octasphere_level0():
+    """The spiral op of the octasphere's level 0 (subdivision 6: 16,386
+    vertices), the entry point's template."""
+    from craniofacialsd_vae_tpu_torch.geometry import (extract_spirals,
+                                                       octasphere)
+
+    pos, face = octasphere(6)
+    return ops.build_spiral_op(extract_spirals(np.asarray(face),
+                                               np.asarray(pos), 9))
+
+
+@pytest.mark.parametrize("b", [1, 4, 16])
+def test_spiral_conv_narrow_tile_on_the_octasphere(octasphere_level0, b):
+    dev = _card()
+    op = octasphere_level0.to(dev)
+    assert op.num_vertices == 16386
+    plan = _conv_matches_plain(dev, op, b, 32, 3)
+    assert plan.path == "narrow_tile" and plan.rows == op.tiles.max_rows
 
 
 # the smoke model's convs on the fixture's tables: (name, C_in, C_out)
@@ -973,20 +1024,52 @@ def test_spiral_conv_dw_bf16_on_the_model_tables(card_geometry, name, c_in,
 @pytest.mark.parametrize("n,b,seq,o", [(17039, 16, 9, 3), (30, 4, 5, 3),
                                        (100, 1, 7, 5)])
 def test_out_gather_sum_kernel_equals_plain(n, b, seq, o):
-    """K3b: the bias, then each position's gathered value in position
-    order, one rounding each: bit-equal to the twin."""
+    """K3b on the position-major ``u [L, O, N, B]``: the bias, then each
+    position's gathered value in position order, one rounding each:
+    bit-equal to the twin."""
     dev = _card()
     g = _gen(dev, n)
     table = torch.randint(0, n, (n, seq), generator=g, device=dev,
                           dtype=torch.int32)
     table[:, 0] = torch.arange(n, device=dev, dtype=torch.int32)
-    u = torch.randn((n, b, seq, o), generator=g, device=dev)
+    u = torch.randn((seq, o, n, b), generator=g, device=dev)
     bias = torch.randn(o, generator=g, device=dev)
     kernels.launches.reset()
     out = kernels.out_gather_sum(u, table, bias)
     assert kernels.launches.snapshot()["out_gather_sum"] == 1
     torch.cuda.synchronize()
     assert torch.equal(out, ops.out_gather_sum_plain(u, table, bias))
+
+
+@pytest.mark.parametrize("n,b,seq,o,hubs", [
+    (17039, 16, 9, 3, False), (30, 4, 5, 3, False), (100, 1, 7, 5, False),
+    (3000, 16, 9, 3, True), (500, 3, 9, 7, True)])
+def test_out_gather_sum_bwd_kernel_equals_plain(n, b, seq, o, hubs):
+    """K3b's backward in one launch: bit-equal to its twin and to the
+    stack of the positions' ``CappedEll.apply`` (the fused K4 per
+    position), in ``u``'s layout; ``hubs``: a skewed in-degree that gives
+    every position overflow tiers, some of them two or three deep."""
+    dev = _card()
+    rng = np.random.default_rng(n + o)
+    table = rng.integers(0, n, size=(n, seq))
+    table[:, 0] = np.arange(n)
+    if hubs:
+        for l in range(1, seq):
+            table[rng.random(n) < 0.3, l] = rng.integers(0, 4)
+    op = ops.build_spiral_op(table).to(dev)
+    if hubs:
+        tiers = [len(g.transpose.tiers) for g in op.gathers[1:]]
+        assert min(tiers) >= 1 and max(tiers) >= 2, tiers
+    dout = torch.randn((n, b, o), generator=_gen(dev, n), device=dev)
+    kernels.launches.reset()
+    du = kernels.out_gather_sum_bwd(dout, op.out_bwd)
+    assert kernels.launches.snapshot()["out_gather_sum_bwd"] == 1
+    want = torch.stack([dout if g is None else g.transpose.apply(dout)
+                        for g in op.gathers]).permute(0, 3, 1, 2)
+    torch.cuda.synchronize()
+    assert du.shape == (seq, o, n, b)
+    assert torch.equal(du, ops.out_gather_sum_bwd_plain(dout, op.out_bwd))
+    assert torch.equal(du, want)
 
 
 def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
@@ -1021,13 +1104,22 @@ def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
     with pytest.raises(ValueError):
         kernels.spiral_conv_dw(x3.to(BF16), table, dy.to(BF16),
                                kernels.plan_spiral_conv_dw(6, 2, 3, 4, 5))
-    u = torch.randn(10, 2, 3, 5, device=dev)
+    u = torch.randn(3, 5, 10, 2, device=dev)              # [L, O, N, B]
     assert kernels.out_gather_sum(u, table[:, :3].contiguous() % 10,
                                   b).shape == (6, 2, 5)
     for args in ((u.to(BF16), table, b), (u, table[:, :2].contiguous(), b),
-                 (u, table, b[:4]), (u.cpu(), table, b)):
+                 (u, table, b[:4]), (u.cpu(), table, b),
+                 (torch.randn(3, 9, 10, 2, device=dev), table,
+                  torch.zeros(9, device=dev))):           # O > 8
         with pytest.raises(ValueError):
             kernels.out_gather_sum(*args)
+    bwd = ops.build_spiral_op(np.arange(12).reshape(6, 2) % 6).to(dev).out_bwd
+    dout = torch.randn(6, 2, 5, device=dev)
+    assert kernels.out_gather_sum_bwd(dout, bwd).shape == (2, 5, 6, 2)
+    for bad in (dout.to(BF16), dout[:5], dout.cpu(),
+                torch.randn(6, 2, 9, device=dev)):        # O > 8
+        with pytest.raises(ValueError):
+            kernels.out_gather_sum_bwd(bad, bwd)
 
 
 _MIXED = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15,
@@ -1094,6 +1186,8 @@ def test_mixed_train_step_on_card_matches_host(final_out_gather):
                    "ell_matmul_capped_bf16", "spiral_conv_dw_bf16",
                    "spiral_conv_dw", final):
         assert counts[kernel] > 0, kernel
+    # the matmul-first final conv's backward is one launch
+    assert counts["out_gather_sum_bwd"] == int(final_out_gather)
 
 
 def test_bfloat16_policy_on_card_matches_host():

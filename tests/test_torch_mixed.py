@@ -286,17 +286,19 @@ def test_spiral_conv_out_gather_matches_jax(identity):
 
 
 def test_out_gather_sum_twin_is_the_position_order_sum():
-    """K3b's twin: the bias, then each position's gathered row added in
-    position order (the kernel's order)."""
+    """K3b's twin on the position-major ``u [L, O, N, B]``: the bias, then
+    each position's gathered rows added in position order (the kernel's
+    order)."""
     rng = np.random.default_rng(9)
     n, b, seq, o = 25, 2, 4, 3
     table = torch.from_numpy(rng.integers(0, n, (n, seq)).astype(np.int32))
-    u = torch.from_numpy(_rand(rng, n, b, seq, o))
+    u = torch.from_numpy(_rand(rng, seq, o, n, b))
     bias = torch.from_numpy(_rand(rng, o))
     got = tops.out_gather_sum_plain(u, table, bias)
     want = bias.expand(n, b, o).clone()
     for l in range(seq):
-        want = want + u[table[:, l].long(), :, l]
+        want = want + u[l][:, table[:, l].long()].permute(1, 2, 0)
+    assert got.shape == (n, b, o)
     assert torch.equal(got, want)
 
 

@@ -217,6 +217,27 @@ def test_spiral_conv_plan_fits_the_kernel(m, b, seq, c_in, c_out):
     assert not unaligned.vec_x and not unaligned.vec_w
 
 
+@pytest.mark.parametrize("m,b,c_in,c_out", [
+    (257, 16, 64, 64),        # the octasphere's dec3
+    (1065, 4, 64, 32),        # the fixture's dec2 at B = 4
+    (1025, 4, 64, 32),        # the octasphere's dec2 at B = 4
+    (267, 16, 64, 64)])       # the fixture's dec3
+def test_spiral_plan_covers_the_tiles_of_busy_small_levels(m, b, c_in,
+                                                           c_out):
+    """At a small level with 132·16 GEMM rows or more, the planner sizes
+    its tile for two blocks an SM, with at least four warps, and launches
+    as many blocks as two an SM hold (or one per tile): the plans
+    ``k1_sweep`` timed faster than the library call on an H100, where one
+    block an SM walking two tiles, or a one-warp tile, was slower
+    (PERF.md)."""
+    from craniofacialsd_vae_tpu_torch.kernels import plan_spiral_conv
+
+    plan = plan_spiral_conv(m, b, 9, c_in, c_out)
+    assert plan.threads >= 128
+    assert plan.smem <= 233472 // 2 - 1024
+    assert plan.blocks >= min(plan.n_rtiles * plan.grid[1], 2 * 132)
+
+
 def test_spiral_plan_fields_follow_the_kernel_enum():
     """SpiralPlan.as_ints lays its fields out in csrc/spiral_conv.cu's
     PlanField order."""
