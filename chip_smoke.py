@@ -67,11 +67,13 @@ them or outside a checkout. Phases, each of which raises on a fault:
    model and optimisation sections, through the port's config reader):
    (a) every bf16 kernel at every shape of the mixed paths (K1-bf16, K3b,
    its backward ``out_gather_sum_bwd`` (also against the per-position
-   transposes and stack it replaced) and K4-bf16 at B = 16, 4, 1; K3a;
-   K2-dW-bf16 and K4-bf16 or its capped form on every bf16 backward
-   table at the grid), held against
-   its twin (bit-equal where both round at the same points, else within
-   one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
+   transposes and stack it replaced) and K4-bf16 at B = 16, 4, 1; K3a
+   through the vertex tiles at B = 16, 4, 1 on the fixture's and the
+   octasphere's level 0, beside the untiled kernel it replaced;
+   K2-dW-bf16 at the grid; K4-bf16 or its capped form on every bf16
+   backward table at the grid's and the other buckets' widths), held
+   against its twin (bit-equal where both round at the same points, else
+   within one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
    form, with its bound at 3.35 TB/s and 989 TFLOP/s bf16 and ptxas's
    registers; (b) a mixed ``DiagnosisService(max_batch=16)`` answers
    phase 4's requests and renders the error maps (counted), held
@@ -270,7 +272,8 @@ def k1_ptxas(build_log: str) -> list:
     kernels, from the build's ``-Xptxas -v`` output: ``tc<MI,NI>``,
     ``narrow<..>``, ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments
     per warp), ``dw_sum`` (its chunk sum), ``bf16<NT,ELEM>`` (K1-bf16 and
-    K3a), ``dw_bf16<FPW>``, ``dw_bf16_sum``, ``ell_bf16_vector<CAPPED>``,
+    K3a), ``bf16_tile<VEC>`` (K3a's tiled kernel), ``dw_bf16<FPW>``,
+    ``dw_bf16_sum``, ``ell_bf16_vector<KK,CAPPED>``,
     ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b) and
     ``out_gather_sum_bwd``; the narrow kernels as ``narrow<CO,TBM>`` and
     ``narrow_tile<CO,TBM,VEC,FULL>``."""
@@ -288,7 +291,10 @@ def k1_ptxas(build_log: str) -> list:
                            m.group(1))
             dwb = re.search(r"spiral_conv_dw_bf16_kernelILi(\d+)E",
                             m.group(1))
-            ell = re.search(r"ell_bf16_(vector|scalar)ILb(\d)E", m.group(1))
+            ell = re.search(r"ell_bf16_vectorILi(\d+)ELb(\d)E", m.group(1))
+            ells = re.search(r"ell_bf16_scalarILb(\d)E", m.group(1))
+            bt = re.search(r"spiral_conv_bf16_tile_kernelILb(\d)E",
+                           m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
                     else f"narrow_tile<{nt.group(1)},{nt.group(2)},"
                     f"{nt.group(3)},{nt.group(4)}>" if nt
@@ -298,7 +304,10 @@ def k1_ptxas(build_log: str) -> list:
                     else f"dw_bf16<{dwb.group(1)}>" if dwb
                     else "dw_bf16_sum" if "spiral_conv_dw_bf16_sum"
                     in m.group(1)
-                    else f"ell_bf16_{ell.group(1)}<{ell.group(2)}>" if ell
+                    else f"ell_bf16_vector<{ell.group(1)},{ell.group(2)}>"
+                    if ell
+                    else f"ell_bf16_scalar<{ells.group(1)}>" if ells
+                    else f"bf16_tile<{bt.group(1)}>" if bt
                     else "out_gather_sum_bwd" if "out_gather_sum_bwd_kernel"
                     in m.group(1)
                     else "out_gather_sum" if "out_gather_sum_kernel"
@@ -1665,9 +1674,10 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
                    f32out=False) -> dict:
     """One bf16 conv at one batch size, on bf16 x and the model's weights
     rounded to bf16: K1-bf16 within one bf16 ulp of its twin (K3a, the
-    fp32 output, within K3A_RTOL of the max), two launches bit-equal,
-    timed against the twin and the library form (``index_select`` and one
-    bf16 ``linear``)."""
+    fp32 output through the op's vertex tiles, within K3A_RTOL of the
+    max, and timed beside the untiled kernel it replaced, within
+    K3A_RTOL too), two launches bit-equal, timed against the twin and the
+    library form (``index_select`` and one bf16 ``linear``)."""
     bf16 = torch.bfloat16
     seq, m = op.seq_length, op.num_vertices
     c_in, c_out = conv_widths(conv, op)
@@ -1678,10 +1688,16 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
     table = op.table
     out_dtype = torch.float32 if f32out else None
     kernel = "spiral_conv_f32out" if f32out else "spiral_conv_bf16"
+    tiles = op.tiles if f32out else None
     plan = kernels.plan_spiral_conv(m, batch, seq, c_in, c_out,
-                                    x.data_ptr() % 4 == 0, True, bf16)
+                                    x.data_ptr() % 4 == 0, True, bf16,
+                                    tiles.n_tiles if tiles else 0,
+                                    tiles.max_rows if tiles else 0)
     launch = lambda: kernels.spiral_conv_fwd(            # noqa: E731
+        x, table, w_l, b, out_dtype=out_dtype, tiles=tiles)
+    untiled = lambda: kernels.spiral_conv_fwd(           # noqa: E731
         x, table, w_l, b, out_dtype=out_dtype)
+    earlier_ms = None
     with torch.inference_mode():
         out, again = launch(), launch()
         ref = ops.spiral_conv_plain(w_l, b, x, op, out_dtype)
@@ -1689,8 +1705,14 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
         err = max_err(out.float(), ref.float())
         scale = float(ref.float().abs().max())
         if f32out:
+            check(plan.path == "bf16_tile", f"K3a {name} B={batch}: plan "
+                  f"{plan.path}, not the tiled kernel")
             check(err <= K3A_RTOL * scale, f"K3a {name} B={batch}: max "
                   f"|kernel - plain| {err:.3e} > {K3A_RTOL} x {scale:.3e}")
+            old_err = max_err(untiled(), ref)
+            check(old_err <= K3A_RTOL * scale, f"K3a {name} B={batch}: the "
+                  f"untiled kernel is {old_err:.3e} from the twin")
+            earlier_ms = cuda_ms(torch, untiled, 20)
             ulp = None
         else:
             ulp = ulps(torch, out, ref)
@@ -1716,17 +1738,22 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
     flops = 2.0 * m * batch * seq * c_in * c_out
     b_ms, b_by, t_ops = bound_bf16(nbytes, flops)
     log(f"[8 {kernel} {name} B={batch}] {op.n_src}->{m} {c_in}->{c_out} "
-        f"{plan.path} ({plan.blocks} blocks, {plan.smem} B smem): err "
-        f"{err:.2e} (max|out| {scale:.2e}"
+        f"{plan.path} ({plan.blocks} blocks, {plan.smem} B smem"
+        + (f", tb {plan.tb}, {plan.threads} threads" if tiles else "")
+        + f"): err {err:.2e} (max|out| {scale:.2e}"
         + (f", {ulp:.2f} ulps" if ulp is not None else "")
-        + f"); kernel {ms:.4f} ms, plain {plain_ms:.4f}, library "
-        f"{lib_ms:.4f}, bound {b_ms:.5f} ({b_by}); kernel/library "
-        f"{ms / lib_ms:.2f}")
-    return dict(conv=name, batch=batch, kernel=kernel, path=plan.path,
-                plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
-                c_in=c_in, c_out=c_out, max_abs_err=err, ulps=ulp, ms=ms,
-                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                bound_by=b_by, bytes=nbytes, flops=flops, ops_ms=t_ops)
+        + f"); kernel {ms:.4f} ms"
+        + (f", untiled kernel {earlier_ms:.4f}" if tiles else "")
+        + f", plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
+        f"{b_ms:.5f} ({b_by}); kernel/library {ms / lib_ms:.2f}")
+    rec = dict(conv=name, batch=batch, kernel=kernel, path=plan.path,
+               plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
+               c_in=c_in, c_out=c_out, max_abs_err=err, ulps=ulp, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+               bound_by=b_by, bytes=nbytes, flops=flops, ops_ms=t_ops)
+    if tiles:
+        rec["earlier_ms"] = earlier_ms
+    return rec
 
 
 def mixed_k3b_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
@@ -1954,12 +1981,25 @@ def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
                 ops_ms=t_ops)
 
 
+def octasphere_level0(ops):
+    """The spiral op of phase 7's template's level 0 (the octasphere of
+    ``ENTRY_SUBDIVISIONS``: 16,386 vertices) with its vertex tiles."""
+    from craniofacialsd_vae_tpu_torch.geometry import (extract_spirals,
+                                                       octasphere)
+
+    pos, face = octasphere(ENTRY_SUBDIVISIONS)
+    seq = MODEL_CONFIG["spirals"]["length"][0]
+    return ops.build_spiral_op(extract_spirals(
+        np.asarray(face), np.asarray(pos), seq)).to(DEVICE)
+
+
 def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     """Phase 8 (a): every new kernel at every shape it has on the mixed
     paths, with the flagship model's seeded weights: K1-bf16 at the bf16
     convs and K3b and its backward at the final conv at each batch bucket
     (the step's grid is the bucket B = 16), K3a at the
-    final conv at B = 16, K4-bf16 at the up-pools at each bucket, and at
+    final conv at each bucket on the fixture's and the octasphere's level
+    0 (``ENTRY_SUBDIVISIONS``), K4-bf16 at the up-pools at each bucket, and at
     the step's grid K2-dW-bf16 at every bf16 conv (and the final conv's
     gather-first form) and K4-bf16 or its capped form on every bf16
     backward table. Returns the shapes by kernel."""
@@ -1993,9 +2033,13 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
             ups.append(mixed_k4_shape(torch, kernels, ops, gen, f"up{level}",
                                       up, up.n_cols, batch * c))
         shapes["ell_matmul_bf16"][batch] = ups
-    shapes["spiral_conv_f32out"][BATCH] = [
-        mixed_k1_shape(torch, kernels, ops, gen, "final", *final, BATCH,
-                       f32out=True)]
+    octa = octasphere_level0(ops)
+    for batch in BATCHES:
+        shapes["spiral_conv_f32out"][batch] = [
+            mixed_k1_shape(torch, kernels, ops, gen, mesh, final[0], op,
+                           batch, f32out=True)
+            for mesh, op in (("final", final[1]), ("final_octasphere", octa))]
+    del octa
     shapes["spiral_conv_dw_bf16"][grid] = [
         mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, grid, regs)
         for name, conv, op in bf_convs + [("final",) + final]]
@@ -2005,6 +2049,12 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
             for name, mat, n_src, d, _ in tables]
     shapes["ell_matmul_capped_bf16"][grid] = [e for e in back if e["tiers"]]
     shapes["ell_matmul_bf16_backward"] = [e for e in back if not e["tiers"]]
+    # the same tables at the other buckets' widths: bit-equal, logged
+    shapes["k4_bf16_backward_other"] = {
+        batch: [mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d)
+                for name, mat, n_src, d, dt in step_tables(model, geom, batch)
+                if dt == torch.bfloat16]
+        for batch in BATCHES if batch != grid}
     torch.cuda.empty_cache()
     return shapes
 
@@ -2359,7 +2409,11 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
             rec("ell_matmul_capped_bf16", "mixed_training",
                 shapes["ell_matmul_capped_bf16"][grid], tc),
             rec("spiral_conv_f32out", "mixed_gather_first",
-                shapes["spiral_conv_f32out"][BATCH], gather_first["counts"])]
+                [s for s in shapes["spiral_conv_f32out"][BATCH]
+                 if s["conv"] == "final"], gather_first["counts"])]
+    out[-1]["other_shapes"] = [s for b in BATCHES
+                               for s in shapes["spiral_conv_f32out"][b]
+                               if b != BATCH or s["conv"] != "final"]
     return out
 
 

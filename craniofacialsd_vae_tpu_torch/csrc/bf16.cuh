@@ -1,7 +1,7 @@
 // Helpers shared by the bf16 tensor-core kernels K1-bf16 / K3a
 // (spiral_conv_bf16.cu) and K2-dW-bf16 (spiral_conv_dw_bf16.cu): packing
-// two bf16 values into a 32-bit fragment register, transposing fragment
-// loads from shared memory (ldmatrix .trans) and mma.sync m16n8k16 in
+// two bf16 values into a 32-bit fragment register, fragment loads from
+// shared memory (ldmatrix, plain and .trans) and mma.sync m16n8k16 in
 // bf16 with fp32 accumulators.
 #pragma once
 
@@ -35,6 +35,19 @@ __device__ __forceinline__ void ldsm_x4_trans(uint32_t (&r)[4],
   asm volatile(
       "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
       "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(row)));
+}
+
+// Four 8x8 bf16 matrices from shared memory as stored: lanes 8q..8q+7
+// give the addresses (16 bytes each) of matrix q's 8 rows, and register q
+// of lane (gid, tig) receives that matrix's elements (row gid, columns
+// 2tig and 2tig + 1), the lower in the low half. For a row-major 16x16 A
+// whose matrices are (rows 0-7, depth 0-7), (rows 8-15, depth 0-7),
+// (rows 0-7, depth 8-15), (rows 8-15, depth 8-15), that is mma_bf16's a.
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* row) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
       : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
       : "r"(smem_addr(row)));
 }

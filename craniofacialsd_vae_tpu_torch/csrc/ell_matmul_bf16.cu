@@ -21,14 +21,24 @@
 // round-to-nearest-even, as in the plain twins (ops/sparse.py), so the
 // kernel equals them bit for bit.
 //
-// What bounds it on an H100: bytes (2·K flops per 2-byte output, and the
-// latency of the index load before each gathered row). The tier walk is
-// the one of csrc/ell_matmul.cu (sparse.py::tier_links): the thread that
-// forms row m goes on along link0[m], next_t[...], so no row is written
-// twice and no atomics are needed. Two paths:
+// What bounds it on an H100: bytes (2·K flops per 2-byte output; the
+// level-0 up-pool writes 17.4 MB at B = 16), and before them the latency
+// of two dependent loads per gathered row, the index and then the row.
+// The tier walk is the one of csrc/ell_matmul.cu (sparse.py::tier_links):
+// the thread that forms row m goes on along link0[m], next_t[...], so no
+// row is written twice and no atomics are needed. Two paths:
 //
-// - vector (D % 8 == 0, x and out on 16 bytes): a thread forms 8 columns
-//   of one row from 16-byte loads, D/8 threads (at most 32) along a row;
+// - vector (D % 8 == 0, x and out on 16 bytes): a thread forms 8
+//   columns (one 16-byte piece) of one row, D/8 threads (at most 32)
+//   along a row. K = 3, the up-pools', is compiled apart and fully
+//   unrolled: the row's three indices and weights are loaded, then its
+//   three gathered rows, before the first product, so every load of the
+//   row is in flight at once (the first design walked a run-time K with
+//   one index-then-row pair in flight; PERF.md §6 has both designs'
+//   times). Other K (the transposes, 2 to 27, and the overflow tiers) are
+//   walked four entries a step the same way. Two rows a thread, two
+//   16-byte pieces a thread and evict-first stores of the level-0 output
+//   measured no faster on any table and are not kept;
 // - scalar: a thread forms one column of one row.
 //
 // Padded entries point at row 0 with weight 0 and are computed as the
@@ -42,6 +52,7 @@ namespace {
 
 constexpr int kThreads = 256;
 constexpr int kMaxTiers = 3;
+constexpr int kKC = 4;                 // entries a run-time K step loads
 
 struct Tiers {
   const int* link0;                  // [M]: slot in tier 1, or -1
@@ -75,18 +86,50 @@ __device__ __forceinline__ uint4 store8(const float (&f)[8]) {
   return q;
 }
 
-// sum_k bf16(v[k]) * x[c[k], 8 columns at vector j], fp32, k ascending
-__device__ __forceinline__ void row_sum8(const int* __restrict__ c,
-                                         const float* __restrict__ v, int K,
-                                         const uint4* __restrict__ x, int dw,
-                                         int j, float (&acc)[8]) {
-  for (int k = 0; k < K; ++k) {
-    const float w = round_bf16(__ldg(v + k));
-    float g[8];
-    load8(__ldg(x + (size_t)__ldg(c + k) * dw + j), g);
+// acc = w·g (FIRST) or acc + w·g over 8 columns, each product and each
+// add rounded to fp32
+template <bool FIRST>
+__device__ __forceinline__ void madd8(float (&acc)[8], float w,
+                                      const uint4& q) {
+  float g[8];
+  load8(q, g);
 #pragma unroll
-    for (int i = 0; i < 8; ++i)
-      acc[i] = k == 0 ? __fmul_rn(w, g[i]) : __fadd_rn(acc[i], __fmul_rn(w, g[i]));
+  for (int i = 0; i < 8; ++i)
+    acc[i] = FIRST ? __fmul_rn(w, g[i]) : __fadd_rn(acc[i], __fmul_rn(w, g[i]));
+}
+
+// sum_k bf16(v[k]) * x[c[k], column vector j] over a row's K entries (c
+// and v point at the row), fp32, k ascending, KC entries at a time: a
+// chunk's indices and weights, then its gathered rows, then its products
+// (entries past K are skipped, never added as zeros). KK: K where it is a
+// compile-time constant (the up-pools' 3, one chunk), else 0.
+template <int KK>
+__device__ __forceinline__ void row_sum(const int* __restrict__ c,
+                                        const float* __restrict__ v, int K,
+                                        const uint4* __restrict__ x, int dw,
+                                        int j, float (&acc)[8]) {
+  constexpr int KC = KK ? KK : kKC;
+  if (KK) K = KK;
+  for (int k0 = 0; k0 < K; k0 += KC) {
+    int cc[KC];
+    float w[KC];
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      const int k = KK ? q : min(k0 + q, K - 1);
+      cc[q] = __ldg(c + k);
+      w[q] = round_bf16(__ldg(v + k));
+    }
+    uint4 g[KC];
+#pragma unroll
+    for (int q = 0; q < KC; ++q) g[q] = __ldg(x + (size_t)cc[q] * dw + j);
+#pragma unroll
+    for (int q = 0; q < KC; ++q) {
+      if (k0 + q >= K) break;
+      if (k0 + q == 0)
+        madd8<true>(acc, w[q], g[q]);
+      else
+        madd8<false>(acc, w[q], g[q]);
+    }
   }
 }
 
@@ -103,7 +146,11 @@ __device__ __forceinline__ float row_sum1(const int* __restrict__ c,
   return acc;
 }
 
-template <bool CAPPED>
+// Block (tx, 256 / tx), grid (row groups, column segments of tx); each
+// thread forms column vector j of one row. KK = K where it is a
+// compile-time constant (the up-pools' 3), else 0. CAPPED: the row's
+// overflow tiers are added before it is written.
+template <int KK, bool CAPPED>
 __global__ void __launch_bounds__(kThreads)
 ell_bf16_vector(const Tiers tiers, const int* __restrict__ cols,
                 const float* __restrict__ vals, const uint4* __restrict__ x,
@@ -112,7 +159,7 @@ ell_bf16_vector(const Tiers tiers, const int* __restrict__ cols,
   const int m = blockIdx.x * blockDim.y + threadIdx.y;
   if (j >= dw || m >= M) return;
   float acc[8];
-  row_sum8(cols + (size_t)m * K, vals + (size_t)m * K, K, x, dw, j, acc);
+  row_sum<KK>(cols + (size_t)m * K, vals + (size_t)m * K, K, x, dw, j, acc);
 #pragma unroll
   for (int i = 0; i < 8; ++i) acc[i] = round_bf16(acc[i]);
   if (CAPPED) {
@@ -122,8 +169,8 @@ ell_bf16_vector(const Tiers tiers, const int* __restrict__ cols,
       if (s < 0) break;
       const int Kt = tiers.k[q];
       float t[8];
-      row_sum8(tiers.cols[q] + (size_t)s * Kt, tiers.vals[q] + (size_t)s * Kt,
-               Kt, x, dw, j, t);
+      row_sum<0>(tiers.cols[q] + (size_t)s * Kt,
+                 tiers.vals[q] + (size_t)s * Kt, Kt, x, dw, j, t);
 #pragma unroll
       for (int i = 0; i < 8; ++i)
         acc[i] = round_bf16(__fadd_rn(acc[i], round_bf16(t[i])));
@@ -167,6 +214,8 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<std::uintptr_t>(p) & 15u) == 0;
 }
 
+// The vector path where D % 8 == 0 and x and out lie on 16 bytes, else
+// the scalar path.
 template <bool CAPPED>
 int launch(const Tiers& tiers, const int* cols, const float* vals,
            const void* x, void* out, int M, int K, int D, cudaStream_t s) {
@@ -186,9 +235,14 @@ int launch(const Tiers& tiers, const int* cols, const float* vals,
   while (tx / 2 >= dw) tx /= 2;
   const dim3 block(tx, kThreads / tx);
   const dim3 grid(blocks_along(M, block.y), blocks_along(dw, tx));
-  ell_bf16_vector<CAPPED><<<grid, block, 0, s>>>(
-      tiers, cols, vals, static_cast<const uint4*>(x),
-      static_cast<uint4*>(out), M, K, dw);
+  const uint4* x4 = static_cast<const uint4*>(x);
+  uint4* o4 = static_cast<uint4*>(out);
+  if (K == 3)
+    ell_bf16_vector<3, CAPPED><<<grid, block, 0, s>>>(tiers, cols, vals, x4,
+                                                      o4, M, K, dw);
+  else
+    ell_bf16_vector<0, CAPPED><<<grid, block, 0, s>>>(tiers, cols, vals, x4,
+                                                      o4, M, K, dw);
   return static_cast<int>(cudaGetLastError());
 }
 

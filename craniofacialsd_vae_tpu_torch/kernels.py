@@ -38,7 +38,8 @@ import torch
 
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "ell_matmul_fwd", "ell_matmul_capped", "SpiralPlan",
-           "plan_spiral_conv", "narrow_tile_plan", "spiral_conv_fwd",
+           "plan_spiral_conv", "narrow_tile_plan", "bf16_tile_plan",
+           "spiral_conv_fwd",
            "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan",
            "plan_spiral_conv_dw_bf16",
            "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
@@ -196,13 +197,16 @@ def library() -> ctypes.CDLL:
                                                    i, i, p]
             lib.cfs_spiral_conv_narrow_tile.argtypes = [
                 p] * 9 + [i] * 6 + [ctypes.POINTER(i), p]
+            lib.cfs_spiral_conv_bf16_tile.argtypes = [p] * 9 + [i] * 12 \
+                + [p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
                        lib.cfs_ell_matmul_capped_bf16,
                        lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_dw_bf16,
                        lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
-                       lib.cfs_spiral_conv_narrow_tile):
+                       lib.cfs_spiral_conv_narrow_tile,
+                       lib.cfs_spiral_conv_bf16_tile):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -346,11 +350,14 @@ class SpiralPlan:
     paths; ``narrow_tile`` uses ``rows`` (the source rows a vertex tile
     stages) and ``vec_x``. The bf16 paths (``csrc/spiral_conv_bf16.cu``)
     use ``threads``, ``grid``, ``smem``, ``kp`` (16-deep steps), ``ldw``
-    (W's row stride, bf16 values) and ``nt`` (columns, 8 per tile)."""
+    (W's row stride, bf16 values) and ``nt`` (columns, 8 per tile);
+    ``bf16_tile`` uses ``threads``, ``grid``, ``smem``, ``tb``,
+    ``n_btiles`` and ``rows``, as ``narrow_tile`` does."""
     path: str             # "tc", "tc_pad_k" (C_in < 8), "narrow_tile",
     #                       "narrow_out" (no tiles, another shape, or rows
-    #                       that do not fit), "bf16" or "bf16_elem"
-    #                       (C_in % 16 != 0)
+    #                       that do not fit), "bf16", "bf16_elem"
+    #                       (C_in % 16 != 0) or "bf16_tile" (the final
+    #                       conv's shape, C_out < 8, with tiles)
     threads: int
     grid: tuple           # (row tiles walked, C_out column blocks)
     smem: int             # dynamic shared memory, bytes
@@ -425,13 +432,18 @@ def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
     ``narrow_out``; the rest the tensor-core kernel (C_in < 8: the
     positions that fill a depth of 32 share a stage). Wherever
     ``m·b ≥ 132·16`` the tensor-core grid has at least 132 blocks.
-    ``dtype`` bfloat16: the bf16 kernel (``_plan_bf16``). Raises for a
-    shape that no path takes."""
+    ``dtype`` bfloat16: the tiled bf16 kernel for C_out < 8 where the
+    tiles are given, the shape is the one it is compiled for and their
+    rows fit (``_plan_bf16_tile``), else the bf16 kernel
+    (``_plan_bf16``). Raises for a shape that no path takes."""
     if min(m, b, seq, c_in) < 1:
         raise ValueError(f"spiral conv needs M, B, L, C_in ≥ 1; got "
                          f"{m}, {b}, {seq}, {c_in}")
     if dtype == torch.bfloat16:
-        return _plan_bf16(m, b, seq, c_in, c_out, x_aligned)
+        plan = None
+        if 1 <= c_out < 8 and n_tiles > 0 and tile_rows > 0 and x_aligned:
+            plan = _plan_bf16_tile(b, seq, c_in, n_tiles, tile_rows)
+        return plan or _plan_bf16(m, b, seq, c_in, c_out, x_aligned)
     if dtype != torch.float32:
         raise ValueError(f"spiral conv takes float32 or bfloat16; got "
                          f"{dtype}")
@@ -484,6 +496,51 @@ def _plan_narrow_tile(b, seq, c_in, n_tiles, rows,
             if plan.smem <= cap:
                 return (plan if plan.tb > 4 else dataclasses.replace(
                     plan, threads=128))
+    return None
+
+
+_BF16_TILE_ENTRY = 80         # bytes a staged (row, batch): csrc kTileStride
+_BF16_TILE_VERTS = 64         # most vertices a tile owns: csrc kTileVerts
+_BF16_TILE_FIXED = (4 * _BF16_TILE_VERTS * (9 + 1)  # its local and verts,
+                    + 2 * 9 * 32 * 8)               # W padded to 8 columns
+
+
+def bf16_tile_plan(b, n_tiles, rows, tb, threads) -> SpiralPlan:
+    """The ``bf16_tile`` launch (K3a at the final conv's shape) with
+    ``tb`` batch rows per block, in even batch tiles, and ``threads``
+    threads: one block per vertex tile and batch tile, the tile's
+    ``rows`` source rows of ``tb`` batch rows in shared memory, each
+    entry 80 bytes (32 channels and a 16-byte pad), after the rows of
+    ``local`` and ``verts`` of at most 64 vertices and W."""
+    tb = min(b, tb)
+    tb = _cdiv(b, _cdiv(b, tb))
+    n_bt = _cdiv(b, tb)
+    return SpiralPlan("bf16_tile", threads=threads,
+                      grid=(n_tiles * n_bt, 1),
+                      smem=_round16(_BF16_TILE_FIXED
+                                    + _BF16_TILE_ENTRY * rows * tb), tb=tb,
+                      n_btiles=n_bt, rows=rows)
+
+
+_BF16_TILE_THREADS = 128      # four warps: faster than eight at every tb
+
+
+def _plan_bf16_tile(b, seq, c_in, n_tiles, rows) -> SpiralPlan | None:
+    """``_plan_narrow_tile``'s rule with bf16's half-size rows: the most
+    batch rows per block (16, 8, 4, 2 or 1) whose staged rows let three
+    blocks share an SM, else one block an SM; four warps a block (eight
+    hold two blocks an SM by their registers, and were slower at every
+    batch tile on an H100, PERF.md). None for another shape than the
+    kernel is compiled for (L = 9, C_in = 32) or where not one batch row
+    fits."""
+    if (seq, c_in) != _TILE_SHAPE:
+        return None
+    for cap in (_SMEM_SM // _NARROW_TILE_PER_SM - _SMEM_RESERVED,
+                _SMEM_BLOCK):
+        for tb in (16, 8, 4, 2, 1):
+            plan = bf16_tile_plan(b, n_tiles, rows, tb, _BF16_TILE_THREADS)
+            if plan.smem <= cap:
+                return plan
     return None
 
 
@@ -653,6 +710,27 @@ def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
                       nt=8 * nt)
 
 
+def _tile_ptrs(tiles, table: torch.Tensor, plan: SpiralPlan,
+               device: torch.device) -> tuple:
+    """The pointers of the op's vertex tiles (verts, starts, src,
+    src_off, local) for a tiled plan, after checking that they describe
+    ``table`` in tiles of at most ``plan.rows`` source rows."""
+    if tiles is None:
+        raise ValueError(f"the {plan.path} plan needs the op's tiles")
+    arrays = ((tiles.verts, "verts", 1), (tiles.starts, "starts", 1),
+              (tiles.src, "src", 1), (tiles.src_off, "src_off", 1),
+              (tiles.local, "local", 2))
+    for t, name, ndim in arrays:
+        _require(t, f"tiles.{name}", torch.int32, ndim, device)
+    if (tiles.verts.shape[0] != table.shape[0]
+            or tiles.local.shape != table.shape
+            or tiles.src_off.shape[0] != tiles.n_tiles + 1
+            or tiles.max_rows > plan.rows):
+        raise ValueError(f"tiles do not describe table "
+                         f"{tuple(table.shape)} in {plan.rows}-row tiles")
+    return tuple(_ptr(t) for t, _, _ in arrays)
+
+
 def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
                     w_l: torch.Tensor, b: torch.Tensor,
                     plan: SpiralPlan | None = None,
@@ -662,8 +740,8 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``w_l [L, C_in, C_out]``;
     returns ``[M, B, C_out]``. ``plan`` defaults to
     ``plan_spiral_conv``'s (with ``tiles``, the op's ``ops.SpiralTiles``,
-    for C_out < 8: the ``narrow_tile`` kernel reads the table through
-    them); the kernel rejects a plan it cannot run.
+    for C_out < 8: the ``narrow_tile`` and ``bf16_tile`` kernels read the
+    table through them); the kernel rejects a plan it cannot run.
 
     bf16 ``x`` (with ``w_l`` and ``b`` bf16): K1-bf16, an fp32
     accumulator from ``b`` rounded to bf16 once; with ``out_dtype``
@@ -691,47 +769,45 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     if n_src == 0 or seq == 0 or c_in == 0:
         raise ValueError("spiral conv needs source rows, positions and "
                          "input channels")
+    n_tiles = tiles.n_tiles if tiles else 0
+    tile_rows = tiles.max_rows if tiles else 0
     if dtype == torch.bfloat16:
         if plan is None:
             plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
-                                    x.data_ptr() % 4 == 0, True, dtype)
+                                    x.data_ptr() % 4 == 0, True, dtype,
+                                    n_tiles, tile_rows)
         if not plan.path.startswith("bf16"):
             raise ValueError(f"plan path {plan.path!r} is not a bf16 path")
-        _launch("spiral_conv_f32out" if f32out else plan.kernel,
-                library().cfs_spiral_conv_bf16, dev, _ptr(x), _ptr(table),
-                _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
-                plan.nt // 8, int(plan.path == "bf16_elem"), plan.kp,
-                plan.ldw, plan.blocks, plan.smem, int(f32out))
+        name = "spiral_conv_f32out" if f32out else plan.kernel
+        if plan.path == "bf16_tile":
+            if tiles is not None and tiles.max_verts > _BF16_TILE_VERTS:
+                raise ValueError(f"tiles of {tiles.max_verts} vertices: the "
+                                 f"bf16_tile kernel takes at most "
+                                 f"{_BF16_TILE_VERTS}")
+            _launch(name, library().cfs_spiral_conv_bf16_tile, dev, _ptr(x),
+                    *_tile_ptrs(tiles, table, plan, dev), _ptr(w_l), _ptr(b),
+                    _ptr(out), m, seq, bsz, c_in, c_out, n_tiles, plan.rows,
+                    plan.tb, plan.n_btiles, plan.threads, plan.smem,
+                    int(f32out))
+            return out
+        _launch(name, library().cfs_spiral_conv_bf16, dev, _ptr(x),
+                _ptr(table), _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz,
+                c_in, c_out, plan.nt // 8, int(plan.path == "bf16_elem"),
+                plan.kp, plan.ldw, plan.blocks, plan.smem, int(f32out))
         return out
     if plan is None:
         plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
                                 x.data_ptr() % 16 == 0,
                                 w_l.data_ptr() % 16 == 0,
-                                n_tiles=tiles.n_tiles if tiles else 0,
-                                tile_rows=tiles.max_rows if tiles else 0)
+                                n_tiles=n_tiles, tile_rows=tile_rows)
     if plan.path.startswith("bf16"):
         raise ValueError(f"plan path {plan.path!r} needs bf16 x")
     fields = plan.as_ints()
     if plan.path == "narrow_tile":
-        if tiles is None:
-            raise ValueError("the narrow_tile plan needs the op's tiles")
-        n_tiles = tiles.n_tiles
-        for t, name, ndim in ((tiles.verts, "verts", 1),
-                              (tiles.starts, "starts", 1),
-                              (tiles.src, "src", 1),
-                              (tiles.src_off, "src_off", 1),
-                              (tiles.local, "local", 2)):
-            _require(t, f"tiles.{name}", torch.int32, ndim, dev)
-        if (tiles.verts.shape[0] != m or tiles.local.shape != (m, seq)
-                or tiles.src_off.shape[0] != n_tiles + 1
-                or tiles.max_rows > plan.rows):
-            raise ValueError(f"tiles do not describe table "
-                             f"{tuple(table.shape)} in {plan.rows}-row tiles")
         _launch(plan.kernel, library().cfs_spiral_conv_narrow_tile, dev,
-                _ptr(x), _ptr(tiles.verts), _ptr(tiles.starts),
-                _ptr(tiles.src), _ptr(tiles.src_off), _ptr(tiles.local),
-                _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
-                n_tiles, (ctypes.c_int * len(fields))(*fields))
+                _ptr(x), *_tile_ptrs(tiles, table, plan, dev), _ptr(w_l),
+                _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out, n_tiles,
+                (ctypes.c_int * len(fields))(*fields))
         return out
     _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),

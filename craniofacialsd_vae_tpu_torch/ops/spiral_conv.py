@@ -30,8 +30,10 @@ the identity columns' products in bf16, gathers ``dg`` with the capped
 K4-bf16, sums ``dW`` (K2-dW-bf16) and ``db`` in fp32 and rounds each
 once. Autograd through the casts hands fp32 gradients to the fp32
 parameters. The final decoder conv returns fp32: gather-first through
-``_SpiralConvF32Out`` (K3a: the accumulator unrounded; its backward
-rounds ``dy`` to bf16 once), or matmul-first through
+``_SpiralConvF32Out`` (K3a: the accumulator unrounded, on the tensor
+cores from each vertex tile's rows staged once in shared memory,
+``SpiralOp.tiles``; its backward rounds ``dy`` to bf16 once), or
+matmul-first through
 ``spiral_conv_out_gather`` (one fp32 product of the bf16 values laid out
 position-major, ``[L, C_out, N, B]``, then kernel K3b's gather-sum,
 ``csrc/out_gather_sum.cu``, whose backward is one launch of
@@ -66,17 +68,19 @@ _TILE_VERTICES = 64    # most vertices a K1 narrow tile owns
 
 @dataclass
 class SpiralTiles:
-    """K1 narrow's vertex tiles. Tile ``t`` owns the output vertices
-    ``verts[starts[t]:starts[t + 1]]`` and reads the distinct source rows
-    ``src[src_off[t]:src_off[t + 1]]`` (sorted, at most ``max_rows``);
-    ``local [M, L]`` holds, in tile order, each vertex's spiral entries as
-    indices into its tile's list. All int32."""
+    """K1 narrow's and K3a's vertex tiles. Tile ``t`` owns the output
+    vertices ``verts[starts[t]:starts[t + 1]]`` and reads the distinct
+    source rows ``src[src_off[t]:src_off[t + 1]]`` (sorted, at most
+    ``max_rows``, and at most ``max_verts`` vertices); ``local [M, L]``
+    holds, in tile order, each vertex's spiral entries as indices into
+    its tile's list. All int32."""
     verts: torch.Tensor            # [M]
     starts: torch.Tensor           # [T + 1]
     src: torch.Tensor              # [sum of the tiles' rows]
     src_off: torch.Tensor          # [T + 1]
     local: torch.Tensor            # [M, L]
     max_rows: int
+    max_verts: int
 
     @property
     def n_tiles(self) -> int:
@@ -85,7 +89,7 @@ class SpiralTiles:
     def to(self, device) -> "SpiralTiles":
         return SpiralTiles(*(t.to(device) for t in (
             self.verts, self.starts, self.src, self.src_off, self.local)),
-            max_rows=self.max_rows)
+            max_rows=self.max_rows, max_verts=self.max_verts)
 
     def table(self) -> torch.Tensor:
         """The ``[M, L]`` spiral table the lists describe."""
@@ -141,7 +145,8 @@ def build_spiral_tiles(spirals: np.ndarray) -> SpiralTiles:
     return SpiralTiles(
         verts=i32(verts), starts=i32(starts), src=i32(np.concatenate(srcs)),
         src_off=i32(src_off), local=i32(np.concatenate(local)),
-        max_rows=max(len(u) for u in srcs))
+        max_rows=max(len(u) for u in srcs),
+        max_verts=int(np.diff(starts).max()))
 
 
 _BWD_TIERS = 3                 # capped_ell's max_tiers
@@ -242,7 +247,8 @@ class SpiralOp:
     position, whose rows are ``x`` itself), and ``inv_tables`` the combined
     transposes over the flat ``(l, m)`` index space that a backward pass
     reads, one per column group. ``tiles`` are K1 narrow's vertex tiles
-    and ``out_bwd`` K3b's backward table, both built with the op."""
+    and ``out_bwd`` K3b's backward table, both built with the op; K3a's
+    tiled kernel reads the tiles too."""
     table: torch.Tensor            # [M, L] int32
     gathers: list                  # L × (GatherRows | None)
     inv_tables: list               # per column group: CappedEll
@@ -454,7 +460,8 @@ class _SpiralConvF32Out(torch.autograd.Function):
         if not x.is_cuda:
             return spiral_conv_plain(w_l, b, x, op, torch.float32)
         return kernels.spiral_conv_fwd(x, op.table, w_l, b,
-                                       out_dtype=torch.float32)
+                                       out_dtype=torch.float32,
+                                       tiles=op.tiles)
 
     @staticmethod
     def backward(ctx, dy):

@@ -910,6 +910,151 @@ def test_capped_ell_apply_bf16_on_the_backward_tables(card_training_geometry,
         assert torch.equal(got, _sequential_twin(mat, x2))
 
 
+@pytest.mark.parametrize("m,n,k,d,offset", [
+    (17039, 4260, 3, 512, 0),   # up0 at B = 16
+    (1001, 300, 3, 64, 0),      # M not a multiple of a block's rows
+    (999, 300, 2, 1024, 0),     # run-time K, two column segments
+    (777, 300, 5, 96, 0),       # run-time K, D/8 not a power of two
+    (333, 90, 3, 8, 0),         # one thread a row
+    (333, 90, 3, 16, 0),        # two threads a row
+    (333, 90, 3, 24, 0),        # three of four threads a row
+    (200, 70, 4, 7, 0),         # D % 8 != 0: scalar path
+    (100, 40, 3, 16, 1),        # unaligned x view: scalar path
+])
+def test_ell_matmul_bf16_shapes_equal_plain(m, n, k, d, offset):
+    """K4-bf16 at the up-pools' compiled K = 3 and at run-time K, at
+    widths of fewer than 32 threads a row and off 16 bytes: bit-equal to
+    the twin, one launch each."""
+    dev = _card()
+    g = _gen(dev, m + d)
+    cols = torch.randint(0, n, (m, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((m, k), generator=g, device=dev)
+    x2 = _bf16_rows(dev, g, n, d, offset)
+    want = ops.ell_matmul_plain(cols, vals, x2)
+    kernels.launches.reset()
+    got = kernels.ell_matmul_fwd(cols, vals, x2)
+    assert kernels.launches.snapshot()["ell_matmul_bf16"] == 1
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("m,n,d,hubs", [
+    (20000, 5000, 512, (900, 300, 60)),      # a conv's dg width at B = 16
+    (1001, 500, 24, (300, 90, 40)),          # three threads a row
+    (1000, 500, 96, (200,)),                 # D/8 not a power of two
+])
+def test_ell_capped_bf16_widths_equal_plain(m, n, d, hubs):
+    """The capped K4-bf16 at a conv's dg width, at fewer than 32 threads
+    a row and at a width of 12 vectors: bit-equal to K4's twin followed
+    by one bf16 index_add per tier."""
+    dev = _card()
+    rng = np.random.default_rng(m + d)
+    rows = np.concatenate([np.repeat(np.arange(len(hubs)) * 3 + 1, hubs),
+                           rng.integers(0, m, 3 * m)])
+    cols = rng.integers(0, n, len(rows))
+    mat = sparse.capped_ell(rows, cols, rng.normal(size=len(rows)), m).to(dev)
+    assert mat.tiers
+    x2 = _bf16_rows(dev, _gen(dev, m), n, d)
+    want = _sequential_twin(mat, x2)
+    got = kernels.ell_matmul_capped(mat.cols, mat.vals, mat.tiers, mat.links,
+                                    x2)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _k3a_matches_plain(dev, op, b, tiles=True, offset=0, c_in=32, seed=3):
+    """K3a (fp32 out) within 1e-5 of the max of its twin, two launches
+    bit-equal, and the bf16 output of the same kernel within one bf16
+    ulp; C_in -> 3 channels, with the op's tiles or without. Returns the
+    plan."""
+    g = _gen(dev, seed + b)
+    seq = op.seq_length
+    base = torch.randn(op.n_src * b * c_in + offset, generator=g,
+                       device=dev).to(BF16)
+    x = base[offset:].view(op.n_src, b, c_in)
+    w_l = (0.2 * torch.randn((seq, c_in, 3), generator=g,
+                             device=dev)).to(BF16)
+    bias = torch.randn(3, generator=g, device=dev).to(BF16)
+    t = op.tiles if tiles else None
+    kernels.launches.reset()
+    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias,
+                                  out_dtype=torch.float32, tiles=t)
+    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias,
+                                    out_dtype=torch.float32, tiles=t)
+    rounded = kernels.spiral_conv_fwd(x, op.table, w_l, bias, tiles=t)
+    counts = kernels.launches.snapshot()
+    assert counts["spiral_conv_f32out"] == 2
+    assert counts["spiral_conv_bf16"] == 1
+    ref = ops.spiral_conv_plain(w_l, bias, x, op, torch.float32)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.float32 and rounded.dtype == BF16
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+    assert torch.equal(out, again)
+    _within_ulp(rounded, ops.spiral_conv_plain(w_l, bias, x, op))
+    return kernels.plan_spiral_conv(
+        op.num_vertices, b, seq, c_in, 3, x.data_ptr() % 4 == 0, True, BF16,
+        t.n_tiles if t else 0, t.max_rows if t else 0)
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 16])
+@pytest.mark.parametrize("mesh", ["fixture", "octasphere"])
+def test_k3a_tiled_on_the_level0_meshes(card_geometry, octasphere_level0,
+                                        mesh, b):
+    """K3a's tiled kernel on the fixture's and the octasphere's level 0
+    (B = 3: a partial batch tile where the tile takes fewer rows)."""
+    dev = _card()
+    op = (card_geometry.spirals[0] if mesh == "fixture"
+          else octasphere_level0.to(dev))
+    plan = _k3a_matches_plain(dev, op, b)
+    assert plan.path == "bf16_tile" and plan.rows >= op.tiles.max_rows
+
+
+def test_k3a_tiled_with_4_byte_copies(card_geometry):
+    """x on 4 bytes but not on 16: the tiled kernel copies 4 bytes at a
+    time; x on 2 bytes takes the element path."""
+    dev = _card()
+    op = card_geometry.spirals[0]
+    assert _k3a_matches_plain(dev, op, 4, offset=2).path == "bf16_tile"
+    assert _k3a_matches_plain(dev, op, 4, offset=1).path == "bf16_elem"
+
+
+def test_k3a_gather_first_conv_launches_the_tiled_kernel(card_geometry):
+    """``ops.spiral_conv(..., out_dtype=float32)`` on bf16 x (the
+    gather-first final conv) goes through the tiled kernel, once."""
+    dev = _card()
+    op = card_geometry.spirals[0]
+    g = _gen(dev, 5)
+    params = {"w": 0.1 * torch.randn((9 * 32, 3), generator=g, device=dev),
+              "b": torch.randn(3, generator=g, device=dev)}
+    x = torch.randn((op.n_src, 16, 32), generator=g, device=dev).to(BF16)
+    kernels.launches.reset()
+    out = ops.spiral_conv(params, x, op, out_dtype=torch.float32)
+    assert kernels.launches.snapshot()["spiral_conv_f32out"] == 1
+    ref = ops.spiral_conv_plain(params["w"].to(BF16).view(9, 32, 3),
+                                params["b"].to(BF16), x, op, torch.float32)
+    torch.cuda.synchronize()
+    assert float((out - ref).abs().max()) <= 1e-5 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("seq,c_in", [(9, 16), (7, 32), (9, 64)])
+def test_k3a_other_shapes_keep_the_mma_path(seq, c_in):
+    """With tiles, at another shape than the tiled kernel's (9 positions
+    of 32 channels), K3a keeps the bf16 kernel's path."""
+    dev = _card()
+    rng = np.random.default_rng(seq * c_in)
+    op = ops.build_spiral_op(rng.integers(0, 3000, (3000, seq))).to(dev)
+    assert _k3a_matches_plain(dev, op, 4, c_in=c_in).path == "bf16"
+
+
+def test_k3a_untiled_mma_path_still_matches(card_geometry):
+    """The untiled bf16 kernel, K3a's path before the tiles and still the
+    path without them, at the final conv."""
+    dev = _card()
+    plan = _k3a_matches_plain(dev, card_geometry.spirals[0], 16, tiles=False)
+    assert plan.path == "bf16"
+
+
 def _bf16_conv_matches_plain(dev, op, b, c_in, c_out, seed=1):
     """K1-bf16 within one bf16 ulp of its twin, K3a (fp32 out) within
     1e-5 of the max (fp32 sums in another order), two launches
@@ -1098,6 +1243,13 @@ def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
                                 kernels.plan_spiral_conv(6, 2, 3, 4, 5))
     with pytest.raises(ValueError):                      # fp32 x, bf16 out
         kernels.spiral_conv_fwd(x3, table, w, b, out_dtype=BF16)
+    with pytest.raises(ValueError):                      # a tiled plan, no tiles
+        kernels.spiral_conv_fwd(
+            torch.randn(6, 2, 32, device=dev).to(BF16),
+            torch.zeros(6, 9, dtype=torch.int32, device=dev),
+            torch.zeros(9, 32, 3, device=dev).to(BF16),
+            torch.zeros(3, device=dev).to(BF16),
+            kernels.bf16_tile_plan(2, 1, 6, 2, 128), torch.float32)
     dy = torch.randn(6, 2, 5, device=dev)
     with pytest.raises(ValueError):
         kernels.spiral_conv_dw(x3.to(BF16), table, dy)   # dy not bf16

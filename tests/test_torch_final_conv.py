@@ -1,7 +1,8 @@
 """The final decoder conv's data paths (plain versions, CPU) against the
 JAX package on the same numpy inputs: the matmul-first conv of the
 ``mixed`` policy (K3b, with ``u`` laid out ``[L, O, N, B]``) and its
-backward table, and K1 narrow's vertex tiles.
+backward table, the gather-first bf16 conv (K3a) and the vertex tiles
+that K1 narrow and K3a read.
 
 Inputs are rounded to bf16 once in numpy-land where the policy takes
 bf16, so both packages see the same bits. Tolerances, each with its
@@ -14,7 +15,8 @@ reason:
   a bf16 tie;
 - the backward table's twin bit-equal to the per-position transposes:
   the same operations in the same order;
-- K1 narrow's fp32 twin within 1e-5 of JAX's max (fp32 summation order).
+- K1 narrow's fp32 twin within 1e-5 of JAX's max (fp32 summation order);
+- K3a's twin (fp32 sums of bf16 products) within 1e-5 of JAX's max.
 """
 
 import importlib
@@ -29,6 +31,8 @@ import jax.numpy as jnp
 from craniofacialsd_vae_tpu import ops as jops
 from craniofacialsd_vae_tpu.ops.spiral_conv import \
     _spiral_conv_core as jax_conv_core
+from craniofacialsd_vae_tpu.ops.spiral_conv import \
+    _spiral_conv_core_f32out as jax_conv_core_f32out
 from craniofacialsd_vae_tpu_torch import kernels
 from craniofacialsd_vae_tpu_torch import ops as tops
 from craniofacialsd_vae_tpu_torch.geometry import (extract_spirals,
@@ -288,6 +292,84 @@ def test_narrow_twin_matches_jax(fixture_level0, c_out):
     _close(got, want, F32_RTOL)
 
 
+# ----------------------------------------- K3a, the gather-first bf16 conv
+@pytest.mark.parametrize("b", [1, 3, 4])
+def test_gather_first_f32out_matches_jax_on_the_octasphere(
+        octasphere_level0, b):
+    """K3a's path (``spiral_conv(..., out_dtype=float32)`` on bf16 x, the
+    final conv when ``final_out_gather`` is off) against JAX
+    ``_spiral_conv_core_f32out`` on the octasphere's level 0, 32 -> 3
+    channels; the op the port builds carries the tiles the card's tiled
+    kernel reads."""
+    table = octasphere_level0
+    n, seq = table.shape
+    rng = np.random.default_rng(40 + b)
+    w = _bf16(_rand(rng, seq * 32, 3) * 0.1)
+    bias = _bf16(_rand(rng, 3))
+    x = _bf16(_rand(rng, n, b, 32))
+    want = jax_conv_core_f32out(
+        jnp.asarray(w.reshape(seq, 32, 3), jnp.bfloat16),
+        jnp.asarray(bias, jnp.bfloat16), jnp.asarray(x, jnp.bfloat16),
+        jops.build_spiral_op(table))
+    op = tops.build_spiral_op(table)
+    assert kernels.plan_spiral_conv(
+        n, b, seq, 32, 3, True, True, BF16, op.tiles.n_tiles,
+        op.tiles.max_rows).path == "bf16_tile"
+    got = tops.spiral_conv({"w": torch.from_numpy(w),
+                            "b": torch.from_numpy(bias)},
+                           torch.from_numpy(x).to(BF16), op, torch.float32)
+    assert got.dtype == torch.float32 and got.shape == (n, b, 3)
+    _close(got, want, F32_RTOL)
+
+
+def _tile_launch_rows(plan, tiles, b):
+    """The blocks of a ``bf16_tile`` launch as the kernel walks them: for
+    each block (tile, batch tile) the 16-row tiles of its (vertex, batch)
+    rows, vertex-major, each row's staged entries ``local[v, l]`` mapped
+    back to source rows, and the output row it writes. Returns
+    ``[(vertex, batch, source rows)]`` and the most staged bytes."""
+    verts, starts, src, src_off, local = (t.numpy() for t in (
+        tiles.verts, tiles.starts, tiles.src, tiles.src_off, tiles.local))
+    out, staged = [], 0
+    for blk in range(plan.grid[0]):
+        t, bt = divmod(blk, plan.n_btiles)
+        b0 = bt * plan.tb
+        tb = min(plan.tb, b - b0)
+        s0, rows = src_off[t], src_off[t + 1] - src_off[t]
+        staged = max(staged, rows * plan.tb * 80)
+        v0, nv = starts[t], starts[t + 1] - starts[t]
+        for r in range(nv * tb):
+            v, bb = divmod(r, tb)
+            assert local[v0 + v].max() < rows
+            out.append((verts[v0 + v], b0 + bb, src[s0 + local[v0 + v]]))
+    return out, staged
+
+
+@pytest.mark.parametrize("b", [16, 4, 1])
+@pytest.mark.parametrize("name", ["fixture_level0", "octasphere_level0"])
+def test_bf16_tile_launch_reads_the_table(request, name, b):
+    """The tiled K3a launch on both hierarchies' level 0, walked as the
+    kernel walks it: every (vertex, batch) output written once, each from
+    the source rows ``op.table`` names, every block's staged rows within
+    its shared memory."""
+    table = request.getfixturevalue(name)
+    m = len(table)
+    tiles = tops.build_spiral_op(table).tiles
+    plan = kernels.plan_spiral_conv(m, b, 9, 32, 3, True, True, BF16,
+                                    tiles.n_tiles, tiles.max_rows)
+    assert plan.path == "bf16_tile"
+    rows, staged = _tile_launch_rows(plan, tiles, b)
+    assert staged <= plan.smem
+    assert len(rows) == m * b
+    assert len({(v, bb) for v, bb, _ in rows}) == m * b
+    for v, bb, srcs in rows[::97]:
+        assert np.array_equal(srcs, table[v])
+    got = np.zeros_like(table)
+    for v, _, srcs in rows:
+        got[v] = srcs
+    assert np.array_equal(got, table)
+
+
 # ------------------------------------------------------------ the plans
 @pytest.mark.parametrize("m,b,c_out", [
     (17039, 16, 3), (17039, 4, 3), (17039, 1, 3), (16386, 16, 3),
@@ -313,6 +395,52 @@ def test_narrow_tile_plan_fits_the_kernel(m, b, c_out):
     assert plan.threads == (256 if plan.tb > 4 else 128)
     ints = plan.as_ints()
     assert ints[0] == 3 and ints[-1] == plan.rows
+
+
+@pytest.mark.parametrize("b", [16, 4, 1, 3, 20])
+@pytest.mark.parametrize("name", ["fixture_level0", "octasphere_level0"])
+def test_bf16_tile_plan_fits_the_kernel(request, name, b):
+    """K3a's plan for the final conv (9 positions of 32 channels, 3 out)
+    with the op's tiles on both hierarchies: the tiled kernel, one block
+    per tile and batch tile, the most batch rows (at most 16, in even
+    tiles) whose 80-byte staged entries let three blocks share an SM
+    (8 at B = 16), four warps a block; a float32 conv keeps
+    ``narrow_tile``."""
+    table = request.getfixturevalue(name)
+    m = len(table)
+    tiles = tops.build_spiral_op(table).tiles
+    plan = kernels.plan_spiral_conv(m, b, 9, 32, 3, True, True, BF16,
+                                    tiles.n_tiles, tiles.max_rows)
+    assert plan.path == "bf16_tile" and plan.kernel == "spiral_conv_bf16"
+    assert plan.rows == tiles.max_rows and plan.threads == 128
+    assert 1 <= plan.tb <= min(b, 16) and plan.n_btiles == -(-b // plan.tb)
+    assert plan.grid == (tiles.n_tiles * plan.n_btiles, 1)
+    assert tiles.max_verts <= 64
+    assert 2560 + 4608 + 80 * plan.rows * plan.tb <= plan.smem \
+        <= 233472 // 3 - 1024
+    assert plan.smem % 16 == 0
+    if b == 16:
+        assert plan.tb == 8
+    wider = kernels.bf16_tile_plan(b, tiles.n_tiles, tiles.max_rows,
+                                   2 * plan.tb, 128)
+    assert wider.tb == plan.tb or wider.smem > 233472 // 3 - 1024
+    assert kernels.plan_spiral_conv(
+        m, b, 9, 32, 3, n_tiles=tiles.n_tiles,
+        tile_rows=tiles.max_rows).path == "narrow_tile"
+
+
+def test_bf16_plan_without_tiles_or_at_another_shape():
+    """Without tiles, with x off 4 bytes, at another shape than the tiled
+    kernel's (9 positions of 32 channels) or at C_out >= 8, the bf16
+    planner keeps the untiled kernel (``_plan_bf16``)."""
+    assert kernels.plan_spiral_conv(3000, 16, 9, 32, 3, True, True,
+                                    BF16).path == "bf16"
+    assert kernels.plan_spiral_conv(3000, 16, 9, 32, 3, False, True, BF16,
+                                    50, 64).path == "bf16_elem"
+    for seq, c_in, c_out in ((9, 16, 3), (9, 64, 3), (7, 32, 3),
+                             (9, 32, 8), (9, 32, 32)):
+        assert kernels.plan_spiral_conv(3000, 16, seq, c_in, c_out, True,
+                                        True, BF16, 50, 64).path == "bf16"
 
 
 def test_narrow_plan_without_tiles_or_at_another_shape():

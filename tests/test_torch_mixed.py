@@ -149,6 +149,43 @@ def test_ell_matmul_bf16_matches_jax(m, n, k, d):
     _within_ulp(got, want)
 
 
+_FIXTURE = os.path.join(os.path.dirname(__file__), "fixtures",
+                        "geometry.npz")
+
+
+@pytest.fixture(scope="module")
+def fixture_up_pools():
+    """The fixture's four up-pools (level l+1 -> l) as COO arrays."""
+    return [(u.rows, u.cols, u.vals, u.shape)
+            for u in load_bundle(_FIXTURE).up]
+
+
+@pytest.mark.parametrize("level", [0, 1, 2, 3])
+@pytest.mark.parametrize("m", [256, 301])
+def test_ell_matmul_bf16_on_the_fixture_up_pools_bit_equal_to_jax(
+        fixture_up_pools, level, m):
+    """K4-bf16's twin on the fixture's real up-pool tables (K = 3, the
+    kernel's compiled case), cut to their first ``m`` rows (301: odd, a
+    block's last rows past M), bit for bit against JAX
+    ``ell_matmul_raw`` on bf16 rows at B = 3 of 32 channels."""
+    rows, cols, vals, (n_rows, n_cols) = fixture_up_pools[level]
+    keep = rows < min(m, n_rows)
+    mat_t = tsparse.from_coo(rows[keep], cols[keep], vals[keep],
+                             (min(m, n_rows), n_cols), with_transpose=False)
+    mat_j = jsparse.from_coo(rows[keep], cols[keep], vals[keep],
+                             (min(m, n_rows), n_cols))
+    assert mat_t.cols.shape[1] == 3
+    np.testing.assert_array_equal(mat_t.cols.numpy(), np.asarray(mat_j.cols))
+    rng = np.random.default_rng(level * 1000 + m)
+    x = _bf16(_rand(rng, n_cols, 3, 32))
+    want = jsparse.ell_matmul_raw(mat_j.cols, mat_j.vals,
+                                  jnp.asarray(x, jnp.bfloat16))
+    got = tsparse.ell_matmul_raw(mat_t.cols, mat_t.vals,
+                                 torch.from_numpy(x).to(BF16))
+    assert got.dtype == BF16 and got.shape == (min(m, n_rows), 3, 32)
+    np.testing.assert_array_equal(_np(got), _np(want))
+
+
 def test_capped_ell_apply_bf16_matches_jax():
     """A table with overflow tiers: the main sum, each tier's sum and the
     landing rounded where JAX rounds them; the fused kernel's walk twin
