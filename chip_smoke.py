@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving and training paths on one
-NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training and diagnosis paths
+on one NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -84,12 +84,41 @@ them or outside a checkout. Phases, each of which raises on a fault:
    phase 5's; the path of ``final_out_gather: false`` (K3a), counted;
    (d) ``train.main`` under ``mixed`` for 2 epochs on phase 7's
    workspace, resumed bit for bit; one ``{"phase": "mixed", ...}`` line.
+   Phases 7 and 8's ``train.main`` also fit the classifier zoo and write
+   ``classifiers.npz`` and ``z_stats.npz`` (fit time and the four
+   validation accuracies recorded);
+9. diagnosis: K8 (``k8_fwd`` both directions, ``k8_bwd``) at the fit's
+   shapes (16 restarts of 4,097 points against 8,192) and at one restart,
+   against its twins (distances within K8_D_RTOL of the largest, argmins
+   where the best two are apart, gradients within K8_G_RTOL card vs
+   host), timed against the twins, the bound and ``torch.cdist`` with
+   both minima; then each of phase 7's (fp32) and phase 8's (mixed) run
+   dirs served by ``DiagnosisService.from_run_dir`` on the card, counted:
+   ``diagnose`` at 1, 3, 16 and 20 scans and with 32 posterior draws,
+   ``saliency`` at 4, one ``plan`` and one ``fit`` of a 32,768-point
+   unregistered scan (250 iterations, 16 restarts); the diagnose
+   latencies, the fit's kernels and device time per iteration; the same
+   requests on the host (the fit at FIT_PARITY_ITERATIONS on both):
+   fp32 labels equal, posteriors, Mahalanobis and plan latents within
+   DIAG_RTOL, saliency within SALIENCY_RTOL of its max, the fit's chamfer
+   within FIT_RTOL with the same best restart; mixed labels equal, the
+   fit's chamfer and the saliency within MIXED_FIT_RTOL; the counted
+   250-iteration fit no worse than the held 10-iteration one; then every
+   other kernel of each path at each of its shapes there (the served
+   model's convs at every encode and decode bucket, its up-pools, the
+   transposes of saliency's backward to the data at B = 4 and of the
+   fit's backward to z at R = 16) against its twin and timed, with the
+   launches those shapes account for equal to the counted run's, kernel
+   for kernel; the HTTP entry point once (``POST /diagnose``, ``GET
+   /healthz``); one ``{"phase": "diagnosis", ...}`` line.
 
 The kernels' record holds one entry per kernel and path (``serving``,
 ``training``, ``train_entry``, ``mixed_serving``, ``mixed_training``,
-``mixed_gather_first``), each timed over the shapes of that path's
-launches. The last three lines of standard output are the kernels' JSON
-record, the nvidia-smi line and ``{"ok": true, "device": {...}}``.
+``mixed_gather_first``, ``diagnosis``, ``mixed_diagnosis``), each timed
+over the shapes of that path's launches (on the diagnosis paths each
+distinct shape once; every shape carries its launches). The last three
+lines of standard output are the kernels' JSON record, the nvidia-smi
+line and ``{"ok": true, "device": {...}}``.
 ``--json`` also writes every measurement (per shape, per request size,
 the profiles) to PATH. Nothing here imports JAX or the JAX package.
 """
@@ -181,12 +210,64 @@ MIXED_VS_FP32_RTOL = 5e-2   # mixed vs fp32 answers: the JAX package's own
 MIXED_COSINE = 0.999    # the whole gradient's cosine, the JAX package's bar
 # phase 8: the flagship configuration's model and optimisation sections
 FLAGSHIP = "craniofacial.yaml"
+# phase 9: the diagnosis path on phases 7's and 8's run dirs
+FIT_SCAN_POINTS = 8192 * 4      # the intake's scan: [::4] buckets to 8,192
+FIT_GEN_POINTS = 4097           # the octasphere's 16,386 vertices at [::4]
+FIT_ITERATIONS = 250
+FIT_RESTARTS = 16
+FIT_PARITY_ITERATIONS = 10      # the fit held card vs host (the host's
+#                                 loop at full width takes seconds a step)
+FIT_PROFILE_ITERATIONS = 5
+DIAG_SAMPLES = 32
+SALIENCY_BATCH = 4
+K8_OPS_PER_PAIR = 7             # three FMAs (6 flops) and a compare
+K8_BWD_OPS_PER_POINT = 10       # a difference, its scale and the sum
+K8_D_RTOL = 1e-5                # K8 vs twin, against max d: another FMA
+#                                 order than the twin's expansion
+K8_G_RTOL = 1e-4                # K8's gradients, against their max
+DIAG_RTOL = 1e-4                # card vs host: posteriors, Mahalanobis,
+#                                 uncertainty statistics, plan latents
+SALIENCY_RTOL = 1e-3            # card vs host saliency, against its max
+FIT_RTOL = 1e-3                 # card vs host fit chamfer (fp32)
+MIXED_FIT_RTOL = 5e-2           # card vs host fit chamfer and saliency
+#                                 (mixed): the JAX package's tolerance for
+#                                 the policy
 FP32_KERNELS = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
 MIXED_KERNELS = ("spiral_conv_bf16", "spiral_conv_f32out",
                  "spiral_conv_dw_bf16", "ell_matmul_bf16",
                  "ell_matmul_capped_bf16", "out_gather_sum",
                  "out_gather_sum_bwd")
+
+# each kernel's source in the port and the JAX function it replaces
+KERNEL_SOURCES = {
+    "spiral_conv_tc": ("csrc/spiral_conv.cu",
+                       "craniofacialsd_vae_tpu/ops/spiral_conv.py:159"),
+    "spiral_conv_narrow": ("csrc/spiral_conv.cu",
+                           "craniofacialsd_vae_tpu/ops/spiral_conv.py:159"),
+    "ell_matmul_fwd": ("csrc/ell_matmul.cu",
+                       "craniofacialsd_vae_tpu/ops/sparse.py:191"),
+    "ell_matmul_capped": ("csrc/ell_matmul.cu",
+                          "craniofacialsd_vae_tpu/ops/sparse.py:101"),
+    "spiral_conv_bf16": ("csrc/spiral_conv_bf16.cu",
+                         "craniofacialsd_vae_tpu/ops/spiral_conv.py:160"),
+    "spiral_conv_f32out": ("csrc/spiral_conv_bf16.cu",
+                           "craniofacialsd_vae_tpu/ops/spiral_conv.py:267"),
+    "ell_matmul_bf16": ("csrc/ell_matmul_bf16.cu",
+                        "craniofacialsd_vae_tpu/ops/sparse.py:191"),
+    "ell_matmul_capped_bf16": ("csrc/ell_matmul_bf16.cu",
+                               "craniofacialsd_vae_tpu/ops/sparse.py:101"),
+    "spiral_conv_dw_bf16": ("csrc/spiral_conv_dw_bf16.cu",
+                            "craniofacialsd_vae_tpu/ops/spiral_conv.py:208"),
+    "out_gather_sum": ("csrc/out_gather_sum.cu",
+                       "craniofacialsd_vae_tpu/ops/spiral_conv.py:260"),
+    "out_gather_sum_bwd": ("csrc/out_gather_sum.cu",
+                           "craniofacialsd_vae_tpu/ops/sparse.py:280"),
+    "k8_fwd": ("csrc/distances.cu",
+               "craniofacialsd_vae_tpu/ops/distances.py:32"),
+    "k8_bwd": ("csrc/distances.cu",
+               "craniofacialsd_vae_tpu/ops/distances.py:32"),
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -771,8 +852,8 @@ def phase_serving(torch, mods, bundle, config) -> dict:
     faces = bundle.lr_face[0]
 
     t0 = time.perf_counter()
-    svc = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
-                           max_batch=BATCH, device=DEVICE)
+    svc = DiagnosisService.from_bundle(bundle, config, norm, TO_MM, seed=SEED,
+                                       max_batch=BATCH, device=DEVICE)
     setup_s = time.perf_counter() - t0
 
     # the main path: counts from 0, requests, renders, counts read
@@ -820,8 +901,8 @@ def phase_serving(torch, mods, bundle, config) -> dict:
         check(0.05 < cover < 0.95, f"render covers {cover:.3f}")
 
     # the same service on the host (plain versions), same seed and scans
-    cpu = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
-                           max_batch=BATCH, device="cpu")
+    cpu = DiagnosisService.from_bundle(bundle, config, norm, TO_MM, seed=SEED,
+                                       max_batch=BATCH, device="cpu")
     for k, v in cpu.model.state_dict().items():
         check(torch.equal(v, svc.model.state_dict()[k].cpu()),
               f"weights differ at {k}")
@@ -1017,23 +1098,19 @@ def conv_kinds(model, geom) -> list:
     return out
 
 
-def step_tables(model, geom, batch: int) -> list:
-    """``(name, matrix, source rows, D, dtype)`` of each K4 product a step
-    makes besides the up-pools' forward: the Laplacian (fp32), then the
-    backward's transposes in the order autograd reaches them, in the
-    dtype of the rows they gather (the first encoder conv reads the data
-    and computes no dx; a matmul-first final conv gathers its fp32 dy
-    through every position's transpose in its own kernel,
-    ``out_gather_sum_bwd``, and adds no table here)."""
-    import torch
-
-    f32 = torch.float32
-    nv = geom.num_vertices
-    tables = [("lap", geom.laplacian, nv, 3 * batch, f32),
-              ("lap T", geom.laplacian.transpose, nv, 3 * batch, f32)]
+def transpose_tables(model, geom, batch: int, names) -> list:
+    """``(name, matrix, source rows, D, dtype)`` of each K4 product that
+    carries a cotangent back through the convs ``names`` (and through the
+    up-pool before each decoder conv), in the order autograd reaches
+    them, in the dtype of the rows they gather (a matmul-first final conv
+    gathers its fp32 dy through every position's transpose in its own
+    kernel, ``out_gather_sum_bwd``, and adds no table here)."""
+    tables = []
     for name, conv, op, dtype, form in reversed(conv_kinds(model, geom)):
+        if name not in names:
+            continue
         c_in, c_out = conv_widths(conv, op)
-        if form != "out_gather" and name != "enc0":
+        if form != "out_gather":
             for table, cols in zip(op.inv_tables, op.group_cols):
                 tables.append((f"{name} T", table,
                                len(cols) * op.num_vertices, batch * c_in,
@@ -1044,6 +1121,21 @@ def step_tables(model, geom, batch: int) -> list:
             tables.append((f"up{level} T", up.transpose, up.shape[0],
                            batch * c_in, model.config.deep_dtype))
     return tables
+
+
+def step_tables(model, geom, batch: int) -> list:
+    """``(name, matrix, source rows, D, dtype)`` of each K4 product a step
+    makes besides the up-pools' forward: the Laplacian (fp32), then the
+    backward's transposes (``transpose_tables``; the first encoder conv
+    reads the data and computes no dx)."""
+    import torch
+
+    f32 = torch.float32
+    nv = geom.num_vertices
+    names = [k[0] for k in conv_kinds(model, geom) if k[0] != "enc0"]
+    return [("lap", geom.laplacian, nv, 3 * batch, f32),
+            ("lap T", geom.laplacian.transpose, nv, 3 * batch, f32),
+            *transpose_tables(model, geom, batch, names)]
 
 
 def backward_tables(model, geom, batch: int) -> list:
@@ -1071,91 +1163,98 @@ def coo_of(torch, mat, n_src: int):
                                    check_invariants=True).coalesce()
 
 
-def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
-    """Every table of ``backward_tables``: a table with tiers through the
-    fused launch (``ell_matmul_capped``), one without through K4, each
-    bit-equal to the sequential twin (K4's twin, then one ``index_add``
-    per tier) and timed against the twin, the library call
-    (``torch.sparse.mm`` of the whole table) and, for the fused launch,
-    K4 alone on the main table and K4 followed by the tiers' twin."""
+def k4_table_shape(torch, mods, gen, name, mat, n_src, d) -> dict:
+    """One fp32 backward table: with tiers through the fused launch
+    (``ell_matmul_capped``), without through K4, bit-equal to the
+    sequential twin (K4's twin, then one ``index_add`` per tier) and timed
+    against the twin, the library call (``torch.sparse.mm`` of the whole
+    table) and, for the fused launch, K4 alone on the main table and K4
+    followed by the tiers' twin."""
     kernels, sparse = mods["kernels"], mods["sparse"]
+    m, k = mat.cols.shape
+    ties = tiers_of(mat)
+    x2 = torch.randn((n_src, d), generator=gen, device=DEVICE)
+    sp = coo_of(torch, mat, n_src)
+
+    def plain():
+        out = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
+        for rows, cols, vals in ties:
+            sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
+        return out
+
+    def k4_then_twin():
+        out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
+        for rows, cols, vals in ties:
+            sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
+        return out
+
+    if ties:
+        launch = lambda: kernels.ell_matmul_capped(     # noqa: E731
+            mat.cols, mat.vals, ties, mat.links, x2)
+    else:
+        launch = lambda: kernels.ell_matmul_fwd(        # noqa: E731
+            mat.cols, mat.vals, x2)
+    with torch.inference_mode():
+        out = launch()
+        ref = plain()
+        torch.cuda.synchronize()
+        check(torch.equal(out, ref), f"K4 {name}: kernel and twin "
+              f"differ at {int((out != ref).sum())} values")
+        if ties:
+            check(torch.equal(mat.apply(x2), ref),
+                  f"CappedEll.apply {name}: card and twin differ")
+        scale = float(ref.abs().max())
+        lib = lambda: torch.sparse.mm(sp, x2)            # noqa: E731
+        check(max_err(lib(), ref) <= 1e-5 * scale,
+              f"K4 {name}: library form disagrees")
+        ms = cuda_ms(torch, launch, 20)
+        plain_ms = cuda_ms(torch, plain, 5)
+        lib_ms = cuda_ms(torch, lib, 5)
+        if ties:
+            main_ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
+                mat.cols, mat.vals, x2), 20)
+            seq_ms = cuda_ms(torch, k4_then_twin, 5)
+    src = torch.cat([mat.cols.reshape(-1)]
+                    + [c.reshape(-1) for _, c, _ in ties])
+    t_entries = sum(c.numel() for _, c, _ in ties)
+    t_rows = sum(r.numel() for r, _, _ in ties)
+    nbytes = 4 * (int(torch.unique(src).numel()) * d + 2 * m * k
+                  + 2 * t_entries + (m + t_rows if ties else 0) + m * d)
+    flops = 2.0 * (m * k + t_entries) * d + t_rows * d
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    entry = dict(table=name, kernel="ell_matmul_capped" if ties
+                 else "ell_matmul_fwd", n_src=n_src, m=m, k=k, d=d,
+                 tiers=len(ties), tier_rows=[int(r.numel())
+                                             for r, _, _ in ties],
+                 max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                 library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                 bytes=nbytes, flops=flops)
+    if ties:
+        entry.update(main_ms=main_ms, k4_then_twin_ms=seq_ms)
+        log(f"[K4 capped {name}] {n_src}->{m} K={k} D={d}, tiers "
+            f"{entry['tier_rows']} rows K "
+            f"{[int(c.shape[1]) for _, c, _ in ties]}: bit-equal; fused "
+            f"{ms:.4f} ms (K4 alone {main_ms:.4f}, K4 + tiers' twin "
+            f"{seq_ms:.4f}), plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+            f"bound {b_ms:.5f} ({b_by})")
+    else:
+        log(f"[K4 {name}] {n_src}->{m} K={k} D={d}: bit-equal; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
+            f"bound {b_ms:.4f} ({b_by})")
+    return entry
+
+
+def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
+    """Every table of ``backward_tables`` through ``k4_table_shape``:
+    returns the entries of the tables without tiers and the fused
+    launch's record over the tables with tiers."""
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 4)
     mains, fused = [], []
     for name, mat, n_src, d in backward_tables(model, geom, batch):
-        m, k = mat.cols.shape
-        ties = tiers_of(mat)
-        x2 = torch.randn((n_src, d), generator=gen, device=DEVICE)
-        sp = coo_of(torch, mat, n_src)
-
-        def plain():
-            out = sparse.ell_matmul_plain(mat.cols, mat.vals, x2)
-            for rows, cols, vals in ties:
-                sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
-            return out
-
-        def k4_then_twin():
-            out = kernels.ell_matmul_fwd(mat.cols, mat.vals, x2)
-            for rows, cols, vals in ties:
-                sparse.ell_tier_add_plain(rows, cols, vals, x2, out)
-            return out
-
-        if ties:
-            launch = lambda: kernels.ell_matmul_capped(     # noqa: E731
-                mat.cols, mat.vals, ties, mat.links, x2)
-        else:
-            launch = lambda: kernels.ell_matmul_fwd(        # noqa: E731
-                mat.cols, mat.vals, x2)
-        with torch.inference_mode():
-            out = launch()
-            ref = plain()
-            torch.cuda.synchronize()
-            check(torch.equal(out, ref), f"K4 {name}: kernel and twin "
-                  f"differ at {int((out != ref).sum())} values")
-            if ties:
-                check(torch.equal(mat.apply(x2), ref),
-                      f"CappedEll.apply {name}: card and twin differ")
-            scale = float(ref.abs().max())
-            lib = lambda: torch.sparse.mm(sp, x2)            # noqa: E731
-            check(max_err(lib(), ref) <= 1e-5 * scale,
-                  f"K4 {name}: library form disagrees")
-            ms = cuda_ms(torch, launch, 20)
-            plain_ms = cuda_ms(torch, plain, 5)
-            lib_ms = cuda_ms(torch, lib, 5)
-            if ties:
-                main_ms = cuda_ms(torch, lambda: kernels.ell_matmul_fwd(
-                    mat.cols, mat.vals, x2), 20)
-                seq_ms = cuda_ms(torch, k4_then_twin, 5)
-        src = torch.cat([mat.cols.reshape(-1)]
-                        + [c.reshape(-1) for _, c, _ in ties])
-        t_entries = sum(c.numel() for _, c, _ in ties)
-        t_rows = sum(r.numel() for r, _, _ in ties)
-        nbytes = 4 * (int(torch.unique(src).numel()) * d + 2 * m * k
-                      + 2 * t_entries + (m + t_rows if ties else 0) + m * d)
-        flops = 2.0 * (m * k + t_entries) * d + t_rows * d
-        b_ms, b_by, _, _ = bound(nbytes, flops)
-        entry = dict(table=name, n_src=n_src, m=m, k=k, d=d,
-                     tiers=len(ties), tier_rows=[int(r.numel())
-                                                 for r, _, _ in ties],
-                     max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
-                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                     bytes=nbytes, flops=flops)
-        if ties:
-            entry.update(main_ms=main_ms, k4_then_twin_ms=seq_ms)
-            fused.append(entry)
-            log(f"[5 K4 capped {name}] {n_src}->{m} K={k} D={d}, tiers "
-                f"{entry['tier_rows']} rows K "
-                f"{[int(c.shape[1]) for _, c, _ in ties]}: bit-equal; fused "
-                f"{ms:.4f} ms (K4 alone {main_ms:.4f}, K4 + tiers' twin "
-                f"{seq_ms:.4f}), plain {plain_ms:.4f}, library {lib_ms:.4f}, "
-                f"bound {b_ms:.5f} ({b_by})")
-        else:
-            mains.append(entry)
-            log(f"[5 K4 {name}] {n_src}->{m} K={k} D={d}: bit-equal; kernel "
-                f"{ms:.4f} ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, "
-                f"bound {b_ms:.4f} ({b_by})")
-        del x2, sp
-    rec = summarize("ell_matmul_capped", "csrc/ell_matmul.cu",
-                    "craniofacialsd_vae_tpu/ops/sparse.py:101", fused)
+        entry = k4_table_shape(torch, mods, gen, name, mat, n_src, d)
+        (fused if entry["tiers"] else mains).append(entry)
+    rec = summarize("ell_matmul_capped", *KERNEL_SOURCES["ell_matmul_capped"],
+                    fused)
     rec["main_ms"] = sum(e["main_ms"] for e in fused)
     rec["k4_then_twin_ms"] = sum(e["k4_then_twin_ms"] for e in fused)
     log(f"[5 K4 capped] per step: {len(fused)} tables, "
@@ -1166,6 +1265,21 @@ def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
         f"{rec['library_ms']:.4f}, bound {rec['bound_ms']:.4f}; K4 on "
         f"{[e['table'] for e in mains]}")
     return mains, rec
+
+
+def conv_kernel(name, conv, op, dtype, form) -> str:
+    """The kernel a conv of ``conv_kinds`` launches in its forward: K3b
+    for a matmul-first final conv, K1-bf16 (K3a for the final conv) on
+    bf16 input, else K1's narrow kernel below 8 outputs or its
+    tensor-core kernel."""
+    import torch
+
+    if form == "out_gather":
+        return "out_gather_sum"
+    if dtype == torch.bfloat16:
+        return "spiral_conv_f32out" if name == "final" else "spiral_conv_bf16"
+    return ("spiral_conv_narrow" if conv_widths(conv, op)[1] < 8
+            else "spiral_conv_tc")
 
 
 def expected_step_launches(model, geom, batch: int) -> dict:
@@ -1182,18 +1296,12 @@ def expected_step_launches(model, geom, batch: int) -> dict:
 
     counts = dict.fromkeys(kernels.KERNEL_NAMES, 0)
     for name, conv, op, dtype, form in conv_kinds(model, geom):
-        _, c_out = conv_widths(conv, op)
+        counts[conv_kernel(name, conv, op, dtype, form)] += 1
         if form == "out_gather":
-            counts["out_gather_sum"] += 1
             counts["out_gather_sum_bwd"] += 1
-        elif dtype == torch.bfloat16:
-            counts["spiral_conv_f32out" if name == "final"
-                   else "spiral_conv_bf16"] += 1
-            counts["spiral_conv_dw_bf16"] += 1
         else:
-            counts["spiral_conv_narrow" if c_out < 8
-                   else "spiral_conv_tc"] += 1
-            counts["spiral_conv_dw"] += 1
+            counts["spiral_conv_dw_bf16" if dtype == torch.bfloat16
+                   else "spiral_conv_dw"] += 1
     bf = "_bf16" if model.config.deep_dtype == torch.bfloat16 else ""
     counts["ell_matmul" + (bf or "_fwd")] += len(geom.up)
     for _, mat, _, _, dtype in step_tables(model, geom, batch):
@@ -1536,9 +1644,11 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     saved = [f"model_{e:08d}.ckpt"
              for e in range(ENTRY_CADENCE, ENTRY_EPOCHS[0] + 1,
                             ENTRY_CADENCE)]
-    check(sorted(os.listdir(ckpt)) == saved + ["optimizer.ckpt"],
+    check(sorted(os.listdir(ckpt))
+          == ["classifiers.npz"] + saved + ["optimizer.ckpt"],
           f"run dir checkpoints {sorted(os.listdir(ckpt))}")
-    for rel in ("config.yaml", os.path.join("logs", "metrics.jsonl")):
+    for rel in ("config.yaml", os.path.join("logs", "metrics.jsonl"),
+                "z_stats.npz"):
         check(os.path.isfile(os.path.join(run, rel)), f"no {rel}")
     model_file = read_checkpoint(os.path.join(ckpt, saved[-1]))
     opt_file = read_checkpoint(os.path.join(ckpt, "optimizer.ckpt"))
@@ -1618,10 +1728,12 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
             "card_epoch_s": cvh["card_epoch_s"],
             "host_epoch_s": cvh["host_epoch_s"]},
         "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
+        "zoo": {"fit_s": [first["classifiers_s"], second["classifiers_s"]],
+                "validation_accuracy": second["classifier_accs"]},
         "launches": counts}
     log(json.dumps(line))
     return dict(line=line, records=records, card_vs_host=cvh, k7=k7,
-                history=hist, cfg_path=cfg_path)
+                history=hist, cfg_path=cfg_path, run_dir=run)
 
 
 # ----------------------------------------------------------------------
@@ -2076,8 +2188,8 @@ def mixed_serving(torch, mods, bundle, config, serve: dict) -> dict:
     norm, scans, fp32 = inp["norm"], inp["scans"], inp["answers"]
     sel = selection_indices(bundle.down[0])
     faces = bundle.lr_face[0]
-    svc = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
-                           max_batch=BATCH, device=DEVICE)
+    svc = DiagnosisService.from_bundle(bundle, config, norm, TO_MM, seed=SEED,
+                                       max_batch=BATCH, device=DEVICE)
     kernels.launches.reset()
     answers = {b: svc.reconstruct(scans[b]) for b in REQUEST_SIZES}
     last = answers[REQUEST_SIZES[-1]]
@@ -2101,8 +2213,8 @@ def mixed_serving(torch, mods, bundle, config, serve: dict) -> dict:
                    "out_gather_sum", "raster_sweep"):
         check(counts[kernel] > 0,
               f"{kernel} was not launched on the mixed serving path")
-    cpu = DiagnosisService(bundle, config, norm, TO_MM, seed=SEED,
-                           max_batch=BATCH, device="cpu")
+    cpu = DiagnosisService.from_bundle(bundle, config, norm, TO_MM, seed=SEED,
+                                       max_batch=BATCH, device="cpu")
     host_err, fp32_err, err_mm = {}, {}, {}
 
     def rel(got, want):
@@ -2273,8 +2385,8 @@ def mixed_gather_first(torch, mods, bundle, config) -> dict:
     n = bundle.vertex_counts[0]
     norm = {"mean": np.zeros((n, 3), np.float32),
             "std": np.ones((n, 3), np.float32)}
-    svc = DiagnosisService(bundle, cfg, norm, TO_MM, seed=SEED,
-                           max_batch=BATCH, device=DEVICE)
+    svc = DiagnosisService.from_bundle(bundle, cfg, norm, TO_MM, seed=SEED,
+                                       max_batch=BATCH, device=DEVICE)
     geom = training_geometry(bundle).to(DEVICE)
     model = init_sdvae(cfg, geom, torch.Generator().manual_seed(SEED))
     b = TRAIN_CONFIG["batch_size"]
@@ -2354,9 +2466,17 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
         f"{run['geometry_s']:.2f} s, dataset {run['data_s']:.2f} s from "
         f"phase 7's caches), train tot {tots}, resumed bit for bit; "
         f"launches {counts}")
+    check(os.path.isfile(os.path.join(ckpt, "classifiers.npz"))
+          and os.path.isfile(os.path.join(run["output_dir"], "z_stats.npz")),
+          "mixed entry: no classifiers.npz or z_stats.npz")
+    log(f"[8 mixed entry] zoo fitted in {run['classifiers_s']:.2f} s, "
+        f"validation accuracies {run['classifier_accs']}")
     del run["manager"], fresh
     return dict(run_s=run_s, train_tot=tots, counts=counts,
-                epoch_train_s=[h["train_s"] for h in run["history"]])
+                epoch_train_s=[h["train_s"] for h in run["history"]],
+                zoo={"fit_s": run["classifiers_s"],
+                     "validation_accuracy": run["classifier_accs"]},
+                run_dir=run["output_dir"])
 
 
 def mixed_records(shapes: dict, serving: dict, training: dict,
@@ -2366,24 +2486,10 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
     forward shapes, K4-bf16 also on the backward tables without tiers,
     the capped K4-bf16, K2-dW-bf16 at the step's convs, K3b's backward)
     and ``mixed_gather_first`` (K3a)."""
-    src = {"spiral_conv_bf16": ("csrc/spiral_conv_bf16.cu",
-                                "craniofacialsd_vae_tpu/ops/spiral_conv.py:160"),
-           "spiral_conv_f32out": ("csrc/spiral_conv_bf16.cu",
-                                  "craniofacialsd_vae_tpu/ops/spiral_conv.py:267"),
-           "ell_matmul_bf16": ("csrc/ell_matmul_bf16.cu",
-                               "craniofacialsd_vae_tpu/ops/sparse.py:191"),
-           "ell_matmul_capped_bf16": ("csrc/ell_matmul_bf16.cu",
-                                      "craniofacialsd_vae_tpu/ops/sparse.py:101"),
-           "spiral_conv_dw_bf16": ("csrc/spiral_conv_dw_bf16.cu",
-                                   "craniofacialsd_vae_tpu/ops/spiral_conv.py:208"),
-           "out_gather_sum": ("csrc/out_gather_sum.cu",
-                              "craniofacialsd_vae_tpu/ops/spiral_conv.py:260"),
-           "out_gather_sum_bwd": ("csrc/out_gather_sum.cu",
-                                  "craniofacialsd_vae_tpu/ops/sparse.py:280")}
     grid = TRAIN_CONFIG["batch_size"] ** 2
 
     def rec(name, path, shape_list, counts):
-        r = summarize(name, *src[name], shape_list)
+        r = summarize(name, *KERNEL_SOURCES[name], shape_list)
         r.update(path=path, launches=counts[name])
         check(r["launches"] > 0, f"{name} was not launched on {path}")
         return r
@@ -2458,11 +2564,580 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
                          "grad_cosine_fp32": training["grad_cosine_fp32"],
                          "worst_loss_rel": max(
                              training["loss_rel_err"].values())},
-            "entry": {"run_s": ent["run_s"], "train_tot": ent["train_tot"]},
+            "entry": {"run_s": ent["run_s"], "train_tot": ent["train_tot"],
+                      "zoo": ent["zoo"]},
             "seconds": time.perf_counter() - t0}
     log(json.dumps(line))
     return dict(line=line, records=records, shapes=shapes, serving=serving,
                 training=training, gather_first=gather_first, entry=ent)
+
+
+# ----------------------------------------------------------------------
+# phase 9: diagnosis serving from the run dirs of phases 7 and 8
+def k8_bound(r: int, nq: int, nr: int) -> tuple:
+    """One ``k8_fwd`` launch: each point read once (the query cloud per
+    batch, the other shared), d and idx written once; K8_OPS_PER_PAIR
+    operations a pair at the fp32 rate."""
+    nbytes = (r * nq * 3 + nr * 3 + 3) * 4 + r * nq * 8
+    return nbytes, K8_OPS_PER_PAIR * r * nq * nr
+
+
+def k8_same_argmins(a1, b1, a2, b2) -> tuple:
+    """Masks of the points whose chamfer gradient reads the same argmins
+    in two evaluations (``a [R, P]``, ``b [R, Q]`` each): x point p keeps
+    its own argmin and the same set of y points choosing it; y point q
+    (over every batch) likewise. Returns (keep_x [R, P], keep_y [Q])."""
+    import torch
+
+    r, p = a1.shape
+    q = b1.shape[1]
+    keep_x = a1 == a2
+    keep_y = torch.ones(q, dtype=torch.bool)
+    for i in range(r):
+        moved = (b1[i] != b2[i]).nonzero()[:, 0]
+        keep_x[i, b1[i][moved].long()] = False
+        keep_x[i, b2[i][moved].long()] = False
+        keep_y[moved] = False
+        swapped = (a1[i] != a2[i]).nonzero()[:, 0]
+        keep_y[a1[i][swapped].long()] = False
+        keep_y[a2[i][swapped].long()] = False
+    return keep_x, keep_y
+
+
+def k8_case(torch, mods, r: int, p: int, q: int, reps: int) -> dict:
+    """K8 at one shape of the fit (``r`` restarts of ``p`` generated points
+    against one target of ``q``): both k8_fwd launches and the k8_bwd
+    launch against their twins on the same CUDA tensors (both directions
+    against the one symmetric twin, in JAX's chunk order; distances within
+    K8_D_RTOL of the largest, argmins equal where the best two distances
+    are further apart than that, gradients within K8_G_RTOL of the
+    largest against the host's twins), timed against the twins and, for
+    the forward, against ``torch.cdist`` with both minima."""
+    kernels = mods["kernels"]
+    dist = mods["distances"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + r)
+    x = torch.randn((r, p, 3), generator=gen, device=DEVICE) * 0.5 + 1.0
+    y = torch.randn((q, 3), generator=gen, device=DEVICE) * 0.5 + 1.0
+    mu = y.mean(0)
+    out = {"restarts": r, "p": p, "q": q}
+    with torch.no_grad():
+        d_x, a = kernels.nearest_sq(x, y, mu)
+        d_y, b = kernels.nearest_sq(y, x, mu)
+        rx, ry, ra, rb = dist.nearest_dists_sq_sym_plain(x, y)
+        torch.cuda.synchronize()
+        err = max(max_err(d_x, rx), max_err(d_y, ry))
+        tol = K8_D_RTOL * float(torch.maximum(rx.max(), ry.max()))
+        check(err <= tol, f"K8 fwd R={r}: |d - twin| {err:.3e} > {tol:.3e}")
+        agree = []
+        for query, ref_pts, got, want in ((x, y, a, ra), (y, x, b, rb)):
+            for i in range(r):
+                u = (query[i] if query.dim() == 3 else query) - mu
+                v = (ref_pts[i] if ref_pts.dim() == 3 else ref_pts) - mu
+                e = torch.sum(v * v, -1)[None, :] - 2.0 * (u @ v.T)
+                two = torch.topk(e, 2, dim=1, largest=False).values
+                sep = two[:, 1] - two[:, 0] > tol
+                check(torch.equal(got[i][sep], want[i][sep]),
+                      f"K8 fwd R={r}: argmins differ where separated")
+                agree.append(float(sep.float().mean()))
+        out["separated_share"] = min(agree)
+        out["max_abs_err"] = err
+
+        def fwd():
+            kernels.nearest_sq(x, y, mu)
+            kernels.nearest_sq(y, x, mu)
+
+        def fwd_plain():
+            dist.nearest_dists_sq_sym_plain(x, y)
+
+        def fwd_library():
+            d2 = torch.cdist(x, y[None].expand(r, q, 3)).square()
+            return d2.amin(dim=2), d2.amin(dim=1)
+
+        out["ms"] = cuda_ms(torch, fwd, reps)
+        out["plain_ms"] = cuda_ms(torch, fwd_plain, max(reps // 10, 2))
+        out["library_ms"] = cuda_ms(torch, fwd_library, max(reps // 10, 2))
+        nb1, ops1 = k8_bound(r, p, q)
+        nb2, ops2 = k8_bound(r, q, p)
+        out.update(bytes=nb1 + nb2, flops=ops1 + ops2)
+        out["bound_ms"], out["bound_by"], _, _ = bound(out["bytes"],
+                                                       out["flops"])
+
+        # the backward in x, as the fit takes it
+        gx = torch.randn((r, p), generator=gen, device=DEVICE)
+        gy = torch.randn((r, q), generator=gen, device=DEVICE)
+        perm, off = dist.argmin_csr(b, p)
+
+        def bwd():
+            return kernels.nearest_sq_bwd(x, y, mu, gx, d_x, a, gy, d_y,
+                                          perm, off)
+
+        def bwd_plain():
+            return dist.nearest_sq_bwd_plain(x, y, mu, gx, d_x, a, gy, d_y,
+                                             perm, off)
+
+        dx, dx_ref = bwd(), bwd_plain()
+        torch.cuda.synchronize()
+        g_err = max_err(dx, dx_ref)
+        check(g_err <= K8_G_RTOL * float(dx_ref.abs().max()),
+              f"K8 bwd R={r}: |dx - twin| {g_err:.3e}")
+        nb = (r * p * 3 + q * 3 + 3) * 4 + r * p * 12 + r * q * 12 \
+            + r * (p + 1) * 4 + r * p * 12
+        ops = K8_BWD_OPS_PER_POINT * r * (p + q)
+        b_bound, b_by, _, _ = bound(nb, ops)
+        out["bwd"] = dict(
+            max_abs_err=g_err, ms=cuda_ms(torch, bwd, reps),
+            plain_ms=cuda_ms(torch, bwd_plain, max(reps // 10, 2)),
+            csr_ms=cuda_ms(torch, lambda: dist.argmin_csr(b, p), reps),
+            library_ms=None, bytes=nb, flops=ops, bound_ms=b_bound,
+            bound_by=b_by)
+
+    # the gradient in both clouds through the autograd Function, card
+    # against host, at every point whose gradient reads the same argmins
+    # on both (near a tie the two pick different, equally near points)
+    grads = []
+    for dev in (DEVICE, "cpu"):
+        xs = x.detach().to(dev).clone().requires_grad_(True)
+        ys = y.detach().to(dev).clone().requires_grad_(True)
+        dxs, dys = dist.nearest_dists_sq_sym(xs, ys)
+        ((dxs * gx.to(dev)).sum() + (dys * gy.to(dev)).sum()).backward()
+        grads.append((xs.grad.cpu(), ys.grad.cpu()))
+    _, _, ha, hb = dist.nearest_dists_sq_sym_plain(x.cpu(), y.cpu())
+    keep_x, keep_y = k8_same_argmins(a.cpu(), b.cpu(), ha, hb)
+    out["tied_share"] = 1.0 - min(float(keep_x.float().mean()),
+                                  float(keep_y.float().mean()))
+    check(out["tied_share"] < 0.01,
+          f"K8 R={r}: {out['tied_share']:.3%} of the points read other "
+          "argmins on the card than on the host")
+    for (card_g, host_g), name, keep in zip(zip(*grads), ("x", "y"),
+                                            (keep_x, keep_y)):
+        e = max_err(card_g[keep], host_g[keep])
+        check(e <= K8_G_RTOL * float(host_g.abs().max()),
+              f"K8 gradient in {name} R={r}: card vs host {e:.3e}")
+        out[f"grad_{name}_card_vs_host"] = e
+    log(f"[9 K8 R={r} P={p} Q={q}] fwd both directions {out['ms']:.4f} ms "
+        f"(plain {out['plain_ms']:.3f}, cdist {out['library_ms']:.3f}, "
+        f"bound {out['bound_ms']:.4f} {out['bound_by']}); bwd "
+        f"{out['bwd']['ms']:.4f} ms (plain {out['bwd']['plain_ms']:.3f}, "
+        f"CSR {out['bwd']['csr_ms']:.4f}, bound {out['bwd']['bound_ms']:.5f}"
+        f" {out['bwd']['bound_by']}); errors d {err:.2e}, dx {g_err:.2e}; "
+        f"argmins separated {out['separated_share']:.3f}")
+    return out
+
+
+def request_buckets(svc, n: int) -> list:
+    """The batch buckets a request of ``n`` rows runs at: chunks of the
+    service's ``max_batch``, each padded to its bucket."""
+    return [svc._bucket(min(svc.max_batch, n - lo))
+            for lo in range(0, n, svc.max_batch)]
+
+
+def diagnosis_passes(svc) -> dict:
+    """The model passes of ``diagnosis_requests``, each ``{batch: times}``:
+    ``enc`` the encodes (every diagnose request, the one with posterior
+    draws, saliency, the plan's patient), ``dec`` the decodes (the fit's
+    restarts at every iteration and once after, its best restart, the
+    plan's four key meshes), ``enc_bwd`` the backward to the data
+    (saliency) and ``dec_bwd`` the backward to z (the fit, every
+    iteration)."""
+    from collections import Counter
+
+    enc = Counter()
+    for n in (*REQUEST_SIZES, 3, SALIENCY_BATCH, 1):
+        enc.update(request_buckets(svc, n))
+    dec = Counter({FIT_RESTARTS: FIT_ITERATIONS + 1})
+    dec.update([1, *request_buckets(svc, 4)])
+    return {"enc": enc, "dec": dec,
+            "enc_bwd": Counter(request_buckets(svc, SALIENCY_BATCH)),
+            "dec_bwd": Counter({FIT_RESTARTS: FIT_ITERATIONS})}
+
+
+def pass_convs(kinds: list, part: str) -> list:
+    """The convs of ``conv_kinds`` an encode (``part`` "enc") or a decode
+    ("dec", the final conv included) runs."""
+    return [k for k in kinds if k[0].startswith(part)
+            or (part == "dec" and k[0] == "final")]
+
+
+def diagnosis_shapes(torch, mods, svc, passes: dict) -> dict:
+    """Every kernel of the diagnosis path at every shape it has there, on
+    the served model's weights and tables and random inputs, against its
+    twin and timed against it and a library call (the checks of phases 3,
+    5 and 8): the spiral convs of each pass at each of its buckets, the
+    up-pools of each decode, and the transposes of each backward (the
+    first encoder conv's included: saliency's gradient reaches the data).
+    Returns ``{kernel: [shape, ...]}``, each shape with its ``launches``
+    on the path (times the passes run it)."""
+    kernels, ops = mods["kernels"], mods["ops"]
+    mgr = svc.manager
+    model, geom, bundle = mgr.model, mgr.geometry, mgr.bundle
+    kinds = conv_kinds(model, geom)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    shapes: dict = {}
+
+    def add(entry, kernel, launches):
+        entry.update(kernel=kernel, launches=launches)
+        shapes.setdefault(kernel, []).append(entry)
+
+    for part in ("enc", "dec"):
+        for batch, times in sorted(passes[part].items()):
+            for name, conv, op, dtype, form in pass_convs(kinds, part):
+                kernel = conv_kernel(name, conv, op, dtype, form)
+                if form == "out_gather":
+                    e = mixed_k3b_shape(torch, kernels, ops, gen, conv, op,
+                                        batch)
+                elif dtype == torch.bfloat16:
+                    e = mixed_k1_shape(torch, kernels, ops, gen, name, conv,
+                                       op, batch, f32out=name == "final")
+                else:
+                    e = k1_shape(torch, kernels, ops, gen, name, conv, op,
+                                 batch)
+                add(e, kernel, times)
+    n = len(model.de_convs)
+    bf16 = model.config.deep_dtype == torch.bfloat16
+    for batch, times in sorted(passes["dec"].items()):
+        for j in range(n):
+            level = n - 1 - j
+            up = geom.up[level]
+            d = batch * conv_widths(model.de_convs[j], geom.spirals[level])[0]
+            if bf16:
+                e = mixed_k4_shape(torch, kernels, ops, gen, f"up{level}", up,
+                                   up.n_cols, d)
+            else:
+                e = k4_shape(torch, kernels, ops, gen, up, bundle.up[level],
+                             level, d, batch)
+            add(e, "ell_matmul_bf16" if bf16 else "ell_matmul_fwd", times)
+    for part in ("enc", "dec"):
+        convs = pass_convs(kinds, part)
+        for batch, times in sorted(passes[part + "_bwd"].items()):
+            for name, mat, n_src, d, dtype in transpose_tables(
+                    model, geom, batch, [k[0] for k in convs]):
+                if dtype == torch.bfloat16:
+                    e = mixed_k4_shape(torch, kernels, ops, gen, name, mat,
+                                       n_src, d)
+                else:
+                    e = k4_table_shape(torch, mods, gen, name, mat, n_src, d)
+                add(e, e["kernel"], times)
+            for name, conv, op, dtype, form in convs:
+                if form == "out_gather":
+                    add(mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv,
+                                            op, batch),
+                        "out_gather_sum_bwd", times)
+    torch.cuda.empty_cache()
+    return shapes
+
+
+def fit_scan(template_pos: np.ndarray, landmark_idx: list) -> tuple:
+    """An unregistered scan of FIT_SCAN_POINTS points: a deformed copy of
+    the template (scaled, shifted, a smooth bump) sampled with
+    replacement, with per-point noise; and its landmarks."""
+    rng = np.random.default_rng(SEED + 11)
+    bump = 0.03 * np.sin(template_pos @ rng.normal(size=3))
+    surface = template_pos * (1.05 + bump[:, None]) + 0.2
+    pts = surface[rng.integers(0, len(surface), size=FIT_SCAN_POINTS)]
+    pts = pts + rng.normal(scale=0.003, size=pts.shape)
+    return pts.astype(np.float32), surface[landmark_idx].astype(np.float32)
+
+
+def diagnose_latency(svc, scans: dict, reps: int = 7) -> dict:
+    """Host-clock latency of warm ``diagnose`` requests by request
+    size."""
+    out = {}
+    for b, x in scans.items():
+        svc.diagnose(x)
+        ts = []
+        for _ in range(reps):
+            t0 = time.perf_counter()
+            svc.diagnose(x)
+            ts.append((time.perf_counter() - t0) * 1e3)
+        ts.sort()
+        p50 = ts[len(ts) // 2]
+        out[b] = {"p50_ms": p50, "min_ms": ts[0], "max_ms": ts[-1],
+                  "n": reps, "meshes_per_s": b / p50 * 1e3}
+    return out
+
+
+def diagnosis_requests(svc, scans: dict, scan, lnd, iterations: int) -> dict:
+    """The requests of the diagnosis path, once each: diagnose at every
+    request size, with DIAG_SAMPLES posterior draws, saliency at
+    SALIENCY_BATCH, one plan and one fit."""
+    out = {"diagnose": {b: svc.diagnose(x) for b, x in scans.items()}}
+    out["uncertainty"] = svc.diagnose(scans[3], n_samples=DIAG_SAMPLES,
+                                      seed=SEED)
+    out["saliency"] = svc.saliency(scans[REQUEST_SIZES[-1]][:SALIENCY_BATCH])
+    out["plan"] = svc.plan(vertices=scans[1][0])
+    t0 = time.perf_counter()
+    out["fit"] = svc.fit(scan, lnd, iterations=iterations,
+                         n_restarts=FIT_RESTARTS, seed=SEED)
+    out["fit_s"] = time.perf_counter() - t0
+    return out
+
+
+def compare_diagnoses(card: list, host: list, what: str, rtol
+                      ) -> float:
+    """Labels equal; posteriors, Mahalanobis and uncertainty statistics
+    within ``rtol`` (absolute for probabilities; None: recorded, not
+    held); returns the worst."""
+    worst = 0.0
+    for i, (c, h) in enumerate(zip(card, host)):
+        check(c["label"] == h["label"],
+              f"{what} scan {i}: card {c['label']} vs host {h['label']}")
+        for k, v in h["posteriors"].items():
+            worst = max(worst, abs(c["posteriors"][k] - v))
+        m = h["mahalanobis_to_healthy"]
+        worst = max(worst, abs(c["mahalanobis_to_healthy"] - m)
+                    / max(abs(m), 1e-30))
+        if "uncertainty" in h:
+            cu, hu = c["uncertainty"], h["uncertainty"]
+            check(cu["sample_votes"] == hu["sample_votes"],
+                  f"{what} scan {i}: sample votes differ")
+            for f in ("posterior_mean", "posterior_std"):
+                for k, v in hu[f].items():
+                    worst = max(worst, abs(cu[f][k] - v))
+    check(rtol is None or worst <= rtol,
+          f"{what}: card vs host {worst:.3e} > {rtol}")
+    return worst
+
+
+def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
+    """One run dir served on the card (the counted path: every request
+    once), its latencies, the fit's launches per iteration, every kernel
+    of the path at its shapes there (``diagnosis_shapes``, whose launches
+    must be the counted run's), and the same requests against the host's
+    service."""
+    from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
+    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    kernels = mods["kernels"]
+    config = get_config(os.path.join(run_dir, "config.yaml"))
+    train_set, _, _, norm, _ = build_datasets(config)
+    raw = (np.asarray(train_set.x[:REQUEST_SIZES[-1]]) * norm["std"]
+           + norm["mean"]).astype(np.float32)
+    scans = {b: raw[:b] for b in REQUEST_SIZES}
+
+    # the main path: counts from 0, the service built and every request
+    # answered once; counts read
+    kernels.launches.reset()
+    t0 = time.perf_counter()
+    svc = DiagnosisService.from_run_dir(run_dir, max_batch=BATCH,
+                                        device=DEVICE)
+    load_s = time.perf_counter() - t0
+    lnd_idx = svc.landmark_idx
+    n_gen = len(range(0, svc.manager.template.num_vertices, 4))
+    check(n_gen == FIT_GEN_POINTS, f"the fit's generated side has {n_gen} "
+          f"points, K8 was held at {FIT_GEN_POINTS}")
+    scan, lnd = fit_scan(np.asarray(svc.manager.template.pos, np.float64),
+                         lnd_idx)
+    card = diagnosis_requests(svc, scans, scan, lnd, FIT_ITERATIONS)
+    torch.cuda.synchronize()
+    counts = kernels.launches.snapshot()
+    fit = card["fit"]
+    check(np.isfinite(fit["chamfer_mm2"]) and fit["chamfer_mm2"] >= 0,
+          f"{policy} fit chamfer {fit['chamfer_mm2']}")
+    check(fit["vertices"].shape == svc.manager.template.pos.shape,
+          "fit vertices shape")
+    check(all(np.isfinite(r["vertex_saliency_nats_per_mm"]).all()
+              for r in card["saliency"]), "saliency not finite")
+
+    # after the counted run: latencies, the fit's per-iteration cost
+    latency = diagnose_latency(svc, scans)
+    short = {}
+    for it in (FIT_PROFILE_ITERATIONS, 2 * FIT_PROFILE_ITERATIONS):
+        short[it] = device_profile(torch, lambda it=it: svc.fit(
+            scan, lnd, iterations=it, n_restarts=FIT_RESTARTS, seed=SEED))
+    lo, hi = short[FIT_PROFILE_ITERATIONS], short[2 * FIT_PROFILE_ITERATIONS]
+    per_iter = {k: (hi[k] - lo[k]) / FIT_PROFILE_ITERATIONS
+                for k in ("kernels_run", "device_ms", "wall_ms")}
+
+    # every kernel of the path at its shapes there; the launches those
+    # shapes account for are the counted run's, kernel for kernel
+    passes = diagnosis_passes(svc)
+    shapes = diagnosis_shapes(torch, mods, svc, passes)
+    k8_per_fit = {"k8_fwd": 2 * (FIT_ITERATIONS + 1),
+                  "k8_bwd": FIT_ITERATIONS}
+    want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    want.update(k8_per_fit)
+    for kernel, entries in shapes.items():
+        want[kernel] += sum(e["launches"] for e in entries)
+    check(counts == want, f"{policy}: diagnosis path launches {counts}, "
+          f"expected {want} from its passes {passes}")
+
+    # card against host, on the same requests (the fit at
+    # FIT_PARITY_ITERATIONS on both)
+    parity_fit = svc.fit(scan, lnd, iterations=FIT_PARITY_ITERATIONS,
+                         n_restarts=FIT_RESTARTS, seed=SEED)
+    t0 = time.perf_counter()
+    host = DiagnosisService.from_run_dir(run_dir, max_batch=BATCH,
+                                         device="cpu")
+    h_diag = {b: host.diagnose(x) for b, x in scans.items()}
+    h_unc = host.diagnose(scans[3], n_samples=DIAG_SAMPLES, seed=SEED)
+    h_sal = host.saliency(scans[REQUEST_SIZES[-1]][:SALIENCY_BATCH])
+    h_plan = host.plan(latent=card["plan"]["z_patient"])
+    h_fit = host.fit(scan, lnd, iterations=FIT_PARITY_ITERATIONS,
+                     n_restarts=FIT_RESTARTS, seed=SEED)
+    host_s = time.perf_counter() - t0
+    mixed = policy == "mixed"
+    rtol = None if mixed else DIAG_RTOL
+    out = {"policy": policy, "load_s": load_s, "host_s": host_s,
+           "counts": counts, "latency": latency,
+           "fit": {"iterations": FIT_ITERATIONS, "restarts": FIT_RESTARTS,
+                   "scan_points": FIT_SCAN_POINTS,
+                   "landmarks": len(lnd_idx), "s": card["fit_s"],
+                   "ms_per_iteration": card["fit_s"] * 1e3 / FIT_ITERATIONS,
+                   "chamfer_mm2": fit["chamfer_mm2"],
+                   "landmark_mse_mm2": fit["landmark_mse_mm2"],
+                   "best_restart": fit["best_restart"],
+                   "per_iteration": per_iter, "k8_launches": k8_per_fit}}
+    out["diagnose_rel"] = max(compare_diagnoses(
+        card["diagnose"][b], h_diag[b], f"{policy} diagnose B={b}", rtol)
+        for b in REQUEST_SIZES)
+    out["uncertainty_rel"] = compare_diagnoses(
+        card["uncertainty"], h_unc, f"{policy} uncertainty", rtol)
+    sal_err = 0.0
+    for c, h in zip(card["saliency"], h_sal):
+        check(c["label"] == h["label"], f"{policy} saliency label")
+        hv = np.asarray(h["vertex_saliency_nats_per_mm"])
+        sal_err = max(sal_err, float(np.abs(
+            np.asarray(c["vertex_saliency_nats_per_mm"]) - hv).max())
+            / float(np.abs(hv).max()))
+    check(sal_err <= (MIXED_FIT_RTOL if mixed else SALIENCY_RTOL),
+          f"{policy} saliency card vs host {sal_err:.3e} of its max")
+    out["saliency_rel"] = sal_err
+    card_plan = svc.plan(latent=card["plan"]["z_patient"])
+    plan_err = max(float(np.abs(np.asarray(card_plan[k])
+                                - np.asarray(h_plan[k])).max())
+                   for k in ("z_3std", "z_2std", "z_1std", "z_mean_target"))
+    check(plan_err <= DIAG_RTOL, f"{policy} plan key latents {plan_err:.3e}")
+    mesh_err = max(float(np.abs(card_plan["target_meshes"][k]
+                                - h_plan["target_meshes"][k]).max())
+                   / float(np.abs(h_plan["target_meshes"][k]).max())
+                   for k in h_plan["target_meshes"])
+    check(mesh_err <= (MIXED_RTOL if mixed else SERVE_RTOL),
+          f"{policy} plan meshes {mesh_err:.3e}")
+    out["plan_rel"] = {"latents": plan_err, "meshes": mesh_err}
+    fit_rel = abs(parity_fit["chamfer_mm2"] - h_fit["chamfer_mm2"]) \
+        / h_fit["chamfer_mm2"]
+    check(fit_rel <= (MIXED_FIT_RTOL if mixed else FIT_RTOL),
+          f"{policy} fit chamfer card {parity_fit['chamfer_mm2']} vs host "
+          f"{h_fit['chamfer_mm2']}")
+    check(mixed or parity_fit["best_restart"] == h_fit["best_restart"],
+          f"fit best restart card {parity_fit['best_restart']} vs host "
+          f"{h_fit['best_restart']}")
+    check(parity_fit["diagnosis"]["label"] == h_fit["diagnosis"]["label"]
+          or mixed, "fit diagnosis label card vs host")
+    # the counted fit goes on from where the held one stops: its best
+    # restart's objective (10 x landmark MSE + chamfer) is no worse
+
+    def objective(f):
+        return 10.0 * f["landmark_mse_mm2"] + f["chamfer_mm2"]
+
+    check(objective(fit) <= objective(parity_fit),
+          f"{policy} fit: {FIT_ITERATIONS} iterations reach "
+          f"{objective(fit)}, {FIT_PARITY_ITERATIONS} reach "
+          f"{objective(parity_fit)}")
+    out["fit_parity"] = {"iterations": FIT_PARITY_ITERATIONS,
+                         "chamfer_rel": fit_rel,
+                         "objective_mm2": objective(parity_fit),
+                         "counted_objective_mm2": objective(fit),
+                         "card_best": parity_fit["best_restart"],
+                         "host_best": h_fit["best_restart"]}
+    log(f"[9 diagnosis {policy}] load {load_s:.2f} s; diagnose p50 "
+        f"{ {b: round(v['p50_ms'], 3) for b, v in latency.items()} } ms; "
+        f"fit {FIT_ITERATIONS} it x {FIT_RESTARTS} restarts "
+        f"{card['fit_s']:.2f} s ({per_iter['kernels_run']:.1f} kernels, "
+        f"{per_iter['device_ms']:.3f} ms device per iteration), chamfer "
+        f"{fit['chamfer_mm2']:.4f} mm²; card vs host: diagnose "
+        f"{out['diagnose_rel']:.2e}, saliency {sal_err:.2e}, plan "
+        f"{plan_err:.2e}, fit chamfer {fit_rel:.2e} (best "
+        f"{parity_fit['best_restart']}/{h_fit['best_restart']}); host "
+        f"{host_s:.1f} s")
+    del host
+    out["passes"] = {k: dict(v) for k, v in passes.items()}
+    return dict(out=out, svc=svc, scans=scans, shapes=shapes)
+
+
+def http_once(svc, scans: dict) -> dict:
+    """The HTTP entry point once: a server on a free local port, one
+    ``POST /diagnose`` and one ``GET /healthz``, then stopped."""
+    import threading
+    import urllib.request
+
+    from craniofacialsd_vae_tpu_torch.serve import make_server
+
+    server = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    try:
+        body = json.dumps({"vertices": scans[3].tolist()}).encode()
+        req = urllib.request.Request(url + "/diagnose", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        t0 = time.perf_counter()
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            reports = json.loads(resp.read())["reports"]
+        post_ms = (time.perf_counter() - t0) * 1e3
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    direct = svc.diagnose(scans[3])
+    check([r["label"] for r in reports] == [r["label"] for r in direct],
+          "HTTP /diagnose labels differ from the service's")
+    check(health["ok"] and health["device"] == str(svc.device),
+          f"/healthz {health}")
+    return {"post_diagnose_ms": post_ms, "requests": health["requests"]}
+
+
+def phase_diagnosis(torch, mods, runs: dict) -> dict:
+    """Phase 9: phases 7's and 8's run dirs served on the card through
+    ``DiagnosisService.from_run_dir`` (see the module docstring)."""
+    t0 = time.perf_counter()
+    q = FIT_SCAN_POINTS // 4
+    shapes = {"fit": k8_case(torch, mods, FIT_RESTARTS, FIT_GEN_POINTS, q,
+                             50),
+              "one": k8_case(torch, mods, 1, FIT_GEN_POINTS, q, 50)}
+    torch.cuda.empty_cache()
+    results, path_shapes = {}, {}
+    for policy, run_dir in runs.items():
+        res = diagnosis_run(torch, mods, run_dir, policy)
+        if policy == "fp32":
+            res["out"]["http"] = http_once(res["svc"], res["scans"])
+        results[policy] = res["out"]
+        path_shapes[policy] = res["shapes"]
+        del res
+        torch.cuda.empty_cache()
+    records = []
+    for policy, path in (("fp32", "diagnosis"), ("mixed", "mixed_diagnosis")):
+        counts = results[policy]["counts"]
+        for kernel, entries in path_shapes[policy].items():
+            rec = summarize(kernel, *KERNEL_SOURCES[kernel], entries)
+            rec.update(path=path, launches=counts[kernel])
+            records.append(rec)
+        fwd = summarize("k8_fwd", *KERNEL_SOURCES["k8_fwd"], [shapes["fit"]])
+        bwd = summarize("k8_bwd", *KERNEL_SOURCES["k8_bwd"],
+                        [shapes["fit"]["bwd"]])
+        fwd["parity_only"] = [shapes["one"]]
+        for rec in (fwd, bwd):
+            rec.update(path=path, launches=counts[rec["name"]])
+            records.append(rec)
+    line = {"phase": "diagnosis",
+            "k8": {k: {"fwd_ms": s["ms"], "fwd_plain_ms": s["plain_ms"],
+                       "fwd_cdist_ms": s["library_ms"],
+                       "fwd_bound_ms": s["bound_ms"],
+                       "bwd_ms": s["bwd"]["ms"],
+                       "bwd_bound_ms": s["bwd"]["bound_ms"],
+                       "csr_ms": s["bwd"]["csr_ms"]}
+                   for k, s in shapes.items()},
+            **{policy: {k: v for k, v in r.items() if k != "counts"}
+               for policy, r in results.items()},
+            "seconds": time.perf_counter() - t0}
+    log(json.dumps(line, default=float))
+    return dict(line=line, records=records, shapes=shapes, runs=results,
+                path_shapes=path_shapes)
 
 
 # ----------------------------------------------------------------------
@@ -2487,14 +3162,14 @@ def main(argv=None) -> int:
 
     from craniofacialsd_vae_tpu_torch import kernels, ops
     from craniofacialsd_vae_tpu_torch.geometry import load_bundle
-    from craniofacialsd_vae_tpu_torch.ops import sparse
+    from craniofacialsd_vae_tpu_torch.ops import distances, sparse
     from craniofacialsd_vae_tpu_torch.models import (SDVAEConfig,
                                                      SpiralGeometry,
                                                      init_sdvae)
     from craniofacialsd_vae_tpu_torch.viz import raster
 
     mods = {"kernels": kernels, "ops": ops, "raster": raster,
-            "sparse": sparse}
+            "sparse": sparse, "distances": distances}
     name, smi_line = phase_device(torch)
     build_s, build_log = phase_build(kernels)
 
@@ -2552,11 +3227,16 @@ def main(argv=None) -> int:
                             k1_ptxas(build_log), root, entry["cfg_path"],
                             config)
         records += mixed["records"]
+        log(f"[8 mixed] done; total {time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        diagnosis = phase_diagnosis(torch, mods, {
+            "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]})
+        records += diagnosis["records"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
           "the kernels' record does not list every kernel")
-    log(f"[8 mixed] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[9 diagnosis] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -2571,7 +3251,9 @@ def main(argv=None) -> int:
                            "line", "card_vs_host", "k7", "history")},
                        "mixed": {k: mixed[k] for k in (
                            "line", "shapes", "serving", "training",
-                           "gather_first", "entry")}},
+                           "gather_first", "entry")},
+                       "diagnosis": {k: diagnosis[k] for k in (
+                           "line", "shapes", "runs", "path_shapes")}},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

@@ -43,14 +43,14 @@ __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan",
            "plan_spiral_conv_dw_bf16",
            "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
-           "raster_sweep"]
+           "raster_sweep", "nearest_sq", "nearest_sq_bwd"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
            "spiral_conv_dw.cu", "ell_matmul_bf16.cu", "spiral_conv_bf16.cu",
-           "spiral_conv_dw_bf16.cu", "out_gather_sum.cu")
+           "spiral_conv_dw_bf16.cu", "out_gather_sum.cu", "distances.cu")
 HEADERS = ("common.cuh", "bf16.cuh")
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -62,7 +62,7 @@ KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "spiral_conv_bf16", "spiral_conv_f32out",
                 "spiral_conv_dw_bf16", "ell_matmul_bf16",
                 "ell_matmul_capped_bf16", "out_gather_sum",
-                "out_gather_sum_bwd")
+                "out_gather_sum_bwd", "k8_fwd", "k8_bwd")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -199,6 +199,9 @@ def library() -> ctypes.CDLL:
                 p] * 9 + [i] * 6 + [ctypes.POINTER(i), p]
             lib.cfs_spiral_conv_bf16_tile.argtypes = [p] * 9 + [i] * 12 \
                 + [p]
+            lib.cfs_nearest_sq.argtypes = [p, i, i, p, i, i, p, i, p, p, p]
+            lib.cfs_nearest_sq_bwd.argtypes = [p, i, i, p, i, i, p, i] \
+                + [p] * 8 + [p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
@@ -206,7 +209,8 @@ def library() -> ctypes.CDLL:
                        lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_dw_bf16,
                        lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
                        lib.cfs_spiral_conv_narrow_tile,
-                       lib.cfs_spiral_conv_bf16_tile):
+                       lib.cfs_spiral_conv_bf16_tile, lib.cfs_nearest_sq,
+                       lib.cfs_nearest_sq_bwd):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -1166,3 +1170,90 @@ def raster_sweep(coef: torch.Tensor, box: torch.Tensor,
             _ptr(b_ymax), _ptr(z), _ptr(winner), bsz, n_tblocks, image_size,
             cull_tile)
     return z, winner
+
+
+def _cloud(t: torch.Tensor, name: str, dev: torch.device) -> tuple:
+    """A point cloud ``[n, 3]`` (shared by every batch: stride 0) or
+    ``[R, n, 3]`` (one per batch) → (R or None, n, stride)."""
+    if t.dim() not in (2, 3) or t.shape[-1] != 3:
+        raise ValueError(f"{name} must be [n, 3] or [R, n, 3]; got "
+                         f"{tuple(t.shape)}")
+    _require(t, name, torch.float32, t.dim(), dev)
+    n = t.shape[-2]
+    if t.dim() == 2:
+        return None, n, 0
+    return t.shape[0], n, n * 3
+
+
+def _batch_of(*rs) -> int:
+    given = {r for r in rs if r is not None}
+    if len(given) > 1:
+        raise ValueError(f"the clouds' batch sizes {sorted(given)} differ")
+    batch = given.pop() if given else 1
+    if not 1 <= batch <= 65535:
+        raise ValueError(f"batch {batch} is not in [1, 65535]")
+    return batch
+
+
+def nearest_sq(query: torch.Tensor, ref: torch.Tensor,
+               mu: torch.Tensor) -> tuple:
+    """K8 forward (``csrc/distances.cu``, counted as ``k8_fwd``): for each
+    point of ``query`` ([nq, 3] or [R, nq, 3]), its squared distance to
+    the nearest point of ``ref`` ([nr, 3] or [R, nr, 3]) after both are
+    centred on ``mu [3]``, in the expansion form ``‖u‖² + min (‖v‖² −
+    2u·v)`` clamped at 0, and the first index reaching it. Returns ``(d
+    [R, nq] f32, idx [R, nq] i32)`` (R = 1 when neither cloud is
+    batched)."""
+    dev = query.device
+    rq, nq, q_stride = _cloud(query, "query", dev)
+    rr, nr, r_stride = _cloud(ref, "ref", dev)
+    _require(mu, "mu", torch.float32, 1, dev)
+    if mu.shape[0] != 3:
+        raise ValueError(f"mu must be [3]; got {tuple(mu.shape)}")
+    batch = _batch_of(rq, rr)
+    if nq < 1 or nr < 1:
+        raise ValueError("both clouds need at least one point")
+    _fits_int32(batch * nq * 3, batch * nr * 3)
+    d = torch.empty((batch, nq), dtype=torch.float32, device=dev)
+    idx = torch.empty((batch, nq), dtype=torch.int32, device=dev)
+    _launch("k8_fwd", library().cfs_nearest_sq, dev, _ptr(query), q_stride,
+            nq, _ptr(ref), r_stride, nr, _ptr(mu), batch, _ptr(d), _ptr(idx))
+    return d, idx
+
+
+def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
+                   g_u: torch.Tensor, d_u: torch.Tensor, idx_u: torch.Tensor,
+                   g_v: torch.Tensor, d_v: torch.Tensor, perm: torch.Tensor,
+                   offsets: torch.Tensor) -> torch.Tensor:
+    """K8 backward (``csrc/distances.cu``, counted as ``k8_bwd``): the
+    gradient in ``query`` of ``Σ g_u·d_u + Σ g_v·d_v``, where ``d_u, idx_u
+    [R, nq]`` are the query side's distances and argmins and ``d_v [R,
+    nr]`` the other side's, whose argmins are given as a CSR over the
+    query points (``perm [R, nr]``: each batch's ``j`` sorted stably by
+    their argmin; ``offsets [R, nq + 1]``: each query point's segment).
+    Returns ``[R, nq, 3]`` f32."""
+    dev = query.device
+    rq, nq, q_stride = _cloud(query, "query", dev)
+    rr, nr, r_stride = _cloud(ref, "ref", dev)
+    _require(mu, "mu", torch.float32, 1, dev)
+    batch = _batch_of(rq, rr)
+    for t, name, dtype, cols in ((g_u, "g_u", torch.float32, nq),
+                                 (d_u, "d_u", torch.float32, nq),
+                                 (idx_u, "idx_u", torch.int32, nq),
+                                 (g_v, "g_v", torch.float32, nr),
+                                 (d_v, "d_v", torch.float32, nr),
+                                 (perm, "perm", torch.int32, nr),
+                                 (offsets, "offsets", torch.int32, nq + 1)):
+        _require(t, name, dtype, 2, dev)
+        if tuple(t.shape) != (batch, cols):
+            raise ValueError(f"{name} must be {(batch, cols)}; got "
+                             f"{tuple(t.shape)}")
+    if mu.shape[0] != 3 or nq < 1 or nr < 1:
+        raise ValueError("mu must be [3] and both clouds non-empty")
+    _fits_int32(batch * nq * 3, batch * nr * 3)
+    out = torch.empty((batch, nq, 3), dtype=torch.float32, device=dev)
+    _launch("k8_bwd", library().cfs_nearest_sq_bwd, dev, _ptr(query),
+            q_stride, nq, _ptr(ref), r_stride, nr, _ptr(mu), batch,
+            _ptr(g_u), _ptr(d_u), _ptr(idx_u), _ptr(g_v), _ptr(d_v),
+            _ptr(perm), _ptr(offsets), _ptr(out))
+    return out

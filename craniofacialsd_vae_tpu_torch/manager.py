@@ -14,8 +14,13 @@ the host from a generator seeded by the manager's seed and the step's
 number (``_step_draws``), so the same step draws the same on every
 device and after a resume.
 
+After training, the classifier zoo (``analysis/classifiers.py``) is
+fitted on the encoded train latents (``train_and_validate_classifiers``),
+saved beside the checkpoints as ``classifiers.npz`` and restored by
+``resume`` (or read from a reference run's sklearn pickles).
+
 Not ported here: the scanned epochs (``can_scan_epochs`` is False,
-ROADMAP 1.5), data parallelism (1.11) and the classifier zoo (1.7).
+ROADMAP 1.5) and data parallelism (1.11).
 """
 
 from __future__ import annotations
@@ -38,9 +43,6 @@ from .training.checkpoint import (MODEL_RE, adam_from_optax, adam_to_optax,
 from .utils import class_conversions_and_weights
 
 __all__ = ["ModelManager"]
-
-_ZOO = ("the classifier zoo (LDA, QDA, SVM, MLP fitted on the latents) is "
-        "not ported yet (ROADMAP 1.7)")
 
 
 def _load_named(module: torch.nn.Module, named: dict) -> None:
@@ -140,6 +142,7 @@ class ModelManager:
         self._step_counter = 0
         self._train_latents = None
         self._train_labels = None
+        self.classifiers = None         # the zoo, built when fitted or read
 
     # ------------------------------------------------------------------
     @property
@@ -383,24 +386,75 @@ class ModelManager:
         return latents, labels
 
     # ------------------------------------------------------------------
-    # the classifier zoo
+    # the classifier zoo (analysis/classifiers.py)
     def build_classifiers(self):
-        raise NotImplementedError(_ZOO)
+        from .analysis.classifiers import LatentClassifiers
 
-    def train_and_validate_classifiers(self, *args, **kwargs):
-        raise NotImplementedError(_ZOO)
+        clf = self._classifier_params or {}
+        per_region = self.loss_weights.latent_consistency > 0
+        self.classifiers = LatentClassifiers(
+            latent_size=self.model_latent_size,
+            latent_regions=self._latent_regions if per_region else None,
+            mlp_hidden=clf.get("mlp_hidden_features", [512, 128, 64]),
+            mlp_lr=float(clf.get("mlp_lr", 1e-4)),
+            mlp_epochs=int(clf.get("mlp_epochs", 50)),
+            # the reference's optimizer: coupled Adam with the main
+            # config's weight decay, one step per latent loader batch
+            # (reference mm.py:118-121, 428-446)
+            mlp_weight_decay=self.weight_decay,
+            mlp_batch=self.batch_size,
+            mlp_restarts=int(clf.get("mlp_restarts", 4)),
+            device=self.device)
+        return self.classifiers
 
-    def classify_latent(self, *args, **kwargs):
-        raise NotImplementedError(_ZOO)
+    def train_and_validate_classifiers(self, train_iter, val_iter,
+                                       writer=None, checkpoint_dir=None):
+        """Fit MLP/SVM/LDA/QDA (and the per-region LDA/QDA) on the train
+        latents, score them on the validation latents (reference
+        mm.py:448-504); returns the accuracies. With an end-to-end head
+        the head's own weights are the MLP."""
+        if self._train_latents is None:
+            self.encode_all(train_iter, is_train_loader=True)
+        val_z, val_labels = self.encode_all(val_iter, is_train_loader=False)
+        if len(self._train_latents) == 0 or len(val_z) == 0:
+            raise ValueError(
+                "classifier fitting got an empty latent set — the loader "
+                "yielded no batches (batch_size larger than the split with "
+                "drop_last?)")
+        if self.classifiers is None:
+            self.build_classifiers()
+        y = np.asarray(self.class2idx(self._train_labels["y"]))
+        y_val = np.asarray(self.class2idx(val_labels["y"]))
+        accs = self.classifiers.fit_all(
+            self._train_latents, y, val_z, y_val,
+            class_weights=None if self._class_weights is None
+            else _numpy(self._class_weights),
+            mlp_init=mlp_to_jax(self.head.state_dict())
+            if self._mlp_end2end else None,
+            writer=writer)
+        if checkpoint_dir:
+            self.classifiers.save(checkpoint_dir)
+        return accs
 
-    def mahalanobis_dist_to_qda_distribution(self, *args, **kwargs):
-        raise NotImplementedError(_ZOO)
+    def classify_latent(self, z, model: str = "main"):
+        if model == "main":
+            model = (self._classifier_params or {}).get(
+                "main_model_type", "qda")
+        pred = self.classifiers.predict(_numpy(z), model)
+        return self.idx2class(pred)
 
-    def qda_sample(self, *args, **kwargs):
-        raise NotImplementedError(_ZOO)
+    def mahalanobis_dist_to_qda_distribution(self, z, distribution_class="n",
+                                             region="all"):
+        idx = self.class2idx(distribution_class)
+        return self.classifiers.mahalanobis(_numpy(z), idx, region)
 
-    def lda_project_latents_in_2d(self, *args, **kwargs):
-        raise NotImplementedError(_ZOO)
+    def qda_sample(self, sample_class="a", n_samples=1, seed=0):
+        if isinstance(sample_class, str):
+            sample_class = self.class2idx(sample_class)
+        return self.classifiers.qda_sample(sample_class, n_samples, seed)
+
+    def lda_project_latents_in_2d(self, latents):
+        return self.classifiers.lda_transform(_numpy(latents))
 
     # ------------------------------------------------------------------
     # checkpointing, in the JAX package's layout
@@ -422,15 +476,20 @@ class ModelManager:
 
     def save_weights(self, checkpoint_dir: str, epoch: int):
         save_checkpoint(checkpoint_dir, self.state_trees(), epoch + 1)
+        if self.classifiers is not None:
+            self.classifiers.save(checkpoint_dir)
 
     def resume(self, checkpoint_dir: str) -> int:
         """Restore the latest checkpoint of ``checkpoint_dir``; returns
         its epoch (0 when there is none). The network must match; a head
         of another shape is kept fresh (network weights only), and an
         ``optimizer.ckpt`` of another epoch than the model file is not
-        loaded."""
+        loaded. The zoo comes from ``classifiers.npz``, or from a
+        reference run's ``lda/qda_classifier.pkl``; with neither,
+        ``classifiers`` is an empty zoo."""
         model_path = latest_checkpoint(checkpoint_dir)
         if model_path is None:
+            self._resume_classifiers(checkpoint_dir)
             return 0
         raw = read_checkpoint(model_path)
         _load_named(self.model, named_from_tree(raw["params"]))
@@ -468,8 +527,23 @@ class ModelManager:
                     except ValueError:
                         print("Classifier optimizer mismatch; restored net "
                               "optimizer state only")
-        print(f"Resume from epoch {epoch}; {_ZOO}, so none is restored")
+        self._resume_classifiers(checkpoint_dir)
         return epoch
+
+    def _resume_classifiers(self, checkpoint_dir: str) -> None:
+        if self.classifiers is None:
+            self.build_classifiers()
+        try:
+            self.classifiers.load(checkpoint_dir)
+        except FileNotFoundError:
+            # a migrated reference run carries sklearn pickles instead
+            if any(os.path.exists(os.path.join(checkpoint_dir, n))
+                   for n in ("lda_classifier.pkl", "qda_classifier.pkl")):
+                self.classifiers.load_reference_pickles(checkpoint_dir)
+                print("Classifiers loaded from reference sklearn pickles")
+            else:
+                print("Classifiers not trained yet; "
+                      "skipping classifier resume")
 
 
 def _numpy(a) -> np.ndarray:

@@ -1,3 +1,5 @@
+from .distances import (chamfer_distance, nearest_dists_sq,
+                        nearest_dists_sq_sym)
 from .pool import build_pool_operator, pool, selection_indices
 from .sparse import (CappedEll, GatherRows, PaddedRowSparse, capped_ell,
                      ell_matmul, ell_matmul_capped_plain, ell_matmul_plain,
@@ -21,4 +23,5 @@ __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "spiral_conv_dw", "spiral_conv_dw_chunked_plain",
            "spiral_conv_dw_plain", "spiral_conv_plain",
            "spiral_conv_out_gather",
-           "out_gather_sum_plain", "out_gather_sum_bwd_plain"]
+           "out_gather_sum_plain", "out_gather_sum_bwd_plain",
+           "chamfer_distance", "nearest_dists_sq", "nearest_dists_sq_sym"]

@@ -10,10 +10,13 @@ the host), logs the per-epoch train and validation losses and
 grids every ``tb_renderings`` epochs, and checkpoints every
 ``save_weights`` epochs and at the end, in the JAX package's checkpoint
 layout. The training split stays on the device (``DeviceBatchIterator``).
+After the last save it fits the classifier zoo on the train latents at
+the config's batch size (``checkpoints/classifiers.npz``) and writes the
+latent statistics (``z_stats.npz``).
 
 Not ported yet: data parallelism and multihost (ROADMAP 1.11), the
-profiler capture, the scanned epochs (1.5), the Tester's latent
-traversals, the classifier zoo (1.7) and the latent statistics (1.10).
+profiler capture, the scanned epochs (1.5) and the Tester's latent
+traversals (1.10).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ def main(argv=None) -> dict:
                         help="torch device (default: the card)")
     args = parser.parse_args(argv)
 
+    from .analysis.tester import compute_latent_stats
     from .data.dataset import DeviceBatchIterator, build_datasets
     from .device import resolve_device
     from .manager import ModelManager
@@ -120,15 +124,24 @@ def main(argv=None) -> dict:
                   f"({dt / (epoch - start_epoch + 1):.2f}s/epoch)")
 
     manager.save_weights(checkpoint_dir, epochs - 1)
+    t_clf = time.perf_counter()
+    classifier_accs = manager.train_and_validate_classifiers(
+        DeviceBatchIterator(train_set, batch_size, shuffle=False,
+                            class2idx=manager._class2idx_dict,
+                            device=device),
+        DeviceBatchIterator(val_set, batch_size, shuffle=False,
+                            class2idx=manager._class2idx_dict,
+                            device=device),
+        writer, checkpoint_dir)
+    classifiers_s = time.perf_counter() - t_clf
+    compute_latent_stats(manager, output_dir)
     writer.close()
-    print("not run: the classifier zoo and the latent statistics are not "
-          "ported yet (ROADMAP 1.7, 1.10); no classifiers or z_stats were "
-          "written")
     print(f"done in {time.time() - t0:.1f}s → {output_dir}")
     return {"output_dir": output_dir, "checkpoint_dir": checkpoint_dir,
             "manager": manager, "history": history,
             "geometry_s": manager.geometry_seconds, "data_s": data_s,
-            "start_epoch": start_epoch}
+            "start_epoch": start_epoch, "classifier_accs": classifier_accs,
+            "classifiers_s": classifiers_s}
 
 
 if __name__ == "__main__":

@@ -414,11 +414,11 @@ def test_service_on_card_matches_host():
     norm = {"mean": mean, "std": np.full((n, 3), 0.1, np.float32)}
     x = (mean + 0.1 * rng.normal(size=(3, n, 3))).astype(np.float32)
     kernels.launches.reset()
-    card = DiagnosisService(bundle, cfg, norm, 10.0, max_batch=2,
-                            device=dev).reconstruct(x)
+    card = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, max_batch=2,
+                                        device=dev).reconstruct(x)
     counts = kernels.launches.snapshot()
-    host = DiagnosisService(bundle, cfg, norm, 10.0, max_batch=2,
-                            device="cpu").reconstruct(x)
+    host = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, max_batch=2,
+                                        device="cpu").reconstruct(x)
     assert counts["spiral_conv_tc"] == 2 * 8
     assert counts["spiral_conv_narrow"] == 2 and counts["ell_matmul_fwd"] == 8
     for key in ("vertices", "latent"):
@@ -1290,11 +1290,13 @@ def test_mixed_service_on_card_matches_host():
     norm = {"mean": mean, "std": np.full((n, 3), 0.1, np.float32)}
     x = (mean + 0.1 * rng.normal(size=(3, n, 3))).astype(np.float32)
     kernels.launches.reset()
-    card = DiagnosisService(bundle, _MIXED, norm, 10.0, max_batch=2,
-                            device=dev).reconstruct(x)
+    card = DiagnosisService.from_bundle(bundle, _MIXED, norm, 10.0,
+                                        max_batch=2,
+                                        device=dev).reconstruct(x)
     counts = kernels.launches.snapshot()
-    host = DiagnosisService(bundle, _MIXED, norm, 10.0, max_batch=2,
-                            device="cpu").reconstruct(x)
+    host = DiagnosisService.from_bundle(bundle, _MIXED, norm, 10.0,
+                                        max_batch=2,
+                                        device="cpu").reconstruct(x)
     assert counts["spiral_conv_tc"] == 2                 # enc0 in fp32
     assert counts["spiral_conv_bf16"] == 2 * 7
     assert counts["ell_matmul_bf16"] == 2 * 4
@@ -1364,3 +1366,123 @@ def test_bfloat16_policy_on_card_matches_host():
     for got, want in ((out, out_h), (mu, mu_h)):
         assert float((got.cpu() - want).abs().max()) <= \
             1e-2 * float(want.abs().max())
+
+
+# ------------------------------------------------------------------ K8
+def _clouds(dev, r, p, q, offset, seed=0):
+    g = _gen(dev, seed)
+    x = torch.randn((r, p, 3), generator=g, device=dev) + offset
+    y = torch.randn((q, 3), generator=g, device=dev) + offset
+    return x, y
+
+
+def _k8_separated(x, y, mu, tol):
+    """Rows of x whose best and second-best distances to y differ by more
+    than ``tol``: there the first argmin is unambiguous."""
+    keep = []
+    for xr in x:
+        u, v = xr - mu, y - mu
+        e = torch.sum(v * v, -1)[None, :] - 2.0 * (u @ v.T)
+        two = torch.topk(e, 2, dim=1, largest=False).values
+        keep.append(two[:, 1] - two[:, 0] > tol)
+    return torch.stack(keep)
+
+
+@pytest.mark.parametrize("r,p,q,offset", [
+    (16, 4097, 8192, 0.0),      # the fit's restarts and bucketed target
+    (1, 4097, 8192, 100.0),     # one cloud, a large frame offset
+    (3, 100, 5000, 0.0),        # a ragged tile
+])
+def test_k8_fwd_kernel_matches_plain(r, p, q, offset):
+    """k8_fwd against its twin, both directions: d within 1e-5 of max d
+    (another FMA order than the twin's), argmins equal wherever the best
+    two distances differ by more than that."""
+    dev = _card()
+    x, y = _clouds(dev, r, p, q, offset)
+    mu = y.mean(0)
+    d_x, d_y, a, b = ops.distances.nearest_dists_sq_sym_plain(x, y)
+    for query, ref, d_ref, idx_ref in ((x, y, d_x, a), (y, x, d_y, b)):
+        d, idx = kernels.nearest_sq(query, ref, mu)
+        torch.cuda.synchronize()
+        tol = 1e-5 * float(d_ref.max())
+        assert float((d - d_ref).abs().max()) <= tol
+        qb = query if query.dim() == 3 else query.expand(r, -1, -1)
+        rb = ref if ref.dim() == 3 else ref.expand(r, -1, -1)
+        sep = torch.stack([_k8_separated(qb[i:i + 1], rb[i], mu, tol)[0]
+                           for i in range(r)])
+        assert sep.float().mean() > 0.9
+        assert torch.equal(idx[sep], idx_ref[sep])
+
+
+def _same_argmins(a1, b1, a2, b2):
+    """The points whose chamfer gradient reads the same argmins in both
+    evaluations: x keeps its argmin and the y points choosing it, y
+    likewise over every batch."""
+    r, q = b1.shape
+    keep_x = a1 == a2
+    keep_y = torch.ones(q, dtype=torch.bool)
+    for i in range(r):
+        moved = (b1[i] != b2[i]).nonzero()[:, 0]
+        keep_x[i, b1[i][moved].long()] = False
+        keep_x[i, b2[i][moved].long()] = False
+        keep_y[moved] = False
+        swapped = (a1[i] != a2[i]).nonzero()[:, 0]
+        keep_y[a1[i][swapped].long()] = False
+        keep_y[a2[i][swapped].long()] = False
+    return keep_x, keep_y
+
+
+@pytest.mark.parametrize("r,p,q", [(16, 4097, 8192), (1, 300, 1000)])
+def test_k8_gradients_on_card_match_host(r, p, q):
+    """The chamfer's gradient in both clouds through k8_fwd/k8_bwd
+    against the host's twins: within 1e-4 of each gradient's max at every
+    point whose gradient reads the same argmins on both (at a near tie
+    the card and the host may pick two equally near points, whose
+    differences differ by their distance, not by rounding); fewer than
+    1 % of the points are such."""
+    dev = _card()
+    x, y = _clouds(dev, r, p, q, 0.0, seed=3)
+    g = _gen(dev, 4)
+    gx = torch.randn((r, p), generator=g, device=dev)
+    gy = torch.randn((r, q), generator=g, device=dev)
+    grads = []
+    for d in (dev, torch.device("cpu")):
+        xs = x.detach().to(d).clone().requires_grad_(True)
+        ys = y.detach().to(d).clone().requires_grad_(True)
+        dx, dy = ops.distances.nearest_dists_sq_sym(xs, ys)
+        ((dx * gx.to(d)).sum() + (dy * gy.to(d)).sum()).backward()
+        grads.append((xs.grad.cpu(), ys.grad.cpu()))
+    mu = y.mean(0)
+    _, a = kernels.nearest_sq(x, y, mu)
+    _, b = kernels.nearest_sq(y, x, mu)
+    _, _, ha, hb = ops.distances.nearest_dists_sq_sym_plain(x.cpu(), y.cpu())
+    keeps = _same_argmins(a.cpu(), b.cpu(), ha, hb)
+    for (card_g, host_g), keep in zip(zip(*grads), keeps):
+        assert float(keep.float().mean()) > 0.99
+        scale = float(host_g.abs().max())
+        assert float((card_g[keep] - host_g[keep]).abs().max()) \
+            <= 1e-4 * scale
+
+
+def test_k8_launch_counts_and_checks():
+    """One differentiable call launches k8_fwd twice (both directions)
+    and its backward in x once k8_bwd; the wrappers refuse what the
+    kernels do not take."""
+    dev = _card()
+    x, y = _clouds(dev, 2, 50, 70, 0.0)
+    x.requires_grad_(True)
+    kernels.launches.reset()
+    dx, dy = ops.distances.nearest_dists_sq_sym(x, y)
+    (dx.sum() + dy.sum()).backward()
+    counts = kernels.launches.snapshot()
+    assert counts["k8_fwd"] == 2 and counts["k8_bwd"] == 1
+    mu = y.mean(0)
+    with pytest.raises(ValueError):
+        kernels.nearest_sq(x.detach().cpu(), y, mu)
+    with pytest.raises(ValueError):
+        kernels.nearest_sq(x.detach().double(), y, mu)
+    with pytest.raises(ValueError):
+        kernels.nearest_sq(x.detach(), y[:0], mu)
+    with pytest.raises(ValueError):
+        kernels.nearest_sq(x.detach(), torch.zeros((3, 70, 3), device=dev),
+                           mu)

@@ -27,24 +27,45 @@ def _port_files():
     return sorted(files)
 
 
+# The reference's sklearn pickles are written by these functions alone
+# (no path on the card reaches them), which import sklearn where they run.
+SKLEARN_ONLY_IN = {os.path.join(PKG, "analysis", "classifiers.py"):
+                   {"to_sklearn"}}
+
+
 def _absolute_imports(path):
+    """(module, name of the enclosing function or None) of every absolute
+    import in the file."""
     with open(path) as f:
         tree = ast.parse(f.read(), path)
-    for node in ast.walk(tree):
-        if isinstance(node, ast.Import):
-            for alias in node.names:
-                yield alias.name
-        elif isinstance(node, ast.ImportFrom) and node.level == 0:
-            yield node.module
+
+    def walk(node, func):
+        for child in ast.iter_child_nodes(node):
+            if isinstance(child, ast.Import):
+                for alias in child.names:
+                    yield alias.name, func
+            elif isinstance(child, ast.ImportFrom) and child.level == 0:
+                yield child.module, func
+            inner = child.name if isinstance(
+                child, (ast.FunctionDef, ast.AsyncFunctionDef)) else func
+            yield from walk(child, inner)
+
+    yield from walk(tree, None)
 
 
 def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     files = _port_files()
     assert len(files) > 10
     bad = [(os.path.relpath(p, REPO), m) for p in files
-           for m in _absolute_imports(p)
-           if m.split(".")[0] in FORBIDDEN]
+           for m, func in _absolute_imports(p)
+           if m.split(".")[0] in FORBIDDEN
+           and not (m.split(".")[0] == "sklearn"
+                    and func in SKLEARN_ONLY_IN.get(p, ()))]
     assert not bad, bad
+    allowed = [(p, m) for p in SKLEARN_ONLY_IN
+               for m, func in _absolute_imports(p)
+               if m.split(".")[0] == "sklearn"]
+    assert allowed, "the sklearn exports moved: update SKLEARN_ONLY_IN"
 
 
 def test_smoke_model_literals_equal_the_smoke_config():
@@ -90,7 +111,8 @@ def test_smoke_fails_outside_a_checkout(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["ell_matmul.cu", "raster_sweep.cu",
-                                  "spiral_conv.cu", "spiral_conv_dw.cu"])
+                                  "spiral_conv.cu", "spiral_conv_dw.cu",
+                                  "distances.cu"])
 def test_kernel_sources_export_their_c_entry_points(name):
     """Each kernel source exports the C function its ctypes binding
     declares, and names the JAX function it replaces."""
@@ -103,7 +125,9 @@ def test_kernel_sources_export_their_c_entry_points(name):
                                  "cfs_ell_matmul_capped"),
                "raster_sweep.cu": ("cfs_raster_sweep",),
                "spiral_conv.cu": ("cfs_spiral_conv_fwd",),
-               "spiral_conv_dw.cu": ("cfs_spiral_conv_dw",)}[name]
+               "spiral_conv_dw.cu": ("cfs_spiral_conv_dw",),
+               "distances.cu": ("cfs_nearest_sq",
+                                "cfs_nearest_sq_bwd")}[name]
     for entry in entries:
         assert f'extern "C" int {entry}(' in src
     assert "craniofacialsd_vae_tpu/" in src and "Replaces" in src
@@ -111,7 +135,7 @@ def test_kernel_sources_export_their_c_entry_points(name):
 
 @pytest.mark.parametrize("module", ["training", "data", "geometry", "models",
                                     "ops", "serving", "utils", "viz",
-                                    "manager", "train"])
+                                    "manager", "train", "analysis", "serve"])
 def test_port_modules_import_with_jax_blocked(module):
     """Each subpackage and entry module imports in a fresh process in
     which JAX, the JAX package and the libraries the card's machine lacks

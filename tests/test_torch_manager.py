@@ -204,10 +204,14 @@ def test_manager_surface_matches_jax(ws):
     np.testing.assert_array_equal(tm._class_weights.numpy(),
                                   np.asarray(jm._class_weights))
     assert tm.can_scan_epochs() is False
-    for method in ("build_classifiers", "train_and_validate_classifiers",
-                   "classify_latent", "qda_sample"):
-        with pytest.raises(NotImplementedError, match="1.7"):
-            getattr(tm, method)()
+    # the zoo is built from the config as JAX builds it
+    zt, zj = tm.build_classifiers(), jm.build_classifiers()
+    for field in ("latent_size", "latent_regions", "mlp_hidden", "mlp_lr",
+                  "mlp_epochs", "mlp_weight_decay", "mlp_batch",
+                  "mlp_restarts"):
+        assert getattr(zt, field) == getattr(zj, field), field
+    assert zt.device == tm.device
+    tm.classifiers = jm.classifiers = None
 
 
 def test_inference_and_encode_all_match_jax(ws):
@@ -424,7 +428,8 @@ def test_train_main_writes_the_run_dir_and_resumes(tmp_path):
     run = os.path.join(root, "outputs", "run")
     ckpt = os.path.join(run, "checkpoints")
     assert os.path.exists(os.path.join(run, "config.yaml"))
-    assert sorted(os.listdir(ckpt)) == ["model_00000002.ckpt",
+    assert sorted(os.listdir(ckpt)) == ["classifiers.npz",
+                                        "model_00000002.ckpt",
                                         "optimizer.ckpt"]
     with open(os.path.join(run, "logs", "metrics.jsonl")) as f:
         tags = [yaml.safe_load(line)["tag"] for line in f]

@@ -661,9 +661,9 @@ def test_mixed_service_answers_reconstruct(tiny, tmp_path):
     sd = params_from_jax(tiny["params"])
     cfg = SDVAEConfig(out_channels=(8, 16), latent_size=Z,
                       compute_dtype="mixed")
-    svc = DiagnosisService(bundle, cfg, norm, 10.0, params=sd, max_batch=4,
-                           device="cpu")
-    svc32 = DiagnosisService(bundle, dataclasses.replace(
+    svc = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, params=sd,
+                                       max_batch=4, device="cpu")
+    svc32 = DiagnosisService.from_bundle(bundle, dataclasses.replace(
         cfg, compute_dtype="float32"), norm, 10.0, params=sd, max_batch=4,
         device="cpu")
     scans = norm["mean"] + norm["std"] * _rand(rng, 6, n, 3)

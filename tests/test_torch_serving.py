@@ -46,10 +46,10 @@ def setup(tmp_path_factory):
     norm = {"mean": mean, "std": std}
     manager = types.SimpleNamespace(geometry=geom_j, net_config=cfg_j,
                                     to_mm_const=TO_MM)
-    svc = DiagnosisService(bundle_t, SDVAEConfig(out_channels=(8, 16),
-                                                 latent_size=6),
-                           norm, TO_MM, params=params_from_jax(params_j),
-                           max_batch=MAX_BATCH, device="cpu")
+    svc = DiagnosisService.from_bundle(
+        bundle_t, SDVAEConfig(out_channels=(8, 16), latent_size=6), norm,
+        TO_MM, params=params_from_jax(params_j), max_batch=MAX_BATCH,
+        device="cpu")
     return dict(n=n, norm=norm, params_j=params_j, root=root,
                 programs_j=jax_build_raw_programs(manager, norm),
                 bundle_t=bundle_t, svc=svc, rng=rng)
@@ -157,6 +157,7 @@ def test_normalization_readers(setup):
 def test_service_defaults_to_the_card(setup, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
-        DiagnosisService(setup["bundle_t"],
-                         SDVAEConfig(out_channels=(8, 16), latent_size=6),
-                         setup["norm"], TO_MM)
+        DiagnosisService.from_bundle(
+            setup["bundle_t"],
+            SDVAEConfig(out_channels=(8, 16), latent_size=6),
+            setup["norm"], TO_MM)
