@@ -87,12 +87,18 @@ them or outside a checkout. Phases, each of which raises on a fault:
    Phases 7 and 8's ``train.main`` also fit the classifier zoo and write
    ``classifiers.npz`` and ``z_stats.npz`` (fit time and the four
    validation accuracies recorded);
-9. diagnosis: K8 (``k8_fwd`` both directions, ``k8_bwd``) at the fit's
-   shapes (16 restarts of 4,097 points against 8,192) and at one restart,
+9. diagnosis: the reference's sklearn pickles of ``tests/fixtures/
+   reference_pickles`` read with sklearn blocked and held against the
+   fixture's outputs; K8 (one ``k8_fwd`` for both directions, one
+   ``k8_bwd`` with its CSR built in the kernel) at the fit's shapes (16
+   restarts of 4,097 points against 8,192), at one restart and against a
+   target of 7,500 points padded to 8,192 with copies of its first,
    against its twins (distances within K8_D_RTOL of the largest, argmins
-   where the best two are apart, gradients within K8_G_RTOL card vs
-   host), timed against the twins, the bound and ``torch.cdist`` with
-   both minima; then each of phase 7's (fp32) and phase 8's (mixed) run
+   where the best two are apart and the lowest index at the copies, the
+   kernel's CSR equal to ``argmin_csr``'s, gradients within K8_G_RTOL
+   card vs twin and card vs host, two launches bit for bit), timed
+   against the twins, the bound and ``torch.cdist`` with both minima;
+   then each of phase 7's (fp32) and phase 8's (mixed) run
    dirs served by ``DiagnosisService.from_run_dir`` on the card, counted:
    ``diagnose`` at 1, 3, 16 and 20 scans and with 32 posterior draws,
    ``saliency`` at 4, one ``plan`` and one ``fit`` of a 32,768-point
@@ -220,7 +226,10 @@ FIT_PARITY_ITERATIONS = 10      # the fit held card vs host (the host's
 FIT_PROFILE_ITERATIONS = 5
 DIAG_SAMPLES = 32
 SALIENCY_BATCH = 4
-K8_OPS_PER_PAIR = 7             # three FMAs (6 flops) and a compare
+K8_OPS_PER_PAIR = 9             # one pair matrix: three FMAs (6 flops),
+#                                 the add of the norms, a compare for
+#                                 each direction
+FIT_PAD_POINTS = 7500           # a target that pads to the bucket 8,192
 K8_BWD_OPS_PER_POINT = 10       # a difference, its scale and the sum
 K8_D_RTOL = 1e-5                # K8 vs twin, against max d: another FMA
 #                                 order than the twin's expansion
@@ -229,6 +238,10 @@ DIAG_RTOL = 1e-4                # card vs host: posteriors, Mahalanobis,
 #                                 uncertainty statistics, plan latents
 SALIENCY_RTOL = 1e-3            # card vs host saliency, against its max
 FIT_RTOL = 1e-3                 # card vs host fit chamfer (fp32)
+PICKLE_RTOL = 1e-10             # the reference pickles' outputs vs the
+#                                 fixture's: the same numpy code on the
+#                                 same arrays
+PICKLE_REGIONS = {"r0": (0, 3), "r1": (3, 6)}   # the fixture's regions
 MIXED_FIT_RTOL = 5e-2           # card vs host fit chamfer and saliency
 #                                 (mixed): the JAX package's tolerance for
 #                                 the policy
@@ -2574,12 +2587,13 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
 
 # ----------------------------------------------------------------------
 # phase 9: diagnosis serving from the run dirs of phases 7 and 8
-def k8_bound(r: int, nq: int, nr: int) -> tuple:
-    """One ``k8_fwd`` launch: each point read once (the query cloud per
-    batch, the other shared), d and idx written once; K8_OPS_PER_PAIR
-    operations a pair at the fp32 rate."""
-    nbytes = (r * nq * 3 + nr * 3 + 3) * 4 + r * nq * 8
-    return nbytes, K8_OPS_PER_PAIR * r * nq * nr
+def k8_bound(r: int, p: int, q: int) -> tuple:
+    """One ``k8_fwd`` (both directions, one pair matrix): each point read
+    once (the ``r`` generated clouds, the shared target), d and the
+    argmin of both sides written once; K8_OPS_PER_PAIR operations a pair
+    at the fp32 rate."""
+    nbytes = (r * p * 3 + q * 3 + 3) * 4 + r * (p + q) * 8
+    return nbytes, K8_OPS_PER_PAIR * r * p * q
 
 
 def k8_same_argmins(a1, b1, a2, b2) -> tuple:
@@ -2604,27 +2618,39 @@ def k8_same_argmins(a1, b1, a2, b2) -> tuple:
     return keep_x, keep_y
 
 
-def k8_case(torch, mods, r: int, p: int, q: int, reps: int) -> dict:
+def k8_case(torch, mods, r: int, p: int, q: int, reps: int,
+            q_valid=None) -> dict:
     """K8 at one shape of the fit (``r`` restarts of ``p`` generated points
-    against one target of ``q``): both k8_fwd launches and the k8_bwd
-    launch against their twins on the same CUDA tensors (both directions
-    against the one symmetric twin, in JAX's chunk order; distances within
+    against one target of ``q``; with ``q_valid``, the target's points
+    from there on are copies of its first and their cotangents 0, as the
+    fit pads and masks it): one k8_fwd (both directions) and one k8_bwd
+    (the gradient in the generated side, its CSR built in the kernel)
+    against their twins on the same CUDA tensors: distances within
     K8_D_RTOL of the largest, argmins equal where the best two distances
-    are further apart than that, gradients within K8_G_RTOL of the
-    largest against the host's twins), timed against the twins and, for
-    the forward, against ``torch.cdist`` with both minima."""
+    are further apart than that and, at the padded copies, the lowest
+    index; the kernel's CSR equal to ``argmin_csr``'s element for element;
+    gradients within K8_G_RTOL of the largest against the twin over that
+    CSR and against the host's autograd; a second launch of each bit for
+    bit the first. Timed against the twins (the backward's twin with
+    ``argmin_csr``, whose time is also kept apart) and, for the forward,
+    against ``torch.cdist`` with both minima."""
     kernels = mods["kernels"]
     dist = mods["distances"]
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + r)
     x = torch.randn((r, p, 3), generator=gen, device=DEVICE) * 0.5 + 1.0
     y = torch.randn((q, 3), generator=gen, device=DEVICE) * 0.5 + 1.0
+    if q_valid is not None:
+        y[q_valid:] = y[0]
     mu = y.mean(0)
-    out = {"restarts": r, "p": p, "q": q}
+    out = {"restarts": r, "p": p, "q": q, "q_valid": q_valid or q}
     with torch.no_grad():
-        d_x, a = kernels.nearest_sq(x, y, mu)
-        d_y, b = kernels.nearest_sq(y, x, mu)
+        d_x, d_y, a, b = kernels.nearest_sq_sym(x, y, mu)
         rx, ry, ra, rb = dist.nearest_dists_sq_sym_plain(x, y)
+        again = kernels.nearest_sq_sym(x, y, mu)
         torch.cuda.synchronize()
+        check(all(torch.equal(u, v) for u, v in zip((d_x, d_y, a, b),
+                                                    again)),
+              f"K8 fwd R={r}: two launches differ")
         err = max(max_err(d_x, rx), max_err(d_y, ry))
         tol = K8_D_RTOL * float(torch.maximum(rx.max(), ry.max()))
         check(err <= tol, f"K8 fwd R={r}: |d - twin| {err:.3e} > {tol:.3e}")
@@ -2639,12 +2665,16 @@ def k8_case(torch, mods, r: int, p: int, q: int, reps: int) -> dict:
                 check(torch.equal(got[i][sep], want[i][sep]),
                       f"K8 fwd R={r}: argmins differ where separated")
                 agree.append(float(sep.float().mean()))
+        if q_valid is not None:
+            check(int((a >= q_valid).sum()) == 0
+                  and torch.equal(b[:, q_valid:],
+                                  b[:, :1].expand(-1, q - q_valid)),
+                  f"K8 fwd R={r}: a padded copy is not tied to its first")
         out["separated_share"] = min(agree)
         out["max_abs_err"] = err
 
         def fwd():
-            kernels.nearest_sq(x, y, mu)
-            kernels.nearest_sq(y, x, mu)
+            kernels.nearest_sq_sym(x, y, mu)
 
         def fwd_plain():
             dist.nearest_dists_sq_sym_plain(x, y)
@@ -2656,40 +2686,46 @@ def k8_case(torch, mods, r: int, p: int, q: int, reps: int) -> dict:
         out["ms"] = cuda_ms(torch, fwd, reps)
         out["plain_ms"] = cuda_ms(torch, fwd_plain, max(reps // 10, 2))
         out["library_ms"] = cuda_ms(torch, fwd_library, max(reps // 10, 2))
-        nb1, ops1 = k8_bound(r, p, q)
-        nb2, ops2 = k8_bound(r, q, p)
-        out.update(bytes=nb1 + nb2, flops=ops1 + ops2)
+        out["bytes"], out["flops"] = k8_bound(r, p, q)
         out["bound_ms"], out["bound_by"], _, _ = bound(out["bytes"],
                                                        out["flops"])
 
         # the backward in x, as the fit takes it
         gx = torch.randn((r, p), generator=gen, device=DEVICE)
         gy = torch.randn((r, q), generator=gen, device=DEVICE)
-        perm, off = dist.argmin_csr(b, p)
+        if q_valid is not None:
+            gy[:, q_valid:] = 0.0
+        args = (x, y, mu, gx, d_x, a, gy, d_y)
 
         def bwd():
-            return kernels.nearest_sq_bwd(x, y, mu, gx, d_x, a, gy, d_y,
-                                          perm, off)
+            return kernels.nearest_sq_bwd(*args, b)
 
         def bwd_plain():
-            return dist.nearest_sq_bwd_plain(x, y, mu, gx, d_x, a, gy, d_y,
-                                             perm, off)
+            perm, off = dist.argmin_csr(b, p)
+            return dist.nearest_sq_bwd_plain(*args, perm, off)
 
-        dx, dx_ref = bwd(), bwd_plain()
+        dx, perm, off = kernels.nearest_sq_bwd(*args, b, csr=True)
+        want_perm, want_off = dist.argmin_csr(b, p)
+        dx_ref = bwd_plain()
+        dx_again = bwd()
         torch.cuda.synchronize()
+        check(torch.equal(perm, want_perm) and torch.equal(off, want_off),
+              f"K8 bwd R={r}: the kernel's CSR differs from argmin_csr")
+        check(torch.equal(dx, dx_again), f"K8 bwd R={r}: two launches differ")
         g_err = max_err(dx, dx_ref)
         check(g_err <= K8_G_RTOL * float(dx_ref.abs().max()),
               f"K8 bwd R={r}: |dx - twin| {g_err:.3e}")
         nb = (r * p * 3 + q * 3 + 3) * 4 + r * p * 12 + r * q * 12 \
-            + r * (p + 1) * 4 + r * p * 12
+            + r * p * 12
         ops = K8_BWD_OPS_PER_POINT * r * (p + q)
         b_bound, b_by, _, _ = bound(nb, ops)
         out["bwd"] = dict(
             max_abs_err=g_err, ms=cuda_ms(torch, bwd, reps),
             plain_ms=cuda_ms(torch, bwd_plain, max(reps // 10, 2)),
-            csr_ms=cuda_ms(torch, lambda: dist.argmin_csr(b, p), reps),
+            csr_plain_ms=cuda_ms(torch, lambda: dist.argmin_csr(b, p), reps),
             library_ms=None, bytes=nb, flops=ops, bound_ms=b_bound,
-            bound_by=b_by)
+            bound_by=b_by, longest_segment=int((off[:, 1:] - off[:, :-1])
+                                               .max()))
 
     # the gradient in both clouds through the autograd Function, card
     # against host, at every point whose gradient reads the same argmins
@@ -2714,13 +2750,15 @@ def k8_case(torch, mods, r: int, p: int, q: int, reps: int) -> dict:
         check(e <= K8_G_RTOL * float(host_g.abs().max()),
               f"K8 gradient in {name} R={r}: card vs host {e:.3e}")
         out[f"grad_{name}_card_vs_host"] = e
-    log(f"[9 K8 R={r} P={p} Q={q}] fwd both directions {out['ms']:.4f} ms "
-        f"(plain {out['plain_ms']:.3f}, cdist {out['library_ms']:.3f}, "
-        f"bound {out['bound_ms']:.4f} {out['bound_by']}); bwd "
-        f"{out['bwd']['ms']:.4f} ms (plain {out['bwd']['plain_ms']:.3f}, "
-        f"CSR {out['bwd']['csr_ms']:.4f}, bound {out['bwd']['bound_ms']:.5f}"
-        f" {out['bwd']['bound_by']}); errors d {err:.2e}, dx {g_err:.2e}; "
-        f"argmins separated {out['separated_share']:.3f}")
+    log(f"[9 K8 R={r} P={p} Q={q} valid {out['q_valid']}] fwd "
+        f"{out['ms']:.4f} ms (plain {out['plain_ms']:.3f}, cdist "
+        f"{out['library_ms']:.3f}, bound {out['bound_ms']:.4f} "
+        f"{out['bound_by']}); bwd with its CSR {out['bwd']['ms']:.4f} ms "
+        f"(plain {out['bwd']['plain_ms']:.3f}, of which argmin_csr "
+        f"{out['bwd']['csr_plain_ms']:.4f}; bound "
+        f"{out['bwd']['bound_ms']:.5f} {out['bwd']['bound_by']}; longest "
+        f"segment {out['bwd']['longest_segment']}); errors d {err:.2e}, dx "
+        f"{g_err:.2e}; argmins separated {out['separated_share']:.3f}")
     return out
 
 
@@ -2953,7 +2991,7 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
     # shapes account for are the counted run's, kernel for kernel
     passes = diagnosis_passes(svc)
     shapes = diagnosis_shapes(torch, mods, svc, passes)
-    k8_per_fit = {"k8_fwd": 2 * (FIT_ITERATIONS + 1),
+    k8_per_fit = {"k8_fwd": FIT_ITERATIONS + 1,      # one a forward
                   "k8_bwd": FIT_ITERATIONS}
     want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
     want.update(k8_per_fit)
@@ -3092,14 +3130,74 @@ def http_once(svc, scans: dict) -> dict:
     return {"post_diagnose_ms": post_ms, "requests": health["requests"]}
 
 
+def reference_pickles_check() -> dict:
+    """The reference's sklearn pickles of ``tests/fixtures/
+    reference_pickles`` (written with sklearn by ``tests/
+    test_torch_pickles.py::write_fixture``) read by the port's
+    ``LatentClassifiers.load_reference_pickles`` with ``sklearn`` blocked
+    (this machine has none): every head's outputs on the fixture's probe
+    latents within PICKLE_RTOL of ``expected.npz``, the labels equal."""
+    import importlib.util
+
+    from craniofacialsd_vae_tpu_torch.analysis.classifiers import \
+        LatentClassifiers
+
+    root = os.path.join(ROOT, "tests", "fixtures", "reference_pickles")
+    installed = importlib.util.find_spec("sklearn") is not None
+    held = sys.modules.get("sklearn", "absent")
+    sys.modules["sklearn"] = None
+    try:
+        zoo = LatentClassifiers(latent_size=6,
+                                latent_regions=PICKLE_REGIONS) \
+            .load_reference_pickles(root)
+    finally:
+        if held == "absent":
+            del sys.modules["sklearn"]
+        else:
+            sys.modules["sklearn"] = held
+    with np.load(os.path.join(root, "expected.npz")) as f:
+        want = dict(f)
+    z = want.pop("probe")
+    got = {"lda_decision": zoo.lda.decision_function(z),
+           "lda_transform": zoo.lda_transform(z),
+           "lda_label": zoo.predict(z, "lda"),
+           "qda_proba": zoo.qda.predict_proba(z),
+           "qda_log_proba": zoo.qda.log_posteriors(z),
+           "qda_label": zoo.predict(z, "qda"),
+           "svm_decision": np.asarray(z, np.float64) @ zoo.svm.w + zoo.svm.b,
+           "svm_label": zoo.predict(z, "svm")}
+    for k, (lo, hi) in PICKLE_REGIONS.items():
+        got[f"{k}_lda_transform"] = \
+            zoo.region_ldas[k].transform_sklearn_style(z[:, lo:hi])
+        got[f"{k}_qda_proba"] = zoo.region_qdas[k].predict_proba(z[:, lo:hi])
+    check(set(got) == set(want), "reference pickles: outputs differ")
+    worst = 0.0
+    for k, w in want.items():
+        g = np.asarray(got[k])
+        check(g.shape == w.shape, f"reference pickles: {k} shape {g.shape}")
+        if k.endswith("_label"):
+            check(np.array_equal(g, w), f"reference pickles: {k} differ")
+        else:
+            worst = max(worst, float(np.abs(g - w).max())
+                        / max(float(np.abs(w).max()), 1e-30))
+    check(worst <= PICKLE_RTOL,
+          f"reference pickles: outputs {worst:.3e} from expected.npz")
+    log(f"[9 reference pickles] read without sklearn (installed here: "
+        f"{installed}): {len(want)} outputs within {worst:.2e}")
+    return {"sklearn_installed": installed, "max_rel_err": worst}
+
+
 def phase_diagnosis(torch, mods, runs: dict) -> dict:
     """Phase 9: phases 7's and 8's run dirs served on the card through
     ``DiagnosisService.from_run_dir`` (see the module docstring)."""
     t0 = time.perf_counter()
+    pickles = reference_pickles_check()
     q = FIT_SCAN_POINTS // 4
     shapes = {"fit": k8_case(torch, mods, FIT_RESTARTS, FIT_GEN_POINTS, q,
                              50),
-              "one": k8_case(torch, mods, 1, FIT_GEN_POINTS, q, 50)}
+              "one": k8_case(torch, mods, 1, FIT_GEN_POINTS, q, 50),
+              "padded": k8_case(torch, mods, FIT_RESTARTS, FIT_GEN_POINTS,
+                                q, 50, q_valid=FIT_PAD_POINTS)}
     torch.cuda.empty_cache()
     results, path_shapes = {}, {}
     for policy, run_dir in runs.items():
@@ -3120,7 +3218,8 @@ def phase_diagnosis(torch, mods, runs: dict) -> dict:
         fwd = summarize("k8_fwd", *KERNEL_SOURCES["k8_fwd"], [shapes["fit"]])
         bwd = summarize("k8_bwd", *KERNEL_SOURCES["k8_bwd"],
                         [shapes["fit"]["bwd"]])
-        fwd["parity_only"] = [shapes["one"]]
+        fwd["parity_only"] = [shapes["one"], shapes["padded"]]
+        bwd["parity_only"] = [shapes["one"]["bwd"], shapes["padded"]["bwd"]]
         for rec in (fwd, bwd):
             rec.update(path=path, launches=counts[rec["name"]])
             records.append(rec)
@@ -3129,9 +3228,12 @@ def phase_diagnosis(torch, mods, runs: dict) -> dict:
                        "fwd_cdist_ms": s["library_ms"],
                        "fwd_bound_ms": s["bound_ms"],
                        "bwd_ms": s["bwd"]["ms"],
+                       "bwd_plain_ms": s["bwd"]["plain_ms"],
                        "bwd_bound_ms": s["bwd"]["bound_ms"],
-                       "csr_ms": s["bwd"]["csr_ms"]}
+                       "csr_plain_ms": s["bwd"]["csr_plain_ms"],
+                       "longest_segment": s["bwd"]["longest_segment"]}
                    for k, s in shapes.items()},
+            "reference_pickles": pickles,
             **{policy: {k: v for k, v in r.items() if k != "counts"}
                for policy, r in results.items()},
             "seconds": time.perf_counter() - t0}

@@ -10,9 +10,13 @@ objective, from zeros with full-batch Adam) and the MLP head (coupled
 Adam, class-weighted cross entropy, one step per latent minibatch) fit in
 torch on the device they are given. ``LatentClassifiers`` is the zoo with
 its ``classifiers.npz`` layout, which the JAX package reads and writes
-too, and the reference's sklearn pickles both ways (those need
-``sklearn``, imported only by the ``to_sklearn`` methods; no path on the
-card reaches them).
+too, and the reference's sklearn pickles both ways. Reading them needs
+no ``sklearn``: ``load_reference_pickles`` unpickles the three estimator
+classes the reference saves into plain attribute holders
+(``ReferenceUnpickler``), so a migrated run dir serves where sklearn is
+not installed. Writing them (``save_reference_pickles``, the
+``to_sklearn`` methods) imports sklearn; no serving or training path
+calls those.
 """
 
 from __future__ import annotations
@@ -25,7 +29,50 @@ import numpy as np
 import torch
 
 __all__ = ["QDAClassifier", "LDAClassifier", "LinearSVM", "MLPTrainer",
-           "LatentClassifiers"]
+           "LatentClassifiers", "ReferenceUnpickler"]
+
+
+# ---------------------------------------------------------------------------
+class _FittedState:
+    """The attributes of a fitted sklearn estimator, as its pickle holds
+    them (``BaseEstimator.__getstate__``'s dict). ``from_sklearn`` reads
+    them as it reads the estimator's."""
+
+    def __setstate__(self, state):
+        self.__dict__.update(state)
+
+
+# the estimator classes the reference pickles, under each module path
+# sklearn has kept them at (the class's __module__ goes into the pickle)
+_REFERENCE_ESTIMATORS = {
+    ("sklearn.discriminant_analysis", "LinearDiscriminantAnalysis"),
+    ("sklearn.discriminant_analysis", "QuadraticDiscriminantAnalysis"),
+    ("sklearn.svm._classes", "LinearSVC"),
+    ("sklearn.svm.classes", "LinearSVC"),
+    ("sklearn.svm", "LinearSVC"),
+}
+
+
+class ReferenceUnpickler(pickle.Unpickler):
+    """Reads the reference's sklearn pickles without sklearn: LDA, QDA and
+    LinearSVC become ``_FittedState`` holders, numpy and the builtins
+    resolve as usual, and any other sklearn class raises an
+    ``UnpicklingError`` that names it."""
+
+    def find_class(self, module, name):
+        if (module, name) in _REFERENCE_ESTIMATORS:
+            return _FittedState
+        if module == "sklearn" or module.startswith("sklearn."):
+            raise pickle.UnpicklingError(
+                f"{module}.{name} is not one of the estimators the "
+                "reference saves (LinearDiscriminantAnalysis, "
+                "QuadraticDiscriminantAnalysis, LinearSVC)")
+        return super().find_class(module, name)
+
+
+def _read_reference_pickle(path: str):
+    with open(path, "rb") as f:
+        return ReferenceUnpickler(f).load()
 
 # ---------------------------------------------------------------------------
 @dataclass
@@ -806,15 +853,15 @@ class LatentClassifiers:
     def load_reference_pickles(self, checkpoint_dir: str):
         """Import the reference's saved classifiers
         ({lda,qda,svm}_classifier.pkl, region_{ldas,qdas}.pkl,
-        mlp_classifier.pt — reference model_manager.py:708-725). Unpickling
-        an sklearn estimator needs ``sklearn``."""
+        mlp_classifier.pt — reference model_manager.py:708-725), without
+        sklearn (``ReferenceUnpickler``)."""
         for name, attr, cls in (("lda_classifier.pkl", "lda", LDAClassifier),
                                 ("qda_classifier.pkl", "qda", QDAClassifier),
                                 ("svm_classifier.pkl", "svm", LinearSVM)):
             path = os.path.join(checkpoint_dir, name)
             if os.path.exists(path):
-                with open(path, "rb") as f:
-                    setattr(self, attr, cls.from_sklearn(pickle.load(f)))
+                setattr(self, attr,
+                        cls.from_sklearn(_read_reference_pickle(path)))
         mlp_path = os.path.join(checkpoint_dir, "mlp_classifier.pt")
         if os.path.exists(mlp_path):
             from ..training.torch_import import import_reference_mlp
@@ -825,10 +872,9 @@ class LatentClassifiers:
                 ("region_qdas.pkl", "region_qdas", QDAClassifier)):
             path = os.path.join(checkpoint_dir, name)
             if os.path.exists(path):
-                with open(path, "rb") as f:
-                    ref = pickle.load(f)
-                setattr(self, attr,
-                        {k: cls.from_sklearn(v) for k, v in ref.items()})
+                setattr(self, attr, {
+                    k: cls.from_sklearn(v)
+                    for k, v in _read_reference_pickle(path).items()})
         return self
 
     def save_reference_pickles(self, checkpoint_dir: str):

@@ -43,7 +43,8 @@ __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan",
            "plan_spiral_conv_dw_bf16",
            "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
-           "raster_sweep", "nearest_sq", "nearest_sq_bwd"]
+           "raster_sweep", "k8_plan", "k8_bwd_bins", "nearest_sq",
+           "nearest_sq_sym", "nearest_sq_bwd"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -199,9 +200,10 @@ def library() -> ctypes.CDLL:
                 p] * 9 + [i] * 6 + [ctypes.POINTER(i), p]
             lib.cfs_spiral_conv_bf16_tile.argtypes = [p] * 9 + [i] * 12 \
                 + [p]
-            lib.cfs_nearest_sq.argtypes = [p, i, i, p, i, i, p, i, p, p, p]
+            lib.cfs_nearest_sq.argtypes = [p, i, i, p, i, i, p, i, i, i] \
+                + [p] * 6 + [p]
             lib.cfs_nearest_sq_bwd.argtypes = [p, i, i, p, i, i, p, i] \
-                + [p] * 8 + [p]
+                + [p] * 6 + [i] + [p] * 4 + [p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
@@ -1195,43 +1197,119 @@ def _batch_of(*rs) -> int:
     return batch
 
 
-def nearest_sq(query: torch.Tensor, ref: torch.Tensor,
-               mu: torch.Tensor) -> tuple:
-    """K8 forward (``csrc/distances.cu``, counted as ``k8_fwd``): for each
-    point of ``query`` ([nq, 3] or [R, nq, 3]), its squared distance to
-    the nearest point of ``ref`` ([nr, 3] or [R, nr, 3]) after both are
-    centred on ``mu [3]``, in the expansion form ``‖u‖² + min (‖v‖² −
-    2u·v)`` clamped at 0, and the first index reaching it. Returns ``(d
-    [R, nq] f32, idx [R, nq] i32)`` (R = 1 when neither cloud is
-    batched)."""
-    dev = query.device
-    rq, nq, q_stride = _cloud(query, "query", dev)
-    rr, nr, r_stride = _cloud(ref, "ref", dev)
+# K8's launch geometry (csrc/distances.cu)
+_K8_TILE_ROWS = 192           # rows a warp holds (6 a lane)
+_K8_WARPS = 8                 # warps (row tiles) a block
+_K8_MAX_COLS = 1024           # columns a block holds in shared memory
+_K8_MAX_BINS = 512            # query points a backward block owns
+
+
+def k8_plan(batch: int, nx: int, ny: int) -> tuple:
+    """K8's forward tiling: ``(cols_per_block, tiles_per_group)``. Rows
+    go in tiles of 192 (a warp's), spread evenly over the fewest groups
+    of at most 8 (a block's warps); columns in ranges of a multiple of
+    32, at most 1,024. The range is the one whose grid takes the fewest
+    instruction slots on the busiest SM: waves of two blocks a streaming
+    multiprocessor, each block's warps about 1,400 instructions a
+    32-column chunk plus 500 to load and resolve their rows. At the fit's
+    16 restarts of 4,097 rows against 8,192 columns: 768 columns, groups
+    of 8 tiles, 528 blocks; at one restart 96 columns, 258 blocks."""
+    tiles = -(-nx // _K8_TILE_ROWS)
+    groups = -(-tiles // _K8_WARPS)
+    best = None
+    for cols in range(32, _K8_MAX_COLS + 1, 32):
+        splits = -(-ny // cols)
+        if splits > 65535:
+            continue
+        waves = -(-batch * groups * splits // (2 * _SMS))
+        cost = waves * (cols // 32 * 1400 + 500)
+        if best is None or cost < best[0]:
+            best = (cost, cols)
+    if best is None:
+        raise ValueError(f"{ny} columns need more than 65,535 ranges of "
+                         f"{_K8_MAX_COLS}")
+    return best[1], -(-tiles // groups)
+
+
+def k8_bwd_bins(batch: int, nq: int) -> int:
+    """The query points each block of K8's backward owns (at most 512,
+    what its shared counters hold): enough blocks for two a streaming
+    multiprocessor over the batch, and more where ``nq`` needs them."""
+    blocks = max(-(-nq // _K8_MAX_BINS), min(nq, -(-2 * _SMS // batch)))
+    return -(-nq // blocks)
+
+
+def _k8_fwd(x: torch.Tensor, y: torch.Tensor, mu: torch.Tensor,
+            both: bool) -> tuple:
+    dev = x.device
+    rx, nx, x_stride = _cloud(x, "x", dev)
+    ry, ny, y_stride = _cloud(y, "y", dev)
     _require(mu, "mu", torch.float32, 1, dev)
     if mu.shape[0] != 3:
         raise ValueError(f"mu must be [3]; got {tuple(mu.shape)}")
-    batch = _batch_of(rq, rr)
-    if nq < 1 or nr < 1:
+    batch = _batch_of(rx, ry)
+    if nx < 1 or ny < 1:
         raise ValueError("both clouds need at least one point")
-    _fits_int32(batch * nq * 3, batch * nr * 3)
-    d = torch.empty((batch, nq), dtype=torch.float32, device=dev)
-    idx = torch.empty((batch, nq), dtype=torch.int32, device=dev)
-    _launch("k8_fwd", library().cfs_nearest_sq, dev, _ptr(query), q_stride,
-            nq, _ptr(ref), r_stride, nr, _ptr(mu), batch, _ptr(d), _ptr(idx))
-    return d, idx
+    _fits_int32(batch * nx * 3, batch * ny * 3)
+    cols, tiles_per_group = k8_plan(batch, nx, ny)
+    row_groups = -(-nx // (_K8_TILE_ROWS * tiles_per_group))
+    n_row = batch * -(-ny // cols) * nx     # a key a row and column range
+    n_col = batch * row_groups * ny if both else 0   # a column, row group
+    part = torch.empty(n_row + n_col, dtype=torch.int64, device=dev)
+    d_x = torch.empty((batch, nx), dtype=torch.float32, device=dev)
+    a = torch.empty((batch, nx), dtype=torch.int32, device=dev)
+    none = ctypes.c_void_p(None)
+    if both:
+        d_y = torch.empty((batch, ny), dtype=torch.float32, device=dev)
+        b = torch.empty((batch, ny), dtype=torch.int32, device=dev)
+        col_args = (ctypes.c_void_p(part.data_ptr() + 8 * n_row), _ptr(d_y),
+                    _ptr(b))
+    else:
+        col_args = (none, none, none)
+    _launch("k8_fwd", library().cfs_nearest_sq, dev, _ptr(x), x_stride, nx,
+            _ptr(y), y_stride, ny, _ptr(mu), batch, cols, tiles_per_group,
+            _ptr(part), col_args[0], _ptr(d_x), _ptr(a), col_args[1],
+            col_args[2])
+    return (d_x, d_y, a, b) if both else (d_x, a)
+
+
+def nearest_sq_sym(x: torch.Tensor, y: torch.Tensor,
+                   mu: torch.Tensor) -> tuple:
+    """K8 forward (``csrc/distances.cu``, counted as ``k8_fwd``: the pair
+    pass and its reduction, two CUDA launches): one pass over the pairs of
+    ``x`` ([nx, 3] or [R, nx, 3]) and ``y`` ([ny, 3] or [R, ny, 3]), both
+    centred on ``mu [3]``, reduced along both axes. Each pair is ``‖u‖² +
+    ‖v‖² − 2u·v`` (an add and three FMAs); each minimum is clamped at 0
+    and its argmin is the lowest index reaching it. Returns ``(d_x [R,
+    nx], d_y [R, ny], a [R, nx], b [R, ny])`` (f32, f32, i32, i32; R = 1
+    when neither cloud is batched)."""
+    return _k8_fwd(x, y, mu, True)
+
+
+def nearest_sq(query: torch.Tensor, ref: torch.Tensor,
+               mu: torch.Tensor) -> tuple:
+    """K8 forward in one direction (the same kernel with the column
+    reduction off, counted as ``k8_fwd``): for each point of ``query``
+    ([nq, 3] or [R, nq, 3]), its squared distance to the nearest point of
+    ``ref`` after both are centred on ``mu``, and the lowest index reaching
+    it. Returns ``(d [R, nq] f32, idx [R, nq] i32)``."""
+    return _k8_fwd(query, ref, mu, False)
 
 
 def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
                    g_u: torch.Tensor, d_u: torch.Tensor, idx_u: torch.Tensor,
-                   g_v: torch.Tensor, d_v: torch.Tensor, perm: torch.Tensor,
-                   offsets: torch.Tensor) -> torch.Tensor:
-    """K8 backward (``csrc/distances.cu``, counted as ``k8_bwd``): the
-    gradient in ``query`` of ``Σ g_u·d_u + Σ g_v·d_v``, where ``d_u, idx_u
-    [R, nq]`` are the query side's distances and argmins and ``d_v [R,
-    nr]`` the other side's, whose argmins are given as a CSR over the
-    query points (``perm [R, nr]``: each batch's ``j`` sorted stably by
-    their argmin; ``offsets [R, nq + 1]``: each query point's segment).
-    Returns ``[R, nq, 3]`` f32."""
+                   g_v: torch.Tensor, d_v: torch.Tensor, idx_v: torch.Tensor,
+                   csr: bool = False):
+    """K8 backward (``csrc/distances.cu``, counted as ``k8_bwd``, one
+    launch): the gradient in ``query`` of ``Σ g_u·d_u + Σ g_v·d_v``, where
+    ``d_u, idx_u [R, nq]`` are the query side's distances and argmins and
+    ``d_v, idx_v [R, nr]`` the other side's. The kernel builds the CSR of
+    ``idx_v`` over the query points itself (a stable counting sort) and
+    sums each point's own term, then its segment in increasing ``j``.
+    Returns ``[R, nq, 3]`` f32; with ``csr``, also the CSR it walked,
+    ``(perm [R, nr], offsets [R, nq + 1])`` int32, equal to
+    ``ops.distances.argmin_csr(idx_v, nq)``. Each block owns at most 512
+    query points; the grid takes at most 65,535 blocks a restart."""
     dev = query.device
     rq, nq, q_stride = _cloud(query, "query", dev)
     rr, nr, r_stride = _cloud(ref, "ref", dev)
@@ -1242,18 +1320,31 @@ def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
                                  (idx_u, "idx_u", torch.int32, nq),
                                  (g_v, "g_v", torch.float32, nr),
                                  (d_v, "d_v", torch.float32, nr),
-                                 (perm, "perm", torch.int32, nr),
-                                 (offsets, "offsets", torch.int32, nq + 1)):
+                                 (idx_v, "idx_v", torch.int32, nr)):
         _require(t, name, dtype, 2, dev)
         if tuple(t.shape) != (batch, cols):
             raise ValueError(f"{name} must be {(batch, cols)}; got "
                              f"{tuple(t.shape)}")
     if mu.shape[0] != 3 or nq < 1 or nr < 1:
         raise ValueError("mu must be [3] and both clouds non-empty")
-    _fits_int32(batch * nq * 3, batch * nr * 3)
+    bins = k8_bwd_bins(batch, nq)
+    if -(-nq // bins) > 65535:
+        raise ValueError(
+            f"{nq} query points need {-(-nq // bins)} blocks of "
+            f"{_K8_MAX_BINS} (the bins a block's shared memory holds); "
+            "K8's backward takes at most 65,535 a restart")
+    _fits_int32(batch * nq * 3, batch * nr * 4)
     out = torch.empty((batch, nq, 3), dtype=torch.float32, device=dev)
+    terms = torch.empty((batch, nr, 4), dtype=torch.float32, device=dev)
+    perm = off = None
+    if csr:
+        perm = torch.empty((batch, nr), dtype=torch.int32, device=dev)
+        off = torch.empty((batch, nq + 1), dtype=torch.int32, device=dev)
+    none = ctypes.c_void_p(None)
     _launch("k8_bwd", library().cfs_nearest_sq_bwd, dev, _ptr(query),
             q_stride, nq, _ptr(ref), r_stride, nr, _ptr(mu), batch,
             _ptr(g_u), _ptr(d_u), _ptr(idx_u), _ptr(g_v), _ptr(d_v),
-            _ptr(perm), _ptr(offsets), _ptr(out))
-    return out
+            _ptr(idx_v), bins, _ptr(terms),
+            _ptr(perm) if csr else none, _ptr(off) if csr else none,
+            _ptr(out))
+    return (out, perm, off) if csr else out

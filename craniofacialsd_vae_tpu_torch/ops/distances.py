@@ -3,21 +3,23 @@
 ``nearest_dists_sq_sym`` is kernel K8: the nearest-neighbour squared
 distances of two clouds in both directions, the chamfer of the ``/fit``
 intake. For a CUDA tensor it launches ``csrc/distances.cu`` (``k8_fwd``
-once per direction; ``k8_bwd`` for the gradient), for a CPU tensor it
-runs the plain twin, which computes what the JAX function computes in its
-order: both clouds centred on ``mean(y)``, then per 4,096-column chunk of
-``y`` (padded with rows at 1e9) ``‖x‖² + ‖y‖² − 2x·y``, reduced along both
-axes. The argmins (the first index reaching each minimum) are kept for
-the backward.
+once, one pass over the pair matrix reducing both axes; ``k8_bwd`` once
+for the gradient), for a CPU tensor it runs the plain twin, which
+computes what the JAX function computes in its order: both clouds centred
+on ``mean(y)``, then per 4,096-column chunk of ``y`` (padded with rows at
+1e9) ``‖x‖² + ‖y‖² − 2x·y``, reduced along both axes. The argmins (the
+lowest index reaching each minimum) are kept for the backward.
 
 The gradient is an ``autograd.Function`` whose backward is a gather, not
 a scatter: each point's share of the other direction's cotangents is
-walked through a per-call CSR of the other side's argmins (a stable sort
-plus segment offsets; ``argmin_csr``). JAX splits a cotangent equally
-among tied minima, the first argmin gives all of it to one: the same
-total wherever the tied points are identical (the fit's target padding
-repeats its first point), and distinct points of continuous clouds tie
-with probability 0.
+walked through a CSR of the other side's argmins (the entries sorted
+stably by argmin, and each point's segment). On the card ``k8_bwd``
+builds that CSR itself; its plain twin is ``argmin_csr`` (a stable sort
+plus segment offsets), which runs for CPU tensors and in the checks. JAX
+splits a cotangent equally among tied minima, the lowest argmin gives all
+of it to one: the same total wherever the tied points are identical (the
+fit's target padding repeats its first point), and distinct points of
+continuous clouds tie with probability 0.
 
 ``point_mesh_distance`` is host numpy, as in JAX. The Sinkhorn divergence
 is not ported (no path runs it).
@@ -83,7 +85,7 @@ def argmin_csr(idx_v: torch.Tensor, nq: int) -> tuple:
     """``idx_v [R, nr]`` (each point's argmin among ``nq`` query points)
     → ``(perm [R, nr], offsets [R, nq + 1])``, int32: each batch's ``j``
     sorted stably by ``idx_v``, and each query point's segment of them.
-    Index bookkeeping for ``k8_bwd``, on idx_v's device."""
+    The plain twin of the CSR that ``k8_bwd`` builds on the card."""
     sorted_v, perm = torch.sort(idx_v.long(), dim=1, stable=True)
     bounds = torch.arange(nq + 1, device=idx_v.device).expand(
         idx_v.shape[0], nq + 1).contiguous()
@@ -93,9 +95,10 @@ def argmin_csr(idx_v: torch.Tensor, nq: int) -> tuple:
 
 def nearest_sq_bwd_plain(query, ref, mu, g_u, d_u, idx_u, g_v, d_v, perm,
                          offsets) -> torch.Tensor:
-    """The plain twin of ``k8_bwd`` (``kernels.nearest_sq_bwd``), summing
-    in the kernel's order: each point's own term, then its segment of
-    the other side's cotangents in increasing ``j``."""
+    """The plain twin of ``k8_bwd`` (``kernels.nearest_sq_bwd``), over
+    the CSR ``argmin_csr`` gives (the kernel builds the same one itself),
+    summing in the kernel's order and rounding: each point's own term,
+    then its segment of the other side's cotangents in increasing ``j``."""
     qb, rb = _batched(query), _batched(ref)
     batch = g_u.shape[0]
     nq = g_u.shape[1]
@@ -116,10 +119,13 @@ def nearest_sq_bwd_plain(query, ref, mu, g_u, d_u, idx_u, g_v, d_v, perm,
     return torch.stack(out)
 
 
-def _bwd(*args):
-    if args[0].is_cuda:
-        return kernels.nearest_sq_bwd(*args)
-    return nearest_sq_bwd_plain(*args)
+def _bwd(query, ref, mu, g_u, d_u, idx_u, g_v, d_v, idx_v):
+    if query.is_cuda:
+        return kernels.nearest_sq_bwd(query, ref, mu, g_u, d_u, idx_u, g_v,
+                                      d_v, idx_v)
+    perm, off = argmin_csr(idx_v, g_u.shape[1])
+    return nearest_sq_bwd_plain(query, ref, mu, g_u, d_u, idx_u, g_v, d_v,
+                                perm, off)
 
 
 class _NearestSym(torch.autograd.Function):
@@ -131,8 +137,7 @@ class _NearestSym(torch.autograd.Function):
         y = y.contiguous()
         mu = y.mean(dim=0)
         if x.is_cuda:
-            d_x, a = kernels.nearest_sq(x, y, mu)
-            d_y, b = kernels.nearest_sq(y, x, mu)
+            d_x, d_y, a, b = kernels.nearest_sq_sym(x, y, mu)
         else:
             d_x, d_y, a, b = nearest_dists_sq_sym_plain(x, y)
         ctx.save_for_backward(x, y, mu, d_x, d_y, a, b)
@@ -146,11 +151,9 @@ class _NearestSym(torch.autograd.Function):
         g_y = torch.zeros_like(d_y) if g_y is None else g_y.contiguous()
         dx = dy = None
         if ctx.needs_input_grad[0]:
-            perm, off = argmin_csr(b, x.shape[1])
-            dx = _bwd(x, y, mu, g_x, d_x, a, g_y, d_y, perm, off)
+            dx = _bwd(x, y, mu, g_x, d_x, a, g_y, d_y, b)
         if ctx.needs_input_grad[1]:
-            perm, off = argmin_csr(a, y.shape[0])
-            dy = _bwd(y, x, mu, g_y, d_y, b, g_x, d_x, perm, off).sum(dim=0)
+            dy = _bwd(y, x, mu, g_y, d_y, b, g_x, d_x, a).sum(dim=0)
         return dx, dy
 
 
@@ -171,8 +174,8 @@ def nearest_dists_sq_sym(x: torch.Tensor, y: torch.Tensor) -> tuple:
 
 def nearest_dists_sq(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """For each point of ``x [P, 3]``, the squared distance to its
-    nearest point of ``y [Q, 3]`` (one ``k8_fwd`` launch on the card; no
-    gradient: use ``nearest_dists_sq_sym`` for one)."""
+    nearest point of ``y [Q, 3]`` (one ``k8_fwd`` on the card, its column
+    reduction off; no gradient: use ``nearest_dists_sq_sym`` for one)."""
     with torch.no_grad():
         if x.is_cuda:
             return kernels.nearest_sq(x.contiguous(), y.contiguous(),

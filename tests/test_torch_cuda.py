@@ -1369,16 +1369,21 @@ def test_bfloat16_policy_on_card_matches_host():
 
 
 # ------------------------------------------------------------------ K8
-def _clouds(dev, r, p, q, offset, seed=0):
+def _clouds(dev, r, p, q, offset, seed=0, q_valid=None):
+    """``r`` clouds of ``p`` points and one of ``q``; with ``q_valid``, the
+    last ``q - q_valid`` points of the second are copies of its first, as
+    the fit pads its target."""
     g = _gen(dev, seed)
     x = torch.randn((r, p, 3), generator=g, device=dev) + offset
     y = torch.randn((q, 3), generator=g, device=dev) + offset
+    if q_valid is not None:
+        y[q_valid:] = y[0]
     return x, y
 
 
 def _k8_separated(x, y, mu, tol):
     """Rows of x whose best and second-best distances to y differ by more
-    than ``tol``: there the first argmin is unambiguous."""
+    than ``tol``: there the lowest argmin is unambiguous."""
     keep = []
     for xr in x:
         u, v = xr - mu, y - mu
@@ -1388,30 +1393,79 @@ def _k8_separated(x, y, mu, tol):
     return torch.stack(keep)
 
 
-@pytest.mark.parametrize("r,p,q,offset", [
-    (16, 4097, 8192, 0.0),      # the fit's restarts and bucketed target
-    (1, 4097, 8192, 100.0),     # one cloud, a large frame offset
-    (3, 100, 5000, 0.0),        # a ragged tile
-])
-def test_k8_fwd_kernel_matches_plain(r, p, q, offset):
-    """k8_fwd against its twin, both directions: d within 1e-5 of max d
+K8_SHAPES = [
+    (16, 4097, 8192, 0.0, None),    # the fit's restarts and bucketed target
+    (16, 4097, 8192, 0.0, 7500),    # a padded target: 692 copies of y[0]
+    (1, 4097, 8192, 100.0, None),   # one cloud, a large frame offset
+    (3, 100, 5000, 0.0, None),      # ragged tiles and column ranges
+]
+
+
+@pytest.mark.parametrize("r,p,q,offset,q_valid", K8_SHAPES)
+def test_k8_fwd_kernel_matches_plain(r, p, q, offset, q_valid):
+    """One k8_fwd against its twin, both directions: d within 1e-5 of max d
     (another FMA order than the twin's), argmins equal wherever the best
-    two distances differ by more than that."""
+    two distances differ by more than that, and where they tie exactly
+    (the padded copies) the lowest index."""
     dev = _card()
-    x, y = _clouds(dev, r, p, q, offset)
+    x, y = _clouds(dev, r, p, q, offset, q_valid=q_valid)
     mu = y.mean(0)
     d_x, d_y, a, b = ops.distances.nearest_dists_sq_sym_plain(x, y)
-    for query, ref, d_ref, idx_ref in ((x, y, d_x, a), (y, x, d_y, b)):
-        d, idx = kernels.nearest_sq(query, ref, mu)
-        torch.cuda.synchronize()
-        tol = 1e-5 * float(d_ref.max())
+    kernels.launches.reset()
+    got = kernels.nearest_sq_sym(x, y, mu)
+    torch.cuda.synchronize()
+    assert kernels.launches.snapshot()["k8_fwd"] == 1
+    tol = 1e-5 * float(torch.maximum(d_x.max(), d_y.max()))
+    for d, d_ref in ((got[0], d_x), (got[1], d_y)):
         assert float((d - d_ref).abs().max()) <= tol
+    for query, ref, idx, idx_ref in ((x, y, got[2], a), (y, x, got[3], b)):
         qb = query if query.dim() == 3 else query.expand(r, -1, -1)
         rb = ref if ref.dim() == 3 else ref.expand(r, -1, -1)
         sep = torch.stack([_k8_separated(qb[i:i + 1], rb[i], mu, tol)[0]
                            for i in range(r)])
         assert sep.float().mean() > 0.9
         assert torch.equal(idx[sep], idx_ref[sep])
+    if q_valid is not None:
+        # a copy of y[0] never wins a row of x, and every copy takes the
+        # argmin y[0] takes
+        assert int((got[2] >= q_valid).sum()) == 0
+        assert torch.equal(got[3][:, q_valid:],
+                           got[3][:, :1].expand(-1, q - q_valid))
+
+
+def test_k8_fwd_one_direction_matches_both():
+    """``nearest_sq`` (the column reduction off) gives the row direction of
+    ``nearest_sq_sym`` bit for bit, in one k8_fwd."""
+    dev = _card()
+    x, y = _clouds(dev, 16, 4097, 8192, 0.0, seed=5)
+    mu = y.mean(0)
+    d_x, _, a, _ = kernels.nearest_sq_sym(x, y, mu)
+    kernels.launches.reset()
+    d, idx = kernels.nearest_sq(x, y, mu)
+    torch.cuda.synchronize()
+    assert kernels.launches.snapshot()["k8_fwd"] == 1
+    assert torch.equal(d, d_x) and torch.equal(idx, a)
+    one = ops.distances.nearest_dists_sq(x[0], y)
+    assert torch.equal(one, kernels.nearest_sq(x[0], y, mu)[0][0])
+
+
+def test_k8_ties_go_to_the_lowest_index():
+    """Exact ties in both directions: duplicated points of either cloud
+    give equal distances, and the lowest index wins, as in the twin."""
+    dev = _card()
+    x, y = _clouds(dev, 2, 700, 1500, 0.0, seed=7)
+    x[:, 600:650] = x[:, 10:60]          # rows tied for their columns
+    y[1200:1300] = y[100:200]            # columns tied for their rows
+    mu = y.mean(0)
+    d_x, d_y, a, b = kernels.nearest_sq_sym(x, y, mu)
+    _, _, ha, hb = ops.distances.nearest_dists_sq_sym_plain(x, y)
+    torch.cuda.synchronize()
+    assert int(((a >= 1200) & (a < 1300)).sum()) == 0
+    assert int(((b >= 600) & (b < 650)).sum()) == 0
+    won = (a >= 100) & (a < 200)
+    assert int(won.sum()) > 0 and torch.equal(a[won], ha[won])
+    won = (b >= 10) & (b < 60)
+    assert int(won.sum()) > 0 and torch.equal(b[won], hb[won])
 
 
 def _same_argmins(a1, b1, a2, b2):
@@ -1432,8 +1486,10 @@ def _same_argmins(a1, b1, a2, b2):
     return keep_x, keep_y
 
 
-@pytest.mark.parametrize("r,p,q", [(16, 4097, 8192), (1, 300, 1000)])
-def test_k8_gradients_on_card_match_host(r, p, q):
+@pytest.mark.parametrize("r,p,q,q_valid", [(16, 4097, 8192, None),
+                                           (16, 4097, 8192, 7500),
+                                           (1, 300, 1000, None)])
+def test_k8_gradients_on_card_match_host(r, p, q, q_valid):
     """The chamfer's gradient in both clouds through k8_fwd/k8_bwd
     against the host's twins: within 1e-4 of each gradient's max at every
     point whose gradient reads the same argmins on both (at a near tie
@@ -1441,10 +1497,12 @@ def test_k8_gradients_on_card_match_host(r, p, q):
     differences differ by their distance, not by rounding); fewer than
     1 % of the points are such."""
     dev = _card()
-    x, y = _clouds(dev, r, p, q, 0.0, seed=3)
+    x, y = _clouds(dev, r, p, q, 0.0, seed=3, q_valid=q_valid)
     g = _gen(dev, 4)
     gx = torch.randn((r, p), generator=g, device=dev)
     gy = torch.randn((r, q), generator=g, device=dev)
+    if q_valid is not None:
+        gy[:, q_valid:] = 0.0            # the fit masks its padding
     grads = []
     for d in (dev, torch.device("cpu")):
         xs = x.detach().to(d).clone().requires_grad_(True)
@@ -1453,8 +1511,7 @@ def test_k8_gradients_on_card_match_host(r, p, q):
         ((dx * gx.to(d)).sum() + (dy * gy.to(d)).sum()).backward()
         grads.append((xs.grad.cpu(), ys.grad.cpu()))
     mu = y.mean(0)
-    _, a = kernels.nearest_sq(x, y, mu)
-    _, b = kernels.nearest_sq(y, x, mu)
+    _, _, a, b = kernels.nearest_sq_sym(x, y, mu)
     _, _, ha, hb = ops.distances.nearest_dists_sq_sym_plain(x.cpu(), y.cpu())
     keeps = _same_argmins(a.cpu(), b.cpu(), ha, hb)
     for (card_g, host_g), keep in zip(zip(*grads), keeps):
@@ -1464,10 +1521,60 @@ def test_k8_gradients_on_card_match_host(r, p, q):
             <= 1e-4 * scale
 
 
+@pytest.mark.parametrize("r,p,q,q_valid", [(16, 4097, 8192, None),
+                                           (16, 4097, 8192, 7500),
+                                           (2, 1300, 700, None)])
+def test_k8_bwd_csr_equals_argmin_csr(r, p, q, q_valid):
+    """The CSR k8_bwd builds (written out where asked) equals
+    ``argmin_csr`` element for element, in both directions, and the
+    gradient equals the twin's over that CSR within 1e-5 of its max (the
+    same products and sums, rounded one by one in the same order)."""
+    dev = _card()
+    x, y = _clouds(dev, r, p, q, 0.0, seed=11, q_valid=q_valid)
+    mu = y.mean(0)
+    d_x, d_y, a, b = kernels.nearest_sq_sym(x, y, mu)
+    g = _gen(dev, 12)
+    gx = torch.randn((r, p), generator=g, device=dev)
+    gy = torch.randn((r, q), generator=g, device=dev)
+    for args, n_bins in (((x, y, mu, gx, d_x, a, gy, d_y, b), p),
+                         ((y, x, mu, gy, d_y, b, gx, d_x, a), q)):
+        kernels.launches.reset()
+        out, perm, off = kernels.nearest_sq_bwd(*args, csr=True)
+        torch.cuda.synchronize()
+        assert kernels.launches.snapshot()["k8_bwd"] == 1
+        want_perm, want_off = ops.distances.argmin_csr(args[-1], n_bins)
+        assert torch.equal(perm, want_perm) and torch.equal(off, want_off)
+        plain = ops.distances.nearest_sq_bwd_plain(*args[:-1], want_perm,
+                                                   want_off)
+        assert float((out - plain).abs().max()) <= \
+            1e-5 * float(plain.abs().max())
+        assert torch.equal(out, kernels.nearest_sq_bwd(*args))
+
+
+def test_k8_runs_are_bit_identical():
+    """Two launches on the same inputs give the same distances, argmins
+    and gradients, bit for bit (no float atomics; the argmins' keys and the
+    CSR's counts are exact)."""
+    dev = _card()
+    x, y = _clouds(dev, 16, 4097, 8192, 0.0, seed=13, q_valid=7000)
+    runs = []
+    for _ in range(2):
+        xs = x.clone().requires_grad_(True)
+        ys = y.clone().requires_grad_(True)
+        dx, dy = ops.distances.nearest_dists_sq_sym(xs, ys)
+        (dx.sum() + (dy * torch.arange(8192, device=dev)).sum()).backward()
+        mu = y.mean(0)
+        runs.append((dx, dy, *kernels.nearest_sq_sym(x, y, mu)[2:],
+                     xs.grad, ys.grad))
+    torch.cuda.synchronize()
+    for first, second in zip(*runs):
+        assert torch.equal(first, second)
+
+
 def test_k8_launch_counts_and_checks():
-    """One differentiable call launches k8_fwd twice (both directions)
-    and its backward in x once k8_bwd; the wrappers refuse what the
-    kernels do not take."""
+    """One differentiable call launches k8_fwd once (both directions in one
+    pass) and its backward one k8_bwd per cloud that needs a gradient; the
+    wrappers refuse what the kernels do not take."""
     dev = _card()
     x, y = _clouds(dev, 2, 50, 70, 0.0)
     x.requires_grad_(True)
@@ -1475,14 +1582,23 @@ def test_k8_launch_counts_and_checks():
     dx, dy = ops.distances.nearest_dists_sq_sym(x, y)
     (dx.sum() + dy.sum()).backward()
     counts = kernels.launches.snapshot()
-    assert counts["k8_fwd"] == 2 and counts["k8_bwd"] == 1
-    mu = y.mean(0)
+    assert counts["k8_fwd"] == 1 and counts["k8_bwd"] == 1
+    y.requires_grad_(True)
+    kernels.launches.reset()
+    dx, dy = ops.distances.nearest_dists_sq_sym(x, y)
+    (dx.sum() + dy.sum()).backward()
+    counts = kernels.launches.snapshot()
+    assert counts["k8_fwd"] == 1 and counts["k8_bwd"] == 2
+    mu = y.detach().mean(0)
+    xd, yd = x.detach(), y.detach()
     with pytest.raises(ValueError):
-        kernels.nearest_sq(x.detach().cpu(), y, mu)
+        kernels.nearest_sq_sym(xd.cpu(), yd, mu)
     with pytest.raises(ValueError):
-        kernels.nearest_sq(x.detach().double(), y, mu)
+        kernels.nearest_sq_sym(xd.double(), yd, mu)
     with pytest.raises(ValueError):
-        kernels.nearest_sq(x.detach(), y[:0], mu)
+        kernels.nearest_sq(xd, yd[:0], mu)
     with pytest.raises(ValueError):
-        kernels.nearest_sq(x.detach(), torch.zeros((3, 70, 3), device=dev),
-                           mu)
+        kernels.nearest_sq_sym(xd, torch.zeros((3, 70, 3), device=dev), mu)
+    d_x, d_y, a, b = kernels.nearest_sq_sym(xd, yd, mu)
+    with pytest.raises(ValueError):
+        kernels.nearest_sq_bwd(xd, yd, mu, d_x, d_x, a, d_y, d_y, a)
