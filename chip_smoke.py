@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training and diagnosis paths
-on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, diagnosis and
+augmentation paths on one NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -116,11 +116,35 @@ them or outside a checkout. Phases, each of which raises on a fault:
    fit's backward to z at R = 16) against its twin and timed, with the
    launches those shapes account for equal to the counted run's, kernel
    for kernel; the HTTP entry point once (``POST /diagnose``, ``GET
-   /healthz``); one ``{"phase": "diagnosis", ...}`` line.
+   /healthz``); one ``{"phase": "diagnosis", ...}`` line;
+10. the study's data section from a raw dataset: K9 (``cheby_step``,
+   the eigensolver's Chebyshev step) in its three call forms (the filter
+   step, b = 0, the per-column residual) at the k = 1000 solve's shapes
+   (16,386 × 1,125) against its twin (bit-equal) and itself (two launches
+   bit-identical), timed against the twin, K4 followed by torch's
+   elementwise ops and ``torch.sparse.mm`` followed by them, with its
+   bound and ptxas's registers; ``laplacian_eigendecomposition`` of the
+   octasphere (subdivision 6) at k = 1000 through ``auto`` on the card:
+   the Chebyshev path (f64 residual below 1e-3, K9 launched passes × 82
+   times), eigenvalues within 1e-3 of the float64 dense ones
+   (``torch.linalg.eigvalsh`` on the card, timed), one profiled pass; the
+   Chebyshev solver at CHEBY_GAP_K against ARPACK (eigenvalues 1e-4,
+   subspace overlap 1e-4); ``auto``'s dense solve of subdivision 5
+   against the host's; then, counted, ``train.main`` for one epoch from a
+   fresh raw dataset (phase 7's 40 scans, no ``augmented/``) with the data
+   section of ``configurations/craniofacial.yaml`` (``spectral_interp``,
+   factor 2, balanced): the basis solved by K9 and cached in the dataset
+   directory, ``augmented/`` generated and the extended list trained; the
+   same generation on the host from a copy of the cached basis (the same
+   file names, vertices within 1e-5 of the card's); a second
+   ``train.main`` on a fresh precomputed dir and a direct basis request
+   read the generated files and the cache with no K9 launch; one
+   ``{"phase": "augmentation", ...}`` line.
 
 The kernels' record holds one entry per kernel and path (``serving``,
 ``training``, ``train_entry``, ``mixed_serving``, ``mixed_training``,
-``mixed_gather_first``, ``diagnosis``, ``mixed_diagnosis``), each timed
+``mixed_gather_first``, ``diagnosis``, ``mixed_diagnosis``,
+``augmentation``), each timed
 over the shapes of that path's launches (on the diagnosis paths each
 distinct shape once; every shape carries its launches). The last three
 lines of standard output are the kernels' JSON record, the nvidia-smi
@@ -245,6 +269,21 @@ PICKLE_REGIONS = {"r0": (0, 3), "r1": (3, 6)}   # the fixture's regions
 MIXED_FIT_RTOL = 5e-2           # card vs host fit chamfer and saliency
 #                                 (mixed): the JAX package's tolerance for
 #                                 the policy
+# phase 10: the eigensolver (K9) and the study's data section
+CHEBY_K = 1000                  # the augmentation basis
+CHEBY_GAP_K = 31                # the largest k ≤ 32 in a gap of the
+#                                 octasphere's spectrum (multiplets of up
+#                                 to 3 cut elsewhere leave the subspace
+#                                 undefined; tests/test_torch_eigh.py)
+CHEBY_ACCEPT = 1e-3             # f64 residual: JAX's acceptance
+CHEBY_RTOL = 1e-3               # k = 1000 eigenvalues vs the f64 dense ones
+CHEBY_GAP_RTOL = 1e-4           # k = 31 eigenvalues vs ARPACK
+OVERLAP_ATOL = 1e-4             # O Oᵀ against I for two orthonormal bases
+DENSE_SUBDIVISIONS = 5          # 4,098 vertices: auto takes the dense solve
+DENSE_TOL = 1e-4                # its eigenvalues card vs host, rtol and atol:
+#                                 fp32 eigh, JAX's tolerance for its dense
+#                                 backend (test_dense_matches_scipy_small)
+AUG_RTOL = 1e-5                 # card vs host generated vertices, of max |v|
 FP32_KERNELS = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
 MIXED_KERNELS = ("spiral_conv_bf16", "spiral_conv_f32out",
@@ -280,6 +319,8 @@ KERNEL_SOURCES = {
                "craniofacialsd_vae_tpu/ops/distances.py:32"),
     "k8_bwd": ("csrc/distances.cu",
                "craniofacialsd_vae_tpu/ops/distances.py:32"),
+    "cheby_step": ("csrc/cheby_step.cu",
+                   "craniofacialsd_vae_tpu/ops/eigh.py:64"),
 }
 
 
@@ -368,8 +409,9 @@ def k1_ptxas(build_log: str) -> list:
     per warp), ``dw_sum`` (its chunk sum), ``bf16<NT,ELEM>`` (K1-bf16 and
     K3a), ``bf16_tile<VEC>`` (K3a's tiled kernel), ``dw_bf16<FPW>``,
     ``dw_bf16_sum``, ``ell_bf16_vector<KK,CAPPED>``,
-    ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b) and
-    ``out_gather_sum_bwd``; the narrow kernels as ``narrow<CO,TBM>`` and
+    ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b),
+    ``out_gather_sum_bwd`` and ``cheby_step<KK,HAS_P>`` (K9); the narrow
+    kernels as ``narrow<CO,TBM>`` and
     ``narrow_tile<CO,TBM,VEC,FULL>``."""
     out, name = [], None
     for line in build_log.splitlines():
@@ -389,6 +431,7 @@ def k1_ptxas(build_log: str) -> list:
             ells = re.search(r"ell_bf16_scalarILb(\d)E", m.group(1))
             bt = re.search(r"spiral_conv_bf16_tile_kernelILb(\d)E",
                            m.group(1))
+            k9 = re.search(r"cheby_step_kernelILi(\d+)ELb(\d)E", m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
                     else f"narrow_tile<{nt.group(1)},{nt.group(2)},"
                     f"{nt.group(3)},{nt.group(4)}>" if nt
@@ -402,6 +445,7 @@ def k1_ptxas(build_log: str) -> list:
                     if ell
                     else f"ell_bf16_scalar<{ells.group(1)}>" if ells
                     else f"bf16_tile<{bt.group(1)}>" if bt
+                    else f"cheby_step<{k9.group(1)},{k9.group(2)}>" if k9
                     else "out_gather_sum_bwd" if "out_gather_sum_bwd_kernel"
                     in m.group(1)
                     else "out_gather_sum" if "out_gather_sum_kernel"
@@ -1481,11 +1525,13 @@ def training_records(serving: list, train: dict) -> list:
 
 
 # ----------------------------------------------------------------------
-def entry_workspace(root: str) -> str:
+def entry_workspace(root: str, data: dict | None = None) -> str:
     """Phase 7's inputs under ``root``: the coloured octasphere template
     PLY, ``ENTRY_PER_CLASS`` OBJ scans of each class (a smooth per-class
     bump along the normal, a per-scan scale and per-vertex noise) and the
-    text of ``configurations/smoke.yaml`` pointed at them. Returns the
+    text of ``configurations/smoke.yaml`` pointed at them, its data
+    section's keys set from ``data`` (each key after
+    ``augmentation_factor`` where smoke.yaml lacks it). Returns the
     config's path."""
     from craniofacialsd_vae_tpu_torch.geometry import (synthetic_template,
                                                        write_obj, write_ply)
@@ -1515,6 +1561,14 @@ def entry_workspace(root: str) -> str:
                           lambda m, v=value: f"{m.group(1)} {v} ", text,
                           flags=re.M)
         check(n == 1, f"smoke.yaml has {n} '{key}:' lines, expected 1")
+    for key, value in (data or {}).items():
+        text, n = re.subn(rf"^(\s*){key}:[^\n]*", rf"\g<1>{key}: {value}",
+                          text, flags=re.M)
+        if not n:
+            text, n = re.subn(r"^(\s*)(augmentation_factor:[^\n]*)",
+                              rf"\g<1>\g<2>\n\g<1>{key}: {value}", text,
+                              count=1, flags=re.M)
+        check(n == 1, f"smoke.yaml: could not set data.{key}")
     path = os.path.join(root, "entry.yaml")
     with open(path, "w") as f:
         f.write(text)
@@ -3243,6 +3297,376 @@ def phase_diagnosis(torch, mods, runs: dict) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 10: the eigensolver K9 and the study's data section
+def k9_form(torch, mods, lap, x, p, c, a: float, b: float, form: str,
+            reps: int) -> dict:
+    """One K9 call form at the solve's shape against its twin (bit-equal:
+    the same roundings in the same order), two launches bit-identical,
+    timed against the twin, the unfused form (K4, then torch's
+    elementwise ops) and the library form (``torch.sparse.mm`` on a CSR
+    Laplacian, then the same ops), with its bound."""
+    kernels, eigh = mods["kernels"], mods["eigh"]
+    cols, vals = lap.cols, lap.vals
+    pp = p if b != 0.0 else None
+    out = kernels.cheby_step(cols, vals, x, c, a, b, pp)
+    again = kernels.cheby_step(cols, vals, x, c, a, b, pp)
+    ref = eigh.cheby_step_plain(cols, vals, x, c, a, b, pp)
+    torch.cuda.synchronize()
+    err = max_err(out, ref)
+    check(torch.equal(out, ref), f"K9 {form}: differs from its twin "
+          f"(max {err:.3e})")
+    check(torch.equal(out, again), f"K9 {form}: two launches differ")
+    n, d = x.shape
+    k = cols.shape[1]
+    rows = torch.arange(n, device=x.device).repeat_interleave(k)
+    csr = torch.sparse_coo_tensor(
+        torch.stack([rows, cols.reshape(-1).long()]), vals.reshape(-1),
+        (n, n)).coalesce().to_sparse_csr()
+
+    def tail(lx):
+        t = (lx - c[None, :] * x) * a
+        return t - b * p if b != 0.0 else t
+
+    del out, again, ref
+    ms = cuda_ms(torch, lambda: kernels.cheby_step(cols, vals, x, c, a, b,
+                                                   pp), reps)
+    plain_ms = cuda_ms(torch, lambda: eigh.cheby_step_plain(
+        cols, vals, x, c, a, b, pp), 3)
+    unfused_ms = cuda_ms(torch, lambda: tail(kernels.ell_matmul_fwd(
+        cols, vals, x)), reps)
+    library_ms = cuda_ms(torch, lambda: tail(torch.sparse.mm(csr, x)), reps)
+    nbytes = 4 * n * d * (3 if b != 0.0 else 2) + 8 * n * k + 4 * d
+    flops = n * d * (2 * k + 2 + (2 if b != 0.0 else 0))
+    bms, by, t_bytes, t_ops = bound(nbytes, flops)
+    return {"form": form, "n": n, "d": d, "k": k, "a": a, "b": b,
+            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+            "unfused_k4_ms": unfused_ms, "library_ms": library_ms,
+            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
+            "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops}
+
+
+def k9_parity(torch, mods, tpl, block: int, ptxas: list) -> dict:
+    """K9's three call forms at the k = 1000 solve's shapes (N = 16,386,
+    D = block): the filter body (b ≠ 0), a b = 0 step and the per-column
+    residual."""
+    eigh = mods["eigh"]
+    lap = eigh._EllLaplacian(tpl, torch.device(DEVICE))
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
+    n = tpl.num_vertices
+    x = torch.randn((n, block), generator=gen, device=DEVICE)
+    p = torch.randn((n, block), generator=gen, device=DEVICE)
+    theta = torch.rand((block,), generator=gen, device=DEVICE) * 1.5
+    lb = 1.4
+    e, c = (lap.ub - lb) / 2, (lap.ub + lb) / 2
+    sigma = e / -c
+    sigma_new = 1.0 / (2.0 / sigma - sigma)
+    c_vec = torch.full((block,), c, dtype=torch.float32, device=DEVICE)
+    forms = [k9_form(torch, mods, lap, x, p, c_vec, 2.0 * sigma_new / e,
+                     sigma_new * sigma, "filter step", 50),
+             k9_form(torch, mods, lap, x, p, c_vec, sigma / e, 0.0,
+                     "b = 0", 50),
+             k9_form(torch, mods, lap, x, p, theta, 1.0, 0.0,
+                     "residual", 50)]
+    regs = [r for r in ptxas if r["kernel"].startswith("cheby_step")]
+    for f in forms:
+        log(f"[10 K9] {f['form']} [{n}, {block}]: {f['ms']:.4f} ms "
+            f"(bound {f['bound_ms']:.4f}, {f['bound_by']}), twin "
+            f"{f['plain_ms']:.3f}, K4 + ops {f['unfused_k4_ms']:.4f}, "
+            f"sparse.mm + ops {f['library_ms']:.4f}; bit-equal to the twin")
+    log(f"[10 K9] ptxas {regs}")
+    return {"forms": forms, "ptxas": regs}
+
+
+def eigh_solves(torch, mods, tpl) -> dict:
+    """The k = 1000 solve on the card through ``auto`` (the Chebyshev path,
+    accepted by JAX's residual test, K9 launched passes × (degree + 2)
+    times), its eigenvalues against the float64 dense ones on the card,
+    one profiled pass; the Chebyshev solver at CHEBY_GAP_K against ARPACK;
+    ``auto``'s dense solve of subdivision DENSE_SUBDIVISIONS against the
+    host's."""
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+
+    kernels, eigh = mods["kernels"], mods["eigh"]
+    n = tpl.num_vertices
+    kernels.launches.reset()
+    eigh.solves.reset()
+    t0 = time.perf_counter()
+    vals, vecs = eigh.laplacian_eigendecomposition(tpl, CHEBY_K,
+                                                   backend="auto",
+                                                   device=DEVICE)
+    solve_s = time.perf_counter() - t0
+    launched = kernels.launches.snapshot()["cheby_step"]
+    last = eigh.solves.last
+    check(last["solver"] == "cheby", f"the k = {CHEBY_K} basis came from "
+          f"{last['solver']}, not K9 ({last.get('rejected')})")
+    info = last["info"]
+    check(info["max_residual"] < CHEBY_ACCEPT,
+          f"k = {CHEBY_K} residual {info['max_residual']:.3e}")
+    check(launched == info["passes"] * (info["degree"] + 2),
+          f"K9 launched {launched} times in {info['passes']} passes")
+    lap64 = torch.from_numpy(eigh.unnormalized_laplacian_dense(
+        n, tpl.edges)).to(DEVICE, torch.float64)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = torch.linalg.eigvalsh(lap64)
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    ref = ref[:CHEBY_K].cpu().numpy()
+    del lap64
+    torch.cuda.empty_cache()
+    rel = np.abs(vals - ref) / np.maximum(np.abs(ref), 1e-12)
+    rel[0] = abs(vals[0] - ref[0])          # λ0 = 0: absolute
+    check(float(rel.max()) <= CHEBY_RTOL,
+          f"k = {CHEBY_K} eigenvalues vs f64 dense: {rel.max():.3e}")
+
+    lap = eigh._EllLaplacian(tpl, torch.device(DEVICE))
+    x0 = eigh._initial_panel(n, info["block"], SEED, DEVICE)
+
+    def one_pass():
+        eigh._rayleigh_ritz(lap, eigh._filter_pass(
+            lap, x0, info["windows"][-1], info["degree"]))
+
+    profile = device_profile(torch, one_pass)
+    del x0, lap
+    torch.cuda.empty_cache()
+
+    g_vals, g_vecs, g_info = eigh._chebyshev_smallest(tpl, CHEBY_GAP_K,
+                                                      device=DEVICE)
+    s_vals, s_vecs = eigh._scipy_eigsh(tpl, CHEBY_GAP_K)
+    order = np.argsort(s_vals)
+    s_vals, s_vecs = s_vals[order], s_vecs[:, order]
+    g_rel = float((np.abs(g_vals - s_vals)[1:] / s_vals[1:]).max())
+    ov = g_vecs.T @ s_vecs
+    g_ov = float(np.abs(ov @ ov.T - np.eye(CHEBY_GAP_K)).max())
+    check(g_rel <= CHEBY_GAP_RTOL and abs(g_vals[0]) < 1e-8,
+          f"k = {CHEBY_GAP_K} eigenvalues vs ARPACK: {g_rel:.3e}")
+    check(g_ov <= OVERLAP_ATOL, f"k = {CHEBY_GAP_K} overlap {g_ov:.3e}")
+
+    small = synthetic_template(DENSE_SUBDIVISIONS, 3)
+    dense = {}
+    for where, dev in (("card", DEVICE), ("host", "cpu")):
+        t0 = time.perf_counter()
+        got = eigh.laplacian_eigendecomposition(small, CHEBY_GAP_K,
+                                                backend="auto", device=dev)
+        dense[where] = (*got, time.perf_counter() - t0)
+        check(eigh.solves.last["solver"] == "dense",
+              f"auto at {small.num_vertices} vertices took "
+              f"{eigh.solves.last['solver']}")
+    (c_vals, c_vecs, card_s), (h_vals, h_vecs, host_s) = \
+        dense["card"], dense["host"]
+    d_err = float(np.abs(c_vals - h_vals).max())
+    ov = c_vecs.T.astype(np.float64) @ h_vecs
+    d_ov = float(np.abs(ov @ ov.T - np.eye(CHEBY_GAP_K)).max())
+    check(np.all(np.abs(c_vals - h_vals) <= DENSE_TOL * (1 + np.abs(h_vals)))
+          and d_ov <= OVERLAP_ATOL,
+          f"dense solve card vs host: {d_err:.3e}, overlap {d_ov:.3e}")
+    out = {"k": CHEBY_K, "n": n, "solve_s": solve_s, "info": info,
+           "launches": launched, "rel_err_vs_f64_dense": float(rel.max()),
+           "f64_dense_reference_s": ref_s, "profiled_pass": profile,
+           "gap_k": {"k": CHEBY_GAP_K, "passes": g_info["passes"],
+                     "seconds": g_info["seconds"], "rel_err_vs_arpack": g_rel,
+                     "overlap_err": g_ov},
+           "dense": {"n": small.num_vertices, "card_s": card_s,
+                     "host_s": host_s, "max_abs_err": d_err,
+                     "overlap_err": d_ov}}
+    log(f"[10 eigh] k = {CHEBY_K} on {n} vertices: {info['passes']} passes "
+        f"(segments {info['segments']}), {solve_s:.2f} s (filter "
+        f"{info['filter_s']:.3f}, QR {info['qr_s']:.3f}, eigh "
+        f"{info['eigh_s']:.3f}, rest {info['rr_other_s']:.3f}, host polish "
+        f"{info['polish_s']:.3f}), residual {info['max_residual']:.2e}, "
+        f"eigenvalues within {rel.max():.2e} of the f64 dense ones "
+        f"({ref_s:.2f} s); one pass: device {profile['device_ms']:.1f} of "
+        f"{profile['wall_ms']:.1f} ms; k = {CHEBY_GAP_K}: {g_rel:.2e}, "
+        f"overlap {g_ov:.2e}; dense at {small.num_vertices}: card "
+        f"{card_s:.2f} s, host {host_s:.2f} s")
+    return out
+
+
+def study_data_section() -> dict:
+    """The study's augmentation keys, read from FLAGSHIP by the port's
+    config reader."""
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    data = get_config(os.path.join(ROOT, "configurations",
+                                   FLAGSHIP))["data"]
+    keys = ("augmentation_mode", "augmentation_factor",
+            "augmentation_balanced")
+    return {k: data[k] for k in keys}
+
+
+def generation_on_host(config: dict, template, card_dir: str,
+                       work: str) -> dict:
+    """The card run's generation again on the host: the raw scans and the
+    cached basis copied to ``work``, the train split's raw names, the same
+    seed; every generated file against the card's."""
+    from craniofacialsd_vae_tpu_torch.data.dataset import (
+        DatasetSummary, _augment_train_list)
+    from craniofacialsd_vae_tpu_torch.geometry import read_mesh
+
+    data = config["data"]
+    with open(os.path.join(data["precomputed_path"],
+                           "data_split.json")) as f:
+        train = [n for n in json.load(f)["train"]
+                 if not n.startswith("augmented")]
+    os.makedirs(work)
+    for name in os.listdir(card_dir):
+        if name.endswith(".obj") or name.startswith("eigbasis_"):
+            shutil.copy2(os.path.join(card_dir, name), work)
+    t0 = time.perf_counter()
+    names = _augment_train_list(
+        work, train, template, DatasetSummary(), data["augmentation_mode"],
+        data["augmentation_factor"], data["augmentation_balanced"],
+        np.random.default_rng(0), device="cpu")
+    host_s = time.perf_counter() - t0
+    card_names = sorted(os.listdir(os.path.join(card_dir, "augmented")))
+    host_names = sorted(os.listdir(os.path.join(work, "augmented")))
+    check(host_names == card_names and len(names) == len(train)
+          + len(card_names), "host generation wrote other files")
+    worst = 0.0
+    for name in card_names:
+        a = read_mesh(os.path.join(card_dir, "augmented", name)).vertices
+        b = read_mesh(os.path.join(work, "augmented", name)).vertices
+        worst = max(worst, float(np.abs(a - b).max() / np.abs(b).max()))
+    check(worst <= AUG_RTOL, f"card vs host generation: {worst:.3e}")
+    return {"files": len(card_names), "worst_rel": worst, "host_s": host_s}
+
+
+def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
+    """Phase 10: K9 at the solve's shapes, the solves (``eigh_solves``),
+    then ``train.main`` from a raw dataset with the study's data section:
+    counted, it solves the basis with K9 (cached in the dataset
+    directory), generates ``augmented/`` and trains one epoch; the same
+    generation on the host from a copy of the cached basis; a second
+    ``train.main`` (a fresh precomputed dir) and a direct basis request
+    read the generated files and the cache with no K9 launch."""
+    from craniofacialsd_vae_tpu_torch import train as entry
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    kernels, eigh = mods["kernels"], mods["eigh"]
+    t_start = time.perf_counter()
+    tpl = synthetic_template(ENTRY_SUBDIVISIONS, ENTRY_REGIONS)
+    block = CHEBY_K + max(8, CHEBY_K // 8)
+    k9 = k9_parity(torch, mods, tpl, block, ptxas)
+    torch.cuda.empty_cache()
+    solves = eigh_solves(torch, mods, tpl)
+    torch.cuda.empty_cache()
+
+    ws = os.path.join(root, "augmentation")
+    os.makedirs(ws)
+    study = study_data_section()
+    cfg_path = entry_workspace(ws, study)
+    config = get_config(cfg_path)
+    check(all(config["data"][k] == v for k, v in study.items()),
+          f"the workspace's data section {config['data']}")
+    raw = config["data"]["dataset_path"]
+    argv = ["--config", cfg_path, "--id", "augment", "--output_path", ws,
+            "--device", DEVICE, "--epochs", "1"]
+
+    # the main path: counts from 0, train.main from the raw dataset
+    kernels.launches.reset()
+    eigh.solves.reset()
+    t0 = time.perf_counter()
+    first = entry.main(argv)
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    counts = kernels.launches.snapshot()
+    last = eigh.solves.last
+    check(last is not None and last["solver"] == "cheby",
+          f"the entry path's basis came from {last and last['solver']}")
+    info = last["info"]
+    check(counts["cheby_step"] == info["passes"] * (info["degree"] + 2),
+          f"K9 launched {counts['cheby_step']} times on the entry path in "
+          f"{info['passes']} passes")
+    check(info["max_residual"] < CHEBY_ACCEPT, "entry basis residual")
+    generated = sorted(os.listdir(os.path.join(raw, "augmented")))
+    cached = [n for n in os.listdir(raw) if n.startswith("eigbasis_")]
+    check(generated and len(cached) == 1, f"{len(generated)} generated, "
+          f"cache {cached}")
+    (epoch,) = first["history"]
+    grid = config["optimization"]["batch_size"]
+    with open(os.path.join(config["data"]["precomputed_path"],
+                           "data_split.json")) as f:
+        train_names = json.load(f)["train"]
+    check(sum(n.startswith("augmented") for n in train_names)
+          == len(generated), "the split's train list lacks generated files")
+    check(epoch["steps"] == len(train_names) // grid
+          and all(np.isfinite(v) for v in epoch["train"].values()),
+          f"the epoch on the extended list: {epoch}")
+    del first["manager"]
+    torch.cuda.empty_cache()
+
+    host = generation_on_host(config, tpl, raw,
+                              os.path.join(ws, "host_generation"))
+
+    # a second run on a fresh precomputed dir, and the basis asked for
+    # again: the generated files and the cache, no K9 launch
+    config2 = os.path.join(ws, "again.yaml")
+    with open(cfg_path) as f:
+        text = f.read()
+    pre = config["data"]["precomputed_path"]
+    with open(config2, "w") as f:
+        f.write(text.replace(pre, pre + "_again"))
+    kernels.launches.reset()
+    eigh.solves.reset()
+    t0 = time.perf_counter()
+    second = entry.main(["--config", config2, "--id", "augment_again",
+                         "--output_path", ws, "--device", DEVICE,
+                         "--epochs", "1"])
+    eigh.laplacian_eigendecomposition(tpl, CHEBY_K, cache_dir=raw,
+                                      device=DEVICE)
+    second_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    again = kernels.launches.snapshot()
+    check(again["cheby_step"] == 0 and eigh.solves.last["solver"] == "cache",
+          f"the cached rerun launched K9 {again['cheby_step']} times "
+          f"({eigh.solves.last})")
+    check(second["history"][0]["steps"] == epoch["steps"],
+          "the rerun trained on another list")
+    del second["manager"]
+    torch.cuda.empty_cache()
+
+    forms = k9["forms"]
+    body = forms[0]
+    record = {"name": "cheby_step", "route": "cuda",
+              "source": f"{PKG}/csrc/cheby_step.cu",
+              "replaces": KERNEL_SOURCES["cheby_step"][1],
+              "path": "augmentation", "launches": counts["cheby_step"],
+              "max_abs_err": max(f["max_abs_err"] for f in forms),
+              **{k: body[k] for k in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")},
+              "unfused_k4_ms": body["unfused_k4_ms"], "forms": forms,
+              "ptxas": k9["ptxas"]}
+    line = {"phase": "augmentation",
+            "k9": {f["form"]: {k: f[k] for k in (
+                "ms", "plain_ms", "unfused_k4_ms", "library_ms",
+                "bound_ms")} for f in forms},
+            "solve": {k: solves[k] for k in (
+                "solve_s", "launches", "rel_err_vs_f64_dense",
+                "f64_dense_reference_s", "gap_k", "dense")},
+            "solve_info": {k: solves["info"][k] for k in (
+                "passes", "block", "degree", "segments", "max_residual",
+                "filter_s", "qr_s", "eigh_s", "rr_other_s", "polish_s",
+                "seconds")},
+            "profiled_pass": {k: solves["profiled_pass"][k] for k in (
+                "wall_ms", "device_ms", "idle_share", "kernels_run")},
+            "entry": {"first_run_s": first_s, "second_run_s": second_s,
+                      "basis": {k: info[k] for k in (
+                          "passes", "seconds", "max_residual",
+                          "polish_s")},
+                      "generated": len(generated),
+                      "train_scans": len(train_names),
+                      "dataset_load_s": first["data_s"],
+                      "epoch_train_s": epoch["train_s"],
+                      "host_generation": host,
+                      "rerun_launches": again["cheby_step"]},
+            "launches": counts,
+            "seconds": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    return dict(line=line, record=record, k9=k9, solves=solves)
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -3264,14 +3688,14 @@ def main(argv=None) -> int:
 
     from craniofacialsd_vae_tpu_torch import kernels, ops
     from craniofacialsd_vae_tpu_torch.geometry import load_bundle
-    from craniofacialsd_vae_tpu_torch.ops import distances, sparse
+    from craniofacialsd_vae_tpu_torch.ops import distances, eigh, sparse
     from craniofacialsd_vae_tpu_torch.models import (SDVAEConfig,
                                                      SpiralGeometry,
                                                      init_sdvae)
     from craniofacialsd_vae_tpu_torch.viz import raster
 
     mods = {"kernels": kernels, "ops": ops, "raster": raster,
-            "sparse": sparse, "distances": distances}
+            "sparse": sparse, "distances": distances, "eigh": eigh}
     name, smi_line = phase_device(torch)
     build_s, build_log = phase_build(kernels)
 
@@ -3334,11 +3758,18 @@ def main(argv=None) -> int:
         diagnosis = phase_diagnosis(torch, mods, {
             "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]})
         records += diagnosis["records"]
+        log(f"[9 diagnosis] done; total {time.perf_counter() - t_start:.1f} "
+            "s")
+        torch.cuda.empty_cache()
+        augmentation = phase_augmentation(torch, mods, root,
+                                          k1_ptxas(build_log))
+        records.append(augmentation["record"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
           "the kernels' record does not list every kernel")
-    log(f"[9 diagnosis] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[10 augmentation] done; total {time.perf_counter() - t_start:.1f} "
+        "s")
     serve.pop("inputs")
 
     if args.json:
@@ -3355,7 +3786,9 @@ def main(argv=None) -> int:
                            "line", "shapes", "serving", "training",
                            "gather_first", "entry")},
                        "diagnosis": {k: diagnosis[k] for k in (
-                           "line", "shapes", "runs", "path_shapes")}},
+                           "line", "shapes", "runs", "path_shapes")},
+                       "augmentation": {k: augmentation[k] for k in (
+                           "line", "k9", "solves")}},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

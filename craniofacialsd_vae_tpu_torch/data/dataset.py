@@ -19,9 +19,12 @@ is the same:
     each batch there with ``index_select``; both iterators draw their
     epoch order from ``numpy.random.default_rng(seed)``.
 
-Reading an existing ``augmented/`` directory is ported; generating
-augmented meshes is not (ROADMAP 1.3: its spectral modes need the
-eigensolver K9).
+Offline augmentation follows the JAX package: a non-empty
+``<dataset>/augmented`` is read; otherwise the train split's same-class,
+same-age-group pairs are drawn from ``numpy.random.default_rng(seed)``
+and generated there (``data/augmentation.py``), the spectral modes on
+the device over the Laplacian basis of ``ops/eigh.py`` (K9), which is
+cached in the dataset directory.
 
 Replicated reference quirks: the class label is the first character of
 the file name, with 'b' (paediatric) merged into 'n' for labels but kept
@@ -41,11 +44,16 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..geometry.mesh_io import read_mesh
+from ..geometry.mesh_io import read_mesh, write_obj
+from ..ops.eigh import laplacian_eigendecomposition
+from .augmentation import augment_pairs
 
 __all__ = ["MeshArrays", "DatasetSummary", "build_datasets", "BatchIterator",
            "DeviceBatchIterator", "compute_class_weights", "find_filenames",
            "split_files", "train_test_split"]
+
+AGE_SPLIT_MONTHS = 48  # the age groups of the augmentation pairs (months)
+_AUG_CHUNK = 32        # augmentation pairs generated per batch
 
 
 @dataclass
@@ -262,20 +270,80 @@ def split_files(all_files: list, stratified: bool, seed: int = 0):
     return train, test, val
 
 
-def _augment_train_list(root, train_list):
-    """The train list extended by a previously generated ``<root>/
-    augmented`` directory. Generating augmented meshes is not ported."""
+def _augment_train_list(root, train_list, template, summary, mode,
+                        aug_factor, balanced, rng, device=None):
+    """Generate synthetic meshes into ``<root>/augmented`` (JAX
+    ``_augment_train_list``) and return the extended train list; a
+    non-empty ``augmented/`` already there is read instead. The spectral
+    modes take the k = 1000 Laplacian basis from ``ops.eigh`` (cached in
+    ``root``) and run their products on ``device`` (None: the card,
+    resolved only where a basis is used). Pairs are drawn from ``rng``
+    per class ('b' merged into 'n') within an age group, in JAX's order,
+    and generated in chunks of 32 pairs."""
     augmented_dir = os.path.join(root, "augmented")
     if os.path.isdir(augmented_dir) and os.listdir(augmented_dir):
         found = [n for n in sorted(os.listdir(augmented_dir))
                  if n.endswith((".obj", ".ply"))]
         print(f"[dataset] found {len(found)} previously augmented meshes")
         return train_list + [os.path.join("augmented", n) for n in found]
-    raise NotImplementedError(
-        "generating augmented meshes is not ported (ROADMAP 1.3; the "
-        "spectral modes need the eigensolver K9): set "
-        "data.augmentation_factor to 0, or generate <dataset>/augmented "
-        "with the JAX package first")
+
+    eigvecs = None
+    if mode in ("spectral_comb", "spectral_interp"):
+        print("[dataset] computing Laplacian eigenbasis (k=1000)…")
+        dev = resolve_device(device)
+        _, vecs = laplacian_eigendecomposition(template, k=1000,
+                                               cache_dir=root, device=dev)
+        eigvecs = torch.as_tensor(vecs).to(dev, torch.float32)
+
+    classes: dict = {}
+    for name in train_list:
+        age, gender = summary.age_and_gender(name[:-4])
+        classes.setdefault(name[0], []).append(
+            {"name": name, "age": age, "gender": gender})
+    # the balanced target divides by the class count before 'b' is merged
+    n_classes_pre_merge = len(classes)
+    if "b" in classes:
+        classes.setdefault("n", []).extend(classes.pop("b"))
+
+    os.makedirs(augmented_dir, exist_ok=True)
+    new_names = []
+    n_initial = len(train_list)
+    for info in classes.values():
+        if balanced:
+            target = (aug_factor * n_initial) // max(n_classes_pre_merge, 1)
+            n_aug = max(target - len(info), 0)
+        else:
+            n_aug = (aug_factor - 1) * len(info)
+        less_3y = [i for i in info if i["age"] < AGE_SPLIT_MONTHS]
+        more_3y = [i for i in info if i["age"] >= AGE_SPLIT_MONTHS]
+
+        names1, names2 = [], []
+        for _ in range(n_aug):
+            group = less_3y if (rng.random() < 0.5 and len(less_3y) >= 2) \
+                else (more_3y if len(more_3y) >= 2 else less_3y)
+            if len(group) < 2:
+                group = info
+            if len(group) < 2:
+                break
+            sel = rng.choice(len(group), 2, replace=False)
+            names1.append(group[sel[0]]["name"])
+            names2.append(group[sel[1]]["name"])
+
+        for s in range(0, len(names1), _AUG_CHUNK):
+            n1 = names1[s:s + _AUG_CHUNK]
+            n2 = names2[s:s + _AUG_CHUNK]
+            x1 = np.stack([read_mesh(os.path.join(root, n)).vertices
+                           for n in n1]).astype(np.float32)
+            x2 = np.stack([read_mesh(os.path.join(root, n)).vertices
+                           for n in n2]).astype(np.float32)
+            out, tags = augment_pairs(mode, x1, x2, rng, eigvecs)
+            for i, (a, b, tag) in enumerate(zip(n1, n2, tags)):
+                aug_name = a[:-4] + "_" + b[2:-4] + tag + str(s + i) + a[-4:]
+                write_obj(os.path.join(augmented_dir, aug_name), out[i],
+                          template.face)
+                new_names.append(os.path.join("augmented", aug_name))
+    print(f"[dataset] generated {len(new_names)} augmented meshes")
+    return train_list + new_names
 
 
 def _load_split_arrays(root, names, summary, mean, std, normalize,
@@ -335,15 +403,18 @@ def _dataset_fingerprint(root: str, summary) -> str:
     return h.hexdigest()
 
 
-def build_datasets(config: dict, template=None, seed: int = 0):
+def build_datasets(config: dict, template=None, seed: int = 0,
+                   device=None):
     """→ (train, val, test: MeshArrays, normalization_dict, class_weights),
     reading and writing the precomputed dir's caches as the JAX package
-    does. ``template`` is accepted for the JAX signature (augmentation
-    generation, which needs it, is not ported)."""
+    does. Where the config asks for augmentation and the split is not
+    cached, ``<dataset>/augmented`` is read or generated from
+    ``template``, the spectral modes on ``device`` (None: the card)."""
     data_cfg = config["data"]
     root = data_cfg["dataset_path"]
     precomp = data_cfg["precomputed_path"]
     os.makedirs(precomp, exist_ok=True)
+    rng = np.random.default_rng(seed)
 
     summary = DatasetSummary.load(data_cfg.get("dataset_summary_path"),
                                   data_cfg.get("data_type", "heads"))
@@ -376,7 +447,11 @@ def build_datasets(config: dict, template=None, seed: int = 0):
         train_names, test_names, val_names = split_files(
             all_files, data_cfg.get("stratified_split", False), seed)
         if data_cfg.get("augmentation_factor", 0) > 0:
-            train_names = _augment_train_list(root, train_names)
+            train_names = _augment_train_list(
+                root, train_names, template, summary,
+                data_cfg.get("augmentation_mode", "interpolate"),
+                data_cfg.get("augmentation_factor", 0),
+                data_cfg.get("augmentation_balanced", True), rng, device)
         with open(split_path, "w") as f:
             json.dump({"train": train_names, "test": test_names,
                        "val": val_names,

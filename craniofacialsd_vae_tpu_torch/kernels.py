@@ -17,7 +17,8 @@ The ``mixed`` and ``bfloat16`` policies' kernels go through the same
 wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows
 (``csrc/*_bf16.cu``, counted under their own names), which none of them
 converts; K3b (``out_gather_sum``) is the matmul-first final conv's
-gather-sum and ``out_gather_sum_bwd`` its backward.
+gather-sum and ``out_gather_sum_bwd`` its backward. K9 (``cheby_step``)
+is one step of the Laplacian eigensolver's Chebyshev filter.
 """
 
 from __future__ import annotations
@@ -44,14 +45,15 @@ __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "plan_spiral_conv_dw_bf16",
            "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
            "raster_sweep", "k8_plan", "k8_bwd_bins", "nearest_sq",
-           "nearest_sq_sym", "nearest_sq_bwd"]
+           "nearest_sq_sym", "nearest_sq_bwd", "cheby_step"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
 _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
            "spiral_conv_dw.cu", "ell_matmul_bf16.cu", "spiral_conv_bf16.cu",
-           "spiral_conv_dw_bf16.cu", "out_gather_sum.cu", "distances.cu")
+           "spiral_conv_dw_bf16.cu", "out_gather_sum.cu", "distances.cu",
+           "cheby_step.cu")
 HEADERS = ("common.cuh", "bf16.cuh")
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -63,7 +65,7 @@ KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "spiral_conv_bf16", "spiral_conv_f32out",
                 "spiral_conv_dw_bf16", "ell_matmul_bf16",
                 "ell_matmul_capped_bf16", "out_gather_sum",
-                "out_gather_sum_bwd", "k8_fwd", "k8_bwd")
+                "out_gather_sum_bwd", "k8_fwd", "k8_bwd", "cheby_step")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -204,6 +206,8 @@ def library() -> ctypes.CDLL:
                 + [p] * 6 + [p]
             lib.cfs_nearest_sq_bwd.argtypes = [p, i, i, p, i, i, p, i] \
                 + [p] * 6 + [i] + [p] * 4 + [p]
+            lib.cfs_cheby_step.argtypes = [p] * 6 + [i] * 3 + [
+                ctypes.c_float, ctypes.c_float, p]
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
@@ -212,7 +216,7 @@ def library() -> ctypes.CDLL:
                        lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
                        lib.cfs_spiral_conv_narrow_tile,
                        lib.cfs_spiral_conv_bf16_tile, lib.cfs_nearest_sq,
-                       lib.cfs_nearest_sq_bwd):
+                       lib.cfs_nearest_sq_bwd, lib.cfs_cheby_step):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -1348,3 +1352,46 @@ def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
             _ptr(perm) if csr else none, _ptr(off) if csr else none,
             _ptr(out))
     return (out, perm, off) if csr else out
+
+
+_CHEBY_MAX_K = 32               # csrc/cheby_step.cu: a row's entries in a warp
+
+
+def cheby_step(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
+               c: torch.Tensor, a: float, b: float = 0.0,
+               p: torch.Tensor | None = None) -> torch.Tensor:
+    """K9 (``csrc/cheby_step.cu``): one step of the eigensolver's
+    Chebyshev filter over the ELL Laplacian ``cols, vals [N, K]`` (K ≤ 32)
+    and an ``[N, D]`` fp32 panel ``x``: ``out = a · (L x − c ⊙ x) − b · p``
+    with ``c [D]`` per column, JAX's grouping, each operation rounded as
+    the twin (``ops.eigh.cheby_step_plain``) rounds it. ``b == 0`` leaves
+    the ``b · p`` term out and ``p`` unread; otherwise ``p [N, D]`` is
+    required. ``a`` and ``b`` are taken as float32. Returns ``[N, D]``."""
+    dev = x.device
+    _require(x, "x", torch.float32, 2, dev)
+    _require(cols, "cols", torch.int32, 2, dev)
+    _require(vals, "vals", torch.float32, 2, dev)
+    _require(c, "c", torch.float32, 1, dev)
+    (n, d), (m, k) = x.shape, cols.shape
+    if vals.shape != cols.shape or m != n or c.shape[0] != d:
+        raise ValueError(f"cols {tuple(cols.shape)}, vals "
+                         f"{tuple(vals.shape)}, x {tuple(x.shape)} and c "
+                         f"{tuple(c.shape)} do not hold a square operator "
+                         "on the panel's rows and one c per column")
+    if b != 0.0:
+        if p is None:
+            raise ValueError("b != 0 needs p")
+        _require(p, "p", torch.float32, 2, dev)
+        if p.shape != x.shape:
+            raise ValueError(f"p {tuple(p.shape)} differs from x "
+                             f"{tuple(x.shape)}")
+    if not 1 <= k <= _CHEBY_MAX_K or n < 1 or d < 1:
+        raise ValueError(f"K = {k} entries a row (1 to {_CHEBY_MAX_K}) on "
+                         f"a non-empty [{n}, {d}] panel")
+    _fits_int32(n * k, d, n)
+    out = torch.empty_like(x)
+    _launch("cheby_step", library().cfs_cheby_step, dev, _ptr(cols),
+            _ptr(vals), _ptr(x), _ptr(c),
+            _ptr(p) if b != 0.0 else ctypes.c_void_p(None), _ptr(out), n, k,
+            d, ctypes.c_float(a), ctypes.c_float(b))
+    return out

@@ -9,14 +9,17 @@ the host), logs the per-epoch train and validation losses and
 ``perf/meshes_per_sec`` to ``logs/metrics.jsonl``, renders the image
 grids every ``tb_renderings`` epochs, and checkpoints every
 ``save_weights`` epochs and at the end, in the JAX package's checkpoint
-layout. The training split stays on the device (``DeviceBatchIterator``).
+layout. On a raw dataset whose config asks for augmentation it first
+generates ``<dataset>/augmented`` (the spectral modes' Laplacian basis
+solved on the card and cached in the dataset directory). The training
+split stays on the device (``DeviceBatchIterator``).
 After the last save it fits the classifier zoo on the train latents at
 the config's batch size (``checkpoints/classifiers.npz``) and writes the
 latent statistics (``z_stats.npz``).
 
-Not ported yet: data parallelism and multihost (ROADMAP 1.11), the
-profiler capture, the scanned epochs (1.5) and the Tester's latent
-traversals (1.10).
+Not ported yet: data parallelism and multihost (ROADMAP queue 1.4), the
+profiler capture, the scanned epochs (1.1) and the Tester's latent
+traversals (1.2).
 """
 
 from __future__ import annotations
@@ -67,7 +70,7 @@ def main(argv=None) -> dict:
         device=device)
     t_data = time.perf_counter()
     train_set, val_set, test_set, normalization, class_weights = \
-        build_datasets(config, manager.template)
+        build_datasets(config, manager.template, device=device)
     manager.set_class_conversions_and_weights(class_weights)
     batch_size = config["optimization"]["batch_size"]
     train_iter = DeviceBatchIterator(train_set, batch_size, shuffle=True,

@@ -1602,3 +1602,107 @@ def test_k8_launch_counts_and_checks():
     d_x, d_y, a, b = kernels.nearest_sq_sym(xd, yd, mu)
     with pytest.raises(ValueError):
         kernels.nearest_sq_bwd(xd, yd, mu, d_x, d_x, a, d_y, d_y, a)
+
+
+# ---------------------------------------------------------------- K9
+def _cheby_case(dev, subdivisions, d, seed=0):
+    """The octasphere's ELL Laplacian on ``dev`` and seeded panels x, p
+    and per-column c ``[d]``."""
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    lap = eigh._EllLaplacian(synthetic_template(subdivisions, 3), dev)
+    g = _gen(dev, seed)
+    n = lap.cols.shape[0]
+    x = torch.randn((n, d), generator=g, device=dev)
+    p = torch.randn((n, d), generator=g, device=dev)
+    c = torch.rand((d,), generator=g, device=dev) * lap.ub
+    return lap, x, p, c
+
+
+@pytest.mark.parametrize("subdivisions,d", [(6, 1125), (3, 37), (2, 5),
+                                            (4, 128)])
+@pytest.mark.parametrize("form", ["body", "b0", "columns"])
+def test_cheby_step_kernel_equals_plain(subdivisions, d, form):
+    """K9 against its twin: the same products and sums in the same order,
+    each rounded, so bit-equal; two launches bit-identical."""
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    dev = _card()
+    lap, x, p, c = _cheby_case(dev, subdivisions, d)
+    if form == "body":
+        args = (c.new_full((d,), float(c[0])), 0.37, -1.25, p)
+    elif form == "b0":
+        args = (c.new_full((d,), float(c[0])), -0.11, 0.0, None)
+    else:
+        args = (c, 1.0, 0.0, None)
+    out = kernels.cheby_step(lap.cols, lap.vals, x, *args)
+    ref = eigh.cheby_step_plain(lap.cols, lap.vals, x, *args)
+    again = kernels.cheby_step(lap.cols, lap.vals, x, *args)
+    torch.cuda.synchronize()
+    assert torch.equal(out, ref)
+    assert torch.equal(out, again)
+
+
+def test_cheby_step_runtime_k_path_equals_plain():
+    """A table whose rows are not 7 wide takes the run-time K loop."""
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    dev = _card()
+    g = _gen(dev, 3)
+    n, k, d = 300, 11, 70
+    cols = torch.randint(0, n, (n, k), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((n, k), generator=g, device=dev)
+    x = torch.randn((n, d), generator=g, device=dev)
+    p = torch.randn((n, d), generator=g, device=dev)
+    c = torch.randn((d,), generator=g, device=dev)
+    out = kernels.cheby_step(cols, vals, x, c, 0.5, 2.0, p)
+    torch.cuda.synchronize()
+    assert torch.equal(out, eigh.cheby_step_plain(cols, vals, x, c, 0.5,
+                                                  2.0, p))
+
+
+def test_cheby_step_launch_counts_and_checks():
+    """One launch a call; the wrapper refuses what the kernel does not
+    take."""
+    dev = _card()
+    lap, x, p, c = _cheby_case(dev, 2, 8)
+    kernels.launches.reset()
+    kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0)
+    assert kernels.launches.snapshot()["cheby_step"] == 1
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0, 2.0)   # no p
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x.cpu(), c, 1.0)
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x.double(), c, 1.0)
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x, c[:-1], 1.0)
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x[:-1], c, 1.0)
+    with pytest.raises(ValueError):
+        kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0, 1.0, p[:, :-1])
+
+
+def test_chebyshev_solver_on_card_matches_scipy():
+    """The solver on the card (K9 in the filter and the Rayleigh–Ritz
+    matvecs) against ARPACK on the octasphere of subdivision 4 at k = 31,
+    the largest k ≤ 32 in a gap of its spectrum: eigenvalues rtol 1e-4,
+    subspace overlap within 1e-4; K9 launched passes × (degree + 2)
+    times."""
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    _card()
+    tpl = synthetic_template(4, 3)
+    kernels.launches.reset()
+    vals, vecs, info = eigh._chebyshev_smallest(tpl, 31, device="cuda")
+    launched = kernels.launches.snapshot()["cheby_step"]
+    assert launched == info["passes"] * (info["degree"] + 2)
+    ref_vals, ref_vecs = eigh._scipy_eigsh(tpl, 31)
+    order = np.argsort(ref_vals)
+    ref_vals, ref_vecs = ref_vals[order], ref_vecs[:, order]
+    np.testing.assert_allclose(vals, ref_vals, rtol=1e-4, atol=1e-8)
+    ov = vecs.T @ ref_vecs
+    np.testing.assert_allclose(ov @ ov.T, np.eye(31), atol=1e-4)

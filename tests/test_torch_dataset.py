@@ -170,15 +170,33 @@ def test_reference_norm_pt_is_imported(ws, tmp_path):
 
 
 def test_an_augmented_directory_is_read_and_generation_raises(ws, tmp_path):
+    """A raw directory no longer raises: generation (the default
+    ``interpolate`` mode) writes what JAX writes. A directory that already
+    holds ``augmented/`` is read as it is."""
     root = str(tmp_path)
-    shutil.copytree(os.path.join(ws["root"], "meshes"),
-                    os.path.join(root, "meshes"))
+    for pkg in ("gen_t", "gen_j", "meshes"):
+        shutil.copytree(os.path.join(ws["root"], "meshes"),
+                        os.path.join(root, pkg))
+    from craniofacialsd_vae_tpu.geometry.synthetic import \
+        synthetic_template as jsynthetic
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+
+    gen = {}
+    for pkg, build in (
+            ("t", lambda c: tdataset.build_datasets(
+                c, synthetic_template(2, 3))),
+            ("j", lambda c: jdataset.build_datasets(c, jsynthetic(2, 3)))):
+        cfg = json.loads(json.dumps(ws["cfgs"]["t"]))
+        cfg["data"].update(dataset_path=os.path.join(root, f"gen_{pkg}"),
+                           precomputed_path=os.path.join(root, f"pre_gen_{pkg}"),
+                           augmentation_factor=2)
+        gen[pkg] = build(cfg)
+    _outputs_equal(gen["t"], gen["j"])
+    assert gen["t"][0].augmented.sum() > 0
     cfg = json.loads(json.dumps(ws["cfgs"]["t"]))
     cfg["data"].update(dataset_path=os.path.join(root, "meshes"),
                        precomputed_path=os.path.join(root, "pre"),
                        augmentation_factor=2)
-    with pytest.raises(NotImplementedError, match="1.3"):
-        tdataset.build_datasets(cfg)
     aug = os.path.join(root, "meshes", "augmented")
     os.makedirs(aug)
     for name in ("a_0_1interp3.obj", "c_2_5interp0.obj"):
