@@ -120,13 +120,20 @@ them or outside a checkout. Phases, each of which raises on a fault:
 10. the study's data section from a raw dataset: K9 (``cheby_step``,
    the eigensolver's Chebyshev step) in its three call forms (the filter
    step, b = 0, the per-column residual) at the k = 1000 solve's shapes
-   (16,386 × 1,125) against its twin (bit-equal) and itself (two launches
-   bit-identical), timed against the twin, K4 followed by torch's
-   elementwise ops and ``torch.sparse.mm`` followed by them, with its
-   bound and ptxas's registers; ``laplacian_eigendecomposition`` of the
-   octasphere (subdivision 6) at k = 1000 through ``auto`` on the card:
-   the Chebyshev path (f64 residual below 1e-3, K9 launched passes × 82
-   times), eigenvalues within 1e-3 of the float64 dense ones
+   (16,386 × 1,125), over its vertex tiles and on the solver's padded
+   panels, against its twin (bit-equal; on contiguous panels too) and
+   itself (two launches bit-identical), timed against the twin, K4
+   followed by torch's elementwise ops and ``torch.sparse.mm`` followed
+   by them, with its bound and ptxas's registers; its stream-only floor
+   (the filter step and a b = 0 step over a diagonal-only table, K = 1);
+   the tiles (count, staged rows a vertex, the largest, a block's shared
+   memory, blocks an SM, their build's seconds: the first build and a
+   warm one's median within TILES_MAX_S);
+   ``laplacian_eigendecomposition`` of the octasphere (subdivision 6) at
+   k = 1000 through ``auto`` on the card: the Chebyshev path in
+   CHEBY_PASSES passes (f64 residual below 1e-3, K9 launched passes × 82
+   times, its tiles built within TILES_MAX_S), eigenvalues within
+   CHEBY_RTOL of the float64 dense ones
    (``torch.linalg.eigvalsh`` on the card, timed), one profiled pass; the
    Chebyshev solver at CHEBY_GAP_K against ARPACK (eigenvalues 1e-4,
    subspace overlap 1e-4); ``auto``'s dense solve of subdivision 5
@@ -134,7 +141,8 @@ them or outside a checkout. Phases, each of which raises on a fault:
    fresh raw dataset (phase 7's 40 scans, no ``augmented/``) with the data
    section of ``configurations/craniofacial.yaml`` (``spectral_interp``,
    factor 2, balanced): the basis solved by K9 and cached in the dataset
-   directory, ``augmented/`` generated and the extended list trained; the
+   directory (the same passes, its tiles within TILES_MAX_S),
+   ``augmented/`` generated and the extended list trained; the
    same generation on the host from a copy of the cached basis (the same
    file names, vertices within 1e-5 of the card's); a second
    ``train.main`` on a fresh precomputed dir and a direct basis request
@@ -276,7 +284,9 @@ CHEBY_GAP_K = 31                # the largest k ≤ 32 in a gap of the
 #                                 to 3 cut elsewhere leave the subspace
 #                                 undefined; tests/test_torch_eigh.py)
 CHEBY_ACCEPT = 1e-3             # f64 residual: JAX's acceptance
-CHEBY_RTOL = 1e-3               # k = 1000 eigenvalues vs the f64 dense ones
+CHEBY_RTOL = 1e-6               # k = 1000 eigenvalues vs the f64 dense ones
+CHEBY_PASSES = 2                # the k = 1000 solve's passes on the octasphere
+TILES_MAX_S = 0.015             # K9's tile build at 16,386 vertices
 CHEBY_GAP_RTOL = 1e-4           # k = 31 eigenvalues vs ARPACK
 OVERLAP_ATOL = 1e-4             # O Oᵀ against I for two orthonormal bases
 DENSE_SUBDIVISIONS = 5          # 4,098 vertices: auto takes the dense solve
@@ -410,7 +420,7 @@ def k1_ptxas(build_log: str) -> list:
     K3a), ``bf16_tile<VEC>`` (K3a's tiled kernel), ``dw_bf16<FPW>``,
     ``dw_bf16_sum``, ``ell_bf16_vector<KK,CAPPED>``,
     ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b),
-    ``out_gather_sum_bwd`` and ``cheby_step<KK,HAS_P>`` (K9); the narrow
+    ``out_gather_sum_bwd`` and ``cheby_step<KK,HAS_P,VEC>`` (K9); the narrow
     kernels as ``narrow<CO,TBM>`` and
     ``narrow_tile<CO,TBM,VEC,FULL>``."""
     out, name = [], None
@@ -431,7 +441,8 @@ def k1_ptxas(build_log: str) -> list:
             ells = re.search(r"ell_bf16_scalarILb(\d)E", m.group(1))
             bt = re.search(r"spiral_conv_bf16_tile_kernelILb(\d)E",
                            m.group(1))
-            k9 = re.search(r"cheby_step_kernelILi(\d+)ELb(\d)E", m.group(1))
+            k9 = re.search(r"cheby_tile_kernelILi(\d+)ELb(\d)ELb(\d)E",
+                           m.group(1))
             name = (f"{k.group(1)}<{k.group(2)},{k.group(3)}>" if k
                     else f"narrow_tile<{nt.group(1)},{nt.group(2)},"
                     f"{nt.group(3)},{nt.group(4)}>" if nt
@@ -445,7 +456,8 @@ def k1_ptxas(build_log: str) -> list:
                     if ell
                     else f"ell_bf16_scalar<{ells.group(1)}>" if ells
                     else f"bf16_tile<{bt.group(1)}>" if bt
-                    else f"cheby_step<{k9.group(1)},{k9.group(2)}>" if k9
+                    else f"cheby_step<{k9.group(1)},{k9.group(2)},"
+                    f"{k9.group(3)}>" if k9
                     else "out_gather_sum_bwd" if "out_gather_sum_bwd_kernel"
                     in m.group(1)
                     else "out_gather_sum" if "out_gather_sum_kernel"
@@ -3298,26 +3310,52 @@ def phase_diagnosis(torch, mods, runs: dict) -> dict:
 
 # ----------------------------------------------------------------------
 # phase 10: the eigensolver K9 and the study's data section
-def k9_form(torch, mods, lap, x, p, c, a: float, b: float, form: str,
-            reps: int) -> dict:
-    """One K9 call form at the solve's shape against its twin (bit-equal:
-    the same roundings in the same order), two launches bit-identical,
+def k9_form(torch, mods, table, x, p, c, a: float, b: float, form: str,
+            reps: int, others: bool = True) -> dict:
+    """One K9 call form at the solve's shape, in the solver's panel layout
+    (rows at a padded stride, ``eigh.panel``), against its twin
+    (bit-equal: the same roundings in the same order), two launches
+    bit-identical, and timed. ``table`` is (cols, vals, tiles). With
+    ``others``: also on contiguous panels (4-byte copies, bit-equal) and
     timed against the twin, the unfused form (K4, then torch's
     elementwise ops) and the library form (``torch.sparse.mm`` on a CSR
     Laplacian, then the same ops), with its bound."""
     kernels, eigh = mods["kernels"], mods["eigh"]
-    cols, vals = lap.cols, lap.vals
+    cols, vals, tiles = table
     pp = p if b != 0.0 else None
-    out = kernels.cheby_step(cols, vals, x, c, a, b, pp)
-    again = kernels.cheby_step(cols, vals, x, c, a, b, pp)
+    xs, ps = eigh._as_panel(x), eigh._as_panel(p)
+    pps = ps if b != 0.0 else None
+
+    def run(xx, pr):
+        return kernels.cheby_step(cols, vals, xx, c, a, b, pr, tiles=tiles)
+
+    out, again = run(xs, pps), run(xs, pps)
     ref = eigh.cheby_step_plain(cols, vals, x, c, a, b, pp)
     torch.cuda.synchronize()
     err = max_err(out, ref)
     check(torch.equal(out, ref), f"K9 {form}: differs from its twin "
           f"(max {err:.3e})")
     check(torch.equal(out, again), f"K9 {form}: two launches differ")
+    del out, again
     n, d = x.shape
     k = cols.shape[1]
+    nbytes = 4 * n * d * (3 if b != 0.0 else 2) + 8 * n * k + 4 * d
+    flops = n * d * (2 * k + 2 + (2 if b != 0.0 else 0))
+    bms, by, t_bytes, t_ops = bound(nbytes, flops)
+    rec = {"form": form, "n": n, "d": d, "k": k, "a": a, "b": b,
+           "ld": xs.stride(0), "max_abs_err": err, "bound_ms": bms,
+           "bound_by": by, "bytes": nbytes, "flops": flops,
+           "bytes_ms": t_bytes, "ops_ms": t_ops}
+    if others:
+        flat = run(x, pp)
+        torch.cuda.synchronize()
+        check(torch.equal(flat, ref), f"K9 {form}: contiguous panels "
+              f"differ from the twin (max {max_err(flat, ref):.3e})")
+        del flat
+    del ref
+    rec["ms"] = cuda_ms(torch, lambda: run(xs, pps), reps)
+    if not others:
+        return rec
     rows = torch.arange(n, device=x.device).repeat_interleave(k)
     csr = torch.sparse_coo_tensor(
         torch.stack([rows, cols.reshape(-1).long()]), vals.reshape(-1),
@@ -3327,30 +3365,61 @@ def k9_form(torch, mods, lap, x, p, c, a: float, b: float, form: str,
         t = (lx - c[None, :] * x) * a
         return t - b * p if b != 0.0 else t
 
-    del out, again, ref
-    ms = cuda_ms(torch, lambda: kernels.cheby_step(cols, vals, x, c, a, b,
-                                                   pp), reps)
-    plain_ms = cuda_ms(torch, lambda: eigh.cheby_step_plain(
+    rec["contiguous_ms"] = cuda_ms(torch, lambda: run(x, pp), reps)
+    rec["plain_ms"] = cuda_ms(torch, lambda: eigh.cheby_step_plain(
         cols, vals, x, c, a, b, pp), 3)
-    unfused_ms = cuda_ms(torch, lambda: tail(kernels.ell_matmul_fwd(
-        cols, vals, x)), reps)
-    library_ms = cuda_ms(torch, lambda: tail(torch.sparse.mm(csr, x)), reps)
-    nbytes = 4 * n * d * (3 if b != 0.0 else 2) + 8 * n * k + 4 * d
-    flops = n * d * (2 * k + 2 + (2 if b != 0.0 else 0))
-    bms, by, t_bytes, t_ops = bound(nbytes, flops)
-    return {"form": form, "n": n, "d": d, "k": k, "a": a, "b": b,
-            "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-            "unfused_k4_ms": unfused_ms, "library_ms": library_ms,
-            "bound_ms": bms, "bound_by": by, "bytes": nbytes,
-            "flops": flops, "bytes_ms": t_bytes, "ops_ms": t_ops}
+    rec["unfused_k4_ms"] = cuda_ms(torch, lambda: tail(
+        kernels.ell_matmul_fwd(cols, vals, x)), reps)
+    rec["library_ms"] = cuda_ms(torch, lambda: tail(torch.sparse.mm(csr, x)),
+                                reps)
+    return rec
+
+
+def k9_tiles_record(torch, mods, lap, tpl) -> dict:
+    """K9's tiles of the Laplacian: count, staged rows a vertex, the
+    largest tile, a block's shared memory and the blocks an SM holds
+    (the runtime's occupancy calculator, filter step and b = 0, vector
+    path), and their build's seconds on the card: the Laplacian's own
+    (the process's first build) and five warm builds, whose median must
+    stay within TILES_MAX_S."""
+    kernels, eigh = mods["kernels"], mods["eigh"]
+    tiles = lap.tiles
+    k = lap.cols.shape[1]
+    lib = kernels.library()
+    smem = lib.cfs_cheby_step_smem(tiles.max_rows, tiles.max_verts, k)
+    warm = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        again = eigh.build_k9_tiles(lap.cols, tpl.pos)
+        torch.cuda.synchronize()
+        warm.append(time.perf_counter() - t0)
+        check(torch.equal(again.local, tiles.local)
+              and torch.equal(again.src, tiles.src), "K9's tile build is "
+              "not deterministic")
+    warm_s = float(np.median(warm))
+    check(warm_s <= TILES_MAX_S, f"K9's tiles took {warm_s:.4f} s to "
+          "build (warm median)")
+    return {"n_tiles": tiles.n_tiles,
+            "rows_per_vertex": tiles.src.shape[0] / tiles.verts.shape[0],
+            "max_rows": tiles.max_rows, "max_verts": tiles.max_verts,
+            "smem_bytes": smem,
+            "blocks_per_sm": lib.cfs_cheby_step_blocks_per_sm(smem, 1, 1),
+            "blocks_per_sm_b0": lib.cfs_cheby_step_blocks_per_sm(smem, 0, 1),
+            "tiles_s": lap.tiles_s, "warm_tiles_s": warm,
+            "warm_tiles_median_s": warm_s}
 
 
 def k9_parity(torch, mods, tpl, block: int, ptxas: list) -> dict:
     """K9's three call forms at the k = 1000 solve's shapes (N = 16,386,
     D = block): the filter body (b ≠ 0), a b = 0 step and the per-column
-    residual."""
+    residual; then the stream-only floor, the filter step and a b = 0
+    step over a diagonal-only table (K = 1: each tile stages its own
+    rows, no gather); the tiles."""
     eigh = mods["eigh"]
-    lap = eigh._EllLaplacian(tpl, torch.device(DEVICE))
+    dev = torch.device(DEVICE)
+    lap = eigh._EllLaplacian(tpl, dev)
+    table = (lap.cols, lap.vals, lap.tiles)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 20)
     n = tpl.num_vertices
     x = torch.randn((n, block), generator=gen, device=DEVICE)
@@ -3361,20 +3430,33 @@ def k9_parity(torch, mods, tpl, block: int, ptxas: list) -> dict:
     sigma = e / -c
     sigma_new = 1.0 / (2.0 / sigma - sigma)
     c_vec = torch.full((block,), c, dtype=torch.float32, device=DEVICE)
-    forms = [k9_form(torch, mods, lap, x, p, c_vec, 2.0 * sigma_new / e,
-                     sigma_new * sigma, "filter step", 50),
-             k9_form(torch, mods, lap, x, p, c_vec, sigma / e, 0.0,
-                     "b = 0", 50),
-             k9_form(torch, mods, lap, x, p, theta, 1.0, 0.0,
+    body = (c_vec, 2.0 * sigma_new / e, sigma_new * sigma)
+    first = (c_vec, sigma / e, 0.0)
+    forms = [k9_form(torch, mods, table, x, p, *body, "filter step", 50),
+             k9_form(torch, mods, table, x, p, *first, "b = 0", 50),
+             k9_form(torch, mods, table, x, p, theta, 1.0, 0.0,
                      "residual", 50)]
+    diag_cols = torch.arange(n, dtype=torch.int32, device=dev)[:, None]
+    diag = (diag_cols, lap.vals.sum(1, keepdim=True).abs() + 1.0,
+            eigh.build_k9_tiles(diag_cols, tpl.pos))
+    floors = [k9_form(torch, mods, diag, x, p, *body,
+                      "diagonal floor, filter step", 50, others=False),
+              k9_form(torch, mods, diag, x, p, *first,
+                      "diagonal floor, b = 0", 50, others=False)]
+    tiles = k9_tiles_record(torch, mods, lap, tpl)
     regs = [r for r in ptxas if r["kernel"].startswith("cheby_step")]
     for f in forms:
-        log(f"[10 K9] {f['form']} [{n}, {block}]: {f['ms']:.4f} ms "
-            f"(bound {f['bound_ms']:.4f}, {f['bound_by']}), twin "
+        log(f"[10 K9] {f['form']} [{n}, {block}] at stride {f['ld']}: "
+            f"{f['ms']:.4f} ms (bound {f['bound_ms']:.4f}, "
+            f"{f['bound_by']}), contiguous {f['contiguous_ms']:.4f}, twin "
             f"{f['plain_ms']:.3f}, K4 + ops {f['unfused_k4_ms']:.4f}, "
             f"sparse.mm + ops {f['library_ms']:.4f}; bit-equal to the twin")
+    for f in floors:
+        log(f"[10 K9] {f['form']} (K = 1): {f['ms']:.4f} ms (bound "
+            f"{f['bound_ms']:.4f}); bit-equal to the twin")
+    log(f"[10 K9] tiles {tiles}")
     log(f"[10 K9] ptxas {regs}")
-    return {"forms": forms, "ptxas": regs}
+    return {"forms": forms, "floors": floors, "tiles": tiles, "ptxas": regs}
 
 
 def eigh_solves(torch, mods, tpl) -> dict:
@@ -3404,6 +3486,10 @@ def eigh_solves(torch, mods, tpl) -> dict:
           f"k = {CHEBY_K} residual {info['max_residual']:.3e}")
     check(launched == info["passes"] * (info["degree"] + 2),
           f"K9 launched {launched} times in {info['passes']} passes")
+    check(info["passes"] == CHEBY_PASSES, f"k = {CHEBY_K} took "
+          f"{info['passes']} passes, not {CHEBY_PASSES}")
+    check(info["tiles_s"] <= TILES_MAX_S,
+          f"K9's tiles took {info['tiles_s']:.4f} s to build")
     lap64 = torch.from_numpy(eigh.unnormalized_laplacian_dense(
         n, tpl.edges)).to(DEVICE, torch.float64)
     torch.cuda.synchronize()
@@ -3470,9 +3556,9 @@ def eigh_solves(torch, mods, tpl) -> dict:
                      "host_s": host_s, "max_abs_err": d_err,
                      "overlap_err": d_ov}}
     log(f"[10 eigh] k = {CHEBY_K} on {n} vertices: {info['passes']} passes "
-        f"(segments {info['segments']}), {solve_s:.2f} s (filter "
-        f"{info['filter_s']:.3f}, QR {info['qr_s']:.3f}, eigh "
-        f"{info['eigh_s']:.3f}, rest {info['rr_other_s']:.3f}, host polish "
+        f"(segments {info['segments']}), {solve_s:.2f} s (set-up "
+        f"{info['setup_s']:.3f} with K9 tiles {info['tiles_s']:.4f}, filter {info['filter_s']:.3f}, QR "
+        f"{info['qr_s']:.3f}, eigh {info['eigh_s']:.3f}, rest {info['rr_other_s']:.3f}, host polish "
         f"{info['polish_s']:.3f}), residual {info['max_residual']:.2e}, "
         f"eigenvalues within {rel.max():.2e} of the f64 dense ones "
         f"({ref_s:.2f} s); one pass: device {profile['device_ms']:.1f} of "
@@ -3579,6 +3665,9 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
           f"K9 launched {counts['cheby_step']} times on the entry path in "
           f"{info['passes']} passes")
     check(info["max_residual"] < CHEBY_ACCEPT, "entry basis residual")
+    check(info["passes"] == CHEBY_PASSES and info["tiles_s"] <= TILES_MAX_S,
+          f"the entry basis: {info['passes']} passes, tiles built in "
+          f"{info['tiles_s']:.4f} s")
     generated = sorted(os.listdir(os.path.join(raw, "augmented")))
     cached = [n for n in os.listdir(raw) if n.startswith("eigbasis_")]
     check(generated and len(cached) == 1, f"{len(generated)} generated, "
@@ -3636,24 +3725,28 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
               **{k: body[k] for k in ("ms", "plain_ms", "bound_ms",
                                       "bound_by", "library_ms")},
               "unfused_k4_ms": body["unfused_k4_ms"], "forms": forms,
+              "floors": k9["floors"], "tiles": k9["tiles"],
               "ptxas": k9["ptxas"]}
     line = {"phase": "augmentation",
             "k9": {f["form"]: {k: f[k] for k in (
-                "ms", "plain_ms", "unfused_k4_ms", "library_ms",
-                "bound_ms")} for f in forms},
+                "ms", "contiguous_ms", "plain_ms", "unfused_k4_ms",
+                "library_ms", "bound_ms")} for f in forms},
+            "k9_floor": {f["form"]: {k: f[k] for k in ("ms", "bound_ms")}
+                         for f in k9["floors"]},
+            "k9_tiles": k9["tiles"],
             "solve": {k: solves[k] for k in (
                 "solve_s", "launches", "rel_err_vs_f64_dense",
                 "f64_dense_reference_s", "gap_k", "dense")},
             "solve_info": {k: solves["info"][k] for k in (
                 "passes", "block", "degree", "segments", "max_residual",
-                "filter_s", "qr_s", "eigh_s", "rr_other_s", "polish_s",
-                "seconds")},
+                "setup_s", "tiles_s", "filter_s", "qr_s", "eigh_s",
+                "rr_other_s", "polish_s", "seconds")},
             "profiled_pass": {k: solves["profiled_pass"][k] for k in (
                 "wall_ms", "device_ms", "idle_share", "kernels_run")},
             "entry": {"first_run_s": first_s, "second_run_s": second_s,
                       "basis": {k: info[k] for k in (
-                          "passes", "seconds", "max_residual",
-                          "polish_s")},
+                          "passes", "seconds", "max_residual", "setup_s",
+                          "tiles_s", "filter_s", "polish_s")},
                       "generated": len(generated),
                       "train_scans": len(train_names),
                       "dataset_load_s": first["data_s"],

@@ -18,7 +18,8 @@ wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows
 (``csrc/*_bf16.cu``, counted under their own names), which none of them
 converts; K3b (``out_gather_sum``) is the matmul-first final conv's
 gather-sum and ``out_gather_sum_bwd`` its backward. K9 (``cheby_step``)
-is one step of the Laplacian eigensolver's Chebyshev filter.
+is one step of the Laplacian eigensolver's Chebyshev filter, over the
+Laplacian's vertex tiles; its panels may be row-strided views.
 """
 
 from __future__ import annotations
@@ -206,8 +207,12 @@ def library() -> ctypes.CDLL:
                 + [p] * 6 + [p]
             lib.cfs_nearest_sq_bwd.argtypes = [p, i, i, p, i, i, p, i] \
                 + [p] * 6 + [i] + [p] * 4 + [p]
-            lib.cfs_cheby_step.argtypes = [p] * 6 + [i] * 3 + [
-                ctypes.c_float, ctypes.c_float, p]
+            lib.cfs_cheby_step.argtypes = [p] * 6 + [i] * 3 + [p] * 4 + [
+                i] * 4 + [ctypes.c_float, ctypes.c_float, p]
+            lib.cfs_cheby_step_smem.argtypes = [i, i, i]
+            lib.cfs_cheby_step_smem.restype = ctypes.c_int
+            lib.cfs_cheby_step_blocks_per_sm.argtypes = [i, i, i]
+            lib.cfs_cheby_step_blocks_per_sm.restype = ctypes.c_int
             for fn in (lib.cfs_ell_matmul_fwd, lib.cfs_spiral_conv_fwd,
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
@@ -720,24 +725,31 @@ def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
                       nt=8 * nt)
 
 
-def _tile_ptrs(tiles, table: torch.Tensor, plan: SpiralPlan,
-               device: torch.device) -> tuple:
-    """The pointers of the op's vertex tiles (verts, starts, src,
-    src_off, local) for a tiled plan, after checking that they describe
-    ``table`` in tiles of at most ``plan.rows`` source rows."""
+def _tile_ptrs(tiles, shape: tuple, device: torch.device, what: str,
+               max_rows: int | None = None,
+               max_verts: int | None = None) -> tuple:
+    """The pointers of an op's vertex tiles (verts, starts, src, src_off,
+    local), after checking that they describe a table of ``shape`` (their
+    ``local``'s) in tiles of at most ``max_rows`` source rows and
+    ``max_verts`` vertices, where given. ``what`` names the caller."""
     if tiles is None:
-        raise ValueError(f"the {plan.path} plan needs the op's tiles")
+        raise ValueError(f"{what} needs the op's tiles")
     arrays = ((tiles.verts, "verts", 1), (tiles.starts, "starts", 1),
               (tiles.src, "src", 1), (tiles.src_off, "src_off", 1),
               (tiles.local, "local", 2))
     for t, name, ndim in arrays:
         _require(t, f"tiles.{name}", torch.int32, ndim, device)
-    if (tiles.verts.shape[0] != table.shape[0]
-            or tiles.local.shape != table.shape
+    if (tiles.verts.shape[0] != shape[0]
+            or tuple(tiles.local.shape) != tuple(shape)
             or tiles.src_off.shape[0] != tiles.n_tiles + 1
-            or tiles.max_rows > plan.rows):
-        raise ValueError(f"tiles do not describe table "
-                         f"{tuple(table.shape)} in {plan.rows}-row tiles")
+            or max_rows is not None and tiles.max_rows > max_rows
+            or max_verts is not None
+            and not 1 <= tiles.max_verts <= max_verts):
+        raise ValueError(f"tiles do not describe table {tuple(shape)} in "
+                         f"tiles of at most {max_rows} rows and {max_verts} "
+                         f"vertices ({tiles.n_tiles} tiles, "
+                         f"{tiles.max_rows} rows, {tiles.max_verts} "
+                         f"vertices)")
     return tuple(_ptr(t) for t, _, _ in arrays)
 
 
@@ -795,7 +807,9 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
                                  f"bf16_tile kernel takes at most "
                                  f"{_BF16_TILE_VERTS}")
             _launch(name, library().cfs_spiral_conv_bf16_tile, dev, _ptr(x),
-                    *_tile_ptrs(tiles, table, plan, dev), _ptr(w_l), _ptr(b),
+                    *_tile_ptrs(tiles, table.shape, dev,
+                                f"the {plan.path} plan", plan.rows),
+                    _ptr(w_l), _ptr(b),
                     _ptr(out), m, seq, bsz, c_in, c_out, n_tiles, plan.rows,
                     plan.tb, plan.n_btiles, plan.threads, plan.smem,
                     int(f32out))
@@ -815,9 +829,10 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
     fields = plan.as_ints()
     if plan.path == "narrow_tile":
         _launch(plan.kernel, library().cfs_spiral_conv_narrow_tile, dev,
-                _ptr(x), *_tile_ptrs(tiles, table, plan, dev), _ptr(w_l),
-                _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out, n_tiles,
-                (ctypes.c_int * len(fields))(*fields))
+                _ptr(x), *_tile_ptrs(tiles, table.shape, dev,
+                                     f"the {plan.path} plan", plan.rows),
+                _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
+                n_tiles, (ctypes.c_int * len(fields))(*fields))
         return out
     _launch(plan.kernel, library().cfs_spiral_conv_fwd, dev,
             _ptr(x), _ptr(table), _ptr(w_l), _ptr(b), _ptr(out),
@@ -1354,21 +1369,43 @@ def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
     return (out, perm, off) if csr else out
 
 
-_CHEBY_MAX_K = 32               # csrc/cheby_step.cu: a row's entries in a warp
+_CHEBY_MAX_K = 32               # csrc/cheby_step.cu kMaxK
+_CHEBY_MAX_VERTS = 64           # csrc/cheby_step.cu kMaxVerts
+
+
+def _require_rows(t: torch.Tensor, name: str, device: torch.device) -> None:
+    """An fp32 ``[N, D]`` panel on ``device`` whose rows are contiguous
+    and do not overlap: a row stride of at least D floats."""
+    if not t.is_cuda or t.device != device:
+        raise ValueError(f"{name} must be a CUDA tensor on {device}; "
+                         f"got {t.device}")
+    if t.dtype != torch.float32 or t.dim() != 2:
+        raise ValueError(f"{name} must be a 2-D torch.float32 panel; got "
+                         f"{t.dtype} {tuple(t.shape)}")
+    if t.shape[1] > 1 and t.stride(1) != 1 or (
+            t.shape[0] > 1 and t.stride(0) < t.shape[1]):
+        raise ValueError(f"{name} must have contiguous rows at a stride of "
+                         f"at least {t.shape[1]}; got strides {t.stride()}")
 
 
 def cheby_step(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
                c: torch.Tensor, a: float, b: float = 0.0,
-               p: torch.Tensor | None = None) -> torch.Tensor:
+               p: torch.Tensor | None = None, tiles=None) -> torch.Tensor:
     """K9 (``csrc/cheby_step.cu``): one step of the eigensolver's
     Chebyshev filter over the ELL Laplacian ``cols, vals [N, K]`` (K ≤ 32)
     and an ``[N, D]`` fp32 panel ``x``: ``out = a · (L x − c ⊙ x) − b · p``
     with ``c [D]`` per column, JAX's grouping, each operation rounded as
-    the twin (``ops.eigh.cheby_step_plain``) rounds it. ``b == 0`` leaves
+    the twin (``ops.eigh.cheby_step_plain``) rounds it. ``tiles`` are the
+    table's vertex tiles (``ops.eigh.build_k9_tiles``), required: the
+    kernel forms its sums through them (their ``table()`` is ``[cols |
+    arange(N)]``) and reads ``cols`` for its shape alone, so tiles built
+    from another table of that shape give other sums. ``x``
+    may be a view whose rows lie at a stride ≥ D (``ops.eigh.panel``);
+    ``p`` must have x's strides, and ``out`` gets them. ``b == 0`` leaves
     the ``b · p`` term out and ``p`` unread; otherwise ``p [N, D]`` is
     required. ``a`` and ``b`` are taken as float32. Returns ``[N, D]``."""
     dev = x.device
-    _require(x, "x", torch.float32, 2, dev)
+    _require_rows(x, "x", dev)
     _require(cols, "cols", torch.int32, 2, dev)
     _require(vals, "vals", torch.float32, 2, dev)
     _require(c, "c", torch.float32, 1, dev)
@@ -1381,17 +1418,28 @@ def cheby_step(cols: torch.Tensor, vals: torch.Tensor, x: torch.Tensor,
     if b != 0.0:
         if p is None:
             raise ValueError("b != 0 needs p")
-        _require(p, "p", torch.float32, 2, dev)
-        if p.shape != x.shape:
-            raise ValueError(f"p {tuple(p.shape)} differs from x "
-                             f"{tuple(x.shape)}")
+        _require_rows(p, "p", dev)
+        if p.shape != x.shape or p.stride() != x.stride():
+            raise ValueError(f"p {tuple(p.shape)} at strides {p.stride()} "
+                             f"differs from x {tuple(x.shape)} at "
+                             f"{x.stride()}")
     if not 1 <= k <= _CHEBY_MAX_K or n < 1 or d < 1:
         raise ValueError(f"K = {k} entries a row (1 to {_CHEBY_MAX_K}) on "
                          f"a non-empty [{n}, {d}] panel")
-    _fits_int32(n * k, d, n)
-    out = torch.empty_like(x)
-    _launch("cheby_step", library().cfs_cheby_step, dev, _ptr(cols),
-            _ptr(vals), _ptr(x), _ptr(c),
+    ld = x.stride(0) if n > 1 else d
+    _fits_int32(n * (k + 1), ld, n)
+    tile_ptrs = _tile_ptrs(tiles, (n, k + 1), dev,
+                           "K9 (ops.eigh.build_k9_tiles)",
+                           max_verts=_CHEBY_MAX_VERTS)
+    if library().cfs_cheby_step_smem(tiles.max_rows, tiles.max_verts,
+                                     k) == 0:
+        raise ValueError(f"K9's tiles of {tiles.max_rows} rows and "
+                         f"{tiles.max_verts} vertices overflow a block's "
+                         "shared memory")
+    out = torch.empty((n, ld), dtype=torch.float32, device=dev)[:, :d]
+    _launch("cheby_step", library().cfs_cheby_step, dev, _ptr(vals),
+            *tile_ptrs, tiles.n_tiles, tiles.max_rows, tiles.max_verts,
+            _ptr(x), _ptr(c),
             _ptr(p) if b != 0.0 else ctypes.c_void_p(None), _ptr(out), n, k,
-            d, ctypes.c_float(a), ctypes.c_float(b))
+            d, ld, ctypes.c_float(a), ctypes.c_float(b))
     return out

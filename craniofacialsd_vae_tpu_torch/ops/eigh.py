@@ -9,7 +9,9 @@ of a template, the basis of the spectral augmentation modes:
     subspace iteration on the device. Each pass filters an ``[N, block]``
     fp32 panel by a degree-80 Chebyshev polynomial in L, one kernel K9
     launch a step (``kernels.cheby_step``: the ELL matvec fused with the
-    recurrence's arithmetic), then a Rayleigh–Ritz step (tall QR,
+    recurrence's arithmetic, over the Laplacian's vertex tiles,
+    ``build_k9_tiles``; the panels' rows at a stride padded to a multiple
+    of 8 floats, ``panel``), then a Rayleigh–Ritz step (tall QR,
     ``w = L q`` and the residual ``L v − v θ`` through K9, a block × block
     ``eigh``); one float64 Rayleigh–Ritz polish on the host ends it. The
     filter runs in segments whose growth fp32 can carry (two of degree 40
@@ -33,6 +35,7 @@ write, so a dataset directory serves either package.
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import glob
 import hashlib
@@ -47,15 +50,19 @@ import torch
 from .. import kernels
 from ..device import resolve_device
 from .sparse import from_coo
+from .spiral_conv import SpiralTiles
 
 __all__ = ["unnormalized_laplacian_dense", "laplacian_eigendecomposition",
            "spectral_project", "spectral_reconstruct", "cheby_step",
-           "cheby_step_plain", "full_fp32", "solves", "DENSE_MAX_VERTICES",
-           "ACCEPT_RESIDUAL"]
+           "cheby_step_plain", "build_k9_tiles", "panel", "full_fp32",
+           "solves", "DENSE_MAX_VERTICES", "ACCEPT_RESIDUAL"]
 
 DENSE_MAX_VERTICES = 8192      # auto: dense eigh up to here, Chebyshev above
 ACCEPT_RESIDUAL = 1e-3         # auto: the Chebyshev basis's f64 residual
 FILTER_GROWTH = 2.0 ** 48      # a filter segment's most growth: fp32's u⁻²
+K9_TILE_VERTS = 64             # csrc/cheby_step.cu kMaxVerts: rows a tile owns
+K9_TILE_ROWS = 128             # most rows a K9 tile stages (64 KB a slice)
+PANEL_ALIGN = 8                # floats: a panel row starts on a 32-byte sector
 
 
 class SolveLog:
@@ -157,17 +164,102 @@ def cheby_step_plain(cols: torch.Tensor, vals: torch.Tensor,
     return out
 
 
-def cheby_step(cols, vals, x, c, a, b=0.0, p=None) -> torch.Tensor:
-    """K9 on the card (``kernels.cheby_step``), its plain twin on the
-    host."""
+def cheby_step(cols, vals, x, c, a, b=0.0, p=None,
+               tiles: SpiralTiles | None = None) -> torch.Tensor:
+    """K9 on the card (``kernels.cheby_step``, which needs the table's
+    vertex ``tiles``), its plain twin on the host."""
     if not x.is_cuda:
         return cheby_step_plain(cols, vals, x, c, a, b, p)
-    return kernels.cheby_step(cols, vals, x, c, a, b, p)
+    return kernels.cheby_step(cols, vals, x, c, a, b, p, tiles=tiles)
+
+
+def _morton_order(pos: np.ndarray, device) -> torch.Tensor:
+    """The vertices in Morton (Z-curve) order of their positions, each
+    axis quantized to 10 bits over the bounding box (float64, so every
+    device gives the same codes); ties keep the vertex order."""
+    pos = torch.as_tensor(np.asarray(pos), device=device).double()
+    lo, hi = pos.min(0).values, pos.max(0).values
+    v = ((pos - lo) / (hi - lo).clamp_min(1e-30) * 1023).long() & 0x3FF
+    for shift, mask in ((16, 0x030000FF), (8, 0x0300F00F), (4, 0x030C30C3),
+                        (2, 0x09249249)):
+        v = (v | (v << shift)) & mask        # an axis's bits 3 apart
+    code = (v << torch.arange(3, device=device)).sum(1)
+    return torch.argsort(code, stable=True)
+
+
+def build_k9_tiles(cols: torch.Tensor, pos: np.ndarray | None = None,
+                   max_verts: int = K9_TILE_VERTS,
+                   max_rows: int = K9_TILE_ROWS) -> SpiralTiles:
+    """K9's vertex tiles of an ELL table ``cols [M, K]``, built with torch
+    ops on its device. The vertices in Morton order of ``pos [M, 3]`` (in
+    their own order without ``pos``) are cut into runs of ``max_verts``;
+    a run whose distinct rows exceed ``max_rows`` is halved until none
+    does. Each tile stages the rows its vertices read: their K entries
+    and the vertex itself (``c · x`` reads ``x[m]``), so the tiles'
+    ``table()`` is ``[cols | arange(M)]``, ``local [M, K + 1]``; padding
+    entries (row 0) stage row 0."""
+    dev = cols.device
+    m, k = cols.shape
+    if max_rows < k + 1:
+        raise ValueError(f"{max_rows} rows a tile cannot hold one vertex's "
+                         f"{k + 1}")
+    rows = torch.arange(m, device=dev)
+    order = rows if pos is None else _morton_order(pos, dev)
+    table = torch.cat([cols.long(), rows[:, None]], 1)[order]
+    cuts = torch.arange(0, m, max_verts, device=dev)
+    while True:
+        sizes = torch.diff(cuts, append=cuts.new_tensor([m]))
+        run = torch.repeat_interleave(
+            torch.arange(cuts.shape[0], device=dev), sizes, output_size=m)
+        keys, idx = torch.sort((run[:, None] * m + table).reshape(-1),
+                               stable=True)
+        first = torch.ones_like(keys, dtype=torch.bool)
+        first[1:] = keys[1:] != keys[:-1]
+        counts = torch.zeros_like(cuts).scatter_add_(0, keys // m,
+                                                     first.long())
+        over = counts > max_rows
+        if not bool(over.any()):
+            break
+        cuts = torch.sort(torch.cat([cuts, cuts[over]
+                                     + sizes[over] // 2])).values
+    rank = torch.cumsum(first, 0) - 1
+    inv = torch.empty_like(rank)
+    inv[idx] = rank
+    src_off = torch.cat([counts.new_zeros(1), torch.cumsum(counts, 0)])
+    local = inv.view(m, k + 1) - src_off[run][:, None]
+    most_rows, most_verts = torch.stack([counts.max(), sizes.max()]).tolist()
+    i32 = lambda t: t.to(torch.int32)  # noqa: E731
+    return SpiralTiles(
+        verts=i32(order), starts=i32(torch.cat([cuts, cuts.new_tensor([m])])),
+        src=i32(keys[first] % m), src_off=i32(src_off), local=i32(local),
+        max_rows=most_rows, max_verts=most_verts)
+
+
+def panel(n: int, d: int, device) -> torch.Tensor:
+    """An uninitialized ``[n, d]`` fp32 panel whose rows lie at a stride
+    of d rounded up to ``PANEL_ALIGN`` floats: K9 then stages them with
+    16-byte copies, and each row starts on a 32-byte sector."""
+    ld = -(-d // PANEL_ALIGN) * PANEL_ALIGN
+    return torch.empty((n, ld), dtype=torch.float32, device=device)[:, :d]
+
+
+def _as_panel(t: torch.Tensor) -> torch.Tensor:
+    """``t`` copied into a ``panel`` (in place of ``.contiguous()``)."""
+    out = panel(t.shape[0], t.shape[1], t.device)
+    out.copy_(t)
+    return out
+
+
+def _sync(device) -> None:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
 
 
 class _EllLaplacian:
     """The ELL Laplacian D − A on a device (``from_coo``'s order, the
-    diagonal included) and its Gershgorin bound ub = 2·deg_max + 1."""
+    diagonal included), its Gershgorin bound ub = 2·deg_max + 1 and K9's
+    vertex tiles of it (``build_k9_tiles`` over the template's positions,
+    built in ``tiles_s`` seconds)."""
 
     def __init__(self, template, device):
         n = template.num_vertices
@@ -176,15 +268,16 @@ class _EllLaplacian:
         self.cols = mat.cols.to(device)
         self.vals = mat.vals.to(device)
         self.ub = float(2.0 * deg.max() + 1.0)
+        _sync(self.cols.device)             # the build alone in tiles_s
+        t0 = time.perf_counter()
+        self.tiles = build_k9_tiles(self.cols, template.pos)
+        _sync(self.cols.device)
+        self.tiles_s = time.perf_counter() - t0
 
     def step(self, x, c, a, b=0.0, p=None):
         """``a · (L x − c ⊙ x) − b · p`` with ``c [D]``."""
-        return cheby_step(self.cols, self.vals, x, c, a, b, p)
-
-
-def _sync(device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+        return cheby_step(self.cols, self.vals, x, c, a, b, p,
+                          tiles=self.tiles)
 
 
 def filter_segments(ub: float, lb: float, degree: int) -> list:
@@ -231,7 +324,7 @@ def _filter_pass(lap: _EllLaplacian, x, lb: float, degree: int):
     for i, d in enumerate(filter_segments(lap.ub, lb, degree)):
         if i:
             with full_fp32():
-                x = torch.linalg.qr(x)[0].contiguous()
+                x = _as_panel(torch.linalg.qr(x)[0])
         x = _chebyshev(lap, x, lb, d)
     return x
 
@@ -245,7 +338,7 @@ def _rayleigh_ritz(lap: _EllLaplacian, x, times: dict | None = None):
     dev = x.device
     with full_fp32():
         t0 = time.perf_counter()
-        q = torch.linalg.qr(x)[0].contiguous()   # column-major on the card
+        q = _as_panel(torch.linalg.qr(x)[0])  # cuSOLVER's Q: column-major
         _sync(dev)
         t1 = time.perf_counter()
         w = lap.step(q, q.new_zeros(q.shape[1]), 1.0)
@@ -256,7 +349,7 @@ def _rayleigh_ritz(lap: _EllLaplacian, x, times: dict | None = None):
         theta, s = torch.linalg.eigh(gram)
         _sync(dev)
         t3 = time.perf_counter()
-        v = q @ s
+        v = torch.matmul(q, s, out=panel(*q.shape, dev))
         resid = torch.linalg.vector_norm(lap.step(v, theta, 1.0), dim=0)
         _sync(dev)
         t4 = time.perf_counter()
@@ -267,12 +360,17 @@ def _rayleigh_ritz(lap: _EllLaplacian, x, times: dict | None = None):
     return v, theta, resid
 
 
+def _draw(n: int, block: int, seed: int) -> np.ndarray:
+    """The starting panel's values on the host: standard normals from
+    ``default_rng(seed)`` (JAX draws threefry normals from
+    ``PRNGKey(seed)``)."""
+    return np.random.default_rng(seed).standard_normal((n, block),
+                                                       dtype=np.float32)
+
+
 def _initial_panel(n: int, block: int, seed: int, device) -> torch.Tensor:
-    """The starting panel: standard normals from ``default_rng(seed)``
-    (JAX draws threefry normals from ``PRNGKey(seed)``)."""
-    rng = np.random.default_rng(seed)
-    return torch.from_numpy(
-        rng.standard_normal((n, block), dtype=np.float32)).to(device)
+    """The starting ``panel``: ``_draw``'s values on ``device``."""
+    return _as_panel(torch.from_numpy(_draw(n, block, seed)).to(device))
 
 
 def _chebyshev_smallest(template, k, degree: int = 80, max_passes: int = 12,
@@ -292,21 +390,29 @@ def _chebyshev_smallest(template, k, degree: int = 80, max_passes: int = 12,
     Returns (evals [k] ascending, evecs [N, k] float64, info): info has
     ``passes``, ``block``, ``degree``, ``seconds``, ``max_residual`` (the
     f64 residual), ``device``, each pass's lb (``windows``) and filter
-    segments, and the seconds of the filter, the QR, the ``eigh``, the
-    rest of the Rayleigh–Ritz steps and the polish."""
+    segments, and the seconds of the set-up (``setup_s``: the Laplacian
+    and its K9 tiles, built while another thread draws the initial
+    panel on the host, and the panel's copy to the device), of the tile
+    build alone (``tiles_s``), the filter, the QR,
+    the ``eigh``, the rest of the Rayleigh–Ritz steps and the polish."""
     dev = resolve_device(device)
     n = template.num_vertices
     t0 = time.perf_counter()
-    lap = _EllLaplacian(template, dev)
-    ub = lap.ub
-
     g = guard if guard is not None else max(8, k // 8)
     block = min(k + g, n // 2)
     if block < k:
         raise ValueError(f"template too small for k={k} (n={n})")
 
-    times = dict(filter_s=0.0, qr_s=0.0, eigh_s=0.0, rr_other_s=0.0)
-    x = _initial_panel(n, block, seed, dev)
+    # the initial panel's host draw (numpy fills without the GIL) runs
+    # beside the Laplacian's build and its K9 tiles'; all device work
+    # stays on this thread, so tiles_s times the build alone
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drawn = pool.submit(_draw, n, block, seed)
+        lap = _EllLaplacian(template, dev)
+        x = _as_panel(torch.from_numpy(drawn.result()).to(dev))
+    ub = lap.ub
+    times = dict(setup_s=time.perf_counter() - t0, tiles_s=lap.tiles_s,
+                 filter_s=0.0, qr_s=0.0, eigh_s=0.0, rr_other_s=0.0)
     lb = float(min(ub * 0.5, ub * 3.0 * block / n))
     passes = 0
     theta_prev = None

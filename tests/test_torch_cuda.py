@@ -1606,8 +1606,8 @@ def test_k8_launch_counts_and_checks():
 
 # ---------------------------------------------------------------- K9
 def _cheby_case(dev, subdivisions, d, seed=0):
-    """The octasphere's ELL Laplacian on ``dev`` and seeded panels x, p
-    and per-column c ``[d]``."""
+    """The octasphere's ELL Laplacian on ``dev`` (with K9's tiles) and
+    seeded panels x, p and per-column c ``[d]``."""
     from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
     from craniofacialsd_vae_tpu_torch.ops import eigh
 
@@ -1620,32 +1620,61 @@ def _cheby_case(dev, subdivisions, d, seed=0):
     return lap, x, p, c
 
 
+def _cheby_args(form, c, d):
+    if form == "body":
+        return (c.new_full((d,), float(c[0])), 0.37, -1.25)
+    if form == "b0":
+        return (c.new_full((d,), float(c[0])), -0.11, 0.0)
+    return (c, 1.0, 0.0)
+
+
 @pytest.mark.parametrize("subdivisions,d", [(6, 1125), (3, 37), (2, 5),
                                             (4, 128)])
 @pytest.mark.parametrize("form", ["body", "b0", "columns"])
 def test_cheby_step_kernel_equals_plain(subdivisions, d, form):
-    """K9 against its twin: the same products and sums in the same order,
-    each rounded, so bit-equal; two launches bit-identical."""
+    """K9 (tiled) against its twin: the same products and sums in the
+    same order, each rounded, so bit-equal; two launches bit-identical."""
     from craniofacialsd_vae_tpu_torch.ops import eigh
 
     dev = _card()
     lap, x, p, c = _cheby_case(dev, subdivisions, d)
-    if form == "body":
-        args = (c.new_full((d,), float(c[0])), 0.37, -1.25, p)
-    elif form == "b0":
-        args = (c.new_full((d,), float(c[0])), -0.11, 0.0, None)
-    else:
-        args = (c, 1.0, 0.0, None)
-    out = kernels.cheby_step(lap.cols, lap.vals, x, *args)
-    ref = eigh.cheby_step_plain(lap.cols, lap.vals, x, *args)
-    again = kernels.cheby_step(lap.cols, lap.vals, x, *args)
+    cv, a, b = _cheby_args(form, c, d)
+    pp = p if b != 0.0 else None
+    out = kernels.cheby_step(lap.cols, lap.vals, x, cv, a, b, pp,
+                             tiles=lap.tiles)
+    ref = eigh.cheby_step_plain(lap.cols, lap.vals, x, cv, a, b, pp)
+    again = kernels.cheby_step(lap.cols, lap.vals, x, cv, a, b, pp,
+                               tiles=lap.tiles)
     torch.cuda.synchronize()
     assert torch.equal(out, ref)
     assert torch.equal(out, again)
 
 
-def test_cheby_step_runtime_k_path_equals_plain():
-    """A table whose rows are not 7 wide takes the run-time K loop."""
+@pytest.mark.parametrize("subdivisions,d", [(6, 1125), (3, 37), (2, 5),
+                                            (4, 128)])
+@pytest.mark.parametrize("form", ["body", "b0", "columns"])
+def test_cheby_step_padded_panels_equal_plain(subdivisions, d, form):
+    """The solver's layout (``eigh.panel``: rows at a stride padded to 8
+    floats, 16-byte copies): bit-equal to the twin, the output at x's
+    strides."""
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    dev = _card()
+    lap, x, p, c = _cheby_case(dev, subdivisions, d, seed=1)
+    cv, a, b = _cheby_args(form, c, d)
+    xs, ps = eigh._as_panel(x), eigh._as_panel(p)
+    out = eigh.cheby_step(lap.cols, lap.vals, xs, cv, a, b,
+                          ps if b != 0.0 else None, tiles=lap.tiles)
+    torch.cuda.synchronize()
+    assert out.stride() == xs.stride() and xs.stride(0) % 8 == 0
+    assert torch.equal(out, eigh.cheby_step_plain(
+        lap.cols, lap.vals, x, cv, a, b, p if b != 0.0 else None))
+
+
+@pytest.mark.parametrize("max_rows", [256, 40])
+def test_cheby_step_runtime_k_path_equals_plain(max_rows):
+    """A table whose rows are not 7 wide takes the run-time K loop, in
+    tiles of at most ``max_rows`` staged rows."""
     from craniofacialsd_vae_tpu_torch.ops import eigh
 
     dev = _card()
@@ -1657,32 +1686,88 @@ def test_cheby_step_runtime_k_path_equals_plain():
     x = torch.randn((n, d), generator=g, device=dev)
     p = torch.randn((n, d), generator=g, device=dev)
     c = torch.randn((d,), generator=g, device=dev)
-    out = kernels.cheby_step(cols, vals, x, c, 0.5, 2.0, p)
+    tiles = eigh.build_k9_tiles(cols, max_rows=max_rows)
+    want = eigh.cheby_step_plain(cols, vals, x, c, 0.5, 2.0, p)
+    out = kernels.cheby_step(cols, vals, x, c, 0.5, 2.0, p, tiles=tiles)
+    padded = kernels.cheby_step(cols, vals, eigh._as_panel(x), c, 0.5, 2.0,
+                                eigh._as_panel(p), tiles=tiles)
     torch.cuda.synchronize()
-    assert torch.equal(out, eigh.cheby_step_plain(cols, vals, x, c, 0.5,
-                                                  2.0, p))
+    assert torch.equal(out, want) and torch.equal(padded, want)
 
 
 def test_cheby_step_launch_counts_and_checks():
     """One launch a call; the wrapper refuses what the kernel does not
-    take."""
+    take: missing or mismatched tiles, a panel whose rows are not
+    contiguous or overlap, p at other strides."""
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
     dev = _card()
     lap, x, p, c = _cheby_case(dev, 2, 8)
+    other, _, _, _ = _cheby_case(dev, 3, 8)
     kernels.launches.reset()
-    kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0)
+    kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0, tiles=lap.tiles)
     assert kernels.launches.snapshot()["cheby_step"] == 1
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0, 2.0)   # no p
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x.cpu(), c, 1.0)
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x.double(), c, 1.0)
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x, c[:-1], 1.0)
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x[:-1], c, 1.0)
-    with pytest.raises(ValueError):
-        kernels.cheby_step(lap.cols, lap.vals, x, c, 1.0, 1.0, p[:, :-1])
+    bad = (
+        ((x, c, 1.0, 2.0), {}),                                 # no p
+        ((x.cpu(), c, 1.0), {}),
+        ((x.double(), c, 1.0), {}),
+        ((x, c[:-1], 1.0), {}),
+        ((x[:-1], c, 1.0), {}),
+        ((x, c, 1.0, 1.0, p[:, :-1]), {}),
+        ((x, c, 1.0), {"tiles": None}),                         # no tiles
+        ((x, c, 1.0), {"tiles": other.tiles}),                  # another mesh
+        ((x.t().contiguous().t(), c, 1.0), {}),                 # column-major
+        ((x.as_strided(x.shape, (4, 1)), c, 1.0), {}),          # overlapping
+        ((x, c, 1.0, 1.0, eigh._as_panel(p[:, :5])[:, :5]), {}),
+    )
+    for args, kw in bad:
+        kw = {"tiles": lap.tiles, **kw}
+        with pytest.raises(ValueError):
+            kernels.cheby_step(lap.cols, lap.vals, *args, **kw)
+    with pytest.raises(ValueError):                             # p's strides
+        kernels.cheby_step(lap.cols, lap.vals, eigh._as_panel(x[:, :5]),
+                           c[:5], 1.0, 1.0, p[:, :5].contiguous(),
+                           tiles=lap.tiles)
+    assert kernels.launches.snapshot()["cheby_step"] == 1
+
+
+def test_cheby_step_tiles_fit_the_card():
+    """The octasphere's tiles at subdivision 6: a block's shared memory
+    within the card's, at least two blocks an SM (the runtime's occupancy
+    calculator). The kernel takes ``build_k9_tiles``' default tiles,
+    128-column slices of 128 rows and 64 vertices, and no tile of more
+    vertices."""
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    dev = _card()
+    lap, _, _, _ = _cheby_case(dev, 6, 8)
+    lib = kernels.library()
+    smem = lib.cfs_cheby_step_smem(lap.tiles.max_rows, lap.tiles.max_verts,
+                                   lap.cols.shape[1])
+    assert 48 * 1024 < smem <= 227 * 1024
+    most = kernels._CHEBY_MAX_VERTS
+    assert lib.cfs_cheby_step_smem(eigh.K9_TILE_ROWS, most, 7) \
+        == 4 * (eigh.K9_TILE_ROWS * 129 + most * 16)
+    assert lib.cfs_cheby_step_smem(eigh.K9_TILE_ROWS, most + 1, 7) == 0
+    for has_p in (0, 1):
+        for vec in (0, 1):
+            assert lib.cfs_cheby_step_blocks_per_sm(smem, has_p, vec) >= 2
+
+
+def test_cheby_pass_launches_degree_plus_two():
+    """One pass of the solver (the filter in its segments, then the
+    Rayleigh–Ritz step) launches K9 degree + 2 times."""
+    from craniofacialsd_vae_tpu_torch.geometry import synthetic_template
+    from craniofacialsd_vae_tpu_torch.ops import eigh
+
+    dev = _card()
+    tpl = synthetic_template(4, 3)
+    lap = eigh._EllLaplacian(tpl, dev)
+    x = eigh._initial_panel(tpl.num_vertices, 39, 0, dev)
+    kernels.launches.reset()
+    eigh._rayleigh_ritz(lap, eigh._filter_pass(lap, x, 1.4, 80))
+    torch.cuda.synchronize()
+    assert kernels.launches.snapshot()["cheby_step"] == 82
 
 
 def test_chebyshev_solver_on_card_matches_scipy():
