@@ -65,18 +65,19 @@ them or outside a checkout. Phases, each of which raises on a fault:
    shapes against its twin; one ``{"phase": "train_entry", ...}`` line;
 8. the ``mixed`` policy of ``configurations/craniofacial.yaml`` (its
    model and optimisation sections, through the port's config reader):
-   (a) every bf16 kernel at every shape of the mixed paths (K1-bf16, K3b,
-   its backward ``out_gather_sum_bwd`` (also against the per-position
-   transposes and stack it replaced) and K4-bf16 at B = 16, 4, 1; K3a
-   through the vertex tiles at B = 16, 4, 1 on the fixture's and the
-   octasphere's level 0, beside the untiled kernel it replaced;
-   K2-dW-bf16 at the grid; K4-bf16 or its capped form on every bf16
+   (a) every bf16 kernel at every shape of the mixed paths (K1-bf16
+   through the op's vertex tiles, K3b, its backward
+   ``out_gather_sum_bwd`` (also against the per-position transposes and
+   stack it replaced) and K4-bf16 at B = 16, 4, 1; K3a through the
+   vertex tiles at B = 16, 4, 1 on the fixture's and the octasphere's
+   level 0, beside the untiled element path; K2-dW-bf16 through the
+   vertex tiles at the grid; K4-bf16 or its capped form on every bf16
    backward table at the grid's and the other buckets' widths), held
    against its twin (bit-equal where both round at the same points, else
    within one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
    form, with its bound at 3.35 TB/s and 989 TFLOP/s bf16 and ptxas's
-   registers; (b) a mixed ``DiagnosisService(max_batch=16)`` answers
-   phase 4's requests and renders the error maps (counted), held
+   registers and spills; (b) a mixed ``DiagnosisService(max_batch=16)``
+   answers phase 4's requests and renders the error maps (counted), held
    against the same service on the host and phase 4's fp32 answers;
    (c) one counted mixed step (launches equal to
    ``expected_step_launches``) against the host's, its gradient against
@@ -416,8 +417,9 @@ def k1_ptxas(build_log: str) -> list:
     """Registers and spills of each K1 and K2-dW kernel and of the bf16
     kernels, from the build's ``-Xptxas -v`` output: ``tc<MI,NI>``,
     ``narrow<..>``, ``dw<MI,NI>`` (K2-dW's instance for MI x NI fragments
-    per warp), ``dw_sum`` (its chunk sum), ``bf16<NT,ELEM>`` (K1-bf16 and
-    K3a), ``bf16_tile<VEC>`` (K3a's tiled kernel), ``dw_bf16<FPW>``,
+    per warp), ``dw_sum`` (its chunk sum), ``bf16_elem<NT>`` (the element
+    path of K1-bf16 and K3a), ``bf16_vec<NT,MT>`` (their tiled vector
+    path), ``bf16_tile<VEC>`` (K3a's tiled kernel), ``dw_bf16<FN,UPW>``,
     ``dw_bf16_sum``, ``ell_bf16_vector<KK,CAPPED>``,
     ``ell_bf16_scalar<CAPPED>``, ``out_gather_sum`` (K3b),
     ``out_gather_sum_bwd`` and ``cheby_step<KK,HAS_P,VEC>`` (K9); the narrow
@@ -433,9 +435,11 @@ def k1_ptxas(build_log: str) -> list:
                            r"ELb(\d)ELb(\d)E", m.group(1))
             dw = re.search(r"spiral_conv_dw_kernelILi(\d+)ELi(\d+)E",
                            m.group(1))
-            bf = re.search(r"spiral_conv_bf16_kernelILi(\d+)ELb(\d)E",
+            bf = re.search(r"spiral_conv_bf16_kernelILi(\d+)EE",
                            m.group(1))
-            dwb = re.search(r"spiral_conv_dw_bf16_kernelILi(\d+)E",
+            bv = re.search(r"spiral_conv_bf16_vec_kernelILi(\d+)ELi(\d+)E",
+                           m.group(1))
+            dwb = re.search(r"spiral_conv_dw_bf16_kernelILi(\d+)ELi(\d+)E",
                             m.group(1))
             ell = re.search(r"ell_bf16_vectorILi(\d+)ELb(\d)E", m.group(1))
             ells = re.search(r"ell_bf16_scalarILb(\d)E", m.group(1))
@@ -448,8 +452,9 @@ def k1_ptxas(build_log: str) -> list:
                     f"{nt.group(3)},{nt.group(4)}>" if nt
                     else f"dw<{dw.group(1)},{dw.group(2)}>" if dw
                     else "dw_sum" if "spiral_conv_dw_sum" in m.group(1)
-                    else f"bf16<{bf.group(1)},{bf.group(2)}>" if bf
-                    else f"dw_bf16<{dwb.group(1)}>" if dwb
+                    else f"bf16_elem<{bf.group(1)}>" if bf
+                    else f"bf16_vec<{bv.group(1)},{bv.group(2)}>" if bv
+                    else f"dw_bf16<{dwb.group(1)},{dwb.group(2)}>" if dwb
                     else "dw_bf16_sum" if "spiral_conv_dw_bf16_sum"
                     in m.group(1)
                     else f"ell_bf16_vector<{ell.group(1)},{ell.group(2)}>"
@@ -1862,13 +1867,15 @@ def flagship_config():
 
 
 def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
-                   f32out=False) -> dict:
+                   f32out=False, regs=None) -> dict:
     """One bf16 conv at one batch size, on bf16 x and the model's weights
-    rounded to bf16: K1-bf16 within one bf16 ulp of its twin (K3a, the
-    fp32 output through the op's vertex tiles, within K3A_RTOL of the
-    max, and timed beside the untiled kernel it replaced, within
-    K3A_RTOL too), two launches bit-equal, timed against the twin and the
-    library form (``index_select`` and one bf16 ``linear``)."""
+    rounded to bf16, through the op's vertex tiles: K1-bf16 (its tiled
+    vector path) within one bf16 ulp of its twin (K3a, the fp32 output,
+    within K3A_RTOL of the max, and timed beside the untiled element path,
+    within K3A_RTOL too), two launches bit-equal, timed against the twin
+    and the library form (``index_select`` and one bf16 ``linear``), with
+    the registers and spills of the instance it ran (``regs``: the
+    kernels of ``k1_ptxas`` by name)."""
     bf16 = torch.bfloat16
     seq, m = op.seq_length, op.num_vertices
     c_in, c_out = conv_widths(conv, op)
@@ -1879,11 +1886,12 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
     table = op.table
     out_dtype = torch.float32 if f32out else None
     kernel = "spiral_conv_f32out" if f32out else "spiral_conv_bf16"
-    tiles = op.tiles if f32out else None
+    tiles = op.tiles
     plan = kernels.plan_spiral_conv(m, batch, seq, c_in, c_out,
                                     x.data_ptr() % 4 == 0, True, bf16,
-                                    tiles.n_tiles if tiles else 0,
-                                    tiles.max_rows if tiles else 0)
+                                    tiles.n_tiles, tiles.max_rows)
+    inst = (regs or {}).get(f"bf16_vec<{plan.nt // 8},{plan.mi}>"
+                            if plan.path == "bf16" else "", {})
     launch = lambda: kernels.spiral_conv_fwd(            # noqa: E731
         x, table, w_l, b, out_dtype=out_dtype, tiles=tiles)
     untiled = lambda: kernels.spiral_conv_fwd(           # noqa: E731
@@ -1906,6 +1914,8 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
             earlier_ms = cuda_ms(torch, untiled, 20)
             ulp = None
         else:
+            check(plan.path == "bf16", f"K1-bf16 {name} B={batch}: plan "
+                  f"{plan.path}, not the tiled vector kernel")
             ulp = ulps(torch, out, ref)
             check(ulp <= 1.0, f"K1-bf16 {name} B={batch}: {ulp:.2f} bf16 "
                   "ulps from the plain twin")
@@ -1929,20 +1939,26 @@ def mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
     flops = 2.0 * m * batch * seq * c_in * c_out
     b_ms, b_by, t_ops = bound_bf16(nbytes, flops)
     log(f"[8 {kernel} {name} B={batch}] {op.n_src}->{m} {c_in}->{c_out} "
-        f"{plan.path} ({plan.blocks} blocks, {plan.smem} B smem"
-        + (f", tb {plan.tb}, {plan.threads} threads" if tiles else "")
+        f"{plan.path} ({plan.blocks} blocks, {plan.smem} B smem, tb "
+        f"{plan.tb}, {plan.threads} threads"
+        + (f", {plan.nt} columns a block, {plan.mi} row tiles a warp"
+           if plan.path == "bf16" else "")
+        + (f", {inst['registers']} registers, "
+           f"{inst.get('spill_bytes', 0)} B spilled" if inst else "")
         + f"): err {err:.2e} (max|out| {scale:.2e}"
         + (f", {ulp:.2f} ulps" if ulp is not None else "")
         + f"); kernel {ms:.4f} ms"
-        + (f", untiled kernel {earlier_ms:.4f}" if tiles else "")
+        + (f", untiled element path {earlier_ms:.4f}" if f32out else "")
         + f", plain {plain_ms:.4f}, library {lib_ms:.4f}, bound "
         f"{b_ms:.5f} ({b_by}); kernel/library {ms / lib_ms:.2f}")
     rec = dict(conv=name, batch=batch, kernel=kernel, path=plan.path,
                plan=dataclasses.asdict(plan), n_src=op.n_src, m=m,
                c_in=c_in, c_out=c_out, max_abs_err=err, ulps=ulp, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-               bound_by=b_by, bytes=nbytes, flops=flops, ops_ms=t_ops)
-    if tiles:
+               bound_by=b_by, bytes=nbytes, flops=flops, ops_ms=t_ops,
+               registers=inst.get("registers"),
+               spill_bytes=inst.get("spill_bytes", 0))
+    if f32out:
         rec["earlier_ms"] = earlier_ms
     return rec
 
@@ -2115,10 +2131,10 @@ def mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d) -> dict:
 
 def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
                    regs: dict) -> dict:
-    """K2-dW-bf16 at one conv over a ``batch``-mesh grid, bf16 x and dy:
-    within one bf16 ulp of its chunk-order twin, two launches bit-equal,
-    timed against the twin and the library form (``index_select`` of the
-    L gathers, one bf16 ``einsum``)."""
+    """K2-dW-bf16 at one conv over a ``batch``-mesh grid, bf16 x and dy,
+    through the op's vertex tiles: within one bf16 ulp of its chunk-order
+    twin, two launches bit-equal, timed against the twin and the library
+    form (``index_select`` of the L gathers, one bf16 ``einsum``)."""
     bf16 = torch.bfloat16
     seq, m = op.seq_length, op.num_vertices
     c_in, c_out = conv_widths(conv, op)
@@ -2126,17 +2142,20 @@ def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
                     device=DEVICE).to(bf16)
     dy = torch.randn((m, batch, c_out), generator=gen,
                      device=DEVICE).to(bf16)
-    table = op.table
-    plan = kernels.plan_spiral_conv_dw_bf16(m, batch, seq, c_in, c_out)
+    table, tiles = op.table, op.tiles
+    plan = kernels.plan_spiral_conv_dw_bf16(
+        m, batch, seq, c_in, c_out, tiles.n_tiles, tiles.max_rows,
+        tiles.max_verts, x.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0)
     flat = table.t().reshape(-1)
     x2, d2 = x.view(op.n_src, -1), dy.view(-1, c_out)
     lib = lambda: torch.einsum(                          # noqa: E731
         "lnc,no->lco", x2.index_select(0, flat).view(seq, m * batch, c_in),
         d2)
-    launch = lambda: kernels.spiral_conv_dw(x, table, dy)    # noqa: E731
+    launch = lambda: kernels.spiral_conv_dw(             # noqa: E731
+        x, table, dy, tiles=tiles)
     with torch.inference_mode():
         out, again = launch(), launch()
-        ref = ops.spiral_conv_dw_chunked_plain(x, table, dy, plan)
+        ref = ops.spiral_conv_dw_chunked_plain(x, table, dy, plan, tiles)
         torch.cuda.synchronize()
         ulp = ulps(torch, out, ref)
         check(ulp <= 1.0, f"K2-dW-bf16 {name}: {ulp:.2f} bf16 ulps from "
@@ -2148,16 +2167,18 @@ def mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, batch,
               f"K2-dW-bf16 {name}: library form disagrees")
         ms = cuda_ms(torch, launch, 20)
         plain_ms = cuda_ms(torch, lambda: ops.spiral_conv_dw_chunked_plain(
-            x, table, dy, plan), 3)
+            x, table, dy, plan, tiles), 3)
         lib_ms = cuda_ms(torch, lib, 5)
     nbytes = 2 * (x.numel() + dy.numel() + seq * c_in * c_out) \
         + 4 * table.numel()
     flops = 2.0 * seq * m * batch * c_in * c_out
     b_ms, b_by, t_ops = bound_bf16(nbytes, flops)
-    inst = regs.get(f"dw_bf16<{plan.fpw}>", {})
+    inst = regs.get(f"dw_bf16<{plan.fn},{plan.upw}>", {})
     log(f"[8 K2-dW-bf16 {name}] {op.n_src}->{m} x{batch} {c_in}->{c_out} "
-        f"({plan.n_chunks} chunks of {plan.chunk_v} vertices x {seq} "
-        f"positions, {plan.fpw} fragments a warp, "
+        f"({plan.n_chunks} chunks of {plan.tpc} tiles and {plan.bpc} "
+        f"batch tiles x {plan.groups} "
+        f"groups of {plan.positions} positions, {plan.warps} warps of "
+        f"{plan.upw} units, batch tiles of {plan.tb}, {plan.smem} B smem, "
         f"{inst.get('registers')} registers, {inst.get('spill_bytes', 0)} B "
         f"spilled): {ulp:.2f} ulps (max|dW| {scale:.2e}); kernel {ms:.4f} "
         f"ms, plain {plain_ms:.4f}, library {lib_ms:.4f}, bound {b_ms:.5f} "
@@ -2210,7 +2231,8 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     n = len(model.de_convs)
     for batch in BATCHES:
         shapes["spiral_conv_bf16"][batch] = [
-            mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch)
+            mixed_k1_shape(torch, kernels, ops, gen, name, conv, op, batch,
+                           regs=regs)
             for name, conv, op in bf_convs]
         shapes["out_gather_sum"][batch] = [
             mixed_k3b_shape(torch, kernels, ops, gen, *final, batch)]

@@ -1,8 +1,9 @@
 // Helpers shared by the bf16 tensor-core kernels K1-bf16 / K3a
 // (spiral_conv_bf16.cu) and K2-dW-bf16 (spiral_conv_dw_bf16.cu): packing
 // two bf16 values into a 32-bit fragment register, fragment loads from
-// shared memory (ldmatrix, plain and .trans) and mma.sync m16n8k16 in
-// bf16 with fp32 accumulators.
+// shared memory (ldmatrix, plain and .trans), mma.sync m16n8k16 in bf16
+// with fp32 accumulators, the copies of staged rows and a division by a
+// batch tile.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -72,6 +73,54 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
       "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Issues the cp.async copies of n staged rows: row d's tb·pieces pieces
+// (8 bf16 values a piece where vec, else 2) lie contiguous at src +
+// idx[d]·src_stride, and piece b·pieces + p lands at dst + d·dst_stride +
+// b·entry + p·(8 or 2). Each warp copies whole rows, several a pass where
+// a row has fewer than 32 pieces, so a lane's offsets within a row are
+// worked out once and no copy needs a division.
+__device__ __forceinline__ void stage_rows(uint16_t* dst, int dst_stride,
+                                           int entry,
+                                           const __nv_bfloat16* src,
+                                           size_t src_stride, const int* idx,
+                                           int n, int tb, int pieces,
+                                           bool vec) {
+  const int sh = vec ? 3 : 1;
+  const int ppr = tb * pieces;                   // pieces a row
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
+  // piece jj of rows d0, d0 + step, ... below n
+  auto copy = [&](int jj, int d0, int step) {
+    const int b = jj / pieces;
+    const int to = b * entry + ((jj - b * pieces) << sh), from = jj << sh;
+    for (int d = d0; d < n; d += step) {
+      uint16_t* t = dst + d * dst_stride + to;
+      const __nv_bfloat16* f = src + idx[d] * src_stride + from;
+      if (vec)
+        cp_async16(t, f);
+      else
+        cp_async4(t, f);
+    }
+  };
+  if (ppr >= 32) {
+    for (int jj = lane; jj < ppr; jj += 32) copy(jj, warp, warps);
+    return;
+  }
+  const int rpi = 32 / ppr;                      // rows a pass
+  const int dr = lane / ppr;
+  if (dr < rpi) copy(lane - dr * ppr, warp * rpi + dr, warps * rpi);
+}
+
+// r / tb for 0 <= r < 2^11 and 1 <= tb <= 16: (r·m) >> 20 with m =
+// ceil(2^20 / tb) (div_magic), exact there
+__host__ __device__ __forceinline__ int div_magic(int tb) {
+  return ((1 << 20) + tb - 1) / tb;
+}
+
+__device__ __forceinline__ int div_by(int r, int magic) {
+  return (r * magic) >> 20;
 }
 
 }  // namespace

@@ -41,8 +41,8 @@ import torch
 __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "ell_matmul_fwd", "ell_matmul_capped", "SpiralPlan",
            "plan_spiral_conv", "narrow_tile_plan", "bf16_tile_plan",
-           "spiral_conv_fwd",
-           "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan",
+           "bf16_vec_plan", "spiral_conv_fwd",
+           "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan", "dw_bf16_plan",
            "plan_spiral_conv_dw_bf16",
            "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
            "raster_sweep", "k8_plan", "k8_bwd_bins", "nearest_sq",
@@ -192,10 +192,11 @@ def library() -> ctypes.CDLL:
             lib.cfs_ell_matmul_bf16.argtypes = [p, p, p, p, i, i, i, p]
             lib.cfs_ell_matmul_capped_bf16.argtypes = \
                 lib.cfs_ell_matmul_capped.argtypes
-            lib.cfs_spiral_conv_bf16.argtypes = [p, p, p, p, p] + [i] * 12 \
+            lib.cfs_spiral_conv_bf16.argtypes = [p, p, p, p, p] + [i] * 11 \
                 + [p]
-            lib.cfs_spiral_conv_dw_bf16.argtypes = [p, p, p, p, p] \
-                + [i] * 9 + [p]
+            lib.cfs_spiral_conv_bf16_vec.argtypes = [p] * 9 + [i] * 15 + [p]
+            lib.cfs_spiral_conv_dw_bf16.argtypes = [p] * 9 + [i] * 6 + [
+                ctypes.POINTER(i), p]
             lib.cfs_out_gather_sum.argtypes = [p, p, p, p, i, i, i, i, i, p]
             lib.cfs_out_gather_sum_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
                                                    i, i, p]
@@ -217,7 +218,8 @@ def library() -> ctypes.CDLL:
                        lib.cfs_raster_sweep, lib.cfs_ell_matmul_capped,
                        lib.cfs_spiral_conv_dw, lib.cfs_ell_matmul_bf16,
                        lib.cfs_ell_matmul_capped_bf16,
-                       lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_dw_bf16,
+                       lib.cfs_spiral_conv_bf16, lib.cfs_spiral_conv_bf16_vec,
+                       lib.cfs_spiral_conv_dw_bf16,
                        lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
                        lib.cfs_spiral_conv_narrow_tile,
                        lib.cfs_spiral_conv_bf16_tile, lib.cfs_nearest_sq,
@@ -365,14 +367,18 @@ class SpiralPlan:
     paths; ``narrow_tile`` uses ``rows`` (the source rows a vertex tile
     stages) and ``vec_x``. The bf16 paths (``csrc/spiral_conv_bf16.cu``)
     use ``threads``, ``grid``, ``smem``, ``kp`` (16-deep steps), ``ldw``
-    (W's row stride, bf16 values) and ``nt`` (columns, 8 per tile);
-    ``bf16_tile`` uses ``threads``, ``grid``, ``smem``, ``tb``,
-    ``n_btiles`` and ``rows``, as ``narrow_tile`` does."""
+    (W's row stride, bf16 values) and ``nt`` (columns a block, 8 per
+    column tile); ``bf16`` (the tiled vector path) also ``tb``,
+    ``n_btiles``, ``rows``, ``mi`` (16-row tiles a warp takes at once)
+    and ``grid[1]`` (column slices of ``nt``); ``bf16_tile`` uses
+    ``threads``, ``grid``, ``smem``, ``tb``, ``n_btiles`` and ``rows``,
+    as ``narrow_tile`` does."""
     path: str             # "tc", "tc_pad_k" (C_in < 8), "narrow_tile",
     #                       "narrow_out" (no tiles, another shape, or rows
-    #                       that do not fit), "bf16", "bf16_elem"
-    #                       (C_in % 16 != 0) or "bf16_tile" (the final
-    #                       conv's shape, C_out < 8, with tiles)
+    #                       that do not fit), "bf16" (C_in % 16 == 0, with
+    #                       tiles), "bf16_elem" (any other bf16 conv) or
+    #                       "bf16_tile" (the final conv's shape, C_out < 8,
+    #                       with tiles)
     threads: int
     grid: tuple           # (row tiles walked, C_out column blocks)
     smem: int             # dynamic shared memory, bytes
@@ -392,7 +398,7 @@ class SpiralPlan:
     mi: int = 0           # warp tile: 16·mi rows x 8·ni columns
     ni: int = 0
     warps_m: int = 0
-    rows: int = 0         # narrow_tile: staged source rows per vertex tile
+    rows: int = 0         # tiled paths: staged source rows per vertex tile
 
     @property
     def kernel(self) -> str:
@@ -447,18 +453,23 @@ def plan_spiral_conv(m: int, b: int, seq: int, c_in: int, c_out: int,
     ``narrow_out``; the rest the tensor-core kernel (C_in < 8: the
     positions that fill a depth of 32 share a stage). Wherever
     ``m·b ≥ 132·16`` the tensor-core grid has at least 132 blocks.
-    ``dtype`` bfloat16: the tiled bf16 kernel for C_out < 8 where the
-    tiles are given, the shape is the one it is compiled for and their
-    rows fit (``_plan_bf16_tile``), else the bf16 kernel
-    (``_plan_bf16``). Raises for a shape that no path takes."""
+    ``dtype`` bfloat16, x on 4 bytes and the tiles given: K3a's tiled
+    kernel for C_out < 8 at the shape it is compiled for
+    (``_plan_bf16_tile``), else the tiled vector kernel where C_in is a
+    multiple of 16 (``_plan_bf16_vec``); any other bf16 conv the element
+    path (``_plan_bf16``). Raises for a shape that no path takes."""
     if min(m, b, seq, c_in) < 1:
         raise ValueError(f"spiral conv needs M, B, L, C_in ≥ 1; got "
                          f"{m}, {b}, {seq}, {c_in}")
     if dtype == torch.bfloat16:
         plan = None
-        if 1 <= c_out < 8 and n_tiles > 0 and tile_rows > 0 and x_aligned:
-            plan = _plan_bf16_tile(b, seq, c_in, n_tiles, tile_rows)
-        return plan or _plan_bf16(m, b, seq, c_in, c_out, x_aligned)
+        if n_tiles > 0 and tile_rows > 0 and x_aligned and c_out >= 1:
+            if c_out < 8:
+                plan = _plan_bf16_tile(b, seq, c_in, n_tiles, tile_rows)
+            if plan is None and c_in % 16 == 0:
+                plan = _plan_bf16_vec(m, b, seq, c_in, c_out, n_tiles,
+                                      tile_rows)
+        return plan or _plan_bf16(m, b, seq, c_in, c_out)
     if dtype != torch.float32:
         raise ValueError(f"spiral conv takes float32 or bfloat16; got "
                          f"{dtype}")
@@ -698,13 +709,13 @@ _BF16_TILES = (1, 2, 4, 8, 16)      # csrc/spiral_conv_bf16.cu's NT
 _BF16_THREADS = 256
 
 
-def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
-    """The bf16 kernel: 8 warps a block, 16 rows a warp, all of C_out in
-    column tiles of 8 (a power of two of them), W in shared memory as it
-    lies in device memory, its depth padded to 16; the vector path where
-    a 16-deep step lies in one position and x starts on 4 bytes, else the
-    element path. Blocks are persistent: as many as the SMs hold, at most
-    one a row tile per warp."""
+def _plan_bf16(m, b, seq, c_in, c_out) -> SpiralPlan:
+    """The bf16 kernel's element path: 8 warps a block, 16 rows a warp,
+    all of C_out in column tiles of 8 (a power of two of them), W in
+    shared memory as it lies in device memory, its depth padded to 16,
+    each value of the A fragments loaded on its own. Blocks are
+    persistent: as many as the SMs hold, at most one a row tile per
+    warp."""
     if not 1 <= c_out <= 8 * _BF16_TILES[-1]:
         raise ValueError(f"C_out {c_out} must be in [1, "
                          f"{8 * _BF16_TILES[-1]}] for the bf16 kernel")
@@ -719,10 +730,91 @@ def _plan_bf16(m, b, seq, c_in, c_out, x_aligned) -> SpiralPlan:
                         2048 // _BF16_THREADS))
     warps = _BF16_THREADS // 32
     blocks = max(1, min(_cdiv(_cdiv(m * b, 16), warps), _SMS * per_sm))
-    path = "bf16" if c_in % 16 == 0 and x_aligned else "bf16_elem"
-    return SpiralPlan(path, threads=_BF16_THREADS, grid=(blocks, 1),
+    return SpiralPlan("bf16_elem", threads=_BF16_THREADS, grid=(blocks, 1),
                       smem=smem, tb=0, n_btiles=0, kp=ksteps, ldw=ldw,
                       nt=8 * nt)
+
+
+_BF16_VEC_THREADS = 256       # csrc/spiral_conv_bf16.cu's kVecThreads
+_BF16_VEC_PER_SM = 2          # blocks an SM holds, where they fit
+_BF16_VEC_MT2_ROWS = 96       # an item's rows from which a warp takes two
+#                               16-row tiles at once
+
+
+def bf16_vec_plan(b, seq, c_in, c_out, n_tiles, rows, tb, nt, mt=1,
+                  per_sm=_BF16_VEC_PER_SM) -> SpiralPlan:
+    """The ``bf16`` launch (the tiled vector kernel) with ``tb`` batch
+    rows per item, in even batch tiles, ``nt`` column tiles of 8 per
+    block (C_out in ``grid[1]`` slices) and ``mt`` 16-row tiles per warp
+    at a time. An item is one vertex tile's batch tile; ``n_rtiles``
+    items a slice, walked by ``grid[0]`` persistent blocks a slice, as
+    many as the SMs hold over the slices at up to ``per_sm`` blocks an
+    SM. Shared memory:
+    the slice of W (``L·C_in`` rows at a stride of an odd number of
+    16-byte units), two ring stages, each the tile's ``local`` and
+    ``verts`` (64 vertices) and ``rows`` staged source rows of ``tb``
+    batch rows, ``C_in + 8`` values each, and the offsets of four items
+    and the source rows of two."""
+    tb = min(b, tb)
+    tb = _cdiv(b, _cdiv(b, tb))
+    n_bt = _cdiv(b, tb)
+    ldw = _odd_stride(8 * nt)
+    index_ints = (_BF16_TILE_VERTS * (seq + 1) + 3) // 4 * 4
+    stage = 4 * index_ints + 2 * rows * tb * (c_in + 8)
+    splits = _cdiv(c_out, 8 * nt)
+    items = n_tiles * n_bt
+    smem = _round16(2 * seq * c_in * ldw + 2 * stage
+                    + 4 * (16 + _cdiv(2 * rows, 4) * 4))
+    per_sm = max(1, min(per_sm, _SMEM_SM // (smem + _SMEM_RESERVED)))
+    return SpiralPlan("bf16", threads=_BF16_VEC_THREADS,
+                      grid=(min(items, max(1, _SMS * per_sm // splits)),
+                            splits), smem=smem, tb=tb, n_btiles=n_bt, n_rtiles=items,
+                      kp=seq * c_in // 16, ldw=ldw, nt=8 * nt, mi=mt,
+                      rows=rows)
+
+
+def _plan_bf16_vec(m, b, seq, c_in, c_out, n_tiles, rows) -> SpiralPlan | None:
+    """The tiled vector kernel's plan, from ``bf16_compare --sweep`` on
+    the mixed model's convs at B = 16, 4 and 1 (PERF.md): all of C_out a
+    block (up to 64 columns), and the most batch rows an item (16, 8, 4,
+    2 or 1) with which two blocks share an SM, where that is at least 8
+    (or all of B) and leaves two items an SM; else, on the smaller
+    levels, the most batch rows with which one block fits, then, while
+    the items of all slices are fewer than half the SMs, half the
+    columns down to 32, half the batch rows, half the columns again. Two
+    16-row tiles a warp at once where an item has
+    ``_BF16_VEC_MT2_ROWS`` rows on average and a block at most 32
+    columns (the kernel is compiled so). None where not even one batch
+    row fits."""
+    nt = next(t for t in (1, 2, 4, 8) if t == 8 or 8 * t >= c_out)
+
+    def fitting(per_sm, nt):
+        cap = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
+        return next((p for p in (
+            bf16_vec_plan(b, seq, c_in, c_out, n_tiles, rows, tb, nt)
+            for tb in (16, 8, 4, 2, 1)) if p.smem <= cap), None)
+
+    plan = fitting(_BF16_VEC_PER_SM, nt)
+    if (plan is None or plan.tb < min(b, 8)
+            or plan.n_rtiles * plan.grid[1] < _BF16_VEC_PER_SM * _SMS):
+        plan = fitting(1, nt)
+        if plan is None:
+            return None
+        while plan.n_rtiles * plan.grid[1] < _SMS // 2:
+            tb = plan.tb
+            if nt > 4:
+                nt //= 2
+            elif tb > 1:
+                tb //= 2
+            elif nt > 1:
+                nt //= 2
+            else:
+                break
+            plan = bf16_vec_plan(b, seq, c_in, c_out, n_tiles, rows, tb, nt)
+    per_item = m / n_tiles * plan.tb
+    return dataclasses.replace(
+        plan, mi=2 if per_item >= _BF16_VEC_MT2_ROWS and plan.nt <= 32
+        else 1)
 
 
 def _tile_ptrs(tiles, shape: tuple, device: torch.device, what: str,
@@ -767,7 +859,9 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
 
     bf16 ``x`` (with ``w_l`` and ``b`` bf16): K1-bf16, an fp32
     accumulator from ``b`` rounded to bf16 once; with ``out_dtype``
-    float32, K3a: the same accumulator returned unrounded."""
+    float32, K3a: the same accumulator returned unrounded. The tiled
+    bf16 paths (``bf16``, ``bf16_tile``) need ``tiles``; without them
+    the planner names the element path."""
     dev = x.device
     dtype = _rows_dtype(x)
     _require(x, "x", dtype, 3, dev)
@@ -801,14 +895,21 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
         if not plan.path.startswith("bf16"):
             raise ValueError(f"plan path {plan.path!r} is not a bf16 path")
         name = "spiral_conv_f32out" if f32out else plan.kernel
+        if plan.path == "bf16":
+            _launch(name, library().cfs_spiral_conv_bf16_vec, dev, _ptr(x),
+                    *_tile_ptrs(tiles, table.shape, dev,
+                                f"the {plan.path} plan", plan.rows,
+                                _BF16_TILE_VERTS),
+                    _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz, c_in, c_out,
+                    n_tiles, plan.rows, plan.tb, plan.n_btiles, plan.nt // 8,
+                    plan.mi, plan.grid[1], plan.blocks, plan.smem,
+                    int(f32out))
+            return out
         if plan.path == "bf16_tile":
-            if tiles is not None and tiles.max_verts > _BF16_TILE_VERTS:
-                raise ValueError(f"tiles of {tiles.max_verts} vertices: the "
-                                 f"bf16_tile kernel takes at most "
-                                 f"{_BF16_TILE_VERTS}")
             _launch(name, library().cfs_spiral_conv_bf16_tile, dev, _ptr(x),
                     *_tile_ptrs(tiles, table.shape, dev,
-                                f"the {plan.path} plan", plan.rows),
+                                f"the {plan.path} plan", plan.rows,
+                                _BF16_TILE_VERTS),
                     _ptr(w_l), _ptr(b),
                     _ptr(out), m, seq, bsz, c_in, c_out, n_tiles, plan.rows,
                     plan.tb, plan.n_btiles, plan.threads, plan.smem,
@@ -816,8 +917,8 @@ def spiral_conv_fwd(x: torch.Tensor, table: torch.Tensor,
             return out
         _launch(name, library().cfs_spiral_conv_bf16, dev, _ptr(x),
                 _ptr(table), _ptr(w_l), _ptr(b), _ptr(out), m, seq, bsz,
-                c_in, c_out, plan.nt // 8, int(plan.path == "bf16_elem"),
-                plan.kp, plan.ldw, plan.blocks, plan.smem, int(f32out))
+                c_in, c_out, plan.nt // 8, plan.kp, plan.ldw, plan.blocks,
+                plan.smem, int(f32out))
         return out
     if plan is None:
         plan = plan_spiral_conv(m, bsz, seq, c_in, c_out,
@@ -980,56 +1081,165 @@ def _dw_plan(m, b, seq, c_in, c_out, x_aligned, dy_aligned, rows, stages,
                   vec_d=c_out % 4 == 0 and dy_aligned)
 
 
-_DW_BF16_WARPS = 4            # csrc/spiral_conv_dw_bf16.cu's kWarps
-_DW_BF16_FPW = (1, 2, 4, 8, 16, 32)
-_DW_BF16_TILE = 64            # rows per staged tile, two stages
-_DW_BF16_BLOCKS_PER_SM = 8
-
+_DW_BF16_MAX_WARPS = 8        # csrc/spiral_conv_dw_bf16.cu's kMaxWarps
+_DW_BF16_FN = (1, 2, 4, 8, 16)   # its compiled column fragments a unit
+_DW_BF16_MAX_UPW = 4          # ... and units a warp, at most
+_DW_BF16_MAX_FRAGS = 16       # fragments (64 fp32 accumulators) a warp,
+#                               at most
+_DW_BF16_PER_SM = 2           # blocks an SM holds, where they fit
+_DW_BF16_PART_BYTES = 10 << 20  # the chunks' partials, at most, where the
+#                                 batch is split
 
 
 @dataclass(frozen=True)
 class DwBf16Plan:
-    """One K2-dW-bf16 launch: grid (``n_chunks``, L), each block one
-    position over ``chunk_v`` vertices; its 4 warps hold at most ``fpw``
-    16 x 8 fragments of the position's dW each."""
-    fpw: int
-    chunk_v: int
+    """One K2-dW-bf16 launch: grid (``n_chunks``, ``groups``); a block
+    owns a chunk, ``tpc`` consecutive vertex tiles (``ops.SpiralTiles``)
+    times ``bpc`` consecutive batch tiles of ``tb`` rows, and a group of
+    ``positions`` spiral positions; it walks the chunk's (tile, batch
+    tile) items through two ring stages in shared memory, each sized for
+    ``rows`` source rows and ``verts`` vertices. Chunks run tile runs
+    major, batch runs minor. A unit is one (position, 16 channels) row of
+    dW's 16 x 8 fragments across ``fn`` column fragments; each of the
+    ``warps`` warps owns ``upw`` units. ``vec_x``/``vec_d``: 16-byte
+    copies (else value by value)."""
+    fn: int
+    upw: int
+    warps: int
+    positions: int
+    groups: int
+    tb: int
+    n_btiles: int
+    tpc: int
+    bpc: int
     n_chunks: int
+    rows: int
+    verts: int
+    vec_x: bool
+    vec_d: bool
     smem: int
+
+    def as_ints(self) -> tuple:
+        """The plan as csrc/spiral_conv_dw_bf16.cu's plan array."""
+        return (self.fn, self.upw, self.warps, self.positions, self.tb,
+                self.n_btiles, self.tpc, self.bpc, self.n_chunks, self.rows,
+                self.verts, int(self.vec_x), int(self.vec_d), self.smem)
+
+
+def _dw_bf16_stage(seq, c_in, c_out, rows, verts, tb) -> int:
+    """Bytes of one of the two ring stages (csrc's ``stage_of``): x's
+    entries ``[rows·tb + 1]`` (the last zero) and dy's rows
+    ``[verts·tb]``, padded to 16 rows, at strides of an odd number of
+    16-byte units, and the tile's ``local``."""
+    xst = _odd_stride(16 * _cdiv(c_in, 16))
+    dst = _odd_stride(8 * _cdiv(c_out, 8))
+    return (2 * (_cdiv((rows * tb + 1) * xst, 8) * 8
+                 + _round16(verts * tb) * dst) + _round16(4 * verts * seq))
+
+
+def _dw_bf16_tail(rows, verts) -> int:
+    """Bytes after the two stages (csrc's ``tail_ints``): the offsets of
+    four items and the source rows and vertices of two."""
+    return 4 * (16 + _cdiv(2 * (rows + verts), 4) * 4)
+
+
+def _dw_bf16_units(seq, c_in, c_out) -> tuple:
+    """``(fn, positions, upw, warps)``: the most positions a block whose
+    units fit in at most 8 warps, each warp at most 16 fragments; among
+    those the fewest idle unit slots, then the most warps."""
+    fn = next(f for f in _DW_BF16_FN if 8 * f >= c_out)
+    fm = _cdiv(c_in, 16)
+    for p in (d for d in range(seq, 0, -1) if seq % d == 0):
+        units = p * fm
+        best = None
+        for upw in range(1, min(_DW_BF16_MAX_UPW,
+                                _DW_BF16_MAX_FRAGS // fn) + 1):
+            warps = _cdiv(units, upw)
+            key = (warps * upw - units, -warps)
+            if warps <= _DW_BF16_MAX_WARPS and (best is None
+                                                or key < best[0]):
+                best = (key, upw, warps)
+        if best is not None:
+            return fn, p, best[1], best[2]
+    raise ValueError(f"no K2-dW-bf16 warp layout for C_in={c_in}, "
+                     f"C_out={c_out}")
+
+
+def dw_bf16_plan(m, b, seq, c_in, c_out, n_tiles, rows, verts, tb,
+                 per_sm, bgroups=None, x_aligned=True,
+                 dy_aligned=True) -> DwBf16Plan:
+    """A K2-dW-bf16 launch with batch tiles of ``tb`` rows (even tiles)
+    and runs of whole tiles, as many as ``per_sm`` blocks an SM hold over
+    the position groups (at most one run an SM); the batch tiles split
+    into ``bgroups`` runs (default: as many as make two blocks an SM in
+    all while the chunks' partials stay within ``_DW_BF16_PART_BYTES``).
+    Its shared memory may exceed what the card offers: the caller
+    checks."""
+    fn, p, upw, warps = _dw_bf16_units(seq, c_in, c_out)
+    tb = min(b, tb)
+    tb = _cdiv(b, _cdiv(b, tb))
+    n_bt = _cdiv(b, tb)
+    groups = seq // p
+    n_tg = min(n_tiles, max(1, _SMS * per_sm // groups), _SMS)
+    tpc = _cdiv(n_tiles, n_tg)
+    n_tg = _cdiv(n_tiles, tpc)
+    if bgroups is None:
+        bgroups = min(n_bt, max(1, 2 * _SMS // (n_tg * groups)))
+        while (bgroups > 1 and n_tg * bgroups * seq * c_in * c_out * 4
+               > _DW_BF16_PART_BYTES):
+            bgroups -= 1
+    bpc = _cdiv(n_bt, bgroups)
+    return DwBf16Plan(
+        fn=fn, upw=upw, warps=warps, positions=p, groups=groups, tb=tb,
+        n_btiles=n_bt, tpc=tpc, bpc=bpc, n_chunks=n_tg * _cdiv(n_bt, bpc),
+        rows=rows, verts=verts, vec_x=c_in % 8 == 0 and x_aligned,
+        vec_d=c_out % 8 == 0 and dy_aligned,
+        smem=_round16(2 * _dw_bf16_stage(seq, c_in, c_out, rows, verts, tb)
+                      + _dw_bf16_tail(rows, verts)))
 
 
 @functools.lru_cache(maxsize=1024)
 def plan_spiral_conv_dw_bf16(m: int, b: int, seq: int, c_in: int,
-                             c_out: int) -> DwBf16Plan:
+                             c_out: int, n_tiles: int, tile_rows: int,
+                             tile_verts: int, x_aligned: bool = True,
+                             dy_aligned: bool = True) -> DwBf16Plan:
     """The K2-dW-bf16 launch for ``dW [seq, c_in, c_out]`` over ``m``
-    vertices of ``b`` batch rows: chunks of whole vertices, at least one
-    staged tile of rows each, as many as 8 blocks an SM hold over the
-    ``seq`` positions; shared memory for two stages of 64 rows of x and
-    dy. Raises for channels beyond 128."""
-    if min(m, b, seq, c_in, c_out) < 1:
-        raise ValueError(f"spiral conv dW needs M, B, L, C_in, C_out ≥ 1; "
-                         f"got {m}, {b}, {seq}, {c_in}, {c_out}")
+    vertices of ``b`` batch rows in the op's ``n_tiles`` vertex tiles of
+    at most ``tile_rows`` source rows and ``tile_verts`` vertices;
+    ``x_aligned``/``dy_aligned``: whether x and dy start on 16 bytes.
+    The most batch rows an item (16, 8, 4, 2 or 1) whose two stages let
+    two blocks share an SM, else one block an SM; chunks as
+    ``dw_bf16_plan`` cuts them. Raises for channels beyond 128 or a tile
+    that does not fit."""
+    if min(m, b, seq, c_in, c_out, n_tiles, tile_rows, tile_verts) < 1:
+        raise ValueError(f"spiral conv dW needs M, B, L, C_in, C_out and "
+                         f"tiles ≥ 1; got {m}, {b}, {seq}, {c_in}, {c_out}, "
+                         f"{n_tiles}")
     if max(c_in, c_out) > 128:
         raise ValueError(f"C_in {c_in} and C_out {c_out} must be ≤ 128 for "
                          "the bf16 kernel")
-    fm, fn = _cdiv(c_in, 16), _cdiv(c_out, 8)
-    fpw = next(f for f in _DW_BF16_FPW if _DW_BF16_WARPS * f >= fm * fn)
-    target = max(1, _SMS * _DW_BF16_BLOCKS_PER_SM // seq)
-    chunk_v = max(_cdiv(m, target), _cdiv(_DW_BF16_TILE, b))
-    return DwBf16Plan(fpw=fpw, chunk_v=chunk_v, n_chunks=_cdiv(m, chunk_v),
-                      smem=2 * _DW_BF16_TILE * 2 * (_odd_stride(16 * fm)
-                                                    + _odd_stride(8 * fn)))
+    for per_sm in (_DW_BF16_PER_SM, 1):
+        cap = min(_SMEM_BLOCK, _SMEM_SM // per_sm - _SMEM_RESERVED)
+        for tb in (16, 8, 4, 2, 1):
+            plan = dw_bf16_plan(m, b, seq, c_in, c_out, n_tiles, tile_rows,
+                                tile_verts, tb, per_sm, x_aligned=x_aligned,
+                                dy_aligned=dy_aligned)
+            if plan.smem <= cap:
+                return plan
+    raise ValueError(f"no K2-dW-bf16 stage of C_in={c_in}, C_out={c_out}, "
+                     f"{tile_rows} rows fits in shared memory")
 
 
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
-                   dy: torch.Tensor, plan: DwPlan | DwBf16Plan | None = None
-                   ) -> torch.Tensor:
+                   dy: torch.Tensor, plan: DwPlan | DwBf16Plan | None = None,
+                   tiles=None) -> torch.Tensor:
     """K2-dW: ``dW[l] = Σ_{m,b} x[table[m, l], b]ᵀ dy[m, b]`` for
     ``x [N_src, B, C_in]``, ``table [M, L]``, ``dy [M, B, C_out]``;
     returns ``[L, C_in, C_out]``. Deterministic: fixed chunks summed in a
     fixed order through a scratch buffer allocated here. ``plan`` defaults
     to ``plan_spiral_conv_dw``'s; the kernel rejects one it cannot run.
-    bf16 x and dy: K2-dW-bf16 (``plan_spiral_conv_dw_bf16``), fp32 sums
+    bf16 x and dy: K2-dW-bf16 (``plan_spiral_conv_dw_bf16``) through the
+    op's vertex tiles ``tiles`` (``ops.SpiralTiles``, required), fp32 sums
     rounded to a bf16 dW once."""
     dev = x.device
     dtype = _rows_dtype(x)
@@ -1052,17 +1262,25 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     if n_src == 0:
         raise ValueError("spiral conv dW needs source rows")
     if dtype == torch.bfloat16:
+        if tiles is None:
+            raise ValueError("K2-dW-bf16 needs the op's tiles")
         if plan is None:
-            plan = plan_spiral_conv_dw_bf16(m, bsz, seq, c_in, c_out)
+            plan = plan_spiral_conv_dw_bf16(
+                m, bsz, seq, c_in, c_out, tiles.n_tiles, tiles.max_rows,
+                tiles.max_verts, x.data_ptr() % 16 == 0,
+                dy.data_ptr() % 16 == 0)
         if not isinstance(plan, DwBf16Plan):
             raise ValueError("bf16 x needs a DwBf16Plan")
+        ptrs = _tile_ptrs(tiles, table.shape, dev, "K2-dW-bf16", plan.rows,
+                          plan.verts)
         _fits_int32(plan.n_chunks * seq * c_in * c_out)
         part = torch.empty(plan.n_chunks * seq * c_in * c_out,
                            dtype=torch.float32, device=dev)
+        fields = plan.as_ints()
         _launch("spiral_conv_dw_bf16", library().cfs_spiral_conv_dw_bf16,
-                dev, _ptr(x), _ptr(table), _ptr(dy), _ptr(part), _ptr(out),
-                m, seq, bsz, c_in, c_out, plan.fpw, plan.chunk_v,
-                plan.n_chunks, plan.smem)
+                dev, _ptr(x), *ptrs, _ptr(dy), _ptr(part), _ptr(out), m,
+                seq, bsz, c_in, c_out, tiles.n_tiles,
+                (ctypes.c_int * len(fields))(*fields))
         return out
     if plan is None:
         plan = plan_spiral_conv_dw(m, bsz, seq, c_in, c_out,

@@ -68,7 +68,7 @@ _TILE_VERTICES = 64    # most vertices a K1 narrow tile owns
 
 @dataclass
 class SpiralTiles:
-    """K1 narrow's and K3a's vertex tiles. Tile ``t`` owns the output
+    """The spiral kernels' vertex tiles. Tile ``t`` owns the output
     vertices ``verts[starts[t]:starts[t + 1]]`` and reads the distinct
     source rows ``src[src_off[t]:src_off[t + 1]]`` (sorted, at most
     ``max_rows``, and at most ``max_verts`` vertices); ``local [M, L]``
@@ -103,13 +103,17 @@ class SpiralTiles:
         return table
 
 
-def build_spiral_tiles(spirals: np.ndarray) -> SpiralTiles:
-    """Host-side: tiles of nearby vertices for K1 narrow. Each tile grows
-    breadth-first over the table's own entries from the lowest vertex not
-    yet taken, adding a vertex while the tile's distinct source rows stay
-    within ``_TILE_ROWS`` (raised to L where a single vertex needs more)
-    and its vertices within ``_TILE_VERTICES``: a compact patch of the
-    mesh, whose rows each serve several of its vertices."""
+def build_spiral_tiles(spirals: np.ndarray,
+                       composed: bool = False) -> SpiralTiles:
+    """Host-side: tiles of nearby vertices for K1 narrow and the bf16
+    kernels. Each tile grows from the lowest vertex not yet taken, adding
+    a vertex while the tile's distinct source rows stay within
+    ``_TILE_ROWS`` (raised to L where a single vertex needs more) and its
+    vertices within ``_TILE_VERTICES``: breadth-first over the table's own
+    entries, a compact patch of the mesh whose rows each serve several of
+    its vertices; or, for a table ``composed`` with a down-selection
+    (whose entries are source rows, not its own vertices), over the
+    following vertices in order."""
     spirals = np.asarray(spirals)
     m, seq = spirals.shape
     max_rows = max(_TILE_ROWS, seq)
@@ -126,9 +130,15 @@ def build_spiral_tiles(spirals: np.ndarray) -> SpiralTiles:
                 continue
             new = rows.union(spirals[v].tolist())
             if tile and len(new) > max_rows:
+                if composed:
+                    break
                 continue
             rows, taken[v] = new, True
             tile.append(v)
+            if composed:
+                if v + 1 < m:
+                    queue.append(v + 1)
+                continue
             for s in spirals[v].tolist():
                 if s < m and not taken[s] and s not in seen:
                     seen.add(s)
@@ -246,9 +256,9 @@ class SpiralOp:
     ``gathers`` holds one GatherRows per position (None for an identity
     position, whose rows are ``x`` itself), and ``inv_tables`` the combined
     transposes over the flat ``(l, m)`` index space that a backward pass
-    reads, one per column group. ``tiles`` are K1 narrow's vertex tiles
-    and ``out_bwd`` K3b's backward table, both built with the op; K3a's
-    tiled kernel reads the tiles too."""
+    reads, one per column group. ``tiles`` are the vertex tiles of K1
+    narrow, K3a, K1-bf16 and K2-dW-bf16, and ``out_bwd`` K3b's backward
+    table, both built with the op."""
     table: torch.Tensor            # [M, L] int32
     gathers: list                  # L × (GatherRows | None)
     inv_tables: list               # per column group: CappedEll
@@ -312,7 +322,7 @@ def build_spiral_op(spirals: np.ndarray,
                     gathers=gathers, inv_tables=inv_tables,
                     group_cols=tuple(group_cols),
                     identity_cols=identity_cols, seq_length=l, n_src=n,
-                    tiles=build_spiral_tiles(spirals),
+                    tiles=build_spiral_tiles(spirals, composed=n != m),
                     out_bwd=build_out_gather_bwd(gathers, n, m))
 
 
@@ -370,21 +380,29 @@ _DW_SUM_RUNS = 8        # csrc/spiral_conv_dw.cu's kSumWarps
 
 def spiral_conv_dw_chunked_plain(x: torch.Tensor, table: torch.Tensor,
                                  dy: torch.Tensor,
-                                 plan: kernels.DwPlan | kernels.DwBf16Plan
+                                 plan: kernels.DwPlan | kernels.DwBf16Plan,
+                                 tiles: SpiralTiles | None = None
                                  ) -> torch.Tensor:
     """K2-dW's sums in the order of ``plan``'s chunks: each chunk's
     partial dW over its ``tiles_per_chunk · tmv`` vertices, then, as the
     kernel's second pass adds them, eight runs (chunks w, w + 8, … in
     order) and the eight run sums in run order. A ``DwBf16Plan`` (bf16 x
-    and dy): each chunk's fp32 partial over its ``chunk_v`` vertices, the
-    partials added in chunk order, rounded to bf16 once."""
+    and dy, with the op's ``tiles``): each chunk's fp32 partial over the
+    vertices of its ``tpc`` consecutive tiles and the batch rows of its
+    ``bpc`` consecutive batch tiles, the partials added in chunk order
+    (tile runs major, batch runs minor), rounded to bf16 once."""
     if isinstance(plan, kernels.DwBf16Plan):
         x32, d32 = x.float(), dy.float()
+        starts = tiles.starts.tolist()
+        rows = plan.bpc * plan.tb
         out = None
-        for m0 in range(0, table.shape[0], plan.chunk_v):
-            part = spiral_conv_dw_plain(x32, table[m0:m0 + plan.chunk_v],
-                                        d32[m0:m0 + plan.chunk_v])
-            out = part if out is None else out + part
+        for t0 in range(0, tiles.n_tiles, plan.tpc):
+            vs = tiles.verts[starts[t0]:starts[min(t0 + plan.tpc,
+                                                    tiles.n_tiles)]].long()
+            for b0 in range(0, x.shape[1], rows):
+                part = spiral_conv_dw_plain(x32[:, b0:b0 + rows], table[vs],
+                                            d32[vs, b0:b0 + rows])
+                out = part if out is None else out + part
         return out.to(x.dtype)
     step = plan.tiles_per_chunk * plan.tmv
     parts = [spiral_conv_dw_plain(x, table[m0:m0 + step], dy[m0:m0 + step])
@@ -399,13 +417,14 @@ def spiral_conv_dw_chunked_plain(x: torch.Tensor, table: torch.Tensor,
 
 
 def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
-                   dy: torch.Tensor) -> torch.Tensor:
+                   dy: torch.Tensor,
+                   tiles: SpiralTiles | None = None) -> torch.Tensor:
     """``dW [L, C_in, C_out]`` of the spiral conv, in x's dtype: kernel
-    K2-dW (K2-dW-bf16 for bf16) on the card, its plain twin on the
-    host."""
+    K2-dW (K2-dW-bf16 for bf16, through the op's ``tiles``) on the card,
+    its plain twin on the host."""
     if not x.is_cuda:
         return spiral_conv_dw_plain(x, table, dy)
-    return kernels.spiral_conv_dw(x, table, dy)
+    return kernels.spiral_conv_dw(x, table, dy, tiles=tiles)
 
 
 class _SpiralConv(torch.autograd.Function):
@@ -441,7 +460,7 @@ class _SpiralConv(torch.autograd.Function):
                 part = dy @ w_l[i].T
                 dx = part if dx is None else dx + part
         if ctx.needs_input_grad[0]:
-            dw_l = spiral_conv_dw(x, op.table, dy)
+            dw_l = spiral_conv_dw(x, op.table, dy, op.tiles)
         if ctx.needs_input_grad[1]:
             # bf16: summed in fp32, rounded once
             db = dy.sum(dim=(0, 1), dtype=torch.float32).to(dy.dtype)

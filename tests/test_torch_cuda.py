@@ -1040,7 +1040,7 @@ def test_k3a_gather_first_conv_launches_the_tiled_kernel(card_geometry):
 @pytest.mark.parametrize("seq,c_in", [(9, 16), (7, 32), (9, 64)])
 def test_k3a_other_shapes_keep_the_mma_path(seq, c_in):
     """With tiles, at another shape than the tiled kernel's (9 positions
-    of 32 channels), K3a keeps the bf16 kernel's path."""
+    of 32 channels), K3a takes the bf16 kernel's tiled vector path."""
     dev = _card()
     rng = np.random.default_rng(seq * c_in)
     op = ops.build_spiral_op(rng.integers(0, 3000, (3000, seq))).to(dev)
@@ -1048,28 +1048,38 @@ def test_k3a_other_shapes_keep_the_mma_path(seq, c_in):
 
 
 def test_k3a_untiled_mma_path_still_matches(card_geometry):
-    """The untiled bf16 kernel, K3a's path before the tiles and still the
-    path without them, at the final conv."""
+    """The untiled bf16 kernel (its element path), the path without
+    tiles, at the final conv."""
     dev = _card()
     plan = _k3a_matches_plain(dev, card_geometry.spirals[0], 16, tiles=False)
-    assert plan.path == "bf16"
+    assert plan.path == "bf16_elem"
 
 
-def _bf16_conv_matches_plain(dev, op, b, c_in, c_out, seed=1):
-    """K1-bf16 within one bf16 ulp of its twin, K3a (fp32 out) within
-    1e-5 of the max (fp32 sums in another order), two launches
-    bit-equal. Returns the plan."""
+def _bf16_conv_matches_plain(dev, op, b, c_in, c_out, seed=1, offset=0,
+                             plan=None):
+    """K1-bf16 through the op's tiles within one bf16 ulp of its twin,
+    K3a (fp32 out) within 1e-5 of the max (fp32 sums in another order),
+    two launches bit-equal; x starts ``offset`` values into its buffer;
+    ``plan``: the launch to run (default: the planner's). Returns the
+    plan."""
     g = _gen(dev, seed)
     seq = op.seq_length
-    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev).to(BF16)
+    base = torch.randn(op.n_src * b * c_in + offset, generator=g,
+                       device=dev).to(BF16)
+    x = base[offset:].view(op.n_src, b, c_in)
     w_l = (0.2 * torch.randn((seq, c_in, c_out), generator=g,
                              device=dev)).to(BF16)
     bias = torch.randn(c_out, generator=g, device=dev).to(BF16)
+    t = op.tiles
+    if plan is None:
+        plan = kernels.plan_spiral_conv(op.num_vertices, b, seq, c_in, c_out,
+                                        x.data_ptr() % 4 == 0, True, BF16,
+                                        t.n_tiles, t.max_rows)
     kernels.launches.reset()
-    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
-    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias)
-    f32 = kernels.spiral_conv_fwd(x, op.table, w_l, bias,
-                                  out_dtype=torch.float32)
+    out = kernels.spiral_conv_fwd(x, op.table, w_l, bias, plan, tiles=t)
+    again = kernels.spiral_conv_fwd(x, op.table, w_l, bias, plan, tiles=t)
+    f32 = kernels.spiral_conv_fwd(x, op.table, w_l, bias, plan,
+                                  out_dtype=torch.float32, tiles=t)
     counts = kernels.launches.snapshot()
     assert counts["spiral_conv_bf16"] == 2
     assert counts["spiral_conv_f32out"] == 1
@@ -1081,15 +1091,14 @@ def _bf16_conv_matches_plain(dev, op, b, c_in, c_out, seed=1):
     assert torch.equal(out, again)
     assert float((f32 - ref32).abs().max()) <= 1e-5 * float(
         ref32.abs().max())
-    return kernels.plan_spiral_conv(op.num_vertices, b, seq, c_in, c_out,
-                                    True, True, BF16)
+    return plan
 
 
 @pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
     (4260, 17039, 9, 16, 3, 32),      # the bfloat16 policy's first conv
     (1065, 4260, 9, 16, 32, 32),
-    (267, 267, 9, 16, 64, 64),        # above 48 KB of shared memory
-    (3000, 3000, 9, 16, 32, 3),       # K3a's shape class
+    (267, 267, 9, 16, 64, 64),        # also a plan above 48 KB
+    (3000, 3000, 9, 16, 32, 3),       # K3a's shape class: its tiled kernel
     (50, 80, 3, 1, 1, 1),
     (333, 333, 7, 3, 10, 18),         # element path, odd C_out
     (700, 700, 5, 20, 24, 128),       # 16 column tiles
@@ -1103,12 +1112,44 @@ def test_spiral_conv_bf16_kernel_matches_plain(m, n_src, seq, b, c_in,
         table[:, 0] = np.arange(m)
     op = ops.build_spiral_op(table, n_src=n_src).to(dev)
     plan = _bf16_conv_matches_plain(dev, op, b, c_in, c_out)
-    assert plan.path == ("bf16" if c_in % 16 == 0 else "bf16_elem")
+    assert plan.path == ("bf16_tile" if c_out < 8 and (seq, c_in) == (9, 32)
+                         else "bf16" if c_in % 16 == 0 else "bf16_elem")
     if (m, c_in) == (267, 64):
-        assert plan.smem > 48 * 1024
+        wide = kernels.bf16_vec_plan(b, seq, c_in, c_out, op.tiles.n_tiles,
+                                     op.tiles.max_rows, 4, 8, per_sm=1)
+        assert wide.smem > 48 * 1024
+        _bf16_conv_matches_plain(dev, op, b, c_in, c_out, plan=wide)
 
 
-@pytest.mark.parametrize("b", [1, 4, 16])
+@pytest.mark.parametrize("c_out", [3, 32, 64])
+@pytest.mark.parametrize("m,b", [(333, 16), (1001, 3), (77, 1)])
+def test_spiral_conv_bf16_vec_at_odd_m(m, b, c_out):
+    """The tiled vector path (C_in = 32, with tiles; the final conv's
+    C_out = 3 at L = 7, where K3a's kernel is not compiled) at odd M,
+    against its twin."""
+    dev = _card()
+    seq = 7 if c_out < 8 else 9
+    rng = np.random.default_rng(m + c_out)
+    table = rng.integers(0, m, size=(m, seq))
+    table[:, 0] = np.arange(m)
+    op = ops.build_spiral_op(table).to(dev)
+    assert _bf16_conv_matches_plain(dev, op, b, 32, c_out).path == "bf16"
+
+
+@pytest.mark.parametrize("b", [16, 3])
+def test_spiral_conv_bf16_vec_with_misaligned_x(card_geometry, b):
+    """x on 4 bytes but not on 16: the tiled vector path copies 4 bytes
+    at a time; x on 2 bytes takes the element path, as the planner
+    names."""
+    dev = _card()
+    op = card_geometry.spirals[1]
+    assert _bf16_conv_matches_plain(dev, op, b, 32, 32,
+                                    offset=2).path == "bf16"
+    assert _bf16_conv_matches_plain(dev, op, b, 32, 32,
+                                    offset=1).path == "bf16_elem"
+
+
+@pytest.mark.parametrize("b", [1, 3, 4, 16])
 @pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
 def test_spiral_conv_bf16_on_the_model_tables(card_geometry, name, c_in,
                                               c_out, b):
@@ -1117,53 +1158,83 @@ def test_spiral_conv_bf16_on_the_model_tables(card_geometry, name, c_in,
                              c_out)
 
 
-def _dw_bf16_matches_plain(dev, x, table, dy):
-    """K2-dW-bf16 within one bf16 ulp of its chunk-order twin (inside a
-    chunk the tensor cores sum in another order), two launches
-    bit-equal."""
-    m, bsz, c_out = dy.shape
-    plan = kernels.plan_spiral_conv_dw_bf16(m, bsz, table.shape[1],
-                                            x.shape[2], c_out)
+def _dw_bf16_matches_plain(dev, op, b, c_in, c_out, seed=0, offset=0):
+    """K2-dW-bf16 through the op's tiles within one bf16 ulp of its
+    chunk-order twin (inside a chunk the tensor cores sum in another
+    order), two launches bit-equal; x and dy start ``offset`` values into
+    their buffers. Returns the plan."""
+    g = _gen(dev, seed)
+    m, seq, t = op.num_vertices, op.seq_length, op.tiles
+    xb = torch.randn(op.n_src * b * c_in + offset, generator=g,
+                     device=dev).to(BF16)
+    db = torch.randn(m * b * c_out + offset, generator=g,
+                     device=dev).to(BF16)
+    x = xb[offset:].view(op.n_src, b, c_in)
+    dy = db[offset:].view(m, b, c_out)
+    plan = kernels.plan_spiral_conv_dw_bf16(
+        m, b, seq, c_in, c_out, t.n_tiles, t.max_rows, t.max_verts,
+        x.data_ptr() % 16 == 0, dy.data_ptr() % 16 == 0)
     kernels.launches.reset()
-    out = kernels.spiral_conv_dw(x, table, dy)
-    again = kernels.spiral_conv_dw(x, table, dy)
+    out = kernels.spiral_conv_dw(x, op.table, dy, tiles=t)
+    again = kernels.spiral_conv_dw(x, op.table, dy, plan, tiles=t)
     assert kernels.launches.snapshot()["spiral_conv_dw_bf16"] == 2
-    ref = ops.spiral_conv_dw_chunked_plain(x, table, dy, plan)
+    ref = ops.spiral_conv_dw_chunked_plain(x, op.table, dy, plan, t)
     torch.cuda.synchronize()
     assert out.dtype == BF16
     _within_ulp(out, ref)
     assert torch.equal(out, again)
+    return plan
+
+
+def _random_op(dev, m, n_src, seq, seed):
+    rng = np.random.default_rng(seed)
+    table = rng.integers(0, n_src, size=(m, seq))
+    if m == n_src:
+        table[:, 0] = np.arange(m)
+    return ops.build_spiral_op(table, n_src=n_src).to(dev)
 
 
 @pytest.mark.parametrize("m,n_src,seq,b,c_in,c_out", [
     (50, 80, 3, 1, 1, 1),
     (333, 333, 7, 3, 10, 18),
-    (100, 100, 9, 2, 128, 96),        # 32 fragments a warp
+    (100, 100, 9, 2, 128, 96),        # 16 column fragments, 1 position
     (700, 900, 5, 20, 3, 64),
-    (20, 20, 9, 1, 64, 3),            # fewer rows than one tile
+    (20, 20, 9, 1, 64, 3),            # fewer rows than one k16 step
 ])
 def test_spiral_conv_dw_bf16_kernel_matches_plain(m, n_src, seq, b, c_in,
                                                   c_out):
     dev = _card()
-    g = _gen(dev, m)
-    table = torch.randint(0, n_src, (m, seq), generator=g, device=dev,
-                          dtype=torch.int32)
-    x = torch.randn((n_src, b, c_in), generator=g, device=dev).to(BF16)
-    dy = torch.randn((m, b, c_out), generator=g, device=dev).to(BF16)
-    _dw_bf16_matches_plain(dev, x, table, dy)
+    _dw_bf16_matches_plain(dev, _random_op(dev, m, n_src, seq, m), b, c_in,
+                           c_out, seed=m)
 
 
-@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("b", [1, 3, 4, 16])
 @pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
 def test_spiral_conv_dw_bf16_on_the_model_tables(card_geometry, name, c_in,
                                                  c_out, b):
     dev = _card()
-    op = _smoke_op(card_geometry, name)
-    g = _gen(dev, b)
-    x = torch.randn((op.n_src, b, c_in), generator=g, device=dev).to(BF16)
-    dy = torch.randn((op.num_vertices, b, c_out), generator=g,
-                     device=dev).to(BF16)
-    _dw_bf16_matches_plain(dev, x, op.table, dy)
+    _dw_bf16_matches_plain(dev, _smoke_op(card_geometry, name), b, c_in,
+                           c_out, seed=b)
+
+
+@pytest.mark.parametrize("c_out", [3, 32, 64])
+@pytest.mark.parametrize("m,b", [(333, 16), (1001, 3), (77, 1)])
+def test_spiral_conv_dw_bf16_at_odd_m(m, b, c_out):
+    """K2-dW-bf16 at odd M (tiles of odd vertex counts, k16 steps past
+    the tile's rows) and C_out 3 (dy staged value by value), 32, 64."""
+    dev = _card()
+    plan = _dw_bf16_matches_plain(dev, _random_op(dev, m, m, 9, m + c_out),
+                                  b, 32, c_out, seed=c_out)
+    assert plan.vec_x and plan.vec_d == (c_out % 8 == 0)
+
+
+@pytest.mark.parametrize("offset", [2, 1])
+def test_spiral_conv_dw_bf16_with_misaligned_rows(card_geometry, offset):
+    """x and dy off 16 bytes: the plan stages both value by value."""
+    dev = _card()
+    plan = _dw_bf16_matches_plain(dev, card_geometry.spirals[1], 4, 32, 32,
+                                  offset=offset)
+    assert not plan.vec_x and not plan.vec_d
 
 
 @pytest.mark.parametrize("n,b,seq,o", [(17039, 16, 9, 3), (30, 4, 5, 3),
@@ -1243,19 +1314,37 @@ def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
                                 kernels.plan_spiral_conv(6, 2, 3, 4, 5))
     with pytest.raises(ValueError):                      # fp32 x, bf16 out
         kernels.spiral_conv_fwd(x3, table, w, b, out_dtype=BF16)
-    with pytest.raises(ValueError):                      # a tiled plan, no tiles
-        kernels.spiral_conv_fwd(
-            torch.randn(6, 2, 32, device=dev).to(BF16),
-            torch.zeros(6, 9, dtype=torch.int32, device=dev),
-            torch.zeros(9, 32, 3, device=dev).to(BF16),
-            torch.zeros(3, device=dev).to(BF16),
-            kernels.bf16_tile_plan(2, 1, 6, 2, 128), torch.float32)
+    x32 = torch.randn(6, 2, 32, device=dev).to(BF16)
+    t9 = torch.zeros(6, 9, dtype=torch.int32, device=dev)
+    w32 = torch.zeros(9, 32, 3, device=dev).to(BF16)
+    b3 = torch.zeros(3, device=dev).to(BF16)
+    for plan in (kernels.bf16_tile_plan(2, 1, 6, 2, 128),   # tiled plans,
+                 kernels.bf16_vec_plan(2, 9, 32, 3, 1, 6, 2, 1)):  # no tiles
+        with pytest.raises(ValueError):
+            kernels.spiral_conv_fwd(x32, t9, w32, b3, plan, torch.float32)
+    op6 = ops.build_spiral_op(np.arange(54).reshape(6, 9) % 6).to(dev)
+    with pytest.raises(ValueError):             # tiles of another table
+        kernels.spiral_conv_fwd(x32, t9[:5].contiguous(), w32, b3,
+                                kernels.bf16_vec_plan(2, 9, 32, 3, 1, 6, 2, 1),
+                                tiles=op6.tiles)
     dy = torch.randn(6, 2, 5, device=dev)
     with pytest.raises(ValueError):
         kernels.spiral_conv_dw(x3.to(BF16), table, dy)   # dy not bf16
     with pytest.raises(ValueError):
         kernels.spiral_conv_dw(x3.to(BF16), table, dy.to(BF16),
                                kernels.plan_spiral_conv_dw(6, 2, 3, 4, 5))
+    op3 = ops.build_spiral_op(np.arange(18).reshape(6, 3) % 6).to(dev)
+    assert kernels.spiral_conv_dw(x3.to(BF16), op3.table, dy.to(BF16),
+                                  tiles=op3.tiles).shape == (3, 4, 5)
+    with pytest.raises(ValueError):                      # K2-dW-bf16, no tiles
+        kernels.spiral_conv_dw(x3.to(BF16), op3.table, dy.to(BF16))
+    t = op3.tiles
+    short = dataclasses.replace(kernels.plan_spiral_conv_dw_bf16(
+        6, 2, 3, 4, 5, t.n_tiles, t.max_rows, t.max_verts),
+        rows=t.max_rows - 1)
+    with pytest.raises(ValueError):                      # rows that do not fit
+        kernels.spiral_conv_dw(x3.to(BF16), op3.table, dy.to(BF16), short,
+                               tiles=t)
     u = torch.randn(3, 5, 10, 2, device=dev)              # [L, O, N, B]
     assert kernels.out_gather_sum(u, table[:, :3].contiguous() % 10,
                                   b).shape == (6, 2, 5)

@@ -430,11 +430,12 @@ def test_bf16_tile_plan_fits_the_kernel(request, name, b):
 
 
 def test_bf16_plan_without_tiles_or_at_another_shape():
-    """Without tiles, with x off 4 bytes, at another shape than the tiled
-    kernel's (9 positions of 32 channels) or at C_out >= 8, the bf16
-    planner keeps the untiled kernel (``_plan_bf16``)."""
+    """Without tiles or with x off 4 bytes the bf16 planner takes the
+    untiled kernel's element path (``_plan_bf16``); at another shape
+    than K3a's tiled kernel's (9 positions of 32 channels) or at C_out
+    >= 8, the tiled vector path (``_plan_bf16_vec``)."""
     assert kernels.plan_spiral_conv(3000, 16, 9, 32, 3, True, True,
-                                    BF16).path == "bf16"
+                                    BF16).path == "bf16_elem"
     assert kernels.plan_spiral_conv(3000, 16, 9, 32, 3, False, True, BF16,
                                     50, 64).path == "bf16_elem"
     for seq, c_in, c_out in ((9, 16, 3), (9, 64, 3), (7, 32, 3),

@@ -342,16 +342,22 @@ def test_out_gather_sum_twin_is_the_position_order_sum():
 @pytest.mark.parametrize("m,b,c_in,c_out", [(40, 3, 8, 16), (300, 4, 32, 3),
                                             (17, 1, 3, 32)])
 def test_spiral_conv_dw_bf16_chunked_twin(m, b, c_in, c_out):
-    """K2-dW-bf16's chunk-order twin against the plain twin and JAX's
-    dW einsum: within one bf16 ulp."""
+    """K2-dW-bf16's chunk-order twin (chunks of whole vertex tiles and
+    batch tiles, here one of each a chunk: 56 tiles at M = 300) against
+    the plain twin and JAX's dW einsum: within one bf16 ulp."""
     rng = np.random.default_rng(m)
     seq = 9
     table = rng.integers(0, m, (m, seq)).astype(np.int32)
     x, dy = _bf16(_rand(rng, m, b, c_in)), _bf16(_rand(rng, m, b, c_out))
-    plan = kernels.plan_spiral_conv_dw_bf16(m, b, seq, c_in, c_out)
+    tiles = tops.build_spiral_tiles(table)
+    plan = kernels.plan_spiral_conv_dw_bf16(
+        m, b, seq, c_in, c_out, tiles.n_tiles, tiles.max_rows,
+        tiles.max_verts)
+    plan = dataclasses.replace(plan, tpc=1, bpc=1,
+                               n_chunks=tiles.n_tiles * plan.n_btiles)
     xt, dt = torch.from_numpy(x).to(BF16), torch.from_numpy(dy).to(BF16)
     tt = torch.from_numpy(table)
-    chunked = tops.spiral_conv_dw_chunked_plain(xt, tt, dt, plan)
+    chunked = tops.spiral_conv_dw_chunked_plain(xt, tt, dt, plan, tiles)
     plain = tops.spiral_conv_dw_plain(xt, tt, dt)
     assert chunked.dtype == BF16 and chunked.shape == (seq, c_in, c_out)
     _within_ulp(chunked, plain)
@@ -365,22 +371,52 @@ def test_spiral_conv_dw_bf16_chunked_twin(m, b, c_in, c_out):
 # ------------------------------------------------------------- the plans
 @pytest.mark.parametrize("m,b,seq,c_in,c_out,path", [
     (1065, 16, 9, 32, 32, "bf16"), (267, 16, 9, 64, 64, "bf16"),
-    (17039, 16, 9, 32, 3, "bf16"), (4260, 16, 9, 3, 32, "bf16_elem"),
+    (17039, 16, 7, 32, 3, "bf16"), (4260, 16, 9, 3, 32, "bf16_elem"),
     (40, 3, 7, 8, 6, "bf16_elem"), (100, 1, 9, 24, 130 - 2, "bf16_elem")])
 def test_plan_spiral_conv_bf16(m, b, seq, c_in, c_out, path):
-    """K1-bf16's plan: the vector path only where a 16-deep step lies in
-    one position, W's rows (depth padded to 16) in a stride of an odd
-    number of 16-byte units (conflict-free ldmatrix), at most one row tile
-    per warp and as many blocks as the SMs hold."""
+    """K1-bf16's plan with the op's tiles (about 27 vertices and at most
+    64 source rows a tile): the tiled vector path where a 16-deep step
+    lies in one position, items of one vertex tile's batch tile walked by
+    persistent blocks, two an SM or one, each with a column slice of at
+    most 64 columns, W's slice and two stages of staged entries (C_in + 8
+    values) at strides of an odd number of 16-byte units (conflict-free
+    ldmatrix), within one block's shared memory, and items enough for
+    half the SMs unless the batch tile is one row and the slice 8
+    columns; any
+    other conv the element path, whose W rows (depth
+    padded to 16) take the same strides, at most one row tile per warp
+    and as many blocks as the SMs hold. Without tiles, or with x off 4
+    bytes, the element path."""
+    n_tiles = -(-m // 27)
     plan = kernels.plan_spiral_conv(m, b, seq, c_in, c_out, True, True,
-                                    BF16)
+                                    BF16, n_tiles, 64)
     assert plan.path == path and plan.kernel == "spiral_conv_bf16"
-    assert plan.nt >= c_out and plan.nt // 8 in (1, 2, 4, 8, 16)
+    assert plan.ldw % 8 == 0 and (plan.ldw // 8) % 2 == 1
     assert plan.kp * 16 >= seq * c_in > (plan.kp - 1) * 16
-    assert plan.ldw >= plan.nt and (plan.ldw // 8) % 2 == 1
-    assert plan.ldw % 8 == 0 and plan.smem >= 2 * plan.kp * 16 * plan.ldw
-    assert 1 <= plan.blocks <= max(1, -(-m * b // 16) // 8 + 1)
+    if path == "bf16":
+        assert plan.nt in (8, 16, 32, 64) and plan.mi in (1, 2)
+        assert plan.grid[1] == -(-c_out // plan.nt)
+        assert plan.ldw == (8 if plan.nt == 8 else plan.nt + 8)
+        assert 1 <= plan.tb <= b and plan.n_btiles == -(-b // plan.tb)
+        assert plan.n_rtiles == n_tiles * plan.n_btiles and plan.rows == 64
+        assert plan.grid[0] == min(plan.n_rtiles, 264 // plan.grid[1]) \
+            or plan.grid[0] == min(plan.n_rtiles, 132 // plan.grid[1])
+        index = -(-64 * (seq + 1) // 4) * 4
+        stage = 4 * index + 2 * 64 * plan.tb * (c_in + 8)
+        tail = 4 * (16 + 128)
+        assert plan.smem == -(-(2 * seq * c_in * plan.ldw + 2 * stage
+                                + tail) // 16) * 16
+        assert plan.smem <= 232448 and plan.threads == 256
+        assert plan.n_rtiles * plan.grid[1] >= 66 or (
+            plan.tb == 1 and plan.nt == 8)
+    else:
+        assert plan.nt >= c_out and plan.nt // 8 in (1, 2, 4, 8, 16)
+        assert plan.ldw >= plan.nt and plan.smem >= 2 * plan.kp * 16 \
+            * plan.ldw
+        assert 1 <= plan.blocks <= max(1, -(-m * b // 16) // 8 + 1)
     assert kernels.plan_spiral_conv(m, b, seq, c_in, c_out, False, True,
+                                    BF16, n_tiles, 64).path == "bf16_elem"
+    assert kernels.plan_spiral_conv(m, b, seq, c_in, c_out, True, True,
                                     BF16).path == "bf16_elem"
 
 
@@ -390,22 +426,41 @@ def test_plan_spiral_conv_refuses_other_dtypes():
     with pytest.raises(ValueError):
         kernels.plan_spiral_conv(10, 1, 9, 32, 300, True, True, BF16)
     with pytest.raises(ValueError):
-        kernels.plan_spiral_conv_dw_bf16(10, 1, 9, 256, 32)
+        kernels.plan_spiral_conv_dw_bf16(10, 1, 9, 256, 32, 1, 10, 10)
 
 
 @pytest.mark.parametrize("m,b,seq,c_in,c_out", [
     (17039, 16, 9, 32, 32), (267, 16, 9, 64, 64), (67, 16, 9, 32, 64),
     (4260, 16, 9, 3, 32), (5, 1, 9, 8, 16)])
 def test_plan_spiral_conv_dw_bf16(m, b, seq, c_in, c_out):
-    """Chunks of whole vertices, each at least one staged tile of rows,
-    covering M; fragments enough for the warps; shared memory under
-    48 KB."""
-    plan = kernels.plan_spiral_conv_dw_bf16(m, b, seq, c_in, c_out)
-    assert plan.n_chunks == -(-m // plan.chunk_v)
-    assert plan.chunk_v * b >= min(64, m * b) or plan.chunk_v >= m
-    assert 4 * plan.fpw >= -(-c_in // 16) * -(-c_out // 8)
-    assert plan.smem <= 48 * 1024
-    assert plan.n_chunks * seq <= 132 * 8 + seq
+    """Chunks of whole vertex tiles and batch tiles covering the op's
+    tiles and the batch, at most one wave of two blocks an SM over the
+    position groups; units (a position's 16 channels across C_out)
+    enough for the warps, at most 12 warps of at most 16 fragments; the
+    most batch rows an item whose two stages let two blocks share an SM;
+    16-byte copies where rows are whole 16-byte pieces."""
+    n_tiles, rows, verts = -(-m // 27), min(64, m), min(45, m)
+    plan = kernels.plan_spiral_conv_dw_bf16(m, b, seq, c_in, c_out, n_tiles,
+                                            rows, verts)
+    fm = -(-c_in // 16)
+    assert 8 * plan.fn >= c_out and plan.fn in (1, 2, 4, 8, 16)
+    assert plan.fn == 1 or 4 * plan.fn < c_out
+    assert plan.upw * plan.fn <= 16 and plan.warps <= 12
+    assert plan.warps * plan.upw >= plan.positions * fm
+    assert seq % plan.positions == 0
+    assert plan.groups == seq // plan.positions
+    n_bgroups = -(-plan.n_btiles // plan.bpc)
+    assert plan.n_chunks == -(-n_tiles // plan.tpc) * n_bgroups
+    assert plan.n_chunks * plan.groups <= 264
+    assert n_bgroups == 1 or -(-n_tiles // plan.tpc) * plan.groups < 264
+    assert 1 <= plan.tb <= b and plan.n_btiles == -(-b // plan.tb)
+    assert (plan.rows, plan.verts) == (rows, verts)
+    tail = 4 * (16 + -(-2 * (rows + verts) // 4) * 4)
+    assert plan.smem == -(-(2 * kernels._dw_bf16_stage(
+        seq, c_in, c_out, rows, verts, plan.tb) + tail) // 16) * 16
+    assert plan.smem <= 233472 // 2 - 1024
+    assert plan.vec_x == (c_in % 8 == 0) and plan.vec_d == (c_out % 8 == 0)
+    assert len(plan.as_ints()) == 14
 
 
 # ------------------------------------------------------------- the model
