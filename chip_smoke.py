@@ -2013,11 +2013,15 @@ def mixed_k3b_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
 
 def mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
     """K3b's backward at the final conv: ``du`` in ``u``'s layout from a
-    random fp32 cotangent in one launch, bit-equal to its twin and to the
+    random fp32 cotangent in one launch over the op's runs, bit-equal to
+    its twin, to the tile-order twin (which reads the runs) and to the
     form it replaced (each position's capped transpose, a fused K4 launch
     each, stacked), timed against both, and against the library form (one
     ``index_add_`` of the cotangent, repeated per position, into a zeroed
-    ``[L·N, B·O]``; the repeat is made beforehand)."""
+    ``[L·N, B·O]``; the repeat is made beforehand). The bound reads the
+    runs' lists; ``bound_flat_ms`` is the bound with the flat tables the
+    kernel read before the runs (``bwd.cols``, ``vals``, ``links``,
+    ``info``) in their place."""
     seq, m, n = op.seq_length, op.num_vertices, op.n_src
     c_out = conv_widths(conv, op)[1]
     dout = torch.randn((m, batch, c_out), generator=gen, device=DEVICE)
@@ -2034,13 +2038,17 @@ def mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
     with torch.inference_mode():
         du, again = launch(), launch()
         ref = ops.out_gather_sum_bwd_plain(dout, bwd)
+        tiles_ref = ops.out_gather_sum_bwd_tiles_plain(dout, bwd.runs)
         old = earlier().permute(2, 3, 0, 1)
         torch.cuda.synchronize()
         check(torch.equal(du, ref) and torch.equal(du, again),
               f"K3b backward B={batch}: kernel and twin differ at "
               f"{int((du != ref).sum())} values")
+        check(torch.equal(du, tiles_ref), f"K3b backward B={batch}: kernel "
+              "and the tile-order twin differ")
         check(torch.equal(du, old), f"K3b backward B={batch}: kernel and "
               "the stack of per-position transposes differ")
+        del tiles_ref
         scale = float(ref.abs().max())
         lib_err = max_err(lib().view(seq, n, batch, c_out).permute(
             0, 3, 1, 2), ref)
@@ -2051,21 +2059,33 @@ def mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv, op, batch) -> dict:
         plain_ms = cuda_ms(torch, lambda: ops.out_gather_sum_bwd_plain(
             dout, bwd), 10)
         lib_ms = cuda_ms(torch, lib, 10)
+    runs = bwd.runs
     entries = int(bwd.cols.numel())
-    nbytes = 4 * (dout.numel() + du.numel() + 2 * entries
-                  + bwd.links.numel() + bwd.info.numel())
+    lists = 4 * sum(t.numel() for t in (runs.starts, runs.rows, runs.row_off,
+                                        runs.blob, runs.blob_off, runs.pos))
+    flat = 4 * (2 * entries + bwd.links.numel() + bwd.info.numel())
+    nbytes = 4 * (dout.numel() + du.numel()) + lists
     flops = 2.0 * entries * batch * c_out
     b_ms, b_by, _, _ = bound(nbytes, flops)
+    flat_ms = bound(nbytes - lists + flat, flops)[0]
+    bs, smem, threads = kernels.out_gather_bwd_plan(runs, batch, c_out)
     log(f"[8 out_gather_sum_bwd B={batch}] {m}->{n} L={seq} "
-        f"D={batch * c_out}, {entries} table entries: bit-equal to the twin "
-        f"and the stack; kernel {ms:.4f} ms (one launch), per-position "
+        f"D={batch * c_out}, {entries} table entries in {runs.n_runs} runs "
+        f"(at most {runs.max_verts} vertices, {runs.max_rows} rows; batch "
+        f"slice {bs}, {smem} B smem, {threads} threads): bit-equal to the "
+        f"twin, the tile-order "
+        f"twin and the stack; kernel {ms:.4f} ms (one launch), per-position "
         f"transposes + stack {earlier_ms:.4f} ({seq - len(op.identity_cols)}"
         f" launches + stack), plain {plain_ms:.4f}, library {lib_ms:.4f}, "
-        f"bound {b_ms:.5f} ({b_by})")
+        f"bound {b_ms:.5f} ({b_by}; {lists} bytes of runs), with the flat "
+        f"tables {flat_ms:.5f} ({flat} bytes)")
     return dict(conv="final", batch=batch, kernel="out_gather_sum_bwd",
                 n_src=n, m=m, c_out=c_out, max_abs_err=0.0, ms=ms,
                 earlier_ms=earlier_ms, plain_ms=plain_ms, library_ms=lib_ms,
-                bound_ms=b_ms, bound_by=b_by, bytes=nbytes, flops=flops)
+                bound_ms=b_ms, bound_by=b_by, bound_flat_ms=flat_ms,
+                bytes=nbytes, flops=flops, runs=runs.n_runs,
+                max_rows=runs.max_rows, batch_slice=bs, smem=smem,
+                threads=threads)
 
 
 def mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d) -> dict:

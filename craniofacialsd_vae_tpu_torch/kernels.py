@@ -44,7 +44,8 @@ __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "bf16_vec_plan", "spiral_conv_fwd",
            "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan", "dw_bf16_plan",
            "plan_spiral_conv_dw_bf16",
-           "spiral_conv_dw", "out_gather_sum", "out_gather_sum_bwd",
+           "spiral_conv_dw", "out_gather_sum", "out_gather_bwd_plan",
+           "out_gather_sum_bwd",
            "raster_sweep", "k8_plan", "k8_bwd_bins", "nearest_sq",
            "nearest_sq_sym", "nearest_sq_bwd", "cheby_step"]
 
@@ -198,8 +199,7 @@ def library() -> ctypes.CDLL:
             lib.cfs_spiral_conv_dw_bf16.argtypes = [p] * 9 + [i] * 6 + [
                 ctypes.POINTER(i), p]
             lib.cfs_out_gather_sum.argtypes = [p, p, p, p, i, i, i, i, i, p]
-            lib.cfs_out_gather_sum_bwd.argtypes = [p, p, p, p, p, p, i, i, i,
-                                                   i, i, p]
+            lib.cfs_out_gather_sum_bwd.argtypes = [p] * 8 + [i] * 10 + [p]
             lib.cfs_spiral_conv_narrow_tile.argtypes = [
                 p] * 9 + [i] * 6 + [ctypes.POINTER(i), p]
             lib.cfs_spiral_conv_bf16_tile.argtypes = [p] * 9 + [i] * 12 \
@@ -1299,7 +1299,8 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
 
 
 _OUT_GATHER_MAX_O = 8           # csrc/out_gather_sum.cu's kMaxO
-_OUT_GATHER_FIELDS = 16         # ops.OutGatherBwd.info's columns
+_OUT_GATHER_BWD_SMEM = 100 * 1024   # most shared memory a block stages
+_OUT_GATHER_BWD_REGS = 64       # registers a thread, rounded up (ptxas)
 
 
 def out_gather_sum(u: torch.Tensor, table: torch.Tensor,
@@ -1332,38 +1333,76 @@ def out_gather_sum(u: torch.Tensor, table: torch.Tensor,
     return out
 
 
-def out_gather_sum_bwd(dout: torch.Tensor, bwd) -> torch.Tensor:
+def out_gather_bwd_plan(runs, bsz: int, o: int) -> tuple:
+    """``(Bs, smem, threads)`` of K3b's backward: the batch rows a block
+    stages (the whole batch unless the largest run's rows would take more
+    than ``_OUT_GATHER_BWD_SMEM`` bytes; then as few equal slices as fit,
+    at least one row, cut to a multiple of 4 where B is one, so that
+    threads keep four batch rows each), the bytes of shared memory a block
+    takes, and its threads: where the grid fits one wave (each SM holding
+    its share of the blocks in shared memory), as many as the registers
+    allow at that share, else 128; 128 to 512."""
+    lists = 4 * (runs.max_blob + _cdiv(runs.max_rows, 4) * 4)
+    row = 4 * runs.max_rows * o
+    fit = max(1, (_OUT_GATHER_BWD_SMEM - lists) // max(row, 1))
+    slices = _cdiv(bsz, min(bsz, fit))
+    bs = _cdiv(bsz, slices)
+    if bs < bsz and bsz % 4 == 0 and bs >= 4:
+        bs -= bs % 4
+    smem = lists + row * bs
+    share = _cdiv(runs.n_runs * _cdiv(bsz, bs), _SMS)
+    warps = 4
+    if share <= _SMEM_SM // (smem + _SMEM_RESERVED):
+        warps = min(16, max(4, 2048 // (_OUT_GATHER_BWD_REGS * share)))
+    return bs, smem, 32 * warps
+
+
+def out_gather_sum_bwd(dout: torch.Tensor, bwd,
+                       threads: int | None = None) -> torch.Tensor:
     """K3b's backward in one launch: for each position ``l`` of ``bwd``
     (an ``ops.OutGatherBwd``, every position's capped transpose over the
     N source rows), ``du[l] = transpose_l.apply(dout)`` in
     ``CappedEll.apply``'s order and roundings (``dout`` itself at the
     identity position), for ``dout [M, B, O]`` float32 (O ≤ 8); returns
-    ``du`` in ``u``'s layout, ``[L, O, N, B]``."""
+    ``du`` in ``u``'s layout, ``[L, O, N, B]``. The kernel reads the
+    transposes' runs (``bwd.runs``), one block a run and batch slice
+    (``out_gather_bwd_plan``; ``threads`` in place of the plan's)."""
     dev = dout.device
+    runs = bwd.runs
     _require(dout, "dout", torch.float32, 3, dev)
-    _require(bwd.info, "info", torch.int32, 2, dev)
-    _require(bwd.cols, "cols", torch.int32, 1, dev)
-    _require(bwd.vals, "vals", torch.float32, 1, dev)
-    _require(bwd.links, "links", torch.int32, 1, dev)
+    for name in ("starts", "rows", "row_off", "blob", "blob_off", "pos"):
+        _require(getattr(runs, name), name, torch.int32,
+                 2 if name == "pos" else 1, dev)
     m, bsz, o = dout.shape
-    seq, n = bwd.info.shape[0], bwd.n_src
-    if (bwd.info.shape[1] != _OUT_GATHER_FIELDS or m != bwd.m
-            or bwd.vals.shape != bwd.cols.shape):
+    seq, n = runs.pos.shape[0], bwd.n_src
+    if (m != bwd.m or runs.pos.shape[1] != 4 or seq != bwd.info.shape[0]
+            or runs.n_src != n):
         raise ValueError(f"dout {tuple(dout.shape)} does not fit the "
-                         f"backward table of {bwd.m} rows, or the table is "
-                         "malformed")
+                         f"backward table of {bwd.m} rows, or the runs "
+                         "are not that table's")
     if o > _OUT_GATHER_MAX_O:
         raise ValueError(f"out_gather_sum_bwd takes at most "
                          f"{_OUT_GATHER_MAX_O} outputs; got {o}")
+    if threads is not None and (threads % 32 or not 32 <= threads <= 512):
+        raise ValueError(f"threads must be a multiple of 32 up to 512; got "
+                         f"{threads}")
+    if runs.blob.data_ptr() % 16:
+        raise ValueError("the runs' blob must lie on 16 bytes")
     _fits_int32(seq * o * n * bsz, m * bsz * o)
     du = torch.empty((seq, o, n, bsz), dtype=torch.float32, device=dev)
     if du.numel() == 0:
         return du
     if m == 0:
         raise ValueError("out_gather_sum_bwd needs cotangent rows")
+    bs, smem, plan_threads = out_gather_bwd_plan(runs, bsz, o)
+    if smem > _SMEM_BLOCK:
+        raise ValueError(f"a run's lists and one batch row of its staged "
+                         f"rows take {smem} bytes of shared memory")
     _launch("out_gather_sum_bwd", library().cfs_out_gather_sum_bwd, dev,
-            _ptr(dout), _ptr(bwd.info), _ptr(bwd.cols), _ptr(bwd.vals),
-            _ptr(bwd.links), _ptr(du), m, n, seq, bsz, o)
+            _ptr(dout), _ptr(runs.starts), _ptr(runs.rows),
+            _ptr(runs.row_off), _ptr(runs.blob), _ptr(runs.blob_off),
+            _ptr(runs.pos), _ptr(du), runs.n_runs, m, n, seq, bsz, o, bs,
+            threads or plan_threads, smem, int(dout.data_ptr() % 16 == 0))
     return du
 
 

@@ -54,12 +54,14 @@ from .sparse import (CappedEll, GatherRows, capped_ell,
                      ell_matmul_capped_plain, ell_matmul_plain,
                      gather_op_from_idx, gather_rows)
 
-__all__ = ["SpiralOp", "SpiralTiles", "OutGatherBwd", "build_spiral_op",
-           "build_spiral_tiles", "build_out_gather_bwd", "init_spiral_conv",
+__all__ = ["SpiralOp", "SpiralTiles", "OutGatherBwd", "OutGatherRuns",
+           "build_spiral_op", "build_spiral_tiles", "build_out_gather_bwd",
+           "build_out_gather_runs", "init_spiral_conv",
            "spiral_conv", "spiral_conv_plain", "spiral_conv_dw",
            "spiral_conv_dw_plain", "spiral_conv_dw_chunked_plain",
            "spiral_conv_out_gather",
-           "out_gather_sum_plain", "out_gather_sum_bwd_plain"]
+           "out_gather_sum_plain", "out_gather_sum_bwd_plain",
+           "out_gather_sum_bwd_tiles_plain"]
 
 
 _TILE_ROWS = 64        # most distinct source rows a K1 narrow tile stages
@@ -161,6 +163,81 @@ def build_spiral_tiles(spirals: np.ndarray,
 
 _BWD_TIERS = 3                 # capped_ell's max_tiers
 _BWD_FIELDS = 4 + 4 * _BWD_TIERS
+_RUN_VERTS = 32                # most du rows a K3b backward run owns
+_RUN_ROWS = 256                # most distinct dout rows a run stages
+_RUN_LOCAL_BITS = 15           # an entry: local row index, then weight
+
+
+@dataclass
+class OutGatherRuns:
+    """K3b's backward in runs of consecutive source vertices (du rows),
+    the lists its kernel reads. Run ``t`` owns du rows ``starts[t]`` to
+    ``starts[t + 1] - 1`` (``nv`` of them, at most ``max_verts``) and
+    stages the sorted distinct ``dout`` rows ``rows[row_off[t]:row_off[t
+    + 1]]`` (at most ``max_rows``). ``blob[blob_off[t]:blob_off[t + 1]]``
+    (a multiple of four words, at most ``max_blob``) holds first one
+    header per (position l, vertex i) at ``l · nv + i``, the offset of
+    that pair's entries (in 16-bit entries after the headers) times 4
+    plus the number of overflow tiers its walk reaches, then the
+    entries, 16 bits each: the dout row's index in the run's list, and
+    ``1 << 15`` where the weight is 1 (0 for padding). A pair's entries
+    are its main row's K, padding kept, then each reached tier's, in
+    the transpose's order; the identity position has one, the vertex's
+    own row. ``pos [L, 4]``: each position's main K (0 for the identity
+    position) and its tiers' K. All int32."""
+    starts: torch.Tensor           # [T + 1]
+    rows: torch.Tensor             # [sum of the runs' rows]
+    row_off: torch.Tensor          # [T + 1]
+    blob: torch.Tensor             # [sum of the runs' words]
+    blob_off: torch.Tensor         # [T + 1]
+    pos: torch.Tensor              # [L, 4]
+    n_src: int
+    max_rows: int
+    max_verts: int
+    max_blob: int
+
+    @property
+    def n_runs(self) -> int:
+        return int(self.starts.shape[0]) - 1
+
+    def to(self, device) -> "OutGatherRuns":
+        return OutGatherRuns(*(t.to(device) for t in (
+            self.starts, self.rows, self.row_off, self.blob, self.blob_off,
+            self.pos)), n_src=self.n_src, max_rows=self.max_rows,
+            max_verts=self.max_verts, max_blob=self.max_blob)
+
+    def entries(self) -> list:
+        """Per position ``l``: ``(rows [N, E], weights [N, E], tiers
+        [N])`` decoded from the runs in the kernel's order: each source
+        vertex's dout rows and weights (1 or 0), the main row's K entries
+        then each tier's, and how many tiers its walk reaches (E: K plus
+        every tier's K; −1 and 0 past the walk). numpy int64."""
+        starts, row_off, blob_off = (t.cpu().numpy() for t in (
+            self.starts, self.row_off, self.blob_off))
+        rows, blob = self.rows.cpu().numpy(), self.blob.cpu().numpy()
+        pos = self.pos.cpu().numpy().astype(np.int64)
+        n, seq = self.n_src, pos.shape[0]
+        # entries a pair holds, by the tiers its walk reaches
+        counts = [np.ones(4, np.int64) if k == 0 else
+                  k + np.concatenate([[0], np.cumsum(tk)])
+                  for k, tk in zip(pos[:, 0], pos[:, 1:])]
+        out = [(np.full((n, c[-1]), -1, np.int64),
+                np.zeros((n, c[-1]), np.int64), np.zeros(n, np.int64))
+               for c in counts]
+        for t in range(len(starts) - 1):
+            s, nv = int(starts[t]), int(starts[t + 1] - starts[t])
+            words = blob[blob_off[t]:blob_off[t + 1]]
+            head = words[:nv * seq].astype(np.int64).reshape(seq, nv)
+            ent = words[nv * seq:].view(np.uint16).astype(np.int64)
+            local_rows = rows[row_off[t]:row_off[t + 1]]
+            for l, (r, w, nt) in enumerate(out):
+                span = np.arange(r.shape[1])
+                take = span[None, :] < counts[l][head[l] & 3][:, None]
+                e = ent[np.where(take, (head[l] >> 2)[:, None] + span, 0)]
+                r[s:s + nv] = np.where(take, local_rows[e & 0x7fff], -1)
+                w[s:s + nv] = np.where(take, e >> _RUN_LOCAL_BITS, 0)
+                nt[s:s + nv] = head[l] & 3
+        return out
 
 
 @dataclass
@@ -171,18 +248,20 @@ class OutGatherBwd:
     its K (0 marks the identity position), the offset of its first link
     in ``links`` (−1 without tiers) and its tier count, then per tier
     its offset, K, rows and the offset of its next links; int32 but
-    ``vals``."""
+    ``vals``. ``runs`` are the same transposes in the runs the kernel
+    reads (``build_out_gather_runs``, built with the table)."""
     info: torch.Tensor             # [L, 16]
     cols: torch.Tensor             # main tables and tiers, flat
     vals: torch.Tensor
     links: torch.Tensor            # link0 and each tier's next, flat
     n_src: int
     m: int
+    runs: OutGatherRuns | None = None      # set by build_out_gather_bwd
 
     def to(self, device) -> "OutGatherBwd":
         return OutGatherBwd(self.info.to(device), self.cols.to(device),
                             self.vals.to(device), self.links.to(device),
-                            self.n_src, self.m)
+                            self.n_src, self.m, self.runs.to(device))
 
     def tables(self) -> list:
         """Per position: None (identity) or ``(cols, vals, tiers, links)``
@@ -242,10 +321,105 @@ def build_out_gather_bwd(gathers: list, n_src: int, m: int) -> OutGatherBwd:
         raise ValueError("the backward tables must fit int32 offsets")
     cat = lambda ts, dt: (torch.cat(ts) if ts          # noqa: E731
                           else torch.zeros(1, dtype=dt))
-    return OutGatherBwd(info=torch.from_numpy(info.astype(np.int32)),
-                        cols=cat(cols, torch.int32),
-                        vals=cat(vals, torch.float32),
-                        links=cat(links, torch.int32), n_src=n_src, m=m)
+    bwd = OutGatherBwd(info=torch.from_numpy(info.astype(np.int32)),
+                       cols=cat(cols, torch.int32),
+                       vals=cat(vals, torch.float32),
+                       links=cat(links, torch.int32), n_src=n_src, m=m)
+    bwd.runs = build_out_gather_runs(bwd)
+    return bwd
+
+
+def _walk_entries(table, n: int) -> tuple:
+    """One position's transpose walked for every source vertex: ``(rows
+    [N, E], vals [N, E], tiers [N], ks)``, the main row's K entries then
+    each tier's where the walk reaches it (−1 and 0 elsewhere), and the
+    K of the main table and of each tier. The identity position (None):
+    each vertex's own row, weight 1."""
+    if table is None:
+        return (np.arange(n)[:, None], np.ones((n, 1)),
+                np.zeros(n, np.int64), [0])
+    cols, vals, tiers, links = table
+    rows, ws, ks = [cols.numpy().astype(np.int64)], [vals.numpy()], \
+        [cols.shape[1]]
+    reached = np.zeros(n, np.int64)
+    slot = links[0].numpy().astype(np.int64) if tiers else None
+    for (_, t_cols, t_vals), nxt in zip(tiers, links[1:]):
+        tk = t_cols.shape[1]
+        hit = slot >= 0
+        r = np.full((n, tk), -1, np.int64)
+        w = np.zeros((n, tk), np.float32)
+        r[hit] = t_cols.numpy()[slot[hit]]
+        w[hit] = t_vals.numpy()[slot[hit]]
+        rows.append(r)
+        ws.append(w)
+        ks.append(tk)
+        reached += hit
+        slot = np.where(hit, nxt.numpy().astype(np.int64)[
+            np.maximum(slot, 0)], -1)
+    return np.concatenate(rows, 1), np.concatenate(ws, 1), reached, ks
+
+
+def build_out_gather_runs(bwd: OutGatherBwd, max_verts: int = _RUN_VERTS,
+                          max_rows: int = _RUN_ROWS) -> OutGatherRuns:
+    """Host-side: K3b backward's runs (``OutGatherRuns``) of ``bwd``'s
+    transposes. A run grows over the following source vertices while it
+    holds at most ``max_verts`` and its distinct dout rows (every entry's,
+    padding's row 0 and the tiers' included) stay within ``max_rows``; a
+    vertex that needs more alone is a run of its own. Raises where a
+    weight is not 1 or 0 (a gather's transpose has no other)."""
+    n, seq = bwd.n_src, bwd.info.shape[0]
+    walks = [_walk_entries(t, n) for t in bwd.tables()]
+    pos = np.zeros((seq, 4), np.int64)
+    for l, (_, _, _, ks) in enumerate(walks):
+        pos[l, :len(ks)] = ks
+    rows = np.concatenate([w[0] for w in walks], 1)      # [N, sum E_l]
+    vals = np.concatenate([w[1] for w in walks], 1)
+    take = rows >= 0
+    if not np.isin(vals[take], (0.0, 1.0)).all():
+        raise ValueError("K3b's backward takes transposes of weight 1 or 0")
+    reached = np.stack([w[2] for w in walks], 1)           # [N, L]
+    first = np.cumsum([0] + [w[0].shape[1] for w in walks[:-1]])
+    counts = np.add.reduceat(take.astype(np.int64), first, axis=1)
+    flat_rows, flat_flag = rows[take], vals[take] != 0     # vertex-major
+    vstart = np.concatenate([[0], np.cumsum(counts.sum(1))])
+    starts, cur = [0], set()
+    for v in range(n):
+        mine = set(flat_rows[vstart[v]:vstart[v + 1]].tolist())
+        new = cur | mine
+        if v > starts[-1] and (v - starts[-1] >= max_verts
+                               or len(new) > max_rows):
+            starts.append(v)
+            new = mine
+        cur = new
+    starts.append(n)
+    run_rows, row_off, blobs, blob_off = [], [0], [], [0]
+    for s, e in zip(starts[:-1], starts[1:]):
+        seg = slice(vstart[s], vstart[e])
+        uniq, local = np.unique(flat_rows[seg], return_inverse=True)
+        if len(uniq) > 1 << _RUN_LOCAL_BITS:
+            raise ValueError(f"vertex {s}: {len(uniq)} dout rows")
+        ent = (local | (flat_flag[seg].astype(np.int64)
+                        << _RUN_LOCAL_BITS)).astype(np.uint16)
+        ent = np.concatenate([ent, np.zeros(len(ent) % 2, np.uint16)])
+        off = (np.cumsum(counts[s:e].reshape(-1)) - counts[s:e].reshape(-1)
+               ).reshape(e - s, seq)
+        head = ((off << 2) | reached[s:e]).T.reshape(-1)
+        words = np.concatenate([head.astype(np.int32), ent.view(np.int32)])
+        blobs.append(np.concatenate([words, np.zeros(-len(words) % 4,
+                                                     np.int32)]))
+        run_rows.append(uniq)
+        row_off.append(row_off[-1] + len(uniq))
+        blob_off.append(blob_off[-1] + len(blobs[-1]))
+    if blob_off[-1] >= 2 ** 31 or int(counts.sum()) >= 2 ** 29:
+        raise ValueError("the runs must fit int32 offsets")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))  # noqa
+    return OutGatherRuns(
+        starts=i32(starts), rows=i32(np.concatenate(run_rows)),
+        row_off=i32(row_off), blob=torch.from_numpy(np.concatenate(blobs)),
+        blob_off=i32(blob_off), pos=i32(pos), n_src=n,
+        max_rows=int(np.diff(row_off).max()),
+        max_verts=int(np.diff(starts).max()),
+        max_blob=int(np.diff(blob_off).max()))
 
 
 @dataclass
@@ -537,6 +711,38 @@ def out_gather_sum_bwd_plain(dout: torch.Tensor,
             part = ell_matmul_capped_plain(*table, d2)
         else:
             part = ell_matmul_plain(table[0], table[1], d2)
+        parts.append(part.view(-1, bsz, o).permute(2, 0, 1))
+    return torch.stack(parts)
+
+
+def out_gather_sum_bwd_tiles_plain(dout: torch.Tensor,
+                                   runs: OutGatherRuns) -> torch.Tensor:
+    """K3b's backward from its runs' lists (``OutGatherRuns.entries``), in
+    the kernel's order and roundings: for each position and source
+    vertex, the main row's products summed one rounding each, then each
+    reached tier's sum formed alike and added with one rounding; the
+    identity position's own row copied. ``[L, O, N, B]``; bit-equal to
+    ``out_gather_sum_bwd_plain``."""
+    m, bsz, o = dout.shape
+    d2 = dout.reshape(m, bsz * o)
+    k = runs.pos[:, 0].tolist()
+    tier_k = runs.pos[:, 1:].tolist()
+    parts = []
+    for l, (rows, ws, reached) in enumerate(runs.entries()):
+        r = torch.from_numpy(rows).to(dout.device)
+        w = torch.from_numpy(ws).to(dout)
+        if k[l] == 0:
+            part = d2[r[:, 0]]
+        else:
+            part = ell_matmul_plain(r[:, :k[l]], w[:, :k[l]], d2)
+            at = k[l]
+            for q, tk in enumerate(tier_k[l]):
+                hit = torch.from_numpy(reached > q).to(dout.device)
+                if tk == 0 or not bool(hit.any()):
+                    break
+                part[hit] = part[hit] + ell_matmul_plain(
+                    r[hit, at:at + tk], w[hit, at:at + tk], d2)
+                at += tk
         parts.append(part.view(-1, bsz, o).permute(2, 0, 1))
     return torch.stack(parts)
 

@@ -1257,35 +1257,86 @@ def test_out_gather_sum_kernel_equals_plain(n, b, seq, o):
     assert torch.equal(out, ops.out_gather_sum_plain(u, table, bias))
 
 
-@pytest.mark.parametrize("n,b,seq,o,hubs", [
-    (17039, 16, 9, 3, False), (30, 4, 5, 3, False), (100, 1, 7, 5, False),
-    (3000, 16, 9, 3, True), (500, 3, 9, 7, True)])
-def test_out_gather_sum_bwd_kernel_equals_plain(n, b, seq, o, hubs):
-    """K3b's backward in one launch: bit-equal to its twin and to the
-    stack of the positions' ``CappedEll.apply`` (the fused K4 per
-    position), in ``u``'s layout; ``hubs``: a skewed in-degree that gives
-    every position overflow tiers, some of them two or three deep."""
+def _hub_table(n, seq, seed):
+    """In-degrees that follow a power law (entries ``n · u³``): most
+    positions' transposes get three overflow tiers, and the hub's own
+    run stages more rows than a block holds at every batch row."""
+    rng = np.random.default_rng(seed)
+    table = (n * rng.random((n, seq)) ** 3).astype(np.int64)
+    table[:, 0] = np.arange(n)
+    return table
+
+
+def _same_nan(a, b):
+    """Bit-equal but for NaN payloads (the card's 0 · NaN is its canonical
+    NaN, the host's keeps the operand's)."""
+    torch.testing.assert_close(a, b, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n,b,seq,o,hubs,verts,bad_row0", [
+    (17039, 16, 9, 3, False, None, False), (30, 4, 5, 3, False, None, False),
+    (100, 1, 7, 5, False, None, False), (3000, 16, 9, 3, True, None, False),
+    (500, 3, 9, 7, True, None, False), (17039, 4, 9, 3, False, None, False),
+    (17039, 1, 9, 3, False, None, False), (17039, 20, 9, 3, False, None,
+                                           False),
+    (3000, 3, 9, 1, "three", None, False), (3000, 16, 9, 8, "three", None,
+                                            False),
+    (3000, 20, 9, 3, "three", None, True), (3000, 4, 9, 3, "three", 1, False),
+    (2000, 16, 9, 3, False, 1, True), (500, 40, 9, 8, "three", None, False)])
+def test_out_gather_sum_bwd_kernel_equals_plain(n, b, seq, o, hubs, verts,
+                                                bad_row0):
+    """K3b's backward in one launch over the op's runs: bit-equal to its
+    twin, to the tile-order twin, to the stack of the positions'
+    ``CappedEll.apply`` (the fused K4 per position) and across two
+    launches, in ``u``'s layout. ``hubs``: a skewed in-degree that gives
+    every position overflow tiers, some of them two or three deep
+    ("three": a power law, three tiers, and runs too large for one block
+    at the whole batch, so the batch is sliced); ``verts`` 1: runs of
+    single vertices; ``bad_row0``: NaN and infinity in dout's row 0, which
+    every padding entry reads with weight 0."""
     dev = _card()
     rng = np.random.default_rng(n + o)
-    table = rng.integers(0, n, size=(n, seq))
-    table[:, 0] = np.arange(n)
-    if hubs:
-        for l in range(1, seq):
-            table[rng.random(n) < 0.3, l] = rng.integers(0, 4)
-    op = ops.build_spiral_op(table).to(dev)
+    if hubs == "three":
+        table = _hub_table(n, seq, n)
+    else:
+        table = rng.integers(0, n, size=(n, seq))
+        table[:, 0] = np.arange(n)
+        if hubs:
+            for l in range(1, seq):
+                table[rng.random(n) < 0.3, l] = rng.integers(0, 4)
+    host = ops.build_spiral_op(table)
+    if verts:
+        host.out_bwd.runs = ops.build_out_gather_runs(host.out_bwd, verts)
+    op = host.to(dev)
+    runs = op.out_bwd.runs
     if hubs:
         tiers = [len(g.transpose.tiers) for g in op.gathers[1:]]
-        assert min(tiers) >= 1 and max(tiers) >= 2, tiers
+        assert min(tiers) >= 1 and max(tiers) >= (3 if hubs == "three"
+                                                  else 2), tiers
+    if verts:
+        assert runs.n_runs == n
     dout = torch.randn((n, b, o), generator=_gen(dev, n), device=dev)
+    if bad_row0:
+        dout[0, 0] = float("nan")
+        dout[0, -1] = float("inf")
+        dout[1] = -0.0
     kernels.launches.reset()
     du = kernels.out_gather_sum_bwd(dout, op.out_bwd)
     assert kernels.launches.snapshot()["out_gather_sum_bwd"] == 1
+    again = kernels.out_gather_sum_bwd(dout, op.out_bwd)
     want = torch.stack([dout if g is None else g.transpose.apply(dout)
                         for g in op.gathers]).permute(0, 3, 1, 2)
     torch.cuda.synchronize()
     assert du.shape == (seq, o, n, b)
-    assert torch.equal(du, ops.out_gather_sum_bwd_plain(dout, op.out_bwd))
-    assert torch.equal(du, want)
+    _same_nan(du, again)
+    assert torch.equal(du.isnan(), again.isnan())
+    _same_nan(du, ops.out_gather_sum_bwd_plain(dout, op.out_bwd))
+    _same_nan(du, ops.out_gather_sum_bwd_tiles_plain(dout, runs))
+    _same_nan(du, want)
+    if bad_row0:
+        assert bool(du.isnan().any())
+    if hubs == "three" and b >= 16:
+        assert kernels.out_gather_bwd_plan(runs, b, o)[0] < b
 
 
 def test_wrappers_reject_what_the_bf16_kernels_do_not_take():
