@@ -24,7 +24,9 @@ them or outside a checkout. Phases, each of which raises on a fault:
    against its twin and a library call;
 4. serving at full width (17,039 vertices, channels 32/32/32/64, latent
    75, seeded weights): a ``DiagnosisService(max_batch=16)`` answers
-   ``reconstruct`` requests of 1, 3, 16 and 20 scans, checked against the
+   ``reconstruct`` requests of 1, 3, 16 and 20 scans (each bucket's CUDA
+   graph captured at its first request, so its wrappers count its
+   warm-up pass and its capture), checked against the
    same service on the host, then the lr0 selection of the
    reconstructions is rendered shaded and as a plasma error map (one K7
    launch per call); after the counted run, one K7 launch over those 20
@@ -58,8 +60,13 @@ them or outside a checkout. Phases, each of which raises on a fault:
    checkpoints every 2). The entry point builds the geometry, the
    dataset and its caches, trains on the card, renders (K7 at full
    resolution) and checkpoints; a fresh manager resumes the last
-   checkpoint bit for bit; ``--resume --epochs 6`` goes on. K1, K2-dW, K4,
-   the fused K4 and K7 must each have launched on that path. Then one
+   checkpoint bit for bit; ``--resume --epochs 6`` goes on. The epochs run
+   in chunks (``run_epochs_scanned``, the train and validation steps
+   replayed from their CUDA graphs). K1, K2-dW, K4,
+   the fused K4 and K7 must each have launched on that path. Then the
+   per-epoch loop (``--profile``, which skips the chunks) from scratch to
+   epoch 4: its checkpoint bit-equal to the chunked run's, both epoch
+   times, the trace written; one
    epoch on the card is held against the host, K7 on a full-resolution
    reconstruction against its twin, and each kernel at the path's own
    shapes against its twin; one ``{"phase": "train_entry", ...}`` line;
@@ -88,6 +95,18 @@ them or outside a checkout. Phases, each of which raises on a fault:
    Phases 7 and 8's ``train.main`` also fit the classifier zoo and write
    ``classifiers.npz`` and ``z_stats.npz`` (fit time and the four
    validation accuracies recorded);
+8g. graphs: under ``smoke.yaml``'s float32 model and the flagship's
+   ``mixed``, on the fixture hierarchy, 10 replays of the train step's
+   CUDA graph (``make_scanned_train_step``) against 10 eager steps from
+   the same weights, scans and draws: parameters, Adam states and
+   metrics bit-equal; one replay's kernels, counted from torch.profiler's
+   CUDA kernel events, equal to ``expected_step_launches`` kernel for
+   kernel; the step's p50 eager and replayed, the scanned call's time a
+   step, their device time and idle share, meshes/s and the graph's peak
+   memory; and a plain PyTorch step of ``benchmarks/baseline_torch.py``'s
+   ``BaselineNet`` form (``index_select``, ``nn.Linear``,
+   ``torch.sparse.mm``) on the fixture hierarchy, timed; one
+   ``{"phase": "graphs", ...}`` line;
 9. diagnosis: the reference's sklearn pickles of ``tests/fixtures/
    reference_pickles`` read with sklearn blocked and held against the
    fixture's outputs; K8 (one ``k8_fwd`` for both directions, one
@@ -100,7 +119,9 @@ them or outside a checkout. Phases, each of which raises on a fault:
    card vs twin and card vs host, two launches bit for bit), timed
    against the twins, the bound and ``torch.cdist`` with both minima;
    then each of phase 7's (fp32) and phase 8's (mixed) run
-   dirs served by ``DiagnosisService.from_run_dir`` on the card, counted:
+   dirs served by ``DiagnosisService.from_run_dir`` on the card, counted
+   (its encode and decode buckets and the fit's iteration as CUDA graphs,
+   each counted at its warm-up and capture):
    ``diagnose`` at 1, 3, 16 and 20 scans and with 32 posterior draws,
    ``saliency`` at 4, one ``plan`` and one ``fit`` of a 32,768-point
    unregistered scan (250 iterations, 16 restarts); the diagnose
@@ -116,7 +137,11 @@ them or outside a checkout. Phases, each of which raises on a fault:
    transposes of saliency's backward to the data at B = 4 and of the
    fit's backward to z at R = 16) against its twin and timed, with the
    launches those shapes account for equal to the counted run's, kernel
-   for kernel; the HTTP entry point once (``POST /diagnose``, ``GET
+   for kernel; every bucket's graph of encode, decode and reconstruct
+   against the eager program, bit for bit, and the graph fit against the
+   eager fit (best restart, chamfer and z bit-equal), with the diagnose
+   and reconstruct p50 at 1, 3, 16 and 20 scans and the fit's seconds
+   both ways; the HTTP entry point once (``POST /diagnose``, ``GET
    /healthz``); one ``{"phase": "diagnosis", ...}`` line;
 10. the study's data section from a raw dataset: K9 (``cheby_step``,
    the eigensolver's Chebyshev step) in its three call forms (the filter
@@ -150,12 +175,22 @@ them or outside a checkout. Phases, each of which raises on a fault:
    read the generated files and the cache with no K9 launch; one
    ``{"phase": "augmentation", ...}`` line.
 
+Every time the new phases print stands beside the card's name and
+power limit from nvidia-smi.
+
 The kernels' record holds one entry per kernel and path (``serving``,
 ``training``, ``train_entry``, ``mixed_serving``, ``mixed_training``,
 ``mixed_gather_first``, ``diagnosis``, ``mixed_diagnosis``,
 ``augmentation``), each timed
 over the shapes of that path's launches (on the diagnosis paths each
-distinct shape once; every shape carries its launches). The last three
+distinct shape once; every shape carries its launches). Its
+``launches`` are the wrappers' counts on the path's counted run, which
+count a CUDA graph's warm-up and capture but not its replays (a replay
+launches the captured kernels without the wrappers); ``replayed`` is
+what the graphs' replays launched on that run: each replay adds what its
+capture recorded, and right after the run one replay of every graph the
+path holds (the service's buckets, the fits, the managers' scanned
+steps) is profiled, its kernels held equal to that record. The last three
 lines of standard output are the kernels' JSON record, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.
 ``--json`` also writes every measurement (per shape, per request size,
@@ -880,6 +915,10 @@ def device_profile(torch, fn) -> dict:
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
+        # the trace drops device events that seem to start before its
+        # window opens (the card's clock against the host's): the first
+        # kernels of a CUDA graph launched at once can be lost
+        time.sleep(PROFILE_LEAD_S)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -931,7 +970,7 @@ def phase_serving(torch, mods, bundle, config) -> dict:
     setup_s = time.perf_counter() - t0
 
     # the main path: counts from 0, requests, renders, counts read
-    kernels.launches.reset()
+    reset_counts()
     t_main = time.perf_counter()
     answers, req_ms = {}, {}
     for b in REQUEST_SIZES:
@@ -949,7 +988,8 @@ def phase_serving(torch, mods, bundle, config) -> dict:
                           shadeless=True, device=DEVICE)
     render_ms = (time.perf_counter() - t1) * 1e3
     main_s = time.perf_counter() - t_main
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "serving")
+    replays = check_replays(torch, graphs_of(svc), "serving")
     log(f"[4 serve] service built in {setup_s:.2f} s; reconstruct ms by "
         f"batch {{{', '.join(f'{b}: {req_ms[b]:.1f}' for b in req_ms)}}}; "
         f"{2 * len(recon_lr0)} renders in {render_ms:.1f} ms (the first "
@@ -1041,7 +1081,8 @@ def phase_serving(torch, mods, bundle, config) -> dict:
         log(f"[4 profile] {what}: wall {p['wall_ms']:.2f} ms, device "
             f"{p['device_ms']} ms, idle share {p['idle_share']}; {top}; "
             f"host self time by op: {host}")
-    return dict(counts=counts, request_ms=req_ms, render_ms=render_ms,
+    return dict(counts=counts, replays=replays, request_ms=req_ms,
+                render_ms=render_ms,
                 inputs=dict(norm=norm, scans=scans, answers=answers),
                 first_render_ms=first_render_ms,
                 render_wall_ms=render_wall, render_uint8_err=q_err,
@@ -1440,12 +1481,12 @@ def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
 
     # the main path: counts from 0, one step, counts read
     x = torch.as_tensor(data[:b], device=DEVICE)
-    kernels.launches.reset()
+    reset_counts()
     t1 = time.perf_counter()
     m_card = step(x, region_idx=region, eps=eps.to(DEVICE))
     torch.cuda.synchronize()
     first_ms = (time.perf_counter() - t1) * 1e3
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "training")
     want = expected_step_launches(model, geom, grid)
     check(counts == want, f"step launches {counts}, expected {want}")
     grads = {k: p.grad for k, p in model.named_parameters()}
@@ -1693,8 +1734,25 @@ def entry_records(torch, mods, card, k7: dict, grid: int,
     return recs
 
 
+def same_tree(a, b, what: str) -> None:
+    """Two checkpoint trees (nested dicts and lists of arrays) equal leaf
+    for leaf, bit for bit."""
+    if isinstance(a, dict):
+        check(isinstance(b, dict) and set(a) == set(b), f"{what}: keys")
+        for k in a:
+            same_tree(a[k], b[k], f"{what}.{k}")
+    elif isinstance(a, (list, tuple)):
+        check(isinstance(b, (list, tuple)) and len(a) == len(b),
+              f"{what}: lengths")
+        for i, (x, y) in enumerate(zip(a, b)):
+            same_tree(x, y, f"{what}[{i}]")
+    else:
+        check(np.array_equal(np.asarray(a), np.asarray(b)),
+              f"{what}: differs")
+
+
 def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
-                      root: str) -> dict:
+                      root: str, smi: str) -> dict:
     """The port's training entry point end to end, on the card, from a
     template written under ``root``: ``train.main`` trains
     ``ENTRY_EPOCHS[0]`` epochs (renders and checkpoints on the cadence),
@@ -1720,7 +1778,7 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
             "--device", DEVICE]
 
     # the main path: counts from 0, train, resume, train on; counts read
-    kernels.launches.reset()
+    reset_counts()
     t1 = time.perf_counter()
     first = entry.main(argv)
     first_s = time.perf_counter() - t1
@@ -1746,14 +1804,16 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     check(resumed.resume(ckpt) == ENTRY_EPOCHS[0], "resume epoch")
     resume_s = time.perf_counter() - t1
     state_matches_files(resumed, model_file, opt_file, "resumed manager")
+    # done with the first run's manager: its graphs' replays checked
+    replays = [check_replays(torch, graphs_of(managers=[first["manager"]]),
+                             "train_entry, first run")]
     del resumed, first["manager"]
 
     t1 = time.perf_counter()
     second = entry.main(argv + ["--resume", "--epochs",
                                 str(ENTRY_EPOCHS[1])])
     second_s = time.perf_counter() - t1
-    torch.cuda.synchronize()
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "train_entry")
     check(second["start_epoch"] == ENTRY_EPOCHS[0],
           f"--resume started at epoch {second['start_epoch']}")
     check(f"model_{ENTRY_EPOCHS[1]:08d}.ckpt" in os.listdir(ckpt),
@@ -1772,11 +1832,46 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
                    "spiral_conv_dw", "raster_sweep"):
         check(counts[kernel] > 0,
               f"{kernel} was not launched on the train entry path")
+    replays.append(check_replays(torch, graphs_of(
+        managers=[second["manager"]]), "train_entry, resumed run"))
     del second["manager"]
     torch.cuda.empty_cache()
 
-    # after the counted run: card vs host, K7 at full resolution, the
-    # kernels at this path's shapes
+    # after the counted run: the per-epoch loop (``--profile`` skips the
+    # chunks, as JAX's does) from scratch to the first run's last epoch:
+    # its checkpoint bit-equal to the chunked run's, and its trace
+    t1 = time.perf_counter()
+    stepped = entry.main(["--config", cfg_path, "--id", "entry_steps",
+                          "--output_path", root, "--device", DEVICE,
+                          "--profile"])
+    stepped_s = time.perf_counter() - t1
+    s_ckpt = stepped["checkpoint_dir"]
+    same_tree(read_checkpoint(os.path.join(s_ckpt, saved[-1])), model_file,
+              "per-epoch loop vs chunks: model")
+    same_tree(read_checkpoint(os.path.join(s_ckpt, "optimizer.ckpt")),
+              opt_file, "per-epoch loop vs chunks: optimizer")
+    trace = os.path.join(stepped["output_dir"], "profile", "trace.json")
+    check(os.path.isfile(trace) and os.path.getsize(trace) > 0,
+          "--profile wrote no trace")
+    # epoch times (train and validation): the first chunk and the first
+    # epoch capture the graphs; the loop's second epoch is profiled
+    chunk_epoch = [h["epoch_s"] for h in first["history"]]
+    step_epoch = [h["epoch_s"] for h in stepped["history"]]
+    loops = {"chunked_epoch_s": chunk_epoch, "per_epoch_loop_s": step_epoch,
+             "chunked_steady_s": chunk_epoch[ENTRY_CADENCE:],
+             "per_epoch_loop_steady_s": step_epoch[2:],
+             "per_epoch_run_s": stepped_s,
+             "trace_mib": os.path.getsize(trace) / 2 ** 20}
+    log(f"[7 entry] the per-epoch loop's checkpoint at epoch "
+        f"{ENTRY_EPOCHS[0]} equals the chunked run's bit for bit; epoch "
+        f"(train + validation) s, chunked {chunk_epoch} (the first chunk "
+        f"captures), per-epoch loop {step_epoch} (the first captures, the "
+        f"second is profiled); trace {loops['trace_mib']:.1f} MiB; {smi}")
+    del stepped["manager"]
+    torch.cuda.empty_cache()
+
+    # card vs host, K7 at full resolution, the kernels at this path's
+    # shapes
     train_set, val_set, _, norm, _ = build_datasets(config)
     cvh = entry_card_vs_host(torch, config, ckpt, train_set)
     card = cvh.pop("card")
@@ -1789,8 +1884,9 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     for rec in records:
         rec["path"] = "train_entry"
         rec["launches"] = counts[rec["name"]]
-    epoch_s = sorted(h["train_s"] for h in hist)
-    p50 = epoch_s[len(epoch_s) // 2]
+    # the p50 of the epochs whose chunk captured no graph
+    steady = sorted(loops["chunked_steady_s"])
+    p50 = steady[len(steady) // 2]
     steps = hist[0]["steps"]
     line = {
         "phase": "train_entry",
@@ -1802,7 +1898,8 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
         "geometry_build_s": first["geometry_s"],
         "dataset_load_s": first["data_s"], "first_run_s": first_s,
         "resume_s": resume_s, "second_run_s": second_s,
-        "epoch_p50_s": p50, "epoch_train_s": [h["train_s"] for h in hist],
+        "epoch_p50_s": p50, "epoch_s": [h["epoch_s"] for h in hist],
+        "loops": loops,
         "steps_per_epoch": steps, "steps_per_s": steps / p50,
         "meshes_per_s": steps * grid / p50,
         "train_tot": tots,
@@ -1814,7 +1911,8 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
         "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
         "zoo": {"fit_s": [first["classifiers_s"], second["classifiers_s"]],
                 "validation_accuracy": second["classifier_accs"]},
-        "launches": counts}
+        "launches": counts, "replayed": PATH_REPLAYS["train_entry"],
+        "replays_checked": replays}
     log(json.dumps(line))
     return dict(line=line, records=records, card_vs_host=cvh, k7=k7,
                 history=hist, cfg_path=cfg_path, run_dir=run)
@@ -2311,14 +2409,15 @@ def mixed_serving(torch, mods, bundle, config, serve: dict) -> dict:
     faces = bundle.lr_face[0]
     svc = DiagnosisService.from_bundle(bundle, config, norm, TO_MM, seed=SEED,
                                        max_batch=BATCH, device=DEVICE)
-    kernels.launches.reset()
+    reset_counts()
     answers = {b: svc.reconstruct(scans[b]) for b in REQUEST_SIZES}
     last = answers[REQUEST_SIZES[-1]]
     colors = errors_to_colors(last["vertex_errors_mm"][:, sel], 0,
                               ERROR_MAX_MM, "plasma") / 255.0
     errmap = render_batch(last["vertices"][:, sel], faces, colors,
                           image_size=IMAGE, shadeless=True, device=DEVICE)
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "mixed_serving")
+    replays = check_replays(torch, graphs_of(svc), "mixed_serving")
     n = bundle.vertex_counts[0]
     for b, ans in answers.items():
         check(ans["vertices"].shape == (b, n, 3)
@@ -2363,7 +2462,7 @@ def mixed_serving(torch, mods, bundle, config, serve: dict) -> dict:
         + ", ".join(f"{b}: {v['p50_ms']:.2f} "
                     f"({serve['latency'][b]['p50_ms']:.2f})"
                     for b, v in latency.items()))
-    return dict(counts=counts, card_vs_host_rel=host_err,
+    return dict(counts=counts, replays=replays, card_vs_host_rel=host_err,
                 vs_fp32_rel=fp32_err, error_change_mm=err_mm,
                 latency=latency)
 
@@ -2405,10 +2504,9 @@ def mixed_training(torch, mods, bundle, config, fp32_config,
 
     model, step = stepper(config, geom)
     x = torch.as_tensor(data[:b], device=DEVICE)
-    kernels.launches.reset()
+    reset_counts()
     m_card = step(x, region_idx=region, eps=eps.to(DEVICE))
-    torch.cuda.synchronize()
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "mixed_training")
     want = expected_step_launches(model, geom, grid)
     check(counts == want, f"mixed step launches {counts}, expected {want}")
     grads = {k: p.grad for k, p in model.named_parameters()}
@@ -2492,10 +2590,12 @@ def mixed_training(torch, mods, bundle, config, fp32_config,
 
 def mixed_gather_first(torch, mods, bundle, config) -> dict:
     """The path of ``final_out_gather: False`` (the final conv
-    gather-first, K3a): one counted ``reconstruct`` of 16 scans and one
+    gather-first, K3a): one counted ``reconstruct`` of 16 scans (its
+    bucket's graph captured: its warm-up passes and the capture) and one
     counted mixed step; K3a must launch in both."""
     from craniofacialsd_vae_tpu_torch.models import init_sdvae
-    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+    from craniofacialsd_vae_tpu_torch.serving import (WARMUP_PASSES,
+                                                      DiagnosisService)
     from craniofacialsd_vae_tpu_torch.training import (LossWeights,
                                                        coupled_adam,
                                                        make_train_step)
@@ -2514,21 +2614,22 @@ def mixed_gather_first(torch, mods, bundle, config) -> dict:
     step = make_train_step(model, LossWeights.from_config(TRAIN_CONFIG),
                            coupled_adam(model.parameters(), 1e-4, 0.0), b)
     data, region, eps = training_inputs(torch, bundle, config)
-    kernels.launches.reset()
+    reset_counts()
     ans = svc.reconstruct(rng.normal(size=(BATCH, n, 3)).astype(np.float32))
     m = step(torch.as_tensor(data[:b], device=DEVICE), region_idx=region,
              eps=eps.to(DEVICE))
-    torch.cuda.synchronize()
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "mixed_gather_first")
+    replays = check_replays(torch, graphs_of(svc), "mixed_gather_first")
     want = expected_step_launches(model, geom, b * b)
-    check(counts["spiral_conv_f32out"] == 1 + want["spiral_conv_f32out"],
+    check(counts["spiral_conv_f32out"]
+          == 1 + WARMUP_PASSES + want["spiral_conv_f32out"],
           f"K3a launches {counts['spiral_conv_f32out']} on the gather-first "
           "path")
     check(np.isfinite(ans["vertices"]).all()
           and all(bool(torch.isfinite(v)) for v in m.values()),
           "gather-first mixed path: finite answers and losses")
     log(f"[8 mixed gather-first] launches {counts}")
-    return dict(counts=counts)
+    return dict(counts=counts, replays=replays)
 
 
 def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
@@ -2554,13 +2655,13 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
         f.write(text)
     config = get_config(path)
     check(config["model"]["compute_dtype"] == "mixed", "mixed entry config")
-    kernels.launches.reset()
+    reset_counts()
     t0 = time.perf_counter()
     run = entry.main(["--config", path, "--id", "entry_mixed",
                       "--output_path", root, "--device", DEVICE,
                       "--epochs", str(ENTRY_CADENCE)])
     run_s = time.perf_counter() - t0
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "mixed_entry")
     for h in run["history"]:
         for phase in ("train", "validation"):
             check(all(np.isfinite(v) for v in h[phase].values()),
@@ -2592,8 +2693,10 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
           "mixed entry: no classifiers.npz or z_stats.npz")
     log(f"[8 mixed entry] zoo fitted in {run['classifiers_s']:.2f} s, "
         f"validation accuracies {run['classifier_accs']}")
+    replays = check_replays(torch, graphs_of(managers=[run["manager"]]),
+                            "mixed_entry")
     del run["manager"], fresh
-    return dict(run_s=run_s, train_tot=tots, counts=counts,
+    return dict(run_s=run_s, train_tot=tots, counts=counts, replays=replays,
                 epoch_train_s=[h["train_s"] for h in run["history"]],
                 zoo={"fit_s": run["classifiers_s"],
                      "validation_accuracy": run["classifier_accs"]},
@@ -2691,6 +2794,461 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
     log(json.dumps(line))
     return dict(line=line, records=records, shapes=shapes, serving=serving,
                 training=training, gather_first=gather_first, entry=ent)
+
+
+# ----------------------------------------------------------------------
+# phase 8g: the scanned paths' CUDA graphs against the eager step
+# the CUDA kernels of csrc/*.cu by the launch-count name of the wrapper
+# that launches them; a wrapper whose call launches two kernels is
+# counted by one of them (K2-dW's and K2-dW-bf16's fixed-order sums, K8's
+# pair pass), and the ELL kernels by their CAPPED template argument
+CUDA_KERNELS = {
+    "spiral_conv_tc_kernel": "spiral_conv_tc",
+    "spiral_conv_narrow_kernel": "spiral_conv_narrow",
+    "spiral_conv_narrow_tile_kernel": "spiral_conv_narrow",
+    "spiral_conv_dw_sum": "spiral_conv_dw",
+    "spiral_conv_dw_bf16_sum": "spiral_conv_dw_bf16",
+    # K1-bf16 and K3a share these (f32out is an argument)
+    "spiral_conv_bf16_kernel": "spiral_conv_bf16",
+    "spiral_conv_bf16_vec_kernel": "spiral_conv_bf16",
+    "spiral_conv_bf16_tile_kernel": "spiral_conv_bf16",
+    "out_gather_sum_kernel": "out_gather_sum",
+    "out_gather_sum_bwd_kernel": "out_gather_sum_bwd",
+    "nearest_pairs_kernel": "k8_fwd",
+    "nearest_sq_bwd_kernel": "k8_bwd",
+    "raster_sweep_kernel": "raster_sweep",
+    "cheby_tile_kernel": "cheby_step",
+}
+ELL_KERNELS = {"ell_matmul_direct": ("ell_matmul_fwd", "ell_matmul_capped"),
+               "ell_matmul_scalar": ("ell_matmul_fwd", "ell_matmul_capped"),
+               "ell_bf16_vector": ("ell_matmul_bf16",
+                                   "ell_matmul_capped_bf16"),
+               "ell_bf16_scalar": ("ell_matmul_bf16",
+                                   "ell_matmul_capped_bf16")}
+GRAPH_STEPS = 10
+PROFILE_LEAD_S = 0.01           # host time in the profiler before fn
+REPLAY_PREAMBLE_KERNELS = 32    # throwaway kernels before a checked replay
+BASELINE_REGION = (10, 15)      # baseline_torch.py's latent slice
+
+
+def profile_kernels(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler, after a synchronization:
+    wall and device time, the device's idle share, and every CUDA kernel
+    it ran by its full name (memory copies and sets apart)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        # the trace drops device events that seem to start before its
+        # window opens (the card's clock against the host's): the first
+        # kernels of a CUDA graph launched at once can be lost
+        time.sleep(PROFILE_LEAD_S)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    kernels, busy, copies = {}, 0.0, 0
+    for e in prof.key_averages():
+        if e.device_type != DeviceType.CUDA \
+                or getattr(e, "is_user_annotation", False) \
+                or e.self_device_time_total <= 0:
+            continue
+        busy += e.self_device_time_total / 1e3
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += e.count
+        else:
+            kernels[e.key] = kernels.get(e.key, 0) + e.count
+    return {"wall_ms": wall_ms, "device_ms": busy,
+            "idle_share": 1 - busy / wall_ms if wall_ms else None,
+            "kernels_run": sum(kernels.values()), "copies": copies,
+            "kernels": kernels}
+
+
+def wrapper_counts(kernel_names: dict) -> dict:
+    """The profiled kernels of ``csrc/`` by the launch-count names of
+    ``kernels.KERNEL_NAMES`` (K3a folded into K1-bf16, which share their
+    kernels)."""
+    from craniofacialsd_vae_tpu_torch import kernels
+
+    out = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for name, count in kernel_names.items():
+        for base, wrapper in CUDA_KERNELS.items():
+            if re.search(rf"(^|[\s:]){base}\s*[<(]", name):
+                out[wrapper] += count
+        for base, (plain, capped) in ELL_KERNELS.items():
+            m = re.search(rf"(^|[\s:]){base}\s*<([^<>]*)>", name)
+            if m:
+                last = m.group(2).split(",")[-1].strip()
+                out[capped if last == "true" else plain] += count
+    return out
+
+
+def fold_f32out(counts: dict) -> dict:
+    out = dict(counts)
+    out["spiral_conv_bf16"] += out.pop("spiral_conv_f32out")
+    return out
+
+
+#: the graphs' replays on each path's counted run: kernel launches by
+#: launch-count name (what each replay's capture recorded, times its
+#: replays), by path
+PATH_REPLAYS: dict = {}
+
+
+def reset_counts() -> None:
+    """The wrappers' launch counts and the graphs' replay counts to 0."""
+    from craniofacialsd_vae_tpu_torch import graphs, kernels
+
+    kernels.launches.reset()
+    graphs.replayed.reset()
+
+
+def read_counts(torch, path: str) -> dict:
+    """After a synchronization: the wrappers' launch counts since
+    ``reset_counts``; the graphs' replayed launches go to
+    ``PATH_REPLAYS[path]``."""
+    from craniofacialsd_vae_tpu_torch import graphs, kernels
+
+    torch.cuda.synchronize()
+    PATH_REPLAYS[path] = graphs.replayed.snapshot()
+    return kernels.launches.snapshot()
+
+
+def graphs_of(svc=None, managers=()) -> list:
+    """The captured graphs (``graphs.Captured``) a service holds (its
+    buckets' and its manager's fits') and managers hold (their fits' and
+    scanned steps')."""
+    from craniofacialsd_vae_tpu_torch.analysis import fitting
+
+    out = []
+    if svc is not None:
+        out += [b.graph for b in svc._bucket_graphs.values()]
+        managers = (*managers, svc.manager)
+    for mgr in managers:
+        if mgr in fitting._FIT_RUNS:
+            out += [r.graph for r in fitting._FIT_RUNS[mgr].values()]
+        for fn in (getattr(mgr, "_scanned_step", None),
+                   getattr(mgr, "_scanned_epochs", None)):
+            if fn is not None:
+                out += [r.graph for r in fn.steps.runners.values()]
+    return [g for g in out if g is not None]
+
+
+def check_replays(torch, captured: list, path: str) -> dict:
+    """One replay of each graph under the profiler (outside the replay
+    counts): the kernels of ``csrc/`` it ran, by launch-count name, equal
+    to what its capture recorded, which each counted replay adds to
+    ``PATH_REPLAYS``. A replay of a train step's graph updates its
+    model: call this when the run is done with it."""
+    from craniofacialsd_vae_tpu_torch import kernels
+
+    check(captured, f"{path}: no graph to replay")
+    pad = torch.zeros(1, device=DEVICE)
+    per_replay = []
+    for g in captured:
+        def replay(g=g):
+            # late in a long process the trace can lose the first few
+            # device events of its window: let them be these
+            for _ in range(REPLAY_PREAMBLE_KERNELS):
+                pad.add_(1)
+            torch.cuda.synchronize()
+            g.cuda_graph.replay()
+
+        prof = profile_kernels(torch, replay)
+        got = fold_f32out(wrapper_counts(prof["kernels"]))
+        want = fold_f32out({**dict.fromkeys(kernels.KERNEL_NAMES, 0),
+                            **g.launches})
+        check(got == want, f"{path}: one replay ran the kernels {got}; "
+              f"its capture recorded {want}; profiled "
+              f"{ {k[:48]: v for k, v in prof['kernels'].items()} }")
+        per_replay.append(sum(got.values()))
+    log(f"[replays {path}] {len(captured)} graphs, one replay of each "
+        f"profiled: its kernels of csrc/ are its capture's ({per_replay} "
+        "of them)")
+    return {"graphs": len(captured), "csrc_kernels_per_replay": per_replay}
+
+
+def state_tensors(model, opt) -> list:
+    out = [p.detach() for p in model.parameters()]
+    for p in model.parameters():
+        out += [opt.state[p][k] for k in sorted(opt.state[p])]
+    return out
+
+
+def timed(torch, fn, reps: int) -> list:
+    """Host-clock ms of ``reps`` calls, each ended by a synchronization."""
+    ts = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        ts.append((time.perf_counter() - t0) * 1e3)
+    return ts
+
+
+def p50(ts: list) -> float:
+    return sorted(ts)[len(ts) // 2]
+
+
+def graph_step(torch, bundle, config, policy: str, smi: str) -> dict:
+    """GRAPH_STEPS eager train steps against as many replays of the step's
+    CUDA graph (``make_scanned_train_step``) from the same weights, scans
+    and draws: parameters, Adam states and metrics bit-equal; one
+    replay's kernels (profiled) equal to ``expected_step_launches``; the
+    eager and replayed step's p50, device time and idle share, the whole
+    scanned call's, and the peak memory of the graph's first call."""
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.training import (
+        LOSS_KEYS, LossWeights, coupled_adam, make_scanned_train_step,
+        make_train_step)
+
+    b = TRAIN_CONFIG["batch_size"]
+    grid = b * b
+    weights = LossWeights.from_config(TRAIN_CONFIG)
+    lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
+    geom = training_geometry(bundle).to(DEVICE)
+    data, _, _ = training_inputs(torch, bundle, config)
+    data_dev = torch.as_tensor(data, device=DEVICE)
+    rng = np.random.default_rng(SEED + 20)
+    idx = rng.integers(0, len(data), size=(GRAPH_STEPS, b))
+    gen_h = torch.Generator().manual_seed(SEED + 21)
+    sids = np.arange(1, GRAPH_STEPS + 1)
+    draws = {int(s): (int(torch.randint(0, N_REGIONS, (), generator=gen_h)),
+                      torch.randn((grid, config.latent_size),
+                                  generator=gen_h)) for s in sids}
+    idx_dev = torch.as_tensor(idx, device=DEVICE)
+    region_dev = torch.tensor([draws[int(s)][0] for s in sids],
+                              device=DEVICE)
+    eps_dev = torch.stack([draws[int(s)][1] for s in sids]).to(DEVICE)
+
+    def fresh():
+        model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
+        return model, coupled_adam(model.parameters(), lr, wd)
+
+    def eager_step(t):
+        return step(data_dev.index_select(0, idx_dev[t]),
+                    region_idx=region_dev[t], eps=eps_dev[t])
+
+    # eager: GRAPH_STEPS steps, each timed, their metrics summed
+    model_a, opt_a = fresh()
+    step = make_train_step(model_a, weights, opt_a, b)
+    sums = torch.zeros(len(LOSS_KEYS), device=DEVICE)
+    eager_ms = []
+    for t in range(GRAPH_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = eager_step(t)
+        torch.cuda.synchronize()
+        eager_ms.append((time.perf_counter() - t0) * 1e3)
+        sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+    want = {k: float(v) / GRAPH_STEPS for k, v in zip(LOSS_KEYS, sums.cpu())}
+
+    # replayed: one scanned call of GRAPH_STEPS steps (warm-up, capture,
+    # replays) from the same state
+    model_b, opt_b = fresh()
+    # later calls go on with step ids past GRAPH_STEPS: the same draws
+    epoch = make_scanned_train_step(
+        model_b, weights, opt_b, b,
+        draws=lambda s, rows: draws[(s - 1) % GRAPH_STEPS + 1])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    got = epoch(data_dev, idx, sids)
+    first_call_s = time.perf_counter() - t0
+    peak_mib = torch.cuda.max_memory_allocated() / 2 ** 20
+    check(got == want, f"{policy}: replayed metrics {got} vs eager {want}")
+    sa, sb = state_tensors(model_a, opt_a), state_tensors(model_b, opt_b)
+    check(len(sa) == len(sb), f"{policy}: state sizes differ")
+    for i, (x, y) in enumerate(zip(sa, sb)):
+        check(torch.equal(x, y), f"{policy}: state tensor {i} differs "
+              "between the eager and the replayed steps")
+    runner = epoch.steps.runners[("train", False)]
+    check(runner.graph is not None, f"{policy}: no graph was captured")
+
+    # one replay's kernels against the eager step's launch counts
+    prof_replay = profile_kernels(torch, runner.graph.replay)
+    expected = expected_step_launches(model_b, geom, grid)
+    replay_counts = wrapper_counts(prof_replay["kernels"])
+    check(fold_f32out(replay_counts) == fold_f32out(expected),
+          f"{policy}: one replay's kernels {replay_counts}, expected "
+          f"{expected}")
+    prof_eager = profile_kernels(torch, lambda: eager_step(0))
+    same_kernels = prof_eager["kernels"] == prof_replay["kernels"]
+
+    # times: the replay alone, the eager step, the scanned call per step
+    replay_ms = timed(torch, runner.graph.replay, GRAPH_STEPS)
+    t0 = time.perf_counter()
+    epoch(data_dev, idx, sids + GRAPH_STEPS)
+    call_ms = (time.perf_counter() - t0) * 1e3 / GRAPH_STEPS
+    prof_call = profile_kernels(torch, lambda: epoch(
+        data_dev, idx, sids + 2 * GRAPH_STEPS))
+    out = {"policy": policy, "steps": GRAPH_STEPS, "bit_equal": True,
+           "eager_p50_ms": p50(eager_ms), "eager_ms": eager_ms,
+           "replay_p50_ms": p50(replay_ms), "replay_ms": replay_ms,
+           "call_ms_per_step": call_ms, "first_call_s": first_call_s,
+           "meshes_per_s_eager": grid / p50(eager_ms) * 1e3,
+           "meshes_per_s_replay": grid / p50(replay_ms) * 1e3,
+           "meshes_per_s_call": grid / call_ms * 1e3,
+           "peak_mib": peak_mib, "replay_launches": replay_counts,
+           "eager_kernels_equal_replay": same_kernels}
+    for name, prof in (("eager", prof_eager), ("replay", prof_replay),
+                       ("call", prof_call)):
+        out[name + "_profile"] = {k: prof[k] for k in (
+            "wall_ms", "device_ms", "idle_share", "kernels_run", "copies")}
+    log(f"[8g graphs {policy}] {GRAPH_STEPS} replays bit-equal to "
+        f"{GRAPH_STEPS} eager steps (parameters, Adam, metrics); one "
+        f"replay's {prof_replay['kernels_run']} kernels match "
+        f"expected_step_launches (eager step's kernels the same by name: "
+        f"{same_kernels}); step p50 eager {out['eager_p50_ms']:.3f} ms, "
+        f"replay {out['replay_p50_ms']:.3f} ms, scanned call "
+        f"{call_ms:.3f} ms a step ({out['meshes_per_s_call']:.0f} "
+        f"meshes/s); device ms eager {prof_eager['device_ms']:.3f} (idle "
+        f"{prof_eager['idle_share']:.3f}), replay "
+        f"{prof_replay['device_ms']:.3f} (idle "
+        f"{prof_replay['idle_share']:.3f}), call of {GRAPH_STEPS} "
+        f"{prof_call['device_ms']:.3f} of {prof_call['wall_ms']:.2f} wall "
+        f"(idle {prof_call['idle_share']:.3f}); first call "
+        f"{first_call_s:.2f} s, peak {peak_mib:.0f} MiB; {smi}")
+    return out
+
+
+def baseline_step(torch, bundle, smi: str) -> dict:
+    """A plain PyTorch train step of ``benchmarks/baseline_torch.py``'s
+    ``BaselineNet`` form (``index_select`` and ``nn.Linear`` spiral
+    convs, ``torch.sparse.mm`` pools, its losses over a 16-mesh grid,
+    Adam), built here from the fixture hierarchy and the stand-in
+    Laplacian: the p50 of GRAPH_STEPS warm steps on the card."""
+    from craniofacialsd_vae_tpu_torch.geometry import standin_laplacian_coo
+
+    dev = DEVICE
+    nn, F = torch.nn, torch.nn.functional
+
+    def sparse(rows, cols, vals, shape):
+        idx = torch.as_tensor(np.stack([rows, cols]), dtype=torch.long)
+        return torch.sparse_coo_tensor(
+            idx, torch.as_tensor(vals, dtype=torch.float32),
+            tuple(shape)).coalesce().to(dev)
+
+    def pool(x, trans):
+        bsz = x.shape[0]
+        stacked = x.transpose(0, 1).reshape(trans.shape[1], -1)
+        out = torch.sparse.mm(trans, stacked)
+        return out.reshape(trans.shape[0], bsz, -1).transpose(1, 0)
+
+    class Conv(nn.Module):
+        def __init__(self, c_in, c_out, spiral):
+            super().__init__()
+            self.idx = torch.as_tensor(spiral, dtype=torch.long, device=dev)
+            self.layer = nn.Linear(c_in * self.idx.shape[1], c_out)
+
+        def forward(self, x):
+            g = torch.index_select(x, 1, self.idx.reshape(-1))
+            return self.layer(g.view(x.shape[0], self.idx.shape[0], -1))
+
+    spirals = bundle.spirals
+    downs = [sparse(d.rows, d.cols, d.vals, d.shape) for d in bundle.down]
+    ups = [sparse(u.rows, u.cols, u.vals, u.shape) for u in bundle.up]
+    rows, cols, vals = standin_laplacian_coo(spirals[0])
+    n = bundle.vertex_counts[0]
+    lap = sparse(rows, cols, vals, (n, n))
+    chans = (3, *MODEL_CONFIG["out_channels"])
+    latent = MODEL_CONFIG["latent_size"]
+    torch.manual_seed(SEED)
+    en = nn.ModuleList(Conv(chans[i], chans[i + 1], spirals[i])
+                       for i in range(4)).to(dev)
+    nv = downs[-1].shape[0]
+    mu_l = nn.Linear(nv * chans[-1], latent).to(dev)
+    lv_l = nn.Linear(nv * chans[-1], latent).to(dev)
+    dense = nn.Linear(latent, nv * chans[-1]).to(dev)
+    de_ch = [(chans[4], chans[4]), (chans[4], chans[3]),
+             (chans[3], chans[2]), (chans[2], chans[1])]
+    de = nn.ModuleList(Conv(ci, co, spirals[3 - j])
+                       for j, (ci, co) in enumerate(de_ch)).to(dev)
+    final = Conv(chans[1], chans[0], spirals[0]).to(dev)
+    params = [p for m in (en, mu_l, lv_l, dense, de, final)
+              for p in m.parameters()]
+    opt = torch.optim.Adam(params, lr=TRAIN_CONFIG["lr"])
+    grid = TRAIN_CONFIG["batch_size"] ** 2
+    bs = TRAIN_CONFIG["batch_size"]
+    x = torch.randn(grid, n, 3, device=dev)
+    lo, hi = BASELINE_REGION
+
+    def step():
+        opt.zero_grad()
+        h = x
+        for i, conv in enumerate(en):
+            h = pool(F.elu(conv(h)), downs[i])
+        h = h.reshape(h.shape[0], -1)
+        mu, logvar = mu_l(h), lv_l(h)
+        z = mu + torch.randn_like(mu) * torch.exp(0.5 * logvar)
+        h = dense(z).view(-1, nv, chans[-1])
+        for j, conv in enumerate(de):
+            h = F.elu(conv(pool(h, ups[3 - j])))
+        out = final(h)
+        recon = F.mse_loss(out, x)
+        kl = torch.mean(-0.5 * torch.sum(1 + logvar - mu ** 2
+                                         - logvar.exp(), dim=1))
+        lapl = (pool(out, lap).norm(dim=-1) / n).sum() / grid
+        zf = z[:, lo:hi].view(bs, bs, -1)
+        ze = torch.cat([z[:, :lo], z[:, hi:]], dim=1).view(bs, bs, -1)
+        iu = torch.triu_indices(bs, bs, 1, device=dev)
+        lg = ((zf[iu[0]] - zf[iu[1]]) ** 2).sum(-1).reshape(-1)
+        dg = ((zf[:, iu[0]] - zf[:, iu[1]]) ** 2).sum(-1).T.reshape(-1)
+        dr = ((ze[iu[0]] - ze[iu[1]]) ** 2).sum(-1).reshape(-1)
+        lr = ((ze[:, iu[0]] - ze[:, iu[1]]) ** 2).sum(-1).T.reshape(-1)
+        cons = (torch.clamp(lg - dg + 0.5, min=0).sum()
+                + torch.clamp(lr - dr + 0.5, min=0).sum()) \
+            / (bs ** 3 - bs ** 2)
+        loss = recon + 1e-4 * kl + 0.1 * lapl + 0.5 * cons
+        loss.backward()
+        opt.step()
+        return float(loss)
+
+    first = step()
+    check(np.isfinite(first), f"baseline step loss {first}")
+    ms = timed(torch, step, GRAPH_STEPS)
+    prof = profile_kernels(torch, step)
+    out = {"p50_ms": p50(ms), "ms": ms, "meshes_per_s": grid / p50(ms) * 1e3,
+           "device_ms": prof["device_ms"], "idle_share": prof["idle_share"],
+           "kernels_run": prof["kernels_run"]}
+    log(f"[8g baseline] plain PyTorch step of BaselineNet's form on the "
+        f"fixture hierarchy: p50 {out['p50_ms']:.3f} ms "
+        f"({out['meshes_per_s']:.0f} meshes/s), device "
+        f"{prof['device_ms']:.3f} ms in {prof['kernels_run']} kernels, idle "
+        f"{prof['idle_share']:.3f}; {smi}")
+    return out
+
+
+def phase_graphs(torch, bundle, config, smi: str) -> dict:
+    """Phase 8g: the step's CUDA graph against the eager step under the
+    float32 policy (``smoke.yaml``'s model) and the flagship's ``mixed``,
+    and the plain PyTorch baseline step, on the fixture hierarchy."""
+    t0 = time.perf_counter()
+    runs = {"fp32": graph_step(torch, bundle, config, "fp32", smi)}
+    torch.cuda.empty_cache()
+    runs["mixed"] = graph_step(torch, bundle, flagship_config(), "mixed",
+                               smi)
+    torch.cuda.empty_cache()
+    baseline = baseline_step(torch, bundle, smi)
+    torch.cuda.empty_cache()
+    line = {"phase": "graphs", "card": smi, "baseline": {
+        k: baseline[k] for k in ("p50_ms", "meshes_per_s", "device_ms",
+                                 "idle_share")}}
+    for policy, r in runs.items():
+        line[policy] = {k: r[k] for k in (
+            "eager_p50_ms", "replay_p50_ms", "call_ms_per_step",
+            "meshes_per_s_eager", "meshes_per_s_replay",
+            "meshes_per_s_call", "peak_mib", "first_call_s")}
+        for name in ("eager", "replay", "call"):
+            p = r[name + "_profile"]
+            line[policy][name + "_device_ms"] = p["device_ms"]
+            line[policy][name + "_idle_share"] = p["idle_share"]
+    line["seconds"] = time.perf_counter() - t0
+    log(json.dumps(line))
+    return dict(line=line, runs=runs, baseline=baseline)
 
 
 # ----------------------------------------------------------------------
@@ -2878,23 +3436,38 @@ def request_buckets(svc, n: int) -> list:
 
 
 def diagnosis_passes(svc) -> dict:
-    """The model passes of ``diagnosis_requests``, each ``{batch: times}``:
-    ``enc`` the encodes (every diagnose request, the one with posterior
-    draws, saliency, the plan's patient), ``dec`` the decodes (the fit's
-    restarts at every iteration and once after, its best restart, the
-    plan's four key meshes), ``enc_bwd`` the backward to the data
-    (saliency) and ``dec_bwd`` the backward to z (the fit, every
-    iteration)."""
+    """The model passes of ``diagnosis_requests`` that the wrappers see,
+    each ``{batch: times}``: ``enc`` the encodes, ``dec`` the decodes,
+    ``enc_bwd`` the backward to the data (saliency) and ``dec_bwd`` the
+    backward to z (the fit). The service's encode and decode run as one
+    CUDA graph per bucket and the fit's iteration as one graph, and a
+    replay launches the captured kernels without their wrappers: so a
+    bucket's program counts its warm-up passes and its capture at its
+    first request and nothing after, the fit its warm-up iterations and
+    its capture (then its final losses and its best restart, eagerly);
+    the posterior draws and saliency run eagerly, a pass a request."""
     from collections import Counter
 
+    from craniofacialsd_vae_tpu_torch.analysis.fitting import \
+        WARMUP_ITERATIONS
+    from craniofacialsd_vae_tpu_torch.serving import WARMUP_PASSES
+
+    graphed = 1 + WARMUP_PASSES
     enc = Counter()
-    for n in (*REQUEST_SIZES, 3, SALIENCY_BATCH, 1):
+    # diagnose at every request size, the plan's patient: graphed
+    for size in {b for n in (*REQUEST_SIZES, 1)
+                 for b in request_buckets(svc, n)}:
+        enc[size] += graphed
+    for n in (3, SALIENCY_BATCH):      # posterior draws, saliency: eager
         enc.update(request_buckets(svc, n))
-    dec = Counter({FIT_RESTARTS: FIT_ITERATIONS + 1})
-    dec.update([1, *request_buckets(svc, 4)])
+    fit_iters = WARMUP_ITERATIONS + 1
+    dec = Counter({FIT_RESTARTS: fit_iters + 1})
+    dec.update([1])                    # the fit's best restart
+    for size in set(request_buckets(svc, 4)):     # the plan's key meshes
+        dec[size] += graphed
     return {"enc": enc, "dec": dec,
             "enc_bwd": Counter(request_buckets(svc, SALIENCY_BATCH)),
-            "dec_bwd": Counter({FIT_RESTARTS: FIT_ITERATIONS})}
+            "dec_bwd": Counter({FIT_RESTARTS: fit_iters})}
 
 
 def pass_convs(kinds: list, part: str) -> list:
@@ -3044,7 +3617,110 @@ def compare_diagnoses(card: list, host: list, what: str, rtol
     return worst
 
 
-def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
+def eager_programs(svc) -> None:
+    """Make ``svc`` run its programs eagerly on the card (the reference
+    its bucket graphs are held against) until ``graphed_programs``."""
+    svc._run_program = lambda name, *arrays: svc._run_bucketed(
+        svc._programs[name], *arrays)
+
+
+def graphed_programs(svc) -> None:
+    svc.__dict__.pop("_run_program", None)
+
+
+def graphs_vs_eager(svc, scans: dict, scan, lnd, smi: str) -> dict:
+    """The service's graphs against its eager programs: every bucket of
+    encode, decode and reconstruct bit for bit, the fit (its best
+    restart, chamfer and z), the diagnose and reconstruct p50 and the
+    fit's seconds both ways, and the device memory the bucket graphs and
+    one fit's graph hold."""
+    from craniofacialsd_vae_tpu_torch.analysis import fitting
+
+    import torch
+
+    mgr = svc.manager
+    rng = np.random.default_rng(SEED + 30)
+    x_all = scans[REQUEST_SIZES[-1]]
+    # the rest of the buckets' graphs are captured here: the memory all of
+    # them hold (one pool) and the peak
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in svc.buckets:
+        x = x_all[np.arange(b) % len(x_all)]
+        z = rng.normal(size=(b, mgr.model_latent_size)).astype(np.float32)
+        outs = {}
+        for graphed in (True, False):
+            if not graphed:
+                eager_programs(svc)
+            outs[graphed] = [svc.encode(x), svc.decode(z),
+                             *svc.reconstruct(x).values()]
+            graphed_programs(svc)
+        for g, e in zip(outs[True], outs[False]):
+            check(np.array_equal(g, e), f"bucket {b}: a graph's answer "
+                  "differs from the eager program's")
+    torch.cuda.synchronize()
+    memory = {"graphs": len(svc._bucket_graphs),
+              "allocated_mib": torch.cuda.memory_allocated() / 2 ** 20,
+              "peak_mib": torch.cuda.max_memory_allocated() / 2 ** 20}
+    latency, fits, fit_s = {}, {}, {}
+    for graphed in (True, False):
+        if not graphed:
+            eager_programs(svc)
+        latency[graphed] = {"diagnose": diagnose_latency(svc, scans),
+                            "reconstruct": serve_latency(svc, scans)}
+        graphed_programs(svc)
+        if graphed:
+            # one fit's iteration from nothing: the memory its static
+            # tensors, Adam state and graph hold once the fit is done
+            fitting._FIT_RUNS.pop(mgr, None)
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            held = (torch.cuda.memory_allocated(),
+                    torch.cuda.memory_reserved())
+        t0 = time.perf_counter()
+        fits[graphed] = fitting._fit_latent(
+            mgr, svc.normalization, scan, lnd, svc.landmark_idx, 5e-3,
+            FIT_ITERATIONS, FIT_RESTARTS, SEED, None, graph=graphed)
+        fit_s[graphed] = time.perf_counter() - t0
+        if graphed:
+            torch.cuda.synchronize()
+            memory["fit_graph_allocated_mib"] = (
+                torch.cuda.memory_allocated() - held[0]) / 2 ** 20
+            memory["fit_graph_reserved_mib"] = (
+                torch.cuda.memory_reserved() - held[1]) / 2 ** 20
+            memory["fit_runs_per_manager"] = fitting.FIT_RUNS_PER_MANAGER
+    g, e = fits[True], fits[False]
+    check(g["best_restart"] == e["best_restart"]
+          and g["chamfer_mm2"] == e["chamfer_mm2"]
+          and np.array_equal(g["z"], e["z"]),
+          f"the graph fit (best {g['best_restart']}, chamfer "
+          f"{g['chamfer_mm2']!r}) differs from the eager fit (best "
+          f"{e['best_restart']}, chamfer {e['chamfer_mm2']!r})")
+    out = {"buckets_equal": list(svc.buckets), "memory": memory, "fit_s": {
+        "graph": fit_s[True], "eager": fit_s[False]},
+        "fit_best_restart": g["best_restart"],
+        "fit_chamfer_mm2": g["chamfer_mm2"]}
+    for kind in ("diagnose", "reconstruct"):
+        for graphed, way in ((True, "graph"), (False, "eager")):
+            out[f"{kind}_p50_ms_{way}"] = {
+                b: v["p50_ms"] for b, v in latency[graphed][kind].items()}
+    log(f"[9 graphs] every bucket's graph equals its eager program; the "
+        f"graph fit equals the eager fit (best {g['best_restart']}, "
+        f"chamfer {g['chamfer_mm2']:.6f} mm², z bit for bit); fit "
+        f"{fit_s[True]:.3f} s graph, {fit_s[False]:.3f} s eager; diagnose "
+        f"p50 ms graph {out['diagnose_p50_ms_graph']}, eager "
+        f"{out['diagnose_p50_ms_eager']}; reconstruct p50 ms graph "
+        f"{out['reconstruct_p50_ms_graph']}, eager "
+        f"{out['reconstruct_p50_ms_eager']}; {memory['graphs']} bucket "
+        f"graphs, {memory['allocated_mib']:.0f} MiB allocated (peak "
+        f"{memory['peak_mib']:.0f}); one fit's graph holds "
+        f"{memory['fit_graph_allocated_mib']:.1f} MiB allocated, "
+        f"{memory['fit_graph_reserved_mib']:.1f} MiB reserved (at most "
+        f"{fitting.FIT_RUNS_PER_MANAGER} cached a manager); {smi}")
+    return out
+
+
+def diagnosis_run(torch, mods, run_dir: str, policy: str, smi: str) -> dict:
     """One run dir served on the card (the counted path: every request
     once), its latencies, the fit's launches per iteration, every kernel
     of the path at its shapes there (``diagnosis_shapes``, whose launches
@@ -3063,7 +3739,7 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
 
     # the main path: counts from 0, the service built and every request
     # answered once; counts read
-    kernels.launches.reset()
+    reset_counts()
     t0 = time.perf_counter()
     svc = DiagnosisService.from_run_dir(run_dir, max_batch=BATCH,
                                         device=DEVICE)
@@ -3075,8 +3751,9 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
     scan, lnd = fit_scan(np.asarray(svc.manager.template.pos, np.float64),
                          lnd_idx)
     card = diagnosis_requests(svc, scans, scan, lnd, FIT_ITERATIONS)
-    torch.cuda.synchronize()
-    counts = kernels.launches.snapshot()
+    path = "diagnosis" if policy == "fp32" else "mixed_diagnosis"
+    counts = read_counts(torch, path)
+    replays = check_replays(torch, graphs_of(svc), path)
     fit = card["fit"]
     check(np.isfinite(fit["chamfer_mm2"]) and fit["chamfer_mm2"] >= 0,
           f"{policy} fit chamfer {fit['chamfer_mm2']}")
@@ -3085,7 +3762,9 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
     check(all(np.isfinite(r["vertex_saliency_nats_per_mm"]).all()
               for r in card["saliency"]), "saliency not finite")
 
-    # after the counted run: latencies, the fit's per-iteration cost
+    # after the counted run: the graphs against the eager programs,
+    # latencies, the fit's per-iteration cost
+    graphs = graphs_vs_eager(svc, scans, scan, lnd, smi)
     latency = diagnose_latency(svc, scans)
     short = {}
     for it in (FIT_PROFILE_ITERATIONS, 2 * FIT_PROFILE_ITERATIONS):
@@ -3099,8 +3778,9 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
     # shapes account for are the counted run's, kernel for kernel
     passes = diagnosis_passes(svc)
     shapes = diagnosis_shapes(torch, mods, svc, passes)
-    k8_per_fit = {"k8_fwd": FIT_ITERATIONS + 1,      # one a forward
-                  "k8_bwd": FIT_ITERATIONS}
+    fit_iters = passes["dec_bwd"][FIT_RESTARTS]     # warm-up, capture
+    k8_per_fit = {"k8_fwd": fit_iters + 1,            # one a forward
+                  "k8_bwd": fit_iters}
     want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
     want.update(k8_per_fit)
     for kernel, entries in shapes.items():
@@ -3125,7 +3805,8 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str) -> dict:
     mixed = policy == "mixed"
     rtol = None if mixed else DIAG_RTOL
     out = {"policy": policy, "load_s": load_s, "host_s": host_s,
-           "counts": counts, "latency": latency,
+           "counts": counts, "replayed": PATH_REPLAYS[path],
+           "replays_checked": replays, "latency": latency, "graphs": graphs,
            "fit": {"iterations": FIT_ITERATIONS, "restarts": FIT_RESTARTS,
                    "scan_points": FIT_SCAN_POINTS,
                    "landmarks": len(lnd_idx), "s": card["fit_s"],
@@ -3295,7 +3976,7 @@ def reference_pickles_check() -> dict:
     return {"sklearn_installed": installed, "max_rel_err": worst}
 
 
-def phase_diagnosis(torch, mods, runs: dict) -> dict:
+def phase_diagnosis(torch, mods, runs: dict, smi: str) -> dict:
     """Phase 9: phases 7's and 8's run dirs served on the card through
     ``DiagnosisService.from_run_dir`` (see the module docstring)."""
     t0 = time.perf_counter()
@@ -3309,7 +3990,7 @@ def phase_diagnosis(torch, mods, runs: dict) -> dict:
     torch.cuda.empty_cache()
     results, path_shapes = {}, {}
     for policy, run_dir in runs.items():
-        res = diagnosis_run(torch, mods, run_dir, policy)
+        res = diagnosis_run(torch, mods, run_dir, policy, smi)
         if policy == "fp32":
             res["out"]["http"] = http_once(res["svc"], res["scans"])
         results[policy] = res["out"]
@@ -3692,13 +4373,12 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
             "--device", DEVICE, "--epochs", "1"]
 
     # the main path: counts from 0, train.main from the raw dataset
-    kernels.launches.reset()
+    reset_counts()
     eigh.solves.reset()
     t0 = time.perf_counter()
     first = entry.main(argv)
     first_s = time.perf_counter() - t0
-    torch.cuda.synchronize()
-    counts = kernels.launches.snapshot()
+    counts = read_counts(torch, "augmentation")
     last = eigh.solves.last
     check(last is not None and last["solver"] == "cheby",
           f"the entry path's basis came from {last and last['solver']}")
@@ -3724,6 +4404,8 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
     check(epoch["steps"] == len(train_names) // grid
           and all(np.isfinite(v) for v in epoch["train"].values()),
           f"the epoch on the extended list: {epoch}")
+    replays = check_replays(torch, graphs_of(managers=[first["manager"]]),
+                            "augmentation")
     del first["manager"]
     torch.cuda.empty_cache()
 
@@ -3795,7 +4477,8 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
                       "epoch_train_s": epoch["train_s"],
                       "host_generation": host,
                       "rerun_launches": again["cheby_step"]},
-            "launches": counts,
+            "launches": counts, "replayed": PATH_REPLAYS["augmentation"],
+            "replays_checked": replays,
             "seconds": time.perf_counter() - t_start}
     log(json.dumps(line, default=float))
     return dict(line=line, record=record, k9=k9, solves=solves)
@@ -3880,7 +4563,7 @@ def main(argv=None) -> int:
     root = tempfile.mkdtemp(prefix="cfsdvae_entry_")
     try:
         entry = phase_train_entry(torch, mods, k1_ptxas(build_log),
-                                  k7["solo"], root)
+                                  k7["solo"], root, smi_line)
         records += entry["records"]
         log(f"[7 entry] done; total {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
@@ -3890,8 +4573,12 @@ def main(argv=None) -> int:
         records += mixed["records"]
         log(f"[8 mixed] done; total {time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
+        graphs = phase_graphs(torch, bundle, config, smi_line)
+        log(f"[8g graphs] done; total {time.perf_counter() - t_start:.1f} "
+            "s")
         diagnosis = phase_diagnosis(torch, mods, {
-            "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]})
+            "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]},
+            smi_line)
         records += diagnosis["records"]
         log(f"[9 diagnosis] done; total {time.perf_counter() - t_start:.1f} "
             "s")
@@ -3903,6 +4590,11 @@ def main(argv=None) -> int:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
           "the kernels' record does not list every kernel")
+    # launches: the wrappers' (warm-up and capture of a graph included);
+    # replayed: what the graphs' replays launched on the path, each
+    # graph's replay profiled against its capture (check_replays)
+    for rec in records:
+        rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
     log(f"[10 augmentation] done; total {time.perf_counter() - t_start:.1f} "
         "s")
     serve.pop("inputs")
@@ -3920,6 +4612,8 @@ def main(argv=None) -> int:
                        "mixed": {k: mixed[k] for k in (
                            "line", "shapes", "serving", "training",
                            "gather_first", "entry")},
+                       "graphs": {k: graphs[k] for k in (
+                           "line", "runs", "baseline")},
                        "diagnosis": {k: diagnosis[k] for k in (
                            "line", "shapes", "runs", "path_shapes")},
                        "augmentation": {k: augmentation[k] for k in (
@@ -3928,8 +4622,9 @@ def main(argv=None) -> int:
 
     print(json.dumps({"kernels": [
         {k: r[k] for k in ("name", "path", "route", "source", "replaces",
-                           "launches", "max_abs_err", "ms", "plain_ms",
-                           "bound_ms", "bound_by", "library_ms")}
+                           "launches", "replayed", "max_abs_err", "ms",
+                           "plain_ms", "bound_ms", "bound_by",
+                           "library_ms")}
         for r in records]}))
     print(smi_line)
     print(json.dumps({"ok": True, "device": {

@@ -9,24 +9,45 @@ every fourth point, the target padded to the next power of two with
 copies of its first point (the gen→target minimum is unchanged; the
 target→gen sum is masked and divided by the true count).
 
-JAX runs the iterations as one scanned dispatch. Here each iteration is
-a host loop step: decode the restarts, the landmark and chamfer losses,
-the decoder's backward to z (the model's weights frozen, so no weight
-gradient forms), and Adam on z. Nothing is compiled, so nothing stands
-in for JAX's per-manager cache of fit programs: the normalization stats
-move to the device per fit (three floats a vertex against the loop's
-iterations).
+JAX runs the iterations as one scanned dispatch, cached per manager and
+learning rate. Here one iteration (decode the restarts, the landmark and
+chamfer losses, the decoder's backward to z with the model's weights
+frozen, so that no weight gradient forms, and Adam on z) runs over
+static tensors: z, its Adam state, the target, its mask, the true target
+count ``q`` (a 0-d tensor, so that two scans of one padded size share
+the iteration without sharing a ``q``), the landmarks and the
+normalization. On the card it is captured once as a CUDA graph and
+replayed ``iterations`` times; the final losses run eagerly. The
+learning rate is a 0-d tensor on the card too (capturable Adam reads it
+there), so the iteration is cached per (manager, restarts, padded target
+size, landmarks, policy) alone, at most ``FIT_RUNS_PER_MANAGER`` of them
+(the least recently used goes, its graph's memory with it): a client
+that varies the request's learning rate, restarts or scan size does not
+grow the device memory without bound. Each fit copies its request into
+the static tensors and starts Adam from zero, so a cached iteration fits
+as a fresh one does.
 """
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
+
 import numpy as np
 import torch
 
+from ..graphs import capture
 from ..ops.distances import nearest_dists_sq_sym
 from .saliency import _norm_tensors, frozen
 
 __all__ = ["procrustes_align", "fit_latent"]
+
+#: iterations run on a side stream before the iteration's graph is
+#: captured (the first makes z's gradient and Adam's state)
+WARMUP_ITERATIONS = 2
+
+#: cached fit iterations (each on the card with its graph) per manager
+FIT_RUNS_PER_MANAGER = 4
 
 
 def procrustes_align(scan: np.ndarray, landmarks: np.ndarray,
@@ -69,6 +90,99 @@ def _losses(model, z, mean, std, lnd_idx, target_lnd, t_padded, t_mask, q):
     return lnd, ch
 
 
+class _FitRun:
+    """One fit iteration over static tensors (see the module docstring),
+    on the card captured as a CUDA graph at the first fit."""
+
+    def __init__(self, model, restarts: int, latent: int, q_pad: int,
+                 n_landmarks: int, n_vertices: int, device):
+        self.model = model
+        self.device = device
+        self.z = torch.zeros((restarts, latent), dtype=torch.float32,
+                             device=device, requires_grad=True)
+        card = device.type == "cuda"
+        # on the card the graph reads the learning rate from a tensor
+        lr = torch.zeros((), dtype=torch.float32, device=device) if card \
+            else 0.0
+        self.opt = torch.optim.Adam([self.z], lr=lr, capturable=card)
+
+        def static(*shape, dtype=torch.float32):
+            return torch.zeros(shape, dtype=dtype, device=device)
+
+        self.mean, self.std = static(n_vertices, 3), static(n_vertices, 3)
+        self.lnd_idx = static(n_landmarks, dtype=torch.long)
+        self.target_lnd = static(n_landmarks, 3)
+        self.t_padded, self.t_mask = static(q_pad, 3), static(q_pad)
+        self.q = static()
+        self.graph = None
+
+    def args(self) -> tuple:
+        return (self.mean, self.std, self.lnd_idx, self.target_lnd,
+                self.t_padded, self.t_mask, self.q)
+
+    def _iteration(self) -> None:
+        lnd_loss, ch = _losses(self.model, self.z, *self.args())
+        loss = torch.sum(10.0 * lnd_loss + ch)
+        self.opt.zero_grad(set_to_none=False)
+        loss.backward()
+        self.opt.step()
+
+    @torch.no_grad()
+    def _start(self, z0) -> None:
+        """z at its restarts, Adam at zero: a fresh optimizer's state."""
+        self.z.copy_(z0)
+        for st in self.opt.state.values():
+            for v in st.values():
+                v.zero_()
+
+    def run(self, z0, inputs: tuple, lr: float, iterations: int,
+            graph: bool = True) -> None:
+        """``iterations`` Adam steps of rate ``lr`` on z from ``z0`` for
+        the request's ``inputs`` (``args()``'s order); on the card by
+        replays of the graph (``graph=False``: the same iteration launched
+        eagerly, the reference the graph is held against)."""
+        with torch.no_grad():
+            for dst, src in zip(self.args(), inputs):
+                dst.copy_(src)
+            group = self.opt.param_groups[0]
+            if isinstance(group["lr"], torch.Tensor):
+                group["lr"].fill_(float(lr))
+            else:
+                group["lr"] = float(lr)
+        self._start(z0)
+        if graph and self.device.type == "cuda" and iterations:
+            if self.graph is None:
+                self.graph = capture(self._iteration, self.device,
+                                     WARMUP_ITERATIONS)
+                self._start(z0)
+            for _ in range(int(iterations)):
+                self.graph.replay()
+        else:
+            for _ in range(int(iterations)):
+                self._iteration()
+
+
+#: the fit iterations by manager (least recently used first), weakly
+#: keyed as the JAX package's programs are (a new manager at a recycled
+#: address gets its own)
+_FIT_RUNS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _fit_run(mgr, restarts: int, q_pad: int, n_landmarks: int) -> _FitRun:
+    key = (int(restarts), int(q_pad), int(n_landmarks),
+           mgr.net_config.compute_dtype)
+    runs = _FIT_RUNS.setdefault(mgr, OrderedDict())
+    if key in runs:
+        runs.move_to_end(key)
+    else:
+        while len(runs) >= FIT_RUNS_PER_MANAGER:
+            runs.popitem(last=False)
+        runs[key] = _FitRun(mgr.model, restarts, mgr.model_latent_size,
+                            q_pad, n_landmarks, mgr.template.num_vertices,
+                            mgr.device)
+    return runs[key]
+
+
 def fit_latent(manager, norm: dict | None, scan: np.ndarray,
                landmarks: np.ndarray, landmarks_idx, *, lr: float = 5e-3,
                iterations: int = 250, n_restarts: int = 16, seed: int = 0,
@@ -77,9 +191,18 @@ def fit_latent(manager, norm: dict | None, scan: np.ndarray,
     landmarks ``[K, 3]``, which correspond to ``landmarks_idx`` on the
     template. ``z0``: ``n_restarts - 1`` standard normal draws from
     ``numpy.random.default_rng(seed)`` (the JAX package's draws) and the
-    anchor (zeros, the prior mean, unless ``z_anchor``). Returns ``{z,
-    vertices (raw scan space), chamfer_mm2, landmark_mse_mm2,
-    aligned_scan}``."""
+    anchor (zeros, the prior mean, unless ``z_anchor``). On the card the
+    iterations replay one CUDA graph. Returns ``{z, vertices (raw scan
+    space), chamfer_mm2, landmark_mse_mm2, aligned_scan, best_restart}``.
+    """
+    return _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
+                       iterations, n_restarts, seed, z_anchor, graph=True)
+
+
+def _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
+                iterations, n_restarts, seed, z_anchor, graph: bool) -> dict:
+    """``fit_latent``; ``graph=False`` launches the iterations eagerly on
+    the card too (the reference its graph is held against)."""
     mgr = manager
     dev = mgr.device
     landmarks_idx = list(landmarks_idx)
@@ -96,32 +219,28 @@ def fit_latent(manager, norm: dict | None, scan: np.ndarray,
     t_sub = np.asarray(aligned, np.float32)[::4]
     q = len(t_sub)
     q_pad = 1 << (q - 1).bit_length()
-    t_padded = torch.as_tensor(np.concatenate(
-        [t_sub, np.broadcast_to(t_sub[:1], (q_pad - q, 3))]), device=dev)
-    t_mask = torch.as_tensor((np.arange(q_pad) < q).astype(np.float32),
-                             device=dev)
-    target_lnd = torch.as_tensor(np.asarray(aligned_lnd, np.float32),
-                                 device=dev)
-    lnd_idx = torch.as_tensor(landmarks_idx, dtype=torch.long, device=dev)
-
+    t_padded = np.concatenate(
+        [t_sub, np.broadcast_to(t_sub[:1], (q_pad - q, 3))])
+    t_mask = (np.arange(q_pad) < q).astype(np.float32)
     mean, std = _norm_tensors(norm, dev)
+    n = mgr.template.num_vertices
+    inputs = (mean.expand(n, 3), std.expand(n, 3),
+              torch.as_tensor(landmarks_idx, dtype=torch.long),
+              torch.as_tensor(np.asarray(aligned_lnd, np.float32)),
+              torch.as_tensor(t_padded), torch.as_tensor(t_mask),
+              torch.tensor(float(q)))
+
     model = mgr.model
-    args = (mean, std, lnd_idx, target_lnd, t_padded, t_mask, float(q))
-    z = torch.tensor(z0, device=dev, requires_grad=True)
-    opt = torch.optim.Adam([z], lr=float(lr))
+    run = _fit_run(mgr, n_restarts, q_pad, len(landmarks_idx))
     with frozen(model):
-        for _ in range(int(iterations)):
-            lnd_loss, ch = _losses(model, z, *args)
-            loss = torch.sum(10.0 * lnd_loss + ch)
-            opt.zero_grad(set_to_none=True)
-            loss.backward()
-            opt.step()
+        run.run(torch.as_tensor(z0), inputs, lr, iterations, graph)
         with torch.no_grad():
-            lnd_loss, ch = _losses(model, z, *args)
+            z = run.z.detach()
+            lnd_loss, ch = _losses(model, z, *run.args())
             lnd_loss, ch = lnd_loss.cpu().numpy(), ch.cpu().numpy()
             errors = 10.0 * lnd_loss + ch
             best = int(np.argmin(errors))
-            z_best = z.detach()[best]
+            z_best = z[best].clone()
             gen = model.decode(z_best[None]).transpose(0, 1)[0]
             gen = (gen * std + mean) if norm is not None else gen
     # squared distances scale with the squared linear→mm constant

@@ -89,9 +89,9 @@ class LaunchCounts:
         with self._lock:
             self.counts = dict.fromkeys(KERNEL_NAMES, 0)
 
-    def add(self, name: str) -> None:
+    def add(self, name: str, n: int = 1) -> None:
         with self._lock:
-            self.counts[name] += 1
+            self.counts[name] += n
 
     def snapshot(self) -> dict:
         with self._lock:

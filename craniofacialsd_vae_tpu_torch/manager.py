@@ -14,13 +14,22 @@ the host from a generator seeded by the manager's seed and the step's
 number (``_step_draws``), so the same step draws the same on every
 device and after a resume.
 
+``run_epoch`` hands a train epoch over an iterator with an
+``epoch_plan`` (``drop_last``, the manager's batch size) to the scanned
+epoch, as the JAX manager does: one ``make_scanned_train_step`` call,
+which on the card replays the step's CUDA graph. ``run_epochs_scanned``
+runs several epochs with their validation in one
+``make_scanned_train_epochs`` call (``can_scan_epochs`` says when), and
+the metrics are read once a call. The draws of a call's steps are made
+ahead on the host and uploaded once, so that a replay equals the eager
+step bit for bit.
+
 After training, the classifier zoo (``analysis/classifiers.py``) is
 fitted on the encoded train latents (``train_and_validate_classifiers``),
 saved beside the checkpoints as ``classifiers.npz`` and restored by
 ``resume`` (or read from a reference run's sklearn pickles).
 
-Not ported here: the scanned epochs (``can_scan_epochs`` is False,
-ROADMAP 1.5) and data parallelism (1.11).
+Not ported here: data parallelism (ROADMAP queue 1.4).
 """
 
 from __future__ import annotations
@@ -35,8 +44,9 @@ from .device import resolve_device
 from .geometry import load_or_compute_geometry, load_template
 from .models import (SDVAEConfig, SpiralGeometry, init_mlp, init_sdvae,
                      latent_regions, mlp_to_jax, params_to_jax)
-from .training import (LOSS_KEYS, LossWeights, coupled_adam, make_eval_step,
-                       make_train_step)
+from .training import (LOSS_KEYS, LossWeights, assemble_epoch_plans,
+                       coupled_adam, make_eval_step, make_scanned_train_epochs,
+                       make_scanned_train_step, make_train_step)
 from .training.checkpoint import (MODEL_RE, adam_from_optax, adam_to_optax,
                                   latest_checkpoint, named_from_tree,
                                   read_checkpoint, save_checkpoint)
@@ -131,6 +141,8 @@ class ModelManager:
         self._eval_step = make_eval_step(
             self.model, self.loss_weights, self.batch_size,
             swap=self.swap_features, head=self.head)
+        self._scanned_step = None       # built at the first scanned epoch
+        self._scanned_epochs = None
 
         names = self.template.region_names
         self._latent_regions = latent_regions(
@@ -267,19 +279,30 @@ class ModelManager:
     # epochs
     def _step_draws(self, step_id: int, rows: int):
         """Step ``step_id``'s swapped region (an int) and noise ``eps
-        [rows, Z]`` (on the manager's device), drawn on the host from a
-        generator seeded by (seed, step id)."""
+        [rows, Z]`` (on the host), drawn from a generator seeded by (seed,
+        step id)."""
         seq = np.random.SeedSequence([self._seed + 1, step_id])
         g = torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
         n_regions = self.geometry.region_masks.shape[0] \
             if self.geometry.region_masks is not None else 1
         region = int(torch.randint(0, n_regions, (), generator=g))
         eps = torch.randn((rows, self.net_config.latent_size), generator=g)
-        return region, eps.to(self.device)
+        return region, eps
+
+    def _draws(self, step_id: int, rows: int):
+        # through the attribute, so that a replaced _step_draws is used
+        return self._step_draws(step_id, rows)
 
     def run_epoch(self, batch_iter, train: bool = True) -> dict:
         """One pass over the iterator, the losses averaged over its steps.
-        The metrics are summed on the device and read once, at the end."""
+        The metrics are summed on the device and read once, at the end. A
+        train epoch over an iterator with an ``epoch_plan`` (``drop_last``,
+        the manager's batch size) runs scanned (``_run_epoch_scanned``)."""
+        if train and hasattr(batch_iter, "epoch_plan") \
+                and getattr(batch_iter, "drop_last", False) \
+                and getattr(batch_iter, "batch_size", None) \
+                == self.batch_size:
+            return self._run_epoch_scanned(batch_iter)
         totals, count = None, 0
         for batch in batch_iter:
             x = batch["x"]
@@ -296,8 +319,8 @@ class ModelManager:
             x = self._batch(x)
             if train:
                 metrics = self._train_step(
-                    x, region_idx=region, eps=eps, labels=labels,
-                    class_weights=self._class_weights)
+                    x, region_idx=region, eps=eps.to(self.device),
+                    labels=labels, class_weights=self._class_weights)
             else:
                 metrics = self._eval_step(
                     x, region_idx=region, labels=labels,
@@ -313,10 +336,59 @@ class ModelManager:
                             for i, k in enumerate(LOSS_KEYS)}
         return self._losses
 
-    def can_scan_epochs(self, train_iter=None, val_iter=None) -> bool:
-        """The scanned-epoch path (one graph per chunk of epochs) is not
-        ported yet (ROADMAP 1.5)."""
-        return False
+    def can_scan_epochs(self, train_iter, val_iter) -> bool:
+        """Can ``run_epochs_scanned`` take these iterators? Both with an
+        ``epoch_plan``, ``drop_last``, the manager's batch size and at
+        least one batch (the JAX manager's conditions)."""
+        b = self.batch_size
+        return (hasattr(train_iter, "epoch_plan")
+                and hasattr(val_iter, "epoch_plan")
+                and getattr(train_iter, "drop_last", False)
+                and getattr(val_iter, "drop_last", False)
+                and getattr(train_iter, "batch_size", None) == b
+                and getattr(val_iter, "batch_size", None) == b
+                and len(train_iter) > 0 and len(val_iter) > 0)
+
+    def _scanned(self, name: str, make):
+        fn = getattr(self, name)
+        if fn is None:
+            fn = make(self.model, self.loss_weights, self.optimizer,
+                      self.batch_size, swap=self.swap_features,
+                      head=self.head, head_optimizer=self.head_optimizer,
+                      draws=self._draws)
+            setattr(self, name, fn)
+        return fn
+
+    def run_epochs_scanned(self, train_iter, val_iter, n_epochs: int):
+        """``n_epochs`` epochs of train steps, each followed by its
+        validation steps, in one ``make_scanned_train_epochs`` call;
+        returns (per-epoch train losses, per-epoch validation losses) as
+        lists of dicts. The step ids, and so the draws, are those of as
+        many ``run_epoch(train)``/``run_epoch(val)`` pairs; after the call
+        ``_losses`` holds the last validation averages, as after such a
+        pair."""
+        args, self._step_counter = assemble_epoch_plans(
+            train_iter, val_iter, n_epochs, self._step_counter,
+            with_labels=self._mlp_end2end)
+        epochs = self._scanned("_scanned_epochs", make_scanned_train_epochs)
+        tr_list, va_list = epochs(*args, class_weights=self._class_weights)
+        self._losses = va_list[-1]
+        return tr_list, va_list
+
+    def _run_epoch_scanned(self, batch_iter) -> dict:
+        """A train epoch in one ``make_scanned_train_step`` call, with the
+        per-step path's step ids."""
+        x, idx, labels = batch_iter.epoch_plan()
+        steps = idx.shape[0]
+        if steps == 0:
+            self._losses = {k: 0.0 for k in LOSS_KEYS}
+            return self._losses
+        epoch = self._scanned("_scanned_step", make_scanned_train_step)
+        step_ids = self._step_counter + 1 + np.arange(steps)
+        self._step_counter += steps
+        lab = labels if self._mlp_end2end else None
+        self._losses = epoch(x, idx, step_ids, lab, self._class_weights)
+        return self._losses
 
     def log_losses(self, writer, epoch: int, phase: str = "train"):
         for k, v in (self._losses or {}).items():
@@ -487,6 +559,9 @@ class ModelManager:
         loaded. The zoo comes from ``classifiers.npz``, or from a
         reference run's ``lda/qda_classifier.pkl``; with neither,
         ``classifiers`` is an empty zoo."""
+        # the scanned steps' graphs hold the optimizer states, which a
+        # resume replaces
+        self._scanned_step = self._scanned_epochs = None
         model_path = latest_checkpoint(checkpoint_dir)
         if model_path is None:
             self._resume_classifiers(checkpoint_dir)

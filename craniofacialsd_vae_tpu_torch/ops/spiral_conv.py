@@ -601,6 +601,14 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     return kernels.spiral_conv_dw(x, table, dy, tiles=tiles)
 
 
+def _positions(w_l: torch.Tensor, cols: tuple) -> torch.Tensor:
+    """``w_l[list(cols)]``: a slice where the positions run consecutively,
+    else a stack of views."""
+    if list(cols) == list(range(cols[0], cols[0] + len(cols))):
+        return w_l[cols[0]:cols[0] + len(cols)]
+    return torch.stack([w_l[i] for i in cols])
+
+
 class _SpiralConv(torch.autograd.Function):
     """``out = b + Σ_l x[S[:, l]] @ W_l`` with the JAX ``_score_bwd``
     backward (see the module docstring), in x's dtype."""
@@ -626,7 +634,9 @@ class _SpiralConv(torch.autograd.Function):
             m, bsz, c_out = dy.shape
             d2 = dy.reshape(m * bsz, c_out)
             for table, cols in zip(op.inv_tables, op.group_cols):
-                w_g = w_l[list(cols)].transpose(1, 2)
+                # the group's W_l as device ops (a list index would upload
+                # its indices from the host, which a graph capture forbids)
+                w_g = _positions(w_l, cols).transpose(1, 2)
                 dg = torch.bmm(d2.expand(len(cols), -1, -1), w_g)
                 part = table.apply(dg.view(len(cols) * m, bsz, -1))
                 dx = part if dx is None else dx + part

@@ -26,8 +26,16 @@ cache), with no training dataset, and answers:
 
 ``DiagnosisService.from_bundle`` serves ``encode``/``decode``/
 ``reconstruct`` from a geometry bundle and weights, with no run dir and no
-zoo. The HTTP entry point is ``serve.py``. Data-parallel serving and
-ensembles are not ported yet (ROADMAP 1.11, 1.12).
+zoo. The HTTP entry point is ``serve.py``.
+
+On the card each of the three programs runs as one CUDA graph per bucket
+(``graphs.py``), as the JAX package compiles one program per bucket:
+captured at a bucket's first request or in ``warmup``, all in one graph
+memory pool. A request is copied into the bucket's pinned host buffer,
+then to its static device input without blocking, and the answers come
+back through pinned buffers. Saliency and posterior sampling run
+eagerly. Data-parallel serving and ensembles are not ported yet
+(ROADMAP queues 1.4, 1.5).
 """
 
 from __future__ import annotations
@@ -41,6 +49,7 @@ import numpy as np
 import torch
 
 from .device import resolve_device
+from .graphs import capture
 from .models import SDVAE, SDVAEConfig, SpiralGeometry
 
 __all__ = ["load_normalization", "run_normalization", "classes_from_split",
@@ -126,6 +135,47 @@ def build_raw_programs(model: SDVAE, normalization: dict | None,
             "decode": _decode_raw}
 
 
+#: calls of a program on a side stream before its bucket's graph is
+#: captured
+WARMUP_PASSES = 1
+
+
+class _BucketGraph:
+    """One program at one bucket size on the card: pinned host buffers of
+    the bucket's inputs and outputs, the static device inputs and the
+    CUDA graph whose outputs the replays overwrite."""
+
+    def __init__(self, fn, shapes: list, device, pool):
+        self.dev_in = [torch.zeros(s, dtype=torch.float32, device=device)
+                       for s in shapes]
+        self.host_in = [torch.empty(s, dtype=torch.float32).pin_memory()
+                        for s in shapes]
+
+        def call():
+            with torch.inference_mode():
+                out = fn(*self.dev_in)
+            self.dev_out = out if isinstance(out, tuple) else (out,)
+
+        self.graph = capture(call, device, WARMUP_PASSES, pool)
+        self.host_out = [torch.empty(t.shape, dtype=t.dtype).pin_memory()
+                         for t in self.dev_out]
+        self.stream = torch.cuda.current_stream(device)
+
+    def run(self, chunks: list, n: int) -> tuple:
+        """The program on ``chunks`` (``n`` rows each, padded to the
+        bucket by repeating the first row); numpy answers of ``n`` rows."""
+        for host, dev, chunk in zip(self.host_in, self.dev_in, chunks):
+            h = host.numpy()
+            h[:n] = chunk
+            h[n:] = chunk[:1]
+            dev.copy_(host, non_blocking=True)
+        self.graph.replay()
+        for host, dev in zip(self.host_out, self.dev_out):
+            host.copy_(dev, non_blocking=True)
+        self.stream.synchronize()
+        return tuple(h.numpy()[:n].copy() for h in self.host_out)
+
+
 class BundleModel:
     """What ``DiagnosisService`` reads of a ``ModelManager``, over a
     geometry bundle and weights alone: the model, its device and the mm
@@ -188,6 +238,9 @@ class DiagnosisService:
         self.n_meshes = 0
         self._programs = build_raw_programs(self.model, normalization,
                                             manager.to_mm_const)
+        # on the card: the programs' graphs by (program, bucket), one pool
+        self._bucket_graphs: dict = {}
+        self._graph_pool = None
         self._saliency_fn = None            # built at the first request
         self._uncertainty: dict = {}        # programs by sample count
 
@@ -253,32 +306,62 @@ class DiagnosisService:
                 return size
         return self.max_batch
 
+    def _chunked(self, run, arrays: tuple):
+        """``run(chunks, n)`` on each max_batch chunk of arrays of B rows
+        (``n`` rows each); its numpy outputs concatenated back to B."""
+        b = arrays[0].shape[0]
+        outs = []
+        for lo in range(0, b, self.max_batch):
+            chunks = [a[lo:lo + self.max_batch] for a in arrays]
+            outs.append(run(chunks, chunks[0].shape[0]))
+        merged = tuple(np.concatenate(parts, axis=0)
+                       for parts in zip(*outs))
+        return merged if len(merged) > 1 else merged[0]
+
     def _run_bucketed(self, fn, *arrays: np.ndarray, grad: bool = False):
         """Run arrays of B rows each ([B, ...]) through ``fn`` (one tensor
         on the device per array in, tensors out) at bucket-padded shapes,
         chunking batches above max_batch; returns numpy outputs trimmed to
         B. ``grad`` keeps autograd available (saliency)."""
-        b = arrays[0].shape[0]
-        outs = []
+        def run(chunks, n):
+            size = self._bucket(n)
+            padded = []
+            for chunk in chunks:
+                if size != n:            # pad by repeating the first row
+                    pad = np.broadcast_to(
+                        chunk[:1], (size - n,) + chunk.shape[1:])
+                    chunk = np.concatenate([chunk, pad], axis=0)
+                padded.append(torch.as_tensor(chunk, device=self.device))
+            res = fn(*padded)
+            res = res if isinstance(res, tuple) else (res,)
+            return tuple(r[:n].detach().cpu().numpy() for r in res)
+
         with torch.inference_mode(not grad):
-            for lo in range(0, b, self.max_batch):
-                chunks = []
-                for a in arrays:
-                    chunk = a[lo:lo + self.max_batch]
-                    n = chunk.shape[0]
-                    size = self._bucket(n)
-                    if size != n:        # pad by repeating the first row
-                        pad = np.broadcast_to(
-                            chunk[:1], (size - n,) + chunk.shape[1:])
-                        chunk = np.concatenate([chunk, pad], axis=0)
-                    chunks.append(torch.as_tensor(chunk, device=self.device))
-                res = fn(*chunks)
-                res = res if isinstance(res, tuple) else (res,)
-                outs.append(tuple(r[:n].detach().cpu().numpy()
-                                  for r in res))
-        merged = tuple(np.concatenate(parts, axis=0)
-                       for parts in zip(*outs))
-        return merged if len(merged) > 1 else merged[0]
+            return self._chunked(run, arrays)
+
+    def _bucket_graph(self, name: str, size: int) -> _BucketGraph:
+        """The graph of program ``name`` at bucket ``size``, captured at
+        its first use. The caller holds the lock."""
+        key = (name, size)
+        if key not in self._bucket_graphs:
+            if self._graph_pool is None:
+                self._graph_pool = torch.cuda.graph_pool_handle()
+            n = self.model.geom.num_vertices
+            row = (self.manager.model_latent_size,) if name == "decode" \
+                else (n, 3)
+            self._bucket_graphs[key] = _BucketGraph(
+                self._programs[name], [(size, *row)], self.device,
+                self._graph_pool)
+        return self._bucket_graphs[key]
+
+    def _run_program(self, name: str, *arrays: np.ndarray):
+        """One of ``build_raw_programs``' programs on arrays of B rows: on
+        the card through the buckets' graphs (each chunk padded to its
+        bucket), else as ``_run_bucketed`` runs it."""
+        if self.device.type != "cuda":
+            return self._run_bucketed(self._programs[name], *arrays)
+        return self._chunked(lambda chunks, n: self._bucket_graph(
+            name, self._bucket(n)).run(chunks, n), arrays)
 
     def _observe(self, b: int, t0: float):
         self.n_requests += 1
@@ -319,17 +402,18 @@ class DiagnosisService:
 
     # ------------------------------------------------------------------
     def warmup(self):
-        """Run every bucket of encode, reconstruct and decode once, so
-        the first request meets a warm allocator and built kernels."""
+        """Run every bucket of encode, reconstruct and decode once (on the
+        card: capture its graph), so the first request meets built
+        kernels and a warm allocator."""
         n = self.model.geom.num_vertices
         nz = self.manager.model_latent_size
         with self._lock:
             for size in self.buckets:
                 x = np.zeros((size, n, 3), np.float32)
                 z = np.zeros((size, nz), np.float32)
-                self._run_bucketed(self._programs["encode"], x)
-                self._run_bucketed(self._programs["reconstruct"], x)
-                self._run_bucketed(self._programs["decode"], z)
+                self._run_program("encode", x)
+                self._run_program("reconstruct", x)
+                self._run_program("decode", z)
 
     def warmup_fit(self, scan_points: int = 8192 * 4,
                    iterations: int = 250, n_restarts: int = 16):
@@ -356,7 +440,7 @@ class DiagnosisService:
         t0 = time.perf_counter()
         x, single = self._as_batch(vertices)
         with self._lock:
-            mu = self._run_bucketed(self._programs["encode"], x)
+            mu = self._run_program("encode", x)
             self._observe(x.shape[0], t0)
         return mu[0] if single else mu
 
@@ -373,7 +457,7 @@ class DiagnosisService:
         if z.shape[0] == 0:
             raise ValueError("empty batch (B=0)")
         with self._lock:
-            out = self._run_bucketed(self._programs["decode"], z)
+            out = self._run_program("decode", z)
             self._observe(z.shape[0], t0)
         return out[0] if single else out
 
@@ -383,8 +467,7 @@ class DiagnosisService:
         t0 = time.perf_counter()
         x, single = self._as_batch(vertices)
         with self._lock:
-            recon, err, mu = self._run_bucketed(
-                self._programs["reconstruct"], x)
+            recon, err, mu = self._run_program("reconstruct", x)
             self._observe(x.shape[0], t0)
         out = {"vertices": recon, "vertex_errors_mm": err,
                "mean_error_mm": err.mean(axis=1), "latent": mu}
@@ -587,7 +670,7 @@ class DiagnosisService:
             # counted once, at the end, as one request
             with self._lock:
                 z_p = np.asarray(
-                    self._run_bucketed(self._programs["encode"], x)[0],
+                    self._run_program("encode", x)[0],
                     np.float32)
         else:
             z_p = np.asarray(latent, np.float32).reshape(-1)
@@ -617,7 +700,7 @@ class DiagnosisService:
             keys = ["z_3std", "z_2std", "z_1std", "z_mean_target"]
             zs = np.stack([np.asarray(out[k], np.float32) for k in keys])
             with self._lock:
-                meshes = self._run_bucketed(self._programs["decode"], zs)
+                meshes = self._run_program("decode", zs)
             out["target_meshes"] = {k[2:]: meshes[i]
                                     for i, k in enumerate(keys)}
         with self._lock:

@@ -1,7 +1,8 @@
 """Training entry point (counterpart of the JAX package's ``train.py``)::
 
     python -m craniofacialsd_vae_tpu_torch.train --config=CONFIG --id=RUN \\
-        [--output_path=.] [--resume] [--epochs=N] [--device=cuda|cpu]
+        [--output_path=.] [--resume] [--epochs=N] [--device=cuda|cpu] \\
+        [--profile]
 
 Builds ``outputs/<id>/{config.yaml, checkpoints/, logs/}``, trains the
 SD-VAE on the card (``--device cpu`` runs the plain PyTorch versions on
@@ -13,18 +14,32 @@ layout. On a raw dataset whose config asks for augmentation it first
 generates ``<dataset>/augmented`` (the spectral modes' Laplacian basis
 solved on the card and cached in the dataset directory). The training
 split stays on the device (``DeviceBatchIterator``).
+
+The epochs run in chunks of the gcd of the two cadences, each chunk one
+``ModelManager.run_epochs_scanned`` call (train and validation steps
+replayed from their CUDA graphs on the card; eager on the host), with
+chunk boundaries at absolute multiples of the chunk, so the scalars,
+renders and checkpoints land on the epochs of the per-epoch loop. A
+chunk's ``perf/meshes_per_sec`` counts its train meshes over its wall
+time, validation included, and its epochs each take an equal share of
+that time (``train_s`` and ``epoch_s`` in the returned history; the
+per-epoch loop's ``train_s`` is its train epoch alone). ``--profile``
+writes a ``torch.profiler`` Chrome trace of the second epoch (the first
+when only one runs) to ``outputs/<id>/profile/trace.json`` and runs the
+per-epoch loop, whose train epoch is one scanned epoch (one replayed
+graph on the card).
 After the last save it fits the classifier zoo on the train latents at
 the config's batch size (``checkpoints/classifiers.npz``) and writes the
 latent statistics (``z_stats.npz``).
 
-Not ported yet: data parallelism and multihost (ROADMAP queue 1.4), the
-profiler capture, the scanned epochs (1.1) and the Tester's latent
-traversals (1.2).
+Not ported yet: data parallelism and multihost (ROADMAP queue 1.4) and
+the Tester's latent traversals (1.2).
 """
 
 from __future__ import annotations
 
 import argparse
+import math
 import os
 import time
 
@@ -43,6 +58,9 @@ def main(argv=None) -> dict:
                         help="override optimization.epochs")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card)")
+    parser.add_argument("--profile", action="store_true",
+                        help="write a torch.profiler trace of epoch 2 "
+                             "into outputs/<id>/profile")
     args = parser.parse_args(argv)
 
     from .analysis.tester import compute_latent_stats
@@ -97,20 +115,19 @@ def main(argv=None) -> dict:
         else batch_size
     t0 = time.time()
     history = []
-    for epoch in range(start_epoch, epochs):
-        te = time.perf_counter()
-        train_losses = dict(manager.run_epoch(train_iter, train=True))
-        train_s = time.perf_counter() - te
-        writer.add_scalar("perf/meshes_per_sec",
-                          len(train_iter) * grid / max(train_s, 1e-9),
-                          epoch + 1)
-        manager.log_losses(writer, epoch, "train")
-        val_losses = dict(manager.run_epoch(val_iter, train=False))
-        manager.log_losses(writer, epoch, "validation")
-        history.append({"epoch": epoch + 1, "train": train_losses,
-                        "validation": val_losses, "train_s": train_s,
-                        "steps": len(train_iter)})
+    print_cad = max(epochs // 10, 1)
 
+    def log_epoch(epoch, train_losses, val_losses, train_s, epoch_s):
+        for k, v in train_losses.items():
+            writer.add_scalar(f"train/{k}", v, epoch + 1)
+        for k, v in val_losses.items():
+            writer.add_scalar(f"validation/{k}", v, epoch + 1)
+        history.append({"epoch": epoch + 1, "train": dict(train_losses),
+                        "validation": dict(val_losses), "train_s": train_s,
+                        "epoch_s": epoch_s, "steps": len(train_iter)})
+
+    def cadence(epoch):
+        """The renders and checkpoint due after ``epoch`` (0-based)."""
         if (epoch + 1) % log_freq["tb_renderings"] == 0:
             manager.log_images(vis_batch, writer, epoch, normalization,
                                "train", error_max_scale=2)
@@ -120,7 +137,55 @@ def main(argv=None) -> dict:
                                    error_max_scale=2)
         if (epoch + 1) % log_freq["save_weights"] == 0:
             manager.save_weights(checkpoint_dir, epoch)
-        if (epoch + 1) % max(epochs // 10, 1) == 0:
+
+    use_chunks = (not args.profile
+                  and manager.can_scan_epochs(train_iter, val_iter))
+    if use_chunks:
+        # one chunk size, so one pair of graphs; boundaries at absolute
+        # multiples, so the cadences fire after a resume from any epoch
+        chunk = max(math.gcd(log_freq["tb_renderings"],
+                             log_freq["save_weights"]), 1)
+        epoch = start_epoch
+        while epoch < epochs:
+            stop = min(epoch + chunk - epoch % chunk, epochs)
+            te = time.perf_counter()
+            tr_list, va_list = manager.run_epochs_scanned(
+                train_iter, val_iter, stop - epoch)
+            chunk_s = time.perf_counter() - te
+            mps = len(train_iter) * grid * (stop - epoch) / max(chunk_s,
+                                                                1e-9)
+            for i, e in enumerate(range(epoch, stop)):
+                writer.add_scalar("perf/meshes_per_sec", mps, e + 1)
+                log_epoch(e, tr_list[i], va_list[i],
+                          chunk_s / (stop - epoch), chunk_s / (stop - epoch))
+            prev, epoch = epoch, stop
+            cadence(epoch - 1)
+            if epoch // print_cad > prev // print_cad:
+                dt = time.time() - t0
+                print(f"epoch {epoch}/{epochs} "
+                      f"tot={manager._losses['tot']:.4f} "
+                      f"({dt / (epoch - start_epoch):.2f}s/epoch)")
+
+    # the profiled epoch is the second (the first builds the kernels and
+    # captures the graphs), or the only one
+    profile_epoch = start_epoch + 1 if epochs > start_epoch + 1 \
+        else start_epoch
+    for epoch in range(epochs if use_chunks else start_epoch, epochs):
+        prof = _start_profile(device) \
+            if args.profile and epoch == profile_epoch else None
+        te = time.perf_counter()
+        train_losses = dict(manager.run_epoch(train_iter, train=True))
+        train_s = time.perf_counter() - te
+        writer.add_scalar("perf/meshes_per_sec",
+                          len(train_iter) * grid / max(train_s, 1e-9),
+                          epoch + 1)
+        val_losses = dict(manager.run_epoch(val_iter, train=False))
+        if prof is not None:
+            _stop_profile(prof, device, os.path.join(output_dir, "profile"))
+        log_epoch(epoch, train_losses, val_losses, train_s,
+                  time.perf_counter() - te)
+        cadence(epoch)
+        if (epoch + 1) % print_cad == 0:
             dt = time.time() - t0
             print(f"epoch {epoch + 1}/{epochs} "
                   f"tot={manager._losses['tot']:.4f} "
@@ -145,6 +210,29 @@ def main(argv=None) -> dict:
             "geometry_s": manager.geometry_seconds, "data_s": data_s,
             "start_epoch": start_epoch, "classifier_accs": classifier_accs,
             "classifiers_s": classifiers_s}
+
+
+def _start_profile(device):
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if device.type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    prof = profile(activities=acts)
+    prof.start()
+    return prof
+
+
+def _stop_profile(prof, device, out_dir: str) -> None:
+    import torch
+
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    prof.stop()
+    os.makedirs(out_dir, exist_ok=True)
+    path = os.path.join(out_dir, "trace.json")
+    prof.export_chrome_trace(path)
+    print(f"profile → {path}")
 
 
 if __name__ == "__main__":

@@ -209,8 +209,11 @@ def adam_from_optax(optimizer: torch.optim.Adam, named_params: dict,
         if count == 0:
             optimizer.state.pop(p, None)
             continue
+        # a capturable Adam keeps its count on the parameter's device
+        capturable = optimizer.defaults.get("capturable", False)
         optimizer.state[p] = {
-            "step": torch.tensor(float(count), dtype=torch.float32),
+            "step": torch.tensor(float(count), dtype=torch.float32,
+                                 device=p.device if capturable else None),
             "exp_avg": torch.as_tensor(np.asarray(mu[name], np.float32)).to(
                 p.device).clone(),
             "exp_avg_sq": torch.as_tensor(np.asarray(nu[name],

@@ -3,9 +3,21 @@
 One step: the on-device B→B² feature swap, forward, the losses, backward
 through the precomputed transposes (K4 and its capped form, K2-dW; see
 ``ops/spiral_conv.py``) and the Adam update with coupled L2, as the JAX
-``_build_raw_step`` and ``_compute_losses`` do. PyTorch runs it eagerly,
-one launch after another; ``run_steps`` is the per-step loop that takes
-the place of the JAX package's scanned epoch.
+``_build_raw_step`` and ``_compute_losses`` do. ``make_train_step`` runs
+it eagerly, one launch after another, and ``run_steps`` is its per-step
+loop.
+
+``make_scanned_train_step`` and ``make_scanned_train_epochs`` are the
+JAX package's scanned epoch and nested multi-epoch scan: on the card
+each replays one captured CUDA graph of the train step (and one of the
+validation step) per step (``graphs.py``), with the step's batch
+indices, region, noise and labels copied into static tensors before each
+replay and the metrics summed on the device, read once a call. On the
+host the same step runs eagerly over the same static tensors. The
+step's draws come from a ``draws(step_id, rows) → (region, eps)``
+function, called on the host for a whole call's steps ahead and
+uploaded once. ``assemble_epoch_plans`` builds their arguments from the
+iterators, with the JAX package's step-id schedule.
 
 With an MLP head (``models/mlp.py``) and a classification weight, the
 step adds the class-weighted cross entropy of the head's logits on the
@@ -18,19 +30,56 @@ from __future__ import annotations
 
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from ..data.swap import choose_region, swap_features_dynamic
+from ..graphs import StateGuard, capture
 from ..models.sdvae import SDVAE
 from .losses import (kl_divergence_loss, laplacian_loss,
                      latent_consistency_loss, mse_loss, region_feature_mask,
                      weighted_cross_entropy)
 
 __all__ = ["LOSS_KEYS", "LossWeights", "coupled_adam", "compute_losses",
-           "make_train_step", "make_eval_step", "run_steps"]
+           "make_train_step", "make_eval_step", "run_steps",
+           "assemble_epoch_plans", "make_scanned_train_step",
+           "make_scanned_train_epochs"]
 
 LOSS_KEYS = ["reconstruction", "kl", "latent_consistency", "laplacian",
              "classification", "classification_acc", "tot"]
+
+#: steps run on a side stream before a step's graph is captured: the
+#: first makes the gradients and the optimizer state, the second runs the
+#: step in the form the graph records (gradients zeroed in place)
+WARMUP_STEPS = 2
+
+
+def assemble_epoch_plans(train_iter, val_iter, n_epochs: int,
+                         step_counter: int = 0, with_labels: bool = False):
+    """The multi-epoch call's arguments, assembled on the host as the JAX
+    package's ``assemble_epoch_plans`` does: ``(args, next_step_counter)``
+    with ``args = (tr_x, va_x, tr_idx [E, St, B], tr_sid [E, St], va_idx
+    [E, Sv, B], va_sid [E, Sv], tr_labels | None, va_labels | None)``
+    (index and id arrays int32 numpy). Validation step ids follow each
+    epoch's train ids, offset by the running counter. Labels come only
+    with ``with_labels`` and when both iterators' plans carry them."""
+    tr_plans = [train_iter.epoch_plan() for _ in range(n_epochs)]
+    va_plans = [val_iter.epoch_plan() for _ in range(n_epochs)]
+    tr_x, va_x = tr_plans[0][0], va_plans[0][0]
+    tr_idx = np.stack([p[1] for p in tr_plans])
+    va_idx = np.stack([p[1] for p in va_plans])
+    use_labels = bool(with_labels and tr_plans[0][2] is not None
+                      and va_plans[0][2] is not None)
+    tr_lab = np.stack([p[2] for p in tr_plans]) if use_labels else None
+    va_lab = np.stack([p[2] for p in va_plans]) if use_labels else None
+    st, sv = tr_idx.shape[1], va_idx.shape[1]
+    per = st + sv
+    e_ar = np.arange(n_epochs)[:, None]
+    tr_sid = step_counter + 1 + e_ar * per + np.arange(st)[None]
+    va_sid = step_counter + 1 + e_ar * per + st + np.arange(sv)[None]
+    args = (tr_x, va_x, tr_idx, tr_sid.astype(np.int32), va_idx,
+            va_sid.astype(np.int32), tr_lab, va_lab)
+    return args, step_counter + n_epochs * per
 
 
 @dataclass(frozen=True)
@@ -65,9 +114,14 @@ def coupled_adam(params, lr: float, weight_decay: float
     """Adam with *coupled* L2 (the decay is added to the gradient before
     the moments), as the reference's ``torch.optim.Adam(...,
     weight_decay=·)`` and the JAX ``coupled_adam``; ``AdamW`` would decay
-    decoupled and change the objective."""
+    decoupled and change the objective. On the card it is
+    ``capturable`` (its step count and bias correction on the device),
+    so that the eager step and a graph's replay do the same arithmetic;
+    PyTorch supports that only for CUDA tensors."""
+    params = list(params)
     return torch.optim.Adam(params, lr=float(lr),
-                            weight_decay=float(weight_decay))
+                            weight_decay=float(weight_decay),
+                            capturable=bool(params) and params[0].is_cuda)
 
 
 def compute_losses(model: SDVAE, weights: LossWeights, x_grid: torch.Tensor,
@@ -159,7 +213,8 @@ def make_train_step(model: SDVAE, weights: LossWeights,
     unless given. With ``head``, a classification weight and
     ``head_optimizer``, the head is updated too, every step (from a zero
     gradient where a batch has no labels, as the JAX step does). The
-    gradients stay on the parameters after the step."""
+    gradients are zeroed in place (a CUDA graph of the step keeps them at
+    fixed addresses) and stay on the parameters after the step."""
     _check(model, weights, swap, head)
     train_head = (head is not None and head_optimizer is not None
                   and weights.classification > 0)
@@ -168,9 +223,9 @@ def make_train_step(model: SDVAE, weights: LossWeights,
              class_weights=None):
         x_grid, region = _grid(model, x, batch_size, swap, region_idx,
                                generator)
-        optimizer.zero_grad(set_to_none=True)
+        optimizer.zero_grad(set_to_none=False)
         if train_head:
-            head_optimizer.zero_grad(set_to_none=True)
+            head_optimizer.zero_grad(set_to_none=False)
         loss, metrics = compute_losses(model, weights, x_grid, region,
                                        batch_size, eps=eps,
                                        generator=generator, training=True,
@@ -225,3 +280,242 @@ def run_steps(step, data: torch.Tensor, idx, region_idx=None, eps=None,
         m = step(data.index_select(0, idx[t]), generator=generator, **kw)
         sums = m if sums is None else {k: sums[k] + m[k] for k in sums}
     return {k: v / idx.shape[0] for k, v in sums.items()}
+
+
+class _Replayed:
+    """One step replayed over a call's steps: static inputs (the split,
+    the batch's row indices, the region as a 0-d int64 tensor, ``eps``
+    and the labels), a device tensor summing the metrics, and on the card
+    the step's CUDA graph, captured at the first call. ``body(x, region,
+    eps, labels, class_weights) → metrics`` is the eager step."""
+
+    def __init__(self, body, device, batch_size: int, eps_shape,
+                 with_labels: bool, guard: StateGuard | None, pool):
+        self.body = body
+        self.device = device
+        self.guard = guard
+        self.pool = pool
+        self.idx = torch.zeros(batch_size, dtype=torch.long, device=device)
+        self.region = torch.zeros((), dtype=torch.long, device=device)
+        self.eps = None if eps_shape is None else \
+            torch.zeros(eps_shape, dtype=torch.float32, device=device)
+        self.labels = torch.zeros(batch_size, dtype=torch.long,
+                                  device=device) if with_labels else None
+        self.class_weights = None
+        self.sums = torch.zeros(len(LOSS_KEYS), dtype=torch.float32,
+                                device=device)
+        self.data = None
+        self._owned = False
+        self.graph = None
+
+    def _bind(self, data, class_weights) -> None:
+        """The split and the class weights into the step's inputs. A
+        float32 split on the device is read where it lies: the graph reads
+        it at its address, so after the capture no other may come. A host
+        split is uploaded, at every call, into a tensor of the runner's
+        own."""
+        on_device = isinstance(data, torch.Tensor) \
+            and data.device == self.sums.device \
+            and data.dtype == torch.float32
+        if self.graph is None:
+            self.data = data if on_device else torch.as_tensor(
+                data, dtype=torch.float32).to(self.device)
+            self._owned = not on_device
+        elif data is self.data:
+            pass
+        elif self._owned and not on_device \
+                and tuple(np.shape(data)) == tuple(self.data.shape):
+            self.data.copy_(torch.as_tensor(data, dtype=torch.float32))
+        else:
+            raise ValueError(f"the step's graph reads the split it was "
+                             f"captured with ({tuple(self.data.shape)} on "
+                             f"{self.device}); got another")
+        if self.labels is not None and class_weights is not None:
+            cw = torch.as_tensor(class_weights, dtype=torch.float32,
+                                 device=self.device)
+            if self.class_weights is None:
+                self.class_weights = torch.empty_like(cw)
+            self.class_weights.copy_(cw)
+
+    def _step(self) -> None:
+        x = self.data.index_select(0, self.idx)
+        m = self.body(x, self.region, self.eps, self.labels,
+                      self.class_weights)
+        self.sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+
+    def _load(self, t: int, idx, region, eps, labels) -> None:
+        self.idx.copy_(idx[t])
+        self.region.copy_(region[t])
+        if self.eps is not None:
+            self.eps.copy_(eps[t])
+        if self.labels is not None:
+            self.labels.copy_(labels[t])
+
+    def run(self, data, idx, region, eps, labels, class_weights
+            ) -> torch.Tensor:
+        """Steps ``t`` over ``idx [S, B]``, ``region [S]``, ``eps [S, ...]``
+        and ``labels [S, B]`` (on the device); returns the metrics summed
+        over them ``[len(LOSS_KEYS)]`` (the static tensor: copy it before
+        the next call)."""
+        self._bind(data, class_weights)
+        steps = idx.shape[0]
+        if steps and self.device.type == "cuda" and self.graph is None:
+            self._load(0, idx, region, eps, labels)
+            self.graph = capture(self._step, self.device, WARMUP_STEPS,
+                                 self.pool, self.guard)
+        self.sums.zero_()
+        for t in range(steps):
+            self._load(t, idx, region, eps, labels)
+            if self.graph is not None:
+                self.graph.replay()
+            else:
+                self._step()
+        return self.sums
+
+
+def _upload(draws, rows: int, step_ids, idx, labels, device,
+            with_eps: bool) -> tuple:
+    """A call's per-step inputs on the device: the batch indices, the
+    labels and the draws of every step id (made on the host ahead), each
+    through pinned memory on the card."""
+    sids = np.asarray(step_ids).reshape(-1)
+    made = [draws(int(s), rows) for s in sids]
+    region = torch.tensor([int(r) for r, _ in made], dtype=torch.long)
+    eps = torch.stack([torch.as_tensor(e, dtype=torch.float32).cpu()
+                       for _, e in made]) if with_eps and made else None
+    host = [torch.as_tensor(np.asarray(idx), dtype=torch.long),
+            region.reshape(np.shape(step_ids)),
+            None if eps is None else eps.reshape(
+                *np.shape(step_ids), *eps.shape[1:]),
+            None if labels is None
+            else torch.as_tensor(np.asarray(labels), dtype=torch.long)]
+    if device.type != "cuda":
+        return tuple(host)
+    return tuple(None if t is None else
+                 t.pin_memory().to(device, non_blocking=True) for t in host)
+
+
+class _Steps:
+    """What the scanned callables share: the train and validation steps'
+    replayers by (kind, labels or not), their graph pool on the card, and
+    the model's state that a capture's warm-up must leave as it found."""
+
+    def __init__(self, model, weights, optimizer, batch_size, swap, head,
+                 head_optimizer, draws):
+        self.device = model.geom.device
+        self.batch_size = batch_size
+        self.rows = batch_size ** 2 if swap else batch_size
+        self.latent = model.config.latent_size
+        self.draws = draws
+        train = make_train_step(model, weights, optimizer, batch_size,
+                                swap=swap, head=head,
+                                head_optimizer=head_optimizer)
+        evaluate = make_eval_step(model, weights, batch_size, swap=swap,
+                                  head=head)
+        self.bodies = {
+            "train": lambda x, r, e, lab, cw: train(
+                x, region_idx=r, eps=e, labels=lab, class_weights=cw),
+            "eval": lambda x, r, e, lab, cw: evaluate(
+                x, region_idx=r, labels=lab, class_weights=cw)}
+        modules = [model] + ([head] if head is not None else [])
+        optimizers = [optimizer] + ([head_optimizer]
+                                    if head_optimizer is not None else [])
+        self.guard = StateGuard(modules, optimizers)
+        self.pool = None
+        self.runners: dict = {}
+
+    def runner(self, kind: str, with_labels: bool) -> _Replayed:
+        key = (kind, with_labels)
+        if key not in self.runners:
+            if self.device.type == "cuda" and self.pool is None:
+                self.pool = torch.cuda.graph_pool_handle()
+            train = kind == "train"
+            self.runners[key] = _Replayed(
+                self.bodies[kind], self.device, self.batch_size,
+                (self.rows, self.latent) if train else None, with_labels,
+                self.guard if train else None, self.pool)
+        return self.runners[key]
+
+    def upload(self, kind: str, step_ids, idx, labels) -> tuple:
+        """The per-step inputs of a call's ``kind`` steps (any leading
+        shape), uploaded once."""
+        return _upload(self.draws, self.rows, step_ids, idx, labels,
+                       self.device, kind == "train")
+
+    def run(self, kind: str, data, inputs: tuple, class_weights
+            ) -> torch.Tensor:
+        """One run of ``kind`` steps over uploaded ``inputs`` (``upload``'s,
+        leading dim S); the metrics summed over them (the runner's static
+        tensor)."""
+        idx, region, eps, labels = inputs
+        return self.runner(kind, labels is not None).run(
+            data, idx, region, eps, labels, class_weights)
+
+
+def _at(inputs: tuple, e: int) -> tuple:
+    return tuple(None if t is None else t[e] for t in inputs)
+
+
+def _averages(sums: np.ndarray, steps: int) -> dict:
+    return {k: float(sums[i]) / steps if steps else 0.0
+            for i, k in enumerate(LOSS_KEYS)}
+
+
+def make_scanned_train_step(model: SDVAE, weights: LossWeights,
+                            optimizer: torch.optim.Optimizer,
+                            batch_size: int, swap: bool = True, head=None,
+                            head_optimizer=None, *, draws):
+    """A whole epoch of train steps: ``epoch(data_x [n, N, 3], idx [S, B],
+    step_ids [S], labels [S, B] | None, class_weights) → metrics averaged
+    over the S steps`` (floats keyed by ``LOSS_KEYS``), the JAX
+    ``make_scanned_train_step`` less the state, the geometry and the key,
+    which the model and ``draws(step_id, rows) → (region, eps [rows, Z])``
+    hold. Update for update the eager step's: on the card each step is a
+    replay of the step's CUDA graph; the metrics are read once.
+    ``epoch.steps.runners`` holds the replayers (and their graphs)."""
+    steps = _Steps(model, weights, optimizer, batch_size, swap, head,
+                   head_optimizer, draws)
+
+    def epoch(data_x, idx, step_ids, labels=None, class_weights=None):
+        inputs = steps.upload("train", step_ids, idx, labels)
+        sums = steps.run("train", data_x, inputs, class_weights)
+        return _averages(sums.cpu().numpy(), int(np.shape(idx)[0]))
+
+    epoch.steps = steps
+    return epoch
+
+
+def make_scanned_train_epochs(model: SDVAE, weights: LossWeights,
+                              optimizer: torch.optim.Optimizer,
+                              batch_size: int, swap: bool = True, head=None,
+                              head_optimizer=None, *, draws):
+    """E epochs of train steps, each followed by its validation steps:
+    ``epochs_fn(train_x, val_x, tr_idx [E, St, B], tr_sid [E, St], va_idx
+    [E, Sv, B], va_sid [E, Sv], tr_labels [E, St, B] | None, va_labels
+    [E, Sv, B] | None, class_weights) → (train metrics, validation
+    metrics)``, each a list of E dicts of floats (the averages of each
+    epoch's steps), the JAX ``make_scanned_train_epochs`` less the state,
+    the geometry and the key. The train and validation steps each replay
+    their own graph on the card; the per-epoch sums are gathered on the
+    device and read once a call."""
+    steps = _Steps(model, weights, optimizer, batch_size, swap, head,
+                   head_optimizer, draws)
+
+    def epochs_fn(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid,
+                  tr_labels=None, va_labels=None, class_weights=None):
+        n_epochs, st = np.shape(tr_idx)[:2]
+        sv = np.shape(va_idx)[1]
+        tr = steps.upload("train", tr_sid, tr_idx, tr_labels)
+        va = steps.upload("eval", va_sid, va_idx, va_labels)
+        out = torch.zeros((n_epochs, 2, len(LOSS_KEYS)), dtype=torch.float32,
+                          device=steps.device)
+        for e in range(n_epochs):
+            out[e, 0] = steps.run("train", train_x, _at(tr, e),
+                                  class_weights)
+            out[e, 1] = steps.run("eval", val_x, _at(va, e), class_weights)
+        sums = out.cpu().numpy()
+        return ([_averages(sums[e, 0], st) for e in range(n_epochs)],
+                [_averages(sums[e, 1], sv) for e in range(n_epochs)])
+
+    epochs_fn.steps = steps
+    return epochs_fn

@@ -15,7 +15,7 @@ import numpy as np
 import pytest
 import torch
 
-from craniofacialsd_vae_tpu_torch import kernels, ops
+from craniofacialsd_vae_tpu_torch import graphs, kernels, ops
 from craniofacialsd_vae_tpu_torch.geometry import (adversarial_mesh,
                                                    level0_positions,
                                                    load_bundle,
@@ -402,9 +402,20 @@ def test_launch_counts_move_only_on_launch():
         **dict.fromkeys(kernels.KERNEL_NAMES, 0), "ell_matmul_fwd": 1}
 
 
+def _bucket_passes():
+    """The passes the wrappers see when a request of 3 scans at
+    max_batch 2 meets a fresh service on the card: its two buckets' CUDA
+    graphs, each captured after its warm-up passes (a replay launches
+    the captured kernels without the wrappers)."""
+    from craniofacialsd_vae_tpu_torch.serving import WARMUP_PASSES
+
+    return 2 * (1 + WARMUP_PASSES)
+
+
 def test_service_on_card_matches_host():
     """A narrow model on the real hierarchy: card vs host, rtol 1e-4
-    against each array's max and 1e-3 mm on the error."""
+    against each array's max and 1e-3 mm on the error; the first request
+    captures its buckets' graphs, and a second one only replays them."""
     dev = _card()
     bundle = load_bundle(FIXTURE)
     cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=6)
@@ -414,13 +425,23 @@ def test_service_on_card_matches_host():
     norm = {"mean": mean, "std": np.full((n, 3), 0.1, np.float32)}
     x = (mean + 0.1 * rng.normal(size=(3, n, 3))).astype(np.float32)
     kernels.launches.reset()
-    card = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, max_batch=2,
-                                        device=dev).reconstruct(x)
+    svc = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, max_batch=2,
+                                       device=dev)
+    card = svc.reconstruct(x)
     counts = kernels.launches.snapshot()
+    graphs.replayed.reset()
+    again = svc.reconstruct(x)
+    assert kernels.launches.snapshot() == counts
+    # the second request: one replay of each of its two buckets' graphs
+    assert graphs.replayed.snapshot()["spiral_conv_tc"] == 2 * 8
     host = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, max_batch=2,
                                         device="cpu").reconstruct(x)
-    assert counts["spiral_conv_tc"] == 2 * 8
-    assert counts["spiral_conv_narrow"] == 2 and counts["ell_matmul_fwd"] == 8
+    passes = _bucket_passes()
+    assert counts["spiral_conv_tc"] == passes * 8
+    assert counts["spiral_conv_narrow"] == passes
+    assert counts["ell_matmul_fwd"] == passes * 4
+    for key in card:
+        np.testing.assert_array_equal(again[key], card[key])
     for key in ("vertices", "latent"):
         lim = 1e-4 * float(np.abs(host[key]).max())
         assert float(np.abs(card[key] - host[key]).max()) <= lim
@@ -1437,10 +1458,11 @@ def test_mixed_service_on_card_matches_host():
     host = DiagnosisService.from_bundle(bundle, _MIXED, norm, 10.0,
                                         max_batch=2,
                                         device="cpu").reconstruct(x)
-    assert counts["spiral_conv_tc"] == 2                 # enc0 in fp32
-    assert counts["spiral_conv_bf16"] == 2 * 7
-    assert counts["ell_matmul_bf16"] == 2 * 4
-    assert counts["out_gather_sum"] == 2
+    passes = _bucket_passes()
+    assert counts["spiral_conv_tc"] == passes            # enc0 in fp32
+    assert counts["spiral_conv_bf16"] == passes * 7
+    assert counts["ell_matmul_bf16"] == passes * 4
+    assert counts["out_gather_sum"] == passes
     for key in ("vertices", "latent"):
         lim = 1e-2 * float(np.abs(host[key]).max())
         assert float(np.abs(card[key] - host[key]).max()) <= lim
@@ -1931,3 +1953,234 @@ def test_chebyshev_solver_on_card_matches_scipy():
     np.testing.assert_allclose(vals, ref_vals, rtol=1e-4, atol=1e-8)
     ov = vecs.T @ ref_vecs
     np.testing.assert_allclose(ov @ ov.T, np.eye(31), atol=1e-4)
+
+
+# --------------------------------------------------------- CUDA graphs
+def _graph_setup(dev, policy, head, seed=0):
+    """A narrow model (and an MLP head) on the fixture hierarchy with the
+    stand-in Laplacian and regions, and their capturable Adams."""
+    from craniofacialsd_vae_tpu_torch.models import init_mlp
+
+    bundle = load_bundle(FIXTURE)
+    geom = SpiralGeometry.from_bundle(
+        bundle, device=dev,
+        laplacian=standin_laplacian_coo(bundle.spirals[0]),
+        region_masks=standin_region_masks(level0_positions(bundle)))
+    cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15,
+                      compute_dtype=policy)
+    gen = torch.Generator().manual_seed(seed)
+    model = init_sdvae(cfg, geom, gen)
+    opt = coupled_adam(model.parameters(), 1e-3, 1e-4)
+    h = h_opt = None
+    if head:
+        h = init_mlp(15, [8], 3, gen).to(dev)
+        h_opt = coupled_adam(h.parameters(), 1e-3, 1e-4)
+    weights = LossWeights(classification=1.0 if head else 0.0)
+    return model, opt, h, h_opt, weights, bundle.vertex_counts[0]
+
+
+def _graph_inputs(n_verts, steps, batch, labelled):
+    rng = np.random.default_rng(7)
+    data = rng.normal(size=(3 * batch, n_verts, 3)).astype(np.float32)
+    idx = rng.integers(0, 3 * batch, size=(steps, batch))
+    draws = {s: (int(rng.integers(0, 15)),
+                 torch.from_numpy(rng.normal(size=(batch * batch, 15))
+                                  .astype(np.float32)))
+             for s in range(1, steps + 1)}
+    labels = rng.integers(0, 3, size=(steps, batch)) if labelled else None
+    return data, idx, draws, labels
+
+
+def _all_state(model, opt) -> list:
+    out = [p.detach() for p in model.parameters()]
+    for p in model.parameters():
+        out += [opt.state[p][k] for k in sorted(opt.state[p])]
+    return out
+
+
+@pytest.mark.parametrize("head", [False, True])
+@pytest.mark.parametrize("policy", ["float32", "mixed"])
+def test_step_graph_replay_equals_eager_step(policy, head):
+    """Four replays of the train step's CUDA graph (make_scanned_train_step)
+    against four eager steps from the same state, batches and draws:
+    parameters, Adam states and metrics bit-equal; with the head, labels
+    and class weights, its parameters and states too."""
+    from craniofacialsd_vae_tpu_torch.training import make_scanned_train_step
+
+    dev = _card()
+    steps, batch = 4, 2
+    runs = []
+    for graphed in (False, True):
+        model, opt, h, h_opt, weights, n = _graph_setup(dev, policy, head)
+        data, idx, draws, labels = _graph_inputs(n, steps, batch, head)
+        cw = torch.tensor([0.2, 0.3, 0.5], device=dev) if head else None
+        if graphed:
+            epoch = make_scanned_train_step(
+                model, weights, opt, batch, head=h, head_optimizer=h_opt,
+                draws=lambda s, rows: draws[s])
+            got = epoch(torch.as_tensor(data, device=dev), idx,
+                        np.arange(1, steps + 1), labels, cw)
+            runner = next(iter(epoch.steps.runners.values()))
+            assert runner.graph is not None
+        else:
+            step = make_train_step(model, weights, opt, batch, head=h,
+                                   head_optimizer=h_opt)
+            data_d = torch.as_tensor(data, device=dev)
+            sums = torch.zeros(len(LOSS_KEYS), device=dev)
+            for t in range(steps):
+                region, eps = draws[t + 1]
+                lab = None if labels is None else torch.as_tensor(
+                    labels[t], device=dev)
+                m = step(data_d.index_select(
+                    0, torch.as_tensor(idx[t], device=dev)),
+                    region_idx=torch.tensor(region, device=dev),
+                    eps=eps.to(dev), labels=lab, class_weights=cw)
+                sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+            got = {k: float(v) / steps
+                   for k, v in zip(LOSS_KEYS, sums.cpu())}
+        torch.cuda.synchronize()
+        state = _all_state(model, opt) + (_all_state(h, h_opt) if head
+                                          else [])
+        runs.append((got, state))
+    (m_a, s_a), (m_b, s_b) = runs
+    assert m_a == m_b
+    assert len(s_a) == len(s_b)
+    for a, b in zip(s_a, s_b):
+        assert torch.equal(a, b)
+
+
+def test_step_graph_binds_the_split():
+    """After the capture, a device split is read where it lies (another
+    tensor raises: the graph reads the first at its address), and a host
+    split is uploaded into the runner's own tensor at every call: two
+    calls over a host split equal two calls over the same split on the
+    card."""
+    from craniofacialsd_vae_tpu_torch.training import make_scanned_train_step
+
+    dev = _card()
+    runs = []
+    for host in (False, True):
+        model, opt, _, _, weights, n = _graph_setup(dev, "float32", False)
+        data, idx, draws, _ = _graph_inputs(n, 4, 2, False)
+        epoch = make_scanned_train_step(model, weights, opt, 2,
+                                        draws=lambda s, rows: draws[s])
+        split = data if host else torch.as_tensor(data, device=dev)
+        got = [epoch(split, idx[:2], np.array([1, 2])),
+               epoch(split if not host else data.copy(), idx[2:],
+                     np.array([3, 4]))]
+        runner = epoch.steps.runners[("train", False)]
+        assert (runner.data is split) == (not host)
+        if not host:
+            with pytest.raises(ValueError, match="captured with"):
+                epoch(split.clone(), idx[:2], np.array([1, 2]))
+        torch.cuda.synchronize()
+        runs.append((got, _all_state(model, opt)))
+    (m_a, s_a), (m_b, s_b) = runs
+    assert m_a == m_b
+    for a, b in zip(s_a, s_b):
+        assert torch.equal(a, b)
+
+
+def test_resumed_capturable_adam_replays(tmp_path):
+    """An Adam state read back from the checkpoint layout (its count on
+    the card, as capturable Adam keeps it) drives replays that equal the
+    eager steps from the same state."""
+    from craniofacialsd_vae_tpu_torch.training import make_scanned_train_step
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import (
+        adam_from_optax, adam_to_optax)
+
+    dev = _card()
+    model, opt, _, _, weights, n = _graph_setup(dev, "float32", False)
+    data, idx, draws, _ = _graph_inputs(n, 3, 2, False)
+    data_d = torch.as_tensor(data, device=dev)
+    step = make_train_step(model, weights, opt, 2)
+    region, eps = draws[1]
+    step(data_d[:2], region_idx=region, eps=eps.to(dev))
+    stored = adam_to_optax(opt, dict(model.named_parameters()), 1e-4)
+    params = {k: v.clone() for k, v in model.state_dict().items()}
+    out = []
+    for graphed in (False, True):
+        m2, o2, _, _, _, _ = _graph_setup(dev, "float32", False)
+        m2.load_state_dict(params)
+        adam_from_optax(o2, dict(m2.named_parameters()), stored, 1e-4)
+        assert all(st["step"].is_cuda for st in o2.state.values())
+        if graphed:
+            make_scanned_train_step(m2, weights, o2, 2,
+                                    draws=lambda s, rows: draws[s])(
+                data_d, idx[1:], np.array([2, 3]))
+        else:
+            s2 = make_train_step(m2, weights, o2, 2)
+            for t in (1, 2):
+                r, e = draws[t + 1]
+                s2(data_d.index_select(0, torch.as_tensor(idx[t],
+                                                          device=dev)),
+                   region_idx=torch.tensor(r, device=dev), eps=e.to(dev))
+        torch.cuda.synchronize()
+        out.append(_all_state(m2, o2))
+    for a, b in zip(*out):
+        assert torch.equal(a, b)
+
+
+def test_fit_graph_equals_eager_fit(tmp_path):
+    """A fit whose iterations replay the cached graph against the same fit
+    launched eagerly: z, chamfer, landmark loss and best restart equal;
+    a second scan of the same padded size and a fit at another learning
+    rate reuse the graph, the latter equal to its eager fit too."""
+    from craniofacialsd_vae_tpu_torch.analysis import fitting
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+
+    dev = _card()
+    config = _entry_workspace(str(tmp_path))
+    mgr = ModelManager(config, config["data"]["precomputed_path"],
+                       device=dev)
+    tpl = np.asarray(mgr.template.pos, np.float32)
+    lnd = list(range(0, len(tpl), len(tpl) // 6))[:6]
+    scan = tpl * 1.05 + 0.01
+
+    def fit(lr, graph):
+        return fitting._fit_latent(mgr, None, scan, scan[lnd], lnd, lr, 6,
+                                   4, 0, None, graph=graph)
+
+    for lr in (5e-3, 2e-2):
+        res = {g: fit(lr, g) for g in (True, False)}
+        np.testing.assert_array_equal(res[True]["z"], res[False]["z"])
+        for k in ("chamfer_mm2", "landmark_mse_mm2", "best_restart"):
+            assert res[True][k] == res[False][k], k
+    (run,) = fitting._FIT_RUNS[mgr].values()
+    assert run.graph is not None
+    more = np.concatenate([scan, scan[:9] + 0.003])      # pads alike
+    other = fitting.fit_latent(mgr, None, more, scan[lnd], lnd,
+                               iterations=6, n_restarts=4)
+    assert list(fitting._FIT_RUNS[mgr].values()) == [run]
+    assert np.isfinite(other["chamfer_mm2"])
+
+
+def test_serving_bucket_graphs_equal_eager_programs():
+    """encode, reconstruct and decode at every bucket (and a request above
+    max_batch): the graphs' answers equal the eager programs' bit for
+    bit; warmup captures every bucket."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15)
+    n = bundle.vertex_counts[0]
+    rng = np.random.default_rng(4)
+    norm = {"mean": level0_positions(bundle),
+            "std": np.full((n, 3), 0.02, np.float32)}
+    svc = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, seed=1,
+                                       max_batch=4, device=dev)
+    svc.warmup()
+    assert set(svc._bucket_graphs) == {(p, b) for p in
+                                       ("encode", "reconstruct", "decode")
+                                       for b in svc.buckets}
+    for b in (1, 2, 3, 4, 7):
+        x = (norm["mean"] + 0.02 * rng.normal(size=(b, n, 3))).astype(
+            np.float32)
+        z = rng.normal(size=(b, 15)).astype(np.float32)
+        for name, arg in (("encode", x), ("decode", z),
+                          ("reconstruct", x)):
+            got = svc._run_program(name, arg)
+            want = svc._run_bucketed(svc._programs[name], arg)
+            got, want = (got, want) if isinstance(got, tuple) \
+                else ((got,), (want,))
+            for g, w in zip(got, want):
+                np.testing.assert_array_equal(g, w)

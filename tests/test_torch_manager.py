@@ -203,7 +203,16 @@ def test_manager_surface_matches_jax(ws):
     assert tm.idx2class(np.array([0, 1])) == jm.idx2class(np.array([0, 1]))
     np.testing.assert_array_equal(tm._class_weights.numpy(),
                                   np.asarray(jm._class_weights))
-    assert tm.can_scan_epochs() is False
+    # the scanned epochs take device-resident drop_last iterators of the
+    # manager's batch size, in both packages alike
+    c2i = jm._class2idx_dict
+    t_its = [tdataset.DeviceBatchIterator(ws[s], 2, class2idx=c2i,
+                                          device="cpu")
+             for s in ("train", "val")]
+    j_its = [jdataset.DeviceBatchIterator(ws[s], 2, class2idx=c2i)
+             for s in ("train", "val")]
+    assert tm.can_scan_epochs(*t_its) is True
+    assert jm.can_scan_epochs(*j_its) is True
     # the zoo is built from the config as JAX builds it
     zt, zj = tm.build_classifiers(), jm.build_classifiers()
     for field in ("latent_size", "latent_regions", "mlp_hidden", "mlp_lr",
