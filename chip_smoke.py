@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch/CUDA port's serving, training, diagnosis and
-augmentation paths on one NVIDIA card.
+"""Drive the PyTorch/CUDA port's serving, training, diagnosis,
+augmentation and evaluation paths on one NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -62,14 +62,21 @@ them or outside a checkout. Phases, each of which raises on a fault:
    resolution) and checkpoints; a fresh manager resumes the last
    checkpoint bit for bit; ``--resume --epochs 6`` goes on. The epochs run
    in chunks (``run_epochs_scanned``, the train and validation steps
-   replayed from their CUDA graphs). K1, K2-dW, K4,
-   the fused K4 and K7 must each have launched on that path. Then the
+   replayed from their CUDA graphs), and at each checkpoint the latent
+   traversals run (their seconds in the line; their model passes and
+   renders recorded, and their launches counted apart as the path
+   ``train_entry_traversals``). K1, K2-dW, K4, the fused K4 and K7 must
+   each have launched on that path outside the traversals. Then the
    per-epoch loop (``--profile``, which skips the chunks) from scratch to
    epoch 4: its checkpoint bit-equal to the chunked run's, both epoch
    times, the trace written; one
    epoch on the card is held against the host, K7 on a full-resolution
    reconstruction against its twin, and each kernel at the path's own
-   shapes against its twin; one ``{"phase": "train_entry", ...}`` line;
+   shapes against its twin; the traversals' kernels (K1 and K4 at their
+   decodes' batch, K7 at their renders') at those shapes against their
+   twins, with the launches those shapes account for equal to the
+   traversals', kernel for kernel; one ``{"phase": "train_entry", ...}``
+   line;
 8. the ``mixed`` policy of ``configurations/craniofacial.yaml`` (its
    model and optimisation sections, through the port's config reader):
    (a) every bf16 kernel at every shape of the mixed paths (K1-bf16
@@ -91,7 +98,11 @@ them or outside a checkout. Phases, each of which raises on a fault:
    the card's fp32 step's, 10 warm steps and a profiled step beside
    phase 5's; the path of ``final_out_gather: false`` (K3a), counted;
    (d) ``train.main`` under ``mixed`` for 2 epochs on phase 7's
-   workspace, resumed bit for bit; one ``{"phase": "mixed", ...}`` line.
+   workspace, resumed bit for bit, its traversal's kernels (K1-bf16,
+   K4-bf16 and the final conv's K3b or K3a at its decodes' batch, K7 at
+   its renders') held at their shapes and their launches accounted for
+   as in phase 7 (path ``mixed_entry_traversals``); one ``{"phase":
+   "mixed", ...}`` line.
    Phases 7 and 8's ``train.main`` also fit the classifier zoo and write
    ``classifiers.npz`` and ``z_stats.npz`` (fit time and the four
    validation accuracies recorded);
@@ -173,16 +184,44 @@ them or outside a checkout. Phases, each of which raises on a fault:
    file names, vertices within 1e-5 of the card's); a second
    ``train.main`` on a fresh precomputed dir and a direct basis request
    read the generated files and the cache with no K9 launch; one
-   ``{"phase": "augmentation", ...}`` line.
+   ``{"phase": "augmentation", ...}`` line;
+11. evaluation: counted, ``python -m craniofacialsd_vae_tpu_torch.test
+   --experiment standard`` (called in process) on phase 7's run dir on
+   the card, timed with its parts (traversals, embeddings, generation,
+   classifiers, reconstruction, both diversities), every JSON, PNG and
+   PLY of the suite checked, K1 (both kernels), K4 and K7 launched and
+   each model pass and render recorded (``PassShapes``); the suite again
+   under torch.profiler (device time, idle share); each kernel at every
+   shape the suite's passes and renders gave it (``pass_records``: K7 on
+   the first meshes of each batch size it swept) against its twin and
+   timed, with the launches those shapes account for equal to the
+   suite's, kernel for kernel; every other experiment of the entry point
+   on the card at its defaults, timed, its files checked; then, on a
+   card Tester and a host Tester of the same run dir, recon, the
+   classifiers (their three JSON files equal), a plan and a pre/post pair
+   of two test scans, saliency of SALIENCY_BATCH test meshes, the
+   uncertainty of EVAL_DRAWS meshes with the same DIAG_SAMPLES draws
+   injected, a fit of a FIT_SCAN_POINTS-point scan at
+   FIT_PARITY_ITERATIONS (K8 counted) and ``compute_diversity`` at
+   EVAL_DIVERSITY: labels equal, answers within SERVE_RTOL of each
+   array's max, saliency within SALIENCY_RTOL of its max, the fit's
+   chamfer within FIT_RTOL with the same best restart; recon and the
+   classifiers on phase 8's ``mixed`` run dir within MIXED_RTOL, files
+   equal; ``python -m craniofacialsd_vae_tpu_torch.batch_diagnose`` on the
+   card over phase 9's 20 scans (as OBJ files) and one of the wrong size:
+   its labels phase 9's ``diagnose``; the zoo refitted; phase 7's
+   traversal files at each save epoch; one ``{"phase": "evaluation",
+   ...}`` line.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
 
 The kernels' record holds one entry per kernel and path (``serving``,
-``training``, ``train_entry``, ``mixed_serving``, ``mixed_training``,
-``mixed_gather_first``, ``diagnosis``, ``mixed_diagnosis``,
-``augmentation``), each timed
-over the shapes of that path's launches (on the diagnosis paths each
+``training``, ``train_entry``, ``train_entry_traversals``,
+``mixed_serving``, ``mixed_training``, ``mixed_gather_first``,
+``mixed_entry_traversals``, ``diagnosis``, ``mixed_diagnosis``,
+``augmentation``, ``evaluation``), each timed over the shapes of that
+path's launches (on the traversal, diagnosis and evaluation paths each
 distinct shape once; every shape carries its launches). Its
 ``launches`` are the wrappers' counts on the path's counted run, which
 count a CUDA graph's warm-up and capture but not its replays (a replay
@@ -190,7 +229,10 @@ launches the captured kernels without the wrappers); ``replayed`` is
 what the graphs' replays launched on that run: each replay adds what its
 capture recorded, and right after the run one replay of every graph the
 path holds (the service's buckets, the fits, the managers' scanned
-steps) is profiled, its kernels held equal to that record. The last three
+steps) is profiled, its kernels held equal to that record. A
+``*_traversals`` path is the part of phase 7's or 8's counted run made
+inside the latent traversals (the counts' growth across each), and
+``train_entry`` is the rest of phase 7's run. The last three
 lines of standard output are the kernels' JSON record, the nvidia-smi
 line and ``{"ok": true, "device": {...}}``.
 ``--json`` also writes every measurement (per shape, per request size,
@@ -200,6 +242,7 @@ the profiles) to PATH. Nothing here imports JAX or the JAX package.
 from __future__ import annotations
 
 import argparse
+import csv
 import dataclasses
 import json
 import os
@@ -367,6 +410,8 @@ KERNEL_SOURCES = {
                "craniofacialsd_vae_tpu/ops/distances.py:32"),
     "cheby_step": ("csrc/cheby_step.cu",
                    "craniofacialsd_vae_tpu/ops/eigh.py:64"),
+    "raster_sweep": ("csrc/raster_sweep.cu",
+                     "craniofacialsd_vae_tpu/viz/raster_pallas.py:111"),
 }
 
 
@@ -1755,12 +1800,13 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
                       root: str, smi: str) -> dict:
     """The port's training entry point end to end, on the card, from a
     template written under ``root``: ``train.main`` trains
-    ``ENTRY_EPOCHS[0]`` epochs (renders and checkpoints on the cadence),
-    a fresh manager resumes the last checkpoint bit for bit, ``main
-    --resume`` goes on to ``ENTRY_EPOCHS[1]``; then (not counted) one
-    epoch on the card against the host, K7 on a full-resolution
-    reconstruction against its twin, and every kernel of the path at its
-    shapes. The workspace and its caches stay for phase 8."""
+    ``ENTRY_EPOCHS[0]`` epochs (renders, checkpoints and traversals on
+    the cadence), a fresh manager resumes the last checkpoint bit for
+    bit, ``main --resume`` goes on to ``ENTRY_EPOCHS[1]``; then (not
+    counted) one epoch on the card against the host, K7 on a
+    full-resolution reconstruction against its twin, and every kernel of
+    the path at its shapes, the traversals' apart (``pass_records``). The
+    workspace and its caches stay for phase 8."""
     from craniofacialsd_vae_tpu_torch import train as entry
     from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
     from craniofacialsd_vae_tpu_torch.manager import ModelManager
@@ -1778,9 +1824,12 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
             "--device", DEVICE]
 
     # the main path: counts from 0, train, resume, train on; counts read
+    # (the launches inside the traversals apart)
     reset_counts()
+    trav = PassShapes(within=("latent_traversals",))
     t1 = time.perf_counter()
-    first = entry.main(argv)
+    with trav:
+        first = entry.main(argv)
     first_s = time.perf_counter() - t1
     run, ckpt = first["output_dir"], first["checkpoint_dir"]
     saved = [f"model_{e:08d}.ckpt"
@@ -1810,10 +1859,15 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     del resumed, first["manager"]
 
     t1 = time.perf_counter()
-    second = entry.main(argv + ["--resume", "--epochs",
-                                str(ENTRY_EPOCHS[1])])
+    with trav:
+        second = entry.main(argv + ["--resume", "--epochs",
+                                    str(ENTRY_EPOCHS[1])])
     second_s = time.perf_counter() - t1
     counts = read_counts(torch, "train_entry")
+    step_counts = {k: counts[k] - trav.launches[k] for k in counts}
+    PATH_REPLAYS["train_entry"] = {k: v - trav.replayed[k] for k, v
+                                   in PATH_REPLAYS["train_entry"].items()}
+    PATH_REPLAYS["train_entry_traversals"] = trav.replayed
     check(second["start_epoch"] == ENTRY_EPOCHS[0],
           f"--resume started at epoch {second['start_epoch']}")
     check(f"model_{ENTRY_EPOCHS[1]:08d}.ckpt" in os.listdir(ckpt),
@@ -1830,7 +1884,7 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
                    "ell_matmul_fwd", "ell_matmul_capped",
                    "spiral_conv_dw", "raster_sweep"):
-        check(counts[kernel] > 0,
+        check(step_counts[kernel] > 0,
               f"{kernel} was not launched on the train entry path")
     replays.append(check_replays(torch, graphs_of(
         managers=[second["manager"]]), "train_entry, resumed run"))
@@ -1883,7 +1937,14 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     records = entry_records(torch, mods, card, k7, grid, ptxas)
     for rec in records:
         rec["path"] = "train_entry"
-        rec["launches"] = counts[rec["name"]]
+        rec["launches"] = step_counts[rec["name"]]
+    # the traversals' kernels at their shapes, their launches the
+    # traversals' own
+    t1 = time.perf_counter()
+    trav_records, _ = pass_records(torch, mods, card, trav,
+                                   "train_entry_traversals", trav.launches)
+    records += trav_records
+    trav_held_s = time.perf_counter() - t1
     # the p50 of the epochs whose chunk captured no graph
     steady = sorted(loops["chunked_steady_s"])
     p50 = steady[len(steady) // 2]
@@ -1909,6 +1970,11 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
             "card_epoch_s": cvh["card_epoch_s"],
             "host_epoch_s": cvh["host_epoch_s"]},
         "k7_full_res_ms": k7["ms"], "k7_lr0_ms": lr0_k7["ms"],
+        "traversal_s": first["traversal_s"] + second["traversal_s"],
+        "traversal_passes": {k: dict(v) for k, v in trav.passes.items()
+                             if v},
+        "traversal_launches": trav.launches,
+        "traversal_kernels_held_s": trav_held_s,
         "zoo": {"fit_s": [first["classifiers_s"], second["classifiers_s"]],
                 "validation_accuracy": second["classifier_accs"]},
         "launches": counts, "replayed": PATH_REPLAYS["train_entry"],
@@ -2635,8 +2701,9 @@ def mixed_gather_first(torch, mods, bundle, config) -> dict:
 def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
     """Phase 8 (d): ``train.main`` with ``compute_dtype: mixed`` for 2
     epochs on phase 7's workspace and caches: finite losses, the run
-    dir's checkpoint equal to the trained manager, and a fresh manager
-    resuming it bit for bit."""
+    dir's checkpoint equal to the trained manager, a fresh manager
+    resuming it bit for bit, and the traversal's kernels held at their
+    shapes (``pass_records``)."""
     from craniofacialsd_vae_tpu_torch import train as entry
     from craniofacialsd_vae_tpu_torch.manager import ModelManager
     from craniofacialsd_vae_tpu_torch.training.checkpoint import \
@@ -2657,11 +2724,13 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
     check(config["model"]["compute_dtype"] == "mixed", "mixed entry config")
     reset_counts()
     t0 = time.perf_counter()
-    run = entry.main(["--config", path, "--id", "entry_mixed",
-                      "--output_path", root, "--device", DEVICE,
-                      "--epochs", str(ENTRY_CADENCE)])
+    with PassShapes(within=("latent_traversals",)) as trav:
+        run = entry.main(["--config", path, "--id", "entry_mixed",
+                          "--output_path", root, "--device", DEVICE,
+                          "--epochs", str(ENTRY_CADENCE)])
     run_s = time.perf_counter() - t0
     counts = read_counts(torch, "mixed_entry")
+    PATH_REPLAYS["mixed_entry_traversals"] = trav.replayed
     for h in run["history"]:
         for phase in ("train", "validation"):
             check(all(np.isfinite(v) for v in h[phase].values()),
@@ -2695,8 +2764,15 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
         f"validation accuracies {run['classifier_accs']}")
     replays = check_replays(torch, graphs_of(managers=[run["manager"]]),
                             "mixed_entry")
+    # the traversal's kernels at their shapes, its launches its own
+    records, _ = pass_records(torch, mods, run["manager"], trav,
+                              "mixed_entry_traversals", trav.launches)
     del run["manager"], fresh
     return dict(run_s=run_s, train_tot=tots, counts=counts, replays=replays,
+                records=records, traversal_s=run["traversal_s"],
+                traversal_passes={k: dict(v) for k, v in trav.passes.items()
+                                  if v},
+                traversal_launches=trav.launches,
                 epoch_train_s=[h["train_s"] for h in run["history"]],
                 zoo={"fit_s": run["classifiers_s"],
                      "validation_accuracy": run["classifier_accs"]},
@@ -2768,7 +2844,8 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
     gather_first = mixed_gather_first(torch, mods, bundle, config)
     torch.cuda.empty_cache()
     ent = mixed_entry(torch, mods, root, entry_cfg)
-    records = mixed_records(shapes, serving, training, gather_first)
+    records = mixed_records(shapes, serving, training, gather_first) \
+        + ent["records"]
     line = {"phase": "mixed", "config": FLAGSHIP,
             "serving": {"p50_ms": {b: v["p50_ms"] for b, v in
                                    serving["latency"].items()},
@@ -2789,7 +2866,8 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
                          "worst_loss_rel": max(
                              training["loss_rel_err"].values())},
             "entry": {"run_s": ent["run_s"], "train_tot": ent["train_tot"],
-                      "zoo": ent["zoo"]},
+                      "zoo": ent["zoo"], "traversal_s": ent["traversal_s"],
+                      "traversal_launches": ent["traversal_launches"]},
             "seconds": time.perf_counter() - t0}
     log(json.dumps(line))
     return dict(line=line, records=records, shapes=shapes, serving=serving,
@@ -3477,9 +3555,10 @@ def pass_convs(kinds: list, part: str) -> list:
             or (part == "dec" and k[0] == "final")]
 
 
-def diagnosis_shapes(torch, mods, svc, passes: dict) -> dict:
-    """Every kernel of the diagnosis path at every shape it has there, on
-    the served model's weights and tables and random inputs, against its
+def diagnosis_shapes(torch, mods, mgr, passes: dict) -> dict:
+    """Every kernel of a path's model passes (the diagnosis path's, or
+    those a ``PassShapes`` recorded) at every shape it has there, on the
+    manager's model's weights and tables and random inputs, against its
     twin and timed against it and a library call (the checks of phases 3,
     5 and 8): the spiral convs of each pass at each of its buckets, the
     up-pools of each decode, and the transposes of each backward (the
@@ -3487,7 +3566,6 @@ def diagnosis_shapes(torch, mods, svc, passes: dict) -> dict:
     Returns ``{kernel: [shape, ...]}``, each shape with its ``launches``
     on the path (times the passes run it)."""
     kernels, ops = mods["kernels"], mods["ops"]
-    mgr = svc.manager
     model, geom, bundle = mgr.model, mgr.geometry, mgr.bundle
     kinds = conv_kinds(model, geom)
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
@@ -3543,6 +3621,122 @@ def diagnosis_shapes(torch, mods, svc, passes: dict) -> dict:
                         "out_gather_sum_bwd", times)
     torch.cuda.empty_cache()
     return shapes
+
+
+class PassShapes:
+    """While active, a path's model passes in ``diagnosis_passes``' form
+    (``enc`` every ``SDVAE.encode`` call and ``dec`` every
+    ``SDVAE.decode`` call, each by its batch; no backward) and its K7
+    sweeps (each ``rasterize_batch`` call by its batch and image size,
+    counted, the camera-frame meshes of its first call kept). With
+    ``within`` (names of ``Tester`` methods) only inside those methods,
+    whose launches and graph replays (the counters' growth across each
+    call) add up in ``launches`` and ``replayed``."""
+
+    def __init__(self, within: tuple = ()):
+        from collections import Counter
+
+        from craniofacialsd_vae_tpu_torch import graphs, kernels
+        from craniofacialsd_vae_tpu_torch.analysis.tester import Tester
+        from craniofacialsd_vae_tpu_torch.models.sdvae import SDVAE
+        from craniofacialsd_vae_tpu_torch.viz import renderer
+
+        self.counters = (kernels.launches, graphs.replayed)
+        self.targets = (SDVAE, renderer, Tester)
+        self.within = within
+        self.depth = 0 if within else 1
+        self.passes = {p: Counter() for p in ("enc", "dec", "enc_bwd",
+                                              "dec_bwd")}
+        self.k7: dict = {}
+        self.launches = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+        self.replayed = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+
+    def __enter__(self):
+        sdvae, renderer, tester = self.targets
+        self.saved = {"encode": sdvae.encode, "decode": sdvae.decode,
+                      "rasterize_batch": renderer.rasterize_batch,
+                      **{n: getattr(tester, n) for n in self.within}}
+        encode, decode, rast = (self.saved[n] for n in (
+            "encode", "decode", "rasterize_batch"))
+
+        def enc(model, x, *a, **kw):        # x vertex-major [N, B, 3]
+            if self.depth:
+                self.passes["enc"][x.shape[1]] += 1
+            return encode(model, x, *a, **kw)
+
+        def dec(model, z, *a, **kw):        # z [B, Z]
+            if self.depth:
+                self.passes["dec"][z.shape[0]] += 1
+            return decode(model, z, *a, **kw)
+
+        def sweep(verts_cam, faces, colors, image_size=256, **kw):
+            if self.depth:
+                entry = self.k7.setdefault(
+                    (verts_cam.shape[0], image_size),
+                    [verts_cam.detach().cpu().numpy(),
+                     faces.detach().cpu().numpy(), 0])
+                entry[2] += 1
+            return rast(verts_cam, faces, colors, image_size=image_size,
+                        **kw)
+
+        def scoped(fn):
+            def run(*a, **kw):
+                before = [c.snapshot() for c in self.counters]
+                self.depth += 1
+                try:
+                    return fn(*a, **kw)
+                finally:
+                    self.depth -= 1
+                    for total, c, b in zip((self.launches, self.replayed),
+                                           self.counters, before):
+                        for k, v in c.snapshot().items():
+                            total[k] += v - b[k]
+            return run
+
+        sdvae.encode, sdvae.decode = enc, dec
+        renderer.rasterize_batch = sweep
+        for n in self.within:
+            setattr(tester, n, scoped(self.saved[n]))
+        return self
+
+    def __exit__(self, *exc):
+        sdvae, renderer, tester = self.targets
+        sdvae.encode, sdvae.decode = self.saved["encode"], \
+            self.saved["decode"]
+        renderer.rasterize_batch = self.saved["rasterize_batch"]
+        for n in self.within:
+            setattr(tester, n, self.saved[n])
+
+
+def pass_records(torch, mods, mgr, rec: PassShapes, path: str,
+                 counts: dict) -> tuple:
+    """The kernels of a path whose passes and sweeps ``rec`` recorded, on
+    ``mgr``'s model: each at every shape the passes give it
+    (``diagnosis_shapes``) and K7 at each batch it swept (``k7_case`` on
+    the kept meshes), against its twin and timed; the launches those
+    shapes account for must be ``counts``, kernel for kernel. Returns
+    (one record per kernel launched, path ``path``; the shapes)."""
+    shapes = diagnosis_shapes(torch, mods, mgr, rec.passes)
+    for (b, size), (verts, faces, times) in sorted(rec.k7.items()):
+        check(size == IMAGE, f"{path}: K7 swept at {size}², held at "
+              f"{IMAGE}²")
+        e = k7_case(torch, mods, path, verts, faces, 5, 1,
+                    check_cover=False)
+        e.update(kernel="raster_sweep", launches=times)
+        shapes.setdefault("raster_sweep", []).append(e)
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(mods["kernels"].KERNEL_NAMES, 0)
+    for kernel, entries in shapes.items():
+        want[kernel] += sum(e["launches"] for e in entries)
+    check(counts == want, f"{path}: launches {counts}, expected {want} "
+          f"from its passes {rec.passes} and sweeps "
+          f"{ {k: v[2] for k, v in rec.k7.items()} }")
+    records = []
+    for kernel, entries in shapes.items():
+        r = summarize(kernel, *KERNEL_SOURCES[kernel], entries)
+        r.update(path=path, launches=counts[kernel])
+        records.append(r)
+    return records, shapes
 
 
 def fit_scan(template_pos: np.ndarray, landmark_idx: list) -> tuple:
@@ -3777,7 +3971,7 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str, smi: str) -> dict:
     # every kernel of the path at its shapes there; the launches those
     # shapes account for are the counted run's, kernel for kernel
     passes = diagnosis_passes(svc)
-    shapes = diagnosis_shapes(torch, mods, svc, passes)
+    shapes = diagnosis_shapes(torch, mods, svc.manager, passes)
     fit_iters = passes["dec_bwd"][FIT_RESTARTS]     # warm-up, capture
     k8_per_fit = {"k8_fwd": fit_iters + 1,            # one a forward
                   "k8_bwd": fit_iters}
@@ -3815,6 +4009,8 @@ def diagnosis_run(torch, mods, run_dir: str, policy: str, smi: str) -> dict:
                    "landmark_mse_mm2": fit["landmark_mse_mm2"],
                    "best_restart": fit["best_restart"],
                    "per_iteration": per_iter, "k8_launches": k8_per_fit}}
+    out["labels"] = [r["label"]
+                     for r in card["diagnose"][REQUEST_SIZES[-1]]]
     out["diagnose_rel"] = max(compare_diagnoses(
         card["diagnose"][b], h_diag[b], f"{policy} diagnose B={b}", rtol)
         for b in REQUEST_SIZES)
@@ -4485,6 +4681,483 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
 
 
 # ----------------------------------------------------------------------
+# phase 11: the evaluation harness
+EVAL_PARTS = ("latent_traversals", "plot_embeddings",
+              "random_generation_and_rendering",
+              "random_generation_and_save", "test_classifiers",
+              "compute_diversity_train_set", "compute_diversity")
+EVAL_DIVERSITY = (200, 25)      # compute_diversity's samples and batch held
+#                                 card vs host (the same numpy seeds)
+EVAL_DRAWS = 4                  # meshes of the uncertainty held card vs host
+STANDARD_FILES = ("eval_metrics.json", "accuracies.json",
+                  "classification_report.json",
+                  "classification_report_regions.json",
+                  "random_generation.png", "latent_exploration_strip.png",
+                  "latent_exploration_tiled.png",
+                  "latent_exploration_tiled_strip.png",
+                  *(os.path.join("random_meshes", f"{i}.ply")
+                    for i in range(16)))
+TRAVERSAL_FILES = ("latent_exploration{}_strip.png",
+                   "latent_exploration_tiled{}.png",
+                   "latent_exploration_tiled{}_strip.png")
+
+
+class TimedParts:
+    """While active, the wall time (after a synchronization) of each call
+    of the named ``Tester`` methods and of ``reconstruction_errors``,
+    summed by name."""
+
+    def __init__(self, torch, names):
+        from craniofacialsd_vae_tpu_torch.analysis import tester
+
+        self.torch, self.names, self.mod = torch, names, tester
+        self.seconds = {}
+
+    def _wrap(self, name, fn):
+        def timed(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            self.torch.cuda.synchronize()
+            self.seconds[name] = self.seconds.get(name, 0.0) \
+                + time.perf_counter() - t0
+            return out
+        return timed
+
+    def __enter__(self):
+        cls = self.mod.Tester
+        self.saved = {n: getattr(cls, n) for n in self.names}
+        self.saved_recon = self.mod.reconstruction_errors
+        for n, fn in self.saved.items():
+            setattr(cls, n, self._wrap(n, fn))
+        self.mod.reconstruction_errors = self._wrap(
+            "reconstruction_errors", self.saved_recon)
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.saved.items():
+            setattr(self.mod.Tester, n, fn)
+        self.mod.reconstruction_errors = self.saved_recon
+
+
+def evaluation_tester(run_dir: str, device, out_dir: str):
+    """The entry point's Tester (``test.main``'s construction) on
+    ``run_dir``, evaluating into ``out_dir``, its landmark ids those of
+    the template below its vertex count (the service's rule)."""
+    from craniofacialsd_vae_tpu_torch.analysis.tester import (
+        TEMPLATE_LANDMARKS_IDX, Tester)
+    from craniofacialsd_vae_tpu_torch.data.dataset import (BatchIterator,
+                                                           build_datasets)
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    config = get_config(os.path.join(run_dir, "config.yaml"))
+    mgr = ModelManager(config, config["data"]["precomputed_path"],
+                       device=device)
+    train, val, test, norm, weights = build_datasets(config, mgr.template,
+                                                     device=device)
+    mgr.set_class_conversions_and_weights(weights)
+    mgr.resume(os.path.join(run_dir, "checkpoints"))
+    b = config["optimization"]["batch_size"]
+    tester = Tester(mgr, norm, BatchIterator(train, b, shuffle=False),
+                    BatchIterator(test, b, shuffle=False, drop_last=False),
+                    out_dir, config)
+    n = mgr.template.num_vertices
+    tester.template_landmarks_idx = [i for i in TEMPLATE_LANDMARKS_IDX
+                                     if i < n]
+    return tester, {"train": train, "val": val, "test": test, "norm": norm}
+
+
+def rel_to_max(got, want) -> float:
+    """The largest difference of two arrays of numbers over the largest
+    magnitude of ``want`` (SERVE_RTOL's measure)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    return float(np.abs(got - want).max()) / max(float(np.abs(want).max()),
+                                                 1e-30)
+
+
+def read_json(path: str):
+    with open(path) as f:
+        return json.load(f)
+
+
+def evaluation_answers(torch, tester, scans: dict, eps, card: bool) -> dict:
+    """The experiments held card vs host, on one Tester: recon, the
+    classifiers (and their three JSON files), a plan and a pre/post pair
+    of two scans, saliency of SALIENCY_BATCH test meshes (artifacts on
+    the card), the uncertainty of EVAL_DRAWS meshes with ``eps`` injected
+    (DIAG_SAMPLES draws), a fit at FIT_PARITY_ITERATIONS (its K8 launches
+    counted on the card, its graph's replays included) and
+    ``compute_diversity`` at EVAL_DIVERSITY;
+    with each one's wall time."""
+    from craniofacialsd_vae_tpu_torch import graphs, kernels
+
+    out, secs = {}, {}
+
+    def run(name, fn):
+        t0 = time.perf_counter()
+        out[name] = fn()
+        if card:
+            torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+
+    run("recon", tester.reconstruction_errors)
+    run("classifiers", tester.test_classifiers)
+    out["reports"] = {n: read_json(os.path.join(tester._out_dir, n))
+                      for n in ("accuracies.json",
+                                "classification_report.json",
+                                "classification_report_regions.json")}
+    run("planning", lambda: tester.interpolate_syndrome_to_normal(
+        scans["pre"], render=False))
+    run("prepost", lambda: tester.evaluate_pre_post_pair(
+        scans["pre"], scans["post"], "smoke"))
+    run("saliency", lambda: tester.saliency_maps(
+        n_meshes=SALIENCY_BATCH, save_artifacts=card))
+    out["vertex_saliency"] = tester.last_saliency
+    run("uncertainty", lambda: tester.diagnosis_uncertainty(
+        n_meshes=len(eps), n_samples=DIAG_SAMPLES, eps=eps,
+        save_artifacts=False))
+    if card:
+        reset_counts()
+    run("fit", lambda: tester.fit_mesh(
+        scans["fit"], scans["fit_landmarks"],
+        iterations=FIT_PARITY_ITERATIONS, n_restarts=FIT_RESTARTS,
+        seed=SEED))
+    if card:
+        # the fit's graph may be a cached capture: its replays count too
+        launched = kernels.launches.snapshot()
+        replayed = graphs.replayed.snapshot()
+        out["fit_k8"] = {k: launched[k] + replayed.get(k, 0)
+                         for k in ("k8_fwd", "k8_bwd")}
+    run("diversity", lambda: tester.compute_diversity(*EVAL_DIVERSITY))
+    out["seconds"] = secs
+    return out
+
+
+def compare_evaluations(card: dict, host: dict, what: str, mixed: bool
+                        ) -> dict:
+    """Card against host: the classifier files and every label equal;
+    recon, the plan's patient latent, the pre/post metrics, the
+    uncertainty statistics and the diversity within SERVE_RTOL of each
+    array's max (MIXED_RTOL under ``mixed``); saliency within
+    SALIENCY_RTOL of its max; the fit's chamfer within FIT_RTOL with the
+    same best restart."""
+    rtol = MIXED_RTOL if mixed else SERVE_RTOL
+    rel = {}
+
+    def held(name, value, bar):
+        rel[name] = value
+        check(value <= bar, f"{what} {name}: card vs host {value:.3e} > "
+              f"{bar}")
+
+    check(card["reports"] == host["reports"],
+          f"{what}: the classifier files differ card vs host")
+    keys = sorted(host["recon"])
+    held("recon", rel_to_max([card["recon"][k] for k in keys
+                              if np.isfinite(host["recon"][k])],
+                             [host["recon"][k] for k in keys
+                              if np.isfinite(host["recon"][k])]), rtol)
+    if "planning" in host:
+        held("plan_patient", rel_to_max(card["planning"]["z_patient"],
+                                        host["planning"]["z_patient"]), rtol)
+        pc, ph = card["prepost"], host["prepost"]
+        check(pc["pre_class"] == ph["pre_class"]
+              and pc["post_class"] == ph["post_class"],
+              f"{what}: pre/post classes differ")
+        names = ["global_metric", "global_metric_l2",
+                 "global_metric_directional", "procedure_metric"]
+        vals = lambda m: [m[k] for k in names] + [  # noqa: E731
+            v for r in sorted(m["region_metrics"])
+            for v in m["region_metrics"][r].values()]
+        held("prepost", rel_to_max(vals(pc), vals(ph)), rtol)
+        for c, h in zip(card["saliency"], host["saliency"]):
+            check(c["label"] == h["label"]
+                  and c["reference_class"] == h["reference_class"],
+                  f"{what}: saliency labels differ")
+        held("saliency", rel_to_max(card["vertex_saliency"],
+                                    host["vertex_saliency"]),
+             MIXED_FIT_RTOL if mixed else SALIENCY_RTOL)
+        for c, h in zip(card["uncertainty"], host["uncertainty"]):
+            check(c["label"] == h["label"]
+                  and c["sample_votes"] == h["sample_votes"],
+                  f"{what}: uncertainty votes differ")
+        held("uncertainty", rel_to_max(
+            [v for r in card["uncertainty"] for f in ("posterior_mean",
+                                                      "posterior_std")
+             for v in r[f].values()],
+            [v for r in host["uncertainty"] for f in ("posterior_mean",
+                                                      "posterior_std")
+             for v in r[f].values()]), rtol)
+        fc, fh = card["fit"], host["fit"]
+        held("fit_chamfer", abs(fc["chamfer_mm2"] - fh["chamfer_mm2"])
+             / fh["chamfer_mm2"], MIXED_FIT_RTOL if mixed else FIT_RTOL)
+        check(mixed or fc["best_restart"] == fh["best_restart"],
+              f"{what}: fit best restart card {fc['best_restart']} vs "
+              f"host {fh['best_restart']}")
+        check(fc["pred_class"] == fh["pred_class"],
+              f"{what}: fitted class differs")
+        held("diversity", abs(card["diversity"] - host["diversity"])
+             / host["diversity"], rtol)
+    return rel
+
+
+def evaluation_scans(root: str, tester, split: dict) -> dict:
+    """A pre/post pair (two test scans written as OBJ) and an
+    unregistered scan of FIT_SCAN_POINTS points with its landmarks (JSON,
+    the reference's layout), for the file-taking experiments."""
+    from craniofacialsd_vae_tpu_torch.geometry import write_obj
+
+    mgr = tester._manager
+    norm = split["norm"]
+    faces = np.asarray(mgr.template.face)
+    out = {}
+    for key, i in (("pre", 0), ("post", 1)):
+        out[key] = os.path.join(root, f"{key}.obj")
+        write_obj(out[key], np.asarray(split["test"].x[i]) * norm["std"]
+                  + norm["mean"], faces)
+    pts, lnd = fit_scan(np.asarray(mgr.template.pos, np.float64),
+                        tester.template_landmarks_idx)
+    out["fit"] = os.path.join(root, "unregistered.obj")
+    write_obj(out["fit"], pts)
+    out["fit_landmarks"] = os.path.join(root, "unregistered_landmarks.json")
+    with open(out["fit_landmarks"], "w") as f:
+        json.dump([dict(zip("xyz", map(float, p))) for p in lnd], f)
+    return out
+
+
+def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
+                     smi: str) -> dict:
+    """Phase 11: the evaluation harness on phase 7's (fp32) and phase 8's
+    (mixed) run dirs (see the module docstring)."""
+    from craniofacialsd_vae_tpu_torch import batch_diagnose
+    from craniofacialsd_vae_tpu_torch import test as entry
+    from craniofacialsd_vae_tpu_torch.analysis.uncertainty import \
+        sample_eps
+    from craniofacialsd_vae_tpu_torch.geometry import write_obj
+
+    t_start = time.perf_counter()
+    run_dir = runs["fp32"]
+    run_id = os.path.basename(run_dir)
+    argv = ["--id", run_id, "--output_path", root, "--device", DEVICE,
+            "--experiment", "standard"]
+
+    # the main path: counts from 0, the standard suite through the entry
+    # point, counts read
+    for name in ("eval_metrics.json", "accuracies.json"):
+        check(not os.path.exists(os.path.join(run_dir, name)),
+              f"{name} before the suite ran")
+    reset_counts()
+    with PassShapes() as shapes, TimedParts(torch, EVAL_PARTS) as parts:
+        t0 = time.perf_counter()
+        first = entry.main(argv)
+        torch.cuda.synchronize()
+        standard_s = time.perf_counter() - t0
+    counts = read_counts(torch, "evaluation")
+    steps_s = {"standard": standard_s}
+    for rel in STANDARD_FILES:
+        check(os.path.isfile(os.path.join(run_dir, rel)),
+              f"the standard suite wrote no {rel}")
+    metrics = read_json(os.path.join(run_dir, "eval_metrics.json"))
+    check(metrics == json.loads(json.dumps(first["result"])),
+          "eval_metrics.json is not the suite's answer")
+    check(all(np.isfinite(metrics["recon_errors"][k])
+              for k in ("mean", "median", "max"))
+          and metrics["diversity"] > 0
+          and metrics["train_set_diversity"] > 0,
+          f"eval_metrics {metrics}")
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
+                   "ell_matmul_fwd", "raster_sweep"):
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched on the evaluation path")
+    not_drawn = sorted(first["tester"].figures_not_drawn)
+    manager = first["manager"]
+    log(f"[11 evaluation] standard suite on the card {standard_s:.2f} s "
+        f"(parts {dict((k, round(v, 3)) for k, v in parts.seconds.items())}"
+        f"); launches {dict((k, v) for k, v in counts.items() if v)}; "
+        f"figures not drawn: {len(not_drawn)}; {smi}")
+
+    # after the counted run: the suite again under the profiler; every
+    # kernel at every shape the suite gave it, its launches the run's
+    t0 = time.perf_counter()
+    prof = profile_kernels(torch, lambda: entry.main(argv))
+    steps_s["profiled"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    records, _ = pass_records(torch, mods, manager, shapes, "evaluation",
+                              counts)
+    steps_s["kernels_held"] = time.perf_counter() - t0
+    del first, manager
+    torch.cuda.empty_cache()
+
+    # every other experiment on the card, at the entry's defaults, timed
+    t_step = time.perf_counter()
+    card_t, split = evaluation_tester(run_dir, DEVICE,
+                                      os.path.join(root, "eval_card"))
+    scans = evaluation_scans(root, card_t, split)
+    pairs = os.path.join(root, "pairs.csv")
+    with open(pairs, "w") as f:
+        f.write("PID,Pre name,Post name,Surgery regions,Procedure,"
+                "Syndrome\n1,pre.obj,post.obj,monobloc,monobloc,Apert\n"
+                "2,post.obj,pre.obj,le_fort_III,le_fort_III,Crouzon\n")
+    x = np.asarray(split["test"].x, np.float32)
+    far = int(np.argmax([float(np.mean((x[0] - xi) ** 2)) for xi in x]))
+    raw = lambda v: v * split["norm"]["std"] + split["norm"]["mean"]  # noqa
+    experiments = {
+        "interpolate": lambda: card_t.interpolate(raw(x[0]), raw(x[far])),
+        "classify_and_project": lambda: card_t.classify_and_project(
+            scans["pre"]),
+        "planning": lambda: card_t.interpolate_syndrome_to_normal(
+            scans["pre"]),
+        "prepost": lambda: (card_t.evaluate_pre_post_pair(
+            scans["pre"], scans["post"], "cli"),
+            card_t.compute_and_save_postop_mesh_colourmap(
+                scans["pre"], scans["post"])),
+        "prepost_batch": lambda: card_t.evaluate_all_pre_post_pairs_in_excel(
+            root, pairs),
+        "fit": lambda: card_t.fit_mesh(scans["fit"], scans["fit_landmarks"],
+                                       save_artifacts=True),
+        "saliency": card_t.saliency_maps,
+        "uncertainty": card_t.diagnosis_uncertainty,
+    }
+    experiment_s = {}
+    for name, fn in experiments.items():
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        experiment_s[name] = time.perf_counter() - t0
+    log(f"[11 evaluation] the other experiments on the card, at the entry's "
+        f"defaults (s): { {k: round(v, 3) for k, v in experiment_s.items()} }")
+    for rel in ("interpolate_per_feature.png", "interpolate_all.png",
+                "interpolate_per_variable_strip.png",
+                os.path.join("interpolations",
+                             "pre_all_attributes", "interpolation.png"),
+                os.path.join("interpolations",
+                             "pre_procedure_distances.csv"),
+                "postop_displacement.ply",
+                os.path.join("pre_post_eval_plots", "pairs_with_results.csv"),
+                os.path.join("fit", "unregistered_fit.ply"),
+                os.path.join("saliency", "saliency_maps.png"),
+                os.path.join("uncertainty", "report.json")):
+        check(os.path.exists(os.path.join(card_t._out_dir, rel)),
+              f"evaluation: no {rel}")
+    steps_s["experiments"] = time.perf_counter() - t_step
+
+    # card against host, on the same run dir and requests
+    t_step = time.perf_counter()
+    draws = min(EVAL_DRAWS, len(split["test"]))
+    eps = sample_eps(SEED, draws, DIAG_SAMPLES,
+                     card_t._manager.model_latent_size)
+    card = evaluation_answers(torch, card_t, scans, eps, True)
+    check(card["fit_k8"]["k8_fwd"] > 0 and card["fit_k8"]["k8_bwd"] > 0,
+          f"the Tester's fit launched K8 {card['fit_k8']}")
+    host_t, _ = evaluation_tester(run_dir, "cpu",
+                                  os.path.join(root, "eval_host"))
+    t0 = time.perf_counter()
+    host = evaluation_answers(torch, host_t, scans, eps, False)
+    host_s = time.perf_counter() - t0
+    rel = compare_evaluations(card, host, "evaluation fp32", False)
+    del host_t
+    steps_s["card_vs_host"] = time.perf_counter() - t_step
+    t_step = time.perf_counter()
+
+    # the mixed run dir: recon and the classifiers, card vs host
+    mixed = {}
+    for dev in (DEVICE, "cpu"):
+        t, _ = evaluation_tester(runs["mixed"], dev, os.path.join(
+            root, f"eval_mixed_{torch.device(dev).type}"))
+        mixed[dev] = {"recon": t.reconstruction_errors(),
+                      "classifiers": t.test_classifiers()}
+        mixed[dev]["reports"] = {
+            n: read_json(os.path.join(t._out_dir, n))
+            for n in ("accuracies.json", "classification_report.json",
+                      "classification_report_regions.json")}
+        del t
+    mixed_rel = compare_evaluations(mixed[DEVICE], mixed["cpu"],
+                                    "evaluation mixed", True)
+    steps_s["mixed_card_vs_host"] = time.perf_counter() - t_step
+
+    # the batch intake over phase 9's scans (the train split's first
+    # REQUEST_SIZES[-1], as OBJ files) and one of the wrong size
+    config = card_t._config
+    with open(os.path.join(config["data"]["precomputed_path"],
+                           "data_split.json")) as f:
+        names = json.load(f)["train"][:REQUEST_SIZES[-1]]
+    intake = os.path.join(root, "intake")
+    os.makedirs(intake)
+    for name in names:
+        shutil.copy2(os.path.join(config["data"]["dataset_path"], name),
+                     intake)
+    half = np.asarray(split["test"].x[0])
+    write_obj(os.path.join(intake, "zz_unregistered.obj"),
+              half[:len(half) // 2])
+    t0 = time.perf_counter()
+    summary = batch_diagnose.main(["--run_dir", run_dir, "--scans", intake,
+                                   "--out", os.path.join(root, "intake_out"),
+                                   "--device", DEVICE])
+    intake_s = time.perf_counter() - t0
+    with open(os.path.join(root, "intake_out", "diagnoses.csv")) as f:
+        rows = {r["file"]: r for r in csv.DictReader(f)}
+    check(summary["n_diagnosed"] == len(names) and summary["n_skipped"] == 1
+          and "unregistered scan" in rows["zz_unregistered.obj"]["error"],
+          f"batch intake summary {summary}")
+    got = [rows[n]["label"] for n in names]
+    check(got == labels, f"batch intake labels {got} vs phase 9's "
+          f"diagnose {labels}")
+
+    # refit the zoo last (it rewrites the run's classifiers.npz)
+    from craniofacialsd_vae_tpu_torch.data.dataset import BatchIterator
+
+    t0 = time.perf_counter()
+    mgr = card_t._manager
+    mgr.train_and_validate_classifiers(
+        card_t._train_iter, BatchIterator(
+            split["val"], card_t._train_iter.batch_size, shuffle=False,
+            drop_last=False),
+        checkpoint_dir=os.path.join(run_dir, "checkpoints"))
+    card_t.test_classifiers()
+    torch.cuda.synchronize()
+    experiment_s["refit_classifiers"] = time.perf_counter() - t0
+    del card_t, mgr
+    torch.cuda.empty_cache()
+
+    # phase 7's traversals at each save epoch: their files
+    traversal_files = {}
+    for run, epochs in (("entry", range(ENTRY_CADENCE, ENTRY_EPOCHS[1] + 1,
+                                        ENTRY_CADENCE)),
+                        ("entry_steps", range(ENTRY_CADENCE,
+                                              ENTRY_EPOCHS[0] + 1,
+                                              ENTRY_CADENCE))):
+        for e in epochs:
+            for pattern in TRAVERSAL_FILES:
+                path = os.path.join(root, "outputs", run,
+                                    pattern.format(e))
+                check(os.path.isfile(path), f"phase 7 wrote no {path}")
+                traversal_files[os.path.relpath(path, root)] = \
+                    os.path.getsize(path)
+
+    line = {"phase": "evaluation", "card": smi,
+            "standard": {"s": standard_s, "parts_s": parts.seconds,
+                         "metrics": metrics,
+                         "profiled": {k: prof[k] for k in (
+                             "wall_ms", "device_ms", "idle_share",
+                             "kernels_run", "copies")},
+                         "figures_not_drawn": len(not_drawn)},
+            "experiments_s": experiment_s,
+            "card_vs_host": {"fp32": rel, "mixed": mixed_rel,
+                             "card_s": card["seconds"],
+                             "host_s": host["seconds"],
+                             "host_total_s": host_s,
+                             "fit_k8": card["fit_k8"]},
+            "batch_intake": {"s": intake_s, "scans": len(names) + 1,
+                             "labels": summary["labels"]},
+            "traversal_files_bytes": traversal_files,
+            "steps_s": steps_s,
+            "launches": counts, "replayed": PATH_REPLAYS["evaluation"],
+            "seconds": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    return dict(line=line, records=records)
+
+
+# ----------------------------------------------------------------------
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -4586,6 +5259,14 @@ def main(argv=None) -> int:
         augmentation = phase_augmentation(torch, mods, root,
                                           k1_ptxas(build_log))
         records.append(augmentation["record"])
+        log(f"[10 augmentation] done; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        evaluation = phase_evaluation(
+            torch, mods, root, {"fp32": entry["run_dir"],
+                                "mixed": mixed["entry"]["run_dir"]},
+            diagnosis["runs"]["fp32"]["labels"], smi_line)
+        records += evaluation["records"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -4595,8 +5276,7 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[10 augmentation] done; total {time.perf_counter() - t_start:.1f} "
-        "s")
+    log(f"[11 evaluation] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -4617,7 +5297,8 @@ def main(argv=None) -> int:
                        "diagnosis": {k: diagnosis[k] for k in (
                            "line", "shapes", "runs", "path_shapes")},
                        "augmentation": {k: augmentation[k] for k in (
-                           "line", "k9", "solves")}},
+                           "line", "k9", "solves")},
+                       "evaluation": evaluation["line"]},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

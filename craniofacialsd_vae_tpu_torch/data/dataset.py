@@ -44,13 +44,13 @@ import numpy as np
 import torch
 
 from ..device import resolve_device
-from ..geometry.mesh_io import read_mesh, write_obj
+from ..geometry.mesh_io import read_mesh, write_obj, write_ply
 from ..ops.eigh import laplacian_eigendecomposition
 from .augmentation import augment_pairs
 
 __all__ = ["MeshArrays", "DatasetSummary", "build_datasets", "BatchIterator",
            "DeviceBatchIterator", "compute_class_weights", "find_filenames",
-           "split_files", "train_test_split"]
+           "split_files", "train_test_split", "save_mean_mesh"]
 
 AGE_SPLIT_MONTHS = 48  # the age groups of the augmentation pairs (months)
 _AUG_CHUNK = 32        # augmentation pairs generated per batch
@@ -496,6 +496,12 @@ def build_datasets(config: dict, template=None, seed: int = 0,
 
     class_weights = compute_class_weights(train_names)
     return train, val, test, normalization, class_weights
+
+
+def save_mean_mesh(normalization: dict, template, out_path: str):
+    """Export the training-set mean shape as a PLY on the template's faces
+    (reference data_loading.py:285-290)."""
+    write_ply(out_path, np.asarray(normalization["mean"]), template.face)
 
 
 # ---------------------------------------------------------------- batching

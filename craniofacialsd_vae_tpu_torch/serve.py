@@ -6,7 +6,7 @@
 
 Serves ``outputs/<id>/`` (a run dir of either package) on the card
 unless ``--device cpu``. An ensemble dir is refused: ensemble serving is
-not ported yet (ROADMAP 1.12).
+not ported yet (ROADMAP 1.5).
 
 Endpoints (JSON in and out; vertices may also be posted as a raw ``.npy``
 body with ``Content-Type: application/octet-stream``):

@@ -274,7 +274,7 @@ class DiagnosisService:
         if os.path.exists(os.path.join(run_dir, "ensemble.json")):
             raise ValueError(
                 f"{run_dir} is an ensemble run dir: ensemble serving is not "
-                "ported yet (ROADMAP 1.12); serve a member run dir")
+                "ported yet (ROADMAP 1.5); serve a member run dir")
         config = get_config(config_path)
         precomp = config["data"]["precomputed_path"]
         if classes is None:

@@ -28,12 +28,17 @@ writes a ``torch.profiler`` Chrome trace of the second epoch (the first
 when only one runs) to ``outputs/<id>/profile/trace.json`` and runs the
 per-epoch loop, whose train epoch is one scanned epoch (one replayed
 graph on the card).
-After the last save it fits the classifier zoo on the train latents at
-the config's batch size (``checkpoints/classifiers.npz``) and writes the
-latent statistics (``z_stats.npz``).
+At every checkpoint of the cadence it runs the latent traversals of a
+``Tester`` built before training with lazy statistics
+(``latent_traversals(use_z_stats=False, save_suffix=<epoch>)``: the
+``latent_exploration<epoch>`` frame strips and tiled grid), which draw
+nothing from the iterators' generators and leave the weights, the
+captured graphs and the checkpoints as they are. After the last save it
+fits the classifier zoo on the train latents at the config's batch size
+(``checkpoints/classifiers.npz``) and writes the latent statistics
+(``z_stats.npz``).
 
-Not ported yet: data parallelism and multihost (ROADMAP queue 1.4) and
-the Tester's latent traversals (1.2).
+Not ported yet: data parallelism and multihost (ROADMAP queue 1.4).
 """
 
 from __future__ import annotations
@@ -63,7 +68,7 @@ def main(argv=None) -> dict:
                              "into outputs/<id>/profile")
     args = parser.parse_args(argv)
 
-    from .analysis.tester import compute_latent_stats
+    from .analysis.tester import Tester, compute_latent_stats
     from .data.dataset import DeviceBatchIterator, build_datasets
     from .device import resolve_device
     from .manager import ModelManager
@@ -105,6 +110,10 @@ def main(argv=None) -> dict:
         print("warning: validation split yields no batch at this batch "
               "size — validation image grids disabled")
 
+    # the traversals at each checkpoint; the stats stay lazy, so nothing
+    # encodes the untrained model
+    tester = Tester(manager, normalization, train_iter, val_iter,
+                    output_dir, config, lazy_stats=True)
     start_epoch = manager.resume(checkpoint_dir) if args.resume else 0
     epochs = config["optimization"]["epochs"]
     log_freq = config["logging_frequency"]
@@ -114,7 +123,7 @@ def main(argv=None) -> dict:
     grid = batch_size ** 2 if config["data"].get("swap_features") \
         else batch_size
     t0 = time.time()
-    history = []
+    history, traversal_s = [], []
     print_cad = max(epochs // 10, 1)
 
     def log_epoch(epoch, train_losses, val_losses, train_s, epoch_s):
@@ -127,7 +136,8 @@ def main(argv=None) -> dict:
                         "epoch_s": epoch_s, "steps": len(train_iter)})
 
     def cadence(epoch):
-        """The renders and checkpoint due after ``epoch`` (0-based)."""
+        """The renders, checkpoint and traversals due after ``epoch``
+        (0-based)."""
         if (epoch + 1) % log_freq["tb_renderings"] == 0:
             manager.log_images(vis_batch, writer, epoch, normalization,
                                "train", error_max_scale=2)
@@ -137,6 +147,10 @@ def main(argv=None) -> dict:
                                    error_max_scale=2)
         if (epoch + 1) % log_freq["save_weights"] == 0:
             manager.save_weights(checkpoint_dir, epoch)
+            t = time.perf_counter()
+            tester.latent_traversals(use_z_stats=False,
+                                     save_suffix=str(epoch + 1))
+            traversal_s.append(time.perf_counter() - t)
 
     use_chunks = (not args.profile
                   and manager.can_scan_epochs(train_iter, val_iter))
@@ -209,7 +223,7 @@ def main(argv=None) -> dict:
             "manager": manager, "history": history,
             "geometry_s": manager.geometry_seconds, "data_s": data_s,
             "start_epoch": start_epoch, "classifier_accs": classifier_accs,
-            "classifiers_s": classifiers_s}
+            "classifiers_s": classifiers_s, "traversal_s": traversal_s}
 
 
 def _start_profile(device):

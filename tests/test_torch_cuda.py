@@ -2184,3 +2184,58 @@ def test_serving_bucket_graphs_equal_eager_programs():
                 else ((got,), (want,))
             for g, w in zip(got, want):
                 np.testing.assert_array_equal(g, w)
+
+
+# ------------------------------------------------ the evaluation harness
+def test_tester_recon_and_classifiers_on_card_match_host(tmp_path):
+    """The Tester's ``recon`` and ``classifiers`` on the card against the
+    same on the host, both managers resumed from one host-trained
+    checkpoint with its zoo: errors rtol 1e-4 (phase 9's SERVE_RTOL),
+    accuracies and reports equal; the card launched K1, K4 and no K7."""
+    from craniofacialsd_vae_tpu_torch.analysis.tester import Tester
+    from craniofacialsd_vae_tpu_torch.data.dataset import (BatchIterator,
+                                                           build_datasets)
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+
+    dev = _card()
+    config = _entry_workspace(str(tmp_path))
+    train, val, test, norm, weights = build_datasets(config)
+    ckpt = str(tmp_path / "ckpt")
+    warm = ModelManager(config, config["data"]["precomputed_path"],
+                        device="cpu")
+    warm.set_class_conversions_and_weights(weights)
+    warm.run_epoch(BatchIterator(train, 3, seed=1,
+                                 class2idx=warm._class2idx_dict))
+    warm.save_weights(ckpt, 0)
+    warm.train_and_validate_classifiers(
+        BatchIterator(train, 3, shuffle=False),
+        BatchIterator(val, 3, shuffle=False, drop_last=False),
+        checkpoint_dir=ckpt)
+    out = {}
+    for d in (dev, "cpu"):
+        mgr = ModelManager(config, config["data"]["precomputed_path"],
+                           device=d)
+        mgr.set_class_conversions_and_weights(weights)
+        mgr.resume(ckpt)
+        tester = Tester(mgr, norm, BatchIterator(train, 3, shuffle=False),
+                        BatchIterator(test, 3, shuffle=False,
+                                      drop_last=False),
+                        str(tmp_path / f"eval_{torch.device(d).type}"),
+                        config)
+        kernels.launches.reset()
+        out[d] = (tester.reconstruction_errors(), tester.test_classifiers(),
+                  kernels.launches.snapshot(), tester)
+    (rc, ac, counts, tc), (rh, ah, _, th) = out[dev], out["cpu"]
+    for k, v in rh.items():
+        if np.isfinite(v):
+            assert abs(rc[k] - v) <= 1e-4 * abs(v), k
+    assert ac == ah
+    for name in ("classification_report.json",
+                 "classification_report_regions.json"):
+        paths = [os.path.join(t._out_dir, name) for t in (tc, th)]
+        if os.path.exists(paths[1]):
+            with open(paths[0]) as f, open(paths[1]) as g:
+                assert f.read() == g.read(), name
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd"):
+        assert counts[kernel] > 0, kernel
+    assert counts["raster_sweep"] == 0

@@ -434,14 +434,18 @@ def test_warmup_fit(jax_run, services):
 # ---------------------------------------------------------------- run dirs
 @pytest.fixture(scope="module")
 def port_run(tmp_path_factory):
-    """A run dir written by the port's ``train.main`` on the CPU."""
+    """A run dir written by the port's ``train.main`` on the CPU (its
+    traversals rendered small: the images are not tested here)."""
+    from tests.test_torch_tester import small_tester_renders
+
     root = str(tmp_path_factory.mktemp("port_run"))
     config = _workspace(root)
     cfg_path = os.path.join(root, "run.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(config, f)
-    out = ttrain.main(["--config", cfg_path, "--id", "port",
-                       "--output_path", root, "--device", "cpu"])
+    with small_tester_renders():
+        out = ttrain.main(["--config", cfg_path, "--id", "port",
+                           "--output_path", root, "--device", "cpu"])
     return out
 
 

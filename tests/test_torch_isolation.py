@@ -17,7 +17,7 @@ PKG = os.path.join(REPO, "craniofacialsd_vae_tpu_torch")
 SMOKE = os.path.join(REPO, "chip_smoke.py")
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "craniofacialsd_vae_tpu",
              "yaml", "msgpack", "matplotlib", "sklearn", "pandas",
-             "tensorboardX", "openpyxl")
+             "tensorboardX", "openpyxl", "PIL", "imageio", "seaborn")
 
 
 def _port_files():
@@ -135,7 +135,8 @@ def test_kernel_sources_export_their_c_entry_points(name):
 
 @pytest.mark.parametrize("module", ["training", "data", "geometry", "models",
                                     "ops", "serving", "utils", "viz",
-                                    "manager", "train", "analysis", "serve"])
+                                    "manager", "train", "analysis", "serve",
+                                    "test", "batch_diagnose"])
 def test_port_modules_import_with_jax_blocked(module):
     """Each subpackage and entry module imports in a fresh process in
     which JAX, the JAX package and the libraries the card's machine lacks

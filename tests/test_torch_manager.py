@@ -425,7 +425,11 @@ def test_head_forward_equals_jax_mlp_apply():
 def test_train_main_writes_the_run_dir_and_resumes(tmp_path):
     """``train.main([... "--device", "cpu"])`` writes the run dir with the
     cadences of the config; ``--resume --epochs 3`` restores epoch 2 (the
-    parameters and Adam moments of model_00000002.ckpt) and goes on."""
+    parameters and Adam moments of model_00000002.ckpt) and goes on. The
+    traversal at the checkpoint renders small (its images are not tested
+    here)."""
+    from tests.test_torch_tester import small_tester_renders
+
     root = str(tmp_path)
     config = make_workspace(root, mlp_training_type="after", per_class=6)
     cfg_path = os.path.join(root, "run.yaml")
@@ -433,7 +437,8 @@ def test_train_main_writes_the_run_dir_and_resumes(tmp_path):
         yaml.safe_dump(config, f)
     argv = ["--config", cfg_path, "--id", "run", "--output_path", root,
             "--device", "cpu"]
-    first = ttrain.main(argv)
+    with small_tester_renders():
+        first = ttrain.main(argv)
     run = os.path.join(root, "outputs", "run")
     ckpt = os.path.join(run, "checkpoints")
     assert os.path.exists(os.path.join(run, "config.yaml"))

@@ -438,14 +438,18 @@ def test_fit_iteration_is_keyed_on_shapes_and_bounded(ws):
 def entry_runs(tmp_path_factory):
     """``train.main`` on the CPU twice from one workspace: chunked (two
     epochs, cadences 2: one chunk) and with ``--profile`` (the per-epoch
-    loop, its second epoch traced)."""
+    loop, its second epoch traced). The traversals at each checkpoint
+    render small: the images are not tested here."""
+    from tests.test_torch_tester import small_tester_renders
+
     root = str(tmp_path_factory.mktemp("entry"))
     cfg_path = os.path.join(root, "run.yaml")
     with open(cfg_path, "w") as f:
         yaml.safe_dump(make_workspace(root), f)
     argv = ["--config", cfg_path, "--output_path", root, "--device", "cpu"]
-    chunked = ttrain.main(argv + ["--id", "chunked"])
-    stepped = ttrain.main(argv + ["--id", "stepped", "--profile"])
+    with small_tester_renders():
+        chunked = ttrain.main(argv + ["--id", "chunked"])
+        stepped = ttrain.main(argv + ["--id", "stepped", "--profile"])
     return chunked, stepped
 
 
