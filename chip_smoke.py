@@ -188,15 +188,22 @@ them or outside a checkout. Phases, each of which raises on a fault:
 11. evaluation: counted, ``python -m craniofacialsd_vae_tpu_torch.test
    --experiment standard`` (called in process) on phase 7's run dir on
    the card, timed with its parts (traversals, embeddings, generation,
-   classifiers, reconstruction, both diversities), every JSON, PNG and
-   PLY of the suite checked, K1 (both kernels), K4 and K7 launched and
+   classifiers, reconstruction, both diversities), every JSON, PNG, PLY,
+   SVG (parsed as XML), ``.npz`` and AVI (its RIFF chunks walked: the
+   frames passed, as many ``idx1`` entries, each a JPEG) of the suite
+   checked, K1 (both kernels), K4 and K7 launched and
    each model pass and render recorded (``PassShapes``); the suite again
    under torch.profiler (device time, idle share); each kernel at every
    shape the suite's passes and renders gave it (``pass_records``: K7 on
    the first meshes of each batch size it swept) against its twin and
    timed, with the launches those shapes account for equal to the
    suite's, kernel for kernel; every other experiment of the entry point
-   on the card at its defaults, timed, its files checked; then, on a
+   on the card at its defaults, timed, on an output directory holding the
+   suite's two figure states (``lda_emb_distributions.npz``,
+   ``emb_all_train_dist.npz``), its files checked: videos (each walk's
+   frames), boxplots and every overlay (the plan's walks on both
+   embedding figures with their videos, the scan's projections, the pre
+   → post arrows); then, on a
    card Tester and a host Tester of the same run dir, recon, the
    classifiers (their three JSON files equal), a plan and a pre/post pair
    of two test scans, saliency of SALIENCY_BATCH test meshes, the
@@ -210,8 +217,18 @@ them or outside a checkout. Phases, each of which raises on a fault:
    equal; ``python -m craniofacialsd_vae_tpu_torch.batch_diagnose`` on the
    card over phase 9's 20 scans (as OBJ files) and one of the wrong size:
    its labels phase 9's ``diagnose``; the zoo refitted; phase 7's
-   traversal files at each save epoch; one ``{"phase": "evaluation",
-   ...}`` line.
+   traversal files (videos and plots) at each save epoch; one
+   ``{"phase": "evaluation", ...}`` line;
+12. figures, on phase 7's run dir after phase 11 (counted, not a kernel
+   path): t-SNE of the train and test latents on the card against the
+   host from one start at sklearn's minimum of 250 iterations (P within
+   TSNE_P_RTOL, the embedding within TSNE_RTOL of their max), then the
+   Tester's t-SNE figures (1,000 iterations on the card); the JPEG of one
+   traversal frame encoded from card tensors equal to the host's bytes;
+   ``python -m craniofacialsd_vae_tpu_torch.
+   visualize_in_batch`` on the run's octasphere template, the card's 16
+   PLYs equal to the host's; one ``{"phase": "figures", ...}`` line with
+   the seconds by part.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
@@ -4553,9 +4570,11 @@ def phase_augmentation(torch, mods, root: str, ptxas: list) -> dict:
     tpl = synthetic_template(ENTRY_SUBDIVISIONS, ENTRY_REGIONS)
     block = CHEBY_K + max(8, CHEBY_K // 8)
     k9 = k9_parity(torch, mods, tpl, block, ptxas)
-    torch.cuda.empty_cache()
+    # no empty_cache before the two timed solves (this one and the entry
+    # basis below): a build that must take fresh device memory from the
+    # driver took past TILES_MAX_S in 26 of 240 builds, none served from
+    # the allocator's cache did (k9_tiles_probe, PERF.md section 7)
     solves = eigh_solves(torch, mods, tpl)
-    torch.cuda.empty_cache()
 
     ws = os.path.join(root, "augmentation")
     os.makedirs(ws)
@@ -4689,17 +4708,137 @@ EVAL_PARTS = ("latent_traversals", "plot_embeddings",
 EVAL_DIVERSITY = (200, 25)      # compute_diversity's samples and batch held
 #                                 card vs host (the same numpy seeds)
 EVAL_DRAWS = 4                  # meshes of the uncertainty held card vs host
+TRAVERSAL_FILES = ("latent_exploration{}.avi",
+                   "latent_exploration_tiled{}.png",
+                   "latent_exploration_tiled{}.avi",
+                   "latent_exploration_split{}.svg",
+                   "latent_exploration{}.svg")
+EMBEDDING_FILES = tuple(f"{{}}_emb_{n}" for n in (
+    "train_vs_test.svg", "real_vs_aug.svg", "distributions.svg",
+    "distributions.npz"))
 STANDARD_FILES = ("eval_metrics.json", "accuracies.json",
                   "classification_report.json",
                   "classification_report_regions.json",
-                  "random_generation.png", "latent_exploration_strip.png",
-                  "latent_exploration_tiled.png",
-                  "latent_exploration_tiled_strip.png",
+                  "random_generation.png",
+                  *(n.format("") for n in TRAVERSAL_FILES),
+                  *(n.format("lda") for n in EMBEDDING_FILES),
+                  "emb_all_train.svg", "emb_all_train_dist.svg",
+                  "emb_all_train_dist.npz",
+                  *(f"confmat_{h}.svg" for h in ("mlp", "svm", "lda", "qda")),
+                  "region_confmats_lda.svg", "region_confmats_qda.svg",
                   *(os.path.join("random_meshes", f"{i}.ply")
                     for i in range(16)))
-TRAVERSAL_FILES = ("latent_exploration{}_strip.png",
-                   "latent_exploration_tiled{}.png",
-                   "latent_exploration_tiled{}_strip.png")
+TRAVERSAL_STEPS = 10            # latent_traversals' n_steps
+PER_VARIABLE_STEPS = 3          # interpolate's per_variable_steps
+
+
+def walk_avi(path: str) -> int:
+    """Walk an AVI's RIFF chunks: the ``avih`` frame count, the ``idx1``
+    entries and the ``00dc`` chunks agree, each payload a JPEG (SOI …
+    EOI); returns the frame count."""
+    with open(path, "rb") as f:
+        data = f.read()
+    check(data[:4] == b"RIFF" and data[8:12] == b"AVI "
+          and int.from_bytes(data[4:8], "little") == len(data) - 8,
+          f"{path}: not a RIFF AVI")
+    found = {"frames": 0, "index": 0, "total": None}
+
+    def walk(lo, hi):
+        pos = lo
+        while pos < hi:
+            cc = data[pos:pos + 4]
+            size = int.from_bytes(data[pos + 4:pos + 8], "little")
+            body = data[pos + 8:pos + 8 + size]
+            if cc == b"LIST":
+                walk(pos + 12, pos + 8 + size)
+            elif cc == b"00dc":
+                check(body[:2] == b"\xff\xd8" and body[-2:] == b"\xff\xd9",
+                      f"{path}: a frame is not a JPEG")
+                found["frames"] += 1
+            elif cc == b"idx1":
+                found["index"] = size // 16
+            elif cc == b"avih":
+                found["total"] = int.from_bytes(body[16:20], "little")
+            pos += 8 + size + size % 2
+
+    walk(12, len(data))
+    check(found["total"] == found["index"] == found["frames"] > 0,
+          f"{path}: avih {found['total']}, idx1 {found['index']}, "
+          f"00dc {found['frames']}")
+    return found["frames"]
+
+
+def check_figures(root: str, rels, frames: dict | None = None) -> dict:
+    """Each file under ``root`` exists; each ``.svg`` parses as XML, each
+    ``.avi`` walks to its frames (``frames[rel]`` of them where given).
+    Returns {rel: frames or bytes}."""
+    import xml.etree.ElementTree as ET
+
+    out = {}
+    for rel in rels:
+        path = os.path.join(root, rel)
+        check(os.path.isfile(path), f"no {path}")
+        out[rel] = os.path.getsize(path)
+        if rel.endswith(".svg"):
+            ET.parse(path)
+        elif rel.endswith(".avi"):
+            out[rel] = walk_avi(path)
+            want = (frames or {}).get(rel)
+            check(want is None or out[rel] == want,
+                  f"{path}: {out[rel]} frames, {want} passed")
+    return out
+
+
+def traversal_frames(latent: int, suffix="") -> dict:
+    """The frames of a traversal's two videos: two black frames after each
+    dimension's walk, and one grid a step."""
+    return {f"latent_exploration{suffix}.avi": latent * (TRAVERSAL_STEPS + 2),
+            f"latent_exploration_tiled{suffix}.avi": TRAVERSAL_STEPS}
+
+
+FIGURE_STATES = ("lda_emb_distributions.npz", "emb_all_train_dist.npz")
+PREPOST_IDS = ("cli", "1", "2")    # pre/post pairs of the experiments
+
+
+def experiment_figures(plan: dict, n_regions: int, latent: int) -> tuple:
+    """The files of phase 11's other experiments (``interpolate`` of two
+    test scans, ``classify_and_project``, planning, pre/post pairs, the
+    post-op colour map, fit, saliency, uncertainty) and the frames of
+    each video: every walk of the plan ``plan`` (its ``all_attributes``
+    and each procedure) with its renders' video and both overlays' videos
+    one frame a point. Returns (rels, {rel: frames})."""
+    inter = "interpolations"
+    prepost = "pre_post_eval_plots"
+    rels = ["interpolate_per_feature.png", "interpolate_all.png",
+            "interpolate_per_feature.avi", "interpolate_per_variable.avi",
+            os.path.join(inter, "pre_procedure_distances.csv"),
+            os.path.join(inter, "pre_emb.svg"),
+            os.path.join(inter, "pre_emb_r.svg"),
+            "postop_displacement.ply",
+            os.path.join(prepost, "pairs_with_results.csv"),
+            os.path.join(prepost, "region_metrics_distances.svg"),
+            os.path.join(prepost, "region_metrics_with_angles_apert.svg"),
+            os.path.join(prepost, "region_metrics_with_angles_crouzon.svg"),
+            *(os.path.join(prepost, f"{i}_displacement.svg")
+              for i in PREPOST_IDS),
+            os.path.join("fit", "unregistered_fit.ply"),
+            os.path.join("saliency", "saliency_maps.png"),
+            os.path.join("uncertainty", "report.json")]
+    frames = {"interpolate_per_feature.avi": n_regions * max(n_regions // 2,
+                                                             2),
+              "interpolate_per_variable.avi": latent * PER_VARIABLE_STEPS}
+    walks = {"all_attributes": plan["all_attributes"], **plan["procedures"]}
+    for name, walk in walks.items():
+        sid = f"pre_{name}"
+        d = os.path.join(inter, sid)
+        videos = [os.path.join(d, n) for n in (
+            "interpolation.avi", f"{sid}_emb_interpolate.avi",
+            f"{sid}_emb_r_interpolate.avi")]
+        rels += [os.path.join(d, "interpolation.png"),
+                 os.path.join(d, f"{sid}_emb.svg"),
+                 os.path.join(d, f"{sid}_emb_r_interpolate.svg"), *videos]
+        frames.update(dict.fromkeys(videos, len(walk)))
+    return rels, frames
 
 
 class TimedParts:
@@ -4954,9 +5093,9 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
         standard_s = time.perf_counter() - t0
     counts = read_counts(torch, "evaluation")
     steps_s = {"standard": standard_s}
-    for rel in STANDARD_FILES:
-        check(os.path.isfile(os.path.join(run_dir, rel)),
-              f"the standard suite wrote no {rel}")
+    latent = first["manager"].model_latent_size
+    figures = check_figures(run_dir, STANDARD_FILES,
+                            traversal_frames(latent))
     metrics = read_json(os.path.join(run_dir, "eval_metrics.json"))
     check(metrics == json.loads(json.dumps(first["result"])),
           "eval_metrics.json is not the suite's answer")
@@ -4969,12 +5108,16 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
                    "ell_matmul_fwd", "raster_sweep"):
         check(counts[kernel] > 0,
               f"{kernel} was not launched on the evaluation path")
-    not_drawn = sorted(first["tester"].figures_not_drawn)
+    svgs = sorted(n for n in first["tester"].figure_data if n.endswith(".svg"))
+    check(set(svgs) == {n for n in STANDARD_FILES if n.endswith(".svg")},
+          f"the suite's figures {svgs}")
     manager = first["manager"]
     log(f"[11 evaluation] standard suite on the card {standard_s:.2f} s "
         f"(parts {dict((k, round(v, 3)) for k, v in parts.seconds.items())}"
         f"); launches {dict((k, v) for k, v in counts.items() if v)}; "
-        f"figures not drawn: {len(not_drawn)}; {smi}")
+        f"figures {len(svgs)}, video frames "
+        f"{ {k: v for k, v in figures.items() if k.endswith('.avi')} }; "
+        f"{smi}")
 
     # after the counted run: the suite again under the profiler; every
     # kernel at every shape the suite gave it, its launches the run's
@@ -4988,10 +5131,14 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
     del first, manager
     torch.cuda.empty_cache()
 
-    # every other experiment on the card, at the entry's defaults, timed
+    # every other experiment on the card, at the entry's defaults, timed,
+    # beside the suite's figure states (the overlays read them)
     t_step = time.perf_counter()
-    card_t, split = evaluation_tester(run_dir, DEVICE,
-                                      os.path.join(root, "eval_card"))
+    eval_card = os.path.join(root, "eval_card")
+    os.makedirs(eval_card)
+    for name in FIGURE_STATES:
+        shutil.copy2(os.path.join(run_dir, name), eval_card)
+    card_t, split = evaluation_tester(run_dir, DEVICE, eval_card)
     scans = evaluation_scans(root, card_t, split)
     pairs = os.path.join(root, "pairs.csv")
     with open(pairs, "w") as f:
@@ -5018,27 +5165,23 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
         "saliency": card_t.saliency_maps,
         "uncertainty": card_t.diagnosis_uncertainty,
     }
-    experiment_s = {}
+    experiment_s, answers = {}, {}
     for name, fn in experiments.items():
         t0 = time.perf_counter()
-        fn()
+        answers[name] = fn()
         torch.cuda.synchronize()
         experiment_s[name] = time.perf_counter() - t0
     log(f"[11 evaluation] the other experiments on the card, at the entry's "
         f"defaults (s): { {k: round(v, 3) for k, v in experiment_s.items()} }")
-    for rel in ("interpolate_per_feature.png", "interpolate_all.png",
-                "interpolate_per_variable_strip.png",
-                os.path.join("interpolations",
-                             "pre_all_attributes", "interpolation.png"),
-                os.path.join("interpolations",
-                             "pre_procedure_distances.csv"),
-                "postop_displacement.ply",
-                os.path.join("pre_post_eval_plots", "pairs_with_results.csv"),
-                os.path.join("fit", "unregistered_fit.ply"),
-                os.path.join("saliency", "saliency_maps.png"),
-                os.path.join("uncertainty", "report.json")):
-        check(os.path.exists(os.path.join(card_t._out_dir, rel)),
-              f"evaluation: no {rel}")
+    n_regions = len(card_t._manager.latent_regions)
+    rels, frames = experiment_figures(answers["planning"], n_regions,
+                                      card_t._manager.model_latent_size)
+    experiment_files = check_figures(card_t._out_dir, rels, frames)
+    overlays = sorted(r for r in rels if "_emb" in r or "displacement.svg"
+                      in r)
+    check(set(overlays) <= set(card_t.figure_data),
+          f"overlays not drawn by the Tester: "
+          f"{sorted(set(overlays) - set(card_t.figure_data))}")
     steps_s["experiments"] = time.perf_counter() - t_step
 
     # card against host, on the same run dir and requests
@@ -5127,12 +5270,12 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
                                               ENTRY_EPOCHS[0] + 1,
                                               ENTRY_CADENCE))):
         for e in epochs:
-            for pattern in TRAVERSAL_FILES:
-                path = os.path.join(root, "outputs", run,
-                                    pattern.format(e))
-                check(os.path.isfile(path), f"phase 7 wrote no {path}")
-                traversal_files[os.path.relpath(path, root)] = \
-                    os.path.getsize(path)
+            found = check_figures(
+                os.path.join(root, "outputs", run),
+                [p.format(e) for p in TRAVERSAL_FILES],
+                traversal_frames(latent, e))
+            traversal_files.update({os.path.join(run, k): v
+                                    for k, v in found.items()})
 
     line = {"phase": "evaluation", "card": smi,
             "standard": {"s": standard_s, "parts_s": parts.seconds,
@@ -5140,8 +5283,10 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
                          "profiled": {k: prof[k] for k in (
                              "wall_ms", "device_ms", "idle_share",
                              "kernels_run", "copies")},
-                         "figures_not_drawn": len(not_drawn)},
+                         "figures": figures},
             "experiments_s": experiment_s,
+            "experiment_files": experiment_files,
+            "overlays": len(overlays),
             "card_vs_host": {"fp32": rel, "mixed": mixed_rel,
                              "card_s": card["seconds"],
                              "host_s": host["seconds"],
@@ -5149,12 +5294,114 @@ def phase_evaluation(torch, mods, root: str, runs: dict, labels: list,
                              "fit_k8": card["fit_k8"]},
             "batch_intake": {"s": intake_s, "scans": len(names) + 1,
                              "labels": summary["labels"]},
-            "traversal_files_bytes": traversal_files,
+            "traversal_files": traversal_files,
             "steps_s": steps_s,
             "launches": counts, "replayed": PATH_REPLAYS["evaluation"],
             "seconds": time.perf_counter() - t_start}
     log(json.dumps(line, default=float))
     return dict(line=line, records=records)
+
+
+# ----------------------------------------------------------------------
+# phase 12: the figures
+TSNE_P_RTOL = 1e-10             # card vs host t-SNE P, of its max (float64)
+TSNE_RTOL = 1e-3                # card vs host embedding after 250
+#                                 iterations from one start, of max |Y|
+#                                 (float32 steps, reductions in another
+#                                 order)
+
+
+def phase_figures(torch, root: str, run_dir: str, smi: str) -> dict:
+    """Phase 12: the figures on phase 7's (fp32) run dir after phase 11
+    (see the module docstring)."""
+    from craniofacialsd_vae_tpu_torch import visualize_in_batch
+    from craniofacialsd_vae_tpu_torch.analysis import tsne
+    from craniofacialsd_vae_tpu_torch.viz import jpeg
+
+    t_start = time.perf_counter()
+    secs = {}
+
+    def timed(name, fn):
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        secs[name] = time.perf_counter() - t0
+        return out
+
+    reset_counts()
+    tester, _ = evaluation_tester(run_dir, DEVICE, run_dir)
+    mgr = tester._manager
+
+    # t-SNE of the train and test latents, card against host from one
+    # start at sklearn's minimum of 250 iterations; then the Tester's
+    # t-SNE figures (1000 iterations on the card)
+    tr_z, _ = tester._train_latents()
+    ts_z, _ = mgr.encode_all(tester._test_iter, False)
+    x = np.concatenate([tr_z, ts_z]).astype(np.float32)
+    y0 = tsne.random_init(len(x), torch.Generator(
+        device=DEVICE).manual_seed(SEED))
+    card = timed("tsne_card_250", lambda: tsne.tsne(
+        x, init=y0, max_iter=250, device=DEVICE))
+    host = timed("tsne_host_250", lambda: tsne.tsne(
+        x, init=y0.cpu(), max_iter=250, device="cpu"))
+    tsne_rel = {"P": rel_to_max(card["P"].cpu().numpy(),
+                                host["P"].numpy()),
+                "embedding": rel_to_max(card["embedding"],
+                                        host["embedding"])}
+    check(tsne_rel["P"] <= TSNE_P_RTOL
+          and tsne_rel["embedding"] <= TSNE_RTOL,
+          f"t-SNE card vs host {tsne_rel} (bars {TSNE_P_RTOL}, {TSNE_RTOL})")
+    timed("tsne_figures", lambda: tester.plot_embeddings("tsne"))
+    files = check_figures(run_dir, [n.format("tsne")
+                                    for n in EMBEDDING_FILES])
+    emb = tester.figure_data["tsne_emb_train_vs_test.svg"]
+    check(np.isfinite(emb["x1"]).all() and np.isfinite(emb["x2"]).all()
+          and len(emb["x1"]) == len(x), "t-SNE embedding")
+
+    # the JPEG of one traversal frame (a mesh and its error map), encoded
+    # from card tensors and on the host
+    z = np.zeros((2, mgr.model_latent_size), np.float32)
+    z[1, 0] = 3.0
+    gen = mgr.generate(z)
+    gen = tester._unnormalize(gen.cpu().numpy() if torch.is_tensor(gen)
+                              else np.asarray(gen))
+    diffs = np.asarray(mgr.compute_vertex_errors(
+        gen, np.broadcast_to(gen[0], gen.shape)))
+    frame = np.concatenate([tester._render(gen),
+                            tester._render(gen, diffs, 5)], axis=2)[-1]
+    eight = (np.clip(frame, 0, 1) * 255).astype(np.uint8)
+    jpg_card = timed("jpeg_card", lambda: jpeg.encode_jpeg(
+        torch.as_tensor(eight, device=DEVICE)))
+    jpg_host = timed("jpeg_host", lambda: jpeg.encode_jpeg(eight))
+    check(jpg_card == jpg_host and jpg_card[:2] == b"\xff\xd8"
+          and jpg_card[-2:] == b"\xff\xd9",
+          f"JPEG card ({len(jpg_card)} B) vs host ({len(jpg_host)} B)")
+
+    # visualize_in_batch on the run's octasphere template: the card's
+    # PLYs equal the host's
+    template = tester._config["data"]["template_path"]
+    plys_card = timed("visualize_card", lambda: visualize_in_batch.main([
+        "--template", template, "--out", os.path.join(root, "swap_card"),
+        "--device", DEVICE]))
+    plys_host = timed("visualize_host", lambda: visualize_in_batch.main([
+        "--template", template, "--out", os.path.join(root, "swap_host"),
+        "--device", "cpu"]))
+    check(len(plys_card) == 16,
+          f"visualize_in_batch wrote {len(plys_card)}")
+    for a, b in zip(plys_card, plys_host):
+        with open(a, "rb") as f, open(b, "rb") as g:
+            check(f.read() == g.read(), f"{a} differs card vs host")
+    counts = read_counts(torch, "figures")
+
+    line = {"phase": "figures", "card": smi, "seconds_by_part": secs,
+            "tsne": {"n": len(x), "card_vs_host": tsne_rel},
+            "jpeg_bytes": len(jpg_host), "files": files,
+            "launches": {k: v for k, v in counts.items() if v},
+            "replayed": {k: v for k, v in PATH_REPLAYS["figures"].items()
+                         if v},
+            "seconds": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    return line
 
 
 # ----------------------------------------------------------------------
@@ -5267,6 +5514,10 @@ def main(argv=None) -> int:
                                 "mixed": mixed["entry"]["run_dir"]},
             diagnosis["runs"]["fp32"]["labels"], smi_line)
         records += evaluation["records"]
+        log(f"[11 evaluation] done; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        figures = phase_figures(torch, root, entry["run_dir"], smi_line)
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -5276,7 +5527,7 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[11 evaluation] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[12 figures] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -5298,7 +5549,8 @@ def main(argv=None) -> int:
                            "line", "shapes", "runs", "path_shapes")},
                        "augmentation": {k: augmentation[k] for k in (
                            "line", "k9", "solves")},
-                       "evaluation": evaluation["line"]},
+                       "evaluation": evaluation["line"],
+                       "figures": figures},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

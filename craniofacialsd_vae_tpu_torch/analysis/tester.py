@@ -8,21 +8,35 @@ It writes the JAX package's artifact families into ``outputs/<id>/``:
 - ``accuracies.json``, ``classification_report.json`` and
   ``classification_report_regions.json`` (``analysis/metrics.py``, the
   card's machine has no sklearn);
-- the latent traversals, the random generations (``random_generation.png``
-  and ``random_meshes/*.ply``), the interpolations, the surgical plans
-  (``interpolations/``, with ``<patient>_procedure_distances.csv``), the
-  pre/post assessment (``pre_post_eval_plots/<table>_with_results.csv``,
+- the latent traversals (``latent_exploration{s}.avi``, the tiled PNG
+  and AVI, ``latent_exploration_split{s}.svg`` and
+  ``latent_exploration{s}.svg``), the random generations
+  (``random_generation.png`` and ``random_meshes/*.ply``), the
+  interpolations, the surgical plans (``interpolations/``, with
+  ``<patient>_procedure_distances.csv``), the pre/post assessment
+  (``pre_post_eval_plots/<table>_with_results.csv``, the boxplots,
   ``postop_displacement.ply``), saliency, uncertainty and the fit of an
-  unregistered scan (``fit/``).
+  unregistered scan (``fit/``);
+- the embeddings, LDA or t-SNE (``analysis/tsne.py``):
+  ``<mode>_emb_train_vs_test.svg``, ``<mode>_emb_real_vs_aug.svg``,
+  ``<mode>_emb_distributions.svg``, ``emb_all_train.svg`` and
+  ``emb_all_train_dist.svg``; the confusion matrices
+  (``confmat_<head>.svg``, ``region_confmats_<m>.svg``); and the
+  overlays of latent walks and patients on the embedding figures, each an
+  SVG and, for a walk, a video of one frame a point.
 
-Images are PNG through ``viz/images.py``. What the JAX package writes as
-a video it writes, as JAX's own last resort does, as a
-``<name>_strip.png`` of the frames side by side (the AVI waits for
-ROADMAP 1.3). The matplotlib and seaborn figures (SVGs, the pickled
-embedding figures and the overlays drawn on them, the boxplots) are not
-drawn: each method keeps the numbers behind such a figure in
-``figures_not_drawn``, keyed by the file JAX would write, and the
-figures wait for ROADMAP 1.3 with t-SNE.
+Images are PNG through ``viz/images.py``; figures are SVG through
+``viz/svg.py`` and ``viz/plots.py``; every video JAX writes as
+``<name>.mp4`` (an ``.avi`` where it has no ffmpeg) is ``<name>.avi``,
+Motion-JPEG encoded on the manager's device (``viz/video.py``). The
+numbers behind each figure are kept in ``figure_data``, keyed by the
+file's path relative to the run dir.
+
+JAX pickles its two embedding figures (``lda_emb_distributions.pkl``,
+``emb_all_train_dist.pkl``) and draws later overlays on the unpickled
+figure. The port writes the figure's data to ``<name>.npz`` beside the
+SVG instead and redraws from it; where a JAX run dir holds only the
+``.pkl``, it recomputes the data from the run's train latents.
 
 Decodes, encodes, renders (K7), the fit (K8) and saliency's gradient run
 on the manager's device; the metrics are numpy on the host, as JAX's
@@ -41,8 +55,11 @@ import torch
 
 from ..geometry.mesh_io import read_mesh, write_ply
 from ..geometry.template import COLOUR2ATTRIBUTE, PROCEDURES2ATTRIBUTES
-from ..viz.images import write_frame_strip, write_png
+from ..viz import plots
+from ..viz.images import write_png
 from ..viz.renderer import make_image_grid
+from ..viz.svg import overlay_frames
+from ..viz.video import write_video
 from .classifiers import QDAClassifier
 from .metrics import classification_report, confusion_matrix, unique_labels
 from .planning import vector_linspace
@@ -58,8 +75,6 @@ TEMPLATE_LANDMARKS_IDX = [14336, 14250, 13087, 13145, 4134,
                           871, 4166, 303, 15614, 7166,
                           3904, 16465, 9246, 4643, 10122,
                           4548, 2893, 2985, 830, 2004]
-
-FIGURES_WAIT_FOR = "ROADMAP 1.3"
 
 _STATS = ("means", "stds", "mins", "maxs")
 
@@ -185,8 +200,8 @@ class Tester:
         self.template_landmarks_idx = list(TEMPLATE_LANDMARKS_IDX)
         self._image_size = 256
         self._background = 0.0
-        # {file JAX writes: the numbers behind the figure}
-        self.figures_not_drawn = {}
+        # {file written, relative to the run dir: the numbers behind it}
+        self.figure_data = {}
 
     @property
     def latent_stats(self) -> dict:
@@ -213,22 +228,21 @@ class Tester:
         with open(os.path.join(self._out_dir, "eval_metrics.json"),
                   "w") as f:
             json.dump(metrics, f)
-        self.report_figures_not_drawn()
         return metrics
 
-    def _skip_figure(self, name: str, data) -> None:
-        """Keep the numbers of a figure that is not drawn, under the path
-        relative to the run dir of the file JAX would write."""
-        self.figures_not_drawn[name] = data
+    def _save_figure(self, rel: str, fig, data) -> str:
+        """``fig`` as ``<run dir>/<rel>`` (SVG), its numbers kept in
+        ``figure_data[rel]``."""
+        self.figure_data[rel] = data
+        return fig.save_svg(os.path.join(self._out_dir, rel))
 
-    def report_figures_not_drawn(self) -> list:
-        """Print, once, the figures not drawn; returns their names."""
-        names = sorted(self.figures_not_drawn)
-        if names:
-            print(f"[tester] {len(names)} SVG/pickle figures not drawn "
-                  f"(they wait for {FIGURES_WAIT_FOR}; their numbers are "
-                  f"in Tester.figures_not_drawn): {', '.join(names)}")
-        return names
+    def _write_video(self, path: str, frames, fps=4) -> str:
+        """Float frames ``[T, H, W, 3]`` as ``<name>.avi`` beside the
+        ``<name>.mp4`` JAX asks for, encoded on the manager's device."""
+        return write_video(path, frames, fps=fps,
+                           device=self._manager.device)
+
+    string_to_color = staticmethod(plots.string_to_color)
 
     # ------------------------------------------------------------------
     def _unnormalize(self, verts: np.ndarray) -> np.ndarray:
@@ -321,9 +335,9 @@ class Tester:
                 all_frames.append(np.concatenate([frames, black]))
 
         if render_videos:
-            write_frame_strip(
+            self._write_video(
                 os.path.join(self._out_dir, f"latent_exploration{s}.mp4"),
-                np.concatenate(all_frames))
+                np.concatenate(all_frames), fps=4)
             del all_frames
             n_regions = max(len(self._manager.latent_regions), 1)
             nrow = latent_size // n_regions \
@@ -335,15 +349,18 @@ class Tester:
                 os.path.join(self._out_dir,
                              f"latent_exploration_tiled{s}.png"),
                 grid_frames[-1])
-            write_frame_strip(
+            self._write_video(
                 os.path.join(self._out_dir,
                              f"latent_exploration_tiled{s}.mp4"),
-                np.stack(grid_frames))
+                np.stack(grid_frames), fps=1)
 
+        # the per-region displacement plots
         table = self.region_displacement(max_distances)
-        for name in (f"latent_exploration_split{s}.svg",
-                     f"latent_exploration{s}.svg"):
-            self._skip_figure(name, table)
+        split, line = plots.traversal_figures(table, {
+            k: self.string_to_color(k)
+            for k in self._manager.template.feat_and_cont})
+        self._save_figure(f"latent_exploration_split{s}.svg", split, table)
+        self._save_figure(f"latent_exploration{s}.svg", line, table)
         return max_distances
 
     def region_displacement(self, max_distances) -> list:
@@ -417,39 +434,133 @@ class Tester:
 
     # ------------------------------------------------------------------
     # embeddings (reference test.py:1160-1321)
-    def plot_embeddings(self, embedding_mode="lda") -> dict:
-        """The LDA embedding of the train and test latents (the numbers of
-        JAX's scatter and KDE figures, which are not drawn): ``{train
-        [M, 2], test [K, 2], train_class, test_class, regions}``.
-        ``regions`` holds the per-region 2-D projections of the train
-        latents, where the zoo has region LDAs."""
-        if embedding_mode != "lda":
-            raise NotImplementedError(
-                f"embedding {embedding_mode!r}: t-SNE needs sklearn and "
-                f"waits with the figures for {FIGURES_WAIT_FOR}")
+    def _train_latents(self) -> tuple:
         mgr = self._manager
         tr_z, tr_l = mgr.train_latents_and_labels
         if tr_z is None:
             tr_z, tr_l = mgr.encode_all(self._train_iter, True)
+        return tr_z, tr_l
+
+    def plot_embeddings(self, embedding_mode="lda") -> dict:
+        """The 2-D embedding of the train and test latents, LDA or t-SNE
+        (``analysis/tsne.py`` on the manager's device from
+        ``torch.Generator().manual_seed(0)``), and its figures (JAX
+        ``:462-541``): ``<mode>_emb_train_vs_test.svg``,
+        ``<mode>_emb_real_vs_aug.svg`` and the KDE figure
+        ``<mode>_emb_distributions.svg`` with its ``.npz``; then the
+        per-region figures. Returns ``{train [M, 2], test [K, 2],
+        train_class, test_class, train_augmented, regions}``, ``regions``
+        the per-region 2-D projections of the train latents where the zoo
+        has region LDAs."""
+        mgr = self._manager
+        tr_z, tr_l = self._train_latents()
         ts_z, ts_l = mgr.encode_all(self._test_iter, False)
-        out = {"train": np.asarray(mgr.lda_project_latents_in_2d(tr_z)),
-               "test": np.asarray(mgr.lda_project_latents_in_2d(ts_z)),
-               "train_class": list(tr_l["y"]),
-               "test_class": list(ts_l["y"]),
-               "train_augmented": np.asarray(tr_l["augmented"])}
-        for name in ("lda_emb_train_vs_test.svg", "lda_emb_real_vs_aug.svg",
-                     "lda_emb_distributions.svg",
-                     "lda_emb_distributions.pkl"):
-            self._skip_figure(name, out)
-        zoo = mgr.classifiers
-        if zoo is not None and zoo.region_ldas:
-            out["regions"] = self._region_projections(tr_z)
-            for name in ("emb_all_train.svg", "emb_all_train_dist.svg",
-                         "emb_all_train_dist.pkl"):
-                self._skip_figure(name, out["regions"])
+        tr_y = np.asarray(mgr.class2idx(tr_l["y"]))
+        ts_y = np.asarray(mgr.class2idx(ts_l["y"]))
+        if embedding_mode == "lda":
+            tr_e = np.asarray(mgr.lda_project_latents_in_2d(tr_z))
+            ts_e = np.asarray(mgr.lda_project_latents_in_2d(ts_z))
+        elif embedding_mode == "tsne":
+            from .tsne import tsne
+
+            gen = torch.Generator(device=mgr.device).manual_seed(0)
+            emb = tsne(np.concatenate([tr_z, ts_z]), generator=gen,
+                       device=mgr.device)["embedding"]
+            tr_e, ts_e = emb[:len(tr_z)], emb[len(tr_z):]
         else:
-            print("[tester] region LDAs unavailable; no region embedding")
+            raise NotImplementedError(embedding_mode)
+
+        m = embedding_mode
+        emb = np.concatenate([tr_e, ts_e])
+        x1, x2 = emb[:, 0], emb[:, 1]
+        cls = np.asarray(mgr.idx2class(np.concatenate([tr_y, ts_y]))
+                         ).astype(str)
+        kind = np.array(["train"] * len(tr_y) + ["test"] * len(ts_y))
+        aug = np.concatenate([np.asarray(tr_l["augmented"]),
+                              np.asarray(ts_l["augmented"])]).astype(bool)
+        hue_order, palette = plots.class_palette(cls)
+        self._save_figure(
+            f"{m}_emb_train_vs_test.svg", plots.scatter_figure(
+                x1, x2, cls, kind, hue_order, palette, ["train", "test"]),
+            {"x1": x1, "x2": x2, "class": cls, "type": kind})
+        tr = kind == "train"
+        self._save_figure(
+            f"{m}_emb_real_vs_aug.svg", plots.scatter_figure(
+                x1[tr], x2[tr], cls[tr], aug[tr], hue_order, palette,
+                sorted(set(aug[tr].tolist())), style_title="aug"),
+            {"x1": x1[tr], "x2": x2[tr], "class": cls[tr], "aug": aug[tr]})
+        real = tr & ~aug
+        state = plots.distribution_state(x1[real], x2[real], cls[real],
+                                         hue_order, palette)
+        np.savez(os.path.join(self._out_dir, f"{m}_emb_distributions.npz"),
+                 **state)
+        self._save_figure(f"{m}_emb_distributions.svg",
+                          plots.distribution_figure(state)[0], state)
+        out = {"train": tr_e, "test": ts_e,
+               "train_class": list(tr_l["y"]), "test_class": list(ts_l["y"]),
+               "train_augmented": np.asarray(tr_l["augmented"])}
+        regions = self.plot_embeddings_per_region(tr_z, tr_y, tr_l)
+        if regions is not None:
+            out["regions"] = regions
         return out
+
+    def _region_state(self, tr_z, tr_y, tr_l) -> tuple:
+        """The per-region grid's data over the real train latents, and the
+        per-region projections of every train latent."""
+        mgr = self._manager
+        proj = self._region_projections(tr_z)
+        real = ~np.asarray(tr_l["augmented"]).astype(bool)
+        cls = np.asarray(mgr.idx2class(np.asarray(tr_y))).astype(str)[real]
+        names = [COLOUR2ATTRIBUTE.get(k, k) for k in proj]
+        hue_order = [c for c in plots.CLASS_ORDER if c in set(cls)]
+        state = plots.region_grid_state(
+            np.concatenate([e[real, 0] for e in proj.values()]),
+            np.concatenate([e[real, 1] for e in proj.values()]),
+            np.tile(cls, len(proj)), np.repeat(names, real.sum()),
+            hue_order)
+        return state, proj
+
+    def plot_embeddings_per_region(self, tr_z, tr_y, tr_l):
+        """The per-region FacetGrid of the real train latents (JAX
+        ``:543-592``): ``emb_all_train.svg``, and the same figure as
+        ``emb_all_train_dist.svg`` with its ``.npz``. Returns the
+        per-region projections, or None without region LDAs."""
+        zoo = self._manager.classifiers
+        if zoo is None or not zoo.region_ldas:
+            print("[tester] region LDAs unavailable; skipping region plots")
+            return None
+        state, proj = self._region_state(tr_z, tr_y, tr_l)
+        np.savez(os.path.join(self._out_dir, "emb_all_train_dist.npz"),
+                 **state)
+        fig, _ = plots.region_grid_figure(state)
+        self._save_figure("emb_all_train.svg", fig, state)
+        self._save_figure("emb_all_train_dist.svg", fig, state)
+        return proj
+
+    def _figure_state(self, name: str):
+        """The data of the embedding figure ``name``
+        (``lda_emb_distributions`` or ``emb_all_train_dist``) from its
+        ``.npz``; where only JAX's ``.pkl`` is in the run dir, recomputed
+        from the train latents; else None (the overlay is skipped, as
+        JAX skips it)."""
+        path = os.path.join(self._out_dir, name + ".npz")
+        if os.path.exists(path):
+            with np.load(path) as z:
+                return {k: z[k] for k in z.files}
+        if not os.path.exists(os.path.join(self._out_dir, name + ".pkl")):
+            print(f"[tester] {path} missing; overlay skipped")
+            return None
+        mgr = self._manager
+        tr_z, tr_l = self._train_latents()
+        tr_y = np.asarray(mgr.class2idx(tr_l["y"]))
+        if name == "emb_all_train_dist":
+            return self._region_state(tr_z, tr_y, tr_l)[0]
+        emb = np.asarray(mgr.lda_project_latents_in_2d(tr_z))
+        cls = np.asarray(mgr.idx2class(tr_y)).astype(str)
+        real = ~np.asarray(tr_l["augmented"]).astype(bool)
+        hue_order, palette = plots.class_palette(cls)
+        return plots.distribution_state(emb[real, 0], emb[real, 1],
+                                        cls[real], hue_order, palette)
 
     def _region_projections(self, z: np.ndarray) -> dict:
         """{region_key: [P, 2]} per-region 2-D projections: the region's
@@ -479,8 +590,9 @@ class Tester:
         """Every head's test accuracy and sklearn-form report
         (``accuracies.json``, ``classification_report.json``), the region
         QDAs' reports (``classification_report_regions.json``), and the
-        normalised confusion matrices (kept, not drawn), whose labels span
-        the predictions too. A head the zoo lacks is left out."""
+        normalised confusion matrices (``confmat_<head>.svg``,
+        ``region_confmats_<m>.svg``), whose labels span the predictions
+        too. A head the zoo lacks is left out."""
         mgr = self._manager
         zoo = mgr.classifiers
         ts_z, ts_l = mgr.encode_all(self._test_iter, False)
@@ -515,7 +627,8 @@ class Tester:
             for name, pred_chars in preds.items()}
         self.confusion_labels = labels
         for name, cm in self.confusion_matrices.items():
-            self._skip_figure(f"confmat_{name}.svg",
+            self._save_figure(f"confmat_{name}.svg",
+                              plots.confusion_figure(cm, labels),
                               {"labels": labels, "matrix": cm})
 
         if zoo is not None and zoo.region_qdas:
@@ -536,8 +649,8 @@ class Tester:
 
     def confusion_matrices_per_region(self, ts_z, ts_ly) -> dict:
         """``{"lda"|"qda": {region: (labels, normalised matrix)}}``, each
-        region's labels spanning its predictions (the numbers of JAX's
-        ``region_confmats_<m>.svg``)."""
+        region's labels spanning its predictions, drawn as
+        ``region_confmats_<m>.svg`` (five panels a row)."""
         mgr = self._manager
         zoo = mgr.classifiers
         out = {}
@@ -552,7 +665,11 @@ class Tester:
                 labels = unique_labels(ts_ly, pred)
                 out[m][key] = (labels, confusion_matrix(
                     ts_ly, pred, labels=labels, normalize="true"))
-            self._skip_figure(f"region_confmats_{m}.svg", out[m])
+            self._save_figure(f"region_confmats_{m}.svg",
+                              plots.region_confusion_figure([
+                                  (COLOUR2ATTRIBUTE.get(k, k), cm, labels)
+                                  for k, (labels, cm) in out[m].items()]),
+                              out[m])
         return out
 
     # ------------------------------------------------------------------
@@ -562,8 +679,8 @@ class Tester:
         """Per-feature, per-variable and all-features latent
         interpolation between two meshes (raw vertex arrays):
         ``interpolate_per_feature.png``, ``interpolate_all.png`` and the
-        frame strips of ``interpolate_per_feature`` and
-        ``interpolate_per_variable``."""
+        videos ``interpolate_per_feature.avi`` and
+        ``interpolate_per_variable.avi``."""
         mgr = self._manager
         z_1 = _numpy(mgr.encode(self._normalize(v_1)))
         z_2 = _numpy(mgr.encode(self._normalize(v_2)))
@@ -584,9 +701,9 @@ class Tester:
         write_png(
             os.path.join(self._out_dir, "interpolate_per_feature.png"),
             np.concatenate(rows, axis=0))
-        write_frame_strip(
+        self._write_video(
             os.path.join(self._out_dir, "interpolate_per_feature.mp4"),
-            np.concatenate(all_frames, axis=0))
+            np.concatenate(all_frames, axis=0), fps=4)
 
         # per variable: walk every latent dimension z1 → z2 in turn
         all_frames = []
@@ -597,9 +714,9 @@ class Tester:
             gen = self._unnormalize(_numpy(mgr.generate(z)))
             all_frames.append(self._render(gen))
             z = np.tile(z[-1], (per_variable_steps, 1))
-        write_frame_strip(
+        self._write_video(
             os.path.join(self._out_dir, "interpolate_per_variable.mp4"),
-            np.concatenate(all_frames, axis=0))
+            np.concatenate(all_frames, axis=0), fps=4)
 
         # all features at once
         zs = vector_linspace(z_1, z_2, len(features))
@@ -622,8 +739,8 @@ class Tester:
         QDA Gaussian, locating the 3/2/1-std crossings by log-pdf
         thresholds (reference test.py:652-748). Returns the key latents
         and per-procedure walks; with ``render`` writes each walk's
-        renders, PLYs and frame strip under ``interpolations/`` and the
-        ``<patient>_procedure_distances.csv`` table."""
+        renders, PLYs, video and overlays under ``interpolations/`` and
+        the ``<patient>_procedure_distances.csv`` table."""
         from .planning import healthy_gaussian, plan_to_healthy
 
         mgr = self._manager
@@ -656,10 +773,11 @@ class Tester:
         return out
 
     def _render_embed_save_z_interpolations(self, z_interp, save_id):
-        """Renders and error maps of a latent walk (PNG grids and a frame
-        strip) and its meshes as PLYs under ``interpolations/<save_id>``
-        (reference test.py:750-905); the walk's embedding projections are
-        kept for the overlay figures, which are not drawn."""
+        """Renders and error maps of a latent walk (PNG grids and
+        ``interpolation.avi``), its meshes as PLYs under
+        ``interpolations/<save_id>``, and the walk overlaid on both
+        embedding figures, each as an SVG and a video of one frame a point
+        (reference test.py:750-905)."""
         mgr = self._manager
         out_dir = os.path.join(self._out_dir, "interpolations", save_id)
         os.makedirs(out_dir, exist_ok=True)
@@ -674,41 +792,85 @@ class Tester:
                   make_image_grid(renders, nrow=len(gen)))
         write_png(os.path.join(out_dir, "interpolation_errors.png"),
                   make_image_grid(err_renders, nrow=len(gen)))
-        write_frame_strip(os.path.join(out_dir, "interpolation.mp4"),
-                          np.concatenate([renders, err_renders], axis=2))
+        self._write_video(os.path.join(out_dir, "interpolation.mp4"),
+                          np.concatenate([renders, err_renders], axis=2),
+                          fps=2)
         self.save_batch(gen, out_dir)
-        self._skip_overlays(z_interp, os.path.join(
-            "interpolations", save_id), save_id + "_emb",
-            save_id + "_emb_r_interpolate", video=True)
+        self._overlay_on_global_figure(
+            z_interp, out_dir, save_id + "_emb",
+            video_name=save_id + "_emb_interpolate")
+        self._overlay_on_region_grid(
+            z_interp, out_dir, save_id + "_emb_r_interpolate", video=True)
 
-    def _skip_overlays(self, z, rel_dir: str, global_name: str,
-                       region_name: str, video: bool = False) -> None:
-        """The overlays JAX draws on its pickled embedding figures: the
-        latents' global LDA and per-region projections, kept."""
+    def _overlay_on_global_figure(self, z, out_dir, svg_name,
+                                  video_name=None) -> None:
+        """The latents' LDA projections on the KDE embedding figure: a
+        line with markers (``<svg_name>.svg``) and, with ``video_name``
+        and several latents, a video whose frame p shows points 0..p
+        (JAX ``:867-890``)."""
+        state = self._figure_state("lda_emb_distributions")
+        if state is None:
+            return
         z = np.atleast_2d(np.asarray(z))
-        zoo = self._manager.classifiers
-        proj = {"lda": np.asarray(self._manager.lda_project_latents_in_2d(z))
-                if zoo is not None and zoo.lda is not None else None,
-                "regions": self._region_projections(z)}
-        names = [global_name + ".svg", region_name + ".svg"]
+        proj = np.asarray(self._manager.lda_project_latents_in_2d(z))
+        fig, ax = plots.distribution_figure(state)
+        ax.plot(proj[:, 0], proj[:, 1], plots.OVERLAY_COLOUR, marker="o",
+                markersize=3)
+        rel = os.path.relpath(os.path.join(out_dir, svg_name + ".svg"),
+                              self._out_dir)
+        self._save_figure(rel, fig, {"points": proj})
+        if video_name is not None and len(proj) > 1:
+            fig, ax = plots.distribution_figure(state)
+            frames = overlay_frames(fig, [(ax, proj, 6,
+                                           plots.OVERLAY_COLOUR, True)])
+            path = self._write_video(
+                os.path.join(out_dir, video_name + ".mp4"), frames, fps=4)
+            self.figure_data[os.path.relpath(path, self._out_dir)] = {
+                "points": proj, "frames": len(frames)}
+
+    def _overlay_on_region_grid(self, z, out_dir, name,
+                                video=False) -> None:
+        """The latents' per-region projections on the per-region grid:
+        ``<name>.svg`` and, with ``video`` and several latents, a video
+        whose frame p shows point p in every panel (JAX ``:891-904``)."""
+        state = self._figure_state("emb_all_train_dist")
+        if state is None:
+            return
+        z = np.atleast_2d(np.asarray(z))
+        pts = {COLOUR2ATTRIBUTE.get(k, k): e
+               for k, e in self._region_projections(z).items()}
+        extra = np.concatenate(list(pts.values()))
+        fig, axes = plots.region_grid_figure(state, extra)
+        for region, e in pts.items():
+            if region in axes:
+                axes[region].scatter(e[:, 0], e[:, 1], plots.OVERLAY_COLOUR,
+                                     2)
+        rel = os.path.relpath(os.path.join(out_dir, name + ".svg"),
+                              self._out_dir)
+        self._save_figure(rel, fig, pts)
         if video and len(z) > 1:
-            names += [global_name + "_interpolate.mp4", region_name + ".mp4"]
-        for name in names:
-            self._skip_figure(os.path.join(rel_dir, name), proj)
+            fig, axes = plots.region_grid_figure(state, extra)
+            frames = overlay_frames(fig, [
+                (axes[r], e, 2, plots.OVERLAY_COLOUR, False)
+                for r, e in pts.items() if r in axes])
+            path = self._write_video(os.path.join(out_dir, name + ".mp4"),
+                                     frames, fps=4)
+            self.figure_data[os.path.relpath(path, self._out_dir)] = {
+                "points": pts, "frames": len(frames)}
 
     def classify_and_project(self, mesh_path: str):
-        """Diagnose one patient mesh with the QDA head; its projections
-        onto the embeddings are kept for the overlays, which are not drawn
-        (reference test.py:872-904)."""
+        """Diagnose one patient mesh with the QDA head and overlay its
+        latent on both embedding figures (``interpolations/<scan>_emb.svg``
+        and ``<scan>_emb_r.svg``; reference test.py:872-904)."""
         z_p = self._load_and_encode(mesh_path).reshape(1, -1)
         label = self._manager.classify_latent(z_p, "qda")
         print(f"[tester] {os.path.basename(mesh_path)} classified as "
               f"{label}")
-        os.makedirs(os.path.join(self._out_dir, "interpolations"),
-                    exist_ok=True)
+        out_dir = os.path.join(self._out_dir, "interpolations")
+        os.makedirs(out_dir, exist_ok=True)
         name = os.path.splitext(os.path.basename(mesh_path))[0]
-        self._skip_overlays(z_p, "interpolations", name + "_emb",
-                            name + "_emb_r")
+        self._overlay_on_global_figure(z_p, out_dir, name + "_emb")
+        self._overlay_on_region_grid(z_p, out_dir, name + "_emb_r")
         return label
 
     # ------------------------------------------------------------------
@@ -720,11 +882,7 @@ class Tester:
         z_pre = self._load_and_encode(pre_path).reshape(1, -1)
         z_post = self._load_and_encode(post_path).reshape(1, -1)
 
-        self._skip_figure(
-            os.path.join("pre_post_eval_plots",
-                         f"{patient_id}_displacement.svg"),
-            {"pre": np.asarray(mgr.lda_project_latents_in_2d(z_pre)),
-             "post": np.asarray(mgr.lda_project_latents_in_2d(z_post))})
+        self._project_pre_post_pair(z_pre, z_post, patient_id)
         pre_class = mgr.classify_latent(z_pre, "qda")
         post_class = mgr.classify_latent(z_post, "qda")
 
@@ -799,14 +957,36 @@ class Tester:
                 "procedure_metric": metric_regions,
                 "region_metrics": region_metrics}
 
+    def _project_pre_post_pair(self, z_pre, z_post, patient_id) -> None:
+        """The pre → post displacement as an arrow on the KDE embedding
+        figure, ``pre_post_eval_plots/<patient>_displacement.svg`` (JAX
+        ``:1042-1069``)."""
+        state = self._figure_state("lda_emb_distributions")
+        if state is None:
+            return
+        mgr = self._manager
+        pre = np.asarray(mgr.lda_project_latents_in_2d(z_pre))
+        post = np.asarray(mgr.lda_project_latents_in_2d(z_post))
+        fig, ax = plots.distribution_figure(state)
+        ax.scatter(pre[:, 0], pre[:, 1], plots.OVERLAY_COLOUR, 12)
+        ax.scatter(post[:, 0], post[:, 1], "#81a7e8", 12)
+        plots.plot_2d_arrow(pre[0], post[0], ax)
+        os.makedirs(os.path.join(self._out_dir, "pre_post_eval_plots"),
+                    exist_ok=True)
+        self._save_figure(os.path.join("pre_post_eval_plots",
+                                       f"{patient_id}_displacement.svg"),
+                          fig, {"pre": pre, "post": post})
+
     def evaluate_all_pre_post_pairs_in_excel(self, pairs_root,
                                              pairs_excel_path) -> dict:
         """Every pair of a CSV table (columns ``PID``, ``Pre name``,
         ``Post name``, ``Surgery regions``, optional ``Procedure`` and
         ``Syndrome``) evaluated, written to ``pre_post_eval_plots/
-        <table>_with_results.csv`` (reference test.py:906-970). Returns
-        the rows and the region metrics behind JAX's boxplots. An
-        ``.xlsx`` table raises: export it as CSV."""
+        <table>_with_results.csv`` with the boxplots of the region metrics
+        (``region_metrics_distances.svg``, and
+        ``region_metrics_with_angles_<syndrome>.svg`` for Apert and
+        Crouzon; reference test.py:906-970). Returns the rows and the
+        region metrics. An ``.xlsx`` table raises: export it as CSV."""
         if not pairs_excel_path.lower().endswith(".csv"):
             raise ValueError(
                 f"{pairs_excel_path}: the pair table is read as CSV only "
@@ -842,17 +1022,17 @@ class Tester:
         write_table_csv(os.path.join(
             out_dir, os.path.basename(pairs_excel_path).rsplit(".", 1)[0]
             + "_with_results.csv"), table, columns)
-        self._skip_figure(os.path.join("pre_post_eval_plots",
+        self._save_figure(os.path.join("pre_post_eval_plots",
                                        "region_metrics_distances.svg"),
-                          region_rows)
+                          plots.boxplot_figure(region_rows)[0], region_rows)
         for syndrome in ("Apert", "Crouzon"):
             sub = [r for r in region_rows_a
                    if str(r.get("Syndrome")).lower() == syndrome.lower()]
             if sub:
-                self._skip_figure(os.path.join(
+                self._save_figure(os.path.join(
                     "pre_post_eval_plots",
                     f"region_metrics_with_angles_{syndrome.lower()}.svg"),
-                    sub)
+                    plots.boxplot_figure(sub)[0], sub)
         return {"rows": table, "region_metrics": region_rows,
                 "region_metrics_with_angles": region_rows_a}
 

@@ -25,9 +25,9 @@ PyTorch versions on the host):
   saliency     — gradient attribution of the QDA diagnosis
   uncertainty  — posterior-sampling uncertainty of the QDA diagnosis
 
-The files each writes are listed in ``analysis/tester.py``. The SVG and
-pickled figures are not drawn (ROADMAP 1.3); the experiment prints
-which.
+The files each writes are listed in ``analysis/tester.py``: images as
+PNG, figures as SVG (with an ``.npz`` of the data where JAX pickles the
+figure), videos as Motion-JPEG AVI.
 """
 
 from __future__ import annotations
@@ -97,8 +97,6 @@ def main(argv=None) -> dict:
                     output_dir, config)
     result = _run(args, tester, manager, config, test_set, val_set,
                   normalization, train_iter, checkpoint_dir, output_dir)
-    if args.experiment != "standard":
-        tester.report_figures_not_drawn()
     return {"tester": tester, "manager": manager, "output_dir": output_dir,
             "result": result}
 

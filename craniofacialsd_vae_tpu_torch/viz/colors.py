@@ -1,17 +1,26 @@
-"""Error colormaps without matplotlib (counterpart of ``viz/colors.py``).
+"""Colormaps without matplotlib (counterpart of ``viz/colors.py`` and of
+the colour half of ``viz/plots.py``).
 
 ``errors_to_colors`` reproduces ``matplotlib.colormaps["plasma"](values,
 bytes=True)[..., :3]`` exactly: the 256-entry table below is matplotlib's
 plasma LUT as it converts it to bytes (``(lut * 255).astype(uint8)``), and
 the lookup follows its rules for the ends (values below 0 take the first
 entry, values at or above 1 the last) and for NaN (black).
+
+``YLGNBU_LUT`` (the confusion-matrix heatmaps) and ``BWR_LUT``
+(``per_vertex_eigenvector_color``) are matplotlib's 256-entry float RGBA
+tables of those colormaps, built as ``LinearSegmentedColormap.from_list``
+builds them from their ColorBrewer anchors; ``lookup`` indexes a table by
+matplotlib's rules and ``create_alpha_cmap`` is the white-to-colour table
+of ``viz/plots.py``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["PLASMA_LUT", "errors_to_colors"]
+__all__ = ["PLASMA_LUT", "YLGNBU_LUT", "BWR_LUT", "errors_to_colors",
+           "lookup", "to_rgb", "create_alpha_cmap"]
 
 #: matplotlib's plasma colormap, 256 RGB entries as uint8
 PLASMA_LUT = np.array([
@@ -105,3 +114,86 @@ def errors_to_colors(values, min_value=None, max_value=None,
     rgb = PLASMA_LUT[idx]
     rgb[bad] = 0
     return rgb
+
+
+def _linear_lut(anchors, n: int = 256) -> np.ndarray:
+    """matplotlib's ``LinearSegmentedColormap.from_list(anchors, N=n)``
+    table: ``_create_lookup_table`` per channel, alpha 1."""
+    anchors = np.asarray(anchors, np.float64)
+    x = np.linspace(0, 1, len(anchors)) * (n - 1)
+    xind = (n - 1) * np.linspace(0, 1, n)
+    ind = np.searchsorted(x, xind)[1:-1]
+    distance = (xind[1:-1] - x[ind - 1]) / (x[ind] - x[ind - 1])
+    lut = np.ones((n, 4))
+    for c in range(3):
+        y = anchors[:, c]
+        lut[:, c] = np.clip(np.concatenate([
+            [y[0]], distance * (y[ind] - y[ind - 1]) + y[ind - 1],
+            [y[-1]]]), 0.0, 1.0)
+    return lut
+
+
+#: matplotlib's YlGnBu (ColorBrewer), 256 RGBA float entries
+YLGNBU_LUT = _linear_lut([
+    (1.0, 1.0, 0.8509803921568627),
+    (0.9294117647058824, 0.9725490196078431, 0.6941176470588235),
+    (0.7803921568627451, 0.9137254901960784, 0.7058823529411765),
+    (0.4980392156862745, 0.803921568627451, 0.7333333333333333),
+    (0.2549019607843137, 0.7137254901960784, 0.7686274509803922),
+    (0.11372549019607843, 0.5686274509803921, 0.7529411764705882),
+    (0.13333333333333333, 0.3686274509803922, 0.6588235294117647),
+    (0.1450980392156863, 0.20392156862745098, 0.5803921568627451),
+    (0.03137254901960784, 0.11372549019607843, 0.34509803921568627)])
+
+#: matplotlib's bwr, 256 RGBA float entries
+BWR_LUT = _linear_lut([(0.0, 0.0, 1.0), (1.0, 1.0, 1.0), (1.0, 0.0, 0.0)])
+
+
+def lookup(table: np.ndarray, values) -> np.ndarray:
+    """``Colormap.__call__`` on values already normalised to [0, 1]:
+    below 0 the first entry, at or above 1 the last, NaN transparent
+    black; returns ``[..., table columns]``."""
+    xa = np.array(values, copy=True)
+    n = len(table)
+    if xa.dtype.kind == "f":
+        xa *= n
+        xa[xa == n] = n - 1
+    under, over, bad = xa < 0, xa >= n, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = xa.astype(np.int64)
+    idx[under] = 0
+    idx[over] = n - 1
+    out = table[np.clip(idx, 0, n - 1)]
+    out[bad] = 0.0
+    return out
+
+
+_BASE_COLORS = {"b": (0, 0, 1), "g": (0, 0.5, 0), "r": (1, 0, 0),
+                "c": (0, 0.75, 0.75), "m": (0.75, 0, 0.75),
+                "y": (0.75, 0.75, 0), "k": (0, 0, 0), "w": (1, 1, 1),
+                "white": (1, 1, 1), "black": (0, 0, 0)}
+
+
+def to_rgb(color) -> tuple:
+    """``"#rrggbb"``, a one-letter base colour or an RGB(A) tuple in
+    [0, 1] → an RGB float tuple (matplotlib's ``to_rgba`` for those)."""
+    if isinstance(color, str):
+        if color in _BASE_COLORS:
+            return tuple(float(c) for c in _BASE_COLORS[color])
+        h = color.lstrip("#")
+        if len(h) not in (6, 8):
+            raise ValueError(f"not a colour: {color!r}")
+        return tuple(int(h[i:i + 2], 16) / 255 for i in (0, 2, 4))
+    return tuple(float(c) for c in color[:3])
+
+
+def create_alpha_cmap(base_color) -> np.ndarray:
+    """White → ``base_color`` table with a transparent ramp-in over its
+    first ten entries (JAX ``viz/plots.py:12-22``; matplotlib's
+    ``ListedColormap`` colours): ``[256, 4]`` float RGBA."""
+    vals = np.ones((256, 4))
+    base = to_rgb(base_color)
+    for c in range(3):
+        vals[:, c] = np.linspace(1, base[c], 256)
+    vals[:10, 3] = np.linspace(0, 1, 10)
+    return vals

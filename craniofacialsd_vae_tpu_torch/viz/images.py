@@ -1,6 +1,5 @@
 """Image files with the standard library alone (the card's machine has
-neither PIL nor imageio): 8-bit RGB PNG through ``zlib``, and the frame
-strip that stands in for a video.
+neither PIL nor imageio): 8-bit RGB and RGBA PNG through ``zlib``.
 
 Float images are quantised as the JAX package's ``Tester._save_image``
 does, ``(clip(x, 0, 1) * 255).astype(uint8)`` (truncation, not
@@ -14,9 +13,9 @@ import zlib
 
 import numpy as np
 
-__all__ = ["to_uint8", "write_png", "write_frame_strip"]
+__all__ = ["to_uint8", "png_bytes", "write_png"]
 
-PNG_LEVEL = 1       # zlib level: grids and strips are mostly background
+PNG_LEVEL = 1       # zlib level: grids are mostly background
 
 
 def to_uint8(image: np.ndarray) -> np.ndarray:
@@ -32,31 +31,28 @@ def _chunk(kind: bytes, data: bytes) -> bytes:
             + struct.pack(">I", zlib.crc32(kind + data) & 0xFFFFFFFF))
 
 
+def png_bytes(image: np.ndarray) -> bytes:
+    """``image`` (``[H, W, 3|4]`` float in [0, 1], or uint8) as the bytes
+    of an 8-bit RGB or RGBA PNG."""
+    px = to_uint8(image)
+    if px.ndim != 3 or px.shape[2] not in (3, 4):
+        raise ValueError(f"a PNG takes [H, W, 3] or [H, W, 4]; got "
+                         f"{px.shape}")
+    h, w, c = px.shape
+    # each scanline: filter type 0 (none), then its bytes
+    raw = np.zeros((h, 1 + c * w), np.uint8)
+    raw[:, 1:] = px.reshape(h, c * w)
+    header = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    return (b"\x89PNG\r\n\x1a\n" + _chunk(b"IHDR", header)
+            + _chunk(b"IDAT", zlib.compress(raw.tobytes(), PNG_LEVEL))
+            + _chunk(b"IEND", b""))
+
+
 def write_png(path: str, image: np.ndarray) -> str:
     """Write ``image`` (``[H, W, 3]`` float in [0, 1], or uint8) as an
     8-bit RGB PNG; returns ``path``."""
-    rgb = to_uint8(image)
-    if rgb.ndim != 3 or rgb.shape[2] != 3:
-        raise ValueError(f"write_png takes [H, W, 3]; got {rgb.shape}")
-    h, w, _ = rgb.shape
-    # each scanline: filter type 0 (none), then its bytes
-    raw = np.zeros((h, 1 + 3 * w), np.uint8)
-    raw[:, 1:] = rgb.reshape(h, 3 * w)
-    header = struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0)
+    if np.shape(image)[-1:] != (3,) or np.ndim(image) != 3:
+        raise ValueError(f"write_png takes [H, W, 3]; got {np.shape(image)}")
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n")
-        f.write(_chunk(b"IHDR", header))
-        f.write(_chunk(b"IDAT", zlib.compress(raw.tobytes(), PNG_LEVEL)))
-        f.write(_chunk(b"IEND", b""))
+        f.write(png_bytes(image))
     return path
-
-
-def write_frame_strip(path: str, frames: np.ndarray) -> str:
-    """Frames ``[T, H, W, 3]`` that the JAX package writes as a video,
-    written as its last resort does: one PNG of the frames side by side,
-    ``<name>_strip.png`` beside the video's name. Prints and returns the
-    path."""
-    strip = path.rsplit(".", 1)[0] + "_strip.png"
-    write_png(strip, np.concatenate([to_uint8(f) for f in frames], axis=1))
-    print(f"[tester] video frames written as a strip: {strip}")
-    return strip

@@ -2239,3 +2239,42 @@ def test_tester_recon_and_classifiers_on_card_match_host(tmp_path):
     for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd"):
         assert counts[kernel] > 0, kernel
     assert counts["raster_sweep"] == 0
+
+
+def test_tsne_on_card_matches_host():
+    """The exact t-SNE from one start: P within 1e-12 of its max, the
+    embedding after 250 iterations within 1e-3 of its max (float32
+    steps whose reductions run in another order on the card)."""
+    from craniofacialsd_vae_tpu_torch.analysis import tsne
+
+    dev = _card()
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.normal(c, 1.0, (20, 6))
+                        for c in (0.0, 3.0, 6.0)]).astype(np.float32)
+    y0 = tsne.random_init(len(x), _gen(dev, 1))
+    assert y0.device.type == "cuda"
+    card = tsne.tsne(x, init=y0, max_iter=250, device=dev)
+    host = tsne.tsne(x, init=y0.cpu(), max_iter=250, device="cpu")
+    p_card, p_host = card["P"].cpu().numpy(), host["P"].numpy()
+    assert np.abs(p_card - p_host).max() <= 1e-12 * p_host.max()
+    scale = np.abs(host["embedding"]).max()
+    assert np.abs(card["embedding"] - host["embedding"]).max() \
+        <= 1e-3 * scale
+
+
+@pytest.mark.parametrize("shape", [(256, 512), (37, 53), (8, 8)])
+def test_jpeg_from_card_frames_equals_host(shape):
+    """The encoder's integer colour transform and exact float64 DCT give
+    the same file from card tensors as from host arrays."""
+    from craniofacialsd_vae_tpu_torch.viz import jpeg
+
+    dev = _card()
+    rng = np.random.default_rng(sum(shape))
+    yy, xx = np.mgrid[0:shape[0], 0:shape[1]]
+    smooth = np.stack([yy * 255 // max(shape[0] - 1, 1),
+                       xx * 255 // max(shape[1] - 1, 1),
+                       (yy + xx) % 256], -1).astype(np.uint8)
+    noise = rng.integers(0, 256, (2, *shape, 3), dtype=np.uint8)
+    frames = np.concatenate([smooth[None], noise])
+    assert jpeg.encode_jpegs(torch.as_tensor(frames, device=dev)) == \
+        jpeg.encode_jpegs(frames)

@@ -136,7 +136,8 @@ def test_kernel_sources_export_their_c_entry_points(name):
 @pytest.mark.parametrize("module", ["training", "data", "geometry", "models",
                                     "ops", "serving", "utils", "viz",
                                     "manager", "train", "analysis", "serve",
-                                    "test", "batch_diagnose"])
+                                    "test", "batch_diagnose",
+                                    "visualize_in_batch"])
 def test_port_modules_import_with_jax_blocked(module):
     """Each subpackage and entry module imports in a fresh process in
     which JAX, the JAX package and the libraries the card's machine lacks

@@ -108,12 +108,13 @@ def test_standard_suite_matches_the_jax_entry(port_run, small_renders, run,
         assert got[k] == pytest.approx(want[k], rel=1e-5), k
     for name in ("accuracies.json", "classification_report.json",
                  "classification_report_regions.json",
-                 "random_generation.png", "latent_exploration_strip.png",
+                 "random_generation.png", "latent_exploration.avi",
                  "latent_exploration_tiled.png",
-                 "latent_exploration_tiled_strip.png",
+                 "latent_exploration_tiled.avi",
+                 "lda_emb_distributions.npz",
                  os.path.join("random_meshes", "15.ply")):
         assert os.path.isfile(os.path.join(rd, name)), name
-    assert "lda_emb_distributions.pkl" in out["tester"].figures_not_drawn
+    assert "lda_emb_distributions.svg" in out["tester"].figure_data
 
 
 EXPERIMENTS = [e for e in ttest.EXPERIMENTS if e != "standard"]
@@ -154,12 +155,12 @@ def test_each_experiment_runs_end_to_end(jax_run, port_run, small_renders,
         extra += ["--landmarks", str(lnd)]
     out = ttest.main(_argv(port_run, run, experiment, *extra))
     files = {
-        "traversals": ["latent_exploration_strip.png"],
+        "traversals": ["latent_exploration.avi"],
         "generation": ["random_generation.png", "random_meshes/0.ply"],
         "classifiers": ["accuracies.json", "classification_report.json"],
         "refit_classifiers": ["checkpoints/classifiers.npz"],
         "interpolate": ["interpolate_per_feature.png", "interpolate_all.png",
-                        "interpolate_per_variable_strip.png"],
+                        "interpolate_per_variable.avi"],
         "classify_and_project": ["interpolations"],
         "planning": ["interpolations/scan_0_procedure_distances.csv"],
         "prepost": ["postop_displacement.ply"],
@@ -209,9 +210,9 @@ def test_train_main_traversals_leave_the_checkpoints_bit_equal(
     with_t = ttrain.main(argv + ["--id", "with"])
     assert len(with_t["traversal_s"]) == 2
     for e in (1, 2):
-        for name in (f"latent_exploration{e}_strip.png",
+        for name in (f"latent_exploration{e}.avi",
                      f"latent_exploration_tiled{e}.png",
-                     f"latent_exploration_tiled{e}_strip.png"):
+                     f"latent_exploration_tiled{e}.avi"):
             assert os.path.isfile(os.path.join(with_t["output_dir"], name))
     monkeypatch.setattr(tmod.Tester, "latent_traversals",
                         lambda self, **k: None)

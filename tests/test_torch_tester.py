@@ -210,7 +210,7 @@ def test_traversal_displacements_match_jax(testers, use_z_stats):
     assert len(got) == len(want) == 6
     for g, w in zip(got, want):
         assert _rel(g, w) <= 1e-4
-    table = tt.figures_not_drawn["latent_exploration.svg"]
+    table = tt.figure_data["latent_exploration.svg"]
     assert len(table) == 6 * len(tt._manager.template.feat_and_cont)
 
 
@@ -273,7 +273,9 @@ def test_classifier_files_equal_jax(testers):
         np.testing.assert_array_equal(
             cm, sk_confusion(ts_l["y"], pred, labels=tt.confusion_labels,
                              normalize="true"))
-        assert f"confmat_{name}.svg" in tt.figures_not_drawn
+        assert f"confmat_{name}.svg" in tt.figure_data
+        assert os.path.isfile(os.path.join(tt._out_dir,
+                                           f"confmat_{name}.svg"))
 
 
 def test_region_confusion_matrices_span_unseen_predictions(testers):
@@ -296,7 +298,7 @@ def test_region_confusion_matrices_span_unseen_predictions(testers):
     assert set(pred) <= set(labels) and len(set(pred)) > 1
     assert cm.shape == (len(labels), len(labels))
     assert np.isfinite(cm).all()
-    assert "region_confmats_qda.svg" in tt.figures_not_drawn
+    assert "region_confmats_qda.svg" in tt.figure_data
 
 
 # --------------------------------------------------------------- planning
@@ -304,7 +306,7 @@ def test_plan_matches_the_jax_planner(jax_run, testers, tmp_path):
     """The port Tester's plan of a patient file, against JAX's planner on
     the same patient latent (``test_plan_matches_tester``'s bar): the key
     latents rtol 1e-6, the procedure table equal; the CSV in pandas'
-    ``to_csv`` layout; the renders, PLYs and frame strips written."""
+    ``to_csv`` layout; the renders, PLYs and videos written."""
     import pandas as pd
 
     from craniofacialsd_vae_tpu.analysis.planning import (healthy_gaussian,
@@ -333,7 +335,7 @@ def test_plan_matches_the_jax_planner(jax_run, testers, tmp_path):
     out = os.path.join(tt._out_dir, "interpolations",
                        "scan_0_all_attributes")
     for name in ("interpolation.png", "interpolation_errors.png",
-                 "interpolation_strip.png", "0.ply"):
+                 "interpolation.avi", "0.ply"):
         assert os.path.isfile(os.path.join(out, name)), name
 
 
@@ -425,7 +427,7 @@ def test_pre_post_batch_csv_matches_jax(jax_run, testers, monobloc_regions,
             assert list(got[col]) == list(want[col]), col
     assert len(out["region_metrics"]) == 2
     assert "pre_post_eval_plots/region_metrics_with_angles_apert.svg" \
-        in tt.figures_not_drawn
+        in tt.figure_data
     with pytest.raises(ValueError, match="CSV"):
         tt.evaluate_all_pre_post_pairs_in_excel(str(tmp_path),
                                                 str(tmp_path / "p.xlsx"))
