@@ -228,7 +228,39 @@ them or outside a checkout. Phases, each of which raises on a fault:
    ``python -m craniofacialsd_vae_tpu_torch.
    visualize_in_batch`` on the run's octasphere template, the card's 16
    PLYs equal to the host's; one ``{"phase": "figures", ...}`` line with
-   the seconds by part.
+   the seconds by part;
+13. parallel (``craniofacialsd_vae_tpu_torch/parallel``), after the
+   earlier phases, whose counts it leaves as they are: (b) ``train.main
+   --data_parallel`` for one epoch on phase 7's workspace (one card: its
+   own world-size-1 NCCL group, a file rendezvous in the run's
+   directory), counted (path ``parallel_entry``), against the same
+   epoch without it: losses, checkpoint, launches and replays equal;
+   then in a
+   world-size-1 NCCL group of this process (a) the data-parallel step
+   and a PARALLEL_STEPS-step scanned epoch (the all-reduce inside the
+   captured graph) against the single-device step and epoch from the
+   same weights, scans and draws, metrics, parameters and Adam states
+   bit-equal, counted (a step, the epoch's warm-up and capture, its
+   replays: path ``parallel_training``); (d) ``VertexShardedModel`` at
+   D = 1 on the fixture hierarchy (the training phase's model): a
+   forward (B = VS_FWD_BATCH) and a train step against the unsharded
+   model within VS_RTOL, a scanned epoch (the all_to_all, all_gather and
+   all-reduce inside its graph) bit-equal to as many sharded steps,
+   counted (``vertex_launches``: path ``vertex_sharded``), then every
+   kernel at the sharded path's shapes against its twin; then (c)
+   ``DiagnosisService(data_parallel=True)`` on phase 7's run dir over
+   the card named PARALLEL_REPLICAS times (a replica each with its own
+   graphs, as over as many cards), counted (path ``parallel_serving``):
+   ``encode``, ``reconstruct`` and ``diagnose`` at every request size
+   and a 250-iteration fit split between the replicas, the launches
+   exactly those of the passes the path ran and of its fits, every
+   kernel held at those shapes, every answer within
+   PARALLEL_SERVE_RTOL of the single-device service's; step, epoch and
+   request times beside the single-device ones; one
+   ``{"phase": "parallel", ...}`` line. The records of
+   ``parallel_training`` and ``parallel_entry`` are those of
+   ``training`` and ``train_entry`` (the same shapes) with this phase's
+   launches.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
@@ -237,7 +269,9 @@ The kernels' record holds one entry per kernel and path (``serving``,
 ``training``, ``train_entry``, ``train_entry_traversals``,
 ``mixed_serving``, ``mixed_training``, ``mixed_gather_first``,
 ``mixed_entry_traversals``, ``diagnosis``, ``mixed_diagnosis``,
-``augmentation``, ``evaluation``), each timed over the shapes of that
+``augmentation``, ``evaluation``, ``parallel_training``,
+``parallel_entry``, ``parallel_serving``, ``vertex_sharded``), each
+timed over the shapes of that
 path's launches (on the traversal, diagnosis and evaluation paths each
 distinct shape once; every shape carries its launches). Its
 ``launches`` are the wrappers' counts on the path's counted run, which
@@ -1173,18 +1207,21 @@ def training_geometry(bundle):
                                           N_REGIONS))
 
 
-def k2_parity(torch, mods, model, geom, batch: int, ptxas: list) -> dict:
+def k2_parity(torch, mods, model, geom, batch: int, ptxas: list,
+              convs=None) -> dict:
     """K2-dW at each conv's shape over a ``batch``-mesh grid, random x
     and dy: within K2_RTOL of the twin, two launches bit-equal, timed
     against the twin and the library form (``index_select`` of the L
     gathers, one ``einsum``), with its plan, both bounds (fp32 on the
     CUDA cores; 3xTF32 on the tensor cores, K1's form) and ptxas's
-    registers and spills for the plan's instance."""
+    registers and spills for the plan's instance. ``convs``: ``(name,
+    conv, op)`` to hold instead of the model's (``model_convs``)."""
     kernels, ops = mods["kernels"], mods["ops"]
     regs = {k["kernel"]: k for k in ptxas}
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 3)
     shapes = []
-    for name, conv, op in model_convs(model, geom):
+    for name, conv, op in (convs if convs is not None
+                           else model_convs(model, geom)):
         seq, m = op.seq_length, op.num_vertices
         c_in, c_out = conv_widths(conv, op)
         x = torch.randn((op.n_src, batch, c_in), generator=gen, device=DEVICE)
@@ -2921,13 +2958,16 @@ ELL_KERNELS = {"ell_matmul_direct": ("ell_matmul_fwd", "ell_matmul_capped"),
                "ell_bf16_scalar": ("ell_matmul_bf16",
                                    "ell_matmul_capped_bf16")}
 GRAPH_STEPS = 10
-PROFILE_LEAD_S = 0.01           # host time in the profiler before fn
-REPLAY_PREAMBLE_KERNELS = 32    # throwaway kernels before a checked replay
+PROFILE_LEAD_S = 0.01           # host time in the profiler before and
+#                                 after fn
+REPLAY_PREAMBLE_KERNELS = 32    # padding kernels before and after a
+#                                 checked replay
 BASELINE_REGION = (10, 15)      # baseline_torch.py's latent slice
 
 
-def profile_kernels(torch, fn) -> dict:
-    """One call of ``fn`` under torch.profiler, after a synchronization:
+def profile_kernels(torch, fn, lead_s: float = PROFILE_LEAD_S) -> dict:
+    """One call of ``fn`` under torch.profiler, after a synchronization
+    and ``lead_s`` of host time in the window (and as much after it):
     wall and device time, the device's idle share, and every CUDA kernel
     it ran by its full name (memory copies and sets apart)."""
     from torch.autograd import DeviceType
@@ -2939,11 +2979,13 @@ def profile_kernels(torch, fn) -> dict:
         # the trace drops device events that seem to start before its
         # window opens (the card's clock against the host's): the first
         # kernels of a CUDA graph launched at once can be lost
-        time.sleep(PROFILE_LEAD_S)
+        time.sleep(lead_s)
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
+        # and the same lead after it, before the window closes
+        time.sleep(lead_s)
     kernels, busy, copies = {}, 0.0, 0
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA \
@@ -3013,8 +3055,8 @@ def read_counts(torch, path: str) -> dict:
 
 def graphs_of(svc=None, managers=()) -> list:
     """The captured graphs (``graphs.Captured``) a service holds (its
-    buckets' and its manager's fits') and managers hold (their fits' and
-    scanned steps')."""
+    buckets' and its manager's fits') and managers hold (their fits', their
+    replicas' fits' and their scanned steps')."""
     from craniofacialsd_vae_tpu_torch.analysis import fitting
 
     out = []
@@ -3022,8 +3064,10 @@ def graphs_of(svc=None, managers=()) -> list:
         out += [b.graph for b in svc._bucket_graphs.values()]
         managers = (*managers, svc.manager)
     for mgr in managers:
-        if mgr in fitting._FIT_RUNS:
-            out += [r.graph for r in fitting._FIT_RUNS[mgr].values()]
+        # the fits of the manager's model and of its replicas
+        for owner in (mgr, *fitting._REPLICAS.get(mgr, {}).values()):
+            if owner in fitting._FIT_RUNS:
+                out += [r.graph for r in fitting._FIT_RUNS[owner].values()]
         for fn in (getattr(mgr, "_scanned_step", None),
                    getattr(mgr, "_scanned_epochs", None)):
             if fn is not None:
@@ -3031,27 +3075,62 @@ def graphs_of(svc=None, managers=()) -> list:
     return [g for g in out if g is not None]
 
 
+#: traces of one replay taken at most before ``check_replays`` gives up
+#: on a trace that lost the padding on one side of the replay
+REPLAY_PROFILE_TRIES = 6
+
+
+def padding_kept(kernel_names: dict) -> tuple:
+    """How many of the padding's kernels a trace kept before the replay
+    (``atan_`` on one float) and after it (``asinh_``); no graph of the
+    port runs either."""
+    def count(op):
+        return sum(n for k, n in kernel_names.items() if op in k)
+    return count("atan"), count("asinh")
+
+
 def check_replays(torch, captured: list, path: str) -> dict:
     """One replay of each graph under the profiler (outside the replay
     counts): the kernels of ``csrc/`` it ran, by launch-count name, equal
     to what its capture recorded, which each counted replay adds to
-    ``PATH_REPLAYS``. A replay of a train step's graph updates its
-    model: call this when the run is done with it."""
+    ``PATH_REPLAYS``. The replay sits between two runs of padding
+    kernels. The profiler can drop the first or the last device events of
+    a window, hundreds of them late in a long process (PERF.md §7): the
+    padding takes those losses, and a trace that kept none of the padding
+    on one side may have lost the replay's own kernels there, so another
+    replay is traced with four times the padding and four times the host
+    time before and after it, at most REPLAY_PROFILE_TRIES in all. A
+    replay of a train step's graph updates its model: call this when the
+    run is done with it."""
     from craniofacialsd_vae_tpu_torch import kernels
 
     check(captured, f"{path}: no graph to replay")
     pad = torch.zeros(1, device=DEVICE)
-    per_replay = []
+    per_replay, lost = [], 0
     for g in captured:
-        def replay(g=g):
-            # late in a long process the trace can lose the first few
-            # device events of its window: let them be these
-            for _ in range(REPLAY_PREAMBLE_KERNELS):
-                pad.add_(1)
+        def replay(g, n_pad):
+            for _ in range(n_pad):
+                pad.atan_()
             torch.cuda.synchronize()
             g.cuda_graph.replay()
+            torch.cuda.synchronize()
+            for _ in range(n_pad):
+                pad.asinh_()
 
-        prof = profile_kernels(torch, replay)
+        for attempt in range(REPLAY_PROFILE_TRIES):
+            n_pad = REPLAY_PREAMBLE_KERNELS * 4 ** attempt
+            prof = profile_kernels(torch, lambda g=g, n=n_pad: replay(g, n),
+                                   PROFILE_LEAD_S * 4 ** attempt)
+            kept = padding_kept(prof["kernels"])
+            if min(kept) > 0:
+                break
+            lost += 1
+            log(f"[replays {path}] a trace kept {kept} of the replay's "
+                f"{n_pad} padding kernels before and after it: traced "
+                "again")
+        check(min(kept) > 0, f"{path}: {REPLAY_PROFILE_TRIES} traces of a "
+              f"replay each lost the padding on one side; profiled "
+              f"{ {k[:48]: v for k, v in prof['kernels'].items()} }")
         got = fold_f32out(wrapper_counts(prof["kernels"]))
         want = fold_f32out({**dict.fromkeys(kernels.KERNEL_NAMES, 0),
                             **g.launches})
@@ -3061,8 +3140,9 @@ def check_replays(torch, captured: list, path: str) -> dict:
         per_replay.append(sum(got.values()))
     log(f"[replays {path}] {len(captured)} graphs, one replay of each "
         f"profiled: its kernels of csrc/ are its capture's ({per_replay} "
-        "of them)")
-    return {"graphs": len(captured), "csrc_kernels_per_replay": per_replay}
+        f"of them; {lost} traces retaken)")
+    return {"graphs": len(captured), "csrc_kernels_per_replay": per_replay,
+            "traces_retaken": lost}
 
 
 def state_tensors(model, opt) -> list:
@@ -5405,6 +5485,647 @@ def phase_figures(torch, root: str, run_dir: str, smi: str) -> dict:
 
 
 # ----------------------------------------------------------------------
+# ----------------------------------------------------------------------
+# phase 13: data parallelism and vertex sharding at world size 1
+
+PARALLEL_STEPS = 4              # the scanned epochs' steps in (a) and (d)
+PARALLEL_REPS = 10              # timed eager steps; epochs are timed 5 x
+PARALLEL_REPLICAS = 2           # (c): the card named twice, as two cards
+PARALLEL_SERVE_RTOL = 1e-5      # (c) against the single-device service, of
+#                                 each array's max: a replica runs half a
+#                                 bucket, where cuBLAS may pick another
+#                                 kernel (the CPU tests' tolerance)
+VS_FWD_BATCH = 3                # the sharded forward's scans in (d)
+VS_RTOL = 1e-4                  # sharded (D = 1) vs unsharded on the card:
+#                                 the forward against max |out|, a step's
+#                                 losses and each gradient against its max
+#                                 (the sums grouped otherwise, the
+#                                 transposes capped over every position)
+
+
+def parallel_group(root: str) -> None:
+    """A world-size-1 NCCL process group on the card, its rendezvous a
+    file under ``root``."""
+    from craniofacialsd_vae_tpu_torch.parallel import initialize_multihost
+
+    path = os.path.join(root, "rendezvous_parallel")
+    if os.path.exists(path):
+        os.remove(path)
+    initialize_multihost(num_processes=1, process_id=0, device=DEVICE,
+                         init_method="file://" + path, timeout_s=600)
+
+
+def scanned_steps(warmup: int) -> tuple:
+    """A PARALLEL_STEPS-step scanned epoch's eager steps (counted by the
+    wrappers) and replayed steps: on the card its graph's warm-up and
+    capture, then a replay a step; on the host every step eagerly."""
+    if DEVICE == "cuda":
+        return warmup + 1, PARALLEL_STEPS
+    return PARALLEL_STEPS, 0
+
+
+def parallel_draws(torch, latent: int):
+    """``draws(step_id, rows)`` of the phase: a host generator seeded by
+    the step id."""
+    def draws(sid, rows):
+        g = torch.Generator().manual_seed(SEED + 100 + int(sid))
+        return (int(torch.randint(0, N_REGIONS, (), generator=g)),
+                torch.randn((rows, latent), generator=g))
+    return draws
+
+
+def parallel_steps(torch, bundle, config, smi: str) -> dict:
+    """(a) the data-parallel step and scanned epoch (``parallel.
+    make_parallel_train_step``, ``make_scanned_parallel_step``: the
+    all-reduce inside the captured graph) against the single-device ones
+    (``make_train_step``, ``make_scanned_train_step``) from the same
+    weights, scans and draws: metrics, parameters and Adam states
+    bit-equal. Counted: the step's launches, the epoch's warm-up and
+    capture, its replays."""
+    import torch.distributed as dist
+
+    from craniofacialsd_vae_tpu_torch import parallel
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.training import (
+        LOSS_KEYS, LossWeights, coupled_adam, make_scanned_train_step,
+        make_train_step)
+    from craniofacialsd_vae_tpu_torch.training.trainer import WARMUP_STEPS
+
+    b = TRAIN_CONFIG["batch_size"]
+    grid = b * b
+    weights = LossWeights.from_config(TRAIN_CONFIG)
+    geom = training_geometry(bundle).to(DEVICE)
+    data, region, eps = training_inputs(torch, bundle, config)
+    data_dev = torch.as_tensor(data, device=DEVICE)
+    x = data_dev[:b]
+    draws = parallel_draws(torch, config.latent_size)
+    rng = np.random.default_rng(SEED + 12)
+    idx = rng.integers(0, len(data), size=(PARALLEL_STEPS, b)).astype(
+        np.int32)
+    sids = 1 + np.arange(PARALLEL_STEPS)
+    lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
+    mesh = parallel.make_data_mesh()
+    check(mesh.ranks and mesh.world == 1
+          and dist.get_backend() == parallel.mesh.backend_for(DEVICE),
+          f"the data mesh {mesh} is not one rank of {DEVICE}'s backend")
+
+    def fresh():
+        model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
+        return model, coupled_adam(model.parameters(), lr, wd)
+
+    ma, oa = fresh()
+    mb, ob = fresh()
+    step_a = make_train_step(ma, weights, oa, b)
+    step_b = parallel.make_parallel_train_step(mb, weights, ob, b, mesh)
+    epoch_a = make_scanned_train_step(ma, weights, oa, b, draws=draws)
+    epoch_b = parallel.make_scanned_parallel_step(mb, weights, ob, b, mesh,
+                                                  draws=draws)
+    m_a = step_a(x, region_idx=region, eps=eps.to(DEVICE))
+    r_a = epoch_a(data_dev, idx, sids)
+    # the main path: counts from 0, one step and one scanned epoch
+    reset_counts()
+    m_b = step_b(x, region_idx=region, eps=eps.to(DEVICE))
+    r_b = epoch_b(data_dev, idx, sids)
+    counts = read_counts(torch, "parallel_training")
+    for k in LOSS_KEYS:
+        check(torch.equal(m_a[k], m_b[k]), f"data-parallel step {k}: "
+              f"{float(m_b[k])!r} vs {float(m_a[k])!r}")
+    check(r_a == r_b, f"data-parallel epoch {r_b} vs {r_a}")
+    for i, (ta, tb) in enumerate(zip(state_tensors(ma, oa),
+                                     state_tensors(mb, ob))):
+        check(torch.equal(ta, tb), f"data-parallel state tensor {i} "
+              "differs from the single-device one")
+    one = expected_step_launches(mb, geom, grid)
+    eager, replays_n = scanned_steps(WARMUP_STEPS)
+    want = {k: (1 + eager) * v for k, v in one.items()}
+    check(counts == want, f"data-parallel launches {counts}, expected "
+          f"{want} (a step, then the epoch's warm-up and capture)")
+    replayed = PATH_REPLAYS["parallel_training"]
+    check(replayed == {k: replays_n * v for k, v in one.items()},
+          f"data-parallel replays {replayed}")
+    replays = check_replays(torch, [r.graph for r in
+                                    epoch_b.steps.runners.values()],
+                            "parallel_training")
+    # times, in turns, within this run
+    t = {}
+    for name, fn in (("step_single", lambda: step_a(
+            x, region_idx=region, eps=eps.to(DEVICE))),
+            ("step_parallel", lambda: step_b(
+                x, region_idx=region, eps=eps.to(DEVICE)))):
+        t[name] = timed(torch, fn, PARALLEL_REPS)
+    for name, fn in (("epoch_single", lambda: epoch_a(data_dev, idx, sids)),
+                     ("epoch_parallel",
+                      lambda: epoch_b(data_dev, idx, sids))):
+        t[name] = [v / PARALLEL_STEPS for v in timed(torch, fn, 5)]
+    line = {"world": mesh.world, "backend": dist.get_backend(),
+            "launches": counts, "replayed": replayed,
+            "replays_checked": replays,
+            **{f"{k}_p50_ms": p50(v) for k, v in t.items()}}
+    log(f"[13a parallel] world 1 over {dist.get_backend()}: the step and a "
+        f"{PARALLEL_STEPS}-step scanned epoch bit-equal to the "
+        f"single-device ones; step p50 {line['step_parallel_p50_ms']:.3f} "
+        f"ms (single {line['step_single_p50_ms']:.3f}), scanned epoch "
+        f"{line['epoch_parallel_p50_ms']:.3f} ms a step (single "
+        f"{line['epoch_single_p50_ms']:.3f}); {smi}")
+    return dict(line=line, counts=counts)
+
+
+def parallel_entry(torch, root: str, cfg_path: str, smi: str) -> dict:
+    """(b) ``train.main --data_parallel`` for one epoch on phase 7's
+    workspace: with one card it makes its own world-size-1 group (a file
+    rendezvous in the run's directory) and trains in process; counted.
+    Then the same epoch without ``--data_parallel``, counted apart: its
+    losses and checkpoint bit-equal, and its launches and replays the
+    ``--data_parallel`` run's, kernel for kernel: so the path runs each
+    kernel at the ``train_entry`` path's shapes (the same entry point on
+    the same workspace)."""
+    import torch.distributed as dist
+
+    from craniofacialsd_vae_tpu_torch import train as entry
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import \
+        read_checkpoint
+
+    runs = {}
+    for path, extra in (("parallel_entry", ["--data_parallel"]),
+                        ("parallel_entry_single", [])):
+        reset_counts()
+        t0 = time.perf_counter()
+        res = entry.main(["--config", cfg_path, "--id", path,
+                          "--output_path", root, "--device", DEVICE,
+                          "--epochs", "1", *extra])
+        res["run_s"] = time.perf_counter() - t0
+        res["counts"] = read_counts(torch, path)
+        runs[path] = res
+    # the --data_parallel run's graphs replayed under the profiler
+    res = runs["parallel_entry"]
+    replays = check_replays(torch, graphs_of(managers=[res.pop("manager")]),
+                            "parallel_entry")
+    del runs["parallel_entry_single"]["manager"]
+    single = runs["parallel_entry_single"]
+    counts = res["counts"]
+    check(res["world"] == 1 and not dist.is_initialized(),
+          f"--data_parallel ran at world {res.get('world')} and left its "
+          "group")
+    hist = res["history"]
+    check(len(hist) == 1 and all(np.isfinite(v) for v in
+                                 hist[0]["train"].values()),
+          f"--data_parallel history {hist}")
+    check([h["train"] for h in hist] == [h["train"] for h in
+                                         single["history"]],
+          f"--data_parallel losses {hist[0]['train']} against the "
+          f"single-device run's {single['history'][0]['train']}")
+    ckpts = [read_checkpoint(os.path.join(r["checkpoint_dir"],
+                                          "model_00000001.ckpt"))
+             for r in (res, single)]
+    same_tree(*ckpts, "--data_parallel vs single-device checkpoint")
+    check(counts == single["counts"]
+          and PATH_REPLAYS["parallel_entry"]
+          == PATH_REPLAYS.pop("parallel_entry_single"),
+          f"--data_parallel launches {counts} (replays "
+          f"{PATH_REPLAYS['parallel_entry']}) against the single-device "
+          f"run's {single['counts']}")
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                   "ell_matmul_capped", "spiral_conv_dw"):
+        check(counts[kernel] > 0,
+              f"{kernel} was not launched on the --data_parallel path")
+    line = {"run_s": res["run_s"], "epoch_s": hist[0]["epoch_s"],
+            "single_run_s": single["run_s"],
+            "single_epoch_s": single["history"][0]["epoch_s"],
+            "train": hist[0]["train"], "launches": counts,
+            "replayed": PATH_REPLAYS["parallel_entry"],
+            "replays_checked": replays}
+    log(f"[13b parallel entry] --data_parallel, one epoch: "
+        f"{res['run_s']:.1f} s (epoch {hist[0]['epoch_s']:.2f} s; single "
+        f"device {single['run_s']:.1f} s, {line['single_epoch_s']:.2f} s), "
+        f"tot {hist[0]['train']['tot']:.5g}, losses, checkpoint, launches "
+        f"and replays equal to the single-device run's; {smi}")
+    return dict(line=line, counts=counts)
+
+
+def parallel_serving(torch, mods, run_dir: str, smi: str) -> dict:
+    """(c) ``DiagnosisService(data_parallel=True)`` on phase 7's run dir
+    over the card named PARALLEL_REPLICAS times: a replica each, with its
+    own bucket graphs and fit graph, as over as many cards. Counted:
+    ``encode``, ``reconstruct`` and ``diagnose`` at every request size
+    and one fit, its restarts split between the replicas; the launches
+    exactly those of the model passes the path ran (``PassShapes``) and
+    of the replicas' fits, every kernel held at those shapes (the path's
+    own records). Every answer against the single-device service's:
+    arrays within PARALLEL_SERVE_RTOL of their max, labels equal; fits
+    of FIT_PARITY_ITERATIONS with the same best restart and z within it;
+    the counted fits' objectives within FIT_RTOL."""
+    from craniofacialsd_vae_tpu_torch.analysis.fitting import \
+        WARMUP_ITERATIONS
+    from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
+    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    kernels = mods["kernels"]
+    config = get_config(os.path.join(run_dir, "config.yaml"))
+    train_set, _, _, norm, _ = build_datasets(config)
+    raw = (np.asarray(train_set.x[:REQUEST_SIZES[-1]]) * norm["std"]
+           + norm["mean"]).astype(np.float32)
+    scans = {b: raw[:b] for b in REQUEST_SIZES}
+    fits = {}
+
+    def requests(svc):
+        out = {b: (svc.encode(x), svc.reconstruct(x), svc.diagnose(x))
+               for b, x in scans.items()}
+        fits["scan"] = fit_scan(np.asarray(svc.manager.template.pos,
+                                           np.float64), svc.landmark_idx)
+        t0 = time.perf_counter()
+        out["fit"] = svc.fit(*fits["scan"], iterations=FIT_ITERATIONS,
+                             n_restarts=FIT_RESTARTS, seed=SEED)
+        out["fit_s"] = time.perf_counter() - t0
+        return out
+
+    # the main path: counts from 0, the service built and every request
+    # answered once; counts read
+    reset_counts()
+    with PassShapes() as rec:
+        dp = DiagnosisService.from_run_dir(
+            run_dir, max_batch=BATCH, device=DEVICE, data_parallel=True,
+            devices=[DEVICE] * PARALLEL_REPLICAS)
+        got = requests(dp)
+    counts = read_counts(torch, "parallel_serving")
+    replays = check_replays(torch, graphs_of(dp), "parallel_serving")
+    n_dev = dp.stats()["n_devices"]
+    check(n_dev == PARALLEL_REPLICAS
+          and all(b % n_dev == 0 for b in dp.buckets)
+          and {k[2] for k in dp._bucket_graphs} == set(range(n_dev)),
+          f"the data-parallel service spans {n_dev} replicas, buckets "
+          f"{dp.buckets}, graphs {sorted(dp._bucket_graphs)}")
+
+    # every kernel of the path at its shapes there; the launches those
+    # shapes account for are the counted run's, kernel for kernel: each
+    # replica's fit runs FIT_RESTARTS / n_dev restarts, its warm-up and
+    # capture launched (backward included), then its final losses
+    per = FIT_RESTARTS // n_dev
+    fit_iters = WARMUP_ITERATIONS + 1
+    rec.passes["dec_bwd"][per] += n_dev * fit_iters
+    shapes = diagnosis_shapes(torch, mods, dp.manager, rec.passes)
+    k8 = k8_case(torch, mods, per, FIT_GEN_POINTS, FIT_SCAN_POINTS // 4, 50)
+    torch.cuda.empty_cache()
+    want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    want.update(k8_fwd=n_dev * (fit_iters + 1), k8_bwd=n_dev * fit_iters)
+    for kernel, entries in shapes.items():
+        want[kernel] += sum(e["launches"] for e in entries)
+    check(counts == want, f"parallel_serving: launches {counts}, expected "
+          f"{want} from its passes {rec.passes} and {n_dev} fits of {per} "
+          "restarts")
+    records = [summarize(k, *KERNEL_SOURCES[k], entries)
+               for k, entries in shapes.items()]
+    records += [summarize("k8_fwd", *KERNEL_SOURCES["k8_fwd"], [k8]),
+                summarize("k8_bwd", *KERNEL_SOURCES["k8_bwd"], [k8["bwd"]])]
+    for r in records:
+        r.update(path="parallel_serving", launches=counts[r["name"]])
+
+    # the same requests on the single-device service
+    one = DiagnosisService.from_run_dir(run_dir, max_batch=BATCH,
+                                        device=DEVICE)
+    check(dp.buckets == [b * n_dev for b in one.buckets
+                         if b * n_dev <= BATCH],
+          f"buckets {dp.buckets}: not the single service's {one.buckets} "
+          f"times {n_dev}")
+    ref = requests(one)
+    errs = {}
+
+    def close(g, w, what):
+        g, w = np.asarray(g), np.asarray(w)
+        check(g.shape == w.shape, f"{what}: shape {g.shape} vs {w.shape}")
+        e = float(np.abs(g - w).max()) / max(float(np.abs(w).max()), 1e-30)
+        errs[what] = max(errs.get(what, 0.0), e)
+        check(e <= PARALLEL_SERVE_RTOL, f"{what}: {e:.3e} of its max from "
+              "the single-device service's")
+
+    for b in scans:
+        close(got[b][0], ref[b][0], "encode")
+        for k, v in ref[b][1].items():
+            close(got[b][1][k], v, f"reconstruct {k}")
+        check([r["label"] for r in got[b][2]]
+              == [r["label"] for r in ref[b][2]], f"diagnose B={b}")
+        for r, w in zip(got[b][2], ref[b][2]):
+            close(r["latent"], w["latent"], "diagnose latent")
+    held = {s: s.fit(*fits["scan"], iterations=FIT_PARITY_ITERATIONS,
+                     n_restarts=FIT_RESTARTS, seed=SEED) for s in (dp, one)}
+    check(held[dp]["best_restart"] == held[one]["best_restart"],
+          f"fit of {FIT_PARITY_ITERATIONS} iterations: best restart "
+          f"{held[dp]['best_restart']} vs {held[one]['best_restart']}")
+    close(held[dp]["z"], held[one]["z"], "fit z")
+    close(held[dp]["chamfer_mm2"], held[one]["chamfer_mm2"], "fit chamfer")
+
+    def objective(f):
+        return 10.0 * f["landmark_mse_mm2"] + f["chamfer_mm2"]
+
+    fit_rel = abs(objective(got["fit"]) - objective(ref["fit"])) \
+        / objective(ref["fit"])
+    check(fit_rel <= FIT_RTOL, f"the counted fits' objectives "
+          f"{objective(got['fit'])} vs {objective(ref['fit'])}")
+    lat = {"parallel": serve_latency(dp, scans),
+           "single": serve_latency(one, scans)}
+    line = {"replicas": n_dev, "buckets": dp.buckets,
+            "bucket_graphs": len(dp._bucket_graphs),
+            "max_rel_err": errs, "bit_equal": not any(errs.values()),
+            "fit_objective_rel": fit_rel,
+            "fit_best_restart": [got["fit"]["best_restart"],
+                                 ref["fit"]["best_restart"]],
+            "fit_s": got["fit_s"], "fit_single_s": ref["fit_s"],
+            "reconstruct_p50_ms": {k: {b: v["p50_ms"] for b, v in d.items()}
+                                   for k, d in lat.items()},
+            "passes": {k: dict(v) for k, v in rec.passes.items()},
+            "launches": counts, "replayed": PATH_REPLAYS["parallel_serving"],
+            "replays_checked": replays}
+    log(f"[13c parallel serving] data_parallel over the card named {n_dev} "
+        f"times: launches as its passes and fits predict; every answer "
+        f"within {PARALLEL_SERVE_RTOL} of the single-device service's "
+        f"(worst {max(errs.values()):.2e}, bit-equal {line['bit_equal']}), "
+        f"the counted fits' objectives {fit_rel:.2e} apart; reconstruct "
+        f"p50 {line['reconstruct_p50_ms']} ms; fit {got['fit_s']:.2f} s "
+        f"(single {ref['fit_s']:.2f}); {smi}")
+    del dp, one
+    return dict(line=line, counts=counts, records=records)
+
+
+def vertex_convs(vs, params) -> list:
+    """``(name, conv, level)`` of every spiral conv of the sharded model's
+    forward, in its order."""
+    n = len(params.en_convs)
+    out = [(f"enc{i}", params.en_convs[i], vs.enc_levels[i])
+           for i in range(n)]
+    out += [(f"dec{n - 1 - j}", params.de_convs[j], vs.dec_levels[n - 1 - j])
+            for j in range(n)]
+    out.append(("final", params.final_conv, vs.dec_levels[0]))
+    return out
+
+
+def vertex_tables(vs, params, batch: int, train: bool) -> list:
+    """``(name, matrix, source rows, D)`` of every K4 product of the
+    sharded forward at ``batch`` (each conv's and up-pool's send table,
+    the up-pools), and for a train step the Laplacian's and every
+    backward's transposes (none for the first conv, whose input needs no
+    gradient)."""
+    out = []
+    n = len(params.de_convs)
+    for name, conv, lv in vertex_convs(vs, params):
+        c_in = conv.w.shape[0] // lv.op.seq_length
+        out.append((f"{name} send", lv.send, lv.send.n_cols, batch * c_in))
+        if name.startswith("dec"):
+            level = int(name[3:])
+            up = vs.up_levels[level]
+            out += [(f"up{level} send", up.send, up.send.n_cols, batch * c_in),
+                    (f"up{level}", up.op, up.op.n_cols, batch * c_in)]
+    if not train:
+        return out
+    lap = vs._loss_tables()["lap"]
+    out += [("lap send", lap.send, lap.send.n_cols, 3 * batch),
+            ("lap", lap.op, lap.op.n_cols, 3 * batch),
+            ("lap T", lap.op.transpose, lap.op.cols.shape[0], 3 * batch),
+            ("lap send T", lap.send.transpose, lap.send.cols.shape[0],
+             3 * batch)]
+    for name, conv, lv in vertex_convs(vs, params)[1:]:
+        c_in = conv.w.shape[0] // lv.op.seq_length
+        for table, cols in zip(lv.op.inv_tables, lv.op.group_cols):
+            out.append((f"{name} T", table, len(cols) * lv.op.num_vertices,
+                        batch * c_in))
+        out.append((f"{name} send T", lv.send.transpose,
+                    lv.send.cols.shape[0], batch * c_in))
+        if name.startswith("dec"):
+            level = int(name[3:])
+            up = vs.up_levels[level]
+            out += [(f"up{level} T", up.op.transpose, up.op.cols.shape[0],
+                     batch * c_in),
+                    (f"up{level} send T", up.send.transpose,
+                     up.send.cols.shape[0], batch * c_in)]
+    return out
+
+
+def vertex_launches(vs, params, batch: int, train: bool) -> dict:
+    """The launches of a sharded forward (``train``: a train step) at
+    ``batch``: K1 per conv, K2-dW per conv of a step, and per table of
+    ``vertex_tables`` K4, or the fused K4 where it has tiers."""
+    from craniofacialsd_vae_tpu_torch import kernels
+
+    counts = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for name, conv, lv in vertex_convs(vs, params):
+        counts[conv_kernel(name, conv, lv.op, None, "gather")] += 1
+        counts["spiral_conv_dw"] += int(train)
+    for _, mat, _, _ in vertex_tables(vs, params, batch, train):
+        counts["ell_matmul_capped" if tiers_of(mat)
+               else "ell_matmul_fwd"] += 1
+    return counts
+
+
+def parallel_vertex(torch, mods, bundle, config, ptxas: list,
+                    smi: str) -> dict:
+    """(d) ``VertexShardedModel`` at D = 1 over NCCL on the fixture
+    hierarchy (the training phase's model and stand-ins), counted: one
+    forward and one train step, each against the unsharded model's, and
+    a scanned epoch (its steps replayed from a graph with the
+    collectives inside) against as many sharded steps, bit for bit; the
+    launches those account for; then every kernel at the sharded path's
+    shapes (its local tables over [rows ‖ halo]) against its twin."""
+    from craniofacialsd_vae_tpu_torch.geometry import (level0_positions,
+                                                       standin_laplacian_coo,
+                                                       standin_region_masks)
+    from craniofacialsd_vae_tpu_torch.models import init_sdvae
+    from craniofacialsd_vae_tpu_torch.parallel.vertex_sharding import (
+        VertexShardedModel, make_vertex_mesh)
+    from craniofacialsd_vae_tpu_torch.training import (
+        LOSS_KEYS, LossWeights, coupled_adam, make_train_step)
+    from craniofacialsd_vae_tpu_torch.training.trainer import WARMUP_STEPS
+
+    kernels, ops = mods["kernels"], mods["ops"]
+    b = TRAIN_CONFIG["batch_size"]
+    grid = b * b
+    weights = LossWeights.from_config(TRAIN_CONFIG)
+    lr, wd = TRAIN_CONFIG["lr"], TRAIN_CONFIG["weight_decay"]
+    geom = training_geometry(bundle).to(DEVICE)
+    t0 = time.perf_counter()
+    vs = VertexShardedModel(
+        bundle, config, make_vertex_mesh(),
+        laplacian=standin_laplacian_coo(bundle.spirals[0]),
+        region_masks=standin_region_masks(level0_positions(bundle),
+                                          N_REGIONS))
+    vs._loss_tables()
+    build_s = time.perf_counter() - t0
+    data, region, eps = training_inputs(torch, bundle, config)
+    data_dev = torch.as_tensor(data, device=DEVICE)
+
+    def fresh():
+        model = init_sdvae(config, geom, torch.Generator().manual_seed(SEED))
+        return model, coupled_adam(model.parameters(), lr, wd)
+
+    ma, oa = fresh()
+    mb, ob = fresh()
+    mc, oc = fresh()
+    fwd = vs.make_forward()
+    x_fwd = data_dev[:VS_FWD_BATCH].transpose(0, 1).contiguous()
+    x_step = data_dev[:b].transpose(0, 1).contiguous()
+    step_b = vs.make_train_step(mb, weights, ob, b)
+    draws = parallel_draws(torch, config.latent_size)
+    data_vm = data_dev.transpose(0, 1).contiguous()      # [N, n, 3]
+    rng = np.random.default_rng(SEED + 14)
+    idx = rng.integers(0, len(data), size=(PARALLEL_STEPS, b)).astype(
+        np.int32)
+    sids = 1 + np.arange(PARALLEL_STEPS)
+    epoch_c = vs.make_scanned_epoch(mc, weights, oc, b, draws=draws)
+    # the main path: counts from 0, one forward, one step, one epoch
+    reset_counts()
+    out, mu, _ = fwd(mb, x_fwd)
+    m_b = step_b(x_step, region, eps.to(DEVICE))
+    m_c = epoch_c(data_vm, idx, sids)
+    counts = read_counts(torch, "vertex_sharded")
+    one = vertex_launches(vs, mb, grid, True)
+    eager, replays_n = scanned_steps(WARMUP_STEPS)
+    want = vertex_launches(vs, mb, VS_FWD_BATCH, False)
+    for k, v in one.items():
+        want[k] += (1 + eager) * v
+    check(counts == want, f"vertex-sharded launches {counts}, expected "
+          f"{want} (a forward, a step, the epoch's warm-up and capture)")
+    replayed = PATH_REPLAYS["vertex_sharded"]
+    check(replayed == {k: replays_n * v for k, v in one.items()},
+          f"vertex-sharded replays {replayed}")
+    # the epoch against as many eager sharded steps
+    md, od = fresh()
+    step_d = vs.make_train_step(md, weights, od, b)
+    sums = None
+    for t, sid in enumerate(sids):
+        r_t, e_t = draws(int(sid), grid)
+        m_t = step_d(data_vm[:, torch.as_tensor(idx[t], device=DEVICE)
+                             .long()].contiguous(), r_t, e_t.to(DEVICE))
+        vec = torch.stack([m_t[k].float() for k in LOSS_KEYS])
+        sums = vec if sums is None else sums + vec
+    sums = sums.cpu().numpy()
+    check(m_c == {k: float(sums[i]) / PARALLEL_STEPS
+                  for i, k in enumerate(LOSS_KEYS)},
+          f"vertex-sharded epoch {m_c} vs its steps {sums}")
+    for i, (tc, td) in enumerate(zip(state_tensors(mc, oc),
+                                     state_tensors(md, od))):
+        check(torch.equal(tc, td), f"vertex-sharded epoch: state tensor {i} "
+              "differs from its eager steps'")
+    replays = check_replays(torch, [r.graph for r in
+                                    epoch_c.steps.runners.values()],
+                            "vertex_sharded")
+    with torch.no_grad():
+        mu_r, _ = ma.encode(x_fwd)
+        out_r = ma.decode(mu_r)
+    fwd_err = max_err(out, out_r) / float(out_r.abs().max())
+    mu_err = max_err(mu, mu_r) / float(mu_r.abs().max())
+    check(fwd_err <= VS_RTOL and mu_err <= VS_RTOL,
+          f"sharded forward vs unsharded: out {fwd_err:.2e}, mu "
+          f"{mu_err:.2e} of their max")
+    m_a = make_train_step(ma, weights, oa, b)(
+        data_dev[:b], region_idx=region, eps=eps.to(DEVICE))
+    loss_err = {}
+    for k in ("reconstruction", "kl", "laplacian", "latent_consistency",
+              "tot"):
+        got, ref = float(m_b[k]), float(m_a[k])
+        loss_err[k] = abs(got - ref) / abs(ref)
+        check(np.isfinite(got) and loss_err[k] <= VS_RTOL,
+              f"sharded step {k}: {got!r} vs unsharded {ref!r}")
+    grad_err = {}
+    for (name, pa), pb in zip(ma.named_parameters(), mb.parameters()):
+        grad_err[name] = max_err(pb.grad, pa.grad) / float(
+            pa.grad.abs().max())
+        check(grad_err[name] <= VS_RTOL, f"sharded gradient {name}: "
+              f"{grad_err[name]:.2e} of its max")
+    t = {"forward_sharded": timed(torch, lambda: fwd(mb, x_fwd),
+                                  PARALLEL_REPS),
+         "step_sharded": timed(torch, lambda: step_b(
+             x_step, region, eps.to(DEVICE)), PARALLEL_REPS),
+         "step_unsharded": timed(torch, lambda: make_train_step(
+             ma, weights, oa, b)(data_dev[:b], region_idx=region,
+                                 eps=eps.to(DEVICE)), PARALLEL_REPS),
+         "epoch_sharded": [v / PARALLEL_STEPS for v in timed(
+             torch, lambda: epoch_c(data_vm, idx, sids), 5)]}
+
+    # every kernel at the path's shapes against its twin
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 13)
+    convs = vertex_convs(vs, mb)
+    k1 = [k1_shape(torch, kernels, ops, gen, name, conv, lv.op, batch)
+          for batch in (VS_FWD_BATCH, grid) for name, conv, lv in convs]
+    k2 = k2_parity(torch, mods, None, None, grid, ptxas,
+                   convs=[(n, c, lv.op) for n, c, lv in convs])
+    k4 = [k4_table_shape(torch, mods, gen, name, mat, n_src, d)
+          for batch, train in ((VS_FWD_BATCH, False), (grid, True))
+          for name, mat, n_src, d in vertex_tables(vs, mb, batch, train)]
+    records = [summarize(kernel, *KERNEL_SOURCES[kernel],
+                         [s for s in k1 if s["kernel"] == kernel])
+               for kernel in ("spiral_conv_tc", "spiral_conv_narrow")]
+    records.append(summarize("ell_matmul_fwd",
+                             *KERNEL_SOURCES["ell_matmul_fwd"],
+                             [e for e in k4 if not e["tiers"]]))
+    capped = [e for e in k4 if e["tiers"]]
+    if capped:
+        records.append(summarize("ell_matmul_capped",
+                                 *KERNEL_SOURCES["ell_matmul_capped"],
+                                 capped))
+    records.append(k2)
+    for rec in records:
+        rec["path"] = "vertex_sharded"
+        rec["launches"] = counts[rec["name"]]
+        check(rec["launches"] > 0, f"{rec['name']} was not launched on the "
+              "vertex-sharded path")
+    line = {"vertex_ranks": vs.n_devices, "build_s": build_s,
+            "forward_rel": fwd_err, "mu_rel": mu_err,
+            "loss_rel": loss_err, "worst_grad_rel": max(grad_err.values()),
+            "launches": counts, "replayed": replayed,
+            "replays_checked": replays,
+            **{f"{k}_p50_ms": p50(v) for k, v in t.items()}}
+    log(f"[13d vertex sharding] D = 1 over {vs.mesh.device}: tables built in "
+        f"{build_s:.2f} s; forward vs unsharded {fwd_err:.2e}, step losses "
+        f"{max(loss_err.values()):.2e}, gradients "
+        f"{line['worst_grad_rel']:.2e}; forward p50 "
+        f"{line['forward_sharded_p50_ms']:.3f} ms (B={VS_FWD_BATCH}), step "
+        f"p50 {line['step_sharded_p50_ms']:.3f} ms (unsharded "
+        f"{line['step_unsharded_p50_ms']:.3f}), scanned epoch "
+        f"{line['epoch_sharded_p50_ms']:.3f} ms a step; launches {counts}; "
+        f"{smi}")
+    return dict(line=line, records=records)
+
+
+def phase_parallel(torch, mods, bundle, config, root: str, cfg_path: str,
+                   run_dir: str, by_path: dict, ptxas: list,
+                   smi: str) -> dict:
+    """Phase 13: (b) the entry point with ``--data_parallel``, then in a
+    world-size-1 NCCL group (a) the data-parallel step and scanned epoch
+    and (d) the vertex-sharded model, then (c) the data-parallel service.
+    The records of (a) and (b) are the training and train-entry paths'
+    own (the same shapes: the training phase's model and grid, phase 7's
+    workspace) with this phase's launches; (c) and (d) hold their kernels
+    at their own shapes."""
+    import torch.distributed as dist
+
+    entry = parallel_entry(torch, root, cfg_path, smi)
+    torch.cuda.empty_cache()
+    parallel_group(root)
+    try:
+        steps = parallel_steps(torch, bundle, config, smi)
+        torch.cuda.empty_cache()
+        vertex = parallel_vertex(torch, mods, bundle, config, ptxas, smi)
+        torch.cuda.empty_cache()
+    finally:
+        dist.destroy_process_group()
+    serving = parallel_serving(torch, mods, run_dir, smi)
+    records = vertex["records"] + serving["records"]
+    for path, part, source in (("parallel_training", steps, "training"),
+                               ("parallel_entry", entry, "train_entry")):
+        counts = part["counts"]
+        have = {r["name"]: r for r in by_path[source]}
+        for name, n in counts.items():
+            if not n:
+                continue
+            check(name in have, f"{name} ran on {path}; {source} has no "
+                  "record of it")
+            rec = dict(have[name], path=path, launches=n,
+                       shapes_of=source)
+            records.append(rec)
+    return {"line": {"phase": "parallel", "nvidia_smi": smi,
+                     "training": steps["line"], "entry": entry["line"],
+                     "serving": serving["line"], "vertex": vertex["line"]},
+            "records": records}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -5518,6 +6239,16 @@ def main(argv=None) -> int:
             f"{time.perf_counter() - t_start:.1f} s")
         torch.cuda.empty_cache()
         figures = phase_figures(torch, root, entry["run_dir"], smi_line)
+        log(f"[12 figures] done; total {time.perf_counter() - t_start:.1f} "
+            "s")
+        torch.cuda.empty_cache()
+        by_path = {p: [r for r in records if r["path"] == p]
+                   for p in ("training", "train_entry", "diagnosis")}
+        parallel = phase_parallel(torch, mods, bundle, config, root,
+                                  entry["cfg_path"], entry["run_dir"],
+                                  by_path, k1_ptxas(build_log), smi_line)
+        records += parallel["records"]
+        log(json.dumps(parallel["line"], default=float))
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -5527,7 +6258,7 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[12 figures] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[13 parallel] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -5550,7 +6281,8 @@ def main(argv=None) -> int:
                        "augmentation": {k: augmentation[k] for k in (
                            "line", "k9", "solves")},
                        "evaluation": evaluation["line"],
-                       "figures": figures},
+                       "figures": figures,
+                       "parallel": parallel["line"]},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

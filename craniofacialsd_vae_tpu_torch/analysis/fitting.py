@@ -26,6 +26,14 @@ that varies the request's learning rate, restarts or scan size does not
 grow the device memory without bound. Each fit copies its request into
 the static tensors and starts Adam from zero, so a cached iteration fits
 as a fresh one does.
+
+With a devices' ``mesh`` (``parallel.make_data_mesh``) the restarts,
+rounded up to a multiple of its devices, are split over them: each device
+fits its share with a replica of the model (kept per manager and device,
+its weights refreshed from the manager's at every fit) and its own cached
+iteration, and the best restart is taken across all of them. Each
+restart's trajectory is its own, so the answer is the unsharded fit's
+with the rounded restart count.
 """
 
 from __future__ import annotations
@@ -168,39 +176,77 @@ class _FitRun:
 _FIT_RUNS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
 
 
-def _fit_run(mgr, restarts: int, q_pad: int, n_landmarks: int) -> _FitRun:
+def _fit_run(mgr, restarts: int, q_pad: int, n_landmarks: int,
+             model=None, device=None) -> _FitRun:
+    """The cached iteration of the manager's model, or of one of its
+    replicas (``model`` on ``device``, cached under the replica)."""
+    owner = mgr if model is None else model
+    model = mgr.model if model is None else model
+    device = mgr.device if device is None else device
     key = (int(restarts), int(q_pad), int(n_landmarks),
            mgr.net_config.compute_dtype)
-    runs = _FIT_RUNS.setdefault(mgr, OrderedDict())
+    runs = _FIT_RUNS.setdefault(owner, OrderedDict())
     if key in runs:
         runs.move_to_end(key)
     else:
         while len(runs) >= FIT_RUNS_PER_MANAGER:
             runs.popitem(last=False)
-        runs[key] = _FitRun(mgr.model, restarts, mgr.model_latent_size,
+        runs[key] = _FitRun(model, restarts, mgr.model_latent_size,
                             q_pad, n_landmarks, mgr.template.num_vertices,
-                            mgr.device)
+                            device)
     return runs[key]
+
+
+#: the model's replicas on a mesh's other devices, by manager
+_REPLICAS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+def _replicas(mgr, devices: list) -> list:
+    """``(model, device)`` per device of a mesh: the manager's own model
+    on its device first, then replicas (made once per manager, slot and
+    device, their weights copied in place from the manager's now)."""
+    from ..parallel.mesh import replicate_model, same_device
+
+    cache = _REPLICAS.setdefault(mgr, {})
+    out = []
+    for i, dev in enumerate(devices):
+        dev = torch.device(dev)
+        if i == 0 and same_device(dev, mgr.device):
+            out.append((None, dev))
+            continue
+        key = (i, str(dev))
+        if key not in cache:
+            cache[key] = replicate_model(mgr.model, dev)
+        rep = cache[key]
+        with torch.no_grad():
+            for p, q in zip(rep.parameters(), mgr.model.parameters()):
+                p.copy_(q)
+        out.append((rep, dev))
+    return out
 
 
 def fit_latent(manager, norm: dict | None, scan: np.ndarray,
                landmarks: np.ndarray, landmarks_idx, *, lr: float = 5e-3,
                iterations: int = 250, n_restarts: int = 16, seed: int = 0,
-               z_anchor: np.ndarray | None = None) -> dict:
+               z_anchor: np.ndarray | None = None, mesh=None) -> dict:
     """Fit a latent to an unregistered scan ``[M, 3]`` (any M) given its
     landmarks ``[K, 3]``, which correspond to ``landmarks_idx`` on the
     template. ``z0``: ``n_restarts - 1`` standard normal draws from
     ``numpy.random.default_rng(seed)`` (the JAX package's draws) and the
     anchor (zeros, the prior mean, unless ``z_anchor``). On the card the
-    iterations replay one CUDA graph. Returns ``{z, vertices (raw scan
-    space), chamfer_mm2, landmark_mse_mm2, aligned_scan, best_restart}``.
+    iterations replay one CUDA graph. ``mesh``: a devices' data mesh to
+    split the restarts over (rounded up to a multiple of its devices).
+    Returns ``{z, vertices (raw scan space), chamfer_mm2,
+    landmark_mse_mm2, aligned_scan, best_restart}``.
     """
     return _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
-                       iterations, n_restarts, seed, z_anchor, graph=True)
+                       iterations, n_restarts, seed, z_anchor, graph=True,
+                       mesh=mesh)
 
 
 def _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
-                iterations, n_restarts, seed, z_anchor, graph: bool) -> dict:
+                iterations, n_restarts, seed, z_anchor, graph: bool,
+                mesh=None) -> dict:
     """``fit_latent``; ``graph=False`` launches the iterations eagerly on
     the card too (the reference its graph is held against)."""
     mgr = manager
@@ -209,6 +255,13 @@ def _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
     aligned, aligned_lnd = procrustes_align(
         scan, landmarks, mgr.template.pos[landmarks_idx])
 
+    devices = [dev] if mesh is None else list(mesh.devices)
+    if mesh is not None and mesh.ranks:
+        raise ValueError("the fit splits its restarts over a devices' mesh "
+                         "in one process, not over ranks")
+    n_dev = len(devices)
+    n_restarts = -(-int(n_restarts) // n_dev) * n_dev
+    per = n_restarts // n_dev
     rng = np.random.default_rng(seed)
     z0 = rng.standard_normal(
         (n_restarts - 1, mgr.model_latent_size)).astype(np.float32)
@@ -231,18 +284,26 @@ def _fit_latent(manager, norm, scan, landmarks, landmarks_idx, lr,
               torch.tensor(float(q)))
 
     model = mgr.model
-    run = _fit_run(mgr, n_restarts, q_pad, len(landmarks_idx))
-    with frozen(model):
-        run.run(torch.as_tensor(z0), inputs, lr, iterations, graph)
-        with torch.no_grad():
-            z = run.z.detach()
-            lnd_loss, ch = _losses(model, z, *run.args())
-            lnd_loss, ch = lnd_loss.cpu().numpy(), ch.cpu().numpy()
-            errors = 10.0 * lnd_loss + ch
-            best = int(np.argmin(errors))
-            z_best = z[best].clone()
-            gen = model.decode(z_best[None]).transpose(0, 1)[0]
-            gen = (gen * std + mean) if norm is not None else gen
+    z0 = torch.as_tensor(z0)
+    runs = []
+    for i, (rep, rep_dev) in enumerate(_replicas(mgr, devices)):
+        run = _fit_run(mgr, per, q_pad, len(landmarks_idx), rep, rep_dev)
+        with frozen(run.model):
+            run.run(z0[i * per:(i + 1) * per], inputs, lr, iterations, graph)
+        runs.append(run)
+    lnd_parts, ch_parts = [], []
+    for run in runs:
+        with frozen(run.model), torch.no_grad():
+            lnd_i, ch_i = _losses(run.model, run.z.detach(), *run.args())
+        lnd_parts.append(lnd_i.cpu().numpy())
+        ch_parts.append(ch_i.cpu().numpy())
+    lnd_loss, ch = np.concatenate(lnd_parts), np.concatenate(ch_parts)
+    errors = 10.0 * lnd_loss + ch
+    best = int(np.argmin(errors))
+    with frozen(model), torch.no_grad():
+        z_best = runs[best // per].z.detach()[best % per].to(dev).clone()
+        gen = model.decode(z_best[None]).transpose(0, 1)[0]
+        gen = (gen * std + mean) if norm is not None else gen
     # squared distances scale with the squared linear→mm constant
     mm2 = mgr.to_mm_const ** 2
     return {"z": z_best.cpu().numpy(), "vertices": gen.cpu().numpy(),

@@ -29,7 +29,13 @@ fitted on the encoded train latents (``train_and_validate_classifiers``),
 saved beside the checkpoints as ``classifiers.npz`` and restored by
 ``resume`` (or read from a reference run's sklearn pickles).
 
-Not ported here: data parallelism (ROADMAP queue 1.4).
+``enable_data_parallel`` makes the manager one rank of a data-parallel
+run over an initialized ``torch.distributed`` process group
+(``parallel/``): the steps and the scanned forms become their
+data-parallel forms, the iterators yield global batches of world ×
+batch_size scans (each rank keeps its own rows), and each rank draws its
+own regions and noise (rank 0 draws what a single-device run draws). A
+manager that never calls it makes no collective call.
 """
 
 from __future__ import annotations
@@ -71,6 +77,10 @@ def _load_named(module: torch.nn.Module, named: dict) -> None:
 
 
 class ModelManager:
+    #: the rank (its draws) and the ranks' mesh once data-parallel
+    _rank = 0
+    mesh = None
+
     def __init__(self, configurations: dict,
                  precomputed_storage_path: str = "precomputed",
                  seed: int = 0, device=None):
@@ -143,6 +153,7 @@ class ModelManager:
             swap=self.swap_features, head=self.head)
         self._scanned_step = None       # built at the first scanned epoch
         self._scanned_epochs = None
+        self._global_batch_size = self.batch_size
 
         names = self.template.region_names
         self._latent_regions = latent_regions(
@@ -155,6 +166,40 @@ class ModelManager:
         self._train_latents = None
         self._train_labels = None
         self.classifiers = None         # the zoo, built when fitted or read
+
+    # ------------------------------------------------------------------
+    def enable_data_parallel(self, n_devices: int | None = None):
+        """Swap the train and eval steps (and the scanned forms, rebuilt at
+        their next call) for the data-parallel ones over the ranks of the
+        initialized process group (``parallel.make_data_mesh``); the
+        iterators must then yield global batches of world × batch_size
+        scans. The model and the head are made equal on every rank (rank
+        0's weights). Returns the mesh."""
+        from .parallel import (make_data_mesh, make_parallel_eval_step,
+                               make_parallel_train_step, replicate)
+
+        import torch.distributed as dist
+        if not (dist.is_available() and dist.is_initialized()):
+            raise RuntimeError(
+                "data parallelism runs one rank per card: initialize the "
+                "process group first (parallel.initialize_multihost, or "
+                "train.py --data_parallel)")
+        mesh = make_data_mesh(n_devices, devices=[self.device])
+        replicate(mesh, self.model)         # in place: a broadcast from 0
+        if self.head is not None:
+            replicate(mesh, self.head)
+        self._scanned_step = self._scanned_epochs = None
+        self._train_step = make_parallel_train_step(
+            self.model, self.loss_weights, self.optimizer, self.batch_size,
+            mesh, swap=self.swap_features, head=self.head,
+            head_optimizer=self.head_optimizer)
+        self._eval_step = make_parallel_eval_step(
+            self.model, self.loss_weights, self.batch_size, mesh,
+            swap=self.swap_features, head=self.head)
+        self.mesh = mesh
+        self._rank = mesh.rank
+        self._global_batch_size = self.batch_size * mesh.world
+        return mesh
 
     # ------------------------------------------------------------------
     @property
@@ -280,8 +325,12 @@ class ModelManager:
     def _step_draws(self, step_id: int, rows: int):
         """Step ``step_id``'s swapped region (an int) and noise ``eps
         [rows, Z]`` (on the host), drawn from a generator seeded by (seed,
-        step id)."""
-        seq = np.random.SeedSequence([self._seed + 1, step_id])
+        step id), and under data parallelism the rank (rank 0 draws what
+        a single-device run draws)."""
+        entropy = [self._seed + 1, step_id]
+        if self._rank:
+            entropy.append(self._rank)
+        seq = np.random.SeedSequence(entropy)
         g = torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
         n_regions = self.geometry.region_masks.shape[0] \
             if self.geometry.region_masks is not None else 1
@@ -301,15 +350,20 @@ class ModelManager:
         if train and hasattr(batch_iter, "epoch_plan") \
                 and getattr(batch_iter, "drop_last", False) \
                 and getattr(batch_iter, "batch_size", None) \
-                == self.batch_size:
+                == self._global_batch_size:
             return self._run_epoch_scanned(batch_iter)
         totals, count = None, 0
         for batch in batch_iter:
             x = batch["x"]
-            if self.swap_features and x.shape[0] != self.batch_size:
+            # a data-parallel rank's batch: global, or its own rows
+            # (MultihostBatchIterator marks those ``local``)
+            full = self.batch_size if batch.get("local") \
+                else self._global_batch_size
+            if self.swap_features and x.shape[0] != full:
                 continue        # the swap grid is built for one batch size
             self._step_counter += 1
-            rows = x.shape[0] ** 2 if self.swap_features else x.shape[0]
+            local = x.shape[0] * self.batch_size // full
+            rows = local ** 2 if self.swap_features else local
             region, eps = self._step_draws(self._step_counter, rows)
             labels = None
             if self._mlp_end2end and "labels" in batch:
@@ -338,9 +392,9 @@ class ModelManager:
 
     def can_scan_epochs(self, train_iter, val_iter) -> bool:
         """Can ``run_epochs_scanned`` take these iterators? Both with an
-        ``epoch_plan``, ``drop_last``, the manager's batch size and at
-        least one batch (the JAX manager's conditions)."""
-        b = self.batch_size
+        ``epoch_plan``, ``drop_last``, the manager's (global) batch size
+        and at least one batch (the JAX manager's conditions)."""
+        b = self._global_batch_size
         return (hasattr(train_iter, "epoch_plan")
                 and hasattr(val_iter, "epoch_plan")
                 and getattr(train_iter, "drop_last", False)
@@ -349,13 +403,18 @@ class ModelManager:
                 and getattr(val_iter, "batch_size", None) == b
                 and len(train_iter) > 0 and len(val_iter) > 0)
 
-    def _scanned(self, name: str, make):
+    def _scanned(self, name: str, make, make_parallel):
         fn = getattr(self, name)
         if fn is None:
-            fn = make(self.model, self.loss_weights, self.optimizer,
-                      self.batch_size, swap=self.swap_features,
-                      head=self.head, head_optimizer=self.head_optimizer,
-                      draws=self._draws)
+            kw = dict(swap=self.swap_features, head=self.head,
+                      head_optimizer=self.head_optimizer, draws=self._draws)
+            if self.mesh is not None:
+                fn = make_parallel(self.model, self.loss_weights,
+                                   self.optimizer, self.batch_size,
+                                   self.mesh, **kw)
+            else:
+                fn = make(self.model, self.loss_weights, self.optimizer,
+                          self.batch_size, **kw)
             setattr(self, name, fn)
         return fn
 
@@ -370,7 +429,10 @@ class ModelManager:
         args, self._step_counter = assemble_epoch_plans(
             train_iter, val_iter, n_epochs, self._step_counter,
             with_labels=self._mlp_end2end)
-        epochs = self._scanned("_scanned_epochs", make_scanned_train_epochs)
+        from .parallel import make_scanned_parallel_epochs
+
+        epochs = self._scanned("_scanned_epochs", make_scanned_train_epochs,
+                               make_scanned_parallel_epochs)
         tr_list, va_list = epochs(*args, class_weights=self._class_weights)
         self._losses = va_list[-1]
         return tr_list, va_list
@@ -383,7 +445,10 @@ class ModelManager:
         if steps == 0:
             self._losses = {k: 0.0 for k in LOSS_KEYS}
             return self._losses
-        epoch = self._scanned("_scanned_step", make_scanned_train_step)
+        from .parallel import make_scanned_parallel_step
+
+        epoch = self._scanned("_scanned_step", make_scanned_train_step,
+                              make_scanned_parallel_step)
         step_ids = self._step_counter + 1 + np.arange(steps)
         self._step_counter += steps
         lab = labels if self._mlp_end2end else None

@@ -3,10 +3,13 @@
     python -m craniofacialsd_vae_tpu_torch.serve --id=RUN [--output_path=.]
         [--run_dir DIR] [--host 127.0.0.1] [--port 8008] [--max_batch 16]
         [--healthy_class n] [--no_warmup] [--warm_fit] [--device cuda|cpu]
+        [--data_parallel]
 
 Serves ``outputs/<id>/`` (a run dir of either package) on the card
-unless ``--device cpu``. An ensemble dir is refused: ensemble serving is
-not ported yet (ROADMAP 1.5).
+unless ``--device cpu``; ``--data_parallel`` replicates the model on
+every visible card and splits each request's bucket over them
+(``max_batch`` must be a multiple of the card count). An ensemble dir is
+refused: ensemble serving is not ported yet (ROADMAP 1.5).
 
 Endpoints (JSON in and out; vertices may also be posted as a raw ``.npy``
 body with ``Content-Type: application/octet-stream``):
@@ -172,6 +175,9 @@ def main(argv=None):
                              "derived scan of 32,768 points)")
     parser.add_argument("--device", type=str, default=None,
                         help="torch device (default: the card)")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="replicate the model on every visible card and "
+                             "split each request's bucket over them")
     args = parser.parse_args(argv)
     if not args.run_dir and not args.id:
         parser.error("--id or --run_dir required")
@@ -182,12 +188,14 @@ def main(argv=None):
 
     service = DiagnosisService.from_run_dir(
         run_dir, healthy_class=args.healthy_class, max_batch=args.max_batch,
-        warm=not args.no_warmup, device=args.device)
+        warm=not args.no_warmup, device=args.device,
+        data_parallel=args.data_parallel)
     if args.warm_fit:
         service.warmup_fit()
     server = make_server(service, args.host, args.port)
     print(f"serving {run_dir} on http://{args.host}:{server.server_port} "
-          f"({service.device}, buckets {service.buckets})", flush=True)
+          f"({service.device}, {service.n_devices} device(s), buckets "
+          f"{service.buckets})", flush=True)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

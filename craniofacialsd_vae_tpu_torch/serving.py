@@ -30,12 +30,22 @@ zoo. The HTTP entry point is ``serve.py``.
 
 On the card each of the three programs runs as one CUDA graph per bucket
 (``graphs.py``), as the JAX package compiles one program per bucket:
-captured at a bucket's first request or in ``warmup``, all in one graph
-memory pool. A request is copied into the bucket's pinned host buffer,
-then to its static device input without blocking, and the answers come
-back through pinned buffers. Saliency and posterior sampling run
-eagerly. Data-parallel serving and ensembles are not ported yet
-(ROADMAP queues 1.4, 1.5).
+captured at a bucket's first request or in ``warmup``, a replica's
+graphs in one memory pool. A request is copied into the bucket's pinned
+host buffer, then to its static device input without blocking, and the
+answers come back through pinned buffers. Saliency and posterior sampling run
+eagerly.
+
+``data_parallel=True`` serves over several devices in one process, as
+the JAX service shards each bucket over the local devices: the model is
+replicated on each device (``parallel.replicate_model``), the buckets
+are multiples of the device count, and a bucket's rows are split evenly
+over the devices, each running its slice with its own replica (and on
+the card its own graphs, all launched before any is waited on; a device
+given only padding rows sits the request out); the fit
+splits its restarts over them (``analysis/fitting.py``). Saliency and
+posterior sampling run on the first device. Ensembles are not ported
+yet (ROADMAP 1.5).
 """
 
 from __future__ import annotations
@@ -161,17 +171,24 @@ class _BucketGraph:
                          for t in self.dev_out]
         self.stream = torch.cuda.current_stream(device)
 
-    def run(self, chunks: list, n: int) -> tuple:
-        """The program on ``chunks`` (``n`` rows each, padded to the
-        bucket by repeating the first row); numpy answers of ``n`` rows."""
-        for host, dev, chunk in zip(self.host_in, self.dev_in, chunks):
+    def launch(self, chunks: list, pads: list) -> None:
+        """``chunks`` (at most the bucket's rows each) copied in, the rest
+        of the bucket filled with ``pads`` (one row each); the copies, the
+        replay and the answers' copies queued on the device, nothing
+        waited on."""
+        for host, dev, chunk, pad in zip(self.host_in, self.dev_in, chunks,
+                                         pads):
             h = host.numpy()
-            h[:n] = chunk
-            h[n:] = chunk[:1]
+            h[:len(chunk)] = chunk
+            h[len(chunk):] = pad
             dev.copy_(host, non_blocking=True)
         self.graph.replay()
         for host, dev in zip(self.host_out, self.dev_out):
             host.copy_(dev, non_blocking=True)
+
+    def collect(self, n: int) -> tuple:
+        """After ``launch``: wait, and the numpy answers of the first
+        ``n`` rows."""
         self.stream.synchronize()
         return tuple(h.numpy()[:n].copy() for h in self.host_out)
 
@@ -212,8 +229,10 @@ class DiagnosisService:
     MAX_UNCERTAINTY_SAMPLES = 256
 
     def __init__(self, manager, normalization: dict | None,
-                 healthy_class: str = "n", max_batch: int = 16):
+                 healthy_class: str = "n", max_batch: int = 16,
+                 data_parallel: bool = False, devices=None):
         from .analysis.tester import TEMPLATE_LANDMARKS_IDX
+        from .parallel.mesh import Mesh, replicate_model, same_device
 
         self.manager = manager
         self.device = manager.device
@@ -223,24 +242,48 @@ class DiagnosisService:
         self.max_batch = int(max_batch)
         if self.max_batch < 1:
             raise ValueError(f"max_batch must be ≥ 1; got {max_batch}")
+        # data-parallel serving: the devices (default: every visible card,
+        # or the manager's device on the host), one replica on each
+        if data_parallel:
+            if devices is None:
+                devices = [torch.device("cuda", i) for i in
+                           range(torch.cuda.device_count())] \
+                    if self.device.type == "cuda" else [self.device]
+            devices = [resolve_device(d) for d in devices]
+        else:
+            devices = [self.device]
+        self.n_devices = len(devices)
+        if data_parallel and self.max_batch % self.n_devices:
+            raise ValueError(
+                f"data_parallel serving pads each request to a multiple "
+                f"of the {self.n_devices} devices: max_batch "
+                f"{self.max_batch} must be a multiple of it")
+        self._mesh = Mesh(devices=devices) if data_parallel else None
+        self._replicas = [self.model if i == 0 and same_device(d, self.device)
+                          else replicate_model(self.model, d).eval()
+                          for i, d in enumerate(devices)]
         # the clinical landmark ids valid on this template (the full set
         # belongs to the 17,039-vertex template); settable for others
         tpl = manager.template
         self.landmark_idx = [] if tpl is None else \
             [i for i in TEMPLATE_LANDMARKS_IDX if i < tpl.num_vertices]
-        self.buckets = [b for b in (1, 2, 4, 8, 16, 32, 64, 128)
-                        if b <= self.max_batch]
+        self.buckets = [b * self.n_devices
+                        for b in (1, 2, 4, 8, 16, 32, 64, 128)
+                        if b * self.n_devices <= self.max_batch]
         if self.buckets[-1] != self.max_batch:
             self.buckets.append(self.max_batch)
         self._lock = threading.Lock()
         self._latency_ms: list = []        # ring buffer, last 512 requests
         self.n_requests = 0
         self.n_meshes = 0
-        self._programs = build_raw_programs(self.model, normalization,
-                                            manager.to_mm_const)
-        # on the card: the programs' graphs by (program, bucket), one pool
+        self._replica_programs = [
+            build_raw_programs(m, normalization, manager.to_mm_const)
+            for m in self._replicas]
+        self._programs = self._replica_programs[0]
+        # on the card: the programs' graphs by (program, rows, replica),
+        # one memory pool a replica
         self._bucket_graphs: dict = {}
-        self._graph_pool = None
+        self._graph_pools: dict = {}
         self._saliency_fn = None            # built at the first request
         self._uncertainty: dict = {}        # programs by sample count
 
@@ -249,22 +292,28 @@ class DiagnosisService:
     def from_bundle(cls, bundle, config: SDVAEConfig,
                     normalization: dict | None, to_mm: float,
                     params: dict | None = None, seed: int = 0,
-                    max_batch: int = 16, device=None) -> "DiagnosisService":
+                    max_batch: int = 16, device=None,
+                    data_parallel: bool = False,
+                    devices=None) -> "DiagnosisService":
         """A service of ``encode``/``decode``/``reconstruct`` over a
         geometry bundle and weights (``BundleModel``); ``device=None``
         serves on the card."""
         return cls(BundleModel(bundle, config, to_mm, params, seed, device),
-                   normalization, max_batch=max_batch)
+                   normalization, max_batch=max_batch,
+                   data_parallel=data_parallel, devices=devices)
 
     @classmethod
     def from_run_dir(cls, run_dir: str, classes: dict | None = None,
                      healthy_class: str = "n", max_batch: int = 16,
-                     warm: bool = False, device=None) -> "DiagnosisService":
+                     warm: bool = False, device=None,
+                     data_parallel: bool = False,
+                     devices=None) -> "DiagnosisService":
         """Build a service from ``outputs/<id>/`` of either package alone:
         config snapshot, last checkpoint, classifier zoo and the
         precomputed dir's normalization stats and split cache. The
         training dataset is not needed. ``device=None`` serves on the
-        card."""
+        card; ``data_parallel`` over ``devices`` (default: every visible
+        card)."""
         from .manager import ModelManager
         from .utils import get_config
 
@@ -294,7 +343,8 @@ class DiagnosisService:
         manager.set_class_conversions(classes)
         manager.model.eval()
         svc = cls(manager, run_normalization(config),
-                  healthy_class=healthy_class, max_batch=max_batch)
+                  healthy_class=healthy_class, max_batch=max_batch,
+                  data_parallel=data_parallel, devices=devices)
         if warm:
             svc.warmup()
         return svc
@@ -339,29 +389,59 @@ class DiagnosisService:
         with torch.inference_mode(not grad):
             return self._chunked(run, arrays)
 
-    def _bucket_graph(self, name: str, size: int) -> _BucketGraph:
-        """The graph of program ``name`` at bucket ``size``, captured at
-        its first use. The caller holds the lock."""
-        key = (name, size)
+    def _bucket_graph(self, name: str, size: int,
+                      replica: int) -> _BucketGraph:
+        """The graph of program ``name`` at ``size`` rows on one replica,
+        captured at its first use. The caller holds the lock. A replica's
+        graphs share one memory pool."""
+        key = (name, size, replica)
         if key not in self._bucket_graphs:
-            if self._graph_pool is None:
-                self._graph_pool = torch.cuda.graph_pool_handle()
+            if replica not in self._graph_pools:
+                self._graph_pools[replica] = torch.cuda.graph_pool_handle()
             n = self.model.geom.num_vertices
             row = (self.manager.model_latent_size,) if name == "decode" \
                 else (n, 3)
             self._bucket_graphs[key] = _BucketGraph(
-                self._programs[name], [(size, *row)], self.device,
-                self._graph_pool)
+                self._replica_programs[replica][name], [(size, *row)],
+                self._replicas[replica].geom.device,
+                self._graph_pools[replica])
         return self._bucket_graphs[key]
 
     def _run_program(self, name: str, *arrays: np.ndarray):
-        """One of ``build_raw_programs``' programs on arrays of B rows: on
-        the card through the buckets' graphs (each chunk padded to its
-        bucket), else as ``_run_bucketed`` runs it."""
-        if self.device.type != "cuda":
-            return self._run_bucketed(self._programs[name], *arrays)
-        return self._chunked(lambda chunks, n: self._bucket_graph(
-            name, self._bucket(n)).run(chunks, n), arrays)
+        """One of ``build_raw_programs``' programs on arrays of B rows,
+        each max_batch chunk padded to its bucket by repeating its first
+        row and split evenly over the replicas; a replica given only
+        padding is skipped. On the card each replica replays its graph
+        of the program at its share of the bucket, every replica launched
+        before any is waited on; on the host each runs it eagerly."""
+        def run(chunks, n):
+            per = self._bucket(n) // len(self._replicas)
+            pads = [c[:1] for c in chunks]
+            parts = [[c[i * per:(i + 1) * per] for c in chunks]
+                     for i in range(len(self._replicas))]
+            parts = [(i, p) for i, p in enumerate(parts) if len(p[0])]
+            if self.device.type == "cuda":
+                graphs = [self._bucket_graph(name, per, i) for i, _ in parts]
+                for g, (_, part) in zip(graphs, parts):
+                    g.launch(part, pads)
+                outs = [g.collect(len(part[0]))
+                        for g, (_, part) in zip(graphs, parts)]
+            else:
+                outs = []
+                with torch.inference_mode():
+                    for i, part in parts:
+                        k = len(part[0])
+                        dev = self._replicas[i].geom.device
+                        full = [np.concatenate([p, np.broadcast_to(
+                            pad, (per - k,) + p.shape[1:])])
+                            for p, pad in zip(part, pads)]
+                        res = self._replica_programs[i][name](
+                            *[torch.as_tensor(a, device=dev) for a in full])
+                        res = res if isinstance(res, tuple) else (res,)
+                        outs.append(tuple(r[:k].cpu().numpy() for r in res))
+            return tuple(np.concatenate(o, axis=0) for o in zip(*outs))
+
+        return self._chunked(run, arrays)
 
     def _observe(self, b: int, t0: float):
         self.n_requests += 1
@@ -625,9 +705,11 @@ class DiagnosisService:
                 f"template landmark set; got {lnd.shape}")
         t0 = time.perf_counter()
         with self._lock:
+            # under data_parallel the restarts split over the devices
             result = fit_latent(self.manager, self.normalization, x, lnd,
                                 lnd_idx, lr=lr, iterations=int(iterations),
-                                n_restarts=int(n_restarts), seed=int(seed))
+                                n_restarts=int(n_restarts), seed=int(seed),
+                                mesh=self._mesh)
             self._observe(1, t0)
         report = self.diagnose_latent(result["z"], model=model)
         return {"z": result["z"], "vertices": result["vertices"],
@@ -715,4 +797,5 @@ class DiagnosisService:
                 "p50_ms": lat[len(lat) // 2] if lat else None,
                 "p95_ms": lat[int(len(lat) * 0.95)] if lat else None,
                 "buckets": self.buckets, "device": str(self.device),
+                "n_devices": self.n_devices,
                 "classes": dict(classes) if classes else None}

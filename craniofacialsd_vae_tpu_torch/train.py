@@ -2,7 +2,8 @@
 
     python -m craniofacialsd_vae_tpu_torch.train --config=CONFIG --id=RUN \\
         [--output_path=.] [--resume] [--epochs=N] [--device=cuda|cpu] \\
-        [--profile]
+        [--profile] [--data_parallel] [--multihost --coordinator=HOST:PORT \\
+        --num_processes=P --process_id=I]
 
 Builds ``outputs/<id>/{config.yaml, checkpoints/, logs/}``, trains the
 SD-VAE on the card (``--device cpu`` runs the plain PyTorch versions on
@@ -38,7 +39,18 @@ fits the classifier zoo on the train latents at the config's batch size
 (``checkpoints/classifiers.npz``) and writes the latent statistics
 (``z_stats.npz``).
 
-Not ported yet: data parallelism and multihost (ROADMAP queue 1.4).
+``--data_parallel`` trains one rank per visible card
+(``parallel/train_parallel.py``: each rank its own B scans of every
+global batch of cards × B, the gradients averaged by an all-reduce inside
+each step's graph). It spawns the ranks, which meet at a file rendezvous
+in the run's output directory (no port); with one card it runs in this
+process at world size 1, through the same code. ``--multihost`` makes
+this process one rank of a run over several hosts or processes: a TCP
+rendezvous at ``--coordinator`` with ``--num_processes`` and
+``--process_id``, or torchrun's variables without a coordinator. Only
+rank 0 writes checkpoints, scalars, renders and traversals, and fits the
+classifier zoo; ``perf/meshes_per_sec`` counts world × B² meshes per
+step.
 """
 
 from __future__ import annotations
@@ -66,7 +78,110 @@ def main(argv=None) -> dict:
     parser.add_argument("--profile", action="store_true",
                         help="write a torch.profiler trace of epoch 2 "
                              "into outputs/<id>/profile")
+    parser.add_argument("--data_parallel", action="store_true",
+                        help="one rank per visible card, each with its own "
+                             "B scans of every global batch")
+    parser.add_argument("--multihost", action="store_true",
+                        help="this process is one rank of a multi-process "
+                             "run (launch the same command on every host)")
+    parser.add_argument("--coordinator", type=str, default=None,
+                        help="host:port of rank 0's rendezvous for "
+                             "--multihost (omit under torchrun)")
+    parser.add_argument("--num_processes", type=int, default=None)
+    parser.add_argument("--process_id", type=int, default=None)
     args = parser.parse_args(argv)
+    return _run(args)
+
+
+def _rendezvous(output_dir: str) -> str:
+    """A fresh file rendezvous in the run's output directory."""
+    path = os.path.abspath(os.path.join(output_dir, "rendezvous"))
+    if os.path.exists(path):
+        os.remove(path)
+    return "file://" + path
+
+
+def _spawned_rank(rank: int, flags: dict, world: int,
+                  init_method: str) -> None:
+    """One spawned rank of ``--data_parallel``: joins the group on its
+    card, then trains."""
+    from .parallel import initialize_multihost
+
+    initialize_multihost(num_processes=world, process_id=rank,
+                         device=f"cuda:{rank}", init_method=init_method)
+    _train(argparse.Namespace(**flags), own_group=True)
+
+
+def _run(args) -> dict:
+    """Start the ranks as the flags ask, or train in this process. A
+    process group the caller initialized is used as it is (and left
+    open)."""
+    import torch
+    import torch.distributed as dist
+
+    from .device import resolve_device
+    from .parallel import initialize_multihost
+
+    device = resolve_device(args.device)
+    if not (args.data_parallel or args.multihost) or dist.is_initialized():
+        return _train(args)
+    if args.multihost:
+        initialize_multihost(args.coordinator, args.num_processes,
+                             args.process_id, device=args.device)
+        return _train_in_group(args)
+    output_dir = _output_dir(args)
+    os.makedirs(output_dir, exist_ok=True)
+    init = _rendezvous(output_dir)
+    world = torch.cuda.device_count() if device.type == "cuda" else 1
+    if world > 1:
+        import torch.multiprocessing as mp
+
+        mp.spawn(_spawned_rank, args=(vars(args), world, init),
+                 nprocs=world, join=True)
+        return {"output_dir": output_dir,
+                "checkpoint_dir": os.path.join(output_dir, "checkpoints"),
+                "world": world}
+    initialize_multihost(num_processes=1, process_id=0, device=args.device,
+                         init_method=init)
+    return _train_in_group(args)
+
+
+def _train_in_group(args) -> dict:
+    """``_train`` in the group this process just joined, which ends with
+    the run, or with its fault."""
+    import torch.distributed as dist
+
+    try:
+        return _train(args, own_group=True)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def _output_dir(args) -> str:
+    model_name = args.id if args.id != "none" else \
+        os.path.splitext(os.path.basename(args.config))[0]
+    return os.path.join(args.output_path, "outputs", model_name)
+
+
+class _NoWriter:
+    """The scalar and image log of a rank other than 0: nothing."""
+
+    def add_scalar(self, *args, **kwargs):
+        pass
+
+    def add_image(self, *args, **kwargs):
+        pass
+
+    def close(self):
+        pass
+
+
+def _train(args, own_group: bool = False) -> dict:
+    """The training run of one process: one rank of the initialized
+    process group under ``--data_parallel``/``--multihost`` (destroyed at
+    the end where ``own_group``)."""
+    import torch.distributed as dist
 
     from .analysis.tester import Tester, compute_latent_stats
     from .data.dataset import DeviceBatchIterator, build_datasets
@@ -75,31 +190,49 @@ def main(argv=None) -> dict:
     from .utils import get_config, prepare_sub_folder, save_config_snapshot
     from .viz.logging import JsonlWriter
 
+    parallel = bool(args.data_parallel or args.multihost)
+    if parallel and not dist.is_initialized():
+        raise RuntimeError("data parallelism needs the process group")
+    rank = dist.get_rank() if parallel else 0
+    world = dist.get_world_size() if parallel else 1
+    primary = rank == 0
     device = resolve_device(args.device)
+    if parallel and device.type == "cuda":
+        import torch
+        device = torch.device("cuda", torch.cuda.current_device())
     config = get_config(args.config)
     if args.epochs is not None:
         config["optimization"]["epochs"] = args.epochs
 
     model_name = args.id if args.id != "none" else \
         os.path.splitext(os.path.basename(args.config))[0]
-    output_dir = os.path.join(args.output_path, "outputs", model_name)
-    checkpoint_dir = prepare_sub_folder(output_dir)
-    save_config_snapshot(args.config, output_dir)
-    writer = JsonlWriter(os.path.join(output_dir, "logs"))
-    print(f"device: {device}")
+    output_dir = _output_dir(args)
+    checkpoint_dir = prepare_sub_folder(output_dir) if primary \
+        else os.path.join(output_dir, "checkpoints")
+    if primary:
+        save_config_snapshot(args.config, output_dir)
+    writer = JsonlWriter(os.path.join(output_dir, "logs")) if primary \
+        else _NoWriter()
+    print(f"device: {device}" + (f" (rank {rank} of {world})"
+                                 if parallel else ""))
 
     manager = ModelManager(
         config, precomputed_storage_path=config["data"]["precomputed_path"],
         device=device)
+    if parallel:
+        manager.enable_data_parallel()
     t_data = time.perf_counter()
     train_set, val_set, test_set, normalization, class_weights = \
         build_datasets(config, manager.template, device=device)
     manager.set_class_conversions_and_weights(class_weights)
     batch_size = config["optimization"]["batch_size"]
-    train_iter = DeviceBatchIterator(train_set, batch_size, shuffle=True,
+    global_batch = batch_size * world
+    # every rank iterates the same global order (same seed) and keeps its
+    # own rows of each batch
+    train_iter = DeviceBatchIterator(train_set, global_batch, shuffle=True,
                                      class2idx=manager._class2idx_dict,
                                      device=device)
-    val_iter = DeviceBatchIterator(val_set, batch_size, shuffle=True,
+    val_iter = DeviceBatchIterator(val_set, global_batch, shuffle=True,
                                    class2idx=manager._class2idx_dict,
                                    device=device)
     data_s = time.perf_counter() - t_data
@@ -113,15 +246,18 @@ def main(argv=None) -> dict:
     # the traversals at each checkpoint; the stats stay lazy, so nothing
     # encodes the untrained model
     tester = Tester(manager, normalization, train_iter, val_iter,
-                    output_dir, config, lazy_stats=True)
+                    output_dir, config, lazy_stats=True) if primary else None
     start_epoch = manager.resume(checkpoint_dir) if args.resume else 0
     epochs = config["optimization"]["epochs"]
     log_freq = config["logging_frequency"]
-    print(f"training {model_name}: {len(train_set)} train / "
-          f"{len(val_set)} val meshes, epochs {start_epoch}→{epochs}; "
-          f"geometry {manager.geometry_seconds:.2f} s, data {data_s:.2f} s")
-    grid = batch_size ** 2 if config["data"].get("swap_features") \
-        else batch_size
+    if primary:
+        print(f"training {model_name}: {len(train_set)} train / "
+              f"{len(val_set)} val meshes, epochs {start_epoch}→{epochs}; "
+              f"geometry {manager.geometry_seconds:.2f} s, "
+              f"data {data_s:.2f} s")
+    # meshes per step: each rank builds the swap grid of its own B scans
+    grid = world * (batch_size ** 2 if config["data"].get("swap_features")
+                    else batch_size)
     t0 = time.time()
     history, traversal_s = [], []
     print_cad = max(epochs // 10, 1)
@@ -137,7 +273,9 @@ def main(argv=None) -> dict:
 
     def cadence(epoch):
         """The renders, checkpoint and traversals due after ``epoch``
-        (0-based)."""
+        (0-based), on rank 0 alone."""
+        if not primary:
+            return
         if (epoch + 1) % log_freq["tb_renderings"] == 0:
             manager.log_images(vis_batch, writer, epoch, normalization,
                                "train", error_max_scale=2)
@@ -174,7 +312,7 @@ def main(argv=None) -> dict:
                           chunk_s / (stop - epoch), chunk_s / (stop - epoch))
             prev, epoch = epoch, stop
             cadence(epoch - 1)
-            if epoch // print_cad > prev // print_cad:
+            if primary and epoch // print_cad > prev // print_cad:
                 dt = time.time() - t0
                 print(f"epoch {epoch}/{epochs} "
                       f"tot={manager._losses['tot']:.4f} "
@@ -199,12 +337,21 @@ def main(argv=None) -> dict:
         log_epoch(epoch, train_losses, val_losses, train_s,
                   time.perf_counter() - te)
         cadence(epoch)
-        if (epoch + 1) % print_cad == 0:
+        if primary and (epoch + 1) % print_cad == 0:
             dt = time.time() - t0
             print(f"epoch {epoch + 1}/{epochs} "
                   f"tot={manager._losses['tot']:.4f} "
                   f"({dt / (epoch - start_epoch + 1):.2f}s/epoch)")
 
+    if parallel:
+        # the ranks part here: the zoo, the statistics and the last save
+        # are rank 0's alone
+        dist.barrier()
+        if own_group:
+            dist.destroy_process_group()
+        if not primary:
+            return {"output_dir": output_dir, "rank": rank, "world": world,
+                    "history": history, "start_epoch": start_epoch}
     manager.save_weights(checkpoint_dir, epochs - 1)
     t_clf = time.perf_counter()
     classifier_accs = manager.train_and_validate_classifiers(
@@ -223,7 +370,8 @@ def main(argv=None) -> dict:
             "manager": manager, "history": history,
             "geometry_s": manager.geometry_seconds, "data_s": data_s,
             "start_epoch": start_epoch, "classifier_accs": classifier_accs,
-            "classifiers_s": classifiers_s, "traversal_s": traversal_s}
+            "classifiers_s": classifiers_s, "traversal_s": traversal_s,
+            "world": world}
 
 
 def _start_profile(device):

@@ -205,7 +205,8 @@ def _grid(model: SDVAE, x, batch_size: int, swap: bool, region_idx,
 
 def make_train_step(model: SDVAE, weights: LossWeights,
                     optimizer: torch.optim.Optimizer, batch_size: int,
-                    swap: bool = True, head=None, head_optimizer=None):
+                    swap: bool = True, head=None, head_optimizer=None,
+                    reduce=None):
     """The train step ``step(x [B, N, 3], region_idx=None, eps=None,
     generator=None, labels=None, class_weights=None) → metrics`` (0-d
     tensors on the device, keyed by ``LOSS_KEYS``). The swapped region and
@@ -214,7 +215,11 @@ def make_train_step(model: SDVAE, weights: LossWeights,
     ``head_optimizer``, the head is updated too, every step (from a zero
     gradient where a batch has no labels, as the JAX step does). The
     gradients are zeroed in place (a CUDA graph of the step keeps them at
-    fixed addresses) and stay on the parameters after the step."""
+    fixed addresses) and stay on the parameters after the step.
+    ``reduce(tensors)``, where given, averages the gradients and the
+    metrics in place across data-parallel replicas between the backward
+    and the updates (the JAX step's ``pmean`` under ``axis_name``;
+    ``parallel/train_parallel.py``)."""
     _check(model, weights, swap, head)
     train_head = (head is not None and head_optimizer is not None
                   and weights.classification > 0)
@@ -232,22 +237,38 @@ def make_train_step(model: SDVAE, weights: LossWeights,
                                        swap=swap, head=head, labels=labels,
                                        class_weights=class_weights)
         loss.backward()
-        optimizer.step()
         if train_head:
             for p in head.parameters():
                 if p.grad is None:
                     p.grad = torch.zeros_like(p)
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        if reduce is not None:
+            grads = [p.grad for p in model.parameters()]
+            if train_head:
+                grads += [p.grad for p in head.parameters()]
+            metrics = _reduced(reduce, grads, metrics)
+        optimizer.step()
+        if train_head:
             head_optimizer.step()
-        return {k: v.detach() for k, v in metrics.items()}
+        return metrics
 
     return step
 
 
+def _reduced(reduce, tensors: list, metrics: dict) -> dict:
+    """``reduce`` over ``tensors`` and the metrics in one call; the metrics
+    come back as the reduced values."""
+    vec = torch.stack([metrics[k].float() for k in LOSS_KEYS])
+    reduce(tensors + [vec])
+    return {k: vec[i].to(metrics[k].dtype) for i, k in enumerate(LOSS_KEYS)}
+
+
 def make_eval_step(model: SDVAE, weights: LossWeights, batch_size: int,
-                   swap: bool = True, head=None):
+                   swap: bool = True, head=None, reduce=None):
     """Validation: the same losses, no update, ``z = mu``:
     ``step(x [B, N, 3], region_idx=None, generator=None, labels=None,
-    class_weights=None) → metrics``."""
+    class_weights=None) → metrics``, averaged across replicas by
+    ``reduce`` where given."""
     _check(model, weights, swap, head)
 
     def step(x, region_idx=None, generator=None, labels=None,
@@ -259,6 +280,8 @@ def make_eval_step(model: SDVAE, weights: LossWeights, batch_size: int,
                                         batch_size, training=False,
                                         swap=swap, head=head, labels=labels,
                                         class_weights=class_weights)
+        if reduce is not None:
+            metrics = _reduced(reduce, [], metrics)
         return metrics
 
     return step
@@ -400,19 +423,33 @@ class _Steps:
     replayers by (kind, labels or not), their graph pool on the card, and
     the model's state that a capture's warm-up must leave as it found."""
 
-    def __init__(self, model, weights, optimizer, batch_size, swap, head,
-                 head_optimizer, draws):
-        self.device = model.geom.device
+    def __init__(self, device, batch_size: int, rows: int, latent: int,
+                 draws, bodies: dict, guard: StateGuard,
+                 eps_kinds: tuple = ("train",)):
+        self.device = device
         self.batch_size = batch_size
-        self.rows = batch_size ** 2 if swap else batch_size
-        self.latent = model.config.latent_size
+        self.rows = rows
+        self.latent = latent
         self.draws = draws
+        # kind → body(x [B, ...], region, eps, labels, class_weights); the
+        # kinds in ``eps_kinds`` get their steps' noise
+        self.bodies = bodies
+        self.eps_kinds = tuple(eps_kinds)
+        self.guard = guard
+        self.pool = None
+        self.runners: dict = {}
+
+    @classmethod
+    def of_model(cls, model, weights, optimizer, batch_size, swap, head,
+                 head_optimizer, draws, reduce=None) -> "_Steps":
+        """The train and eval steps of ``model`` (``make_train_step``'s,
+        ``make_eval_step``'s)."""
         train = make_train_step(model, weights, optimizer, batch_size,
                                 swap=swap, head=head,
-                                head_optimizer=head_optimizer)
+                                head_optimizer=head_optimizer, reduce=reduce)
         evaluate = make_eval_step(model, weights, batch_size, swap=swap,
-                                  head=head)
-        self.bodies = {
+                                  head=head, reduce=reduce)
+        bodies = {
             "train": lambda x, r, e, lab, cw: train(
                 x, region_idx=r, eps=e, labels=lab, class_weights=cw),
             "eval": lambda x, r, e, lab, cw: evaluate(
@@ -420,9 +457,10 @@ class _Steps:
         modules = [model] + ([head] if head is not None else [])
         optimizers = [optimizer] + ([head_optimizer]
                                     if head_optimizer is not None else [])
-        self.guard = StateGuard(modules, optimizers)
-        self.pool = None
-        self.runners: dict = {}
+        return cls(model.geom.device, batch_size,
+                   batch_size ** 2 if swap else batch_size,
+                   model.config.latent_size, draws, bodies,
+                   StateGuard(modules, optimizers))
 
     def runner(self, kind: str, with_labels: bool) -> _Replayed:
         key = (kind, with_labels)
@@ -432,15 +470,16 @@ class _Steps:
             train = kind == "train"
             self.runners[key] = _Replayed(
                 self.bodies[kind], self.device, self.batch_size,
-                (self.rows, self.latent) if train else None, with_labels,
-                self.guard if train else None, self.pool)
+                (self.rows, self.latent) if kind in self.eps_kinds
+                else None, with_labels, self.guard if train else None,
+                self.pool)
         return self.runners[key]
 
     def upload(self, kind: str, step_ids, idx, labels) -> tuple:
         """The per-step inputs of a call's ``kind`` steps (any leading
         shape), uploaded once."""
         return _upload(self.draws, self.rows, step_ids, idx, labels,
-                       self.device, kind == "train")
+                       self.device, kind in self.eps_kinds)
 
     def run(self, kind: str, data, inputs: tuple, class_weights
             ) -> torch.Tensor:
@@ -464,7 +503,7 @@ def _averages(sums: np.ndarray, steps: int) -> dict:
 def make_scanned_train_step(model: SDVAE, weights: LossWeights,
                             optimizer: torch.optim.Optimizer,
                             batch_size: int, swap: bool = True, head=None,
-                            head_optimizer=None, *, draws):
+                            head_optimizer=None, *, draws, reduce=None):
     """A whole epoch of train steps: ``epoch(data_x [n, N, 3], idx [S, B],
     step_ids [S], labels [S, B] | None, class_weights) → metrics averaged
     over the S steps`` (floats keyed by ``LOSS_KEYS``), the JAX
@@ -472,9 +511,10 @@ def make_scanned_train_step(model: SDVAE, weights: LossWeights,
     which the model and ``draws(step_id, rows) → (region, eps [rows, Z])``
     hold. Update for update the eager step's: on the card each step is a
     replay of the step's CUDA graph; the metrics are read once.
-    ``epoch.steps.runners`` holds the replayers (and their graphs)."""
-    steps = _Steps(model, weights, optimizer, batch_size, swap, head,
-                   head_optimizer, draws)
+    ``epoch.steps.runners`` holds the replayers (and their graphs).
+    ``reduce`` as ``make_train_step`` takes it (inside the graph)."""
+    steps = _Steps.of_model(model, weights, optimizer, batch_size, swap,
+                            head, head_optimizer, draws, reduce)
 
     def epoch(data_x, idx, step_ids, labels=None, class_weights=None):
         inputs = steps.upload("train", step_ids, idx, labels)
@@ -488,7 +528,7 @@ def make_scanned_train_step(model: SDVAE, weights: LossWeights,
 def make_scanned_train_epochs(model: SDVAE, weights: LossWeights,
                               optimizer: torch.optim.Optimizer,
                               batch_size: int, swap: bool = True, head=None,
-                              head_optimizer=None, *, draws):
+                              head_optimizer=None, *, draws, reduce=None):
     """E epochs of train steps, each followed by its validation steps:
     ``epochs_fn(train_x, val_x, tr_idx [E, St, B], tr_sid [E, St], va_idx
     [E, Sv, B], va_sid [E, Sv], tr_labels [E, St, B] | None, va_labels
@@ -497,9 +537,10 @@ def make_scanned_train_epochs(model: SDVAE, weights: LossWeights,
     epoch's steps), the JAX ``make_scanned_train_epochs`` less the state,
     the geometry and the key. The train and validation steps each replay
     their own graph on the card; the per-epoch sums are gathered on the
-    device and read once a call."""
-    steps = _Steps(model, weights, optimizer, batch_size, swap, head,
-                   head_optimizer, draws)
+    device and read once a call. ``reduce`` as ``make_train_step`` takes
+    it."""
+    steps = _Steps.of_model(model, weights, optimizer, batch_size, swap,
+                            head, head_optimizer, draws, reduce)
 
     def epochs_fn(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid,
                   tr_labels=None, va_labels=None, class_weights=None):

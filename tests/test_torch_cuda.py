@@ -2169,7 +2169,7 @@ def test_serving_bucket_graphs_equal_eager_programs():
     svc = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, seed=1,
                                        max_batch=4, device=dev)
     svc.warmup()
-    assert set(svc._bucket_graphs) == {(p, b) for p in
+    assert set(svc._bucket_graphs) == {(p, b, 0) for p in
                                        ("encode", "reconstruct", "decode")
                                        for b in svc.buckets}
     for b in (1, 2, 3, 4, 7):
@@ -2278,3 +2278,179 @@ def test_jpeg_from_card_frames_equals_host(shape):
     frames = np.concatenate([smooth[None], noise])
     assert jpeg.encode_jpegs(torch.as_tensor(frames, device=dev)) == \
         jpeg.encode_jpegs(frames)
+
+
+# ------------------------------------------------- data parallelism, NCCL
+@pytest.fixture
+def nccl_world_one(tmp_path):
+    """A world-size-1 NCCL process group on the card (file rendezvous)."""
+    import torch.distributed as dist
+
+    from craniofacialsd_vae_tpu_torch import parallel
+
+    _card()
+    parallel.initialize_multihost(
+        num_processes=1, process_id=0, device="cuda",
+        init_method="file://" + str(tmp_path / "rendezvous"), timeout_s=300)
+    try:
+        assert dist.get_backend() == "nccl"
+        yield parallel.make_data_mesh()
+    finally:
+        dist.destroy_process_group()
+
+
+def test_nccl_world_one_step_equals_single_device(nccl_world_one):
+    """The data-parallel step at world size 1 over NCCL (an all-reduce
+    sum, then a division by 1) equals the single-device step bit for
+    bit: metrics, parameters and Adam states, three steps."""
+    from craniofacialsd_vae_tpu_torch import parallel
+
+    dev = _card()
+    batch = 2
+    runs = []
+    for dp in (False, True):
+        model, opt, _, _, weights, n = _graph_setup(dev, "float32", False)
+        data, idx, draws, _ = _graph_inputs(n, 3, batch, False)
+        step = parallel.make_parallel_train_step(
+            model, weights, opt, batch, nccl_world_one) if dp else \
+            make_train_step(model, weights, opt, batch)
+        data_d = torch.as_tensor(data, device=dev)
+        ms = []
+        for t in range(3):
+            region, eps = draws[t + 1]
+            ms.append(step(data_d.index_select(
+                0, torch.as_tensor(idx[t], device=dev)), region_idx=region,
+                eps=eps.to(dev)))
+        torch.cuda.synchronize()
+        runs.append((ms, _all_state(model, opt)))
+    (m_a, s_a), (m_b, s_b) = runs
+    for a, b in zip(m_a, m_b):
+        for k in LOSS_KEYS:
+            assert torch.equal(a[k], b[k]), k
+    for a, b in zip(s_a, s_b):
+        assert torch.equal(a, b)
+
+
+def test_nccl_all_reduce_replays_inside_the_step_graph(nccl_world_one):
+    """The data-parallel scanned epoch captures the step with its NCCL
+    all-reduce inside the graph: four replays equal four single-device
+    eager steps bit for bit, and a replay adds its capture's launches."""
+    from craniofacialsd_vae_tpu_torch import parallel
+
+    dev = _card()
+    steps, batch = 4, 2
+    model, opt, _, _, weights, n = _graph_setup(dev, "float32", False)
+    data, idx, draws, _ = _graph_inputs(n, steps, batch, False)
+    epoch = parallel.make_scanned_parallel_step(
+        model, weights, opt, batch, nccl_world_one,
+        draws=lambda s, rows: draws[s])
+    graphs.replayed.reset()
+    got = epoch(torch.as_tensor(data, device=dev), idx,
+                np.arange(1, steps + 1))
+    runner = next(iter(epoch.steps.runners.values()))
+    assert runner.graph is not None
+    assert graphs.replayed.snapshot()["spiral_conv_dw"] == \
+        steps * runner.graph.launches["spiral_conv_dw"]
+
+    ref_model, ref_opt, _, _, _, _ = _graph_setup(dev, "float32", False)
+    step = make_train_step(ref_model, weights, ref_opt, batch)
+    data_d = torch.as_tensor(data, device=dev)
+    sums = torch.zeros(len(LOSS_KEYS), device=dev)
+    for t in range(steps):
+        region, eps = draws[t + 1]
+        m = step(data_d.index_select(0, torch.as_tensor(idx[t], device=dev)),
+                 region_idx=torch.tensor(region, device=dev),
+                 eps=eps.to(dev))
+        sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+    torch.cuda.synchronize()
+    assert got == {k: float(v) / steps for k, v in zip(LOSS_KEYS, sums.cpu())}
+    for a, b in zip(_all_state(model, opt), _all_state(ref_model, ref_opt)):
+        assert torch.equal(a, b)
+
+
+def test_serving_two_replicas_on_one_card_equal_single_service():
+    """``DiagnosisService(data_parallel=True)`` over the card named twice:
+    each bucket's rows split between two replicas, each replaying its own
+    graphs (keyed by program, rows and replica). encode, reconstruct and
+    decode at every request size within 1e-5 of the single service's max
+    (a replica runs half the bucket, where cuBLAS may pick another
+    kernel); a replay launches no wrapper and adds its capture's
+    launches; a request whose second half is padding runs one replica."""
+    dev = _card()
+    bundle = load_bundle(FIXTURE)
+    cfg = SDVAEConfig(out_channels=(8, 8, 8, 16), latent_size=15)
+    n = bundle.vertex_counts[0]
+    rng = np.random.default_rng(5)
+    norm = {"mean": level0_positions(bundle),
+            "std": np.full((n, 3), 0.02, np.float32)}
+    one = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, seed=1,
+                                       max_batch=4, device=dev)
+    dp = DiagnosisService.from_bundle(bundle, cfg, norm, 10.0, seed=1,
+                                      max_batch=4, device=dev,
+                                      data_parallel=True,
+                                      devices=[dev, dev])
+    assert dp.n_devices == 2 and dp.buckets == [2, 4]
+    dp.warmup()
+    assert set(dp._bucket_graphs) == {
+        (p, b // 2, i) for p in ("encode", "reconstruct", "decode")
+        for b in dp.buckets for i in (0, 1)}
+
+    def rel(a, b):
+        return float(np.abs(a - b).max()) / float(np.abs(b).max())
+
+    for b in (1, 3, 4, 7):
+        x = (norm["mean"] + 0.02 * rng.normal(size=(b, n, 3))).astype(
+            np.float32)
+        z = rng.normal(size=(b, 15)).astype(np.float32)
+        for name, arg in (("encode", x), ("decode", z),
+                          ("reconstruct", x)):
+            kernels.launches.reset()
+            graphs.replayed.reset()
+            got = dp._run_program(name, arg)
+            torch.cuda.synchronize()
+            assert not any(kernels.launches.snapshot().values())
+            want_replays = {}
+            for lo in range(0, b, 4):           # the max_batch chunks
+                rows = min(4, b - lo)
+                per = dp._bucket(rows) // 2
+                for i in range(-(-rows // per)):    # replicas given rows
+                    for k, v in dp._bucket_graphs[(name, per, i)] \
+                            .graph.launches.items():
+                        want_replays[k] = want_replays.get(k, 0) + v
+            assert {k: v for k, v in graphs.replayed.snapshot().items()
+                    if v} == {k: v for k, v in want_replays.items() if v}
+            want = one._run_program(name, arg)
+            got, want = (got, want) if isinstance(got, tuple) \
+                else ((got,), (want,))
+            for g, w in zip(got, want):
+                assert g.shape == w.shape
+                assert rel(g, w) <= 1e-5, (name, b)
+
+
+def test_fit_over_two_replicas_on_one_card(tmp_path):
+    """``fit_latent(mesh=)`` over the card named twice: five restarts run
+    as six, three a replica, each replica replaying its own graph; the
+    answer is the unsharded six-restart fit's (best restart equal, z and
+    chamfer within 1e-5)."""
+    from craniofacialsd_vae_tpu_torch.analysis import fitting
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+    from craniofacialsd_vae_tpu_torch.parallel import make_data_mesh
+
+    dev = _card()
+    config = _entry_workspace(str(tmp_path))
+    mgr = ModelManager(config, config["data"]["precomputed_path"],
+                       device=dev)
+    tpl = np.asarray(mgr.template.pos, np.float32)
+    lnd = list(range(0, len(tpl), len(tpl) // 6))[:6]
+    scan = tpl * 1.05 + 0.01
+    mesh = make_data_mesh(devices=[dev, dev])
+    got = fitting.fit_latent(mgr, None, scan, scan[lnd], lnd, iterations=6,
+                             n_restarts=5, mesh=mesh)
+    six = fitting.fit_latent(mgr, None, scan, scan[lnd], lnd, iterations=6,
+                             n_restarts=6)
+    (rep,) = fitting._REPLICAS[mgr].values()
+    assert [r.graph is not None for r in fitting._FIT_RUNS[rep].values()] \
+        == [True]
+    assert got["best_restart"] == six["best_restart"]
+    assert np.abs(got["z"] - six["z"]).max() <= 1e-5 * np.abs(six["z"]).max()
+    assert got["chamfer_mm2"] == pytest.approx(six["chamfer_mm2"], rel=1e-5)
