@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, diagnosis,
-augmentation and evaluation paths on one NVIDIA card.
+augmentation, evaluation, parallel and ensemble paths on one NVIDIA
+card.
 
 Run from the root of a checkout::
 
@@ -260,7 +261,42 @@ them or outside a checkout. Phases, each of which raises on a fault:
    ``{"phase": "parallel", ...}`` line. The records of
    ``parallel_training`` and ``parallel_entry`` are those of
    ``training`` and ``train_entry`` (the same shapes) with this phase's
-   launches.
+   launches;
+14. ensembles (``training/ensemble.py``, ``training/sweep.py``,
+   ``serving.EnsembleService``), after phase 13, whose counts it leaves
+   as they are, on phase 7's workspace and config (fp32): (a)
+   ``train_ensemble.main`` in process, ENS_MEMBERS members × ENS_EPOCHS
+   epochs in one chunk, counted (path ``ensembles``), each member's
+   parameters, Adam states and metrics bit-equal to a solo
+   ``ModelManager(seed=i)`` run of the same epochs, the training's
+   launches and replays (up to the first ``use_member``) ENS_MEMBERS
+   times a solo run's, each graph's capture ENS_MEMBERS times the solo
+   graph's kernel for kernel, the solo train graph one step at the
+   train entry path's grid, and after (d) one replay of each graph
+   profiled (``check_replays``); (b) ``sweep.main`` over SWEEP_VARY
+   (a weight decay > 0, then a 0.0 Laplacian weight), counted (path
+   ``sweep``), each variant bit-equal to a solo run of its config (the
+   0-weighted term's metric its unweighted value, 0.0 in the solo run),
+   the training's launches and replays the two solo runs' plus the
+   Laplacian's K4 launches that variant 1's body adds, and sweep.json
+   ranked; (c) ``EnsembleService.from_ensemble_dir`` on (a)'s run dir,
+   ``diagnose`` at B = 1 and 16 of phase 9's scans, counted (path
+   ``ensemble_serving``): its model passes ENS_MEMBERS times one member
+   service's, its launches exactly those of its passes, each kernel
+   held at their shapes (``pass_records``), the consensus equal to
+   ``summarize_ensemble`` of the member services' reports, the same
+   service on the host within SERVE_RTOL (labels equal), one ``POST
+   /diagnose`` and one refused single-model request through
+   ``serve.py``'s server; (d) ``train_ensemble.main --shard_members``
+   over the card named twice (a block and a graph a member), counted
+   (path ``ensembles_sharded``): checkpoints, metrics, launches and
+   replays equal to (a)'s; one ``{"phase": "ensembles", ...}`` line with
+   the seconds a member-epoch beside a solo epoch, the K = 2 run's peak
+   allocation, the consensus p50 at B = 16 beside one member's, and the
+   phase's and the script's seconds; the phase fails past ENS_PHASE_S.
+   The records of (a), (b) and (d) are ``train_entry``'s (the same
+   model, grid and workspace) with this phase's launches, those of (c)
+   its own.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
@@ -270,7 +306,9 @@ The kernels' record holds one entry per kernel and path (``serving``,
 ``mixed_serving``, ``mixed_training``, ``mixed_gather_first``,
 ``mixed_entry_traversals``, ``diagnosis``, ``mixed_diagnosis``,
 ``augmentation``, ``evaluation``, ``parallel_training``,
-``parallel_entry``, ``parallel_serving``, ``vertex_sharded``), each
+``parallel_entry``, ``parallel_serving``, ``vertex_sharded``,
+``ensembles``, ``sweep``, ``ensemble_serving``, ``ensembles_sharded``),
+each
 timed over the shapes of that
 path's launches (on the traversal, diagnosis and evaluation paths each
 distinct shape once; every shape carries its launches). Its
@@ -6126,6 +6164,557 @@ def phase_parallel(torch, mods, bundle, config, root: str, cfg_path: str,
             "records": records}
 
 
+# ----------------------------------------------------------------------
+# phase 14: deep ensembles, sweeps and ensemble serving
+ENS_MEMBERS = 2
+ENS_EPOCHS = 2
+# two variants: variant 0 with a weight decay > 0, variant 1 with a 0.0
+# Laplacian weight (on top of it)
+SWEEP_VARY = ("weight_decay=1e-3", "laplacian_weight=0.1,0")
+ENS_SIZES = (1, 16)             # the consensus requests' batches (phase 9's
+#                                 scans)
+ENS_REPS = 7                    # timed consensus requests at B = 16
+ENS_PHASE_S = 60.0              # the phase's budget
+
+
+class MemberMarks:
+    """While active, the counters (``kernels.launches``,
+    ``graphs.replayed``), the card's peak allocation and the host clock
+    at each ``ModelManager.use_member`` call: an entry point's training
+    ends at the first, and each member's tail (its checkpoint, zoo fit
+    and statistics) runs from one to the next."""
+
+    def __init__(self, torch):
+        self.torch = torch
+        self.marks: list = []
+
+    def snap(self) -> dict:
+        from craniofacialsd_vae_tpu_torch import graphs, kernels
+
+        if DEVICE == "cuda":
+            self.torch.cuda.synchronize()
+        return {"launches": kernels.launches.snapshot(),
+                "replayed": graphs.replayed.snapshot(),
+                "peak": peak_mib(self.torch), "t": time.perf_counter()}
+
+    def __enter__(self):
+        from craniofacialsd_vae_tpu_torch.manager import ModelManager
+
+        self.saved = ModelManager.use_member
+        saved, marks = self.saved, self.marks
+
+        def use_member(mgr, member):
+            marks.append(self.snap())
+            return saved(mgr, member)
+
+        ModelManager.use_member = use_member
+        return self
+
+    def __exit__(self, *exc):
+        from craniofacialsd_vae_tpu_torch.manager import ModelManager
+
+        ModelManager.use_member = self.saved
+        self.marks.append(self.snap())
+
+
+def reset_peak(torch) -> None:
+    """The card's peak allocation from here on, above what is allocated
+    now (``peak_mib``)."""
+    global PEAK_BASE
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        PEAK_BASE = torch.cuda.memory_allocated()
+
+
+PEAK_BASE = 0
+
+
+def peak_mib(torch) -> float:
+    """MiB allocated at the peak since ``reset_peak``, above what was
+    allocated then (0 on the host)."""
+    if DEVICE != "cuda":
+        return 0.0
+    return (torch.cuda.max_memory_allocated() - PEAK_BASE) / 2 ** 20
+
+
+def diff(after: dict, before: dict) -> dict:
+    return {k: after[k] - before.get(k, 0) for k in after}
+
+
+def scaled(counts: dict, k: int) -> dict:
+    return {name: k * n for name, n in counts.items()}
+
+
+def solo_run(torch, config: dict, seed: int, epochs: int) -> dict:
+    """``ModelManager(config, seed=seed)`` on the card: its scanned run of
+    ``epochs`` epochs in one call over fresh iterators (the entry points'
+    plans), counted from 0 (launches and replays); the peak allocation
+    from before the manager is built."""
+    from craniofacialsd_vae_tpu_torch.data.dataset import (
+        DeviceBatchIterator, build_datasets)
+    from craniofacialsd_vae_tpu_torch.manager import ModelManager
+
+    reset_peak(torch)
+    mgr = ModelManager(config, config["data"]["precomputed_path"],
+                       seed=seed, device=DEVICE)
+    train_set, val_set, _, _, weights = build_datasets(config, mgr.template,
+                                                       device=DEVICE)
+    mgr.set_class_conversions_and_weights(weights)
+    its = [DeviceBatchIterator(s, mgr.batch_size, shuffle=True,
+                               class2idx=mgr._class2idx_dict, device=DEVICE)
+           for s in (train_set, val_set)]
+    reset_counts()
+    t0 = time.perf_counter()
+    tr, va = mgr.run_epochs_scanned(*its, epochs)
+    counts = read_counts(torch, "solo")
+    return {"manager": mgr, "train": tr, "validation": va,
+            "train_s": time.perf_counter() - t0, "launches": counts,
+            "replayed": PATH_REPLAYS.pop("solo"), "peak_mib": peak_mib(torch)}
+
+
+def same_member(member, solo, what: str) -> None:
+    """A member's (or a variant's) parameters and Adam states equal a solo
+    manager's bit for bit."""
+    got = state_tensors(member.model, member.optimizer)
+    want = state_tensors(solo.model, solo.optimizer)
+    check(len(got) == len(want), f"{what}: {len(got)} state tensors vs "
+          f"{len(want)}")
+    for i, (a, b) in enumerate(zip(got, want)):
+        check(a.shape == b.shape and bool((a == b).all()),
+              f"{what}: state tensor {i} differs from the solo run's")
+
+
+def ensemble_entry(torch, root: str, cfg_path: str, config: dict,
+                   entry_grid: int, smi: str) -> dict:
+    """(a) ``train_ensemble.main`` in process, ENS_MEMBERS members ×
+    ENS_EPOCHS epochs in one chunk, counted (path ``ensembles``); then
+    each member's solo ``ModelManager(seed=i)`` run: bit-equal members,
+    and the training's launches and replays K times a solo run's, the
+    graphs' captures K times a solo graph's kernel for kernel, the solo
+    train graph one step at the train entry path's grid. Returns
+    the K = 2 graphs, whose replays ``check_replays`` profiles once the
+    phase is done with the members."""
+    from craniofacialsd_vae_tpu_torch import train_ensemble
+
+    k = ENS_MEMBERS
+    reset_counts()
+    reset_peak(torch)
+    t0 = time.perf_counter()
+    with MemberMarks(torch) as marks:
+        res = train_ensemble.main([
+            "--config", cfg_path, "--id", "ensemble", "--output_path", root,
+            "--members", str(k), "--epochs", str(ENS_EPOCHS),
+            "--chunk_epochs", str(ENS_EPOCHS), "--device", DEVICE])
+    run_s = time.perf_counter() - t0
+    counts = read_counts(torch, "ensembles")
+    m = marks.marks
+    check(len(m) == k + 1, f"{len(m) - 1} use_member calls for {k} members")
+    train_counts = diff(m[0]["launches"], {})
+    train_replayed = diff(m[0]["replayed"], {})
+    tails = [diff(m[i + 1]["launches"], m[i]["launches"]) for i in range(k)]
+    check(all(t == tails[0] for t in tails), f"the members' tails launched "
+          f"{tails}")
+    steps = res["epochs_fn"].steps
+    check(len(steps) == 1, f"{len(steps)} blocks for an unsharded state")
+    runners = steps[0].runners
+    state = res["state"]
+    solos = [solo_run(torch, config, i, ENS_EPOCHS) for i in range(k)]
+    chunk = res["chunks"][0]
+    for i, solo in enumerate(solos):
+        same_member(state.members[i], solo["manager"], f"member {i}")
+        check(chunk["train"][i] == solo["train"]
+              and chunk["validation"][i] == solo["validation"],
+              f"member {i} metrics {chunk['validation'][i]} vs the solo "
+              f"run's {solo['validation']}")
+        check(res["manifest"]["members"][i]["val_tot"]
+              == solo["validation"][-1]["tot"], f"member {i} val_tot")
+        check(solo["launches"] == solos[0]["launches"]
+              and solo["replayed"] == solos[0]["replayed"],
+              f"solo runs launched {solo['launches']} vs "
+              f"{solos[0]['launches']}")
+    check(train_counts == scaled(solos[0]["launches"], k),
+          f"the ensemble's training launched {train_counts}, {k} x the solo "
+          f"run's {solos[0]['launches']} expected")
+    check(train_replayed == scaled(solos[0]["replayed"], k),
+          f"the ensemble's replays {train_replayed}, {k} x the solo run's "
+          f"{solos[0]['replayed']} expected")
+    solo_runners = solos[0]["manager"]._scanned_epochs.steps.runners
+    check(set(runners) == set(solo_runners), f"graphs {sorted(runners)} vs "
+          f"the solo run's {sorted(solo_runners)}")
+    for key, r in runners.items():
+        if r.graph is None:             # the host runs the steps eagerly
+            continue
+        want = scaled(solo_runners[key].graph.launches, k)
+        check(r.graph.launches == want, f"the {key} graph captured "
+              f"{r.graph.launches}; {k} x the solo graph's {want} expected")
+    # the K = 2 graphs repeat a step at the train entry path's shapes
+    # (whose records this path takes): the solo train graph captures one
+    # step of phase 7's model at its grid
+    mgr0 = solos[0]["manager"]
+    step = {name: n for name, n in expected_step_launches(
+        mgr0.model, mgr0.geometry, entry_grid).items() if n}
+    trains = [r for key, r in solo_runners.items()
+              if key[0] == "train" and r.graph is not None]
+    check(DEVICE != "cuda" or trains, "the solo run captured no train graph")
+    for r in trains:
+        check(r.graph.launches == step, f"the solo train graph captured "
+              f"{r.graph.launches}; one step at the train entry path's grid "
+              f"of {entry_grid} launches {step}")
+    for kernel in ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
+                   "ell_matmul_capped", "spiral_conv_dw"):
+        check(train_counts[kernel] > 0,
+              f"{kernel} was not launched by the ensemble's training")
+    train_s = res["train_s"]
+    solo_epoch = [s["train_s"] / ENS_EPOCHS for s in solos]
+    line = {"members": k, "epochs": ENS_EPOCHS, "run_s": run_s,
+            "train_s": train_s,
+            "member_epoch_s": train_s / (k * ENS_EPOCHS),
+            "solo_epoch_s": solo_epoch,
+            "peak_mib": m[0]["peak"],
+            "solo_peak_mib": [s["peak_mib"] for s in solos],
+            "tail_s": [m[i + 1]["t"] - m[i]["t"] for i in range(k)],
+            "launches": counts, "training_launches": train_counts,
+            "solo_launches": solos[0]["launches"],
+            "replayed": PATH_REPLAYS["ensembles"],
+            "validation_tot": [c[-1]["tot"] for c in chunk["validation"]]}
+    log(f"[14a ensembles] train_ensemble.main, {k} members x {ENS_EPOCHS} "
+        f"epochs in one chunk: every member bit-equal to its solo "
+        f"ModelManager run, the training's launches and replays {k} x a "
+        f"solo run's; {line['member_epoch_s']:.3f} s a member-epoch (solo "
+        f"epoch {solo_epoch} s, both with the graphs' capture), peak "
+        f"{line['peak_mib']:.0f} MiB (solo {line['solo_peak_mib']}); "
+        f"{smi}")
+    for s in solos:
+        del s["manager"]
+    res.pop("manager")
+    return dict(line=line, counts=counts, run=res,
+                graphs=[r.graph for r in runners.values()])
+
+
+def sweep_entry(torch, root: str, cfg_path: str, smi: str) -> dict:
+    """(b) ``sweep.main`` in process over SWEEP_VARY (variant 0 with a
+    weight decay, variant 1 with a 0.0 Laplacian weight), counted (path
+    ``sweep``); each variant bit-equal to a solo ``ModelManager`` run of
+    its config (the 0-weighted term's metric its unweighted value where
+    the solo run reads 0.0), sweep.json ranked, and the training's
+    launches and replays the two solo runs' plus the Laplacian's that
+    variant 1's body computes and its solo run skips (K4's alone); the
+    variants' tails alike."""
+    from craniofacialsd_vae_tpu_torch import sweep
+
+    reset_counts()
+    t0 = time.perf_counter()
+    vary = [a for v in SWEEP_VARY for a in ("--vary", v)]
+    with MemberMarks(torch) as marks:
+        res = sweep.main(["--config", cfg_path, "--id", "sweep",
+                          "--output_path", root, *vary, "--epochs",
+                          str(ENS_EPOCHS), "--chunk_epochs",
+                          str(ENS_EPOCHS), "--device", DEVICE])
+    run_s = time.perf_counter() - t0
+    counts = read_counts(torch, "sweep")
+    res.pop("manager")
+    variants, chunk = res["variants"], res["chunks"][0]
+    check(len(variants) == 2
+          and variants[0]["optimization"]["weight_decay"] > 0
+          and variants[1]["optimization"]["laplacian_weight"] == 0.0,
+          f"the sweep's variants {[v['optimization'] for v in variants]}")
+    m = marks.marks
+    check(len(m) == 3, f"{len(m) - 1} use_member calls for 2 variants")
+    train_counts = diff(m[0]["launches"], {})
+    train_replayed = diff(m[0]["replayed"], {})
+    tails = [diff(m[i + 1]["launches"], m[i]["launches"]) for i in range(2)]
+    check(tails[0] == tails[1], f"the variants' tails launched {tails}")
+    solos = [solo_run(torch, vcfg, 0, ENS_EPOCHS) for vcfg in variants]
+    for i, solo in enumerate(solos):
+        same_member(res["state"].members[i], solo["manager"], f"variant {i}")
+        zero = {"laplacian"} if i == 1 else set()
+        for got, want in ((chunk["train"][i], solo["train"]),
+                          (chunk["validation"][i], solo["validation"])):
+            for g, w in zip(got, want):
+                for key in g:
+                    if key in zero:
+                        check(w[key] == 0.0 and g[key] > 0.0,
+                              f"variant {i} {key}: {g[key]} (solo {w[key]})")
+                    else:
+                        check(g[key] == w[key], f"variant {i} {key}: "
+                              f"{g[key]} vs the solo run's {w[key]}")
+        del solo["manager"]
+    for what, got, key in (("launches", train_counts, "launches"),
+                           ("replays", train_replayed, "replayed")):
+        a, b = solos[0][key], solos[1][key]
+        lap = diff(a, b)            # variant 1's Laplacian, in its body
+        check(any(lap.values()) and all(
+            n >= 0 and (not n or name.startswith("ell_matmul"))
+            for name, n in lap.items()), f"the Laplacian's {what} {lap}: "
+            "K4's alone expected")
+        want = {name: a[name] + b[name] + lap[name] for name in a}
+        check(got == want, f"the sweep's training {what} {got}; the solo "
+              f"runs' {a} + {b} + variant 1's Laplacian {lap} expected")
+    with open(os.path.join(res["output_dir"], "sweep.json")) as f:
+        manifest = json.load(f)
+    vals = [v["val"]["reconstruction"] for v in manifest["variants"]]
+    check(vals == sorted(vals) and manifest["best"] == manifest["variants"][0]
+          and len(vals) == 2, f"sweep.json ranking {vals}")
+    line = {"variants": [v["overrides"] for v in manifest["variants"]],
+            "validation_reconstruction": vals, "run_s": run_s,
+            "train_s": res["train_s"], "launches": counts,
+            "training_launches": train_counts,
+            "solo_launches": [s["launches"] for s in solos],
+            "replayed": PATH_REPLAYS["sweep"]}
+    log(f"[14b sweep] sweep.main over {list(SWEEP_VARY)}: each variant "
+        f"bit-equal to its solo run (the 0-weighted Laplacian read "
+        f"unweighted), the training's launches and replays the solo runs' "
+        f"and the Laplacian's, sweep.json ranked {vals}; {run_s:.1f} s; "
+        f"{smi}")
+    return dict(line=line, counts=counts)
+
+
+def http_ensemble(svc, scan) -> dict:
+    """``serve.py``'s server over an ``EnsembleService``: one ``POST
+    /diagnose`` (the consensus) and one refused single-model request."""
+    import threading
+    import urllib.error
+    import urllib.request
+
+    from craniofacialsd_vae_tpu_torch.serve import make_server
+
+    server = make_server(svc, "127.0.0.1", 0)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    url = f"http://127.0.0.1:{server.server_port}"
+    body = json.dumps({"vertices": scan.tolist()}).encode()
+    try:
+        req = urllib.request.Request(url + "/diagnose", data=body, headers={
+            "Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=300) as resp:
+            report = json.loads(resp.read())["reports"]
+        req = urllib.request.Request(url + "/reconstruct", data=body,
+                                     headers={"Content-Type":
+                                              "application/json"})
+        try:
+            urllib.request.urlopen(req, timeout=60)
+            refused = None
+        except urllib.error.HTTPError as e:
+            refused = (e.code, e.read().decode())
+        with urllib.request.urlopen(url + "/healthz", timeout=60) as resp:
+            health = json.loads(resp.read())
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    check(not thread.is_alive(), "the HTTP server did not stop")
+    check(report["label"] == svc.diagnose(scan)["label"]
+          and report["n_members"] == svc.n_members,
+          f"HTTP /diagnose {report['label']} vs the service's")
+    check(refused is not None and refused[0] == 400
+          and "single-model" in refused[1],
+          f"a single-model request to the ensemble answered {refused}")
+    check(health["ok"] and health["n_members"] == svc.n_members,
+          f"/healthz {health}")
+    return {"diagnose_label": report["label"], "refused": refused[0]}
+
+
+def ensemble_serving(torch, mods, run_dir: str, config: dict,
+                     smi: str) -> dict:
+    """(c) ``EnsembleService.from_ensemble_dir`` on (a)'s run dir on the
+    card, ``diagnose`` at B = 1 and 16 of phase 9's scans, counted (path
+    ``ensemble_serving``): its model passes K times one member service's
+    on the same requests (``PassShapes``), its launches exactly those of
+    the passes, every kernel held at their shapes (the path's own
+    records); the consensus equals ``summarize_ensemble`` over the member
+    services' own reports, and the same service on the host agrees
+    (labels and votes equal, posteriors and distances within
+    SERVE_RTOL); then ``serve.py``'s server over it and the consensus
+    p50 at B = 16 beside a single member service's."""
+    from craniofacialsd_vae_tpu_torch.analysis.uncertainty import \
+        summarize_ensemble
+    from collections import Counter
+
+    from craniofacialsd_vae_tpu_torch.data.dataset import build_datasets
+    from craniofacialsd_vae_tpu_torch.serving import (WARMUP_PASSES,
+                                                      EnsembleService)
+
+    train_set, _, _, norm, _ = build_datasets(config)
+    raw = (np.asarray(train_set.x[:max(ENS_SIZES)]) * norm["std"]
+           + norm["mean"]).astype(np.float32)
+    scans = {b: raw[:b] for b in ENS_SIZES}
+    reset_counts()
+    with PassShapes() as rec:
+        card = EnsembleService.from_ensemble_dir(run_dir, max_batch=BATCH,
+                                                 device=DEVICE)
+        got = {b: card.diagnose(x) for b, x in scans.items()}
+    counts = read_counts(torch, "ensemble_serving")
+    # a member service encodes each bucket of the requests in its graph:
+    # the warm-up passes and the capture at the bucket's first request
+    one = Counter()
+    for size in {b for n in ENS_SIZES
+                 for b in request_buckets(card.services[0], n)}:
+        one[size] += 1 + WARMUP_PASSES
+    passes = {p: dict(c) for p, c in rec.passes.items() if c}
+    check(passes == {"enc": {b: card.n_members * n
+                             for b, n in one.items()}},
+          f"the ensemble service's passes {passes}; {card.n_members} x one "
+          f"member's {dict(one)} expected")
+    records, _ = pass_records(torch, mods, card.services[0].manager, rec,
+                              "ensemble_serving", counts)
+    check(card.n_members == ENS_MEMBERS and all(
+        len(r["members"]) == ENS_MEMBERS for g in got.values() for r in g),
+        "the consensus reports lack their member blocks")
+    for b, x in scans.items():
+        want = summarize_ensemble([s.diagnose(x) for s in card.services])
+        for row, w in zip(got[b], want):
+            check({k: row[k] for k in w} == w, f"B={b}: the consensus is "
+                  "not summarize_ensemble of the members' reports")
+    host = EnsembleService.from_ensemble_dir(run_dir, max_batch=BATCH,
+                                             device="cpu")
+    worst = 0.0
+    for b, x in scans.items():
+        for g, h in zip(got[b], host.diagnose(x)):
+            check(g["label"] == h["label"]
+                  and g["member_votes"] == h["member_votes"]
+                  and [m["label"] for m in g["members"]]
+                  == [m["label"] for m in h["members"]],
+                  f"B={b}: card labels differ from the host's")
+            pairs = [(g[k][c], h[k][c]) for k in ("posterior_mean",
+                                                  "posterior_std")
+                     for c in h[k]]
+            pairs += [(gm["mahalanobis_to_healthy"],
+                       hm["mahalanobis_to_healthy"])
+                      for gm, hm in zip(g["members"], h["members"])]
+            pairs += [(g["predictive_entropy_nats"],
+                       h["predictive_entropy_nats"])]
+            for a, w in pairs:
+                e = abs(a - w) / max(abs(w), 1.0)
+                worst = max(worst, e)
+                check(e <= SERVE_RTOL, f"B={b}: card {a} vs host {w}")
+    del host
+    http = http_ensemble(card, scans[1][0])
+    x16 = scans[max(ENS_SIZES)]
+    lat = {"consensus": p50(timed(torch, lambda: card.diagnose(x16),
+                                  ENS_REPS)),
+           "single": p50(timed(torch, lambda: card.services[0].diagnose(
+               x16), ENS_REPS))}
+    line = {"sizes": list(ENS_SIZES), "card_vs_host_worst": worst,
+            "http": http, "diagnose_p50_ms_b16": lat,
+            "launches": counts, "replayed": PATH_REPLAYS["ensemble_serving"]}
+    log(f"[14c ensemble serving] EnsembleService on the card: the consensus "
+        f"is summarize_ensemble of its members' reports, card vs host within "
+        f"{worst:.2e} (labels equal), /diagnose answered and a single-model "
+        f"request refused over HTTP; consensus p50 at B = 16 "
+        f"{lat['consensus']:.2f} ms (one member's {lat['single']:.2f} ms); "
+        f"{smi}")
+    del card
+    return dict(line=line, counts=counts, records=records)
+
+
+def sharded_entry(torch, root: str, cfg_path: str, ensemble: dict,
+                  smi: str) -> dict:
+    """(d) ``train_ensemble.main --shard_members`` over the card named
+    twice (a block of one member each, in its own graph), counted (path
+    ``ensembles_sharded``): the members, their checkpoints and metrics
+    bit-equal to (a)'s, and its launches and replays (a)'s."""
+    from craniofacialsd_vae_tpu_torch import train_ensemble
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import \
+        read_checkpoint
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = train_ensemble.main([
+        "--config", cfg_path, "--id", "ensemble_sharded", "--output_path",
+        root, "--members", str(ENS_MEMBERS), "--epochs", str(ENS_EPOCHS),
+        "--chunk_epochs", str(ENS_EPOCHS), "--device", DEVICE,
+        "--shard_members", "--shard_devices", ",".join([DEVICE] * 2)])
+    run_s = time.perf_counter() - t0
+    counts = read_counts(torch, "ensembles_sharded")
+    res.pop("manager")
+    base = ensemble["run"]
+    check(res["mesh"] is not None and len(res["epochs_fn"].steps) == 2,
+          "--shard_members did not run two blocks")
+    check(res["chunks"][0]["train"] == base["chunks"][0]["train"]
+          and res["chunks"][0]["validation"]
+          == base["chunks"][0]["validation"],
+          "sharded metrics differ from the unsharded run's")
+    for i in range(ENS_MEMBERS):
+        same_member(res["state"].members[i], base["state"].members[i],
+                    f"sharded member {i}")
+        for name in ("optimizer.ckpt", f"model_{ENS_EPOCHS:08d}.ckpt"):
+            same_tree(*[read_checkpoint(os.path.join(
+                r["output_dir"], f"member_{i:02d}", "checkpoints", name))
+                for r in (res, base)], f"sharded member {i} {name}")
+    check(counts == ensemble["counts"]
+          and PATH_REPLAYS["ensembles_sharded"] == PATH_REPLAYS["ensembles"],
+          f"sharded launches {counts} (replays "
+          f"{PATH_REPLAYS['ensembles_sharded']}) vs (a)'s "
+          f"{ensemble['counts']}")
+    line = {"blocks": len(res["epochs_fn"].steps), "run_s": run_s,
+            "train_s": res["train_s"], "launches": counts,
+            "replayed": PATH_REPLAYS["ensembles_sharded"]}
+    log(f"[14d member sharding] --shard_members over the card named twice: "
+        f"members, checkpoints, metrics, launches and replays equal to the "
+        f"unsharded run's; {run_s:.1f} s; {smi}")
+    return dict(line=line, counts=counts)
+
+
+def phase_ensembles(torch, mods, root: str, cfg_path: str, by_path: dict,
+                    t_start: float, smi: str) -> dict:
+    """Phase 14: (a) the ensemble entry point, (b) the sweep, (c) the
+    ensemble service on (a)'s run dir, (d) member sharding, on phase 7's
+    workspace and config (fp32), in ENS_PHASE_S. The records of (a), (b)
+    and (d) are the train-entry path's (the same model, grid and
+    workspace; (a) holds its solo step at that grid) with this phase's
+    launches; (c) holds its own at its passes' shapes."""
+    from craniofacialsd_vae_tpu_torch.utils import get_config
+
+    t0 = time.perf_counter()
+    config = get_config(cfg_path)
+    ens = ensemble_entry(torch, root, cfg_path, config,
+                         config["optimization"]["batch_size"] ** 2, smi)
+    torch.cuda.empty_cache()
+    swp = sweep_entry(torch, root, cfg_path, smi)
+    torch.cuda.empty_cache()
+    serving = ensemble_serving(torch, mods, ens["run"]["output_dir"], config,
+                               smi)
+    torch.cuda.empty_cache()
+    sharded = sharded_entry(torch, root, cfg_path, ens, smi)
+    torch.cuda.empty_cache()
+    # (a)'s K = 2 graphs, one replay of each profiled against its capture
+    # (a replay of the train graph updates the members: last)
+    ens["line"]["replays_checked"] = check_replays(torch, ens.pop("graphs"),
+                                                   "ensembles")
+    records = list(serving["records"])
+    for path, part in (("ensembles", ens), ("sweep", swp),
+                       ("ensembles_sharded", sharded)):
+        have = {r["name"]: r for r in by_path["train_entry"]}
+        for name, n in part["counts"].items():
+            if not n:
+                continue
+            check(name in have, f"{name} ran on {path}; train_entry has no "
+                  "record of it")
+            records.append(dict(have[name], path=path, launches=n,
+                                shapes_of="train_entry"))
+    phase_s = time.perf_counter() - t0
+    a, c = ens["line"], serving["line"]
+    line = {"phase": "ensembles", "nvidia_smi": smi,
+            "member_epoch_s": a["member_epoch_s"],
+            "solo_epoch_s": a["solo_epoch_s"],
+            "k2_graph_peak_mib": a["peak_mib"],
+            "solo_peak_mib": a["solo_peak_mib"],
+            "consensus_p50_ms_b16": c["diagnose_p50_ms_b16"]["consensus"],
+            "single_p50_ms_b16": c["diagnose_p50_ms_b16"]["single"],
+            "card_vs_host_worst": c["card_vs_host_worst"],
+            "seconds": {"ensemble": a["run_s"],
+                        "sweep": swp["line"]["run_s"],
+                        "sharded": sharded["line"]["run_s"]},
+            "phase_s": phase_s, "budget_s": ENS_PHASE_S,
+            "script_s": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    line.update(ensemble=a, sweep=swp["line"], serving=c,
+                sharded=sharded["line"])
+    check(phase_s <= ENS_PHASE_S, f"phase 14 took {phase_s:.1f} s, over "
+          f"its {ENS_PHASE_S:.0f} s budget")
+    return {"line": line, "records": records}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -6249,6 +6838,12 @@ def main(argv=None) -> int:
                                   by_path, k1_ptxas(build_log), smi_line)
         records += parallel["records"]
         log(json.dumps(parallel["line"], default=float))
+        log(f"[13 parallel] done; total {time.perf_counter() - t_start:.1f} "
+            "s")
+        torch.cuda.empty_cache()
+        ensembles = phase_ensembles(torch, mods, root, entry["cfg_path"],
+                                    by_path, t_start, smi_line)
+        records += ensembles["records"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -6258,7 +6853,7 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[13 parallel] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[14 ensembles] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -6282,7 +6877,8 @@ def main(argv=None) -> int:
                            "line", "k9", "solves")},
                        "evaluation": evaluation["line"],
                        "figures": figures,
-                       "parallel": parallel["line"]},
+                       "parallel": parallel["line"],
+                       "ensembles": ensembles["line"]},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

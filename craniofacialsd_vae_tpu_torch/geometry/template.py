@@ -106,7 +106,10 @@ def extract_regions_from_colors(colors: np.ndarray,
     common neighboring color.
     """
     colors = np.asarray(colors, dtype=np.int64)
-    keys = [color_key(c) for c in colors]
+    # one key a distinct colour (formatting each vertex's is slow)
+    uniq, inverse = np.unique(colors, axis=0, return_inverse=True)
+    ukeys = [color_key(c) for c in uniq]
+    keys = [ukeys[i] for i in inverse.reshape(-1)]
 
     # Vectorized contour detection: vertex is contour iff any neighbor color
     # differs. Pack RGBA into a single int for fast comparison.

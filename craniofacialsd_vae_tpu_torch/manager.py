@@ -36,6 +36,11 @@ data-parallel forms, the iterators yield global batches of world ×
 batch_size scans (each rank keeps its own rows), and each rank draws its
 own regions and noise (rank 0 draws what a single-device run draws). A
 manager that never calls it makes no collective call.
+
+``use_member`` takes an ensemble member's or a sweep variant's state
+(``training/ensemble.py``, ``training/sweep.py``) as the manager's, so
+that the ensemble and sweep entry points checkpoint, fit the zoo and
+write the statistics of each member through the same methods.
 """
 
 from __future__ import annotations
@@ -52,7 +57,7 @@ from .models import (SDVAEConfig, SpiralGeometry, init_mlp, init_sdvae,
                      latent_regions, mlp_to_jax, params_to_jax)
 from .training import (LOSS_KEYS, LossWeights, assemble_epoch_plans,
                        coupled_adam, make_eval_step, make_scanned_train_epochs,
-                       make_scanned_train_step, make_train_step)
+                       make_scanned_train_step, make_train_step, step_draws)
 from .training.checkpoint import (MODEL_RE, adam_from_optax, adam_to_optax,
                                   latest_checkpoint, named_from_tree,
                                   read_checkpoint, save_checkpoint)
@@ -201,6 +206,33 @@ class ModelManager:
         self._global_batch_size = self.batch_size * mesh.world
         return mesh
 
+    def use_member(self, member) -> None:
+        """Take an ensemble member's or a sweep variant's state
+        (``training.ensemble.MemberState``, from ``member_state`` or
+        ``variant_state``) as this manager's, as the JAX tools set
+        ``manager.state``: its model, optimizer and head (None where the
+        member trains none) become the manager's, moved to its device
+        where they lie on another, and the steps are rebuilt over them.
+        What was cached of the previous state (the scanned steps, the
+        classifier zoo, the train latents) is dropped. ``save_weights``
+        then writes the member's checkpoint, its optimizer in the layout
+        of its own weight decay."""
+        from .parallel.mesh import member_on
+
+        member = member_on(member, self.device, self.geometry)
+        self.model, self.optimizer = member.model, member.optimizer
+        self.head, self.head_optimizer = member.head, member.head_optimizer
+        self._train_step = make_train_step(
+            self.model, self.loss_weights, self.optimizer, self.batch_size,
+            swap=self.swap_features, head=self.head,
+            head_optimizer=self.head_optimizer)
+        self._eval_step = make_eval_step(
+            self.model, self.loss_weights, self.batch_size,
+            swap=self.swap_features, head=self.head)
+        self._scanned_step = self._scanned_epochs = None
+        self.classifiers = None
+        self._train_latents = self._train_labels = None
+
     # ------------------------------------------------------------------
     @property
     def loss_keys(self):
@@ -327,16 +359,14 @@ class ModelManager:
         [rows, Z]`` (on the host), drawn from a generator seeded by (seed,
         step id), and under data parallelism the rank (rank 0 draws what
         a single-device run draws)."""
-        entropy = [self._seed + 1, step_id]
-        if self._rank:
-            entropy.append(self._rank)
-        seq = np.random.SeedSequence(entropy)
-        g = torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
-        n_regions = self.geometry.region_masks.shape[0] \
-            if self.geometry.region_masks is not None else 1
-        region = int(torch.randint(0, n_regions, (), generator=g))
-        eps = torch.randn((rows, self.net_config.latent_size), generator=g)
-        return region, eps
+        return step_draws(self._seed, step_id, rows, self.n_regions,
+                          self.net_config.latent_size, self._rank)
+
+    @property
+    def n_regions(self) -> int:
+        """The swap's regions (1 without region masks)."""
+        masks = self.geometry.region_masks
+        return masks.shape[0] if masks is not None else 1
 
     def _draws(self, step_id: int, rows: int):
         # through the attribute, so that a replaced _step_draws is used
@@ -597,7 +627,8 @@ class ModelManager:
     # checkpointing, in the JAX package's layout
     def state_trees(self) -> dict:
         """The parameters and optimizer states as the JAX package's trees
-        (numpy leaves)."""
+        (numpy leaves), each optimizer's in the layout of its own weight
+        decay (a sweep's variant may decay otherwise than the config)."""
         head = self.head
         return {
             "params": params_to_jax(self.model.state_dict()),
@@ -605,10 +636,10 @@ class ModelManager:
             else mlp_to_jax(head.state_dict()),
             "opt_state": adam_to_optax(
                 self.optimizer, dict(self.model.named_parameters()),
-                self.weight_decay),
+                _decay(self.optimizer)),
             "clf_opt_state": None if head is None else adam_to_optax(
                 self.head_optimizer, dict(head.named_parameters()),
-                self.weight_decay, root="layers"),
+                _decay(self.head_optimizer), root="layers"),
         }
 
     def save_weights(self, checkpoint_dir: str, epoch: int):
@@ -684,6 +715,10 @@ class ModelManager:
             else:
                 print("Classifiers not trained yet; "
                       "skipping classifier resume")
+
+
+def _decay(optimizer: torch.optim.Optimizer) -> float:
+    return float(optimizer.param_groups[0]["weight_decay"])
 
 
 def _numpy(a) -> np.ndarray:

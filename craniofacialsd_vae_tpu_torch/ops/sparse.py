@@ -54,12 +54,12 @@ def _pad_rows(rows, cols, vals, m):
     k = max(int(counts.max()) if len(counts) else 1, 1)
     pad_cols = np.zeros((m, k), dtype=np.int32)
     pad_vals = np.zeros((m, k), dtype=np.float32)
-    slot = np.zeros(m, dtype=np.int64)
+    # entries in row order, each at its ordinal within its row
     order = np.argsort(rows, kind="stable")
-    for r, c, v in zip(rows[order], cols[order], vals[order]):
-        pad_cols[r, slot[r]] = c
-        pad_vals[r, slot[r]] = v
-        slot[r] += 1
+    r = np.asarray(rows)[order]
+    slot = np.arange(len(r)) - (np.cumsum(counts) - counts)[r]
+    pad_cols[r, slot] = np.asarray(cols)[order]
+    pad_vals[r, slot] = np.asarray(vals)[order]
     return pad_cols, pad_vals
 
 

@@ -19,13 +19,20 @@ initialized (``multihost.initialize_multihost`` or ``train.py
 backend of a process group follows its device: NCCL for the card, Gloo
 for the CPU; nothing switches to another when one fails.
 
-The member half (``make_member_mesh``, ``shard_member_axis``) comes with
-the ensembles (ROADMAP 1.5).
+The member half: ``make_member_mesh`` is a devices' mesh over which
+``shard_member_axis`` places an ensemble's members (or a sweep's
+variants) in contiguous blocks of K/n, moving each to its block's
+device. The scanned trainers (``training/ensemble.py``,
+``training/sweep.py``) then run each block's members in that device's
+own graph. Members share no state, so there is no collective. A device
+may be named more than once: each naming holds a block with its own
+graphs, as another card would.
 """
 
 from __future__ import annotations
 
 import copy
+import dataclasses
 from dataclasses import dataclass, field
 
 import torch
@@ -33,11 +40,15 @@ import torch.distributed as dist
 
 from ..device import resolve_device
 
-__all__ = ["DATA_AXIS", "Mesh", "make_data_mesh", "shard_batch",
-           "replicate", "replicate_model", "same_device", "backend_for",
-           "MeanReducer"]
+__all__ = ["DATA_AXIS", "MEMBER_AXIS", "Mesh", "make_data_mesh",
+           "make_member_mesh", "shard_batch", "shard_member_axis",
+           "member_on", "replicate", "replicate_model", "same_device",
+           "backend_for", "MeanReducer"]
 
 DATA_AXIS = "data"
+
+#: the axis of an ensemble's members or a sweep's variants
+MEMBER_AXIS = "member"
 
 
 def backend_for(device) -> str:
@@ -56,6 +67,7 @@ class Mesh:
     rank: int = 0
     world: int = 1
     group: object = field(default=None, repr=False)
+    axis: str = DATA_AXIS
 
     @property
     def size(self) -> int:
@@ -97,6 +109,85 @@ def make_data_mesh(n_devices: int | None = None, devices=None) -> Mesh:
     if not devices:
         raise ValueError("a data mesh needs at least one device")
     return Mesh(devices=devices)
+
+
+def make_member_mesh(n_devices: int | None = None, devices=None) -> Mesh:
+    """The member mesh: the devices' mesh over the first ``n_devices`` of
+    ``devices`` (default: every visible card; raises without one), for
+    ``shard_member_axis``. A device named twice holds two blocks."""
+    if devices is None:
+        resolve_device("cuda")
+        devices = [torch.device("cuda", i)
+                   for i in range(torch.cuda.device_count())]
+    devices = [resolve_device(d) for d in devices]
+    if n_devices is not None:
+        devices = devices[:int(n_devices)]
+    if not devices:
+        raise ValueError("a member mesh needs at least one device")
+    return Mesh(devices=devices, axis=MEMBER_AXIS)
+
+
+def shard_member_axis(mesh: Mesh, state):
+    """An ensemble or sweep state (``training.ensemble.EnsembleState``)
+    in contiguous blocks of K/n members over the mesh's n devices: each
+    member moved to its block's device (one geometry a device) and the
+    state's ``blocks`` set, ``[(device, member indices)]``. K must be a
+    multiple of n."""
+    n = len(mesh.devices)
+    if not hasattr(state, "members"):
+        raise ValueError(f"{type(state).__name__} has no member axis to "
+                         "shard (an ensemble or sweep state)")
+    k = len(state.members)
+    if k % n:
+        raise ValueError(
+            f"a {k}-member state cannot shard over {n} devices: the member "
+            f"axis must be a multiple of the mesh size — pick K as a "
+            f"multiple of {n}, or a smaller mesh "
+            "(make_member_mesh(n_devices=...))")
+    per = k // n
+    members, geoms, blocks = list(state.members), {}, []
+    for b, dev in enumerate(mesh.devices):
+        ids = list(range(b * per, (b + 1) * per))
+        for i in ids:
+            members[i] = member_on(members[i], dev, geoms.get(str(dev)))
+            geoms[str(dev)] = members[i].model.geom
+        blocks.append((dev, ids))
+    return dataclasses.replace(state, members=members, blocks=blocks)
+
+
+def member_on(member, device, geom=None):
+    """An ensemble member (``training.ensemble.MemberState``) on
+    ``device``: itself where it lies there, else a copy of its model (on
+    ``geom``, where given, else its geometry moved), its head and its
+    optimizers' states, each optimizer made anew over the copy (on the
+    card ``capturable``)."""
+    if same_device(member.model.geom.device, device):
+        return member
+    model = replicate_model(member.model, device)
+    if geom is not None:
+        model.geom = geom
+    head = None if member.head is None \
+        else replicate_model(member.head, device)
+    return dataclasses.replace(
+        member, model=model, head=head,
+        optimizer=_optimizer_on(member.optimizer, model),
+        head_optimizer=None if member.head_optimizer is None
+        else _optimizer_on(member.head_optimizer, head))
+
+
+def _optimizer_on(optimizer, module):
+    """``coupled_adam`` over ``module``'s parameters with ``optimizer``'s
+    hyperparameters and state."""
+    from ..training.trainer import coupled_adam
+
+    group = optimizer.param_groups[0]
+    new = coupled_adam(module.parameters(), group["lr"],
+                       group["weight_decay"])
+    state = optimizer.state_dict()
+    for g in state["param_groups"]:
+        g["capturable"] = new.param_groups[0]["capturable"]
+    new.load_state_dict(state)
+    return new
 
 
 def shard_batch(mesh: Mesh, batch):

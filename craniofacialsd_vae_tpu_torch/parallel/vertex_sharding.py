@@ -57,7 +57,7 @@ from ..ops.sparse import PaddedRowSparse, capped_ell, ell_matmul
 from ..ops.spiral_conv import build_spiral_op, spiral_conv
 from ..training.losses import (kl_divergence_loss, latent_consistency_loss,
                                region_feature_mask)
-from ..training.trainer import LOSS_KEYS, _averages, _Steps
+from ..training.trainer import LOSS_KEYS, _epoch_over, _epochs_over, _Steps
 from .mesh import MeanReducer
 from .train_parallel import _columns
 
@@ -617,12 +617,13 @@ class VertexShardedModel:
                                      swap)
         evaluate = self.make_eval_step(params, weights, batch_size, swap)
         bodies = {
-            "train": lambda x, r, e, lab, cw: train(x.transpose(0, 1), r, e),
-            "eval": lambda x, r, e, lab, cw: evaluate(x.transpose(0, 1), r,
-                                                      e)}
+            "train": [lambda x, r, e, lab, cw: train(x.transpose(0, 1), r,
+                                                     e)],
+            "eval": [lambda x, r, e, lab, cw: evaluate(x.transpose(0, 1), r,
+                                                       e)]}
         return _Steps(self.mesh.device, batch_size,
                       batch_size ** 2 if swap else batch_size,
-                      self.config.latent_size, draws, bodies,
+                      self.config.latent_size, [draws], bodies,
                       StateGuard([params], [optimizer]),
                       eps_kinds=("train", "eval"))
 
@@ -652,19 +653,18 @@ class VertexShardedModel:
                            batch_size: int, swap: bool = True, *, draws):
         """A whole vertex-sharded epoch: ``epoch(data_x [D·S₀ or N, n, 3],
         idx [S, G], step_ids [S]) → metrics averaged over the S steps``
-        (G = data replicas × B; each replica keeps its columns). The
-        steps replay one captured graph on the card, the collectives
-        inside it; ``draws(step_id, rows)`` gives this replica's draws."""
+        (G = data replicas × B; each replica keeps its columns), the
+        trainer's ``_epoch_over`` at K = 1. The steps replay one captured
+        graph on the card, the collectives inside it; ``draws(step_id,
+        rows)`` gives this replica's draws."""
         steps = self._steps(params, weights, optimizer, batch_size, swap,
                             draws)
+        call = _epoch_over([([0], steps)])
         cache: dict = {}
 
         def epoch(data_x, idx, step_ids):
-            inputs = steps.upload("train", step_ids,
-                                  self._cols(idx, batch_size), None)
-            sums = steps.run("train", self._split(cache, data_x), inputs,
-                             None)
-            return _averages(sums.cpu().numpy(), int(np.shape(idx)[0]))
+            return call(self._split(cache, data_x),
+                        self._cols(idx, batch_size), step_ids)[0]
 
         epoch.steps = steps
         return epoch
@@ -674,30 +674,19 @@ class VertexShardedModel:
         """E vertex-sharded epochs, each followed by its validation steps:
         ``epochs_fn(train_x, val_x, tr_idx [E, St, G], tr_sid [E, St],
         va_idx [E, Sv, G], va_sid [E, Sv]) → (train metrics, validation
-        metrics)``, lists of E dicts."""
+        metrics)``, lists of E dicts (the trainer's ``_epochs_over`` at
+        K = 1)."""
         steps = self._steps(params, weights, optimizer, batch_size, swap,
                             draws)
+        call = _epochs_over([([0], steps)])
         caches: tuple = ({}, {})
 
         def epochs_fn(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid):
-            n_epochs, st = np.shape(tr_idx)[:2]
-            sv = np.shape(va_idx)[1]
-            tr = steps.upload("train", tr_sid, self._cols(tr_idx, batch_size),
-                              None)
-            va = steps.upload("eval", va_sid, self._cols(va_idx, batch_size),
-                              None)
-            tx = self._split(caches[0], train_x)
-            vx = self._split(caches[1], val_x)
-            out = torch.zeros((n_epochs, 2, len(LOSS_KEYS)),
-                              dtype=torch.float32, device=steps.device)
-            for e in range(n_epochs):
-                out[e, 0] = steps.run("train", tx, tuple(
-                    None if t is None else t[e] for t in tr), None)
-                out[e, 1] = steps.run("eval", vx, tuple(
-                    None if t is None else t[e] for t in va), None)
-            sums = out.cpu().numpy()
-            return ([_averages(sums[e, 0], st) for e in range(n_epochs)],
-                    [_averages(sums[e, 1], sv) for e in range(n_epochs)])
+            tr, va = call(self._split(caches[0], train_x),
+                          self._split(caches[1], val_x),
+                          self._cols(tr_idx, batch_size), tr_sid,
+                          self._cols(va_idx, batch_size), va_sid)
+            return tr[0], va[0]
 
         epochs_fn.steps = steps
         return epochs_fn

@@ -8,8 +8,11 @@
 Serves ``outputs/<id>/`` (a run dir of either package) on the card
 unless ``--device cpu``; ``--data_parallel`` replicates the model on
 every visible card and splits each request's bucket over them
-(``max_batch`` must be a multiple of the card count). An ensemble dir is
-refused: ensemble serving is not ported yet (ROADMAP 1.5).
+(``max_batch`` must be a multiple of the card count). An ensemble dir
+(one with an ``ensemble.json``, from either package's ensemble trainer)
+is served by ``EnsembleService``: ``/diagnose`` answers the members'
+consensus, ``/healthz`` the summed stats with ``n_members``, and every
+single-model endpoint 400 with a pointer to the member dirs.
 
 Endpoints (JSON in and out; vertices may also be posted as a raw ``.npy``
 body with ``Content-Type: application/octet-stream``):
@@ -58,7 +61,7 @@ def _json_default(o):
 
 def make_handler(service):
     """The request handler class over ``service`` (a
-    ``DiagnosisService``)."""
+    ``DiagnosisService`` or an ``EnsembleService``)."""
 
     class Handler(BaseHTTPRequestHandler):
         def log_message(self, fmt, *args):  # quiet; stats via /healthz
@@ -184,14 +187,21 @@ def main(argv=None):
     run_dir = args.run_dir or os.path.join(args.output_path, "outputs",
                                            args.id)
 
-    from .serving import DiagnosisService
+    from .serving import DiagnosisService, EnsembleService
 
-    service = DiagnosisService.from_run_dir(
-        run_dir, healthy_class=args.healthy_class, max_batch=args.max_batch,
-        warm=not args.no_warmup, device=args.device,
-        data_parallel=args.data_parallel)
-    if args.warm_fit:
-        service.warmup_fit()
+    kwargs = dict(healthy_class=args.healthy_class,
+                  max_batch=args.max_batch, warm=not args.no_warmup,
+                  device=args.device, data_parallel=args.data_parallel)
+    if os.path.exists(os.path.join(run_dir, "ensemble.json")):
+        service = EnsembleService.from_ensemble_dir(run_dir, **kwargs)
+        print(f"ensemble of {service.n_members} members", flush=True)
+        if args.warm_fit:
+            print("--warm_fit skipped: fit is a single-model request — "
+                  "serve a member run dir for the fit intake", flush=True)
+    else:
+        service = DiagnosisService.from_run_dir(run_dir, **kwargs)
+        if args.warm_fit:
+            service.warmup_fit()
     server = make_server(service, args.host, args.port)
     print(f"serving {run_dir} on http://{args.host}:{server.server_port} "
           f"({service.device}, {service.n_devices} device(s), buckets "

@@ -44,8 +44,13 @@ over the devices, each running its slice with its own replica (and on
 the card its own graphs, all launched before any is waited on; a device
 given only padding rows sits the request out); the fit
 splits its restarts over them (``analysis/fitting.py``). Saliency and
-posterior sampling run on the first device. Ensembles are not ported
-yet (ROADMAP 1.5).
+posterior sampling run on the first device.
+
+``EnsembleService`` serves a deep ensemble's run dir (``ensemble.json``
+and K member run dirs, written by either package's ensemble trainer):
+one ``DiagnosisService`` a member, and ``diagnose`` answers their
+consensus (``analysis.uncertainty.summarize_ensemble``); the
+single-model requests are refused with a pointer to the member dirs.
 """
 
 from __future__ import annotations
@@ -63,7 +68,8 @@ from .graphs import capture
 from .models import SDVAE, SDVAEConfig, SpiralGeometry
 
 __all__ = ["load_normalization", "run_normalization", "classes_from_split",
-           "build_raw_programs", "BundleModel", "DiagnosisService"]
+           "build_raw_programs", "BundleModel", "DiagnosisService",
+           "EnsembleService"]
 
 
 def load_normalization(precomputed_path: str) -> dict:
@@ -318,12 +324,13 @@ class DiagnosisService:
         from .utils import get_config
 
         config_path = os.path.join(run_dir, "config.yaml")
-        if not os.path.exists(config_path):
-            raise FileNotFoundError(f"no config snapshot at {config_path}")
         if os.path.exists(os.path.join(run_dir, "ensemble.json")):
             raise ValueError(
-                f"{run_dir} is an ensemble run dir: ensemble serving is not "
-                "ported yet (ROADMAP 1.5); serve a member run dir")
+                f"{run_dir} is an ensemble run dir: serve it with "
+                "EnsembleService.from_ensemble_dir, or serve a member run "
+                "dir")
+        if not os.path.exists(config_path):
+            raise FileNotFoundError(f"no config snapshot at {config_path}")
         config = get_config(config_path)
         precomp = config["data"]["precomputed_path"]
         if classes is None:
@@ -799,3 +806,118 @@ class DiagnosisService:
                 "buckets": self.buckets, "device": str(self.device),
                 "n_devices": self.n_devices,
                 "classes": dict(classes) if classes else None}
+
+
+class EnsembleService:
+    """Consensus diagnosis over a trained deep ensemble: one
+    ``DiagnosisService`` a member run dir, and ``diagnose`` answers the
+    cross-member consensus (``analysis.uncertainty.summarize_ensemble``:
+    majority label, member agreement, per-class posterior mean and std
+    over members, predictive entropy) with each member's own block. With
+    ``n_samples > 0`` each member also samples its own posterior.
+
+    Only the consensus surface exists: every single-model request
+    (encode, decode, reconstruct, saliency, fit, plan) raises with a
+    pointer to the member dirs, so ``serve.py`` serves an ensemble dir
+    with its own handler and those endpoints answer 400."""
+
+    #: single-model requests this service refuses
+    _MEMBER_ONLY = ("encode", "decode", "reconstruct", "saliency", "fit",
+                    "plan", "diagnose_latent", "diagnose_latents")
+
+    def __init__(self, services: list):
+        if not services:
+            raise ValueError("EnsembleService needs at least one member")
+        n = {s.model.geom.num_vertices for s in services}
+        cls_maps = [dict(s.manager._class2idx_dict or {}) for s in services]
+        if len(n) != 1 or any(c != cls_maps[0] for c in cls_maps):
+            raise ValueError(
+                "ensemble members disagree on template vertex count or "
+                f"class map (vertex counts {sorted(n)})")
+        self.services = list(services)
+
+    @classmethod
+    def from_ensemble_dir(cls, run_dir: str, **from_run_dir_kwargs
+                          ) -> "EnsembleService":
+        """Build from an ensemble trainer's output dir (its
+        ``ensemble.json``); the kwargs go to
+        ``DiagnosisService.from_run_dir`` for every member (``device=None``
+        serves on the card), and ``warm`` warms every member up once
+        they are all built."""
+        manifest_path = os.path.join(run_dir, "ensemble.json")
+        if not os.path.exists(manifest_path):
+            raise FileNotFoundError(
+                f"no {manifest_path} — not an ensemble run dir (train one "
+                "with train_ensemble)")
+        with open(manifest_path) as f:
+            manifest = json.load(f)
+        warm = from_run_dir_kwargs.pop("warm", False)
+        services = [DiagnosisService.from_run_dir(
+            os.path.join(run_dir, m["dir"]), **from_run_dir_kwargs)
+            for m in manifest["members"]]
+        svc = cls(services)
+        if warm:
+            svc.warmup()
+        return svc
+
+    @property
+    def n_members(self) -> int:
+        return len(self.services)
+
+    @property
+    def buckets(self):
+        return self.services[0].buckets
+
+    @property
+    def device(self):
+        return self.services[0].device
+
+    @property
+    def n_devices(self) -> int:
+        return self.services[0].n_devices
+
+    def warmup(self):
+        for s in self.services:
+            s.warmup()
+
+    def diagnose(self, vertices, model: str = "qda", n_samples: int = 0,
+                 seed: int = 0, include_members: bool = True):
+        """Raw scans → per-scan consensus reports (``summarize_ensemble``'s
+        fields) with each member's diagnosis block (its latent left out;
+        with ``n_samples > 0`` its posterior-sampling ``uncertainty``).
+        A single ``[N, 3]`` scan gives a single dict."""
+        from .analysis.uncertainty import summarize_ensemble
+
+        x, single = self.services[0]._as_batch(vertices)
+        member_reports = [svc.diagnose(x, model=model, n_samples=n_samples,
+                                       seed=seed)
+                          for svc in self.services]
+        consensus = summarize_ensemble(member_reports)
+        if include_members:
+            for i, row in enumerate(consensus):
+                row["members"] = [
+                    {k: v for k, v in member_reports[m][i].items()
+                     if k != "latent"}
+                    for m in range(self.n_members)]
+        return consensus[0] if single else consensus
+
+    def stats(self) -> dict:
+        """The first member's stats, the requests and meshes summed over
+        the members, and ``n_members``."""
+        per = [s.stats() for s in self.services]
+        out = dict(per[0])
+        out["requests"] = sum(p["requests"] for p in per)
+        out["meshes"] = sum(p["meshes"] for p in per)
+        out["n_members"] = self.n_members
+        return out
+
+    def __getattr__(self, name):
+        if name in type(self)._MEMBER_ONLY:
+            def refuse(*args, **kwargs):
+                raise ValueError(
+                    f"{name} is a single-model request — serve a member "
+                    "run dir (outputs/<id>/member_XX) for it; the "
+                    "ensemble endpoint answers /diagnose (consensus) "
+                    "and /healthz only")
+            return refuse
+        raise AttributeError(name)

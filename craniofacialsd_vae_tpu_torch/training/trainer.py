@@ -17,7 +17,12 @@ host the same step runs eagerly over the same static tensors. The
 step's draws come from a ``draws(step_id, rows) → (region, eps)``
 function, called on the host for a whole call's steps ahead and
 uploaded once. ``assemble_epoch_plans`` builds their arguments from the
-iterators, with the JAX package's step-id schedule.
+iterators, with the JAX package's step-id schedule. A replayer runs K
+models' steps a step (``_Steps.of_models``), one graph for all K on the
+card, each model's step exactly the one it replays alone: the scanned
+forms are the K = 1 case of one loop (``_epoch_over``, ``_epochs_over``)
+that also runs an ensemble's members or a sweep's variants
+(``training/ensemble.py``).
 
 With an MLP head (``models/mlp.py``) and a classification weight, the
 step adds the class-weighted cross entropy of the head's logits on the
@@ -41,7 +46,7 @@ from .losses import (kl_divergence_loss, laplacian_loss,
                      weighted_cross_entropy)
 
 __all__ = ["LOSS_KEYS", "LossWeights", "coupled_adam", "compute_losses",
-           "make_train_step", "make_eval_step", "run_steps",
+           "make_train_step", "make_eval_step", "run_steps", "step_draws",
            "assemble_epoch_plans", "make_scanned_train_step",
            "make_scanned_train_epochs"]
 
@@ -52,6 +57,23 @@ LOSS_KEYS = ["reconstruction", "kl", "latent_consistency", "laplacian",
 #: first makes the gradients and the optimizer state, the second runs the
 #: step in the form the graph records (gradients zeroed in place)
 WARMUP_STEPS = 2
+
+
+def step_draws(seed: int, step_id: int, rows: int, n_regions: int,
+               latent: int, rank: int = 0) -> tuple:
+    """Step ``step_id``'s swapped region (an int) and noise ``eps [rows,
+    latent]`` (on the host) for a run seeded ``seed``: drawn from a
+    generator seeded by (seed + 1, step id), and under data parallelism
+    the rank (rank 0 draws what a single-device run draws). The same
+    step draws the same on every device and after a resume."""
+    entropy = [seed + 1, step_id]
+    if rank:
+        entropy.append(rank)
+    seq = np.random.SeedSequence(entropy)
+    g = torch.Generator().manual_seed(int(seq.generate_state(1)[0]))
+    region = int(torch.randint(0, n_regions, (), generator=g))
+    eps = torch.randn((rows, latent), generator=g)
+    return region, eps
 
 
 def assemble_epoch_plans(train_iter, val_iter, n_epochs: int,
@@ -127,20 +149,24 @@ def coupled_adam(params, lr: float, weight_decay: float
 def compute_losses(model: SDVAE, weights: LossWeights, x_grid: torch.Tensor,
                    region_idx, batch_size: int, eps=None, generator=None,
                    training: bool = True, swap: bool = True, head=None,
-                   labels=None, class_weights=None):
+                   labels=None, class_weights=None, all_terms: bool = False):
     """The losses of one vertex-major grid ``[N, B², 3]`` (or ``[N, B, 3]``
     without the swap): ``(total, metrics)`` keyed by ``LOSS_KEYS``. The
     classification term needs ``head``, a positive weight and ``labels
-    [B]``."""
+    [B]``. ``all_terms`` computes every term the geometry, the swap and
+    the head admit, also where its weight is 0.0, as the JAX package does
+    for a sweep's traced weights: the term then adds exactly zero loss
+    and gradient, and its metric reads its unweighted value."""
     geom, config = model.geom, model.config
     out, z, mu, logvar = model(x_grid, generator=generator,
                                training=training, eps=eps)
     zero = out.new_zeros(())
     loss_recon = mse_loss(out, x_grid)
     loss_lap = laplacian_loss(geom.laplacian, out) \
-        if weights.laplacian > 0 else zero
+        if weights.laplacian > 0 \
+        or (all_terms and geom.laplacian is not None) else zero
     loss_kl = kl_divergence_loss(mu, logvar) if config.is_vae else zero
-    if swap and weights.latent_consistency > 0:
+    if swap and (weights.latent_consistency > 0 or all_terms):
         fmask = region_feature_mask(config.latent_size,
                                     geom.region_masks.shape[0], region_idx,
                                     device=z.device)
@@ -149,7 +175,7 @@ def compute_losses(model: SDVAE, weights: LossWeights, x_grid: torch.Tensor,
     else:
         loss_cons = zero
     loss_class, acc_class = zero, zero
-    if head is not None and weights.classification > 0 \
+    if head is not None and (weights.classification > 0 or all_terms) \
             and labels is not None:
         if swap:
             diag = (batch_size + 1) * torch.arange(batch_size,
@@ -206,7 +232,7 @@ def _grid(model: SDVAE, x, batch_size: int, swap: bool, region_idx,
 def make_train_step(model: SDVAE, weights: LossWeights,
                     optimizer: torch.optim.Optimizer, batch_size: int,
                     swap: bool = True, head=None, head_optimizer=None,
-                    reduce=None):
+                    reduce=None, all_terms: bool = False):
     """The train step ``step(x [B, N, 3], region_idx=None, eps=None,
     generator=None, labels=None, class_weights=None) → metrics`` (0-d
     tensors on the device, keyed by ``LOSS_KEYS``). The swapped region and
@@ -219,7 +245,8 @@ def make_train_step(model: SDVAE, weights: LossWeights,
     ``reduce(tensors)``, where given, averages the gradients and the
     metrics in place across data-parallel replicas between the backward
     and the updates (the JAX step's ``pmean`` under ``axis_name``;
-    ``parallel/train_parallel.py``)."""
+    ``parallel/train_parallel.py``). ``all_terms`` as ``compute_losses``
+    takes it."""
     _check(model, weights, swap, head)
     train_head = (head is not None and head_optimizer is not None
                   and weights.classification > 0)
@@ -235,7 +262,8 @@ def make_train_step(model: SDVAE, weights: LossWeights,
                                        batch_size, eps=eps,
                                        generator=generator, training=True,
                                        swap=swap, head=head, labels=labels,
-                                       class_weights=class_weights)
+                                       class_weights=class_weights,
+                                       all_terms=all_terms)
         loss.backward()
         if train_head:
             for p in head.parameters():
@@ -264,7 +292,8 @@ def _reduced(reduce, tensors: list, metrics: dict) -> dict:
 
 
 def make_eval_step(model: SDVAE, weights: LossWeights, batch_size: int,
-                   swap: bool = True, head=None, reduce=None):
+                   swap: bool = True, head=None, reduce=None,
+                   all_terms: bool = False):
     """Validation: the same losses, no update, ``z = mu``:
     ``step(x [B, N, 3], region_idx=None, generator=None, labels=None,
     class_weights=None) → metrics``, averaged across replicas by
@@ -279,7 +308,8 @@ def make_eval_step(model: SDVAE, weights: LossWeights, batch_size: int,
             _, metrics = compute_losses(model, weights, x_grid, region,
                                         batch_size, training=False,
                                         swap=swap, head=head, labels=labels,
-                                        class_weights=class_weights)
+                                        class_weights=class_weights,
+                                        all_terms=all_terms)
         if reduce is not None:
             metrics = _reduced(reduce, [], metrics)
         return metrics
@@ -306,27 +336,36 @@ def run_steps(step, data: torch.Tensor, idx, region_idx=None, eps=None,
 
 
 class _Replayed:
-    """One step replayed over a call's steps: static inputs (the split,
-    the batch's row indices, the region as a 0-d int64 tensor, ``eps``
-    and the labels), a device tensor summing the metrics, and on the card
-    the step's CUDA graph, captured at the first call. ``body(x, region,
-    eps, labels, class_weights) → metrics`` is the eager step."""
+    """K steps replayed as one over a call's steps: static inputs (the
+    split, the batch's row indices and labels, which every body reads,
+    and for each draws stream its region as a 0-d int64 tensor and its
+    ``eps``), a device tensor summing each body's metrics ``[K,
+    len(LOSS_KEYS)]``, and on the card one CUDA graph of the K steps,
+    captured at the first call. ``bodies[i](x, region, eps, labels,
+    class_weights) → metrics`` is body i's eager step, and it reads the
+    draws of stream ``streams[i]``. Body i runs exactly the ops it runs
+    alone, so each body's updates are those of its own replayer."""
 
-    def __init__(self, body, device, batch_size: int, eps_shape,
+    def __init__(self, bodies, streams, device, batch_size: int, eps_shape,
                  with_labels: bool, guard: StateGuard | None, pool):
-        self.body = body
+        self.bodies = list(bodies)
+        self.streams = list(streams)
         self.device = device
         self.guard = guard
         self.pool = pool
+        n_streams = max(self.streams) + 1
         self.idx = torch.zeros(batch_size, dtype=torch.long, device=device)
-        self.region = torch.zeros((), dtype=torch.long, device=device)
+        self.regions = [torch.zeros((), dtype=torch.long, device=device)
+                        for _ in range(n_streams)]
         self.eps = None if eps_shape is None else \
-            torch.zeros(eps_shape, dtype=torch.float32, device=device)
+            [torch.zeros(eps_shape, dtype=torch.float32, device=device)
+             for _ in range(n_streams)]
         self.labels = torch.zeros(batch_size, dtype=torch.long,
                                   device=device) if with_labels else None
         self.class_weights = None
-        self.sums = torch.zeros(len(LOSS_KEYS), dtype=torch.float32,
-                                device=device)
+        self.sums = torch.zeros((len(self.bodies), len(LOSS_KEYS)),
+                                dtype=torch.float32, device=device)
+        self._rows = list(self.sums.unbind(0))
         self.data = None
         self._owned = False
         self.graph = None
@@ -362,24 +401,29 @@ class _Replayed:
 
     def _step(self) -> None:
         x = self.data.index_select(0, self.idx)
-        m = self.body(x, self.region, self.eps, self.labels,
-                      self.class_weights)
-        self.sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+        for body, s, row in zip(self.bodies, self.streams, self._rows):
+            m = body(x, self.regions[s],
+                     None if self.eps is None else self.eps[s], self.labels,
+                     self.class_weights)
+            row += torch.stack([m[k].float() for k in LOSS_KEYS])
 
     def _load(self, t: int, idx, region, eps, labels) -> None:
         self.idx.copy_(idx[t])
-        self.region.copy_(region[t])
+        for s, r in enumerate(self.regions):
+            r.copy_(region[t, s])
         if self.eps is not None:
-            self.eps.copy_(eps[t])
+            for s, e in enumerate(self.eps):
+                e.copy_(eps[t, s])
         if self.labels is not None:
             self.labels.copy_(labels[t])
 
     def run(self, data, idx, region, eps, labels, class_weights
             ) -> torch.Tensor:
-        """Steps ``t`` over ``idx [S, B]``, ``region [S]``, ``eps [S, ...]``
-        and ``labels [S, B]`` (on the device); returns the metrics summed
-        over them ``[len(LOSS_KEYS)]`` (the static tensor: copy it before
-        the next call)."""
+        """Steps ``t`` over ``idx [S, B]``, ``region [S, D]``, ``eps [S, D,
+        ...]`` (D draws streams) and ``labels [S, B]`` (on the device);
+        returns each body's metrics summed over them ``[K,
+        len(LOSS_KEYS)]`` (the static tensor: copy it before the next
+        call)."""
         self._bind(data, class_weights)
         steps = idx.shape[0]
         if steps and self.device.type == "cuda" and self.graph is None:
@@ -396,20 +440,22 @@ class _Replayed:
         return self.sums
 
 
-def _upload(draws, rows: int, step_ids, idx, labels, device,
+def _upload(draws: list, rows: int, step_ids, idx, labels, device,
             with_eps: bool) -> tuple:
     """A call's per-step inputs on the device: the batch indices, the
-    labels and the draws of every step id (made on the host ahead), each
-    through pinned memory on the card."""
+    labels and, for each draws stream, the draws of every step id (made
+    on the host ahead; ``region [..., D]``, ``eps [..., D, rows, Z]``),
+    each through pinned memory on the card."""
+    shape = np.shape(step_ids)
     sids = np.asarray(step_ids).reshape(-1)
-    made = [draws(int(s), rows) for s in sids]
-    region = torch.tensor([int(r) for r, _ in made], dtype=torch.long)
-    eps = torch.stack([torch.as_tensor(e, dtype=torch.float32).cpu()
-                       for _, e in made]) if with_eps and made else None
-    host = [torch.as_tensor(np.asarray(idx), dtype=torch.long),
-            region.reshape(np.shape(step_ids)),
-            None if eps is None else eps.reshape(
-                *np.shape(step_ids), *eps.shape[1:]),
+    made = [[d(int(s), rows) for d in draws] for s in sids]
+    region = torch.tensor([[int(r) for r, _ in m] for m in made],
+                          dtype=torch.long).reshape(*shape, len(draws))
+    eps = torch.stack([torch.stack([torch.as_tensor(
+        e, dtype=torch.float32).cpu() for _, e in m]) for m in made]) \
+        if with_eps and made else None
+    host = [torch.as_tensor(np.asarray(idx), dtype=torch.long), region,
+            None if eps is None else eps.reshape(*shape, *eps.shape[1:]),
             None if labels is None
             else torch.as_tensor(np.asarray(labels), dtype=torch.long)]
     if device.type != "cuda":
@@ -421,46 +467,63 @@ def _upload(draws, rows: int, step_ids, idx, labels, device,
 class _Steps:
     """What the scanned callables share: the train and validation steps'
     replayers by (kind, labels or not), their graph pool on the card, and
-    the model's state that a capture's warm-up must leave as it found."""
+    the models' state that a capture's warm-up must leave as it found.
+
+    A replayer runs K bodies a step (K models: an ensemble's members or a
+    sweep's variants; one for a single model), in one graph on the card.
+    ``bodies`` maps each kind to its K bodies; ``draws`` lists one
+    ``draws(step_id, rows) → (region, eps)`` that every body reads, or
+    one per body."""
 
     def __init__(self, device, batch_size: int, rows: int, latent: int,
-                 draws, bodies: dict, guard: StateGuard,
+                 draws: list, bodies: dict, guard: StateGuard,
                  eps_kinds: tuple = ("train",)):
         self.device = device
         self.batch_size = batch_size
         self.rows = rows
         self.latent = latent
-        self.draws = draws
-        # kind → body(x [B, ...], region, eps, labels, class_weights); the
-        # kinds in ``eps_kinds`` get their steps' noise
-        self.bodies = bodies
+        self.bodies = {k: list(b) for k, b in bodies.items()}
+        n_bodies = {len(b) for b in self.bodies.values()}
+        self.draws = list(draws)
+        if len(n_bodies) != 1 or len(self.draws) not in (1, *n_bodies):
+            raise ValueError(f"{sorted(n_bodies)} bodies a kind and "
+                             f"{len(self.draws)} draws streams do not pair")
+        self.streams = [i if len(self.draws) > 1 else 0
+                        for i in range(n_bodies.pop())]
+        # the kinds in ``eps_kinds`` get their steps' noise
         self.eps_kinds = tuple(eps_kinds)
         self.guard = guard
         self.pool = None
         self.runners: dict = {}
 
     @classmethod
-    def of_model(cls, model, weights, optimizer, batch_size, swap, head,
-                 head_optimizer, draws, reduce=None) -> "_Steps":
-        """The train and eval steps of ``model`` (``make_train_step``'s,
-        ``make_eval_step``'s)."""
-        train = make_train_step(model, weights, optimizer, batch_size,
-                                swap=swap, head=head,
-                                head_optimizer=head_optimizer, reduce=reduce)
-        evaluate = make_eval_step(model, weights, batch_size, swap=swap,
-                                  head=head, reduce=reduce)
-        bodies = {
-            "train": lambda x, r, e, lab, cw: train(
-                x, region_idx=r, eps=e, labels=lab, class_weights=cw),
-            "eval": lambda x, r, e, lab, cw: evaluate(
-                x, region_idx=r, labels=lab, class_weights=cw)}
-        modules = [model] + ([head] if head is not None else [])
-        optimizers = [optimizer] + ([head_optimizer]
-                                    if head_optimizer is not None else [])
+    def of_models(cls, models, weights, optimizers, batch_size, swap,
+                  heads, head_optimizers, draws, reduce=None,
+                  all_terms: bool = False) -> "_Steps":
+        """The train and eval steps (``make_train_step``'s,
+        ``make_eval_step``'s) of K models, each with its own loss weights,
+        optimizer and head (lists of K), in one replayer a kind."""
+        train, evaluate = [], []
+        for m, w, opt, h, h_opt in zip(models, weights, optimizers, heads,
+                                       head_optimizers):
+            t = make_train_step(m, w, opt, batch_size, swap=swap, head=h,
+                                head_optimizer=h_opt, reduce=reduce,
+                                all_terms=all_terms)
+            e = make_eval_step(m, w, batch_size, swap=swap, head=h,
+                               reduce=reduce, all_terms=all_terms)
+            train.append(lambda x, r, eps, lab, cw, t=t: t(
+                x, region_idx=r, eps=eps, labels=lab, class_weights=cw))
+            evaluate.append(lambda x, r, eps, lab, cw, e=e: e(
+                x, region_idx=r, labels=lab, class_weights=cw))
+        modules = list(models) + [h for h in heads if h is not None]
+        opts = list(optimizers) + [o for o in head_optimizers
+                                   if o is not None]
+        model = models[0]
         return cls(model.geom.device, batch_size,
                    batch_size ** 2 if swap else batch_size,
-                   model.config.latent_size, draws, bodies,
-                   StateGuard(modules, optimizers))
+                   model.config.latent_size, draws,
+                   {"train": train, "eval": evaluate},
+                   StateGuard(modules, opts))
 
     def runner(self, kind: str, with_labels: bool) -> _Replayed:
         key = (kind, with_labels)
@@ -469,7 +532,8 @@ class _Steps:
                 self.pool = torch.cuda.graph_pool_handle()
             train = kind == "train"
             self.runners[key] = _Replayed(
-                self.bodies[kind], self.device, self.batch_size,
+                self.bodies[kind], self.streams, self.device,
+                self.batch_size,
                 (self.rows, self.latent) if kind in self.eps_kinds
                 else None, with_labels, self.guard if train else None,
                 self.pool)
@@ -484,8 +548,8 @@ class _Steps:
     def run(self, kind: str, data, inputs: tuple, class_weights
             ) -> torch.Tensor:
         """One run of ``kind`` steps over uploaded ``inputs`` (``upload``'s,
-        leading dim S); the metrics summed over them (the runner's static
-        tensor)."""
+        leading dim S); each body's metrics summed over them (the
+        runner's static tensor, ``[K, len(LOSS_KEYS)]``)."""
         idx, region, eps, labels = inputs
         return self.runner(kind, labels is not None).run(
             data, idx, region, eps, labels, class_weights)
@@ -500,6 +564,81 @@ def _averages(sums: np.ndarray, steps: int) -> dict:
             for i, k in enumerate(LOSS_KEYS)}
 
 
+def _epoch_over(blocks: list):
+    """An epoch of train steps over ``blocks``, ``[(body indices,
+    _Steps)]`` holding K bodies in all (one block for a single model or
+    an unsharded ensemble; one a device over a member mesh):
+    ``epoch(data_x [n, N, 3], idx [S, B], step_ids [S], labels [S, B] |
+    None, class_weights) → [K]`` dicts of floats, each body's metrics
+    averaged over the S steps. ``epoch.steps`` lists the blocks'
+    ``_Steps``."""
+    k = sum(len(ids) for ids, _ in blocks)
+
+    def epoch(data_x, idx, step_ids, labels=None, class_weights=None):
+        runs = []
+        for ids, steps in blocks:
+            inputs = steps.upload("train", step_ids, idx, labels)
+            runs.append((ids, steps.run("train", data_x, inputs,
+                                        class_weights)))
+        out = [None] * k
+        for ids, sums in runs:
+            sums = sums.cpu().numpy()
+            for j, i in enumerate(ids):
+                out[i] = _averages(sums[j], int(np.shape(idx)[0]))
+        return out
+
+    epoch.steps = [steps for _, steps in blocks]
+    return epoch
+
+
+def _epochs_over(blocks: list):
+    """E epochs of train steps, each followed by its validation steps,
+    over ``blocks`` as ``_epoch_over`` takes them: ``epochs_fn(train_x,
+    val_x, tr_idx [E, St, B], tr_sid [E, St], va_idx [E, Sv, B], va_sid
+    [E, Sv], tr_labels [E, St, B] | None, va_labels [E, Sv, B] | None,
+    class_weights) → (train metrics, validation metrics)``, each ``[K][E]``
+    dicts of floats (the averages of each epoch's steps). Every block's
+    steps are queued an epoch at a time, the per-epoch sums gathered on
+    the device and read once a call."""
+    k = sum(len(ids) for ids, _ in blocks)
+
+    def epochs_fn(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid,
+                  tr_labels=None, va_labels=None, class_weights=None):
+        n_epochs, st = np.shape(tr_idx)[:2]
+        sv = np.shape(va_idx)[1]
+        runs = []
+        for ids, steps in blocks:
+            tr = steps.upload("train", tr_sid, tr_idx, tr_labels)
+            va = steps.upload("eval", va_sid, va_idx, va_labels)
+            out = torch.zeros((n_epochs, 2, len(ids), len(LOSS_KEYS)),
+                              dtype=torch.float32, device=steps.device)
+            runs.append((ids, steps, tr, va, out))
+        for e in range(n_epochs):
+            for _, steps, tr, va, out in runs:
+                out[e, 0] = steps.run("train", train_x, _at(tr, e),
+                                      class_weights)
+                out[e, 1] = steps.run("eval", val_x, _at(va, e),
+                                      class_weights)
+        train_m, val_m = [None] * k, [None] * k
+        for ids, _, _, _, out in runs:
+            sums = out.cpu().numpy()
+            for j, i in enumerate(ids):
+                train_m[i] = [_averages(sums[e, 0, j], st)
+                              for e in range(n_epochs)]
+                val_m[i] = [_averages(sums[e, 1, j], sv)
+                            for e in range(n_epochs)]
+        return train_m, val_m
+
+    epochs_fn.steps = [steps for _, steps in blocks]
+    return epochs_fn
+
+
+def _model_steps(model, weights, optimizer, batch_size, swap, head,
+                 head_optimizer, draws, reduce) -> _Steps:
+    return _Steps.of_models([model], [weights], [optimizer], batch_size,
+                            swap, [head], [head_optimizer], [draws], reduce)
+
+
 def make_scanned_train_step(model: SDVAE, weights: LossWeights,
                             optimizer: torch.optim.Optimizer,
                             batch_size: int, swap: bool = True, head=None,
@@ -510,16 +649,16 @@ def make_scanned_train_step(model: SDVAE, weights: LossWeights,
     ``make_scanned_train_step`` less the state, the geometry and the key,
     which the model and ``draws(step_id, rows) → (region, eps [rows, Z])``
     hold. Update for update the eager step's: on the card each step is a
-    replay of the step's CUDA graph; the metrics are read once.
-    ``epoch.steps.runners`` holds the replayers (and their graphs).
-    ``reduce`` as ``make_train_step`` takes it (inside the graph)."""
-    steps = _Steps.of_model(model, weights, optimizer, batch_size, swap,
-                            head, head_optimizer, draws, reduce)
+    replay of the step's CUDA graph; the metrics are read once. It is
+    ``_epoch_over`` at K = 1. ``epoch.steps.runners`` holds the replayers
+    (and their graphs). ``reduce`` as ``make_train_step`` takes it
+    (inside the graph)."""
+    steps = _model_steps(model, weights, optimizer, batch_size, swap, head,
+                         head_optimizer, draws, reduce)
+    call = _epoch_over([([0], steps)])
 
     def epoch(data_x, idx, step_ids, labels=None, class_weights=None):
-        inputs = steps.upload("train", step_ids, idx, labels)
-        sums = steps.run("train", data_x, inputs, class_weights)
-        return _averages(sums.cpu().numpy(), int(np.shape(idx)[0]))
+        return call(data_x, idx, step_ids, labels, class_weights)[0]
 
     epoch.steps = steps
     return epoch
@@ -537,26 +676,17 @@ def make_scanned_train_epochs(model: SDVAE, weights: LossWeights,
     epoch's steps), the JAX ``make_scanned_train_epochs`` less the state,
     the geometry and the key. The train and validation steps each replay
     their own graph on the card; the per-epoch sums are gathered on the
-    device and read once a call. ``reduce`` as ``make_train_step`` takes
-    it."""
-    steps = _Steps.of_model(model, weights, optimizer, batch_size, swap,
-                            head, head_optimizer, draws, reduce)
+    device and read once a call. It is ``_epochs_over`` at K = 1.
+    ``reduce`` as ``make_train_step`` takes it."""
+    steps = _model_steps(model, weights, optimizer, batch_size, swap, head,
+                         head_optimizer, draws, reduce)
+    call = _epochs_over([([0], steps)])
 
     def epochs_fn(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid,
                   tr_labels=None, va_labels=None, class_weights=None):
-        n_epochs, st = np.shape(tr_idx)[:2]
-        sv = np.shape(va_idx)[1]
-        tr = steps.upload("train", tr_sid, tr_idx, tr_labels)
-        va = steps.upload("eval", va_sid, va_idx, va_labels)
-        out = torch.zeros((n_epochs, 2, len(LOSS_KEYS)), dtype=torch.float32,
-                          device=steps.device)
-        for e in range(n_epochs):
-            out[e, 0] = steps.run("train", train_x, _at(tr, e),
-                                  class_weights)
-            out[e, 1] = steps.run("eval", val_x, _at(va, e), class_weights)
-        sums = out.cpu().numpy()
-        return ([_averages(sums[e, 0], st) for e in range(n_epochs)],
-                [_averages(sums[e, 1], sv) for e in range(n_epochs)])
+        tr, va = call(train_x, val_x, tr_idx, tr_sid, va_idx, va_sid,
+                      tr_labels, va_labels, class_weights)
+        return tr[0], va[0]
 
     epochs_fn.steps = steps
     return epochs_fn

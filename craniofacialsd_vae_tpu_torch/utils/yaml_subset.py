@@ -14,9 +14,10 @@ being read differently from PyYAML.
 
 from __future__ import annotations
 
+import json
 import re
 
-__all__ = ["safe_load"]
+__all__ = ["safe_load", "safe_dump"]
 
 _BOOL = re.compile(r"^(?:yes|Yes|YES|no|No|NO|true|True|TRUE|false|False|FALSE"
                    r"|on|On|ON|off|Off|OFF)$")
@@ -379,3 +380,51 @@ def safe_load(text: str):
         raise ValueError(f"line {lines[i][2]}: unexpected content "
                          f"{lines[i][1]!r}")
     return value
+
+
+_PLAIN_KEY = re.compile(r"^[A-Za-z_][A-Za-z0-9_]*$")
+
+
+def _dump_scalar(v) -> str:
+    if v is None:
+        return "null"
+    if isinstance(v, bool):
+        return "true" if v else "false"
+    if isinstance(v, int):
+        return str(v)
+    if isinstance(v, float):
+        if v != v:
+            return ".nan"
+        if v in (float("inf"), float("-inf")):
+            return ".inf" if v > 0 else "-.inf"
+        text = repr(v)
+        # YAML 1.1 reads a float only with a dot in it
+        return text.replace("e", ".0e") if "." not in text else text
+    if isinstance(v, str):
+        return json.dumps(v)
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_dump_scalar(x) for x in v) + "]"
+    raise ValueError(f"cannot write {type(v).__name__} {v!r} as YAML")
+
+
+def safe_dump(data: dict) -> str:
+    """A mapping of mappings, lists and scalars (None, bool, int, float,
+    str) as block YAML that ``safe_load`` here and PyYAML's read back as
+    the same values: strings double-quoted, lists in flow style, floats
+    with a dot."""
+    lines = []
+
+    def mapping(d: dict, indent: int) -> None:
+        for k, v in d.items():
+            key = k if isinstance(k, str) and _PLAIN_KEY.match(k) \
+                and resolve_plain(k) == k else json.dumps(str(k))
+            if isinstance(v, dict) and v:
+                lines.append(" " * indent + f"{key}:")
+                mapping(v, indent + 2)
+            else:
+                lines.append(" " * indent + f"{key}: "
+                             + ("{}" if isinstance(v, dict)
+                                else _dump_scalar(v)))
+
+    mapping(data, 0)
+    return "\n".join(lines) + "\n"

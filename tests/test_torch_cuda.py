@@ -2049,6 +2049,113 @@ def test_step_graph_replay_equals_eager_step(policy, head):
         assert torch.equal(a, b)
 
 
+def test_ensemble_step_graph_equals_eager_and_solo_replays():
+    """A K = 2 ensemble's scanned epoch (one CUDA graph of both members'
+    train steps, each member with its own draws) against the members'
+    eager steps and against two solo scanned epochs (a graph each), from
+    the same states, batches and draws: parameters, Adam states and
+    metrics bit-equal; the ensemble's capture recorded the two solo
+    captures' launches, kernel for kernel."""
+    from craniofacialsd_vae_tpu_torch.training import make_scanned_train_step
+    from craniofacialsd_vae_tpu_torch.training.ensemble import (
+        EnsembleState, MemberState, make_ensemble_scanned_step)
+
+    dev = _card()
+    steps, batch = 4, 2
+    results = {}
+    for how in ("ensemble", "eager", "solo"):
+        members = [_graph_setup(dev, "float32", False, seed=s)
+                   for s in (0, 1)]
+        data, idx, draws, _ = _graph_inputs(members[0][5], steps, batch,
+                                            False)
+        own = [draws, {s: (r, -e) for s, (r, e) in draws.items()}]
+        fns = [lambda s, rows, d=d: d[s] for d in own]
+        data_d = torch.as_tensor(data, device=dev)
+        sids = np.arange(1, steps + 1)
+        weights = members[0][4]
+        if how == "ensemble":
+            state = EnsembleState([MemberState(m[0], m[1]) for m in members])
+            epoch = make_ensemble_scanned_step(state, weights, batch,
+                                               draws=fns)
+            got = epoch(data_d, idx, sids)
+            runner = epoch.steps[0].runners[("train", False)]
+            launches = runner.graph.launches
+        elif how == "solo":
+            got, launches = [], {}
+            for (model, opt, *_), fn in zip(members, fns):
+                solo = make_scanned_train_step(model, weights, opt, batch,
+                                               draws=fn)
+                got.append(solo(data_d, idx, sids))
+                g = solo.steps.runners[("train", False)].graph
+                for k, v in g.launches.items():
+                    launches[k] = launches.get(k, 0) + v
+        else:
+            got, launches = [], None
+            for (model, opt, *_), d in zip(members, own):
+                step = make_train_step(model, weights, opt, batch)
+                sums = torch.zeros(len(LOSS_KEYS), device=dev)
+                for t in range(steps):
+                    region, eps = d[t + 1]
+                    m = step(data_d.index_select(
+                        0, torch.as_tensor(idx[t], device=dev)),
+                        region_idx=torch.tensor(region, device=dev),
+                        eps=eps.to(dev))
+                    sums += torch.stack([m[k].float() for k in LOSS_KEYS])
+                got.append({k: float(v) / steps
+                            for k, v in zip(LOSS_KEYS, sums.cpu())})
+        torch.cuda.synchronize()
+        results[how] = (got, [_all_state(m[0], m[1]) for m in members],
+                        launches)
+    base_m, base_s, base_l = results["ensemble"]
+    assert base_l == results["solo"][2]
+    assert base_m[0] != base_m[1]
+    for how in ("eager", "solo"):
+        got_m, got_s, _ = results[how]
+        assert got_m == base_m, how
+        for a, b in zip(got_s, base_s):
+            assert len(a) == len(b)
+            for x, y in zip(a, b):
+                assert torch.equal(x, y), how
+
+
+def test_member_mesh_moves_members_to_the_card():
+    """An ensemble made on the host and sharded over the card named twice
+    (``parallel.shard_member_axis``): each member moved to the card (its
+    model, geometry and a capturable Adam), a graph a block; its epoch
+    bit-equal to the same ensemble made on the card and sharded alike."""
+    from craniofacialsd_vae_tpu_torch import parallel
+    from craniofacialsd_vae_tpu_torch.training.ensemble import (
+        EnsembleState, MemberState, make_ensemble_scanned_step)
+
+    dev = _card()
+    mesh = parallel.make_member_mesh(devices=["cuda", "cuda"])
+    runs = []
+    for where in (torch.device("cpu"), dev):
+        members = [_graph_setup(where, "float32", False, seed=s)
+                   for s in (0, 1)]
+        state = parallel.shard_member_axis(mesh, EnsembleState(
+            [MemberState(m[0], m[1]) for m in members]))
+        for m in state.members:
+            assert m.model.geom.device.type == "cuda"
+            assert m.optimizer.param_groups[0]["capturable"]
+        data, idx, draws, _ = _graph_inputs(members[0][5], 4, 2, False)
+        epoch = make_ensemble_scanned_step(
+            state, members[0][4], 2, draws=[lambda s, rows: draws[s]] * 2)
+        got = epoch(torch.as_tensor(data, device=dev), idx,
+                    np.arange(1, 5))
+        assert len(epoch.steps) == 2 and all(
+            st.runners[("train", False)].graph is not None
+            for st in epoch.steps)
+        torch.cuda.synchronize()
+        runs.append((got, [_all_state(m.model, m.optimizer)
+                           for m in state.members]))
+    (m_a, s_a), (m_b, s_b) = runs
+    assert m_a == m_b
+    for a, b in zip(s_a, s_b):
+        for x, y in zip(a, b):
+            assert torch.equal(x, y)
+
+
 def test_step_graph_binds_the_split():
     """After the capture, a device split is read where it lies (another
     tensor raises: the graph reads the first at its address), and a host
