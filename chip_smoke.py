@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, diagnosis,
-augmentation, evaluation, parallel and ensemble paths on one NVIDIA
-card.
+augmentation, evaluation, parallel, ensemble and export paths on one
+NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -296,7 +296,29 @@ them or outside a checkout. Phases, each of which raises on a fault:
    phase's and the script's seconds; the phase fails past ENS_PHASE_S.
    The records of (a), (b) and (d) are ``train_entry``'s (the same
    model, grid and workspace) with this phase's launches, those of (c)
-   its own.
+   its own;
+15. export (``export.py``, the serving kernels as the custom ops of
+   ``ops/library.py``), after phase 14, on phase 7's (fp32) and phase
+   8's (mixed) run dirs: (a) ``export_run_dir`` on the card at buckets
+   EXPORT_BUCKETS, its seconds by program and its artifacts' MB; (b) the
+   artifact dir copied away, the run dir renamed aside, the copy loaded
+   (``load_exported``) and ``encode``, ``decode`` and ``reconstruct``
+   answered at B = 1, 16 and 17 (16 + 1), then the run dir restored;
+   (c) those answers against the live ``DiagnosisService.from_run_dir``
+   within EXPORT_RTOL and EXPORT_ATOL (error_mm EXPORT_ERR_ATOL_MM), the
+   largest difference and whether they are bit-equal printed; (d) the
+   launches of one exported ``reconstruct`` at bucket 16 (path
+   ``export``, ``mixed_export``) equal, kernel for kernel, to one eager
+   call of the live program at that bucket, each of the program's
+   kernels (EXPORT_PROGRAM_KERNELS, and the mixed final conv's K3b or
+   K3a) launched, and equal to what one encode and one decode at 16
+   account for, each kernel held at those shapes against its twin; the
+   reconstruct p50 at B = 16 exported, live graph and live eager; (e) on
+   the host, ``convert_torch_checkpoint --reverse`` of the fp32 run's
+   checkpoint and forward again (parameters and Adam state equal) and
+   ``make_synthetic_dataset --n SYNTH_MESHES`` (its OBJs parsed); one
+   ``{"phase": "export", ...}`` line with the phase's and the script's
+   seconds; the phase fails past EXPORT_PHASE_S.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
@@ -307,8 +329,8 @@ The kernels' record holds one entry per kernel and path (``serving``,
 ``mixed_entry_traversals``, ``diagnosis``, ``mixed_diagnosis``,
 ``augmentation``, ``evaluation``, ``parallel_training``,
 ``parallel_entry``, ``parallel_serving``, ``vertex_sharded``,
-``ensembles``, ``sweep``, ``ensemble_serving``, ``ensembles_sharded``),
-each
+``ensembles``, ``sweep``, ``ensemble_serving``, ``ensembles_sharded``,
+``export``, ``mixed_export``), each
 timed over the shapes of that
 path's launches (on the traversal, diagnosis and evaluation paths each
 distinct shape once; every shape carries its launches). Its
@@ -6715,6 +6737,257 @@ def phase_ensembles(torch, mods, root: str, cfg_path: str, by_path: dict,
     return {"line": line, "records": records}
 
 
+# both at 1 and 16: the live service answers B = 1 at bucket 1, and a bf16
+# program's sums depend on its batch's plan
+EXPORT_BUCKETS = {"fp32": (1, BATCH), "mixed": (1, BATCH)}
+EXPORT_SIZES = (1, BATCH, BATCH + 1)   # (b)'s requests: 17 runs as 16 + 1
+EXPORT_RTOL = 1e-5              # exported vs live service (JAX's limits,
+EXPORT_ATOL = 1e-6              # tests/test_serving.py:1016-1033), and
+EXPORT_ERR_ATOL_MM = 1e-5       # error_mm's
+EXPORT_PROGRAM_KERNELS = {      # (d): kernels the program must launch
+    "fp32": ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd"),
+    "mixed": ("spiral_conv_bf16", "ell_matmul_bf16")}
+SYNTH_MESHES = 10               # (e): make_synthetic_dataset --n
+SYNTH_VERTICES = 1026           # its default template: octasphere sub. 4
+EXPORT_PHASE_S = 90.0           # the phase's budget
+
+
+def export_answers(model, x: np.ndarray, z: np.ndarray) -> dict:
+    """An exported model's (or the live service's) encode, decode and
+    reconstruct of the same rows."""
+    rec = model.reconstruct(x)
+    if "vertices" in rec:                   # the live service's keys
+        rec = {"recon": rec["vertices"], "error_mm":
+               rec["vertex_errors_mm"], "mu": rec["latent"]}
+    return {"mu": model.encode(x), "decoded": model.decode(z), **rec}
+
+
+def export_run(torch, mods, root: str, run_dir: str, policy: str,
+               smi: str) -> dict:
+    """(a)–(d) of phase 15 on one run dir: its export, the artifact loaded
+    from a copy with the run dir renamed aside, its answers against the
+    live service, its launches at bucket 16 against the live eager
+    program's, and the path's records."""
+    from collections import Counter
+
+    from craniofacialsd_vae_tpu_torch.export import (OPS_MODULE,
+                                                     export_run_dir,
+                                                     load_exported)
+    from craniofacialsd_vae_tpu_torch.serving import DiagnosisService
+
+    kernels = mods["kernels"]
+    buckets = EXPORT_BUCKETS[policy]
+    out = os.path.join(root, f"export_{policy}")
+    t0 = time.perf_counter()
+    manifest = export_run_dir(run_dir, out, buckets=buckets, device=None)
+    export_s = time.perf_counter() - t0
+    sizes = {k: os.path.getsize(os.path.join(out, e["file"])) / 1e6
+             for k, e in manifest["programs"].items()}
+    check(manifest["buckets"] == list(buckets)
+          and set(manifest["programs"]) == {
+              f"{p}_b{b}" for p in ("encode", "decode", "reconstruct")
+              for b in buckets}
+          and manifest["policy"] == ("float32" if policy == "fp32"
+                                     else "mixed")
+          and manifest["ops_module"] == OPS_MODULE,
+          f"{policy}: export manifest {manifest}")
+    program_s = {k: round(e["export_s"], 2)
+                 for k, e in manifest["programs"].items()}
+    log(f"[15 export {policy}] {len(sizes)} programs in {export_s:.1f} s "
+        f"({program_s} s), {sum(sizes.values()):.1f} MB "
+        f"({ {k: round(v, 2) for k, v in sizes.items()} }); {smi}")
+
+    # (b) the artifact copied away and loaded with the run dir renamed
+    # aside; every program answered at B = 1, 16 and 17
+    deployed = os.path.join(root, f"deployed_{policy}")
+    shutil.copytree(out, deployed)
+    aside = run_dir + ".aside"
+    os.rename(run_dir, aside)
+    try:
+        t0 = time.perf_counter()
+        exported = load_exported(deployed)
+        load_s = time.perf_counter() - t0
+        n, nz = exported.n_vertices, exported.latent_size
+        rng = np.random.default_rng(SEED + 150)
+        base = rng.normal(scale=0.5, size=(n, 3)).astype(np.float32)
+        x_all = base + rng.normal(scale=0.03, size=(
+            max(EXPORT_SIZES), n, 3)).astype(np.float32)
+        z_all = rng.normal(size=(max(EXPORT_SIZES), nz)).astype(np.float32)
+        answers = {b: export_answers(exported, x_all[:b], z_all[:b])
+                   for b in EXPORT_SIZES}
+    finally:
+        os.rename(aside, run_dir)
+
+    # (c) against the live service of the same run dir
+    svc = DiagnosisService.from_run_dir(run_dir, max_batch=BATCH,
+                                        device=DEVICE)
+    worst, bit_equal = {}, True
+    for b in EXPORT_SIZES:
+        live = export_answers(svc, x_all[:b], z_all[:b])
+        for key, want in live.items():
+            got = answers[b][key]
+            check(got.shape == want.shape and np.isfinite(got).all(),
+                  f"{policy} B={b} {key}: {got.shape} vs {want.shape}")
+            atol = EXPORT_ERR_ATOL_MM if key == "error_mm" else EXPORT_ATOL
+            np.testing.assert_allclose(got, want, rtol=EXPORT_RTOL,
+                                       atol=atol, err_msg=f"{policy} B={b} "
+                                       f"{key}: exported vs live")
+            worst[key] = max(worst.get(key, 0.0),
+                             float(np.abs(got - want).max()))
+            bit_equal &= bool(np.array_equal(got, want))
+
+    # (d) launches of one exported reconstruct at bucket 16 against one
+    # eager call of the live program at the same bucket
+    path = "export" if policy == "fp32" else "mixed_export"
+    x16 = x_all[:BATCH]
+    reset_counts()
+    exported.reconstruct(x16)
+    counts = read_counts(torch, path)
+    eager_programs(svc)
+    before = kernels.launches.snapshot()
+    svc.reconstruct(x16)
+    torch.cuda.synchronize()
+    live = {k: v - before[k] for k, v in kernels.launches.snapshot().items()}
+    check(counts == live, f"{policy}: the exported reconstruct launched "
+          f"{counts}, the live eager program {live}")
+    cfg = svc.manager.net_config
+    final = ("out_gather_sum" if cfg.final_out_gather
+             else "spiral_conv_f32out") if policy == "mixed" else None
+    need = EXPORT_PROGRAM_KERNELS[policy] + ((final,) if final else ())
+    check(all(counts[k] > 0 for k in need), f"{policy}: the exported "
+          f"reconstruct launched {counts}; it must launch each of {need}")
+
+    # request p50 at B = 16: exported, the live graph replay, live eager
+    def p50(fn, reps=7):
+        fn()
+        ts = []
+        for _ in range(reps):
+            t1 = time.perf_counter()
+            fn()
+            ts.append((time.perf_counter() - t1) * 1e3)
+        return sorted(ts)[reps // 2]
+
+    ms = {"eager": p50(lambda: svc.reconstruct(x16))}
+    graphed_programs(svc)
+    ms["graph"] = p50(lambda: svc.reconstruct(x16))
+    ms["exported"] = p50(lambda: exported.reconstruct(x16))
+
+    # the path's records: each kernel at the shapes of one encode and one
+    # decode at bucket 16, its launches those the shapes account for
+    passes = {"enc": Counter({BATCH: 1}), "dec": Counter({BATCH: 1}),
+              "enc_bwd": Counter(), "dec_bwd": Counter()}
+    shapes = diagnosis_shapes(torch, mods, svc.manager, passes)
+    want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    for kernel, entries in shapes.items():
+        want[kernel] += sum(e["launches"] for e in entries)
+    check(counts == want, f"{policy}: exported launches {counts}, "
+          f"expected {want} from one encode and one decode at {BATCH}")
+    records = []
+    for kernel, entries in shapes.items():
+        r = summarize(kernel, *KERNEL_SOURCES[kernel], entries)
+        r.update(path=path, launches=counts[kernel])
+        records.append(r)
+    line = {"policy": policy, "buckets": list(buckets),
+            "export_s": export_s,
+            "program_export_s": {k: e["export_s"] for k, e in
+                                 manifest["programs"].items()},
+            "artifact_mb": sum(sizes.values()), "program_mb": sizes,
+            "load_s": load_s, "worst_abs_diff": worst,
+            "bit_equal": bit_equal,
+            "launches": {k: v for k, v in counts.items() if v},
+            "reconstruct_p50_ms_b16": ms}
+    log(f"[15 export {policy}] loaded from a copy in {load_s:.2f} s with "
+        f"the run dir aside; against the live service at B = "
+        f"{list(EXPORT_SIZES)}: largest differences {worst}, bit-equal "
+        f"{bit_equal}; launches at bucket {BATCH} equal to the live eager "
+        f"program's {line['launches']}; reconstruct p50 at B = {BATCH}: "
+        f"exported {ms['exported']:.3f} ms, live graph {ms['graph']:.3f}, "
+        f"live eager {ms['eager']:.3f}; {smi}")
+    del svc, exported
+    torch.cuda.empty_cache()
+    return {"line": line, "records": records}
+
+
+def tool_twins(root: str, run_dir: str) -> dict:
+    """(e) on the host: ``convert_torch_checkpoint --reverse`` of the fp32
+    run's checkpoint and forward again (parameters and Adam moments come
+    back equal), and ``make_synthetic_dataset --n 10`` (its OBJs parse)."""
+    from craniofacialsd_vae_tpu_torch import (convert_torch_checkpoint,
+                                              make_synthetic_dataset)
+    from craniofacialsd_vae_tpu_torch.geometry import read_obj
+    from craniofacialsd_vae_tpu_torch.training.checkpoint import (
+        latest_checkpoint, named_from_tree, read_checkpoint)
+
+    t0 = time.perf_counter()
+    ckpt = os.path.join(run_dir, "checkpoints")
+    cfg = os.path.join(run_dir, "config.yaml")
+    orig = read_checkpoint(latest_checkpoint(ckpt))
+    ref = os.path.join(root, "reference", "model_00000006.pt")
+    os.makedirs(os.path.dirname(ref))
+    convert_torch_checkpoint.main(["--torch_model", ref, "--config", cfg,
+                                   "--out", ckpt, "--reverse"])
+    back_dir = os.path.join(root, "converted")
+    convert_torch_checkpoint.main([
+        "--torch_model", ref, "--config", cfg, "--out", back_dir,
+        "--torch_opt", ref[:-3] + "_optimizer.pt"])
+    back = read_checkpoint(os.path.join(back_dir, "model_00000006.ckpt"))
+    want, got = (named_from_tree(t["params"]) for t in (orig, back))
+    check(set(got) == set(want) and all(
+        np.array_equal(got[k], want[k]) for k in want),
+        "convert_torch_checkpoint: the parameters did not come back equal")
+    opt = [named_from_tree(read_checkpoint(os.path.join(d, "optimizer.ckpt"))
+                           ["opt_state"]) for d in (ckpt, back_dir)]
+    check(set(opt[0]) == set(opt[1]) and all(
+        np.array_equal(opt[1][k], opt[0][k]) for k in opt[0]),
+        "convert_torch_checkpoint: the Adam state did not come back equal")
+    convert_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    synth = os.path.join(root, "synth")
+    n = make_synthetic_dataset.main(["--out", synth, "--n",
+                                     str(SYNTH_MESHES)])
+    files = sorted(os.listdir(synth))
+    check(n == SYNTH_MESHES and len(files) == SYNTH_MESHES,
+          f"make_synthetic_dataset wrote {files}")
+    for name in files:
+        mesh = read_obj(os.path.join(synth, name))
+        check(mesh.vertices.shape == (SYNTH_VERTICES, 3)
+              and np.isfinite(mesh.vertices).all()
+              and mesh.faces.shape == (2 * SYNTH_VERTICES - 4, 3),
+              f"{name}: {mesh.vertices.shape} vertices, "
+              f"{None if mesh.faces is None else mesh.faces.shape} faces")
+    synth_s = time.perf_counter() - t0
+    log(f"[15 tools] convert_torch_checkpoint --reverse and back: "
+        f"{len(want)} parameters and {len(opt[0])} Adam leaves equal in "
+        f"{convert_s:.2f} s; make_synthetic_dataset --n {SYNTH_MESHES}: "
+        f"{len(files)} OBJs of {SYNTH_VERTICES} vertices parsed in "
+        f"{synth_s:.2f} s")
+    return {"convert_s": convert_s, "synth_s": synth_s,
+            "parameters": len(want), "adam_leaves": len(opt[0])}
+
+
+def phase_export(torch, mods, root: str, runs: dict, t_start: float,
+                 smi: str) -> dict:
+    """Phase 15: export of phase 7's (fp32) and phase 8's (mixed) run dirs,
+    their artifacts against the live service and the live eager
+    program's launches, and the two tool twins, in EXPORT_PHASE_S."""
+    t0 = time.perf_counter()
+    records, runs_out = [], {}
+    for policy in ("fp32", "mixed"):
+        res = export_run(torch, mods, root, runs[policy], policy, smi)
+        records += res["records"]
+        runs_out[policy] = res["line"]
+    tools = tool_twins(root, runs["fp32"])
+    phase_s = time.perf_counter() - t0
+    line = {"phase": "export", "nvidia_smi": smi, **runs_out,
+            "tools": tools, "phase_s": phase_s, "budget_s": EXPORT_PHASE_S,
+            "script_s": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    check(phase_s <= EXPORT_PHASE_S, f"phase 15 took {phase_s:.1f} s, over "
+          f"its {EXPORT_PHASE_S:.0f} s budget")
+    return {"line": line, "records": records}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -6844,6 +7117,13 @@ def main(argv=None) -> int:
         ensembles = phase_ensembles(torch, mods, root, entry["cfg_path"],
                                     by_path, t_start, smi_line)
         records += ensembles["records"]
+        log(f"[14 ensembles] done; total "
+            f"{time.perf_counter() - t_start:.1f} s")
+        torch.cuda.empty_cache()
+        export = phase_export(torch, mods, root, {
+            "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]},
+            t_start, smi_line)
+        records += export["records"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -6853,7 +7133,7 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[14 ensembles] done; total {time.perf_counter() - t_start:.1f} s")
+    log(f"[15 export] done; total {time.perf_counter() - t_start:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -6878,7 +7158,8 @@ def main(argv=None) -> int:
                        "evaluation": evaluation["line"],
                        "figures": figures,
                        "parallel": parallel["line"],
-                       "ensembles": ensembles["line"]},
+                       "ensembles": ensembles["line"],
+                       "export": export["line"]},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

@@ -10,8 +10,9 @@ Each launch function checks device, dtype, shape, alignment and
 contiguity, allocates its output (and K2-dW its scratch) with
 ``torch.empty``, launches on PyTorch's current stream, adds one to its
 entry in ``launches`` and raises if the C function reports a CUDA
-error. None of them falls back to a plain version: the callers choose
-the plain twin only for CPU tensors.
+error. None of them falls back to a plain version: the callers (for the
+serving kernels, the custom ops of ``ops/library.py``) choose the plain
+twin only for CPU tensors.
 
 The ``mixed`` and ``bfloat16`` policies' kernels go through the same
 wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows

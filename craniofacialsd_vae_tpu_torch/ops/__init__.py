@@ -14,7 +14,9 @@ from .spiral_conv import (OutGatherBwd, OutGatherRuns, SpiralOp,
                           out_gather_sum_plain,
                           spiral_conv, spiral_conv_dw,
                           spiral_conv_dw_chunked_plain, spiral_conv_dw_plain,
-                          spiral_conv_out_gather, spiral_conv_plain)
+                          spiral_conv_out_gather, spiral_conv_plain,
+                          spiral_conv_table_plain, tile_args)
+from . import library     # registers the custom ops the forwards call
 
 __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "GatherRows", "PaddedRowSparse", "capped_ell", "ell_matmul",
@@ -26,6 +28,7 @@ __all__ = ["build_pool_operator", "pool", "selection_indices", "CappedEll",
            "build_spiral_tiles", "init_spiral_conv", "spiral_conv",
            "spiral_conv_dw", "spiral_conv_dw_chunked_plain",
            "spiral_conv_dw_plain", "spiral_conv_plain",
+           "spiral_conv_table_plain", "tile_args", "library",
            "spiral_conv_out_gather",
            "out_gather_sum_plain", "out_gather_sum_bwd_plain",
            "out_gather_sum_bwd_tiles_plain",

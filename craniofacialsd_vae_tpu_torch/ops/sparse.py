@@ -14,11 +14,12 @@ pass is a gather through it, never a scatter: ``ell_matmul`` and
 ``transpose.apply(dy)``, as the JAX custom VJPs ``_ell_bwd`` and
 ``_gather_rows_bwd`` are.
 
-``ell_matmul_raw`` is kernel K4 and ``CappedEll.apply`` of a table with
-overflow tiers the fused kernel ``ell_matmul_capped`` (K4 with the tiers
-landed in the same launch): for a CUDA tensor each launches
-``csrc/ell_matmul.cu`` (``csrc/ell_matmul_bf16.cu`` for bf16 rows), for
-a CPU tensor it runs its plain twin.
+``ell_matmul_raw`` is kernel K4 (the custom op
+``cfsdvae::ell_matmul_fwd`` of ``ops/library.py``) and ``CappedEll.apply``
+of a table with overflow tiers the fused kernel ``ell_matmul_capped`` (K4
+with the tiers landed in the same launch): for a CUDA tensor each
+launches ``csrc/ell_matmul.cu`` (``csrc/ell_matmul_bf16.cu`` for bf16
+rows), for a CPU tensor it runs its plain twin.
 
 bf16 rows keep the JAX package's rounding points: the values are rounded
 to bf16, the products and their sum are formed in fp32 and rounded once
@@ -247,11 +248,10 @@ def ell_matmul_plain(cols: torch.Tensor, vals: torch.Tensor,
 def ell_matmul_raw(cols: torch.Tensor, vals: torch.Tensor,
                    x: torch.Tensor) -> torch.Tensor:
     """``out[m] = Σ_k vals[m,k] · x[cols[m,k]]`` for vertex-major
-    ``x [N, ...]``: kernel K4 on the card, its plain twin on the host."""
-    if not x.is_cuda:
-        return ell_matmul_plain(cols, vals, x)
-    out = kernels.ell_matmul_fwd(cols, vals, x.reshape(x.shape[0], -1))
-    return out.view(cols.shape[0], *x.shape[1:])
+    ``x [N, ...]``: the custom op ``cfsdvae::ell_matmul_fwd``
+    (``ops/library.py``), kernel K4 on the card, its plain twin on the
+    host."""
+    return torch.ops.cfsdvae.ell_matmul_fwd.default(cols, vals, x)
 
 
 def ell_tier_add_plain(rows: torch.Tensor, cols: torch.Tensor,

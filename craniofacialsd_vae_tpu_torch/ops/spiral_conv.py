@@ -8,12 +8,13 @@ indices) go through one dense projection:
 ``spiral_conv`` is a ``torch.autograd.Function`` in the form of the JAX
 custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
 
-- forward: kernel K1 (fp32): for a CUDA tensor it launches
-  ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a narrow kernel for
-  C_out < 8 that stages each vertex tile's distinct source rows in shared
-  memory once, ``SpiralOp.tiles``), which never writes the ``[M, B, L·C]``
-  concatenation; for a CPU tensor it runs the plain twin, the fp32 branch
-  of ``_spiral_conv_core``;
+- forward: kernel K1 (fp32), through the custom op
+  ``cfsdvae::spiral_conv_fwd`` (``ops/library.py``): for a CUDA tensor
+  it launches ``csrc/spiral_conv.cu`` (tensor cores in 3xTF32, or a
+  narrow kernel for C_out < 8 that stages each vertex tile's distinct
+  source rows in shared memory once, ``SpiralOp.tiles``), which never
+  writes the ``[M, B, L·C]`` concatenation; for a CPU tensor it runs
+  the plain twin, the fp32 branch of ``_spiral_conv_core``;
 - backward: ``dx`` through the combined capped transposes (one batched
   product ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4
   with the overflow tiers landed in the same launch), plus ``dy @ W_iᵀ``
@@ -52,17 +53,22 @@ import torch
 from .. import kernels
 from .sparse import (CappedEll, GatherRows, capped_ell,
                      ell_matmul_capped_plain, ell_matmul_plain,
-                     gather_op_from_idx, gather_rows)
+                     gather_op_from_idx)
 
 __all__ = ["SpiralOp", "SpiralTiles", "OutGatherBwd", "OutGatherRuns",
            "build_spiral_op", "build_spiral_tiles", "build_out_gather_bwd",
            "build_out_gather_runs", "init_spiral_conv",
-           "spiral_conv", "spiral_conv_plain", "spiral_conv_dw",
+           "spiral_conv", "spiral_conv_plain", "spiral_conv_table_plain",
+           "tile_args", "spiral_conv_dw",
            "spiral_conv_dw_plain", "spiral_conv_dw_chunked_plain",
            "spiral_conv_out_gather",
            "out_gather_sum_plain", "out_gather_sum_bwd_plain",
            "out_gather_sum_bwd_tiles_plain"]
 
+
+#: the custom ops of ``ops/library.py`` (registered when ``ops`` is
+#: imported), which the forwards call
+_OPS = torch.ops.cfsdvae
 
 _TILE_ROWS = 64        # most distinct source rows a K1 narrow tile stages
 _TILE_VERTICES = 64    # most vertices a K1 narrow tile owns
@@ -512,26 +518,42 @@ def init_spiral_conv(generator: torch.Generator, in_channels: int,
             "b": torch.zeros(out_channels, dtype=torch.float32)}
 
 
-def spiral_conv_plain(w_l: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
-                      op: SpiralOp, out_dtype: torch.dtype | None = None
-                      ) -> torch.Tensor:
-    """Plain twin of K1: ``out = b``, then ``out + x_l @ W_l`` for
-    l = 0…L−1 (the fp32 branch of the JAX ``_spiral_conv_core``). bf16
+def spiral_conv_table_plain(w_l: torch.Tensor, b: torch.Tensor,
+                            x: torch.Tensor, table: torch.Tensor,
+                            out_dtype: torch.dtype | None = None
+                            ) -> torch.Tensor:
+    """Plain twin of K1: ``out = b``, then ``out + x[table[:, l]] @ W_l``
+    for l = 0…L−1 (the fp32 branch of the JAX ``_spiral_conv_core``). bf16
     x, W and b (twin of K1-bf16 and K3a, its bf16 branch and
     ``_spiral_conv_core_f32out``): the same sums in fp32 from ``b``, the
     products of the bf16 values in fp32, rounded to bf16 once, or with
     ``out_dtype`` float32 returned unrounded."""
-    if x.dtype == torch.bfloat16:
-        out = b.float()
-        for i, g in enumerate(op.gathers):
-            xi = x if g is None else gather_rows(g, x)
-            out = out + xi.float() @ w_l[i].float()
-        return out if out_dtype == torch.float32 else out.to(x.dtype)
-    out = b
-    for i, g in enumerate(op.gathers):
-        xi = x if g is None else gather_rows(g, x)
-        out = out + xi @ w_l[i]
+    bf16 = x.dtype == torch.bfloat16
+    x2 = x.reshape(x.shape[0], -1)
+    out = b.float() if bf16 else b
+    for i in range(table.shape[1]):
+        xi = x2.index_select(0, table[:, i]).view(-1, *x.shape[1:])
+        out = out + (xi.float() @ w_l[i].float() if bf16 else xi @ w_l[i])
+    if bf16 and out_dtype != torch.float32:
+        return out.to(x.dtype)
     return out
+
+
+def spiral_conv_plain(w_l: torch.Tensor, b: torch.Tensor, x: torch.Tensor,
+                      op: SpiralOp, out_dtype: torch.dtype | None = None
+                      ) -> torch.Tensor:
+    """``spiral_conv_table_plain`` over the op's table."""
+    return spiral_conv_table_plain(w_l, b, x, op.table, out_dtype)
+
+
+def tile_args(tiles: SpiralTiles | None) -> tuple:
+    """A ``SpiralTiles`` as the custom op ``spiral_conv_fwd`` takes it:
+    ``verts, starts, src, src_off, local, max_rows, max_verts`` (None and
+    0 for no tiles)."""
+    if tiles is None:
+        return (None,) * 5 + (0, 0)
+    return (tiles.verts, tiles.starts, tiles.src, tiles.src_off,
+            tiles.local, tiles.max_rows, tiles.max_verts)
 
 
 def spiral_conv_dw_plain(x: torch.Tensor, table: torch.Tensor,
@@ -617,9 +639,8 @@ class _SpiralConv(torch.autograd.Function):
     def forward(ctx, w_l, b, x, op):
         ctx.op = op
         ctx.save_for_backward(w_l, x)
-        if not x.is_cuda:
-            return spiral_conv_plain(w_l, b, x, op)
-        return kernels.spiral_conv_fwd(x, op.table, w_l, b, tiles=op.tiles)
+        return _OPS.spiral_conv_fwd.default(x, op.table, w_l, b, False,
+                                            *tile_args(op.tiles))
 
     @staticmethod
     def backward(ctx, dy):
@@ -660,11 +681,8 @@ class _SpiralConvF32Out(torch.autograd.Function):
     def forward(ctx, w_l, b, x, op):
         ctx.op = op
         ctx.save_for_backward(w_l, x)
-        if not x.is_cuda:
-            return spiral_conv_plain(w_l, b, x, op, torch.float32)
-        return kernels.spiral_conv_fwd(x, op.table, w_l, b,
-                                       out_dtype=torch.float32,
-                                       tiles=op.tiles)
+        return _OPS.spiral_conv_fwd.default(x, op.table, w_l, b, True,
+                                            *tile_args(op.tiles))
 
     @staticmethod
     def backward(ctx, dy):
@@ -767,9 +785,7 @@ class _OutGatherSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, u, b, op):
         ctx.op = op
-        if not u.is_cuda:
-            return out_gather_sum_plain(u, op.table, b)
-        return kernels.out_gather_sum(u, op.table, b)
+        return _OPS.out_gather_sum.default(u, op.table, b)
 
     @staticmethod
     def backward(ctx, dout):

@@ -2561,3 +2561,55 @@ def test_fit_over_two_replicas_on_one_card(tmp_path):
     assert got["best_restart"] == six["best_restart"]
     assert np.abs(got["z"] - six["z"]).max() <= 1e-5 * np.abs(six["z"]).max()
     assert got["chamfer_mm2"] == pytest.approx(six["chamfer_mm2"], rel=1e-5)
+
+
+def test_library_ops_launch_their_kernels():
+    """On CUDA tensors each custom op of ``ops/library.py`` runs its
+    kernel, one counted launch, with the wrapper's answer bit for bit."""
+    dev = _card()
+    g = _gen(dev, 22)
+    op = ops.build_spiral_op(np.asarray(load_bundle(FIXTURE).spirals[0])
+                             ).to(dev)
+    n = op.n_src
+    lib = torch.ops.cfsdvae
+    cases = []
+    for dtype, c_out, f32_out in ((torch.float32, 32, False),
+                                  (torch.float32, 3, False),
+                                  (torch.bfloat16, 32, False),
+                                  (torch.bfloat16, 3, True)):
+        x = torch.randn((n, 4, 32), generator=g, device=dev).to(dtype)
+        w_l = (0.2 * torch.randn((9, 32, c_out), generator=g,
+                                 device=dev)).to(dtype)
+        b = torch.randn(c_out, generator=g, device=dev).to(dtype)
+        cases.append((
+            lambda x=x, w_l=w_l, b=b, f=f32_out: lib.spiral_conv_fwd(
+                x, op.table, w_l, b, f, *ops.tile_args(op.tiles)),
+            lambda x=x, w_l=w_l, b=b, f=f32_out: kernels.spiral_conv_fwd(
+                x, op.table, w_l, b, out_dtype=torch.float32 if f else None,
+                tiles=op.tiles)))
+    cols = torch.randint(0, n, (500, 3), generator=g, device=dev,
+                         dtype=torch.int32)
+    vals = torch.randn((500, 3), generator=g, device=dev)
+    for dtype in (torch.float32, torch.bfloat16):
+        x = torch.randn((n, 4, 8), generator=g, device=dev).to(dtype)
+        cases.append((lambda x=x: lib.ell_matmul_fwd(cols, vals, x),
+                      lambda x=x: kernels.ell_matmul_fwd(
+                          cols, vals, x.view(n, -1)).view(500, 4, 8)))
+    u = torch.randn((9, 3, n, 4), generator=g, device=dev)
+    b3 = torch.randn(3, generator=g, device=dev)
+    cases.append((lambda: lib.out_gather_sum(u, op.table, b3),
+                  lambda: kernels.out_gather_sum(u, op.table, b3)))
+    for call, wrapper in cases:
+        before = kernels.launches.snapshot()
+        out = call()
+        torch.cuda.synchronize()
+        after = kernels.launches.snapshot()
+        assert sum(after.values()) - sum(before.values()) == 1
+        assert torch.equal(out, wrapper())
+    # no fallback: the kernel's input checks raise through the op
+    x_t = torch.randn((4, n, 32), device=dev).transpose(0, 1)
+    with pytest.raises(ValueError, match="contiguous"):
+        lib.spiral_conv_fwd(x_t, op.table, torch.randn((9, 32, 8),
+                                                       device=dev),
+                            torch.zeros(8, device=dev), False,
+                            *ops.tile_args(op.tiles))
