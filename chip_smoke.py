@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Drive the PyTorch/CUDA port's serving, training, diagnosis,
-augmentation, evaluation, parallel, ensemble and export paths on one
-NVIDIA card.
+augmentation, evaluation, parallel, ensemble and export paths and its
+Sinkhorn divergence on one NVIDIA card.
 
 Run from the root of a checkout::
 
@@ -38,19 +38,22 @@ them or outside a checkout. Phases, each of which raises on a fault:
    optimisation sections: 4 scans, a 16-mesh swap grid, the stand-in
    Laplacian and 15 stand-in regions of ``geometry/synthetic.py``):
    (a) K2-dW at the nine convs' shapes (with each conv's plan, both
-   bounds and ptxas's registers and spills per instance) and, on every
-   backward table (the up-pools' and the convs' transposes, the
-   Laplacian and its transpose), the fused K4 where the table has
-   overflow tiers and K4 where it has none, held against their twins
-   and timed (the fused launch also against K4 alone and K4 followed by
-   the tiers' twin);
+   bounds and ptxas's registers and spills per instance); on every
+   backward table (the up-pools' transposes, the Laplacian and its
+   transpose), the fused K4 where the table has overflow tiers and K4
+   where it has none, held against their twins and timed (the fused
+   launch also against K4 alone and K4 followed by the tiers' twin); and
+   K2-dx at the eight convs with dx at B = 16 and B = 1 against its twin
+   (DX_RTOL), timed beside its twin and the path it replaced (per column
+   group a cuBLAS ``dg = dy @ W_gᵀ``, the capped K4 over ``dg``, the
+   parts' adds), with its bound;
    (b) one counted ``make_train_step`` step on the card against the same
    step on the host (same weights, scans, region and noise): losses and
    every gradient leaf; (c) 10 warm steps (host-clock step time,
    throughput, finite losses) and a profiled step;
 6. launch counts, read per path: K1, K4 and K7 must each have run during
-   phase 4, and K1, K4, K2-dW and the fused K4 during phase 5's counted
-   step (which must match ``expected_step_launches`` exactly); every
+   phase 4, and K1, K4, K2-dW, K2-dx and the fused K4 during phase 5's
+   counted step (which must match ``expected_step_launches`` exactly); every
    float32 kernel must have run on one of them (the bf16 kernels on phase
    8's paths);
 7. the training entry point end to end (``python -m
@@ -87,7 +90,9 @@ them or outside a checkout. Phases, each of which raises on a fault:
    vertex tiles at B = 16, 4, 1 on the fixture's and the octasphere's
    level 0, beside the untiled element path; K2-dW-bf16 through the
    vertex tiles at the grid; K4-bf16 or its capped form on every bf16
-   backward table at the grid's and the other buckets' widths), held
+   backward table at the grid's and the other buckets' widths; K2-dx-bf16
+   at every bf16 conv with dx and the final conv's gather-first form at
+   the grid and at B = 1, beside the path it replaced), held
    against its twin (bit-equal where both round at the same points, else
    within one bf16 ulp; K3a within K3A_RTOL), timed against it and a library
    form, with its bound at 3.35 TB/s and 989 TFLOP/s bf16 and ptxas's
@@ -318,7 +323,18 @@ them or outside a checkout. Phases, each of which raises on a fault:
    checkpoint and forward again (parameters and Adam state equal) and
    ``make_synthetic_dataset --n SYNTH_MESHES`` (its OBJs parsed); one
    ``{"phase": "export", ...}`` line with the phase's and the script's
-   seconds; the phase fails past EXPORT_PHASE_S.
+   seconds; the phase fails past EXPORT_PHASE_S;
+16. sinkhorn (``ops.sinkhorn_divergence``, K8-sinkhorn), counted (path
+   ``sinkhorn``: one ``sinkhorn_fwd`` a forward, one ``sinkhorn_bwd``):
+   (a) the forward at SINKHORN_P points (the octasphere of subdivision
+   6) against SINKHORN_Q (a deformed scan of it), ε = SINKHORN_EPS,
+   within SINKHORN_RTOL of the twin on the card, both timed; (b) the
+   gradient at SINKHORN_GRAD against the twin's autograd within
+   SINKHORN_GRAD_RTOL of its max, the backward kernel timed against the
+   twin's backward; (c) ``tests/test_distances.py``'s two cases; one
+   ``{"phase": "sinkhorn", ...}`` line with the phase's and the script's
+   seconds; the phase fails past SINKHORN_PHASE_S. The script then
+   prints its total seconds.
 
 Every time the new phases print stands beside the card's name and
 power limit from nvidia-smi.
@@ -330,7 +346,7 @@ The kernels' record holds one entry per kernel and path (``serving``,
 ``augmentation``, ``evaluation``, ``parallel_training``,
 ``parallel_entry``, ``parallel_serving``, ``vertex_sharded``,
 ``ensembles``, ``sweep``, ``ensemble_serving``, ``ensembles_sharded``,
-``export``, ``mixed_export``), each
+``export``, ``mixed_export``, ``sinkhorn``), each
 timed over the shapes of that
 path's launches (on the traversal, diagnosis and evaluation paths each
 distinct shape once; every shape carries its launches). Its
@@ -485,11 +501,35 @@ DENSE_TOL = 1e-4                # its eigenvalues card vs host, rtol and atol:
 #                                 backend (test_dense_matches_scipy_small)
 AUG_RTOL = 1e-5                 # card vs host generated vertices, of max |v|
 FP32_KERNELS = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
-                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped")
+                "raster_sweep", "spiral_conv_dw", "ell_matmul_capped",
+                "spiral_conv_dx")
 MIXED_KERNELS = ("spiral_conv_bf16", "spiral_conv_f32out",
                  "spiral_conv_dw_bf16", "ell_matmul_bf16",
                  "ell_matmul_capped_bf16", "out_gather_sum",
-                 "out_gather_sum_bwd")
+                 "out_gather_sum_bwd", "spiral_conv_dx_bf16")
+DX_RTOL = 1e-5          # K2-dx vs its twin, against max |dx|: 3xTF32
+#                         products against the twin's fp32 product of the
+#                         same du (K2-dx-bf16: one bf16 ulp, ``ulps``)
+REPLACED_DX_RTOL = 1e-4  # the replaced bmm + capped K4 + adds vs K2-dx's
+#                          twin, against max |dx| (fp32; bf16: MIXED_RTOL)
+SINKHORN_P = 16386      # phase 16 (a): the octasphere of subdivision 6
+SINKHORN_Q = 32768      # ... against a scan of FIT_SCAN_POINTS points
+SINKHORN_GRAD = (2048, 4096)   # (b): a size whose twin's tape fits
+SINKHORN_EPS = 0.05
+SINKHORN_ITERS = 50
+SINKHORN_RTOL = 1e-4    # (a) K8-sinkhorn vs its twin, relative: the
+#                         exponents formed in another order, base 2
+SINKHORN_GRAD_RTOL = 1e-3   # (b) gradients vs the twin's autograd, of
+#                             their max: 50 fp32 iterations (the twin is
+#                             up to 4.6e-4 off a float64 run of itself,
+#                             tests/test_torch_sinkhorn.py)
+SINKHORN_FWD_OPS = 14   # FP32 operations a pair and pass: the cost (3
+#                         products and an add, 7 flops, and the clamp),
+#                         the exponent (an FMA), its exponential, the max
+#                         and the sum
+SINKHORN_BWD_OPS = 30   # ... a backward pass: the cost, two exponents and
+#                         exponentials, nine accumulations
+SINKHORN_PHASE_S = 60.0
 
 # each kernel's source in the port and the JAX function it replaces
 KERNEL_SOURCES = {
@@ -515,6 +555,14 @@ KERNEL_SOURCES = {
                        "craniofacialsd_vae_tpu/ops/spiral_conv.py:260"),
     "out_gather_sum_bwd": ("csrc/out_gather_sum.cu",
                            "craniofacialsd_vae_tpu/ops/sparse.py:280"),
+    "spiral_conv_dx": ("csrc/spiral_conv_dx.cu",
+                       "craniofacialsd_vae_tpu/ops/spiral_conv.py:181"),
+    "spiral_conv_dx_bf16": ("csrc/spiral_conv_dx.cu",
+                            "craniofacialsd_vae_tpu/ops/spiral_conv.py:181"),
+    "sinkhorn_fwd": ("csrc/sinkhorn.cu",
+                     "craniofacialsd_vae_tpu/ops/distances.py:103"),
+    "sinkhorn_bwd": ("csrc/sinkhorn.cu",
+                     "craniofacialsd_vae_tpu/ops/distances.py:103"),
     "k8_fwd": ("csrc/distances.cu",
                "craniofacialsd_vae_tpu/ops/distances.py:32"),
     "k8_bwd": ("csrc/distances.cu",
@@ -1374,27 +1422,39 @@ def conv_kinds(model, geom) -> list:
 
 def transpose_tables(model, geom, batch: int, names) -> list:
     """``(name, matrix, source rows, D, dtype)`` of each K4 product that
-    carries a cotangent back through the convs ``names`` (and through the
-    up-pool before each decoder conv), in the order autograd reaches
-    them, in the dtype of the rows they gather (a matmul-first final conv
-    gathers its fp32 dy through every position's transpose in its own
-    kernel, ``out_gather_sum_bwd``, and adds no table here)."""
+    carries a cotangent back through the up-pool before each decoder conv
+    of ``names``, in the order autograd reaches them, in the deep dtype.
+    A conv applies none: its dx is one K2-dx (``dx_convs``), and a
+    matmul-first final conv gathers its fp32 dy through every position's
+    transpose in its own kernel, ``out_gather_sum_bwd``."""
     tables = []
     for name, conv, op, dtype, form in reversed(conv_kinds(model, geom)):
         if name not in names:
             continue
         c_in, c_out = conv_widths(conv, op)
-        if form != "out_gather":
-            for table, cols in zip(op.inv_tables, op.group_cols):
-                tables.append((f"{name} T", table,
-                               len(cols) * op.num_vertices, batch * c_in,
-                               dtype))
         if name.startswith("dec"):
             level = int(name[3:])
             up = geom.up[level]
             tables.append((f"up{level} T", up.transpose, up.shape[0],
                            batch * c_in, model.config.deep_dtype))
     return tables
+
+
+def dx_convs(model, geom, names) -> list:
+    """``(name, conv, op, dtype)`` of each conv of ``names`` whose dx is a
+    K2-dx launch (K2-dx-bf16 for bf16 input), in the order autograd
+    reaches them: every gather-first conv (the matmul-first final conv's
+    dx is a plain product)."""
+    return [(name, conv, op, dtype) for name, conv, op, dtype, form
+            in reversed(conv_kinds(model, geom))
+            if name in names and form != "out_gather"]
+
+
+def dx_kernel(dtype) -> str:
+    import torch
+
+    return ("spiral_conv_dx_bf16" if dtype == torch.bfloat16
+            else "spiral_conv_dx")
 
 
 def step_tables(model, geom, batch: int) -> list:
@@ -1541,6 +1601,125 @@ def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
     return mains, rec
 
 
+def replaced_dx(torch, op, dy, w_l):
+    """The dx path K2-dx replaced (JAX's ``_score_bwd`` form, the port's
+    backward before it): per column group one batched product ``dg = dy
+    @ W_gᵀ`` (cuBLAS), the group's combined capped transpose applied to
+    it (the capped K4, or K4), then the groups' parts and each identity
+    column's ``dy @ W_iᵀ`` added."""
+    m, bsz, c_out = dy.shape
+    d2 = dy.reshape(m * bsz, c_out)
+    dx = None
+    for table, cols in zip(op.inv_tables, op.group_cols):
+        if list(cols) == list(range(cols[0], cols[0] + len(cols))):
+            w_g = w_l[cols[0]:cols[0] + len(cols)]
+        else:
+            w_g = torch.stack([w_l[i] for i in cols])
+        dg = torch.bmm(d2.expand(len(cols), -1, -1), w_g.transpose(1, 2))
+        part = table.apply(dg.view(len(cols) * m, bsz, -1))
+        dx = part if dx is None else dx + part
+    for i in op.identity_cols:
+        part = dy @ w_l[i].T
+        dx = part if dx is None else dx + part
+    return dx
+
+
+def k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
+               dtype) -> dict:
+    """K2-dx (K2-dx-bf16 for bf16) at one conv's shape, random dy and the
+    conv's weights in ``dtype``: within DX_RTOL of the twin (bf16: one
+    bf16 ulp), two launches bit-equal, the replaced path (``replaced_dx``)
+    within REPLACED_DX_RTOL of the twin (bf16: MIXED_RTOL), each timed,
+    with its plan and its bound: dy, w and the lists read once and dx
+    written once, or the larger of the products' time on the tensor cores
+    (3xTF32: three TF32 products; bf16: one) and the gathers' adds' time
+    on the fp32 units, which run beside the tensor cores."""
+    seq = op.seq_length
+    c_in, c_out = conv_widths(conv, op)
+    bf16 = dtype == torch.bfloat16
+    kernel = "spiral_conv_dx_bf16" if bf16 else "spiral_conv_dx"
+    dy = torch.randn((op.num_vertices, batch, c_out), generator=gen,
+                     device=DEVICE).to(dtype)
+    w_l = conv.w.detach().to(dtype).reshape(seq, c_in, c_out).contiguous()
+    tab = op.dx
+    plan = kernels.plan_spiral_conv_dx(op.n_src, batch, seq, c_in, c_out,
+                                       bf16)
+
+    def launch():
+        return kernels.spiral_conv_dx(dy, w_l, tab.ptr, tab.idx, op.n_src)
+
+    with torch.inference_mode():
+        out, again = launch(), launch()
+        ref = ops.spiral_conv_dx_plain(dy, w_l, tab)
+        old = replaced_dx(torch, op, dy, w_l)
+        torch.cuda.synchronize()
+        check(torch.equal(out, again), f"{kernel} {name}: launches differ")
+        scale = float(ref.float().abs().max())
+        err = max_err(out.float(), ref.float())
+        old_err = max_err(old.float(), ref.float())
+        if bf16:
+            u = ulps(torch, out, ref)
+            check(u <= 1.0, f"{kernel} {name} B={batch}: {u:.2f} bf16 ulps "
+                  "from its twin")
+            check(old_err <= MIXED_RTOL * scale, f"{kernel} {name}: the "
+                  f"replaced path is {old_err:.3e} from the twin")
+        else:
+            check(err <= DX_RTOL * scale, f"{kernel} {name} B={batch}: max "
+                  f"|kernel - twin| {err:.3e} > {DX_RTOL} x {scale:.3e}")
+            check(old_err <= REPLACED_DX_RTOL * scale, f"{kernel} {name}: "
+                  f"the replaced path is {old_err:.3e} from the twin")
+        ms = cuda_ms(torch, launch, 20)
+        plain_ms = cuda_ms(torch, lambda: ops.spiral_conv_dx_plain(
+            dy, w_l, tab), 3)
+        old_ms = cuda_ms(torch, lambda: replaced_dx(torch, op, dy, w_l), 10)
+    size = 2 if bf16 else 4
+    nbytes = (size * (dy.numel() + w_l.numel() + op.n_src * batch * c_in)
+              + 4 * (tab.ptr.numel() + tab.idx.numel()))
+    products = 2.0 * op.n_src * batch * seq * c_out * c_in
+    adds = float(tab.idx.numel()) * batch * c_out
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    t_ops = max(products / PEAK_BF16 if bf16 else 3 * products / PEAK_TF32,
+                adds / PEAK_FP32) * 1e3
+    b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                       else "operations")
+    log(f"[{kernel} {name}] {op.n_src}<-{op.num_vertices} x{batch} "
+        f"{c_in}<-{c_out} ({plan.positions} positions a chunk, {plan.tv} "
+        f"vertices x {plan.tb} batch rows a block, {plan.blocks} blocks, "
+        f"{plan.smem} B smem): err {err:.2e} (max|dx| {scale:.2e}); kernel "
+        f"{ms:.4f} ms, plain {plain_ms:.4f}, replaced bmm + capped K4 + "
+        f"adds {old_ms:.4f} (err {old_err:.2e}), bound {b_ms:.4f} ({b_by})")
+    return dict(conv=name, kernel=kernel, batch=batch, n_src=op.n_src,
+                m=op.num_vertices, c_in=c_in, c_out=c_out,
+                plan=dataclasses.asdict(plan), max_abs_err=err,
+                rel_err=err / scale if scale else 0.0, ms=ms,
+                plain_ms=plain_ms, library_ms=None, earlier_ms=old_ms,
+                replaced_err=old_err, bound_ms=b_ms, bound_by=b_by,
+                bytes=nbytes, flops=products + adds, ops_ms=t_ops)
+
+
+def k2dx_parity(torch, mods, convs, batches, phase: str) -> dict:
+    """K2-dx at each of ``convs`` (``(name, conv, op, dtype)``) at each
+    of ``batches``: the first batch's shapes make the record (its
+    ``earlier_ms`` the replaced path's), the others go in
+    ``other_batches``."""
+    kernels, ops = mods["kernels"], mods["ops"]
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 23)
+    by_batch = {b: [k2dx_shape(torch, kernels, ops, gen, name, conv, op, b,
+                               dtype) for name, conv, op, dtype in convs]
+                for b in batches}
+    shapes = by_batch[batches[0]]
+    kernel = shapes[0]["kernel"]
+    rec = summarize(kernel, *KERNEL_SOURCES[kernel], shapes)
+    rec["other_batches"] = {b: by_batch[b] for b in batches[1:]}
+    log(f"[{phase} {kernel}] per step at B = {batches[0]}: kernel "
+        f"{rec['ms']:.4f} ms over {len(shapes)} convs, plain "
+        f"{rec['plain_ms']:.4f}, replaced path (bmm + capped K4 + adds) "
+        f"{rec['earlier_ms']:.4f}, bound {rec['bound_ms']:.4f} "
+        f"({rec['bound_by']}); B = {batches[1:]} held too")
+    torch.cuda.empty_cache()
+    return rec
+
+
 def conv_kernel(name, conv, op, dtype, form) -> str:
     """The kernel a conv of ``conv_kinds`` launches in its forward: K3b
     for a matmul-first final conv, K1-bf16 (K3a for the final conv) on
@@ -1561,9 +1740,11 @@ def expected_step_launches(model, geom, batch: int) -> dict:
     K1 and K2-dW in its input's dtype (K1-bf16 with K2-dW-bf16, K3a for a
     gather-first bf16 final conv; a matmul-first final conv launches K3b
     and its backward ``out_gather_sum_bwd`` once each and gets its dW
-    from a plain product); K4 in the deep dtype per
-    up-pool; per table of ``step_tables`` in its dtype, K4 where it has
-    no tiers and the fused K4 where it has."""
+    and dx from plain products); per conv but the first (whose input is
+    the data) and the matmul-first final conv, one K2-dx in its input's
+    dtype; K4 in the deep dtype per up-pool; per table of
+    ``step_tables`` in its dtype, K4 where it has no tiers and the fused
+    K4 where it has."""
     import torch
 
     from craniofacialsd_vae_tpu_torch import kernels
@@ -1576,6 +1757,9 @@ def expected_step_launches(model, geom, batch: int) -> dict:
         else:
             counts["spiral_conv_dw_bf16" if dtype == torch.bfloat16
                    else "spiral_conv_dw"] += 1
+    names = [k[0] for k in conv_kinds(model, geom) if k[0] != "enc0"]
+    for _, _, _, dtype in dx_convs(model, geom, names):
+        counts[dx_kernel(dtype)] += 1
     bf = "_bf16" if model.config.deep_dtype == torch.bfloat16 else ""
     counts["ell_matmul" + (bf or "_fwd")] += len(geom.up)
     for _, mat, _, _, dtype in step_tables(model, geom, batch):
@@ -1630,6 +1814,9 @@ def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
         f"tiers per backward table {n_tiers}")
     k2 = k2_parity(torch, mods, model, geom, grid, ptxas)
     k4_main, capped = k4_backward_parity(torch, mods, model, geom, grid)
+    names = [k[0] for k in conv_kinds(model, geom) if k[0] != "enc0"]
+    dx = k2dx_parity(torch, mods, dx_convs(model, geom, names), (grid, 1),
+                     "5")
     torch.cuda.empty_cache()
 
     data, region, eps = training_inputs(torch, bundle, config)
@@ -1713,9 +1900,10 @@ def phase_training(torch, mods, bundle, config, ptxas: list) -> dict:
         f"scans/s, {grid / p50 * 1e3:.1f} swap-grid meshes/s; peak "
         f"{peak_mb:.0f} MiB; tot {['%.5g' % v for v in traj['tot']]}")
     log(f"[5 profile] train step: wall {prof['wall_ms']:.2f} ms, device "
-        f"{prof['device_ms']} ms, idle share {prof['idle_share']}; {top}")
+        f"{prof['device_ms']} ms in {prof['kernels_run']} kernels, idle "
+        f"share {prof['idle_share']}; {top}")
     return dict(counts=counts, k2=k2, k4_backward=k4_main, capped=capped,
-                first_step_ms=first_ms, host_step_ms=host_ms,
+                dx=dx, first_step_ms=first_ms, host_step_ms=host_ms,
                 loss_rel_err=loss_err, grad_rel_err=grad_err,
                 step_ms=times, step_p50_ms=p50, scans_per_s=b / p50 * 1e3,
                 meshes_per_s=grid / p50 * 1e3, peak_mib=peak_mb,
@@ -1728,7 +1916,8 @@ def training_records(serving: list, train: dict) -> list:
     shapes of that step's own launches: K1 and the up-pools' forward at
     the serving path's B = 16 pass (the swap grid has 16 meshes, so the
     shapes are the same), K4 at the up-pools and the backward tables
-    without tiers, K2-dW, the fused K4 at the tables with tiers."""
+    without tiers, K2-dW, the fused K4 at the tables with tiers, K2-dx at
+    the convs with dx."""
     grid = TRAIN_CONFIG["batch_size"] ** 2
     check(grid == BATCH, f"the swap grid ({grid}) is not the B = {BATCH} "
           "pass whose K1 and K4 times the training records reuse")
@@ -1738,7 +1927,7 @@ def training_records(serving: list, train: dict) -> list:
                    "craniofacialsd_vae_tpu/ops/sparse.py:222",
                    by_name["ell_matmul_fwd"]["shapes"]
                    + train["k4_backward"])
-    return [*k1, k4, train["k2"], train["capped"]]
+    return [*k1, k4, train["k2"], train["capped"], train["dx"]]
 
 
 # ----------------------------------------------------------------------
@@ -1864,7 +2053,7 @@ def entry_records(torch, mods, card, k7: dict, grid: int,
     """The kernels of the entry path at its own shapes (the octasphere
     hierarchy, the smoke model, the 16-mesh swap grid): K1 at every conv,
     K4 at the up-pools and the backward tables without tiers, K2-dW, the
-    fused K4 and K7 at full resolution, each against its twin."""
+    fused K4, K2-dx and K7 at full resolution, each against its twin."""
     kernels, ops = mods["kernels"], mods["ops"]
     model, geom, bundle = card.model, card.geometry, card.bundle
     gen = torch.Generator(device=DEVICE).manual_seed(SEED + 10)
@@ -1879,6 +2068,9 @@ def entry_records(torch, mods, card, k7: dict, grid: int,
                             bundle.up[level], level, grid * c, grid))
     k2 = k2_parity(torch, mods, model, geom, grid, ptxas)
     k4_main, capped = k4_backward_parity(torch, mods, model, geom, grid)
+    names = [k[0] for k in conv_kinds(model, geom) if k[0] != "enc0"]
+    dx = k2dx_parity(torch, mods, dx_convs(model, geom, names), (grid,),
+                     "7")
     recs = [summarize(kernel, "csrc/spiral_conv.cu",
                       "craniofacialsd_vae_tpu/ops/spiral_conv.py:159",
                       [s for s in k1 if s["kernel"] == kernel])
@@ -1886,7 +2078,7 @@ def entry_records(torch, mods, card, k7: dict, grid: int,
     recs.append(summarize("ell_matmul_fwd", "csrc/ell_matmul.cu",
                           "craniofacialsd_vae_tpu/ops/sparse.py:222",
                           ups + k4_main))
-    recs += [k2, capped,
+    recs += [k2, capped, dx,
              summarize("raster_sweep", "csrc/raster_sweep.cu",
                        "craniofacialsd_vae_tpu/viz/raster_pallas.py:111",
                        [k7])]
@@ -1997,7 +2189,7 @@ def phase_train_entry(torch, mods, ptxas: list, lr0_k7: dict,
     check(tots[-1] < tots[0], f"train tot did not fall: {tots}")
     for kernel in ("spiral_conv_tc", "spiral_conv_narrow",
                    "ell_matmul_fwd", "ell_matmul_capped",
-                   "spiral_conv_dw", "raster_sweep"):
+                   "spiral_conv_dw", "spiral_conv_dx", "raster_sweep"):
         check(step_counts[kernel] > 0,
               f"{kernel} was not launched on the train entry path")
     replays.append(check_replays(torch, graphs_of(
@@ -2509,10 +2701,12 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     convs and K3b and its backward at the final conv at each batch bucket
     (the step's grid is the bucket B = 16), K3a at the
     final conv at each bucket on the fixture's and the octasphere's level
-    0 (``ENTRY_SUBDIVISIONS``), K4-bf16 at the up-pools at each bucket, and at
+    0 (``ENTRY_SUBDIVISIONS``), K4-bf16 at the up-pools at each bucket, at
     the step's grid K2-dW-bf16 at every bf16 conv (and the final conv's
     gather-first form) and K4-bf16 or its capped form on every bf16
-    backward table. Returns the shapes by kernel."""
+    backward table, and K2-dx-bf16 at every bf16 conv with dx (and the
+    final conv's gather-first form) at the grid and at B = 1. Returns the
+    shapes by kernel."""
     kernels, ops = mods["kernels"], mods["ops"]
     regs = {k["kernel"]: k for k in ptxas}
     for k in ptxas:
@@ -2554,6 +2748,15 @@ def mixed_parity(torch, mods, model, geom, ptxas: list) -> dict:
     shapes["spiral_conv_dw_bf16"][grid] = [
         mixed_k2_shape(torch, kernels, ops, gen, name, conv, op, grid, regs)
         for name, conv, op in bf_convs + [("final",) + final]]
+    # K2-dx-bf16 at every bf16 conv with dx, the final conv's gather-first
+    # form (C_out = 3) included, at the step's grid and at B = 1
+    dx = [(name, conv, op, torch.bfloat16)
+          for name, conv, op in [("final",) + final] + bf_convs[::-1]
+          if name != "enc0"]
+    for batch in (grid, 1):
+        shapes["spiral_conv_dx_bf16"][batch] = [
+            k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
+                       dtype) for name, conv, op, dtype in dx]
     tables = [t for t in step_tables(model, geom, grid)
               if t[4] == torch.bfloat16]
     back = [mixed_k4_shape(torch, kernels, ops, gen, name, mat, n_src, d)
@@ -2772,7 +2975,8 @@ def mixed_gather_first(torch, mods, bundle, config) -> dict:
     """The path of ``final_out_gather: False`` (the final conv
     gather-first, K3a): one counted ``reconstruct`` of 16 scans (its
     bucket's graph captured: its warm-up passes and the capture) and one
-    counted mixed step; K3a must launch in both."""
+    counted mixed step; K3a must launch in both, and the step's K2-dx-bf16
+    at every conv with dx, the final conv's included."""
     from craniofacialsd_vae_tpu_torch.models import init_sdvae
     from craniofacialsd_vae_tpu_torch.serving import (WARMUP_PASSES,
                                                       DiagnosisService)
@@ -2805,6 +3009,10 @@ def mixed_gather_first(torch, mods, bundle, config) -> dict:
           == 1 + WARMUP_PASSES + want["spiral_conv_f32out"],
           f"K3a launches {counts['spiral_conv_f32out']} on the gather-first "
           "path")
+    check(counts["spiral_conv_dx_bf16"] == want["spiral_conv_dx_bf16"],
+          f"K2-dx-bf16 launches {counts['spiral_conv_dx_bf16']} on the "
+          f"gather-first path, {want['spiral_conv_dx_bf16']} expected (the "
+          "final conv's included)")
     check(np.isfinite(ans["vertices"]).all()
           and all(bool(torch.isfinite(v)) for v in m.values()),
           "gather-first mixed path: finite answers and losses")
@@ -2851,7 +3059,8 @@ def mixed_entry(torch, mods, root: str, cfg_path: str) -> dict:
                   f"mixed entry epoch {h['epoch']} {phase} {h[phase]}")
     for kernel in ("spiral_conv_bf16", "ell_matmul_bf16",
                    "ell_matmul_capped_bf16", "spiral_conv_dw_bf16",
-                   "out_gather_sum", "out_gather_sum_bwd", "raster_sweep"):
+                   "spiral_conv_dx_bf16", "out_gather_sum",
+                   "out_gather_sum_bwd", "raster_sweep"):
         check(counts[kernel] > 0,
               f"{kernel} was not launched on the mixed entry path")
     ckpt = run["checkpoint_dir"]
@@ -2898,8 +3107,9 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
     """One record per new kernel and path: ``mixed_serving`` (K1-bf16,
     K4-bf16 and K3b over the B = 16 pass), ``mixed_training`` (the same
     forward shapes, K4-bf16 also on the backward tables without tiers,
-    the capped K4-bf16, K2-dW-bf16 at the step's convs, K3b's backward)
-    and ``mixed_gather_first`` (K3a)."""
+    the capped K4-bf16, K2-dW-bf16 at the step's convs, K3b's backward,
+    K2-dx-bf16 at its convs with dx) and ``mixed_gather_first`` (K3a and
+    K2-dx-bf16, the final conv's included)."""
     grid = TRAIN_CONFIG["batch_size"] ** 2
 
     def rec(name, path, shape_list, counts):
@@ -2916,6 +3126,10 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
         out.append(r)
     convs = [s for s in shapes["spiral_conv_dw_bf16"][grid]
              if s["conv"] != "final"]
+    dx = rec("spiral_conv_dx_bf16", "mixed_training",
+             [s for s in shapes["spiral_conv_dx_bf16"][grid]
+              if s["conv"] != "final"], tc)
+    dx["other_batches"] = {1: shapes["spiral_conv_dx_bf16"][1]}
     out += [rec("spiral_conv_bf16", "mixed_training",
                 shapes["spiral_conv_bf16"][grid], tc),
             rec("ell_matmul_bf16", "mixed_training",
@@ -2928,6 +3142,9 @@ def mixed_records(shapes: dict, serving: dict, training: dict,
             rec("spiral_conv_dw_bf16", "mixed_training", convs, tc),
             rec("ell_matmul_capped_bf16", "mixed_training",
                 shapes["ell_matmul_capped_bf16"][grid], tc),
+            dx,
+            rec("spiral_conv_dx_bf16", "mixed_gather_first",
+                shapes["spiral_conv_dx_bf16"][grid], gather_first["counts"]),
             rec("spiral_conv_f32out", "mixed_gather_first",
                 [s for s in shapes["spiral_conv_f32out"][BATCH]
                  if s["conv"] == "final"], gather_first["counts"])]
@@ -2993,7 +3210,9 @@ def phase_mixed(torch, mods, bundle, serve: dict, train: dict, ptxas: list,
 # the CUDA kernels of csrc/*.cu by the launch-count name of the wrapper
 # that launches them; a wrapper whose call launches two kernels is
 # counted by one of them (K2-dW's and K2-dW-bf16's fixed-order sums, K8's
-# pair pass), and the ELL kernels by their CAPPED template argument
+# pair pass, K8-sinkhorn's forward by its final sum), the ELL kernels by
+# their CAPPED template argument and K2-dx by its bf16 one. K8-sinkhorn's
+# backward has no kernel of its own once a call; no graph holds it.
 CUDA_KERNELS = {
     "spiral_conv_tc_kernel": "spiral_conv_tc",
     "spiral_conv_narrow_kernel": "spiral_conv_narrow",
@@ -3010,13 +3229,16 @@ CUDA_KERNELS = {
     "nearest_sq_bwd_kernel": "k8_bwd",
     "raster_sweep_kernel": "raster_sweep",
     "cheby_tile_kernel": "cheby_step",
+    "fixed_sum": "sinkhorn_fwd",
 }
 ELL_KERNELS = {"ell_matmul_direct": ("ell_matmul_fwd", "ell_matmul_capped"),
                "ell_matmul_scalar": ("ell_matmul_fwd", "ell_matmul_capped"),
                "ell_bf16_vector": ("ell_matmul_bf16",
                                    "ell_matmul_capped_bf16"),
                "ell_bf16_scalar": ("ell_matmul_bf16",
-                                   "ell_matmul_capped_bf16")}
+                                   "ell_matmul_capped_bf16"),
+               "spiral_conv_dx_kernel": ("spiral_conv_dx",
+                                         "spiral_conv_dx_bf16")}
 GRAPH_STEPS = 10
 PROFILE_LEAD_S = 0.01           # host time in the profiler before and
 #                                 after fn
@@ -3718,8 +3940,9 @@ def diagnosis_shapes(torch, mods, mgr, passes: dict) -> dict:
     manager's model's weights and tables and random inputs, against its
     twin and timed against it and a library call (the checks of phases 3,
     5 and 8): the spiral convs of each pass at each of its buckets, the
-    up-pools of each decode, and the transposes of each backward (the
-    first encoder conv's included: saliency's gradient reaches the data).
+    up-pools of each decode, and each backward's K2-dx at its convs (the
+    first encoder conv's included: saliency's gradient reaches the data)
+    and its up-pools' transposes.
     Returns ``{kernel: [shape, ...]}``, each shape with its ``launches``
     on the path (times the passes run it)."""
     kernels, ops = mods["kernels"], mods["ops"]
@@ -3776,6 +3999,10 @@ def diagnosis_shapes(torch, mods, mgr, passes: dict) -> dict:
                     add(mixed_k3b_bwd_shape(torch, kernels, ops, gen, conv,
                                             op, batch),
                         "out_gather_sum_bwd", times)
+                else:
+                    e = k2dx_shape(torch, kernels, ops, gen, name, conv, op,
+                                   batch, dtype)
+                    add(e, e["kernel"], times)
     torch.cuda.empty_cache()
     return shapes
 
@@ -5923,7 +6150,8 @@ def vertex_tables(vs, params, batch: int, train: bool) -> list:
     sharded forward at ``batch`` (each conv's and up-pool's send table,
     the up-pools), and for a train step the Laplacian's and every
     backward's transposes (none for the first conv, whose input needs no
-    gradient)."""
+    gradient): the send tables' and the up-pools'; a conv's dx is one
+    K2-dx (``vertex_launches``)."""
     out = []
     n = len(params.de_convs)
     for name, conv, lv in vertex_convs(vs, params):
@@ -5944,9 +6172,6 @@ def vertex_tables(vs, params, batch: int, train: bool) -> list:
              3 * batch)]
     for name, conv, lv in vertex_convs(vs, params)[1:]:
         c_in = conv.w.shape[0] // lv.op.seq_length
-        for table, cols in zip(lv.op.inv_tables, lv.op.group_cols):
-            out.append((f"{name} T", table, len(cols) * lv.op.num_vertices,
-                        batch * c_in))
         out.append((f"{name} send T", lv.send.transpose,
                     lv.send.cols.shape[0], batch * c_in))
         if name.startswith("dec"):
@@ -5961,14 +6186,16 @@ def vertex_tables(vs, params, batch: int, train: bool) -> list:
 
 def vertex_launches(vs, params, batch: int, train: bool) -> dict:
     """The launches of a sharded forward (``train``: a train step) at
-    ``batch``: K1 per conv, K2-dW per conv of a step, and per table of
-    ``vertex_tables`` K4, or the fused K4 where it has tiers."""
+    ``batch``: K1 per conv, K2-dW per conv of a step and K2-dx per conv
+    of a step but the first, and per table of ``vertex_tables`` K4, or the
+    fused K4 where it has tiers."""
     from craniofacialsd_vae_tpu_torch import kernels
 
     counts = dict.fromkeys(kernels.KERNEL_NAMES, 0)
-    for name, conv, lv in vertex_convs(vs, params):
+    for i, (name, conv, lv) in enumerate(vertex_convs(vs, params)):
         counts[conv_kernel(name, conv, lv.op, None, "gather")] += 1
         counts["spiral_conv_dw"] += int(train)
+        counts["spiral_conv_dx"] += int(train and i > 0)
     for _, mat, _, _ in vertex_tables(vs, params, batch, train):
         counts["ell_matmul_capped" if tiers_of(mat)
                else "ell_matmul_fwd"] += 1
@@ -6106,6 +6333,9 @@ def parallel_vertex(torch, mods, bundle, config, ptxas: list,
           for batch in (VS_FWD_BATCH, grid) for name, conv, lv in convs]
     k2 = k2_parity(torch, mods, None, None, grid, ptxas,
                    convs=[(n, c, lv.op) for n, c, lv in convs])
+    dx = k2dx_parity(torch, mods, [(n, c, lv.op, torch.float32)
+                                   for n, c, lv in reversed(convs[1:])],
+                     (grid,), "13d")
     k4 = [k4_table_shape(torch, mods, gen, name, mat, n_src, d)
           for batch, train in ((VS_FWD_BATCH, False), (grid, True))
           for name, mat, n_src, d in vertex_tables(vs, mb, batch, train)]
@@ -6120,7 +6350,7 @@ def parallel_vertex(torch, mods, bundle, config, ptxas: list,
         records.append(summarize("ell_matmul_capped",
                                  *KERNEL_SOURCES["ell_matmul_capped"],
                                  capped))
-    records.append(k2)
+    records += [k2, dx]
     for rec in records:
         rec["path"] = "vertex_sharded"
         rec["launches"] = counts[rec["name"]]
@@ -6988,6 +7218,151 @@ def phase_export(torch, mods, root: str, runs: dict, t_start: float,
     return {"line": line, "records": records}
 
 
+# ----------------------------------------------------------------------
+# phase 16: sinkhorn_divergence (K8-sinkhorn)
+def sinkhorn_shape(what: str, p: int, q: int, passes: int,
+                   ops_per_pair: int, **fields) -> dict:
+    """One K8-sinkhorn launch's record: its bound from the pairs its
+    passes take (``ops_per_pair`` FP32 operations each) and the bytes of
+    the clouds and the potentials, the times and errors in ``fields``."""
+    flops = float(p) * q * passes * ops_per_pair
+    nbytes = 4.0 * (3 * (p + q) + (SINKHORN_ITERS + 1) * (p + q))
+    b_ms, b_by, _, _ = bound(nbytes, flops)
+    return dict(shape=what, p=p, q=q, passes=passes, bytes=nbytes,
+                flops=flops, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, **fields)
+
+
+def phase_sinkhorn(torch, mods, t_start: float, smi: str) -> dict:
+    """Phase 16: ``ops.sinkhorn_divergence`` on the card. Counted (path
+    ``sinkhorn``): (a)'s forward and (b)'s forward and backward, one
+    ``sinkhorn_fwd`` a forward and one ``sinkhorn_bwd``. (a) the forward
+    at P = SINKHORN_P (the octasphere of subdivision 6) against Q =
+    SINKHORN_Q (a deformed scan of it, ``fit_scan``), ε = SINKHORN_EPS,
+    within SINKHORN_RTOL of the twin on the card, both timed; (b) the
+    gradient at SINKHORN_GRAD against the twin's autograd within
+    SINKHORN_GRAD_RTOL of each gradient's max, the backward kernel timed
+    against the twin's backward (its tape kept); (c) the JAX test's cases
+    (``tests/test_distances.py::TestSinkhorn``). No PyTorch call computes
+    the divergence: its library time is null. Fails past
+    SINKHORN_PHASE_S."""
+    from craniofacialsd_vae_tpu_torch.geometry import octasphere
+
+    kernels, dist = mods["kernels"], mods["distances"]
+    t0 = time.perf_counter()
+    pos = np.asarray(octasphere(6)[0], np.float32)
+    check(len(pos) == SINKHORN_P, f"octasphere(6) has {len(pos)} vertices")
+    scan, _ = fit_scan(pos, [0])
+    x = torch.as_tensor(pos, device=DEVICE)
+    y = torch.as_tensor(scan, device=DEVICE)
+    gen = torch.Generator(device=DEVICE).manual_seed(SEED + 16)
+    xg = torch.randn((SINKHORN_GRAD[0], 3), generator=gen, device=DEVICE)
+    yg = torch.randn((SINKHORN_GRAD[1], 3), generator=gen,
+                     device=DEVICE) + 1.0
+    eps, iters = SINKHORN_EPS, SINKHORN_ITERS
+
+    # the path: counts from 0, the forward at (a), (b)'s forward and
+    # backward, counts read
+    reset_counts()
+    with torch.no_grad():
+        got = dist.sinkhorn_divergence(x, y, eps, iters)
+    xa, ya = xg.clone().requires_grad_(), yg.clone().requires_grad_()
+    dist.sinkhorn_divergence(xa, ya, eps, iters).backward()
+    counts = read_counts(torch, "sinkhorn")
+    want = dict.fromkeys(kernels.KERNEL_NAMES, 0)
+    want.update(sinkhorn_fwd=2, sinkhorn_bwd=1)
+    check(counts == want, f"sinkhorn launches {counts}, expected {want}")
+
+    # (a) the forward against the twin
+    with torch.no_grad():
+        ref = dist.sinkhorn_divergence_plain(x, y, eps, iters)
+        torch.cuda.synchronize()
+        rel = abs(float(got) - float(ref)) / abs(float(ref))
+        check(np.isfinite(float(got)) and rel <= SINKHORN_RTOL,
+              f"K8-sinkhorn forward {float(got)!r} vs twin {float(ref)!r}")
+        again = dist.sinkhorn_divergence(x, y, eps, iters)
+        check(torch.equal(got, again), "K8-sinkhorn: two calls differ")
+        fwd_ms = cuda_ms(torch, lambda: kernels.sinkhorn_fwd(x, y, eps,
+                                                            iters), 3)
+        fwd_plain_ms = cuda_ms(torch, lambda: dist.sinkhorn_divergence_plain(
+            x, y, eps, iters), 1)
+    torch.cuda.empty_cache()
+    log(f"[16 sinkhorn a] P {SINKHORN_P} x Q {SINKHORN_Q}, eps {eps}, "
+        f"{iters} iterations: kernel {float(got):.6f}, twin "
+        f"{float(ref):.6f} (rel {rel:.2e}, rtol {SINKHORN_RTOL}); kernel "
+        f"{fwd_ms:.2f} ms, twin {fwd_plain_ms:.2f} ms; {smi}")
+
+    # (b) the gradient against the twin's autograd
+    gk = (xa.grad, ya.grad)
+    xt, yt = xg.clone().requires_grad_(), yg.clone().requires_grad_()
+    out_t = dist.sinkhorn_divergence_plain(xt, yt, eps, iters)
+    gt = torch.autograd.grad(out_t, (xt, yt), retain_graph=True)
+    grad_rel, grad_abs = [], []
+    for name, a, b in (("x", gk[0], gt[0]), ("y", gk[1], gt[1])):
+        scale = float(b.abs().max())
+        grad_abs.append(max_err(a, b))
+        r = grad_abs[-1] / scale
+        check(bool(torch.isfinite(a).all()) and r <= SINKHORN_GRAD_RTOL,
+              f"K8-sinkhorn gradient of {name}: {r:.2e} of its max from the "
+              f"twin's (rtol {SINKHORN_GRAD_RTOL})")
+        grad_rel.append(r)
+    with torch.no_grad():
+        _, f_hist, g_hist = kernels.sinkhorn_fwd(xg, yg, eps, iters)
+        one = torch.ones((), device=DEVICE)
+        bwd_ms = cuda_ms(torch, lambda: kernels.sinkhorn_bwd(
+            xg, yg, eps, iters, f_hist, g_hist, one), 5)
+    bwd_plain_ms = cuda_ms(torch, lambda: torch.autograd.grad(
+        out_t, (xt, yt), retain_graph=True), 3)
+    del out_t, gt
+    torch.cuda.empty_cache()
+    log(f"[16 sinkhorn b] gradient at P {SINKHORN_GRAD[0]} x Q "
+        f"{SINKHORN_GRAD[1]}: x {grad_rel[0]:.2e}, y {grad_rel[1]:.2e} of "
+        f"their max from the twin's autograd (rtol {SINKHORN_GRAD_RTOL}); "
+        f"backward kernel {bwd_ms:.2f} ms, twin's backward "
+        f"{bwd_plain_ms:.2f} ms")
+
+    # (c) the JAX test's cases
+    rng = np.random.default_rng(3)
+    cx = torch.as_tensor(rng.normal(size=(30, 3)).astype(np.float32),
+                         device=DEVICE)
+    cy = torch.as_tensor(rng.normal(size=(30, 3)).astype(np.float32) + 2.0,
+                         device=DEVICE)
+    same = float(dist.sinkhorn_divergence(cx, cx, 0.01))
+    apart = float(dist.sinkhorn_divergence(cy, cx, 0.01))
+    check(same < 0.05 and apart > 1.0, f"K8-sinkhorn: identical clouds "
+          f"{same}, clouds 2 apart {apart}")
+    phase_s = time.perf_counter() - t0
+    recs = []
+    for name, shape in (
+            ("sinkhorn_fwd", sinkhorn_shape(
+                "a", SINKHORN_P, SINKHORN_Q, 2 * iters + 1, SINKHORN_FWD_OPS,
+                ms=fwd_ms, plain_ms=fwd_plain_ms,
+                max_abs_err=abs(float(got) - float(ref)), rel_err=rel)),
+            ("sinkhorn_bwd", sinkhorn_shape(
+                "b", *SINKHORN_GRAD, 2 * iters + 2, SINKHORN_BWD_OPS,
+                ms=bwd_ms, plain_ms=bwd_plain_ms,
+                max_abs_err=max(grad_abs), rel_err=max(grad_rel)))):
+        r = summarize(name, *KERNEL_SOURCES[name], [shape])
+        r.update(path="sinkhorn", launches=counts[name])
+        recs.append(r)
+    line = {"phase": "sinkhorn", "nvidia_smi": smi,
+            "forward": {"p": SINKHORN_P, "q": SINKHORN_Q, "eps": eps,
+                        "n_iters": iters, "value": float(got),
+                        "twin": float(ref), "rel": rel, "ms": fwd_ms,
+                        "twin_ms": fwd_plain_ms},
+            "gradient": {"p": SINKHORN_GRAD[0], "q": SINKHORN_GRAD[1],
+                         "rel_of_max": grad_rel, "ms": bwd_ms,
+                         "twin_backward_ms": bwd_plain_ms},
+            "jax_cases": {"same": same, "apart": apart},
+            "launches": {k: v for k, v in counts.items() if v},
+            "phase_s": phase_s, "budget_s": SINKHORN_PHASE_S,
+            "script_s": time.perf_counter() - t_start}
+    log(json.dumps(line, default=float))
+    check(phase_s <= SINKHORN_PHASE_S, f"phase 16 took {phase_s:.1f} s, "
+          f"over its {SINKHORN_PHASE_S:.0f} s budget")
+    return {"line": line, "records": recs}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--json", metavar="PATH",
@@ -7124,6 +7499,11 @@ def main(argv=None) -> int:
             "fp32": entry["run_dir"], "mixed": mixed["entry"]["run_dir"]},
             t_start, smi_line)
         records += export["records"]
+        log(f"[15 export] done; total {time.perf_counter() - t_start:.1f} "
+            "s")
+        torch.cuda.empty_cache()
+        sinkhorn = phase_sinkhorn(torch, mods, t_start, smi_line)
+        records += sinkhorn["records"]
     finally:
         shutil.rmtree(root, ignore_errors=True)
     check({r["name"] for r in records} == set(kernels.KERNEL_NAMES),
@@ -7133,7 +7513,8 @@ def main(argv=None) -> int:
     # graph's replay profiled against its capture (check_replays)
     for rec in records:
         rec["replayed"] = PATH_REPLAYS[rec["path"]][rec["name"]]
-    log(f"[15 export] done; total {time.perf_counter() - t_start:.1f} s")
+    total_s = time.perf_counter() - t_start
+    log(f"[16 sinkhorn] done; chip_smoke total {total_s:.1f} s")
     serve.pop("inputs")
 
     if args.json:
@@ -7159,7 +7540,8 @@ def main(argv=None) -> int:
                        "figures": figures,
                        "parallel": parallel["line"],
                        "ensembles": ensembles["line"],
-                       "export": export["line"]},
+                       "export": export["line"],
+                       "sinkhorn": sinkhorn["line"], "total_s": total_s},
                       f, indent=1, default=float)
 
     print(json.dumps({"kernels": [

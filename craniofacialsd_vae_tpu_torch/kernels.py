@@ -18,9 +18,12 @@ The ``mixed`` and ``bfloat16`` policies' kernels go through the same
 wrappers: K4 and its capped form, K1 and K2-dW each take bf16 rows
 (``csrc/*_bf16.cu``, counted under their own names), which none of them
 converts; K3b (``out_gather_sum``) is the matmul-first final conv's
-gather-sum and ``out_gather_sum_bwd`` its backward. K9 (``cheby_step``)
-is one step of the Laplacian eigensolver's Chebyshev filter, over the
-Laplacian's vertex tiles; its panels may be row-strided views.
+gather-sum and ``out_gather_sum_bwd`` its backward. K2-dx
+(``spiral_conv_dx``, fp32 or bf16 rows) is the spiral conv's input
+gradient. K9 (``cheby_step``) is one step of the Laplacian eigensolver's
+Chebyshev filter, over the Laplacian's vertex tiles; its panels may be
+row-strided views. K8-sinkhorn (``sinkhorn_fwd``, ``sinkhorn_bwd``) is
+the Sinkhorn divergence and its gradient, each one wrapper call.
 """
 
 from __future__ import annotations
@@ -45,10 +48,12 @@ __all__ = ["SOURCES", "KERNEL_NAMES", "launches", "build", "library",
            "bf16_vec_plan", "spiral_conv_fwd",
            "DwPlan", "plan_spiral_conv_dw", "DwBf16Plan", "dw_bf16_plan",
            "plan_spiral_conv_dw_bf16",
-           "spiral_conv_dw", "out_gather_sum", "out_gather_bwd_plan",
+           "spiral_conv_dw", "DxPlan", "plan_spiral_conv_dx",
+           "spiral_conv_dx", "out_gather_sum", "out_gather_bwd_plan",
            "out_gather_sum_bwd",
            "raster_sweep", "k8_plan", "k8_bwd_bins", "nearest_sq",
-           "nearest_sq_sym", "nearest_sq_bwd", "cheby_step"]
+           "nearest_sq_sym", "nearest_sq_bwd", "cheby_step",
+           "sinkhorn_fwd", "sinkhorn_bwd"]
 
 _PKG = os.path.dirname(os.path.abspath(__file__))
 _CSRC = os.path.join(_PKG, "csrc")
@@ -56,7 +61,7 @@ _BUILD_ROOT = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 SOURCES = ("ell_matmul.cu", "raster_sweep.cu", "spiral_conv.cu",
            "spiral_conv_dw.cu", "ell_matmul_bf16.cu", "spiral_conv_bf16.cu",
            "spiral_conv_dw_bf16.cu", "out_gather_sum.cu", "distances.cu",
-           "cheby_step.cu")
+           "cheby_step.cu", "spiral_conv_dx.cu", "sinkhorn.cu")
 HEADERS = ("common.cuh", "bf16.cuh")
 _LIB_NAME = "libcfsdvae_kernels.so"
 _ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -68,7 +73,9 @@ KERNEL_NAMES = ("spiral_conv_tc", "spiral_conv_narrow", "ell_matmul_fwd",
                 "spiral_conv_bf16", "spiral_conv_f32out",
                 "spiral_conv_dw_bf16", "ell_matmul_bf16",
                 "ell_matmul_capped_bf16", "out_gather_sum",
-                "out_gather_sum_bwd", "k8_fwd", "k8_bwd", "cheby_step")
+                "out_gather_sum_bwd", "k8_fwd", "k8_bwd", "cheby_step",
+                "spiral_conv_dx", "spiral_conv_dx_bf16", "sinkhorn_fwd",
+                "sinkhorn_bwd")
 
 # K1 planner constants (csrc/spiral_conv.cu checks every plan it gets)
 _SMS = 132                    # H100 SXM
@@ -211,6 +218,12 @@ def library() -> ctypes.CDLL:
                 + [p] * 6 + [i] + [p] * 4 + [p]
             lib.cfs_cheby_step.argtypes = [p] * 6 + [i] * 3 + [p] * 4 + [
                 i] * 4 + [ctypes.c_float, ctypes.c_float, p]
+            lib.cfs_spiral_conv_dx.argtypes = [p] * 5 + [i] * 7 + [
+                ctypes.POINTER(i), p]
+            lib.cfs_sinkhorn_fwd.argtypes = [p, p, i, i, ctypes.c_float, i,
+                                             p, p, p, p, p]
+            lib.cfs_sinkhorn_bwd.argtypes = [p, p, i, i, ctypes.c_float, i,
+                                             p, p, p, p, p, p, p, p]
             lib.cfs_cheby_step_smem.argtypes = [i, i, i]
             lib.cfs_cheby_step_smem.restype = ctypes.c_int
             lib.cfs_cheby_step_blocks_per_sm.argtypes = [i, i, i]
@@ -224,7 +237,9 @@ def library() -> ctypes.CDLL:
                        lib.cfs_out_gather_sum, lib.cfs_out_gather_sum_bwd,
                        lib.cfs_spiral_conv_narrow_tile,
                        lib.cfs_spiral_conv_bf16_tile, lib.cfs_nearest_sq,
-                       lib.cfs_nearest_sq_bwd, lib.cfs_cheby_step):
+                       lib.cfs_nearest_sq_bwd, lib.cfs_cheby_step,
+                       lib.cfs_spiral_conv_dx, lib.cfs_sinkhorn_fwd,
+                       lib.cfs_sinkhorn_bwd):
                 fn.restype = ctypes.c_int
             _lib = lib
         return _lib
@@ -1299,6 +1314,152 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     return out
 
 
+# K2-dx planner constants (csrc/spiral_conv_dx.cu checks every plan)
+_DX_ROWS = 64                 # product rows a block: vertices x batch rows
+_DX_DEPTH = 128               # a position chunk's depth, P·C_out, at most
+#                               (one position where C_out is wider)
+_DX_DEPTH_BF16 = 288          # the same in bf16: all nine positions of a
+#                               32-wide conv, one chunk a tile
+
+
+_DX_RESIDENT_SMEM = 110 * 1024   # a block's shared memory with every
+#                                  chunk's Wᵀ staged once, at most
+_DX_BLOCKS_PER_SM = 3         # its launch bounds (80 registers a thread)
+
+
+@dataclass(frozen=True)
+class DxPlan:
+    """One K2-dx launch: a block owns ``tv`` vertices times ``tb`` batch
+    rows at a time and ``8·nf`` columns of dx; grid (``grid[0]`` blocks
+    over the vertex tiles, batch slices, ``zc`` column blocks). Positions
+    go ``positions`` at a time, a chunk ``kc`` deep (``positions ·
+    C_out`` rounded up to 16), ``du``'s rows ``lda`` elements apart in
+    shared memory and Wᵀ's ``ldw``. ``resident``: every chunk's Wᵀ is
+    staged once, and each block walks the tiles ``blockIdx.x``,
+    ``blockIdx.x + grid[0]``, …; else a block a tile, each chunk's Wᵀ
+    staged with it."""
+    tb: int
+    tv: int
+    positions: int
+    kc: int
+    lda: int
+    nf: int
+    zc: int
+    smem: int
+    ldw: int
+    resident: bool
+    grid: tuple
+    threads: int = 256
+
+    @property
+    def blocks(self) -> int:
+        return self.grid[0] * self.grid[1] * self.grid[2]
+
+    def as_ints(self) -> tuple:
+        """The plan as csrc/spiral_conv_dx.cu's DxField array."""
+        return (self.tb, self.tv, self.positions, self.kc, self.lda,
+                self.nf, self.zc, self.smem, self.ldw, int(self.resident),
+                self.grid[0])
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_spiral_conv_dx(n_src: int, b: int, seq: int, c_in: int,
+                        c_out: int, bf16: bool = False) -> DxPlan:
+    """The K2-dx launch for ``dx [n_src, B, C_in]`` from ``dy [M, B,
+    C_out]`` over ``seq`` positions: the batch rows of a block's vertices
+    (all B up to 64), as many vertices as fill 64 rows, the fewest
+    8-column fragments that cover C_in (64 columns a block at most),
+    fewer where the grid would not fill the SMs twice; the fewest chunks
+    whose depth stays within 128 (bf16: 288), the positions spread evenly
+    over them;
+    Wᵀ resident where every chunk's fits in ``_DX_RESIDENT_SMEM`` with
+    the rest, the blocks then as many as the SMs hold at once. Raises for
+    a shape that does not fit."""
+    if min(n_src, b, seq, c_in, c_out) < 1:
+        raise ValueError(f"spiral conv dx needs n_src, B, L, C_in, C_out ≥ "
+                         f"1; got {n_src}, {b}, {seq}, {c_in}, {c_out}")
+    tb = min(b, _DX_ROWS)
+    tv = _DX_ROWS // tb
+    n_tiles = _cdiv(n_src, tv)
+    nf = next(f for f in (1, 2, 4, 8) if 8 * f >= min(c_in, 64))
+    # a small level's few tiles: narrower column blocks, more of them
+    # (each gathers the tile's du again), until the grid fills the SMs
+    # twice over
+    while nf > 1 and n_tiles * _cdiv(b, tb) * _cdiv(c_in, 8 * nf) \
+            < 2 * _SMS:
+        nf //= 2
+    zc = _cdiv(c_in, 8 * nf)
+    depth = _DX_DEPTH_BF16 if bf16 else _DX_DEPTH
+    chunks = _cdiv(seq, max(1, min(seq, depth // c_out)))
+    positions = _cdiv(seq, chunks)
+    kc = _cdiv(positions * c_out, 16) * 16
+    pad = 8 if bf16 else 4
+    lda = kc + pad
+
+    def smem_of(ldw):
+        return ((2 * (_DX_ROWS * lda + 8 * nf * ldw) if bf16
+                 else 4 * (_DX_ROWS * lda + 16 * nf * ldw))
+                + 12 * tv * seq)
+
+    ldw = -(-seq // positions) * kc + pad
+    smem = smem_of(ldw)
+    resident = smem <= _DX_RESIDENT_SMEM
+    if resident:
+        per_sm = min(_DX_BLOCKS_PER_SM,
+                     _SMEM_SM // (smem + _SMEM_RESERVED))
+        grid_x = min(n_tiles, _SMS * per_sm)
+    else:
+        ldw, grid_x = lda, n_tiles
+        smem = smem_of(ldw)
+    if smem > _SMEM_BLOCK:
+        raise ValueError(f"no K2-dx chunk of C_out={c_out} fits in shared "
+                         "memory")
+    return DxPlan(tb=tb, tv=tv, positions=positions, kc=kc, lda=lda, nf=nf,
+                  zc=zc, smem=smem, ldw=ldw, resident=resident,
+                  grid=(grid_x, _cdiv(b, tb), zc))
+
+
+def spiral_conv_dx(dy: torch.Tensor, w_l: torch.Tensor, ptr: torch.Tensor,
+                   idx: torch.Tensor, n_src: int,
+                   plan: DxPlan | None = None) -> torch.Tensor:
+    """K2-dx: ``dx[v] = Σ_l du_l[v] @ W_lᵀ`` with ``du_l[v]`` the sum of
+    ``dy``'s rows in the list of ``(v, l)`` (``ops.SpiralDx``: ``ptr
+    [n_src·L + 1]``, ``idx``, −1 for ``0 · dy[0]``), for ``dy [M, B,
+    C_out]`` and ``w_l [L, C_in, C_out]``; returns ``[n_src, B, C_in]`` in
+    dy's dtype, every row written (0 where no list reaches it). bf16 dy
+    and w_l: K2-dx-bf16, ``du`` rounded to bf16 once, ``dx`` once.
+    ``plan`` defaults to ``plan_spiral_conv_dx``'s."""
+    dev = dy.device
+    dtype = _rows_dtype(dy)
+    _require(dy, "dy", dtype, 3, dev)
+    _require(w_l, "w_l", dtype, 3, dev)
+    _require(ptr, "ptr", torch.int32, 1, dev)
+    _require(idx, "idx", torch.int32, 1, dev)
+    m, bsz, c_out = dy.shape
+    seq, c_in = w_l.shape[0], w_l.shape[1]
+    if w_l.shape[2] != c_out or ptr.shape[0] != n_src * seq + 1:
+        raise ValueError(f"dy {tuple(dy.shape)}, w_l {tuple(w_l.shape)} and "
+                         f"the lists of {ptr.shape[0]} offsets do not fit "
+                         f"{n_src} source rows")
+    _fits_int32(m * bsz * c_out, n_src * bsz * c_in, n_src * seq + 1,
+                idx.numel())
+    out = torch.empty((n_src, bsz, c_in), dtype=dtype, device=dev)
+    if out.numel() == 0:
+        return out
+    if m == 0 or c_out == 0 or seq == 0:
+        return out.zero_()
+    bf16 = dtype == torch.bfloat16
+    if plan is None:
+        plan = plan_spiral_conv_dx(n_src, bsz, seq, c_in, c_out, bf16)
+    fields = plan.as_ints()
+    _launch("spiral_conv_dx_bf16" if bf16 else "spiral_conv_dx",
+            library().cfs_spiral_conv_dx, dev, _ptr(dy), _ptr(w_l),
+            _ptr(ptr), _ptr(idx) if idx.numel() else _ptr(ptr), _ptr(out),
+            n_src, m, seq, bsz, c_in, c_out, int(bf16),
+            (ctypes.c_int * len(fields))(*fields))
+    return out
+
+
 _OUT_GATHER_MAX_O = 8           # csrc/out_gather_sum.cu's kMaxO
 _OUT_GATHER_BWD_SMEM = 100 * 1024   # most shared memory a block stages
 _OUT_GATHER_BWD_REGS = 64       # registers a thread, rounded up (ptxas)
@@ -1625,6 +1786,68 @@ def nearest_sq_bwd(query: torch.Tensor, ref: torch.Tensor, mu: torch.Tensor,
             _ptr(perm) if csr else none, _ptr(off) if csr else none,
             _ptr(out))
     return (out, perm, off) if csr else out
+
+
+def _sinkhorn_clouds(x: torch.Tensor, y: torch.Tensor) -> tuple:
+    dev = x.device
+    _require(x, "x", torch.float32, 2, dev)
+    _require(y, "y", torch.float32, 2, dev)
+    if x.shape[1] != 3 or y.shape[1] != 3 or min(x.shape[0],
+                                                  y.shape[0]) < 1:
+        raise ValueError(f"x and y must be [P, 3] and [Q, 3] with P, Q ≥ 1; "
+                         f"got {tuple(x.shape)} and {tuple(y.shape)}")
+    _fits_int32(3 * x.shape[0], 3 * y.shape[0])
+    return dev, x.shape[0], y.shape[0]
+
+
+def sinkhorn_fwd(x: torch.Tensor, y: torch.Tensor, epsilon: float,
+                 n_iters: int) -> tuple:
+    """K8-sinkhorn's forward: ``(out [], f_hist [n_iters + 1, P], g_hist
+    [n_iters + 1, Q])`` for the clouds ``x [P, 3]``, ``y [Q, 3]`` (fp32):
+    ``n_iters`` row-LSE passes of f and of g from zeros, each iteration's
+    potentials kept (row 0 the zeros), then ``Σ coupling · cost`` by rows
+    and one fixed-order sum (``csrc/sinkhorn.cu``; one wrapper call, 2
+    n_iters + 2 launches)."""
+    dev, p, q = _sinkhorn_clouds(x, y)
+    if not epsilon > 0 or n_iters < 0:
+        raise ValueError(f"epsilon must be > 0 and n_iters ≥ 0; got "
+                         f"{epsilon}, {n_iters}")
+    f_hist = torch.empty((n_iters + 1, p), dtype=torch.float32, device=dev)
+    g_hist = torch.empty((n_iters + 1, q), dtype=torch.float32, device=dev)
+    part = torch.empty(p, dtype=torch.float32, device=dev)
+    out = torch.empty((), dtype=torch.float32, device=dev)
+    _launch("sinkhorn_fwd", library().cfs_sinkhorn_fwd, dev, _ptr(x),
+            _ptr(y), p, q, ctypes.c_float(epsilon), n_iters, _ptr(f_hist),
+            _ptr(g_hist), _ptr(part), _ptr(out))
+    return out, f_hist, g_hist
+
+
+def sinkhorn_bwd(x: torch.Tensor, y: torch.Tensor, epsilon: float,
+                 n_iters: int, f_hist: torch.Tensor, g_hist: torch.Tensor,
+                 grad: torch.Tensor) -> tuple:
+    """K8-sinkhorn's backward: ``(x̄ [P, 3], ȳ [Q, 3])`` for the output's
+    cotangent ``grad`` (a one-element fp32 tensor on the card), from the
+    forward's potentials: the output's own term, then the reverse sweep,
+    a row pass over x and a column pass over y an iteration
+    (``csrc/sinkhorn.cu``; one wrapper call, 2 n_iters + 2 launches)."""
+    dev, p, q = _sinkhorn_clouds(x, y)
+    _require(f_hist, "f_hist", torch.float32, 2, dev)
+    _require(g_hist, "g_hist", torch.float32, 2, dev)
+    if (f_hist.shape != (n_iters + 1, p) or g_hist.shape != (n_iters + 1, q)
+            or grad.numel() != 1 or grad.dtype != torch.float32
+            or grad.device != dev):
+        raise ValueError("the potentials or the cotangent do not fit the "
+                         "clouds and n_iters")
+    grad = grad.reshape(1).contiguous()
+    fbar = torch.empty(p, dtype=torch.float32, device=dev)
+    gbar = torch.empty((2, q), dtype=torch.float32, device=dev)
+    xbar = torch.empty((p, 3), dtype=torch.float32, device=dev)
+    ybar = torch.empty((q, 3), dtype=torch.float32, device=dev)
+    _launch("sinkhorn_bwd", library().cfs_sinkhorn_bwd, dev, _ptr(x),
+            _ptr(y), p, q, ctypes.c_float(epsilon), n_iters, _ptr(f_hist),
+            _ptr(g_hist), _ptr(grad), _ptr(fbar), _ptr(gbar), _ptr(xbar),
+            _ptr(ybar))
+    return xbar, ybar
 
 
 _CHEBY_MAX_K = 32               # csrc/cheby_step.cu kMaxK

@@ -21,8 +21,18 @@ of it to one: the same total wherever the tied points are identical (the
 fit's target padding repeats its first point), and distinct points of
 continuous clouds tie with probability 0.
 
-``point_mesh_distance`` is host numpy, as in JAX. The Sinkhorn divergence
-is not ported (no path runs it).
+``point_mesh_distance`` is host numpy, as in JAX.
+
+``sinkhorn_divergence`` is kernel K8-sinkhorn (``csrc/sinkhorn.cu``) on
+the card: the log-space Sinkhorn of JAX's ``sinkhorn_divergence`` with the
+``[P, Q]`` cost recomputed from the clouds in every pass and never
+stored. Its forward keeps every iteration's potentials, and its backward
+(an ``autograd.Function``) runs the reverse sweep over them as row and
+column reductions. For CPU tensors it runs the plain twin,
+``sinkhorn_divergence_plain``: JAX's function in torch over the
+materialised cost, differentiable by autograd (``torch.maximum`` splits
+the cotangent at the clamp's ties as JAX's ``maximum`` does). No path of
+the port calls it (the reference comments its use out).
 """
 
 from __future__ import annotations
@@ -33,8 +43,9 @@ import torch
 from .. import kernels
 
 __all__ = ["nearest_dists_sq", "nearest_dists_sq_sym",
-           "nearest_dists_sq_sym_plain", "nearest_sq_bwd_plain", "argmin_csr", "chamfer_distance",
-           "point_mesh_distance"]
+           "nearest_dists_sq_sym_plain", "nearest_sq_bwd_plain",
+           "argmin_csr", "chamfer_distance", "point_mesh_distance",
+           "sinkhorn_divergence", "sinkhorn_divergence_plain"]
 
 CHUNK = 4096        # JAX's column chunk
 _PAD = 1e9          # JAX's padding coordinate (finite: inf − inf is NaN)
@@ -210,3 +221,69 @@ def point_mesh_distance(points, verts, faces) -> float:
         d2 = _point_triangle_closest(pts[s:s + 1024], tri)
         best[s:s + 1024] = d2.min(axis=1)
     return float(best.sum() / len(pts) ** 2)
+
+
+def _log_weight(n: int) -> float:
+    """``-log(n)`` in float32, JAX's ``jnp.log`` of the count."""
+    return -float(np.log(np.float32(n)))
+
+
+def sinkhorn_divergence_plain(x: torch.Tensor, y: torch.Tensor,
+                              epsilon: float = 0.05,
+                              n_iters: int = 50) -> torch.Tensor:
+    """The plain twin of K8-sinkhorn: JAX's ``sinkhorn_divergence`` step
+    for step over the materialised ``[P, Q]`` cost ``max(‖x‖² + ‖y‖² −
+    2·x·yᵀ, 0)`` (a full fp32 product), ``n_iters`` log-space updates of
+    f then g from zeros, then ``Σ coupling · cost``; differentiable."""
+    xx = torch.sum(x * x, dim=-1)
+    yy = torch.sum(y * y, dim=-1)
+    raw = xx[:, None] + yy[None, :] - 2.0 * (x @ y.T)
+    cost = torch.maximum(raw, torch.zeros_like(raw))
+    log_mu = _log_weight(x.shape[0])
+    log_nu = _log_weight(y.shape[0])
+    f = torch.zeros(x.shape[0], dtype=x.dtype, device=x.device)
+    g = torch.zeros(y.shape[0], dtype=y.dtype, device=y.device)
+    for _ in range(n_iters):
+        f = -epsilon * torch.logsumexp(
+            (g[None, :] - cost) / epsilon + log_nu, dim=1)
+        g = -epsilon * torch.logsumexp(
+            (f[:, None] - cost) / epsilon + log_mu, dim=0)
+    coupling = torch.exp((f[:, None] + g[None, :] - cost) / epsilon
+                         + log_mu + log_nu)
+    return torch.sum(coupling * cost)
+
+
+class _Sinkhorn(torch.autograd.Function):
+    """K8-sinkhorn: the forward kernel keeps the potentials of every
+    iteration (``[n_iters + 1, P]`` and ``[n_iters + 1, Q]``), the
+    backward kernel sweeps them in reverse."""
+
+    @staticmethod
+    def forward(ctx, x, y, epsilon, n_iters):
+        x, y = x.contiguous(), y.contiguous()
+        out, f_hist, g_hist = kernels.sinkhorn_fwd(x, y, epsilon, n_iters)
+        ctx.save_for_backward(x, y, f_hist, g_hist)
+        ctx.epsilon, ctx.n_iters = epsilon, n_iters
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        x, y, f_hist, g_hist = ctx.saved_tensors
+        dx, dy = kernels.sinkhorn_bwd(x, y, ctx.epsilon, ctx.n_iters,
+                                      f_hist, g_hist, grad.contiguous())
+        return dx, dy, None, None
+
+
+def sinkhorn_divergence(x: torch.Tensor, y: torch.Tensor,
+                        epsilon: float = 0.05,
+                        n_iters: int = 50) -> torch.Tensor:
+    """Entropic OT cost between two clouds ``x [P, 3]``, ``y [Q, 3]``
+    with uniform weights (JAX ``ops/distances.py::sinkhorn_divergence``),
+    on the inputs' device: K8-sinkhorn's kernels on the card, the plain
+    twin on the host; differentiable in both clouds."""
+    if x.dim() != 2 or y.dim() != 2 or x.shape[1] != 3 or y.shape[1] != 3:
+        raise ValueError(f"x and y must be [P, 3] and [Q, 3]; got "
+                         f"{tuple(x.shape)} and {tuple(y.shape)}")
+    if not x.is_cuda:
+        return sinkhorn_divergence_plain(x, y, epsilon, n_iters)
+    return _Sinkhorn.apply(x, y, float(epsilon), int(n_iters))

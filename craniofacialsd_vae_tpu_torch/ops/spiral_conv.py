@@ -15,22 +15,25 @@ custom VJP (``_spiral_conv_core`` / ``_score_bwd``):
   source rows in shared memory once, ``SpiralOp.tiles``), which never
   writes the ``[M, B, L·C]`` concatenation; for a CPU tensor it runs
   the plain twin, the fp32 branch of ``_spiral_conv_core``;
-- backward: ``dx`` through the combined capped transposes (one batched
-  product ``dy @ W_gᵀ`` per column group, then ``CappedEll.apply``: K4
-  with the overflow tiers landed in the same launch), plus ``dy @ W_iᵀ``
-  for identity columns; ``dW`` by kernel K2-dW
-  (``csrc/spiral_conv_dw.cu``, tensor cores in 3xTF32), which recomputes
-  the gathers; ``db = Σ dy``. On the host the same steps run with the
-  plain twins.
+- backward: ``dx`` by kernel K2-dx (``csrc/spiral_conv_dx.cu``), which
+  reassociates JAX's ``Σ (dy[n] @ W_lᵀ)`` over the combined transposes
+  as ``Σ_l du_l @ W_lᵀ``: per position the gather-sum ``du_l[v] = Σ
+  dy[n]`` over the ``n`` with ``S[n, l] = v`` (``SpiralDx``, built with
+  the op), formed in shared memory, then one product with the stacked
+  ``W_lᵀ`` on the tensor cores in 3xTF32, so no ``dy @ Wᵀ`` is ever
+  written; ``dW`` by kernel K2-dW (``csrc/spiral_conv_dw.cu``, tensor
+  cores in 3xTF32), which recomputes the gathers; ``db = Σ dy``. On the
+  host the same steps run with the plain twins.
 
 bf16 activations (the ``mixed`` and ``bfloat16`` policies) keep the JAX
 package's rounding points: ``w`` and ``b`` are cast to bf16; the forward
 (K1-bf16, ``csrc/spiral_conv_bf16.cu``) accumulates ``b`` and the L
-position products in fp32 and rounds once; the backward forms ``dg`` and
-the identity columns' products in bf16, gathers ``dg`` with the capped
-K4-bf16, sums ``dW`` (K2-dW-bf16) and ``db`` in fp32 and rounds each
-once. Autograd through the casts hands fp32 gradients to the fp32
-parameters. The final decoder conv returns fp32: gather-first through
+position products in fp32 and rounds once; the backward sums ``dW``
+(K2-dW-bf16) and ``db`` in fp32 and rounds each once, and K2-dx-bf16
+forms ``du`` in fp32 from the bf16 ``dy``, rounds it to bf16 once for
+the bf16 tensor cores and rounds ``dx`` once.
+Autograd through the casts hands fp32 gradients to the fp32 parameters.
+The final decoder conv returns fp32: gather-first through
 ``_SpiralConvF32Out`` (K3a: the accumulator unrounded, on the tensor
 cores from each vertex tile's rows staged once in shared memory,
 ``SpiralOp.tiles``; its backward rounds ``dy`` to bf16 once), or
@@ -55,11 +58,13 @@ from .sparse import (CappedEll, GatherRows, capped_ell,
                      ell_matmul_capped_plain, ell_matmul_plain,
                      gather_op_from_idx)
 
-__all__ = ["SpiralOp", "SpiralTiles", "OutGatherBwd", "OutGatherRuns",
-           "build_spiral_op", "build_spiral_tiles", "build_out_gather_bwd",
+__all__ = ["SpiralOp", "SpiralTiles", "SpiralDx", "OutGatherBwd",
+           "OutGatherRuns", "build_spiral_op", "build_spiral_tiles",
+           "build_spiral_dx", "build_out_gather_bwd",
            "build_out_gather_runs", "init_spiral_conv",
            "spiral_conv", "spiral_conv_plain", "spiral_conv_table_plain",
-           "tile_args", "spiral_conv_dw",
+           "tile_args", "spiral_conv_dx", "spiral_conv_dx_plain",
+           "spiral_conv_dw",
            "spiral_conv_dw_plain", "spiral_conv_dw_chunked_plain",
            "spiral_conv_out_gather",
            "out_gather_sum_plain", "out_gather_sum_bwd_plain",
@@ -429,16 +434,70 @@ def build_out_gather_runs(bwd: OutGatherBwd, max_verts: int = _RUN_VERTS,
 
 
 @dataclass
+class SpiralDx:
+    """K2-dx's lists: for source vertex ``v`` and spiral position ``l``,
+    ``idx[ptr[v·L + l]:ptr[v·L + l + 1]]`` are the rows ``n`` of ``dy``
+    with ``S[n, l] = v`` in ascending order (an identity position's one
+    entry is ``v`` itself), then −1 where the combined transpose of
+    ``l``'s column group pads a row of ``v`` (main table or tier) and
+    ``l`` is the group's first column: JAX adds ``0 · dg[0]`` there,
+    ``0 · dy[0] @ W_lᵀ``, which carries a non-finite ``dy[0]`` into
+    ``dx[v]``. ``max_count``: the longest list. int32."""
+    ptr: torch.Tensor              # [n_src · L + 1]
+    idx: torch.Tensor              # [entries]
+    n_src: int
+    max_count: int
+
+    def to(self, device) -> "SpiralDx":
+        return SpiralDx(self.ptr.to(device), self.idx.to(device),
+                        self.n_src, self.max_count)
+
+
+def build_spiral_dx(spirals: np.ndarray, n_src: int, inv_tables: list,
+                    group_cols: tuple) -> SpiralDx:
+    """Host-side, vectorised: ``SpiralDx`` of an ``[M, L]`` table over
+    ``n_src`` source rows, the padding entries read from the op's combined
+    transposes ``inv_tables`` (one per column group ``group_cols``)."""
+    spirals = np.asarray(spirals, dtype=np.int64)
+    m, seq = spirals.shape
+    v = spirals.reshape(-1)                        # entry (n, l) → S[n, l]
+    pos = np.tile(np.arange(seq), m)
+    row = np.repeat(np.arange(m), seq)
+    pads_v, pads_l = [], []
+    for table, cols in zip(inv_tables, group_cols):
+        padded = (table.vals == 0).any(1).numpy()
+        for t_rows, _, t_vals in table.tiers:
+            padded[t_rows.numpy()[(t_vals == 0).any(1).numpy()]] = True
+        hit = np.flatnonzero(padded)
+        pads_v.append(hit)
+        pads_l.append(np.full(len(hit), cols[0]))
+    v = np.concatenate([v, *pads_v])
+    pos = np.concatenate([pos, *pads_l])
+    # the padding after the rows (key m), then −1
+    key = np.concatenate([row, np.full(len(v) - len(row), m)])
+    order = np.lexsort((key, v * seq + pos))
+    idx = np.where(key[order] == m, -1, key[order])
+    counts = np.bincount(v * seq + pos, minlength=n_src * seq)
+    ptr = np.concatenate([[0], np.cumsum(counts)])
+    if ptr[-1] >= 2 ** 31:
+        raise ValueError("K2-dx's lists must fit int32 offsets")
+    i32 = lambda a: torch.from_numpy(np.asarray(a, dtype=np.int32))  # noqa
+    return SpiralDx(ptr=i32(ptr), idx=i32(idx), n_src=n_src,
+                    max_count=int(counts.max()) if counts.size else 0)
+
+
+@dataclass
 class SpiralOp:
     """Per-level spiral structure.
 
     ``table`` is the ``[M, L]`` int32 spiral table the kernel reads;
     ``gathers`` holds one GatherRows per position (None for an identity
     position, whose rows are ``x`` itself), and ``inv_tables`` the combined
-    transposes over the flat ``(l, m)`` index space that a backward pass
-    reads, one per column group. ``tiles`` are the vertex tiles of K1
-    narrow, K3a, K1-bf16 and K2-dW-bf16, and ``out_bwd`` K3b's backward
-    table, both built with the op."""
+    transposes over the flat ``(l, m)`` index space, one per column group,
+    as JAX builds them: the conv's backward reads them through ``dx``
+    (K2-dx's lists, built from them with the op) and applies none. ``tiles``
+    are the vertex tiles of K1 narrow, K3a, K1-bf16 and K2-dW-bf16, and
+    ``out_bwd`` K3b's backward table, both built with the op."""
     table: torch.Tensor            # [M, L] int32
     gathers: list                  # L × (GatherRows | None)
     inv_tables: list               # per column group: CappedEll
@@ -448,6 +507,7 @@ class SpiralOp:
     n_src: int                     # rows of the input (≠ M when composed)
     tiles: SpiralTiles
     out_bwd: OutGatherBwd
+    dx: SpiralDx
 
     @property
     def num_vertices(self) -> int:
@@ -461,7 +521,8 @@ class SpiralOp:
             inv_tables=[t.to(device) for t in self.inv_tables],
             group_cols=self.group_cols, identity_cols=self.identity_cols,
             seq_length=self.seq_length, n_src=self.n_src,
-            tiles=self.tiles.to(device), out_bwd=self.out_bwd.to(device))
+            tiles=self.tiles.to(device), out_bwd=self.out_bwd.to(device),
+            dx=self.dx.to(device))
 
 
 def build_spiral_op(spirals: np.ndarray,
@@ -503,7 +564,9 @@ def build_spiral_op(spirals: np.ndarray,
                     group_cols=tuple(group_cols),
                     identity_cols=identity_cols, seq_length=l, n_src=n,
                     tiles=build_spiral_tiles(spirals, composed=n != m),
-                    out_bwd=build_out_gather_bwd(gathers, n, m))
+                    out_bwd=build_out_gather_bwd(gathers, n, m),
+                    dx=build_spiral_dx(spirals, n, inv_tables,
+                                       tuple(group_cols)))
 
 
 def init_spiral_conv(generator: torch.Generator, in_channels: int,
@@ -623,12 +686,49 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     return kernels.spiral_conv_dw(x, table, dy, tiles=tiles)
 
 
-def _positions(w_l: torch.Tensor, cols: tuple) -> torch.Tensor:
-    """``w_l[list(cols)]``: a slice where the positions run consecutively,
-    else a stack of views."""
-    if list(cols) == list(range(cols[0], cols[0] + len(cols))):
-        return w_l[cols[0]:cols[0] + len(cols)]
-    return torch.stack([w_l[i] for i in cols])
+def spiral_conv_dx_plain(dy: torch.Tensor, w_l: torch.Tensor,
+                         dx_tab: SpiralDx) -> torch.Tensor:
+    """Plain twin of K2-dx, in the kernel's order and roundings: per
+    position ``l`` the gather-sum ``du_l[v]`` of ``dy``'s rows over
+    ``dx_tab``'s list of ``(v, l)``, in list order from +0 with one
+    rounding per add (−1 adds ``0 · dy[0]``), in fp32; then ``dx = [du_0 |
+    … | du_{L−1}] @ [W_0ᵀ; …; W_{L−1}ᵀ]``. bf16 ``dy`` and ``w_l``: ``du``
+    rounded to bf16, the product in fp32, ``dx`` rounded to bf16 once. ``dy [M, B, C_out]``, ``w_l [L, C_in, C_out]``; returns
+    ``[n_src, B, C_in]`` in dy's dtype."""
+    m, bsz, c_out = dy.shape
+    seq, c_in = w_l.shape[0], w_l.shape[1]
+    d2 = dy.reshape(m, bsz * c_out).float()
+    # rows m (a +0 for the lists' ragged ends) and m + 1 (0 · dy[0])
+    ext = torch.cat([d2, torch.zeros_like(d2[:1]), 0.0 * d2[:1]])
+    ptr = dx_tab.ptr.long()
+    counts = ptr[1:] - ptr[:-1]
+    take = torch.arange(dx_tab.max_count, device=dy.device)
+    at = (ptr[:-1, None] + take).clamp(max=max(dx_tab.idx.numel() - 1, 0))
+    rows = dx_tab.idx.long()[at] if dx_tab.idx.numel() else at
+    rows = torch.where(rows < 0, m + 1, rows)
+    rows = torch.where(take < counts[:, None], rows, m)
+    du = torch.zeros((rows.shape[0], bsz * c_out), dtype=torch.float32,
+                     device=dy.device)
+    for j in range(dx_tab.max_count):
+        du = du + ext[rows[:, j]]
+    # [n_src, L, B, C_out] → [n_src, B, L·C_out]
+    du = du.view(-1, seq, bsz, c_out).transpose(1, 2).reshape(
+        -1, bsz, seq * c_out)
+    w_t = w_l.float().permute(0, 2, 1).reshape(seq * c_out, c_in)
+    if dy.dtype != torch.bfloat16:
+        return du @ w_t
+    return (du.to(torch.bfloat16).float() @ w_t).to(torch.bfloat16)
+
+
+def spiral_conv_dx(dy: torch.Tensor, w_l: torch.Tensor,
+                   dx_tab: SpiralDx) -> torch.Tensor:
+    """``dx [n_src, B, C_in]`` of the spiral conv, in dy's dtype: kernel
+    K2-dx (K2-dx-bf16 for bf16) on the card, its plain twin on the
+    host."""
+    if not dy.is_cuda:
+        return spiral_conv_dx_plain(dy, w_l, dx_tab)
+    return kernels.spiral_conv_dx(dy, w_l, dx_tab.ptr, dx_tab.idx,
+                                  dx_tab.n_src)
 
 
 class _SpiralConv(torch.autograd.Function):
@@ -649,21 +749,7 @@ class _SpiralConv(torch.autograd.Function):
         dy = dy.contiguous()
         dw_l = db = dx = None
         if ctx.needs_input_grad[2]:
-            # dg [g, M, B, C_in] = dy @ W_gᵀ, one batched product per
-            # group, l-major as the tables' flat positions; the combined
-            # transpose gathers it onto x's rows
-            m, bsz, c_out = dy.shape
-            d2 = dy.reshape(m * bsz, c_out)
-            for table, cols in zip(op.inv_tables, op.group_cols):
-                # the group's W_l as device ops (a list index would upload
-                # its indices from the host, which a graph capture forbids)
-                w_g = _positions(w_l, cols).transpose(1, 2)
-                dg = torch.bmm(d2.expand(len(cols), -1, -1), w_g)
-                part = table.apply(dg.view(len(cols) * m, bsz, -1))
-                dx = part if dx is None else dx + part
-            for i in op.identity_cols:
-                part = dy @ w_l[i].T
-                dx = part if dx is None else dx + part
+            dx = spiral_conv_dx(dy, w_l, op.dx)
         if ctx.needs_input_grad[0]:
             dw_l = spiral_conv_dw(x, op.table, dy, op.tiles)
         if ctx.needs_input_grad[1]:
@@ -699,9 +785,9 @@ def spiral_conv(params: dict, x: torch.Tensor, op: SpiralOp,
                 out_dtype: torch.dtype | None = None) -> torch.Tensor:
     """Vertex-major spiral conv ``[N_src, B, C_in] → [M, B, C_out]`` in
     x's dtype (fp32 or bf16; ``w`` and ``b`` are cast to it),
-    differentiable: K1 forward, the transposes (capped K4) and K2-dW
-    backward on the card; the plain twins on the host. ``out_dtype``
-    float32 with bf16 x: the fp32 accumulator unrounded (K3a)."""
+    differentiable: K1 forward, K2-dx and K2-dW backward on the card;
+    the plain twins on the host. ``out_dtype`` float32 with bf16 x: the
+    fp32 accumulator unrounded (K3a)."""
     _check_rows(x, op)
     w = params["w"].to(x.dtype)
     b = params["b"].to(x.dtype)

@@ -557,10 +557,12 @@ def card_training_geometry():
 
 @pytest.mark.parametrize("b", [1, 16, "odd"])
 def test_capped_ell_apply_on_the_backward_tables(card_training_geometry, b):
-    """Every transpose a training step applies (the Laplacian's, the
-    up-pools', the convs' combined ones; 13 tables, 34 tiers): one fused
-    launch each, bit-equal to the sequential twin, at the step's widths
-    for a grid of b meshes and at an odd width (the scalar path)."""
+    """Every tiered transpose of a training step's geometry (the
+    Laplacian's and the up-pools', which the step applies, and the convs'
+    combined ones, which K2-dx reads its padding from; 13 tables, 34
+    tiers): one fused launch each, bit-equal to the sequential twin, at
+    the step's widths for a grid of b meshes and at an odd width (the
+    scalar path)."""
     dev = _card()
     geom = card_training_geometry
     width = (lambda c: 7) if b == "odd" else (lambda c: b * c)
@@ -585,8 +587,9 @@ def test_capped_ell_apply_on_the_backward_tables(card_training_geometry, b):
 
 def test_differentiable_ops_launch_the_kernels():
     """On CUDA tensors the forward and the backward go through the
-    kernels: K1, the fused K4 of a tiered transpose and K2-dW each
-    counted."""
+    kernels: K1, K2-dx (a tiered combined transpose no longer applied)
+    and K2-dW each counted, and the fused K4 of a tiered gather's
+    transpose."""
     dev = _card()
     rng = np.random.default_rng(0)
     m = 300
@@ -602,7 +605,8 @@ def test_differentiable_ops_launch_the_kernels():
     ops.spiral_conv({"w": w, "b": b}, x, op).square().sum().backward()
     counts = kernels.launches.snapshot()
     assert counts["spiral_conv_tc"] == 1 and counts["spiral_conv_dw"] == 1
-    assert counts["ell_matmul_fwd"] == 0 and counts["ell_matmul_capped"] == 1
+    assert counts["spiral_conv_dx"] == 1
+    assert counts["ell_matmul_fwd"] == 0 and counts["ell_matmul_capped"] == 0
     gop = sparse.gather_op_from_idx(np.zeros(50, int), 10).to(dev)
     assert gop.transpose.tiers
     y = torch.randn(10, 4, device=dev, requires_grad=True)
@@ -910,8 +914,9 @@ def test_ell_matmul_bf16_on_the_up_pools(card_geometry, level, b):
 @pytest.mark.parametrize("b", [1, 16])
 def test_capped_ell_apply_bf16_on_the_backward_tables(card_training_geometry,
                                                       b):
-    """The bf16 transposes of a mixed step (the up-pools' and the bf16
-    convs'): one launch each, bit-equal to the twin."""
+    """The bf16 transposes of a mixed step's geometry (the up-pools',
+    which the step applies, and the bf16 convs' combined ones): one launch
+    each, bit-equal to the twin."""
     dev = _card()
     geom = card_training_geometry
     tables = [(u.transpose, u.shape[0], b * c) for u, c in
@@ -2613,3 +2618,194 @@ def test_library_ops_launch_their_kernels():
                                                        device=dev),
                             torch.zeros(8, device=dev), False,
                             *ops.tile_args(op.tiles))
+
+
+# ----------------------------------------------------------------------
+# K2-dx and K2-dx-bf16 (csrc/spiral_conv_dx.cu)
+
+def _bf16_ulps(got, want, floor_rtol=1e-5):
+    """Largest |got − want| in bf16 ulps of the larger magnitude (at least
+    ``floor_rtol`` of max |want|), NaNs where both are NaN skipped."""
+    got, want = got.float(), want.float()
+    both = torch.isnan(got) & torch.isnan(want)
+    got, want = got[~both], want[~both]
+    mag = torch.maximum(got.abs(), want.abs()).clamp(min=2.0 ** -120)
+    ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7).clamp(
+        min=floor_rtol * float(want.abs().max()) if want.numel() else 0.0)
+    return float(((got - want).abs() / ulp).max()) if got.numel() else 0.0
+
+
+def _dx_matches_plain(dev, op, b, c_in, c_out, dtype, seed=0, nan_row=None):
+    """K2-dx (K2-dx-bf16 for bf16) against its twin on one op: fp32
+    within 1e-5 of max |dx| (3xTF32 against the twin's fp32 product of
+    the same du), bf16 within one bf16 ulp (both round the fp32 product
+    once); NaN where the twin has NaN; two launches bit-equal; one
+    launch counted."""
+    g = _gen(dev, seed)
+    dy = torch.randn((op.num_vertices, b, c_out), generator=g, device=dev)
+    w_l = torch.randn((op.seq_length, c_in, c_out), generator=g,
+                      device=dev) * 0.2
+    if nan_row is not None:
+        dy[nan_row, 0, 0] = float("nan")
+    dy, w_l = dy.to(dtype), w_l.to(dtype)
+    kernels.launches.reset()
+    got = ops.spiral_conv_dx(dy, w_l, op.dx)
+    name = "spiral_conv_dx_bf16" if dtype == torch.bfloat16 \
+        else "spiral_conv_dx"
+    assert kernels.launches.snapshot()[name] == 1
+    again = ops.spiral_conv_dx(dy, w_l, op.dx)
+    want = ops.spiral_conv_dx_plain(dy, w_l, op.dx)
+    torch.cuda.synchronize()
+    assert got.shape == (op.n_src, b, c_in) and got.dtype == dtype
+    assert torch.equal(got.isnan(), want.isnan())
+    assert torch.equal(got, again) or torch.equal(
+        got.isnan(), again.isnan())
+    if dtype == torch.bfloat16:
+        assert _bf16_ulps(got, want) <= 1.0
+    else:
+        fin = ~want.isnan()
+        scale = float(want[fin].abs().max())
+        assert float((got[fin] - want[fin]).abs().max()) <= 1e-5 * scale
+    return got, want
+
+
+def _dx_tables(rng, kind):
+    if kind == "identity":
+        table = rng.integers(0, 300, size=(300, 9))
+        table[:, 0] = np.arange(300)
+        return table, None
+    if kind == "composed":
+        return rng.integers(0, 700, size=(200, 9)), 700
+    table = rng.integers(0, 300, size=(300, 9))         # a hub: tiers
+    table[:, 0] = np.arange(300)
+    table[:180, 3] = 7
+    return table, None
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["identity", "composed", "hub"])
+@pytest.mark.parametrize("b,c_in,c_out", [(16, 32, 32), (1, 32, 3),
+                                          (4, 3, 32), (20, 64, 64),
+                                          (100, 16, 8)])
+def test_spiral_conv_dx_kernel_matches_plain(kind, b, c_in, c_out, dtype):
+    dev = _card()
+    table, n_src = _dx_tables(np.random.default_rng(1), kind)
+    op = ops.build_spiral_op(table, n_src=n_src).to(dev)
+    if kind == "hub":
+        assert op.inv_tables[0].tiers
+    got, _ = _dx_matches_plain(dev, op, b, c_in, c_out, dtype)
+    if kind == "composed":
+        reached = torch.zeros(op.n_src, dtype=torch.bool, device=dev)
+        reached[op.table.long().reshape(-1)] = True
+        assert not bool(reached.all())
+        assert bool((got[~reached] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b", [1, 16])
+@pytest.mark.parametrize("name,c_in,c_out", _SMOKE)
+def test_spiral_conv_dx_kernel_on_the_model_tables(card_geometry, name,
+                                                   c_in, c_out, b, dtype):
+    dev = _card()
+    _dx_matches_plain(dev, _smoke_op(card_geometry, name), b, c_in, c_out,
+                      dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("row", [0, 5])
+def test_spiral_conv_dx_kernel_carries_a_nan_row(card_geometry, row, dtype):
+    """A NaN in dy's row 0 reaches every padded list (0 · dy[0]), one in
+    another row only the rows that read it: the same rows as the twin."""
+    dev = _card()
+    got, want = _dx_matches_plain(dev, _smoke_op(card_geometry, "dec0"), 4,
+                                  32, 32, dtype, nan_row=row)
+    assert bool(got.isnan().any())
+
+
+def test_spiral_conv_backward_launches_k2_dx(card_geometry):
+    """The conv's backward on the card: one K2-dx for dx, no ELL kernel,
+    and the same dx as the host's."""
+    dev = _card()
+    op = _smoke_op(card_geometry, "dec1")
+    rng = np.random.default_rng(3)
+    w = torch.from_numpy(rng.normal(size=(9 * 32, 32)).astype(np.float32))
+    x = torch.from_numpy(rng.normal(size=(op.n_src, 2, 32)).astype(
+        np.float32))
+    grads = []
+    for device, o in ((dev, op), ("cpu", op.to("cpu"))):
+        xd = x.to(device).requires_grad_()
+        kernels.launches.reset()
+        ops.spiral_conv({"w": w.to(device), "b": torch.zeros(
+            32, device=device)}, xd, o).square().sum().backward()
+        grads.append(xd.grad.cpu())
+        if device == dev:
+            counts = kernels.launches.snapshot()
+            assert counts["spiral_conv_dx"] == 1
+            assert counts["ell_matmul_fwd"] == counts[
+                "ell_matmul_capped"] == 0
+    assert float((grads[0] - grads[1]).abs().max()) <= \
+        1e-5 * float(grads[1].abs().max())
+
+
+# ----------------------------------------------------------------------
+# K8-sinkhorn (csrc/sinkhorn.cu)
+
+def _clouds(dev, p, q, shift, seed=0):
+    g = _gen(dev, seed)
+    x = torch.randn((p, 3), generator=g, device=dev)
+    y = torch.randn((q, 3), generator=g, device=dev) + shift
+    return x, y
+
+
+@pytest.mark.parametrize("eps", [0.05, 0.01])
+@pytest.mark.parametrize("p,q,shift", [(300, 500, 2.0), (1000, 257, 0.5),
+                                       (1, 70, 0.0)])
+def test_sinkhorn_kernel_matches_plain(p, q, shift, eps):
+    """The forward kernel against the twin: rtol 1e-4 (the potentials'
+    exponents formed in another order, base 2 against natural)."""
+    dev = _card()
+    x, y = _clouds(dev, p, q, shift)
+    kernels.launches.reset()
+    got = ops.sinkhorn_divergence(x, y, eps)
+    assert kernels.launches.snapshot()["sinkhorn_fwd"] == 1
+    want = ops.distances.sinkhorn_divergence_plain(x, y, eps)
+    again = ops.sinkhorn_divergence(x, y, eps)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    assert abs(float(got) - float(want)) <= 1e-4 * abs(float(want))
+
+
+@pytest.mark.parametrize("same", [False, True])
+def test_sinkhorn_gradient_matches_plain(same):
+    """The backward kernel against the twin's autograd: each gradient
+    within 1e-3 of its max (sinkhorn(x, x) ties at the clamp on its
+    diagonal)."""
+    dev = _card()
+    x, y = _clouds(dev, 400, 300, 1.0)
+    if same:
+        y = x.clone()
+    grads = []
+    for fn in (ops.sinkhorn_divergence,
+               ops.distances.sinkhorn_divergence_plain):
+        xa, ya = x.clone().requires_grad_(), y.clone().requires_grad_()
+        kernels.launches.reset()
+        fn(xa, ya, 0.05).backward()
+        grads.append((xa.grad, ya.grad))
+        if fn is ops.sinkhorn_divergence:
+            assert kernels.launches.snapshot()["sinkhorn_bwd"] == 1
+    torch.cuda.synchronize()
+    for got, want in zip(grads[0], grads[1]):
+        scale = float(want.abs().max())
+        assert float((got - want).abs().max()) <= 1e-3 * scale
+
+
+def test_sinkhorn_jax_cases_on_the_card():
+    """tests/test_distances.py's cases: identical clouds near 0, clouds
+    2 apart above 1."""
+    dev = _card()
+    rng = np.random.default_rng(3)
+    x = torch.from_numpy(rng.normal(size=(30, 3)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.normal(size=(30, 3)).astype(np.float32)
+                         + 2.0).to(dev)
+    assert float(ops.sinkhorn_divergence(x, x, 0.01)) < 0.05
+    assert float(ops.sinkhorn_divergence(x, y, 0.01)) > 1.0

@@ -10,6 +10,8 @@ transposes: these tests also check that no autograd scatter
 Tolerance: 1e-5 of each array's max |value| — fp32 sums taken in another
 order by XLA and by PyTorch on the CPU."""
 
+import importlib
+
 import numpy as np
 import pytest
 import torch
@@ -33,6 +35,8 @@ from craniofacialsd_vae_tpu_torch.training import LossWeights, compute_losses
 from tests.test_training import _tiny_geometry
 
 RTOL = 1e-5
+_SPIRAL = importlib.import_module(
+    "craniofacialsd_vae_tpu_torch.ops.spiral_conv")
 
 
 def _close(got, want, rtol=RTOL):
@@ -144,15 +148,34 @@ def test_spiral_conv_backward_composed_table(b, c_in, c_out):
     assert op.identity_cols == () and op.n_src == 90
 
 
+def _spy_dx(monkeypatch):
+    """Counts of K2-dx's plain twin, which the conv's backward runs for a
+    CPU tensor."""
+    calls = {"dx": 0}
+    twin = _SPIRAL.spiral_conv_dx_plain
+
+    def spy(*args):
+        calls["dx"] += 1
+        return twin(*args)
+
+    monkeypatch.setattr(_SPIRAL, "spiral_conv_dx_plain", spy)
+    return calls
+
+
 @pytest.mark.parametrize("group", [3, 4])
-def test_spiral_conv_backward_column_groups(group):
-    """bwd_group_size < L: one combined transpose per column group."""
+def test_spiral_conv_backward_column_groups(group, monkeypatch):
+    """bwd_group_size < L: one combined transpose per column group, as
+    JAX builds them; the backward reads their padding through K2-dx's
+    lists in one call (its twin here) and applies none of them."""
+    calls = _spy_transposes(monkeypatch)
+    dx_calls = _spy_dx(monkeypatch)
     rng = np.random.default_rng(6)
     m = 50
     table = rng.integers(0, m, size=(m, 9))
     table[:, 0] = np.arange(m)
     op, _ = _conv_vjp(table, m, 3, 4, 6, group=group, seed=2)
     assert len(op.inv_tables) == -(-8 // group)
+    assert dx_calls["dx"] == 1 and calls["apply"] == 0
 
 
 def test_spiral_conv_dw_plain_matches_jax_einsum():
@@ -170,8 +193,11 @@ def test_spiral_conv_dw_plain_matches_jax_einsum():
 
 def test_spiral_conv_skips_dx_for_data(monkeypatch):
     """The first encoder conv reads the data, which needs no gradient:
-    no transpose is applied, and dW and db are still computed."""
+    K2-dx (its twin here) is not called, and dW and db are still
+    computed; with x needing a gradient it is called once. No transpose
+    is applied either way."""
     calls = _spy_transposes(monkeypatch)
+    dx_calls = _spy_dx(monkeypatch)
     rng = np.random.default_rng(8)
     table = rng.integers(0, 30, size=(30, 5))
     op = tops.build_spiral_op(table)
@@ -179,11 +205,12 @@ def test_spiral_conv_skips_dx_for_data(monkeypatch):
     b = torch.zeros(4, requires_grad=True)
     x = torch.from_numpy(_rand(rng, 30, 2, 3))
     tops.spiral_conv({"w": w, "b": b}, x, op).sum().backward()
-    assert calls["apply"] == 0
+    assert dx_calls["dx"] == 0 and calls["apply"] == 0
     assert w.grad is not None and b.grad is not None
     x.requires_grad_()
     tops.spiral_conv({"w": w, "b": b}, x, op).sum().backward()
-    assert calls["apply"] == len(op.inv_tables) and x.grad is not None
+    assert dx_calls["dx"] == 1 and calls["apply"] == 0
+    assert x.grad is not None
 
 
 def test_ell_matmul_backward_through_tiered_transpose(monkeypatch):

@@ -112,7 +112,8 @@ def test_smoke_fails_outside_a_checkout(tmp_path):
 
 @pytest.mark.parametrize("name", ["ell_matmul.cu", "raster_sweep.cu",
                                   "spiral_conv.cu", "spiral_conv_dw.cu",
-                                  "distances.cu"])
+                                  "distances.cu", "spiral_conv_dx.cu",
+                                  "sinkhorn.cu"])
 def test_kernel_sources_export_their_c_entry_points(name):
     """Each kernel source exports the C function its ctypes binding
     declares, and names the JAX function it replaces."""
@@ -127,7 +128,9 @@ def test_kernel_sources_export_their_c_entry_points(name):
                "spiral_conv.cu": ("cfs_spiral_conv_fwd",),
                "spiral_conv_dw.cu": ("cfs_spiral_conv_dw",),
                "distances.cu": ("cfs_nearest_sq",
-                                "cfs_nearest_sq_bwd")}[name]
+                                "cfs_nearest_sq_bwd"),
+               "spiral_conv_dx.cu": ("cfs_spiral_conv_dx",),
+               "sinkhorn.cu": ("cfs_sinkhorn_fwd", "cfs_sinkhorn_bwd")}[name]
     for entry in entries:
         assert f'extern "C" int {entry}(' in src
     assert "craniofacialsd_vae_tpu/" in src and "Replaces" in src
