@@ -1601,39 +1601,20 @@ def k4_backward_parity(torch, mods, model, geom, batch: int) -> tuple:
     return mains, rec
 
 
-def replaced_dx(torch, op, dy, w_l):
-    """The dx path K2-dx replaced (JAX's ``_score_bwd`` form, the port's
-    backward before it): per column group one batched product ``dg = dy
-    @ W_gᵀ`` (cuBLAS), the group's combined capped transpose applied to
-    it (the capped K4, or K4), then the groups' parts and each identity
-    column's ``dy @ W_iᵀ`` added."""
-    m, bsz, c_out = dy.shape
-    d2 = dy.reshape(m * bsz, c_out)
-    dx = None
-    for table, cols in zip(op.inv_tables, op.group_cols):
-        if list(cols) == list(range(cols[0], cols[0] + len(cols))):
-            w_g = w_l[cols[0]:cols[0] + len(cols)]
-        else:
-            w_g = torch.stack([w_l[i] for i in cols])
-        dg = torch.bmm(d2.expand(len(cols), -1, -1), w_g.transpose(1, 2))
-        part = table.apply(dg.view(len(cols) * m, bsz, -1))
-        dx = part if dx is None else dx + part
-    for i in op.identity_cols:
-        part = dy @ w_l[i].T
-        dx = part if dx is None else dx + part
-    return dx
-
-
 def k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
                dtype) -> dict:
     """K2-dx (K2-dx-bf16 for bf16) at one conv's shape, random dy and the
     conv's weights in ``dtype``: within DX_RTOL of the twin (bf16: one
-    bf16 ulp), two launches bit-equal, the replaced path (``replaced_dx``)
-    within REPLACED_DX_RTOL of the twin (bf16: MIXED_RTOL), each timed,
-    with its plan and its bound: dy, w and the lists read once and dx
+    bf16 ulp), two launches bit-equal, the replaced path (the package's
+    ``k2dx_compare.replaced_dx``: JAX's form, cuBLAS ``dg``, the capped
+    transposes and the adds) within REPLACED_DX_RTOL of the twin (bf16:
+    MIXED_RTOL), each timed, with its plan and its bound
+    (``k2dx_compare.dx_bound``: dy, w and the lists read once and dx
     written once, or the larger of the products' time on the tensor cores
     (3xTF32: three TF32 products; bf16: one) and the gathers' adds' time
-    on the fp32 units, which run beside the tensor cores."""
+    on the fp32 units, which run beside the tensor cores)."""
+    from craniofacialsd_vae_tpu_torch.k2dx_compare import (dx_bound,
+                                                            replaced_dx)
     seq = op.seq_length
     c_in, c_out = conv_widths(conv, op)
     bf16 = dtype == torch.bfloat16
@@ -1651,7 +1632,7 @@ def k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
     with torch.inference_mode():
         out, again = launch(), launch()
         ref = ops.spiral_conv_dx_plain(dy, w_l, tab)
-        old = replaced_dx(torch, op, dy, w_l)
+        old = replaced_dx(op, dy, w_l)
         torch.cuda.synchronize()
         check(torch.equal(out, again), f"{kernel} {name}: launches differ")
         scale = float(ref.float().abs().max())
@@ -1671,17 +1652,9 @@ def k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
         ms = cuda_ms(torch, launch, 20)
         plain_ms = cuda_ms(torch, lambda: ops.spiral_conv_dx_plain(
             dy, w_l, tab), 3)
-        old_ms = cuda_ms(torch, lambda: replaced_dx(torch, op, dy, w_l), 10)
-    size = 2 if bf16 else 4
-    nbytes = (size * (dy.numel() + w_l.numel() + op.n_src * batch * c_in)
-              + 4 * (tab.ptr.numel() + tab.idx.numel()))
-    products = 2.0 * op.n_src * batch * seq * c_out * c_in
-    adds = float(tab.idx.numel()) * batch * c_out
-    t_bytes = nbytes / PEAK_BYTES * 1e3
-    t_ops = max(products / PEAK_BF16 if bf16 else 3 * products / PEAK_TF32,
-                adds / PEAK_FP32) * 1e3
-    b_ms, b_by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                       else "operations")
+        old_ms = cuda_ms(torch, lambda: replaced_dx(op, dy, w_l), 10)
+    bound = dx_bound(op, batch, c_in, c_out, bf16)
+    b_ms, b_by = bound["ms"], bound["by"]
     log(f"[{kernel} {name}] {op.n_src}<-{op.num_vertices} x{batch} "
         f"{c_in}<-{c_out} ({plan.positions} positions a chunk, {plan.tv} "
         f"vertices x {plan.tb} batch rows a block, {plan.blocks} blocks, "
@@ -1694,7 +1667,8 @@ def k2dx_shape(torch, kernels, ops, gen, name, conv, op, batch,
                 rel_err=err / scale if scale else 0.0, ms=ms,
                 plain_ms=plain_ms, library_ms=None, earlier_ms=old_ms,
                 replaced_err=old_err, bound_ms=b_ms, bound_by=b_by,
-                bytes=nbytes, flops=products + adds, ops_ms=t_ops)
+                bytes=bound["bytes"], flops=bound["flops"],
+                ops_ms=bound["ops_ms"])
 
 
 def k2dx_parity(torch, mods, convs, batches, phase: str) -> dict:

@@ -75,7 +75,17 @@
 // lists' bounds, their first rows, dy) and a barrier between the gather
 // and the products, so a block's latency, not the card's bandwidth or its
 // tensor cores, bounds it; the small levels, with few tiles, cost a
-// block's latency each (PERF.md).
+// block's latency each. Cut apart (k2dx_compare --parts; NVIDIA H100
+// 80GB HBM3 at 700 W, the training step's eight convs at B = 16), the
+// kernel takes 0.66 ms, its lists alone 0.15, lists and gathers 0.41,
+// lists and products 0.39: the two phases add up. A design that streamed
+// every entry's dy slice through a ring of bulk copies under the products
+// (a producer warp, mbarriers) hid the gathers but was slower whole: its
+// products and each tile's fixed cost grew by more. Giving each warp 32
+// rows over half the depth, which cuts the products' loads from shared
+// memory by a third, moved the step's convs that did not spill by 1 % at
+// B = 16 (3 % at B = 1): those loads do not bound the products either
+// (PERF.md).
 //
 // The plain twin, ops/spiral_conv.py::spiral_conv_dx_plain, sums du in
 // the same order (bit-equal du, rounded where the kernel rounds it) and

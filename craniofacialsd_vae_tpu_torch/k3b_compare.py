@@ -36,6 +36,7 @@ import json
 import os
 import subprocess
 import sys
+import types
 
 import numpy as np
 import torch
@@ -54,10 +55,13 @@ SWEEP_ROWS = (256, 512)
 SWEEP_THREADS = (128, 192, 256)
 
 
-def load_other(root: str) -> dict:
-    """The other checkout's modules, imported under another package
-    name."""
-    name = "k3b_other_port"
+def load_other(root: str, name: str = "k3b_other_port") -> dict:
+    """The other checkout's modules, imported under the package name
+    ``name``. Its ``ops.library`` stays an empty module: this side has
+    registered the custom-op namespace, a second registration fails, and
+    the comparisons call none of the other side's forward ops."""
+    sys.modules[f"{name}.ops.library"] = types.ModuleType(
+        f"{name}.ops.library")
     init = os.path.join(root, "craniofacialsd_vae_tpu_torch", "__init__.py")
     spec = importlib.util.spec_from_file_location(
         name, init, submodule_search_locations=[os.path.dirname(init)])

@@ -1320,6 +1320,7 @@ _DX_DEPTH = 128               # a position chunk's depth, P·C_out, at most
 #                               (one position where C_out is wider)
 _DX_DEPTH_BF16 = 288          # the same in bf16: all nine positions of a
 #                               32-wide conv, one chunk a tile
+_DX_MAX_DEPTH = 1024          # a chunk's depth kc, at most (C_out too)
 
 
 _DX_RESIDENT_SMEM = 110 * 1024   # a block's shared memory with every
@@ -1411,9 +1412,10 @@ def plan_spiral_conv_dx(n_src: int, b: int, seq: int, c_in: int,
     else:
         ldw, grid_x = lda, n_tiles
         smem = smem_of(ldw)
-    if smem > _SMEM_BLOCK:
-        raise ValueError(f"no K2-dx chunk of C_out={c_out} fits in shared "
-                         "memory")
+    if smem > _SMEM_BLOCK or kc > _DX_MAX_DEPTH:
+        raise ValueError(f"no K2-dx chunk of C_out={c_out} fits: depth "
+                         f"{kc} (at most {_DX_MAX_DEPTH}), {smem} B of "
+                         "shared memory")
     return DxPlan(tb=tb, tv=tv, positions=positions, kc=kc, lda=lda, nf=nf,
                   zc=zc, smem=smem, ldw=ldw, resident=resident,
                   grid=(grid_x, _cdiv(b, tb), zc))

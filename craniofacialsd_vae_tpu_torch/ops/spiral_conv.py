@@ -686,17 +686,15 @@ def spiral_conv_dw(x: torch.Tensor, table: torch.Tensor,
     return kernels.spiral_conv_dw(x, table, dy, tiles=tiles)
 
 
-def spiral_conv_dx_plain(dy: torch.Tensor, w_l: torch.Tensor,
-                         dx_tab: SpiralDx) -> torch.Tensor:
-    """Plain twin of K2-dx, in the kernel's order and roundings: per
-    position ``l`` the gather-sum ``du_l[v]`` of ``dy``'s rows over
-    ``dx_tab``'s list of ``(v, l)``, in list order from +0 with one
-    rounding per add (−1 adds ``0 · dy[0]``), in fp32; then ``dx = [du_0 |
-    … | du_{L−1}] @ [W_0ᵀ; …; W_{L−1}ᵀ]``. bf16 ``dy`` and ``w_l``: ``du``
-    rounded to bf16, the product in fp32, ``dx`` rounded to bf16 once. ``dy [M, B, C_out]``, ``w_l [L, C_in, C_out]``; returns
-    ``[n_src, B, C_in]`` in dy's dtype."""
+def spiral_conv_du_plain(dy: torch.Tensor, dx_tab: SpiralDx,
+                         seq: int) -> torch.Tensor:
+    """K2-dx's ``du`` in the kernel's order and roundings: per position
+    ``l`` the gather-sum ``du_l[v]`` of ``dy``'s rows over ``dx_tab``'s
+    list of ``(v, l)`` over ``seq`` positions, in list order from +0
+    with one rounding per add (−1 adds ``0 · dy[0]``), in fp32; ``[n_src,
+    B, L·C_out]`` (column ``l · C_out + o``), fp32, or bf16 (rounded once)
+    for bf16 ``dy``."""
     m, bsz, c_out = dy.shape
-    seq, c_in = w_l.shape[0], w_l.shape[1]
     d2 = dy.reshape(m, bsz * c_out).float()
     # rows m (a +0 for the lists' ragged ends) and m + 1 (0 · dy[0])
     ext = torch.cat([d2, torch.zeros_like(d2[:1]), 0.0 * d2[:1]])
@@ -714,10 +712,23 @@ def spiral_conv_dx_plain(dy: torch.Tensor, w_l: torch.Tensor,
     # [n_src, L, B, C_out] → [n_src, B, L·C_out]
     du = du.view(-1, seq, bsz, c_out).transpose(1, 2).reshape(
         -1, bsz, seq * c_out)
+    return du.to(torch.bfloat16) if dy.dtype == torch.bfloat16 else du
+
+
+def spiral_conv_dx_plain(dy: torch.Tensor, w_l: torch.Tensor,
+                         dx_tab: SpiralDx) -> torch.Tensor:
+    """Plain twin of K2-dx, in the kernel's order and roundings: ``du``
+    as ``spiral_conv_du_plain`` forms it, then ``dx = [du_0 | … |
+    du_{L−1}] @ [W_0ᵀ; …; W_{L−1}ᵀ]`` in fp32. bf16 ``dy`` and ``w_l``:
+    ``du`` rounded to bf16, the product in fp32, ``dx`` rounded to bf16
+    once. ``dy [M, B, C_out]``, ``w_l [L, C_in, C_out]``; returns
+    ``[n_src, B, C_in]`` in dy's dtype."""
+    seq, c_in, c_out = w_l.shape
+    du = spiral_conv_du_plain(dy, dx_tab, seq).float()
     w_t = w_l.float().permute(0, 2, 1).reshape(seq * c_out, c_in)
     if dy.dtype != torch.bfloat16:
         return du @ w_t
-    return (du.to(torch.bfloat16).float() @ w_t).to(torch.bfloat16)
+    return (du @ w_t).to(torch.bfloat16)
 
 
 def spiral_conv_dx(dy: torch.Tensor, w_l: torch.Tensor,

@@ -188,3 +188,177 @@ def test_whole_tiny_step_runs_k2_dx_and_matches_jax(tiny,  # noqa: F811
             np.testing.assert_allclose(float(m_t[k]), float(m_j[k]),
                                        rtol=STEP_RTOL if t == 0 else TRAJ_RTOL,
                                        err_msg=k)
+
+
+# ----------------------------------------------------------------------
+# K2-dx's planner (kernels.plan_spiral_conv_dx) against a mirror of the
+# checks csrc/spiral_conv_dx.cu::cfs_spiral_conv_dx makes of every plan,
+# and a walk of a launch's blocks on the CPU.
+
+from craniofacialsd_vae_tpu_torch import kernels  # noqa: E402
+
+SMEM_BLOCK = 232448          # an H100 block's shared memory, at most
+SMEM_SM = 233472             # an SM's, shared by its blocks
+SMEM_RESERVED = 1024         # the runtime's, a block
+ROWS = 64                    # the kernel's product rows a block
+# level sizes of the fixture hierarchy (tests/fixtures/geometry.npz) and
+# of the octasphere of subdivision 6 sampled by 4, 4, 4
+LEVELS = {"fixture": (17039, 4260, 1065, 267),
+          "octasphere": (16386, 4097, 1025, 257)}
+# the smoke model's convs with dx: (name, level of n_src, C_in, C_out)
+SMOKE_CONVS = [("enc0", 0, 3, 32), ("enc1", 1, 32, 32), ("enc2", 2, 32, 32),
+               ("enc3", 3, 32, 64), ("dec3", 3, 64, 64), ("dec2", 2, 64, 32),
+               ("dec1", 1, 32, 32), ("dec0", 0, 32, 32), ("final", 0, 32, 3)]
+PLAN_BATCHES = [1, 3, 4, 16, 20, 64, 65, 128]
+
+
+def _plan_errors(plan, n_src, b, seq, c_in, c_out, bf16):
+    """The checks cfs_spiral_conv_dx makes of a plan (with its shared
+    memory formula written out again), and the launch's own limits: the
+    violated ones."""
+    tb, tv, pos, kc, nf, zc = (plan.tb, plan.tv, plan.positions, plan.kc,
+                               plan.nf, plan.zc)
+    n_tiles = -(-n_src // tv)
+    chunks = -(-seq // pos)
+    grid_x = plan.grid[0]
+    smem = (2 * (ROWS * plan.lda + 8 * nf * plan.ldw) if bf16
+            else 4 * (ROWS * plan.lda + 16 * nf * plan.ldw)) + 12 * tv * seq
+    checks = {
+        "tile": 1 <= tb <= ROWS and tv >= 1 and tv * tb <= ROWS,
+        "positions": 1 <= pos <= seq,
+        "depth": kc % 16 == 0 and pos * c_out <= kc <= 1024,
+        "fragments": nf in (1, 2, 4, 8),
+        "columns": zc * 8 * nf >= c_in > (zc - 1) * 8 * nf,
+        # row strides of 4 mod 8 words: the fragment loads' 32 banks
+        "banks": ((plan.lda % 16 == 8 and plan.ldw % 16 == 8) if bf16 else
+                  (plan.lda % 8 == 4 and plan.ldw % 8 == 4)),
+        "strides": (plan.lda >= kc and plan.ldw
+                    >= (chunks * kc if plan.resident else kc)),
+        "smem": (plan.smem == smem <= SMEM_BLOCK
+                 and smem + SMEM_RESERVED <= SMEM_SM),
+        "grid": (plan.grid == (grid_x, -(-b // tb), zc)
+                 and 1 <= grid_x <= n_tiles < 2 ** 31
+                 and (plan.resident or grid_x == n_tiles)
+                 and plan.grid[1] <= 65535 and zc <= 65535),
+        "threads": plan.threads == 256,
+    }
+    return [k for k, ok in checks.items() if not ok]
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("b", PLAN_BATCHES)
+@pytest.mark.parametrize("mesh,name,level,c_in,c_out",
+                         [(m,) + c for m in LEVELS for c in SMOKE_CONVS])
+def test_dx_plan_passes_the_kernels_checks(mesh, name, level, c_in, c_out,
+                                           b, bf16):
+    """Every plan of the smoke model's convs (the fixture hierarchy's and
+    the octasphere's) passes the launcher's checks; a block holds all B
+    up to 64 batch rows of as many vertices as fill its 64 rows, and its
+    column blocks narrow only where the grid would not fill the SMs
+    twice."""
+    n_src = LEVELS[mesh][level]
+    plan = kernels.plan_spiral_conv_dx(n_src, b, 9, c_in, c_out, bf16)
+    assert _plan_errors(plan, n_src, b, 9, c_in, c_out, bf16) == []
+    assert plan.tb == min(b, ROWS) and plan.tv == ROWS // plan.tb
+    widest = next(f for f in (1, 2, 4, 8) if 8 * f >= min(c_in, 64))
+    blocks = lambda nf: (-(-n_src // plan.tv) * -(-b // plan.tb)  # noqa
+                         * -(-c_in // (8 * nf)))
+    assert plan.nf == widest or blocks(2 * plan.nf) < 2 * kernels._SMS
+    assert plan.nf == 1 or blocks(plan.nf) >= 2 * kernels._SMS \
+        or plan.nf == widest
+
+
+@pytest.mark.parametrize("n_src,b,c_in,c_out,bf16", [
+    (300, 16, 32, 32, False), (700, 4, 3, 32, True), (300, 20, 64, 64, False),
+    (300, 100, 16, 8, True), (50, 7, 200, 96, False), (9, 1, 128, 512, True)])
+def test_dx_plan_at_other_widths(n_src, b, c_in, c_out, bf16):
+    """The card tests' shapes and wider ones: column blocks past 64
+    columns, one position a chunk past 128 (bf16: 288) values, Wᵀ staged
+    a chunk at a time where it does not fit whole."""
+    plan = kernels.plan_spiral_conv_dx(n_src, b, 9, c_in, c_out, bf16)
+    assert _plan_errors(plan, n_src, b, 9, c_in, c_out, bf16) == []
+
+
+def test_dx_plan_rejects_what_does_not_fit():
+    """A chunk deeper than the launcher takes (1,024), shared memory past
+    a block's, and an empty shape raise in the planner, not in the
+    launch."""
+    with pytest.raises(ValueError):
+        kernels.plan_spiral_conv_dx(10, 1, 9, 8, 1030, True)
+    with pytest.raises(ValueError):
+        kernels.plan_spiral_conv_dx(10, 1, 9, 8, 1100)
+    with pytest.raises(ValueError):
+        kernels.plan_spiral_conv_dx(0, 1, 9, 8, 8)
+
+
+def _walk(plan, dx_tab, n_src, b, seq, c_in, c_out, dy):
+    """The launch's blocks as the kernel walks them, in numpy: block (x, y,
+    z) takes the vertex tiles x, x + grid[0], … (all of them, one each,
+    where Wᵀ is not resident), batch slice y and column block z; per
+    position chunk it sums each list of its tile's vertices in list order
+    from +0 into du (−1 adds 0 · dy[0]). Returns du [n_src, B, L·C_out]
+    as column block 0 formed it, how often each (v, b, l) was summed, and
+    how often each dx element was written."""
+    ptr, idx = dx_tab.ptr.numpy(), dx_tab.idx.numpy()
+    tb, tv, pos = plan.tb, plan.tv, plan.positions
+    n_tiles = -(-n_src // tv)
+    du = np.full((n_src, b, seq * c_out), np.nan, np.float32)
+    summed = np.zeros((n_src, b, seq), np.int64)
+    written = np.zeros((n_src, b, c_in), np.int64)
+    gx, gy, gz = plan.grid
+    for x in range(gx):
+        for y in range(gy):
+            b0 = y * tb
+            bw = min(tb, b - b0)
+            for z in range(gz):
+                c0 = z * 8 * plan.nf
+                c1 = min(c_in, c0 + 8 * plan.nf)
+                for tile in range(x, n_tiles, gx):
+                    v0 = tile * tv
+                    for l0 in range(0, seq, pos):
+                        for vi in range(tv):
+                            v = v0 + vi
+                            if v >= n_src:
+                                continue
+                            for l in range(l0, min(l0 + pos, seq)):
+                                s = v * seq + l
+                                acc = np.zeros((bw, c_out), np.float32)
+                                for n in idx[ptr[s]:ptr[s + 1]]:
+                                    sl = dy[max(n, 0), b0:b0 + bw]
+                                    acc = acc + (sl if n >= 0
+                                                 else np.float32(0) * sl)
+                                summed[v, b0:b0 + bw, l] += 1
+                                if z == 0:
+                                    du[v, b0:b0 + bw,
+                                       l * c_out:(l + 1) * c_out] = acc
+                    nv = min(tv, n_src - v0)
+                    written[v0:v0 + nv, b0:b0 + bw, c0:c1] += 1
+    return du, summed, written
+
+
+@pytest.mark.parametrize("kind,n_src,b,c_in,c_out,bf16", [
+    ("identity", 300, 16, 32, 32, False), ("composed", 700, 3, 32, 32, False),
+    ("hub", 300, 20, 64, 64, True), ("identity", 300, 65, 8, 8, False),
+    ("composed", 700, 1, 32, 3, True)])
+def test_dx_walk_sums_every_list_once(kind, n_src, b, c_in, c_out, bf16):
+    """The walk of the planner's launch sums every (vertex, batch row,
+    position) once in each column block, writes every dx element once,
+    and its du is bit-equal to the twin's (``ops.spiral_conv_du_plain``,
+    in fp32)."""
+    rng = np.random.default_rng(7)
+    m = 200 if kind == "composed" else n_src
+    table = rng.integers(0, n_src, size=(m, 9))
+    if kind != "composed":
+        table[:, 0] = np.arange(m)
+    if kind == "hub":
+        table[:180, 3] = 7
+    op = tops.build_spiral_op(table, n_src=n_src if kind == "composed"
+                              else None)
+    dy = rng.normal(size=(m, b, c_out)).astype(np.float32)
+    dy[0, 0, 0] = np.nan                 # reaches every padded list
+    plan = kernels.plan_spiral_conv_dx(n_src, b, 9, c_in, c_out, bf16)
+    du, summed, written = _walk(plan, op.dx, n_src, b, 9, c_in, c_out, dy)
+    assert (summed == plan.zc).all()
+    assert (written == 1).all()
+    want = tops.spiral_conv_du_plain(torch.from_numpy(dy), op.dx, 9)
+    np.testing.assert_array_equal(du, want.numpy())
